@@ -4,12 +4,19 @@
     python3 chip_profile.py
 
 Builds the solve of chip_smoke.py's main path at 32^3 x 64 (random SU(3)
-gauge and Gaussian source from a seeded torch.Generator, kappa 0.12, the
-float32 pair operator on the eo hop kernel), then runs 20 CG iterations
-under torch.profiler and prints JSON lines: the device time by kernel
-(top 15), the device time by group (the eo hop kernel, the CG tail
-kernel, and the plain PyTorch kernels around them), the wall time per
-iteration and the device's idle share of the window.  Needs one card.
+gauge and Gaussian source from a seeded torch.Generator, kappa 0.12),
+then profiles two solvers under torch.profiler, 20 iterations each:
+
+* ``fused_cg`` on the float32 pair operator (the single/single route);
+* ``cg_reliable`` at single/half: the bfloat16 pair operator in the
+  loop, reliable updates on the float32 one (the mixed route; the
+  window's reliable updates are part of its cost).
+
+For each it prints JSON lines: the device time by kernel (top 15), then
+one summary line with the device time by group (the eo hop kernel, the
+CG tail kernel, the axpy_norm2 kernel, and the plain PyTorch kernels
+around them), the wall time per iteration and the device's idle share
+of the window.  Needs one card.
 """
 
 from __future__ import annotations
@@ -23,36 +30,15 @@ ITERS = 20
 SEED = 0
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device available", file=sys.stderr)
-        return 1
+def _profile(label, run, torch):
+    """Run ``run()`` (returns a SolverResult) under the profiler and print
+    its kernel table and summary."""
     from torch.profiler import ProfilerActivity, profile
-
-    from quda_tpu_torch.fields.gauge import GaugeField
-    from quda_tpu_torch.fields.geometry import LatticeGeometry
-    from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
-    from quda_tpu_torch.models.wilson import DiracWilsonPC
-    from quda_tpu_torch.solvers.fused_iter import fused_cg
-
-    dev = torch.device("cuda", 0)
-    geom = LatticeGeometry(DIMS)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
-                              device=dev).data
-    src = ColorSpinorField.gaussian(geom, gen, dtype=torch.complex64,
-                                    device=dev).data
-    op = DiracWilsonPC(gauge, geom, 0.12).packed().pairs(torch.float32)
-    be, bo = even_odd_split(src, geom)
-    rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
-    fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=3)      # warm-up
-    torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=ITERS)
+        res = run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
@@ -64,25 +50,76 @@ def main() -> int:
             rows.append((ev.key, ev.count, dev_us))
     rows.sort(key=lambda r: -r[2])
     busy_us = sum(r[2] for r in rows)
-    groups = {"eo_hop_kernel": 0.0, "cg_tail_kernel": 0.0, "plain_torch": 0.0}
+    groups = {"eo_hop_kernel": 0.0, "cg_tail_kernel": 0.0,
+              "axpy_norm2_kernel": 0.0, "plain_torch": 0.0}
+    # the partial-sum pass belongs to whichever norm kernel this solver ran
+    partials = ("axpy_norm2_kernel" if label == "cg_reliable"
+                else "cg_tail_kernel")
     for name, _, us in rows:
         if "wilson_eo_kernel" in name:
             groups["eo_hop_kernel"] += us
-        elif "cg_update_norm2" in name or "sum_partials" in name:
+        elif "cg_update_norm2" in name:
             groups["cg_tail_kernel"] += us
+        elif "axpy_norm2" in name:
+            groups["axpy_norm2_kernel"] += us
+        elif "sum_partials" in name:
+            groups[partials] += us
         else:
             groups["plain_torch"] += us
     n = res.iters
     for name, count, us in rows[:15]:
-        print(json.dumps({"kernel": name[:120], "count": count,
-                          "device_us_per_iter": us / n}), flush=True)
+        print(json.dumps({"solver": label, "kernel": name[:120],
+                          "count": count, "device_us_per_iter": us / n}),
+              flush=True)
     print(json.dumps({
-        "dims_xyzt": list(DIMS), "iters": n,
+        "solver": label, "dims_xyzt": list(DIMS), "iters": n,
+        "reliable_updates": res.reliable_updates,
         "wall_ms_per_iter": wall_us / n / 1e3,
         "device_busy_ms_per_iter": busy_us / n / 1e3,
         "idle_share": max(0.0, 1.0 - busy_us / wall_us),
         "group_ms_per_iter": {k: v / n / 1e3 for k, v in groups.items()},
         "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device available", file=sys.stderr)
+        return 1
+
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
+
+    dev = torch.device("cuda", 0)
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
+                              device=dev).data
+    src = ColorSpinorField.gaussian(geom, gen, dtype=torch.complex64,
+                                    device=dev).data
+    dpk = DiracWilsonPC(gauge, geom, 0.12).packed()
+    op = dpk.pairs(torch.float32)
+    lo = dpk.pairs(torch.bfloat16)
+    codec = pair_inplace_codec(torch.bfloat16)
+    be, bo = even_odd_split(src, geom)
+    rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+
+    def run_fused(n):
+        return fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=n)
+
+    def run_reliable(n):
+        return cg_reliable(op.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
+                           maxiter=n, codec=codec)
+
+    for label, run in (("fused_cg", run_fused),
+                       ("cg_reliable", run_reliable)):
+        run(3)                                               # warm-up
+        torch.cuda.synchronize()
+        _profile(label, lambda: run(ITERS), torch)
     return 0
 
 

@@ -10,10 +10,11 @@ Phases, one JSON line each (``"phase": ...``):
              process per source, in parallel) and reports the seconds and
              ptxas' register counts.
 3. check   — each kernel against its plain PyTorch version on the card, on
-             the same inputs: the eo hop (B1) for both target parities at
-             4x6x8x10 and at the production size, the CG tail (B2) at the
-             production half-lattice size.  Fails above the tolerance the
-             kernel's module states.
+             the same inputs: every form of the eo hop (B1: full/r12 links,
+             f32/bf16 storage, f32/bf16 output) for both target parities at
+             4x6x8x10 and at the production size, the CG tail (B2) and
+             axpy_norm2 (B3, f32 and bf16) at the production half-lattice
+             size.  Fails above the tolerance the kernel's module states.
 4. invert  — the main path at the production size: a random SU(3) gauge and
              a Gaussian source made on the card from a seeded
              torch.Generator, init_quda -> load_gauge_quda ->
@@ -21,13 +22,25 @@ Phases, one JSON line each (``"phase": ...``):
              unless converged, true_res <= 1e-5, the eo hop kernel ran at
              least 4x and the tail kernel at least 1x per iteration (counts
              zeroed just before the call).
-5. reference — the same solve at 4x6x8x10 on the card and on the CPU (the
-             plain path): solutions within 1e-4, iterations within 2.
+   invert_mixed — the same solve at single/half (bf16 sloppy, reliable
+             updates), once with full links and once with recon-12
+             (GaugeParam.reconstruct=12).  Fails unless converged,
+             true_res <= 1e-5, bf16 eo-hop launches >= 4x and B3 launches
+             >= 1x the iterations, at least one reliable update, and (r12)
+             R=2 eo-hop launches >= 4x the iterations.
+   invert_df64 — tol 1e-10 at single/single: the df64 route.  Fails unless
+             its df64 full-lattice true_res <= 1e-10 and an independent
+             complex128 residual of x + x_df64_lo, with the plain
+             full-lattice operator (ops/wilson.py) on the card, agrees.
+5. reference — the same solves at 4x6x8x10 on the card and on the CPU (the
+             plain path): single/single within 1e-4 and 2 iterations,
+             single/half within 1e-3 and 10% of the iterations.
 6. timing  — medians of 25 CUDA-event timings (each over 10 back-to-back
-             calls) of each kernel and its plain version at the
-             production size, beside the bound (the larger
-             of bytes over 3.35 TB/s and flops over 67 TFLOP/s f32), and the
-             seconds per CG iteration.
+             calls) of each kernel form and its plain version at the
+             production size, beside the bound (the larger of bytes over
+             3.35 TB/s and flops over 67 TFLOP/s f32), and the seconds per
+             iteration of fused_cg (f32) and of cg_reliable (single/half,
+             full and r12 links; reliable updates included).
 
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
@@ -53,6 +66,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 REPEATS = 25
 BATCH = 10                       # calls per timed CUDA-event interval
+DF64_TOL = 1e-10
+MIXED_ITER_TIMED = 30
 
 
 def emit(obj) -> None:
@@ -107,11 +122,12 @@ def main() -> int:
     from quda_tpu_torch.fields.geometry import LatticeGeometry
     from quda_tpu_torch.fields.spinor import (ColorSpinorField,
                                               even_odd_split)
-    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.models.wilson import DiracWilson, DiracWilsonPC
     from quda_tpu_torch.ops import blas
     from quda_tpu_torch.ops import blas_pallas as bpl
     from quda_tpu_torch.ops import wilson_pallas_packed as wpp
     from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
     from quda_tpu_torch.utils import kernels
 
     dev = torch.device("cuda", 0)
@@ -130,48 +146,57 @@ def main() -> int:
           "ptxas": ptxas})
 
     # -- 3. kernels against their plain versions ------------------------
+    f32, bf16 = torch.float32, torch.bfloat16
+    # every eo-hop instance: (rows, storage dtype, output dtype)
+    b1_forms = [(3, f32, f32), (3, bf16, bf16), (3, bf16, f32),
+                (2, f32, f32), (2, bf16, bf16), (2, bf16, f32)]
+    b1_names = [wpp.form_name(*f) for f in b1_forms]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"b1": 0.0, "b2": 0.0}
+    errs = {name: 0.0 for name in b1_names}
 
-    def b1_inputs(dims_xyzt, parity):
+    def b1_inputs(dims_xyzt, parity, rows=3, store=f32):
         geom = LatticeGeometry(dims_xyzt)
         T, Z, Y, X = geom.lattice_shape
         sites = (T, Z, Y * X // 2)
         psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev)
-        u_here = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
-        u_there = torch.randn((4, 3, 3, 2) + sites, generator=gen,
+        u_here = torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                             device=dev)
+        u_there = torch.randn((4, rows, 3, 2) + sites, generator=gen,
                               device=dev)
-        u_bw = wpp.backward_gauge_eo(u_there, geom.lattice_shape,
-                                     parity).contiguous()
-        return geom.lattice_shape, u_here, u_bw, psi
+        u_bw = wpp.backward_gauge_eo(u_there, geom.lattice_shape, parity)
+        return (geom.lattice_shape, u_here.to(store).contiguous(),
+                u_bw.to(store).contiguous(), psi.to(store))
 
-    for dims_xyzt in (SMALL_DIMS, PROD_DIMS):
-        for parity in (0, 1):
-            dims, u_here, u_bw, psi = b1_inputs(dims_xyzt, parity)
-            out_k = wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims,
-                                                parity)
-            out_p = wpp.dslash_eo_packed_plain(u_here, u_bw, psi, dims,
-                                               parity)
-            torch.cuda.synchronize()
-            abs_err = (out_k - out_p).abs().max().item()
-            rel = abs_err / out_p.abs().max().item()
-            errs["b1"] = max(errs["b1"], abs_err)
-            emit({"phase": "check", "kernel": "dslash_eo_pallas_packed",
-                  "dims_xyzt": list(dims_xyzt), "parity": parity,
-                  "max_abs_err": abs_err, "max_rel_err": rel,
-                  "tolerance": wpp.TOLERANCE})
-            if not rel <= wpp.TOLERANCE:
-                fail(f"eo hop kernel disagrees with its plain version: "
-                     f"{rel:.3e} > {wpp.TOLERANCE:g}")
-            del u_here, u_bw, psi, out_k, out_p
+    for (rows, store, out), name in zip(b1_forms, b1_names):
+        tol = wpp.TOLERANCE if out == f32 else wpp.TOLERANCE_BF16
+        for dims_xyzt in (SMALL_DIMS, PROD_DIMS):
+            for parity in (0, 1):
+                dims, u_here, u_bw, psi = b1_inputs(dims_xyzt, parity, rows,
+                                                    store)
+                out_k = wpp.dslash_eo_pallas_packed(
+                    u_here, u_bw, psi, dims, parity, out_dtype=out)
+                out_p = wpp.dslash_eo_packed_plain(
+                    u_here, u_bw, psi, dims, parity, out_dtype=out)
+                torch.cuda.synchronize()
+                if out_k.dtype != out:
+                    fail(f"eo hop {name} wrote {out_k.dtype}")
+                abs_err = (out_k.float() - out_p.float()).abs().max().item()
+                rel = abs_err / out_p.float().abs().max().item()
+                errs[name] = max(errs[name], abs_err)
+                emit({"phase": "check", "kernel": "dslash_eo_pallas_packed",
+                      "form": name, "dims_xyzt": list(dims_xyzt),
+                      "parity": parity, "max_abs_err": abs_err,
+                      "max_rel_err": rel, "tolerance": tol})
+                if not rel <= tol:
+                    fail(f"eo hop kernel {name} disagrees with its plain "
+                         f"version: {rel:.3e} > {tol:g}")
+                del u_here, u_bw, psi, out_k, out_p
 
     geom_p = LatticeGeometry(PROD_DIMS)
     n_half = 24 * geom_p.half_volume
-    tail_in = [torch.randn(n_half, generator=gen, device=dev)
-               for _ in range(4)]
-    tail_in = [t.reshape((4, 3, 2) + (geom_p.T, geom_p.Z,
-                                      geom_p.Y * geom_p.X // 2))
-               for t in tail_in]
+    half_shape = (4, 3, 2, geom_p.T, geom_p.Z, geom_p.Y * geom_p.X // 2)
+    tail_in = [torch.randn(n_half, generator=gen, device=dev).reshape(
+        half_shape) for _ in range(4)]
     alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
     xk, rk, r2k = bpl.cg_update_norm2_pallas(alpha, *tail_in)
     xk2, rk2, r2k2 = bpl.cg_update_norm2_pallas(alpha, *tail_in)
@@ -192,7 +217,32 @@ def main() -> int:
              "deterministic")
     del xk, rk, xk2, rk2, xp, rp
 
-    # -- 4. the main path at production size ----------------------------
+    a_b3 = torch.tensor(-0.37, dtype=torch.float32, device=dev)
+    b3_in = {}
+    for dt in (f32, bf16):
+        name = "f32" if dt == f32 else "bf16"
+        x3, y3 = (t.to(dt) for t in tail_in[:2])
+        b3_in[name] = (x3, y3)
+        yk, n2k = bpl.axpy_norm2_pallas(a_b3, x3, y3)
+        yk2, n2k2 = bpl.axpy_norm2_pallas(a_b3, x3, y3)
+        yp, n2p = bpl.axpy_norm2_plain(a_b3, x3, y3)
+        torch.cuda.synchronize()
+        abs_err = (yk.float() - yp.float()).abs().max().item()
+        rel = abs_err / yp.float().abs().max().item()
+        n2_rel = abs(n2k.item() - n2p.item()) / n2p.item()
+        deterministic = bool(torch.equal(n2k, n2k2) and torch.equal(yk, yk2))
+        errs[f"b3:{name}"] = abs_err
+        emit({"phase": "check", "kernel": "axpy_norm2_pallas", "form": name,
+              "elements": n_half, "max_abs_err": abs_err,
+              "max_rel_err": rel, "n2_rel_err": n2_rel,
+              "deterministic": deterministic, "tolerance": bpl.TOLERANCE})
+        if not (rel <= bpl.TOLERANCE and n2_rel <= bpl.TOLERANCE
+                and deterministic and yk.dtype == dt):
+            fail(f"axpy_norm2 kernel ({name}) disagrees with its plain "
+                 "version or is not deterministic")
+        del yk, yk2, yp
+
+    # -- 4. the main paths at production size ---------------------------
     t0 = time.perf_counter()
     gauge = GaugeField.random(geom_p, gen, dtype=torch.complex64,
                               device=dev).data
@@ -200,40 +250,117 @@ def main() -> int:
                                     device=dev).data
     torch.cuda.synchronize()
     t_fields = time.perf_counter() - t0
-    qt.init_quda(dev)
-    qt.load_gauge_quda(gauge, qt.GaugeParam(X=PROD_DIMS, cuda_prec="single"))
-    param = qt.InvertParam(dslash_type="wilson", inv_type="cg",
-                           solve_type="normop-pc", kappa=KAPPA, tol=TOL,
-                           maxiter=2000, cuda_prec="single")
-    torch.cuda.reset_peak_memory_stats(dev)
-    wpp.dslash_eo_pallas_packed.launches = 0
-    bpl.cg_update_norm2_pallas.launches = 0
-    x = qt.invert_quda(src, param)
-    torch.cuda.synchronize()
-    launches = {"b1": wpp.dslash_eo_pallas_packed.launches,
-                "b2": bpl.cg_update_norm2_pallas.launches}
-    finite = bool(torch.isfinite(torch.view_as_real(x)).all())
+    launches = {}
+
+    def zero_counts():
+        wpp.reset_launches()
+        bpl.cg_update_norm2_pallas.launches = 0
+        bpl.axpy_norm2_pallas.launches = 0
+        bpl.axpy_norm2_pallas.launches_by_form = {}
+
+    def read_counts():
+        return {"b1": wpp.dslash_eo_pallas_packed.launches,
+                "b1_by_form": dict(
+                    wpp.dslash_eo_pallas_packed.launches_by_form),
+                "b2": bpl.cg_update_norm2_pallas.launches,
+                "b3_by_form": dict(bpl.axpy_norm2_pallas.launches_by_form)}
+
+    def solve(reconstruct=18, **kw):
+        """init -> load -> invert -> end at production size, counts zeroed
+        just before invert_quda and read just after."""
+        qt.init_quda(dev)
+        try:
+            qt.load_gauge_quda(gauge, qt.GaugeParam(
+                X=PROD_DIMS, cuda_prec="single", reconstruct=reconstruct))
+            base = dict(dslash_type="wilson", inv_type="cg",
+                        solve_type="normop-pc", kappa=KAPPA, tol=TOL,
+                        maxiter=2000, cuda_prec="single")
+            base.update(kw)
+            param = qt.InvertParam(**base)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            x = qt.invert_quda(src, param)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            qt.end_quda()
+        finite = bool(torch.isfinite(torch.view_as_real(x)).all())
+        shape_ok = tuple(x.shape) == geom_p.spinor_shape()
+        return x, param, counts, finite, shape_ok
+
+    x, param, counts, finite, shape_ok = solve()
+    launches["default"] = counts
     emit({"phase": "invert", "dims_xyzt": list(PROD_DIMS), "kappa": KAPPA,
           "tol": TOL, "iters": param.iter_count, "secs": param.secs,
           "true_res": param.true_res, "converged": param.converged,
           "gflop": param.gflops, "field_setup_secs": t_fields,
-          "launches_dslash_eo": launches["b1"],
-          "launches_cg_tail": launches["b2"],
-          "shape_ok": tuple(x.shape) == geom_p.spinor_shape(),
-          "finite": finite,
+          "launches_dslash_eo": counts["b1"],
+          "launches_cg_tail": counts["b2"],
+          "shape_ok": shape_ok, "finite": finite,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
     if not (param.converged and param.true_res <= TRUE_RES_MAX and finite
-            and tuple(x.shape) == geom_p.spinor_shape()):
+            and shape_ok):
         fail("invert_quda did not converge to a finite solution with "
              f"true_res <= {TRUE_RES_MAX:g}")
-    if launches["b1"] < 4 * param.iter_count or \
-            launches["b2"] < param.iter_count:
-        fail(f"main path did not run through the kernels: {launches}")
+    if counts["b1"] < 4 * param.iter_count or \
+            counts["b2"] < param.iter_count:
+        fail(f"main path did not run through the kernels: {counts}")
     iters_main = param.iter_count
-    qt.end_quda()
     del x
 
-    # -- 5. small solve: card against the CPU's plain path --------------
+    mixed = {}
+    for form, rec in (("full", 18), ("r12", 12)):
+        x, param, counts, finite, shape_ok = solve(rec,
+                                                   cuda_prec_sloppy="half")
+        launches[f"mixed:{form}"] = counts
+        by = counts["b1_by_form"]
+        bf16_hops = sum(v for k, v in by.items() if ":bf16->" in k)
+        r12_hops = sum(v for k, v in by.items() if k.startswith("r12:"))
+        b3 = counts["b3_by_form"].get("bf16", 0)
+        mixed[form] = (param.iter_count, param.secs)
+        emit({"phase": "invert_mixed", "precision_form": form,
+              "dims_xyzt": list(PROD_DIMS), "kappa": KAPPA, "tol": TOL,
+              "cuda_prec_sloppy": "half", "iters": param.iter_count,
+              "reliable_updates": param.reliable_updates,
+              "secs": param.secs, "true_res": param.true_res,
+              "converged": param.converged, "launches_dslash_eo": by,
+              "launches_axpy_norm2": counts["b3_by_form"],
+              "shape_ok": shape_ok, "finite": finite,
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        if not (param.converged and param.true_res <= TRUE_RES_MAX
+                and finite and shape_ok and param.reliable_updates >= 1):
+            fail(f"mixed invert_quda ({form}) did not converge with "
+                 f"true_res <= {TRUE_RES_MAX:g} and a reliable update")
+        if bf16_hops < 4 * param.iter_count or b3 < param.iter_count or (
+                form == "r12" and r12_hops < 4 * param.iter_count):
+            fail(f"mixed path ({form}) did not run through the bf16 hop "
+                 f"and B3 kernels: {counts}")
+        del x
+
+    x, param, counts, finite, shape_ok = solve(tol=DF64_TOL)
+    launches["df64"] = counts
+    x128 = x.to(torch.complex128) + param.x_df64_lo.to(torch.complex128)
+    d128 = DiracWilson(gauge.to(torch.complex128), geom_p, KAPPA)
+    b128 = src.to(torch.complex128)
+    oracle = float(torch.linalg.vector_norm(b128 - d128.M(x128))
+                   / torch.linalg.vector_norm(b128))
+    del x128, d128, b128
+    emit({"phase": "invert_df64", "dims_xyzt": list(PROD_DIMS),
+          "kappa": KAPPA, "tol": DF64_TOL, "cuda_prec_sloppy": "single",
+          "iters": param.iter_count,
+          "reliable_updates": param.reliable_updates, "secs": param.secs,
+          "true_res": param.true_res, "true_res_complex128": oracle,
+          "converged": param.converged, "launches_dslash_eo":
+          counts["b1_by_form"], "launches_axpy_norm2": counts["b3_by_form"],
+          "shape_ok": shape_ok, "finite": finite,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    if not (param.converged and param.true_res <= DF64_TOL
+            and oracle <= DF64_TOL and finite and shape_ok):
+        fail(f"df64 invert_quda missed true_res <= {DF64_TOL:g} "
+             f"(df64 {param.true_res:.3e}, complex128 {oracle:.3e})")
+    del x
+
+    # -- 5. small solves: card against the CPU's plain path -------------
     geom_s = LatticeGeometry(SMALL_DIMS)
     rng = np.random.default_rng(SEED)
     shp = geom_s.gauge_shape()
@@ -243,46 +370,68 @@ def main() -> int:
     sshp = geom_s.spinor_shape()
     b_np = (rng.standard_normal(sshp)
             + 1j * rng.standard_normal(sshp)).astype(np.complex64)
-    sols = {}
-    for where in (dev, "cpu"):
-        qt.init_quda(where)
-        qt.load_gauge_quda(g_np, qt.GaugeParam(X=SMALL_DIMS,
-                                               cuda_prec="single"))
-        p = qt.InvertParam(dslash_type="wilson", inv_type="cg",
-                           solve_type="normop-pc", kappa=KAPPA, tol=TOL,
-                           maxiter=500, cuda_prec="single")
-        sols[str(where)] = (qt.invert_quda(b_np, p).cpu().numpy(), p)
-        qt.end_quda()
-    (x_gpu, p_gpu), (x_cpu, p_cpu) = sols[str(dev)], sols["cpu"]
-    sol_rel = float(np.linalg.norm(x_gpu - x_cpu) / np.linalg.norm(x_cpu))
-    emit({"phase": "reference", "dims_xyzt": list(SMALL_DIMS),
-          "iters_card": p_gpu.iter_count, "iters_cpu": p_cpu.iter_count,
-          "true_res_card": p_gpu.true_res, "solution_rel_diff": sol_rel})
-    if not (sol_rel <= 1e-4 and abs(p_gpu.iter_count - p_cpu.iter_count) <= 2
-            and p_gpu.converged):
-        fail("the card's small solve disagrees with the CPU's plain path")
+    for sloppy, sol_tol, it_tol in (("single", 1e-4, None),
+                                    ("half", 1e-3, 0.1)):
+        sols = {}
+        for where in (dev, "cpu"):
+            qt.init_quda(where)
+            qt.load_gauge_quda(g_np, qt.GaugeParam(X=SMALL_DIMS,
+                                                   cuda_prec="single"))
+            p = qt.InvertParam(dslash_type="wilson", inv_type="cg",
+                               solve_type="normop-pc", kappa=KAPPA,
+                               tol=TOL, maxiter=500, cuda_prec="single",
+                               cuda_prec_sloppy=sloppy)
+            sols[str(where)] = (qt.invert_quda(b_np, p).cpu().numpy(), p)
+            qt.end_quda()
+        (x_gpu, p_gpu), (x_cpu, p_cpu) = sols[str(dev)], sols["cpu"]
+        sol_rel = float(np.linalg.norm(x_gpu - x_cpu)
+                        / np.linalg.norm(x_cpu))
+        emit({"phase": "reference", "dims_xyzt": list(SMALL_DIMS),
+              "cuda_prec_sloppy": sloppy, "iters_card": p_gpu.iter_count,
+              "iters_cpu": p_cpu.iter_count,
+              "true_res_card": p_gpu.true_res,
+              "solution_rel_diff": sol_rel})
+        di = abs(p_gpu.iter_count - p_cpu.iter_count)
+        it_ok = di <= 2 if it_tol is None else di <= it_tol * p_cpu.iter_count
+        if not (sol_rel <= sol_tol and it_ok and p_gpu.converged):
+            fail(f"the card's small {sloppy}-sloppy solve disagrees with "
+                 "the CPU's plain path")
 
     # -- 6. timing at production size -----------------------------------
     dims = geom_p.lattice_shape
-    _, u_here, u_bw, psi = b1_inputs(PROD_DIMS, 0)
-    b1_ms = median_ms(lambda: wpp.dslash_eo_pallas_packed(
-        u_here, u_bw, psi, dims, 0), torch)
-    b1_plain_ms = median_ms(lambda: wpp.dslash_eo_packed_plain(
-        u_here, u_bw, psi, dims, 0), torch)
     half = geom_p.half_volume
-    b1_bound_ms = 1e3 * max(wpp.BYTES_PER_SITE * half / HBM_BYTES_PER_S,
-                            wpp.FLOPS_PER_SITE * half / F32_FLOPS_PER_S)
+    timing, bound_by = {}, {}
+    for (rows, store, out), name in zip(b1_forms, b1_names):
+        _, u_here, u_bw, psi = b1_inputs(PROD_DIMS, 0, rows, store)
+        k_ms = median_ms(lambda: wpp.dslash_eo_pallas_packed(
+            u_here, u_bw, psi, dims, 0, out_dtype=out), torch)
+        p_ms = median_ms(lambda: wpp.dslash_eo_packed_plain(
+            u_here, u_bw, psi, dims, 0, out_dtype=out), torch)
+        t_bytes = wpp.bytes_per_site(rows, store, out) * half \
+            / HBM_BYTES_PER_S
+        t_ops = wpp.flops_per_site(rows) * half / F32_FLOPS_PER_S
+        bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+        timing[name] = (k_ms, p_ms, 1e3 * max(t_bytes, t_ops))
+        del u_here, u_bw, psi
     b1_nol2_ms = 1e3 * 1440 * half / HBM_BYTES_PER_S
-    del u_here, u_bw, psi
     b2_ms = median_ms(lambda: bpl.cg_update_norm2_pallas(alpha, *tail_in),
                       torch)
     b2_plain_ms = median_ms(lambda: blas.triple_cg_update(alpha, *tail_in),
                             torch)
     b2_bound_ms = 1e3 * max(bpl.BYTES_PER_ELEMENT * n_half / HBM_BYTES_PER_S,
                             6 * n_half / F32_FLOPS_PER_S)
-    del tail_in
+    timing["b2"] = (b2_ms, b2_plain_ms, b2_bound_ms)
+    for name, (x3, y3) in b3_in.items():
+        k_ms = median_ms(lambda: bpl.axpy_norm2_pallas(a_b3, x3, y3), torch)
+        p_ms = median_ms(lambda: bpl.axpy_norm2_plain(a_b3, x3, y3), torch)
+        nbytes = bpl.AXPY_BYTES_PER_ELEMENT[x3.dtype] * n_half
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                          4 * n_half / F32_FLOPS_PER_S)
+        timing[f"b3:{name}"] = (k_ms, p_ms, bound)
+    del tail_in, b3_in
 
-    op = DiracWilsonPC(gauge, geom_p, KAPPA).packed().pairs(torch.float32)
+    dpk = DiracWilsonPC(gauge, geom_p, KAPPA).packed()
+    op = dpk.pairs(torch.float32)
     be, bo = even_odd_split(src, geom_p)
     rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
     n_it = 30
@@ -292,32 +441,78 @@ def main() -> int:
     res = fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=n_it)
     torch.cuda.synchronize()
     iter_ms = 1e3 * (time.perf_counter() - t0) / res.iters
-    emit({"phase": "timing", "dims_xyzt": list(PROD_DIMS),
-          "nvidia_smi": smi, "repeats": REPEATS, "calls_per_timing": BATCH,
-          "dslash_eo_ms": b1_ms, "dslash_eo_plain_ms": b1_plain_ms,
-          "dslash_eo_bound_ms": b1_bound_ms,
-          "dslash_eo_bound_no_l2_ms": b1_nol2_ms,
-          "dslash_eo_GBps": 1e-6 * wpp.BYTES_PER_SITE * half / b1_ms,
-          "cg_tail_ms": b2_ms, "cg_tail_plain_ms": b2_plain_ms,
-          "cg_tail_bound_ms": b2_bound_ms,
-          "cg_iter_ms": iter_ms, "cg_iter_secs": iter_ms / 1e3,
-          "cg_iters_timed": res.iters, "main_path_iters": iters_main})
+    mixed_ms = {}
+    for form in ("full", "r12"):
+        hi = dpk.pairs(torch.float32, precision_form=form)
+        lo = dpk.pairs(torch.bfloat16, precision_form=form)
+        codec = pair_inplace_codec(torch.bfloat16)
+        cg_reliable(hi.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
+                    maxiter=2, codec=codec)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_m = cg_reliable(hi.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
+                            maxiter=MIXED_ITER_TIMED, codec=codec)
+        torch.cuda.synchronize()
+        mixed_ms[form] = (1e3 * (time.perf_counter() - t0) / res_m.iters,
+                          res_m.iters, res_m.reliable_updates)
+        del hi, lo
+    row = {"phase": "timing", "dims_xyzt": list(PROD_DIMS),
+           "nvidia_smi": smi, "repeats": REPEATS, "calls_per_timing": BATCH}
+    for name, (k_ms, p_ms, bound) in timing.items():
+        row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound}
+    row.update({
+        "dslash_eo_ms": timing["full:f32->f32"][0],
+        "dslash_eo_bound_no_l2_ms": b1_nol2_ms,
+        "dslash_eo_GBps": 1e-6 * wpp.BYTES_PER_SITE * half
+        / timing["full:f32->f32"][0],
+        "cg_iter_ms": iter_ms, "cg_iter_secs": iter_ms / 1e3,
+        "cg_iters_timed": res.iters, "main_path_iters": iters_main,
+        "cg_reliable_half_iter_ms": {f: v[0] for f, v in mixed_ms.items()},
+        "cg_reliable_half_iters_timed": {f: v[1]
+                                         for f, v in mixed_ms.items()},
+        "cg_reliable_half_reliable_updates": {
+            f: v[2] for f, v in mixed_ms.items()},
+        "mixed_solve_secs_per_iter": {f: v[1] / v[0]
+                                      for f, v in mixed.items()}})
+    emit(row)
 
-    kernels_line = {"kernels": [
-        {"name": "dslash_eo_pallas_packed", "route": "cuda",
-         "source": "quda_tpu_torch/csrc/wilson_eo.cu",
-         "replaces": "quda_tpu/ops/wilson_pallas_packed.py:1011",
-         "launches": launches["b1"], "max_abs_err": errs["b1"],
-         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "cg_update_norm2_pallas", "route": "cuda",
-         "source": "quda_tpu_torch/csrc/blas_fused.cu",
-         "replaces": "quda_tpu/ops/blas_pallas.py:104",
-         "launches": launches["b2"], "max_abs_err": errs["b2"],
-         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
-         "bound_by": "bytes", "library_ms": None},
-    ]}
-    print(json.dumps(kernels_line), flush=True)
+    # which main path each kernel form's launches come from
+    source_path = {"full:f32->f32": "default", "full:bf16->bf16": "mixed:full",
+                   "full:bf16->f32": "mixed:full", "r12:f32->f32": "mixed:r12",
+                   "r12:bf16->bf16": "mixed:r12",
+                   "r12:bf16->f32": "mixed:r12"}
+    rows_out = []
+    for name in b1_names:
+        n = launches[source_path[name]]["b1_by_form"].get(name, 0)
+        k_ms, p_ms, bound = timing[name]
+        rows_out.append({
+            "name": f"dslash_eo_pallas_packed[{name}]", "route": "cuda",
+            "source": "quda_tpu_torch/csrc/wilson_eo.cu",
+            "replaces": "quda_tpu/ops/wilson_pallas_packed.py:1011",
+            "launches": n, "max_abs_err": errs[name], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by[name], "library_ms": None})
+    rows_out.append({
+        "name": "cg_update_norm2_pallas", "route": "cuda",
+        "source": "quda_tpu_torch/csrc/blas_fused.cu",
+        "replaces": "quda_tpu/ops/blas_pallas.py:104",
+        "launches": launches["default"]["b2"], "max_abs_err": errs["b2"],
+        "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
+        "bound_by": "bytes", "library_ms": None})
+    for name, path in (("f32", "df64"), ("bf16", "mixed:full")):
+        k_ms, p_ms, bound = timing[f"b3:{name}"]
+        rows_out.append({
+            "name": f"axpy_norm2_pallas[{name}]", "route": "cuda",
+            "source": "quda_tpu_torch/csrc/blas_fused.cu",
+            "replaces": "quda_tpu/ops/blas_pallas.py:151",
+            "launches": launches[path]["b3_by_form"].get(name, 0),
+            "max_abs_err": errs[f"b3:{name}"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None})
+    unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
+    if unlaunched:
+        fail(f"kernels never launched on their main path: {unlaunched}")
+    print(json.dumps({"kernels": rows_out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

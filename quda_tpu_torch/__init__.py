@@ -7,7 +7,7 @@ never imported from here.
 
 Device rule: every entry point takes a ``device``, defaulting to
 ``"cuda"``.  Without a card, and without an explicit ``device="cpu"``,
-it raises (``utils/device.py``).  The hot loop runs two hand-written CUDA
+it raises (``utils/device.py``).  The hot loops run hand-written CUDA
 kernels (``csrc/``), built at first use; on CPU tensors their wrappers
 run the plain PyTorch versions that sit beside them.
 """

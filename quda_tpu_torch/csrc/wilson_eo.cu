@@ -2,21 +2,34 @@
 //
 // Replaces: quda_tpu/ops/wilson_pallas_packed.py::dslash_eo_pallas_packed,
 // the Pallas TPU kernel (pallas_call at :1011, body _make_kernel(eo=...) at
-// :184-308).  Plain version: quda_tpu_torch/ops/wilson_packed.py::
-// dslash_eo_packed_pairs_bw.
+// :184-308).  Plain version: quda_tpu_torch/ops/wilson_pallas_packed.py::
+// dslash_eo_packed_plain.
 //
-// Layout, float32; every spin/colour/re-im component is its own plane of
+// Layout; every spin/colour/re-im component is its own plane of
 // S = T*Z*Y*Xh half-sites, so adjacent threads read adjacent addresses:
 //   psi, out  (4, 3, 2, T, Z, Y*Xh)     parity 1-p in, parity p out
-//   u_here    (4, 3, 3, 2, T, Z, Y*Xh)  U_mu(x) at the target sites x
-//   u_bw      (4, 3, 3, 2, T, Z, Y*Xh)  U_mu(x - mu), taken from the opposite
+//   u_here    (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x) at the target sites x
+//   u_bw      (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x - mu), taken from the opposite
 //                                       parity and shifted once per gauge load
+// Storage forms (template arguments): psi and links both float32 or both
+// bfloat16; out float32 or (from bf16 storage) bfloat16; R = 3 link rows
+// (full) or R = 2 (reconstruct-12: row 2 = conj(row0 x row1), rebuilt in
+// registers).  Every load converts to f32 and every sum is f32; a bf16 out
+// is rounded to nearest even once, at the store (__float2bfloat16_rn, what
+// torch's .to(torch.bfloat16) does).
 //
-// What bounds it on an H100: device memory.  A site needs 1320 flop against
-// at least 768 B (psi 96, links 576, out 96, when L2 serves the neighbour
-// re-reads of psi), about 1.7 flop/B, far under the ~20 flop/B where f32
-// arithmetic would bind.  If L2 caught none of the re-reads, the 8
-// neighbour spinors alone would be 768 B: 1440 B/site in all.
+// Reconstruct-12 and the antiperiodic t boundary: the links carry the
+// boundary phase folded in, so a t-link on the boundary plane is -U, and
+// the cross product of its two stored rows gives +u2.  With tb_sign the
+// rebuilt row is negated there: forward links on t = T-1, pre-shifted
+// backward links on t = 0 (quda_tpu/ops/wilson_pallas_packed.py:196-198,
+// :229-232, and _recon12_wrap).
+//
+// What bounds it on an H100: device memory.  A site needs 1320 flop (plus
+// 8 x 3 x 14 = 336 for the rebuilt rows with R = 2) against at least
+// 768 B in f32 (psi 96, links 576, out 96, when L2 serves the neighbour
+// re-reads of psi), 384 B bf16 -> bf16 and 288 B bf16 R = 2 -> bf16: at
+// most 5.7 flop/B, far under the ~20 flop/B where f32 arithmetic binds.
 //
 // Design: one thread per target half-site, 24 f32 accumulators in registers.
 // A thread computes its 8 neighbour indices directly: t, z and y wrap on
@@ -26,7 +39,10 @@
 // are gone: a CUDA thread just reads its neighbour.  Each hop projects to a
 // half spinor, multiplies by U (or U^dag) in colour and reconstructs, with
 // the spin tables as compile-time constants so the +-1/+-i factors fold
-// away.  Offsets are 64-bit.
+// away.  The planar layout keeps the re and im parts of a number S elements
+// apart, so a bf16 load is one 2-byte element per thread; a warp still reads
+// 64 contiguous bytes per plane.  Offsets are 64-bit.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,50 +91,77 @@ __device__ __forceinline__ float2 cscale(float2 x) {
   }
 }
 
-// component (s, c) of psi at half-site i
-__device__ __forceinline__ float2 ld_psi(const float* __restrict__ psi, int s,
-                                         int c, int64_t S, int64_t i) {
-  const float* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * S + i;
-  return make_float2(__ldg(q), __ldg(q + S));
+// storage element -> f32, and f32 -> storage element
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-// link element (a, b) of direction mu at half-site i
-__device__ __forceinline__ float2 ld_link(const float* __restrict__ u, int mu,
-                                          int a, int b, int64_t S,
-                                          int64_t i) {
-  const float* q = u + static_cast<int64_t>(((mu * 3 + a) * 3 + b) * 2) * S + i;
-  return make_float2(__ldg(q), __ldg(q + S));
+// component (s, c) of psi at half-site i
+template <typename S>
+__device__ __forceinline__ float2 ld_psi(const S* __restrict__ psi, int s,
+                                         int c, int64_t n, int64_t i) {
+  const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + i;
+  return make_float2(ld(q), ld(q + n));
+}
+
+// The 3x3 link of direction mu at half-site i.  With R = 2 only rows 0 and
+// 1 are stored: row 2 = conj(row0 x row1) * row2_sign.
+template <int R, typename S>
+__device__ __forceinline__ void ld_link(float2 (&u)[3][3],
+                                        const S* __restrict__ g, int mu,
+                                        int64_t n, int64_t i,
+                                        float row2_sign) {
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const S* q = g + static_cast<int64_t>(((mu * R + a) * 3 + b) * 2) * n + i;
+      u[a][b] = make_float2(ld(q), ld(q + n));
+    }
+  if constexpr (R == 2) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const int b1 = (b + 1) % 3, b2 = (b + 2) % 3;
+      const float2 p = cmul(u[0][b1], u[1][b2]);
+      const float2 q = cmul(u[0][b2], u[1][b1]);
+      u[2][b] = make_float2((p.x - q.x) * row2_sign,
+                            -(p.y - q.y) * row2_sign);
+    }
+  }
 }
 
 // One hop: psi read at neighbour nb, links at the target site.  SIGN > 0 is
 // the forward hop (1 - gamma_mu) U psi(x+mu); SIGN < 0 the backward hop
 // (1 + gamma_mu) U^dag psi(x-mu), U^dag[a][b] = conj(U[b][a]).
-template <int MU, int SIGN>
+template <int MU, int SIGN, int R, typename S>
 __device__ __forceinline__ void hop(float2 (&acc)[4][3],
-                                    const float* __restrict__ psi,
-                                    const float* __restrict__ u, int64_t S,
-                                    int64_t nb, int64_t site) {
+                                    const S* __restrict__ psi,
+                                    const S* __restrict__ g, int64_t n,
+                                    int64_t nb, int64_t site,
+                                    float row2_sign) {
   constexpr Tab t = tab(MU, SIGN);
   float2 h[2][3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    h[0][c] = cadd(ld_psi(psi, 0, c, S, nb),
-                   cscale<t.c0r, t.c0i>(ld_psi(psi, t.j0, c, S, nb)));
-    h[1][c] = cadd(ld_psi(psi, 1, c, S, nb),
-                   cscale<t.c1r, t.c1i>(ld_psi(psi, t.j1, c, S, nb)));
+    h[0][c] = cadd(ld_psi(psi, 0, c, n, nb),
+                   cscale<t.c0r, t.c0i>(ld_psi(psi, t.j0, c, n, nb)));
+    h[1][c] = cadd(ld_psi(psi, 1, c, n, nb),
+                   cscale<t.c1r, t.c1i>(ld_psi(psi, t.j1, c, n, nb)));
   }
+  float2 u[3][3];
+  ld_link<R>(u, g, MU, n, site, row2_sign);
   float2 uh[2][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     float2 m[3];
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
-      if constexpr (SIGN > 0) {
-        m[b] = ld_link(u, MU, a, b, S, site);
-      } else {
-        const float2 v = ld_link(u, MU, b, a, S, site);
-        m[b] = make_float2(v.x, -v.y);
-      }
+      m[b] = SIGN > 0 ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
     }
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
@@ -138,16 +181,17 @@ __device__ __forceinline__ void hop(float2 (&acc)[4][3],
 
 constexpr int kThreads = 128;
 
+template <typename S, typename O, int R>
 __global__ void __launch_bounds__(kThreads)
-    wilson_eo_kernel(float* __restrict__ out, const float* __restrict__ psi,
-                     const float* __restrict__ u_here,
-                     const float* __restrict__ u_bw, int T, int Z, int Y,
-                     int Xh, int parity) {
+    wilson_eo_kernel(O* __restrict__ out, const S* __restrict__ psi,
+                     const S* __restrict__ u_here,
+                     const S* __restrict__ u_bw, int T, int Z, int Y,
+                     int Xh, int parity, int tb_sign) {
   const int64_t YXh = static_cast<int64_t>(Y) * Xh;
   const int64_t ZYXh = static_cast<int64_t>(Z) * YXh;
-  const int64_t S = static_cast<int64_t>(T) * ZYXh;
+  const int64_t n = static_cast<int64_t>(T) * ZYXh;
   const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (site >= S) return;
+  if (site >= n) return;
   const int xh = static_cast<int>(site % Xh);
   const int y = static_cast<int>((site / Xh) % Y);
   const int z = static_cast<int>((site / YXh) % Z);
@@ -164,6 +208,9 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t z_bwd = site + (z == 0 ? (Z - 1) * YXh : -YXh);
   const int64_t t_fwd = site + (t + 1 == T ? -(T - 1) * ZYXh : ZYXh);
   const int64_t t_bwd = site + (t == 0 ? (T - 1) * ZYXh : -ZYXh);
+  // sign of the rebuilt row 2 of the t links (R = 2 only)
+  const float s_t_fwd = (tb_sign && t == T - 1) ? -1.f : 1.f;
+  const float s_t_bwd = (tb_sign && t == 0) ? -1.f : 1.f;
 
   float2 acc[4][3];
 #pragma unroll
@@ -171,38 +218,72 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc[s][c] = make_float2(0.f, 0.f);
 
-  hop<0, +1>(acc, psi, u_here, S, x_fwd, site);
-  hop<0, -1>(acc, psi, u_bw, S, x_bwd, site);
-  hop<1, +1>(acc, psi, u_here, S, y_fwd, site);
-  hop<1, -1>(acc, psi, u_bw, S, y_bwd, site);
-  hop<2, +1>(acc, psi, u_here, S, z_fwd, site);
-  hop<2, -1>(acc, psi, u_bw, S, z_bwd, site);
-  hop<3, +1>(acc, psi, u_here, S, t_fwd, site);
-  hop<3, -1>(acc, psi, u_bw, S, t_bwd, site);
+  hop<0, +1, R>(acc, psi, u_here, n, x_fwd, site, 1.f);
+  hop<0, -1, R>(acc, psi, u_bw, n, x_bwd, site, 1.f);
+  hop<1, +1, R>(acc, psi, u_here, n, y_fwd, site, 1.f);
+  hop<1, -1, R>(acc, psi, u_bw, n, y_bwd, site, 1.f);
+  hop<2, +1, R>(acc, psi, u_here, n, z_fwd, site, 1.f);
+  hop<2, -1, R>(acc, psi, u_bw, n, z_bwd, site, 1.f);
+  hop<3, +1, R>(acc, psi, u_here, n, t_fwd, site, s_t_fwd);
+  hop<3, -1, R>(acc, psi, u_bw, n, t_bwd, site, s_t_bwd);
 
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float* q = out + static_cast<int64_t>((s * 3 + c) * 2) * S + site;
-      q[0] = acc[s][c].x;
-      q[S] = acc[s][c].y;
+      O* q = out + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
+      st(q, acc[s][c].x);
+      st(q + n, acc[s][c].y);
     }
+}
+
+template <typename S, typename O, int R>
+cudaError_t launch(void* out, const void* psi, const void* u_here,
+                   const void* u_bw, int T, int Z, int Y, int Xh,
+                   int parity, int tb_sign, unsigned blocks,
+                   cudaStream_t stream) {
+  wilson_eo_kernel<S, O, R><<<blocks, kThreads, 0, stream>>>(
+      static_cast<O*>(out), static_cast<const S*>(psi),
+      static_cast<const S*>(u_here), static_cast<const S*>(u_bw), T, Z, Y,
+      Xh, parity, tb_sign);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int qtt_wilson_eo_f32(float* out, const float* psi,
-                                 const float* u_here, const float* u_bw,
-                                 int T, int Z, int Y, int Xh, int parity,
-                                 void* stream) {
-  const int64_t S = static_cast<int64_t>(T) * Z * Y * Xh;
-  const int64_t blocks = (S + kThreads - 1) / kThreads;
-  if (S <= 0 || blocks > 0x7fffffff || (parity != 0 && parity != 1)) {
+// store_bf16: psi and links are bfloat16 (else float32); out_bf16: out is
+// bfloat16 (else float32, and bf16 out needs bf16 storage); rows: 3 or 2.
+extern "C" int qtt_wilson_eo(void* out, const void* psi, const void* u_here,
+                             const void* u_bw, int T, int Z, int Y, int Xh,
+                             int parity, int store_bf16, int out_bf16,
+                             int rows, int tb_sign, void* stream) {
+  const int64_t n = static_cast<int64_t>(T) * Z * Y * Xh;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (n <= 0 || blocks > 0x7fffffff || (parity != 0 && parity != 1) ||
+      (rows != 2 && rows != 3) || (out_bf16 && !store_bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  wilson_eo_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      out, psi, u_here, u_bw, T, Z, Y, Xh, parity);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  cudaError_t err;
+  if (!store_bf16) {
+    err = rows == 3
+              ? launch<float, float, 3>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                        parity, tb_sign, nb, s)
+              : launch<float, float, 2>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                        parity, tb_sign, nb, s);
+  } else if (out_bf16) {
+    err = rows == 3 ? launch<bf, bf, 3>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                        parity, tb_sign, nb, s)
+                    : launch<bf, bf, 2>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                        parity, tb_sign, nb, s);
+  } else {
+    err = rows == 3
+              ? launch<bf, float, 3>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                     parity, tb_sign, nb, s)
+              : launch<bf, float, 2>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                     parity, tb_sign, nb, s);
+  }
+  return static_cast<int>(err);
 }

@@ -17,6 +17,7 @@ INVERTER_TYPES = ("cg", "cg3", "cgne", "cgnr", "pcg", "bicgstab",
                   "bicgstab-l", "gcr", "mr", "sd", "ca-cg", "ca-gcr",
                   "multi-shift-cg", "gcr-mg")
 PRECISIONS = ("double", "single", "half", "quarter")
+RECONSTRUCTS = (18, 12, 8)
 MATPC_TYPES = ("even-even", "odd-odd")
 SOLVE_TYPES = ("direct", "direct-pc", "normop", "normop-pc")
 
@@ -36,6 +37,9 @@ class GaugeParam:
     X: Tuple[int, int, int, int] = (8, 8, 8, 8)   # (x,y,z,t)
     t_boundary: str = "antiperiodic"               # periodic|antiperiodic
     cuda_prec: str = "double"                      # device precision
+    # link storage of every packed operator of a solve: 18 = full links,
+    # 12 = two rows with the third rebuilt in the hop kernel
+    reconstruct: int = 18
     anisotropy: float = 1.0
 
     def validate(self):
@@ -44,6 +48,8 @@ class GaugeParam:
         _check(self.t_boundary in ("periodic", "antiperiodic"),
                f"bad t_boundary {self.t_boundary}")
         _check(self.cuda_prec in PRECISIONS, f"bad prec {self.cuda_prec}")
+        _check(self.reconstruct in RECONSTRUCTS,
+               f"bad reconstruct {self.reconstruct}")
         _check(self.anisotropy > 0, f"bad anisotropy {self.anisotropy}")
         return self
 
@@ -59,8 +65,10 @@ class InvertParam:
     tol: float = 1e-10
     tol_hq: float = 0.0
     maxiter: int = 10000
+    reliable_delta: float = 0.1
     cuda_prec: str = "double"
-    # "auto" resolves to cuda_prec (mixed precision is not ported yet)
+    # "auto" resolves to cuda_prec (the JAX package's non-TPU branch);
+    # "half" is bfloat16 pair storage with reliable updates
     cuda_prec_sloppy: str = "auto"
     # results
     true_res: float = 0.0
@@ -68,6 +76,12 @@ class InvertParam:
     secs: float = 0.0
     gflops: float = 0.0
     converged: bool = True
+    # the df64 route's low word: x + x_df64_lo is the full-precision
+    # solution (None on the other routes)
+    x_df64_lo: object = None
+    # reliable updates made by the mixed-precision and df64 routes (a
+    # result the JAX package reports only in its traced events)
+    reliable_updates: int = 0
 
     def validate(self):
         _check(self.dslash_type in DSLASH_TYPES,
@@ -80,4 +94,8 @@ class InvertParam:
                f"unknown matpc_type {self.matpc_type}")
         _check(self.tol > 0 and self.maxiter > 0, "bad tol/maxiter")
         _check(self.cuda_prec in PRECISIONS, f"bad prec {self.cuda_prec}")
+        _check(self.cuda_prec_sloppy in PRECISIONS + ("auto",),
+               f"bad sloppy prec {self.cuda_prec_sloppy}")
+        _check(0.0 < self.reliable_delta < 1.0,
+               f"bad reliable_delta {self.reliable_delta}")
         return self

@@ -1,12 +1,23 @@
 """Public entry points: init_quda / load_gauge_quda / invert_quda / end_quda.
 
-Port of the Wilson even/odd CG path of quda_tpu/interfaces/quda_api.py.
+Port of the Wilson even/odd CG paths of quda_tpu/interfaces/quda_api.py.
 ``invert_quda`` serves dslash_type="wilson", inv_type="cg",
-solve_type="normop-pc" in single precision, through the packed pair
-route (``_WilsonPairsSolve``): prepare, the CG loop on MdagM and
-reconstruct all run on the eo hop kernel, the CG tail on the fused tail
-kernel.  The epilogue checks the true residual of M x = b with the
-full-lattice complex operator (ops/wilson.py), which no kernel touches.
+solve_type="normop-pc" with cuda_prec="single" on three routes, all on
+the packed pair representation (``_WilsonPairsSolve``):
+
+* sloppy = single, tol >= 5e-8: ``fused_cg`` on the float32 pair
+  operator (every hop on the eo kernel, the CG tail on the fused tail
+  kernel);
+* sloppy = half, tol >= 5e-8: ``cg_reliable`` with a bfloat16 sloppy
+  operator and reliable updates on the float32 one;
+* tol < 5e-8, sloppy single or half: the df64 route, ``cg_reliable_df``
+  against a float32-pair precise operator (``_invert_wilson_df64``),
+  which publishes ``param.x_df64_lo``.
+
+Links are full or recon-12 (``GaugeParam.reconstruct`` 18 or 12).  The
+epilogue checks the true residual of
+M x = b with the full-lattice complex operator (ops/wilson.py), which no
+kernel touches; the df64 route reports its df64 full-lattice residual.
 Every other route raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.
 
@@ -110,10 +121,21 @@ def _build_dirac(p: InvertParam, pc: bool, dtype):
 
 def _resolve_sloppy(param: InvertParam) -> str:
     """cuda_prec_sloppy="auto" -> cuda_prec (the JAX package's non-TPU
-    branch; the bf16 sloppy default exists only on a TPU)."""
-    if param.cuda_prec_sloppy == "auto":
-        return param.cuda_prec
-    return param.cuda_prec_sloppy
+    branch; its bf16 default exists only on a TPU)."""
+    if param.cuda_prec_sloppy != "auto":
+        return param.cuda_prec_sloppy
+    return param.cuda_prec
+
+
+def _link_form() -> str:
+    """The packed operators' link form from the resident gauge's
+    ``reconstruct``."""
+    rec = _ctx["gauge_param"].reconstruct
+    if rec == 8:
+        raise NotImplementedError(
+            "reconstruct 8 is not ported yet (ROADMAP A7/B9); the port "
+            "serves 18 and 12")
+    return "r12" if rec == 12 else "full"
 
 
 def _check_route(param: InvertParam, sloppy: str):
@@ -133,16 +155,27 @@ def _check_route(param: InvertParam, sloppy: str):
             "remaining solvers (ROADMAP A11)")
     if param.cuda_prec != "single":
         raise NotImplementedError(
-            f"cuda_prec {param.cuda_prec!r}: only single is ported; the "
-            "precision ladder comes with ROADMAP A7")
-    if sloppy != param.cuda_prec:
+            f"cuda_prec {param.cuda_prec!r}: only single is ported; native "
+            "f64 against df64 on the card is a later, measured step of "
+            "ROADMAP A7")
+    if sloppy == "quarter":
         raise NotImplementedError(
-            f"cuda_prec_sloppy {sloppy!r}: mixed precision is not ported "
-            "yet (ROADMAP A7)")
-    if param.tol < 5e-8:
+            "cuda_prec_sloppy 'quarter' (int8 block-float links) is not "
+            "ported yet (ROADMAP A7/B9)")
+    if sloppy not in ("single", "half"):
         raise NotImplementedError(
-            f"tol {param.tol:g}: below 5e-8 the JAX package takes its df64 "
-            "route, not ported yet (ROADMAP A7)")
+            f"cuda_prec_sloppy {sloppy!r} above cuda_prec 'single' is not "
+            "a mixed-precision route (ROADMAP A7)")
+
+
+def _df64_route(param: InvertParam) -> bool:
+    """The deep-tolerance gate (quda_api.py:1135-1147 of the JAX package):
+    below tol 5e-8 an f32 precise side cannot certify the residual."""
+    return param.tol < 5e-8
+
+
+def _store_dtype(sloppy: str):
+    return torch.bfloat16 if sloppy == "half" else torch.float32
 
 
 class _WilsonPairsSolve:
@@ -150,9 +183,9 @@ class _WilsonPairsSolve:
     Mdag, MdagM and reconstruct of the float32 pair operator, whose every
     hop runs the eo kernel."""
 
-    def __init__(self, dpk):
+    def __init__(self, dpk, form: str):
         self._dpk = dpk
-        self.op = dpk.pairs(torch.float32)
+        self.op = dpk.pairs(torch.float32, precision_form=form)
 
     def prepare(self, b_even, b_odd):
         return self.op.prepare_pairs(b_even, b_odd)
@@ -186,10 +219,39 @@ def _solve_supervision(param: InvertParam, api: str, converged) -> None:
                 param.true_res)
 
 
+def _invert_wilson_df64(b, param: InvertParam, dpk, sloppy: str,
+                        form: str):
+    """Deep-tolerance Wilson PC CG with a df64 (float32-pair) precise
+    side: 1e-10-class true residuals with no f64 (ops/wilson_df64.py).
+    Returns the f32-rounded solution and publishes its low word as
+    ``param.x_df64_lo``: x + x_df64_lo is the full-precision solution."""
+    from .. import solvers
+    from ..ops import df64 as dfm
+    from ..ops import wilson_df64 as wdf
+
+    geom = _ctx["geom"]
+    op = wdf.WilsonPCDF64(dpk)
+    be, bo = even_odd_split(b, geom)
+    rhs_df = op.prepare_df(be, bo)
+    store = _store_dtype(sloppy)
+    sl = dpk.pairs(store, precision_form=form)
+    res = solvers.cg_reliable_df(
+        op, sl.MdagM_pairs, rhs_df, solvers.pair_inplace_codec(store),
+        tol=param.tol, maxiter=param.maxiter, delta=param.reliable_delta)
+
+    xe_df, xo_df = op.reconstruct_df(res.x, be, bo)
+    fr2 = float(dfm.to_f32(op.full_residual_norm2(xe_df, xo_df, be, bo)))
+    param.true_res = math.sqrt(fr2 / float(blas.norm2_comp(b)))
+    xe_hi, xe_lo = op.from_df(xe_df, b.dtype)
+    xo_hi, xo_lo = op.from_df(xo_df, b.dtype)
+    param.x_df64_lo = even_odd_join(xe_lo, xo_lo, geom)
+    return even_odd_join(xe_hi, xo_hi, geom), res
+
+
 def invert_quda(source, param: InvertParam):
     """invertQuda: solve M x = b; returns x (T,Z,Y,X,4,3) on the session's
-    device and fills param.true_res, iter_count, secs, gflops and
-    converged."""
+    device and fills param.true_res, iter_count, secs, gflops, converged
+    and reliable_updates (and x_df64_lo on the df64 route)."""
     from .. import solvers
 
     _require_init()
@@ -198,6 +260,7 @@ def invert_quda(source, param: InvertParam):
         raise RuntimeError("load_gauge_quda() first")
     sloppy = _resolve_sloppy(param)
     _check_route(param, sloppy)
+    form = _link_form()
     dev = _ctx["device"]
     geom = _ctx["geom"]
     dtype = complex_dtype(param.cuda_prec)
@@ -209,30 +272,45 @@ def invert_quda(source, param: InvertParam):
         raise ValueError(f"source shape {tuple(b.shape)} != "
                          f"{geom.spinor_shape()}")
     t0 = time.perf_counter()
+    param.x_df64_lo = None
 
-    d = _WilsonPairsSolve(_build_dirac(param, True, dtype).packed())
-    d_full = _build_dirac(param, False, dtype)
-    be, bo = even_odd_split(b, geom)
-    rhs = d.prepare(be, bo)
+    dpk = _build_dirac(param, True, dtype).packed()
     # normal equations: MdagM x = Mdag b, two M applies per iteration
-    sys_rhs = d.Mdag(rhs)
     mv_applies = 2.0
-    res = solvers.create(param.inv_type)(
-        d.MdagM, sys_rhs, tol=param.tol, maxiter=param.maxiter,
-        tol_hq=param.tol_hq)
-
-    xe, xo = d.reconstruct(res.x, be, bo)
-    x_full = even_odd_join(xe, xo, geom)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if _df64_route(param):
+        x_full, res = _invert_wilson_df64(b, param, dpk, sloppy, form)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        param.secs = time.perf_counter() - t0
+    else:
+        d = _WilsonPairsSolve(dpk, form)
+        be, bo = even_odd_split(b, geom)
+        sys_rhs = d.Mdag(d.prepare(be, bo))
+        if sloppy == param.cuda_prec:
+            res = solvers.create(param.inv_type)(
+                d.MdagM, sys_rhs, tol=param.tol, maxiter=param.maxiter,
+                tol_hq=param.tol_hq)
+        else:
+            store = _store_dtype(sloppy)
+            sl = dpk.pairs(store, precision_form=form)
+            res = solvers.cg_reliable(
+                d.MdagM, sl.MdagM_pairs, sys_rhs,
+                solvers.pair_inplace_codec(store), tol=param.tol,
+                maxiter=param.maxiter, delta=param.reliable_delta)
+        xe, xo = d.reconstruct(res.x, be, bo)
+        x_full = even_odd_join(xe, xo, geom)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        param.secs = time.perf_counter() - t0
+        r = b - _build_dirac(param, False, dtype).M(x_full)
+        param.true_res = math.sqrt(float(blas.norm2(r))
+                                   / float(blas.norm2(b)))
     param.iter_count = int(res.iters)
-    param.secs = time.perf_counter() - t0
-    r = b - d_full.M(x_full)
-    param.true_res = math.sqrt(float(blas.norm2(r)) / float(blas.norm2(b)))
+    param.reliable_updates = int(res.reliable_updates)
     # flops_per_site_M counts per UPDATED site, and the PC operator
     # updates one parity: volume/2 sites
     sites = geom.volume // 2
-    param.gflops = (param.iter_count * mv_applies * d.flops_per_site_M()
+    param.gflops = (param.iter_count * mv_applies * dpk.flops_per_site_M()
                     * sites) / 1e9
     _solve_supervision(param, "invert_quda", res.converged)
     log.info("invert_quda[%s/%s]: %d iters, true_res %.2e, %.2f s",

@@ -11,7 +11,9 @@ x_{1-p} = b_{1-p} + kappa D_{1-p,p} x_p.
 The packed pair operator (``DiracWilsonPCPackedSloppy``, reached through
 ``DiracWilsonPCPacked.pairs``) runs every hop through the CUDA kernel's
 wrapper (ops/wilson_pallas_packed.dslash_eo_pallas_packed): on the card
-the kernel, on CPU tensors its plain version.
+the kernel, on CPU tensors its plain version.  Its storage is float32
+(the precise operator) or bfloat16 (the sloppy operator of mixed
+precision), with full or reconstruct-12 links.
 """
 
 from __future__ import annotations
@@ -24,6 +26,27 @@ from ..ops import wilson_packed as wpk
 from ..ops import wilson_pallas_packed as wpp
 from ..ops.boundary import apply_t_boundary
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
+
+STORE_DTYPES = (torch.float32, torch.bfloat16)
+PRECISION_FORMS = ("full", "r12")
+# forms of the JAX package's packed operator that wait for ROADMAP A7/B9
+QUEUED_FORMS = ("auto", "bzfull", "fold", "r12f", "int8")
+
+# gamma5 sign tensors, one per (device, ndim, spin axis): built once, so
+# an apply makes no host-to-device copy
+_G5_SIGNS: dict = {}
+
+
+def _g5_sign(device, ndim: int, spin_axis: int) -> torch.Tensor:
+    key = (device, ndim, spin_axis)
+    sign = _G5_SIGNS.get(key)
+    if sign is None:
+        shape = [1] * ndim
+        shape[spin_axis] = 4
+        sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=torch.float32,
+                            device=device).reshape(shape)
+        _G5_SIGNS[key] = sign
+    return sign
 
 
 class DiracWilson(Dirac):
@@ -105,11 +128,9 @@ class _PairSloppyBase:
         return out.to(self.store_dtype)
 
     def _g5_pairs(self, x):
-        """gamma5 = diag(+1,+1,-1,-1) on the spin axis."""
-        shape = [1] * x.ndim
-        shape[self._spin_axis % x.ndim] = 4
-        sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=torch.float32,
-                            device=x.device).reshape(shape)
+        """gamma5 = diag(+1,+1,-1,-1) on the spin axis, computed in f32
+        and cast back to x's dtype."""
+        sign = _g5_sign(x.device, x.ndim, self._spin_axis % x.ndim)
         return (x.to(torch.float32) * sign).to(x.dtype)
 
     def Mdag_pairs(self, x):
@@ -121,25 +142,42 @@ class _PairSloppyBase:
 
 class _PackedHopMixin:
     """The packed eo Wilson hop on pair arrays: gauge setup, the stencil
-    dispatch, and the canonical <-> packed spinor converters.  Full link
-    storage, single device."""
+    dispatch, and the canonical <-> packed spinor converters.  Single
+    device; float32 or bfloat16 storage; full or recon-12 links."""
 
     _spin_axis = 0
 
     def _setup_hop(self, geom: LatticeGeometry, gauge_eo_packed,
-                   store_dtype):
+                   store_dtype, tb_sign: bool = True,
+                   precision_form: str = "full"):
         """gauge_eo_packed: (even, odd) complex packed (4,3,3,T,Z,Y*Xh)
-        links (wilson_packed.pack_gauge_eo)."""
-        if store_dtype != torch.float32:
+        links (wilson_packed.pack_gauge_eo), boundary phase folded in.
+        ``precision_form``: "full" (18 reals per link) or "r12" (two rows,
+        row 2 rebuilt in the hop).  ``tb_sign``: the t boundary is
+        antiperiodic, so the recon-12 hop negates the rebuilt row of the
+        boundary t links."""
+        if store_dtype not in STORE_DTYPES:
             raise NotImplementedError(
-                f"pair storage {store_dtype}: only float32 is ported; bf16 "
-                "and int8 storage come with mixed precision (ROADMAP A7)")
+                f"pair storage {store_dtype}: float32 and bfloat16 are "
+                "ported; int8 block-float links ('quarter') wait for "
+                "ROADMAP A7/B9")
+        form = precision_form
+        if form in QUEUED_FORMS:
+            raise NotImplementedError(
+                f"precision_form {form!r} is not ported yet (ROADMAP "
+                f"A7/B9); the port serves {PRECISION_FORMS}")
+        if form not in PRECISION_FORMS:
+            raise ValueError(f"unknown precision_form {form!r}")
         self.geom = geom
         self.dims = tuple(geom.lattice_shape)
         self.store_dtype = store_dtype
-        self.gauge_eo_pp = tuple(
-            wpk.to_packed_pairs(g, store_dtype).contiguous()
-            for g in gauge_eo_packed)
+        self._precision_form = form
+        self._tb_sign = bool(tb_sign)
+        pp = tuple(wpk.to_packed_pairs(g, store_dtype) for g in
+                   gauge_eo_packed)
+        if form == "r12":
+            pp = tuple(wpp.to_recon12(g) for g in pp)
+        self.gauge_eo_pp = tuple(g.contiguous() for g in pp)
         # resident pre-shifted backward links, one set per target parity
         self._u_bw = tuple(
             wpp.backward_gauge_eo(self.gauge_eo_pp[1 - p], self.dims,
@@ -149,7 +187,8 @@ class _PackedHopMixin:
     def _d_to(self, psi_pp, target_parity, out_dtype):
         return wpp.dslash_eo_pallas_packed(
             self.gauge_eo_pp[target_parity], self._u_bw[target_parity],
-            psi_pp, self.dims, target_parity, out_dtype=out_dtype)
+            psi_pp, self.dims, target_parity, out_dtype=out_dtype,
+            tb_sign=self._tb_sign)
 
     def _to_pairs(self, x):
         """Canonical (T,Z,Y,Xh,4,3) complex -> packed pairs."""
@@ -176,11 +215,13 @@ class DiracWilsonPCPacked:
     def flops_per_site_M(self) -> int:
         return self._dpc.flops_per_site_M()
 
-    def pairs(self, store_dtype=torch.float32) -> "DiracWilsonPCPackedSloppy":
-        """Pair-storage companion: with float32 storage, the precise
-        operator in a complex-free representation, every hop on the
-        eo kernel."""
-        return DiracWilsonPCPackedSloppy(self, store_dtype)
+    def pairs(self, store_dtype=torch.float32,
+              precision_form: str = "full") -> "DiracWilsonPCPackedSloppy":
+        """Pair-storage companion, every hop on the eo kernel: with
+        float32 storage the precise operator in a complex-free
+        representation, with bfloat16 the sloppy operator of the mixed
+        solve.  ``precision_form``: "full" or "r12" links."""
+        return DiracWilsonPCPackedSloppy(self, store_dtype, precision_form)
 
 
 class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
@@ -188,8 +229,11 @@ class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
     (4,3,2,T,Z,Y*Xh), links likewise.  ``prepare_pairs`` and
     ``reconstruct_pairs`` take canonical complex parity sources."""
 
-    def __init__(self, dpk: DiracWilsonPCPacked, store_dtype=torch.float32):
-        self._setup_hop(dpk.geom, dpk.gauge_eo_p, store_dtype)
+    def __init__(self, dpk: DiracWilsonPCPacked, store_dtype=torch.float32,
+                 precision_form: str = "full"):
+        self._setup_hop(dpk.geom, dpk.gauge_eo_p, store_dtype,
+                        tb_sign=dpk._dpc.antiperiodic_t,
+                        precision_form=precision_form)
         self.kappa = float(dpk.kappa)
         self.matpc = dpk.matpc
 

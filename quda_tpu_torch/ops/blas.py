@@ -1,8 +1,11 @@
 """Site-wise BLAS and reductions, as in quda_tpu/ops/blas.py.
 
 Plain PyTorch; on the solve path the reductions stay here while the CG
-tail runs as one kernel (ops/blas_pallas.py), whose plain version is
-``triple_cg_update``.  Works on real (pair-form) and complex tensors.
+tail and the reliable-update residual update run as kernels
+(ops/blas_pallas.py), whose plain versions are ``triple_cg_update`` and
+``blas_pallas.axpy_norm2_plain``.  Works on real (pair-form) and complex
+tensors.  The compensated sums (``norm2_comp``, ``cdot_comp``) accumulate
+in float64.
 """
 
 from __future__ import annotations
@@ -26,6 +29,30 @@ def redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.is_complex():
         return torch.sum(x.real * y.real + x.imag * y.imag)
     return torch.sum(x * y)
+
+
+# -- compensated reductions -------------------------------------------------
+# Wherever a reported residual must be trusted below the f32 accumulation
+# floor (reliable updates, the df64 route's epilogue), the sum runs in
+# float64: the square of an f32 value is exact in f64, and an f64 sum of
+# n terms is off by O(n 2^-53), far below the f32 floor.  The card has
+# native f64, so this is one reduction; the JAX package emulates it with
+# df64 (ops/df64.py) for want of f64 on a TPU.
+
+def _f64(x: torch.Tensor) -> torch.Tensor:
+    return (torch.view_as_real(x) if x.is_complex() else x).to(torch.float64)
+
+
+def norm2_comp(x: torch.Tensor) -> torch.Tensor:
+    """|x|^2 accumulated in float64 (a float64 0-d tensor)."""
+    v = _f64(x)
+    return torch.sum(v * v)
+
+
+def cdot_comp(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """<x, y> = sum conj(x) y accumulated in complex128."""
+    return torch.sum(torch.conj(x.to(torch.complex128))
+                     * y.to(torch.complex128))
 
 
 def triple_cg_update(a, p, Ap, x, r):

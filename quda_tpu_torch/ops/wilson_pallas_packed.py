@@ -3,19 +3,23 @@
 Replaces quda_tpu/ops/wilson_pallas_packed.py::dslash_eo_pallas_packed
 (the Pallas TPU kernel, ``_make_kernel(eo=...)``) with the hand-written
 CUDA kernel ``csrc/wilson_eo.cu``.  Layouts are the JAX package's pallas
-layout, float32:
+layout:
 
     psi, out    (4, 3, 2, T, Z, Y*Xh)
-    u_here      (4, 3, 3, 2, T, Z, Y*Xh)   forward links at target sites
-    u_bw        (4, 3, 3, 2, T, Z, Y*Xh)   backward_gauge_eo: U_mu(x - mu)
+    u_here      (4, R, 3, 2, T, Z, Y*Xh)   forward links at target sites
+    u_bw        (4, R, 3, 2, T, Z, Y*Xh)   backward_gauge_eo: U_mu(x - mu)
 
-Storage form ``full`` (R = 3 link rows) only; the recon-12 form
-(R = 2 with ``tb_sign``) is still to port.
+Storage forms, each a kernel instance: psi and links both float32 or both
+bfloat16; out float32, or bfloat16 from bf16 storage; R = 3 link rows
+(``full``) or R = 2 (``r12``, ``to_recon12``: row 2 = conj(row0 x row1)
+rebuilt at use, with ``tb_sign`` negating it on the antiperiodic t
+boundary planes).  Sums are float32 in every form.
 
 The wrapper dispatches on the tensors' device: CPU tensors run the plain
-version (``dslash_eo_packed_plain``, i.e.
-ops/wilson_packed.dslash_eo_packed_pairs_bw), CUDA tensors launch the
-kernel or raise.  ``dslash_eo_pallas_packed.launches`` counts launches.
+version (``dslash_eo_packed_plain``), CUDA tensors launch the kernel or
+raise.  ``dslash_eo_pallas_packed.launches`` counts launches, and
+``.launches_by_form`` counts them per form (``"full:f32->f32"``,
+``"r12:bf16->bf16"``, ...).
 """
 
 from __future__ import annotations
@@ -25,66 +29,166 @@ import torch
 from ..utils import kernels
 from . import wilson_packed as wpk
 
-# Kernel vs plain version, max |kernel - plain| / max |plain|: both sum the
-# same f32 terms, in another order and with fused multiply-adds on the card.
+# Kernel vs plain version, max |kernel - plain| / max |plain|, for float32
+# output (from f32 or bf16 storage: the same inputs, f32 sums in another
+# order and with fused multiply-adds on the card).
 TOLERANCE = 1e-5
-# Floor of the kernel's device-memory traffic per half-site in bytes: psi
-# 96 + u_here 288 + u_bw 288 + out 96, each read or written once.
-BYTES_PER_SITE = 768
+# The same for bfloat16 output: both round f32 sums once, so an element
+# whose sums differ near a rounding boundary moves by one bf16 ulp, at most
+# 2^-7 of max |plain|.
+TOLERANCE_BF16 = 2.0 ** -7
+# Floor of the kernel's device-memory traffic per half-site in bytes, each
+# input read once and the output written once (psi 24 numbers, links
+# 8 x 9 or 8 x 6 complex, out 24), by (rows, storage bytes, out bytes).
 FLOPS_PER_SITE = 1320
+RECON_FLOPS_PER_SITE = 8 * 3 * 14
+_STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def bytes_per_site(rows: int = 3, store_dtype=torch.float32,
+                   out_dtype=None) -> int:
+    sb = _STORE_BYTES[store_dtype]
+    ob = _STORE_BYTES[out_dtype or store_dtype]
+    return 24 * sb + 8 * rows * 3 * 2 * sb + 24 * ob
+
+
+BYTES_PER_SITE = bytes_per_site()          # 768, the f32 full form
+
+
+def flops_per_site(rows: int = 3) -> int:
+    return FLOPS_PER_SITE + (RECON_FLOPS_PER_SITE if rows == 2 else 0)
+
+
+def form_name(rows: int, store_dtype, out_dtype) -> str:
+    """``"full:f32->f32"``-style key of ``launches_by_form``."""
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    return (f"{'r12' if rows == 2 else 'full'}:{short[store_dtype]}->"
+            f"{short[out_dtype]}")
+
+
+def to_recon12(gauge_pl: torch.Tensor) -> torch.Tensor:
+    """Packed links -> reconstruct-12 storage: keep rows 0-1 only.
+    (4, 3, 3, 2, T, Z, YX) -> (4, 2, 3, 2, T, Z, YX); 192 B/site f32
+    instead of 288.  Valid for SU(3) links, boundary phase folded in
+    included: the hop re-applies the sign to the rebuilt row."""
+    return gauge_pl[:, :2].contiguous()
 
 
 def backward_gauge_eo(u_there_pl: torch.Tensor, dims,
                       target_parity: int) -> torch.Tensor:
     """Pre-shifted backward links on the half lattice:
     out[mu](x) = U_mu(x - mu) for parity-``target_parity`` sites x, from
-    the opposite-parity links ``u_there_pl`` (4,3,3,2,T,Z,Y*Xh).
+    the opposite-parity links ``u_there_pl`` (4,R,3,2,T,Z,Y*Xh).
     Computed once per gauge load."""
     return torch.stack([
         wpk.shift_eo_packed(u_there_pl[mu], dims, mu, -1, target_parity)
         for mu in range(4)])
 
 
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def recon12_rows(u_pl: torch.Tensor, row2_sign=None) -> torch.Tensor:
+    """R = 2 links (..., 2, 3, 2, *site) -> full (..., 3, 3, 2, *site) in
+    f32, row 2 = conj(row0 x row1) * ``row2_sign`` (the arithmetic of the
+    JAX package's ``_recon12_wrap``)."""
+    u = u_pl.to(torch.float32)
+    r0r, r0i = u[..., 0, :, 0, :, :, :], u[..., 0, :, 1, :, :, :]
+    r1r, r1i = u[..., 1, :, 0, :, :, :], u[..., 1, :, 1, :, :, :]
+    cols = []
+    for b in range(3):
+        b1, b2 = (b + 1) % 3, (b + 2) % 3
+        pr, pi = _cmul(r0r[..., b1, :, :, :], r0i[..., b1, :, :, :],
+                       r1r[..., b2, :, :, :], r1i[..., b2, :, :, :])
+        qr, qi = _cmul(r0r[..., b2, :, :, :], r0i[..., b2, :, :, :],
+                       r1r[..., b1, :, :, :], r1i[..., b1, :, :, :])
+        re, im = pr - qr, -(pi - qi)
+        if row2_sign is not None:
+            re, im = re * row2_sign, im * row2_sign
+        cols.append(torch.stack([re, im], dim=-4))
+    row2 = torch.stack(cols, dim=-5)
+    return torch.cat([u, row2.unsqueeze(-6)], dim=-6)
+
+
+def _t_boundary_sign(T: int, t_plane: int, device) -> torch.Tensor:
+    """(T, 1, 1) f32: -1 on plane ``t_plane``, +1 elsewhere."""
+    s = torch.ones((T, 1, 1), dtype=torch.float32, device=device)
+    s[t_plane] = -1.0
+    return s
+
+
 def dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
-                           target_parity: int, out_dtype=None):
-    """Plain PyTorch version of the kernel, on the kernel's inputs."""
+                           target_parity: int, out_dtype=None,
+                           tb_sign: bool = True):
+    """Plain PyTorch version of the kernel, on the kernel's inputs.  R = 2
+    links are rebuilt to full f32 links first (row 2 of the t links
+    negated on t = T-1 forward and t = 0 backward when ``tb_sign``), then
+    the full-link stencil runs."""
+    if u_here_pl.shape[1] == 2:
+        T = dims[0]
+        dev = u_here_pl.device
+        sf = _t_boundary_sign(T, T - 1, dev) if tb_sign else None
+        sb = _t_boundary_sign(T, 0, dev) if tb_sign else None
+        u_here_pl = torch.cat([recon12_rows(u_here_pl[:3]),
+                               recon12_rows(u_here_pl[3:], sf)])
+        u_bw_pl = torch.cat([recon12_rows(u_bw_pl[:3]),
+                             recon12_rows(u_bw_pl[3:], sb)])
     return wpk.dslash_eo_packed_pairs_bw(u_here_pl, u_bw_pl, psi_pl, dims,
                                          target_parity, out_dtype)
 
 
 def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
                             psi_pl: torch.Tensor, dims, target_parity: int,
-                            out_dtype=None) -> torch.Tensor:
+                            out_dtype=None,
+                            tb_sign: bool = True) -> torch.Tensor:
     """Checkerboarded Wilson hop D_{p <- 1-p} on pair arrays: the solver
     hot loop's stencil.  Returns the hop sum indexed by
-    parity-``target_parity`` sites, same layout as ``psi_pl``."""
+    parity-``target_parity`` sites, same layout as ``psi_pl``, in
+    ``out_dtype`` (default: psi's dtype)."""
     T, Z, Y, X = dims
     Xh = X // 2
-    if u_here_pl.ndim != 7 or u_here_pl.shape[1] != 3:
-        raise NotImplementedError(
-            "only full (R=3) link storage is ported; recon-12 (R=2, "
-            "tb_sign) is queued as B1's second form in ROADMAP.md")
+    rows = u_here_pl.shape[1] if u_here_pl.ndim == 7 else 0
+    if rows not in (2, 3):
+        raise ValueError(f"links of shape {tuple(u_here_pl.shape)}: "
+                         "expected (4, R, 3, 2, T, Z, Y*Xh) with R = 3 "
+                         "(full) or 2 (recon-12)")
     if target_parity not in (0, 1):
         raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
     kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl)
     if kind == "cpu":
         return dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
-                                      target_parity, out_dtype)
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"out_dtype {out_dtype}: the kernel writes float32")
+                                      target_parity, out_dtype, tb_sign)
+    store = psi_pl.dtype
+    out_dtype = out_dtype or store
+    if store not in _STORE_BYTES or out_dtype not in _STORE_BYTES:
+        raise TypeError(f"psi {store} -> out {out_dtype}: the kernel takes "
+                        "float32 or bfloat16")
+    if store == torch.float32 and out_dtype == torch.bfloat16:
+        raise TypeError("float32 storage with bfloat16 output has no kernel "
+                        "instance")
     sites = (T, Z, Y * Xh)
-    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites)
-    kernels.require(u_here_pl, "u_here_pl", (4, 3, 3, 2) + sites)
-    kernels.require(u_bw_pl, "u_bw_pl", (4, 3, 3, 2) + sites)
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
+    kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, store)
+    kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, store)
     lib = kernels.library()
-    out = torch.empty_like(psi_pl)
-    rc = lib.qtt_wilson_eo_f32(
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_wilson_eo(
         out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
         u_bw_pl.data_ptr(), T, Z, Y, Xh, int(target_parity),
-        kernels.stream_of(psi_pl))
-    kernels.check_launch(rc, "qtt_wilson_eo_f32")
+        int(store == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        rows, int(bool(tb_sign)), kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_eo")
     dslash_eo_pallas_packed.launches += 1
+    form = form_name(rows, store, out_dtype)
+    by_form = dslash_eo_pallas_packed.launches_by_form
+    by_form[form] = by_form.get(form, 0) + 1
     return out
 
 
-dslash_eo_pallas_packed.launches = 0
+def reset_launches() -> None:
+    dslash_eo_pallas_packed.launches = 0
+    dslash_eo_pallas_packed.launches_by_form = {}
+
+
+reset_launches()

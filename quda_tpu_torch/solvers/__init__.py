@@ -1,10 +1,13 @@
-"""Krylov solvers.  Only CG is ported so far (ROADMAP A5); the rest of
-quda_tpu/solvers/ is queued under A7, A8 and A11."""
+"""Krylov solvers.  CG (ROADMAP A5) and the mixed-precision reliable-update
+CGs with their storage codecs (A7) are ported; the rest of
+quda_tpu/solvers/ is queued under A8 and A11."""
 
 from __future__ import annotations
 
 from .cg import SolverResult, cg
 from .fused_iter import fused_cg
+from .mixed import (StorageCodec, cg_reliable, cg_reliable_df,
+                    packed_pair_codec, pair_inplace_codec)
 
 _REGISTRY = {"cg": cg}
 
@@ -19,4 +22,6 @@ def create(name: str):
     return _REGISTRY[key]
 
 
-__all__ = ["SolverResult", "cg", "fused_cg", "create"]
+__all__ = ["SolverResult", "StorageCodec", "cg", "cg_reliable",
+           "cg_reliable_df", "create", "fused_cg", "packed_pair_codec",
+           "pair_inplace_codec"]

@@ -19,6 +19,9 @@ class SolverResult(NamedTuple):
     converged: bool
     history: Optional[object] = None
     breakdown: Optional[object] = None
+    # reliable updates made (solvers/mixed.py); 0 for the other solvers.
+    # The JAX package reports them only in its traced history.
+    reliable_updates: int = 0
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,

@@ -38,11 +38,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
-    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, stream
-    "qtt_wilson_eo_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, store_bf16, out_bf16,
+    # rows, tb_sign, stream
+    "qtt_wilson_eo": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),
+    # a, x, y, y_out, partial, n2, n, nblocks, bf16, stream
+    "qtt_axpy_norm2": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 

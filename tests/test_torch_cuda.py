@@ -20,7 +20,7 @@ from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
 from tests.torch_inputs import (ASYM, SMALL, gaussian, lattice_shape,
                                 noisy_gauge, pair_spinor_shape, rel_err,
-                                require_cuda)
+                                require_cuda, su3_gauge)
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +44,102 @@ def test_eo_kernel_matches_plain(parity):
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < wpp.TOLERANCE
 
 
+# (rows, storage, out) of each eo-hop instance beyond full f32
+FORMS = [(3, torch.bfloat16, torch.bfloat16), (3, torch.bfloat16, torch.float32),
+         (2, torch.float32, torch.float32), (2, torch.bfloat16, torch.bfloat16),
+         (2, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", FORMS,
+                         ids=lambda f: wpp.form_name(*f))
+def test_eo_kernel_forms_match_plain(form, parity, tb_sign):
+    """bf16 storage and recon-12 on 4x6x8x10 (T=10: both t boundary
+    planes hold sites of each parity): f32 output within TOLERANCE,
+    bf16 output within TOLERANCE_BF16 (one bf16 ulp of max |plain|)."""
+    dev = require_cuda()
+    rows, store, out = form
+    dims = lattice_shape(ASYM)
+    gen = torch.Generator(device=dev).manual_seed(7 + parity)
+    sites = pair_spinor_shape(ASYM)[3:]
+    psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev).to(store)
+    u_here = torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                         device=dev).to(store)
+    u_bw = wpp.backward_gauge_eo(
+        torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev),
+        dims, parity).to(store).contiguous()
+    name = wpp.form_name(rows, store, out)
+    n0 = wpp.dslash_eo_pallas_packed.launches_by_form.get(name, 0)
+    got = wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims, parity,
+                                      out_dtype=out, tb_sign=tb_sign)
+    want = wpp.dslash_eo_packed_plain(u_here, u_bw, psi, dims, parity,
+                                      out_dtype=out, tb_sign=tb_sign)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert wpp.dslash_eo_pallas_packed.launches_by_form[name] == n0 + 1
+    tol = wpp.TOLERANCE if out == torch.float32 else wpp.TOLERANCE_BF16
+    assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
+        <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_axpy_norm2_kernel_matches_plain(dtype):
+    """B3: y' equal to the plain version's (both round a x and y + a x
+    separately), |y'|^2 within TOLERANCE, the same bits on a second run."""
+    dev = require_cuda()
+    x, y = (torch.from_numpy(gaussian(pair_spinor_shape(SMALL), seed=43 + i,
+                                      dtype=np.float32)).to(dev).to(dtype)
+            for i in range(2))
+    a = torch.tensor(-0.37, device=dev)
+    n0 = bpl.axpy_norm2_pallas.launches
+    ky, kn2 = bpl.axpy_norm2_pallas(a, x, y)
+    ky2, kn22 = bpl.axpy_norm2_pallas(a, x, y)
+    py, pn2 = bpl.axpy_norm2_plain(a, x, y)
+    torch.cuda.synchronize()
+    assert bpl.axpy_norm2_pallas.launches == n0 + 2
+    assert ky.dtype == dtype and torch.equal(ky, py)
+    assert abs(float(kn2) - float(pn2)) <= bpl.TOLERANCE * float(pn2)
+    assert torch.equal(kn2, kn22) and torch.equal(ky, ky2)
+
+
+@pytest.mark.parametrize("form", ["full", "r12"])
+def test_invert_half_on_card_matches_cpu(form):
+    """single/half on 4^3x8 SU(3) links: the card (bf16 hop and B3
+    launches) against the CPU's plain path, iterations within 10%,
+    solutions within 1e-3."""
+    dev = require_cuda()
+    rec = 12 if form == "r12" else 18
+    g = su3_gauge(SMALL, seed=29)
+    b = gaussian(lattice_shape(SMALL) + (4, 3), seed=30)
+    wpp.reset_launches()
+    n3 = bpl.axpy_norm2_pallas.launches
+    xg, pg = _solve(g, b, dev, cuda_prec_sloppy="half", reconstruct=rec)
+    bf16 = sum(v for k, v in wpp.dslash_eo_pallas_packed.launches_by_form
+               .items() if ":bf16->" in k)
+    rows = sum(v for k, v in wpp.dslash_eo_pallas_packed.launches_by_form
+               .items() if k.startswith("r12:"))
+    assert bf16 >= 4 * pg.iter_count
+    assert bpl.axpy_norm2_pallas.launches - n3 >= pg.iter_count
+    assert (rows >= 4 * pg.iter_count) == (form == "r12")
+    xc, pc = _solve(g, b, "cpu", cuda_prec_sloppy="half", reconstruct=rec)
+    assert pg.converged and pg.true_res <= 1e-5 and pg.reliable_updates >= 1
+    assert abs(pg.iter_count - pc.iter_count) <= 0.1 * pc.iter_count
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-3
+
+
+def test_df64_invert_on_card():
+    """The df64 route on the card, 4^4 at tol 1e-10: true_res < 1e-10."""
+    dev = require_cuda()
+    dims = (4, 4, 4, 4)
+    g = noisy_gauge(dims, seed=31)
+    b = gaussian(lattice_shape(dims) + (4, 3), seed=32)
+    _, p = _solve(g, b, dev, dims=dims, tol=1e-10)
+    assert p.converged and p.true_res < 1e-10 and p.x_df64_lo is not None
+
+
 def test_cg_tail_kernel_matches_plain():
     dev = require_cuda()
     tin = [torch.from_numpy(gaussian(pair_spinor_shape(SMALL), seed=41 + i,
@@ -60,13 +156,16 @@ def test_cg_tail_kernel_matches_plain():
     assert abs(float(kr2) - float(pr2)) <= bpl.TOLERANCE * float(pr2)
 
 
-def _solve(g, b, device):
+def _solve(g, b, device, dims=SMALL, reconstruct=18, **kw):
     qt.init_quda(device=device)
     try:
-        qt.load_gauge_quda(g, qt.GaugeParam(X=SMALL, cuda_prec="single"))
-        p = qt.InvertParam(dslash_type="wilson", inv_type="cg",
-                           solve_type="normop-pc", kappa=0.12, tol=1e-6,
-                           maxiter=500, cuda_prec="single")
+        qt.load_gauge_quda(g, qt.GaugeParam(X=dims, cuda_prec="single",
+                                            reconstruct=reconstruct))
+        base = dict(dslash_type="wilson", inv_type="cg",
+                    solve_type="normop-pc", kappa=0.12, tol=1e-6,
+                    maxiter=1000, cuda_prec="single")
+        base.update(kw)
+        p = qt.InvertParam(**base)
         x = qt.invert_quda(b, p)
     finally:
         qt.end_quda()

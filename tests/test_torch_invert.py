@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import quda_tpu_torch as qt
+from quda_tpu_torch.fields.geometry import LatticeGeometry
+from quda_tpu_torch.models.wilson import DiracWilsonPC
 from quda_tpu.interfaces import quda_api as japi
 from quda_tpu.interfaces.params import GaugeParam as JGaugeParam
 from quda_tpu.interfaces.params import InvertParam as JInvertParam
@@ -32,10 +34,11 @@ def _param(cls, **kw):
     return cls(**base)
 
 
-def _port_solve(g, b, device="cpu", **kw):
+def _port_solve(g, b, device="cpu", reconstruct=18, **kw):
     qt.init_quda(device=device)
     try:
-        qt.load_gauge_quda(g, qt.GaugeParam(X=SMALL, cuda_prec="single"))
+        qt.load_gauge_quda(g, qt.GaugeParam(X=SMALL, cuda_prec="single",
+                                            reconstruct=reconstruct))
         p = _param(qt.InvertParam, **kw)
         x = qt.invert_quda(b, p)
     finally:
@@ -96,10 +99,19 @@ def test_init_quda_without_card_raises(monkeypatch):
 @pytest.mark.parametrize("change", [
     {"dslash_type": "clover"}, {"inv_type": "bicgstab"},
     {"solve_type": "direct-pc"}, {"cuda_prec": "double"},
-    {"cuda_prec_sloppy": "half"}, {"tol": 1e-9}],
+    {"cuda_prec_sloppy": "quarter"}, {"precision_form": "r12f"},
+    {"reconstruct": 8}],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_unported_routes_raise(change):
+    """Each route the port does not serve yet raises, naming its ROADMAP
+    item: through invert_quda (with the resident gauge's ``reconstruct``)
+    and through the packed operator's storage form (``precision_form``)."""
     g = noisy_gauge(SMALL, seed=25)
     b = gaussian(lattice_shape(SMALL) + (4, 3), seed=26)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        _port_solve(g, b, **change)
+        if "precision_form" in change:
+            DiracWilsonPC(torch.from_numpy(g), LatticeGeometry(SMALL),
+                          0.12).packed().pairs(
+                torch.float32, precision_form=change["precision_form"])
+        else:
+            _port_solve(g, b, **change)

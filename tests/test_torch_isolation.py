@@ -64,6 +64,7 @@ def card_request(monkeypatch):
     monkeypatch.setattr(kernels, "library", no_library)
     monkeypatch.setattr(wpp, "dslash_eo_packed_plain", plain_reached)
     monkeypatch.setattr(blas, "triple_cg_update", plain_reached)
+    monkeypatch.setattr(bpl, "axpy_norm2_plain", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -74,6 +75,7 @@ def _hop_args(dtype=torch.float32, rows=3):
 
 def test_eo_hop_wrapper_raises_on_card_request(card_request):
     n0 = wpp.dslash_eo_pallas_packed.launches
+    by_form = dict(wpp.dslash_eo_pallas_packed.launches_by_form)
     with pytest.raises(RuntimeError, match="unavailable"):
         wpp.dslash_eo_pallas_packed(*_hop_args(), DIMS, 0)
     with pytest.raises(TypeError):
@@ -81,9 +83,19 @@ def test_eo_hop_wrapper_raises_on_card_request(card_request):
     u, ubw, psi = _hop_args()
     with pytest.raises(ValueError):
         wpp.dslash_eo_pallas_packed(u, ubw, psi.transpose(-1, -2), DIMS, 0)
-    with pytest.raises(NotImplementedError, match="recon-12"):
-        wpp.dslash_eo_pallas_packed(*_hop_args(rows=2), DIMS, 0)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        wpp.dslash_eo_pallas_packed(*_hop_args(torch.bfloat16, rows=2),
+                                    DIMS, 0, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="R = 3"):
+        wpp.dslash_eo_pallas_packed(*_hop_args(rows=1), DIMS, 0)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        wpp.dslash_eo_pallas_packed(*_hop_args(), DIMS, 0,
+                                    out_dtype=torch.bfloat16)
+    u, ubw, psi = _hop_args(torch.bfloat16)
+    with pytest.raises(TypeError):
+        wpp.dslash_eo_pallas_packed(u, ubw, psi.float(), DIMS, 0)
     assert wpp.dslash_eo_pallas_packed.launches == n0
+    assert wpp.dslash_eo_pallas_packed.launches_by_form == by_form
 
 
 def test_cg_tail_wrapper_raises_on_card_request(card_request):
@@ -100,6 +112,29 @@ def test_cg_tail_wrapper_raises_on_card_request(card_request):
         bpl.cg_update_norm2_pallas(torch.tensor(0.5), torch.zeros(12),
                                    *vecs[1:])
     assert bpl.cg_update_norm2_pallas.launches == n0
+
+
+def test_axpy_norm2_wrapper_raises_on_card_request(card_request):
+    n0 = bpl.axpy_norm2_pallas.launches
+    a = torch.tensor(0.5)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        bpl.axpy_norm2_pallas(a, torch.zeros(24), torch.zeros(24))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        bpl.axpy_norm2_pallas(a, torch.zeros(24, dtype=torch.bfloat16),
+                              torch.zeros(24, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        bpl.axpy_norm2_pallas(a, torch.zeros(24, dtype=torch.float64),
+                              torch.zeros(24, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        bpl.axpy_norm2_pallas(a, torch.zeros(24),
+                              torch.zeros(24, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        bpl.axpy_norm2_pallas(torch.zeros(2), torch.zeros(24),
+                              torch.zeros(24))
+    with pytest.raises(ValueError):
+        bpl.axpy_norm2_pallas(a, torch.zeros(24)[1:13],
+                              torch.zeros(24).reshape(2, 12).t())
+    assert bpl.axpy_norm2_pallas.launches == n0
 
 
 def test_wrappers_reject_other_devices():

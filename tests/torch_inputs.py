@@ -55,3 +55,17 @@ def require_cuda() -> torch.device:
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no "
                     "interpret mode")
     return torch.device("cuda", 0)
+
+
+def su3_gauge(dims, seed: int, dtype=np.complex64) -> np.ndarray:
+    """Haar-like random SU(3) links, (4,T,Z,Y,X,3,3): QR of a complex
+    Gaussian with the phases of R's diagonal folded in, scaled to unit
+    determinant.  Recon-12 holds only for such links."""
+    rng = np.random.default_rng(seed)
+    shape = (4,) + lattice_shape(dims) + (3, 3)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    q, r = np.linalg.qr(z)
+    d = np.diagonal(r, axis1=-2, axis2=-1)
+    q = q * (d / np.abs(d))[..., None, :]
+    q = q / np.linalg.det(q)[..., None, None] ** (1.0 / 3.0)
+    return q.astype(dtype)
