@@ -3,9 +3,10 @@
 
     python3 chip_profile.py
 
-Builds the solve of chip_smoke.py's main path at 32^3 x 64 (random SU(3)
-gauge and Gaussian source from a seeded torch.Generator, kappa 0.12),
-then profiles two solvers under torch.profiler, 20 iterations each:
+Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
+SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
+0.12; csw 1.0 for clover), then profiles two solvers per operator
+(Wilson, then Wilson-clover) under torch.profiler, 20 iterations each:
 
 * ``fused_cg`` on the float32 pair operator (the single/single route);
 * ``cg_reliable`` at single/half: the bfloat16 pair operator in the
@@ -14,9 +15,12 @@ then profiles two solvers under torch.profiler, 20 iterations each:
 
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
-CG tail kernel, the axpy_norm2 kernel, and the plain PyTorch kernels
-around them), the wall time per iteration and the device's idle share
-of the window.  Needs one card.
+fused clover hop kernel, the CG tail kernel, the axpy_norm2 kernel, and
+the plain PyTorch kernels around them), the wall time per iteration and
+the device's idle share of the window.  Last, one line with the wall
+time of the clover operator's set-up by part (F_munu, the blocks, their
+inverse, the whole DiracCloverPC, its f32 pair operator), after one
+warm-up build.  Needs one card.
 """
 
 from __future__ import annotations
@@ -50,14 +54,17 @@ def _profile(label, run, torch):
             rows.append((ev.key, ev.count, dev_us))
     rows.sort(key=lambda r: -r[2])
     busy_us = sum(r[2] for r in rows)
-    groups = {"eo_hop_kernel": 0.0, "cg_tail_kernel": 0.0,
-              "axpy_norm2_kernel": 0.0, "plain_torch": 0.0}
+    groups = {"eo_hop_kernel": 0.0, "clover_hop_kernel": 0.0,
+              "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
+              "plain_torch": 0.0}
     # the partial-sum pass belongs to whichever norm kernel this solver ran
-    partials = ("axpy_norm2_kernel" if label == "cg_reliable"
+    partials = ("axpy_norm2_kernel" if label.endswith("cg_reliable")
                 else "cg_tail_kernel")
     for name, _, us in rows:
         if "wilson_eo_kernel" in name:
             groups["eo_hop_kernel"] += us
+        elif "clover_eo_kernel" in name:
+            groups["clover_hop_kernel"] += us
         elif "cg_update_norm2" in name:
             groups["cg_tail_kernel"] += us
         elif "axpy_norm2" in name:
@@ -90,7 +97,10 @@ def main() -> int:
     from quda_tpu_torch.fields.gauge import GaugeField
     from quda_tpu_torch.fields.geometry import LatticeGeometry
     from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
+    from quda_tpu_torch.models.clover import DiracCloverPC
     from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.ops import clover as qcl
+    from quda_tpu_torch.ops import fmunu
     from quda_tpu_torch.solvers.fused_iter import fused_cg
     from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
 
@@ -101,25 +111,51 @@ def main() -> int:
                               device=dev).data
     src = ColorSpinorField.gaussian(geom, gen, dtype=torch.complex64,
                                     device=dev).data
-    dpk = DiracWilsonPC(gauge, geom, 0.12).packed()
-    op = dpk.pairs(torch.float32)
-    lo = dpk.pairs(torch.bfloat16)
     codec = pair_inplace_codec(torch.bfloat16)
     be, bo = even_odd_split(src, geom)
-    rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+    for family, dirac in (
+            ("", lambda: DiracWilsonPC(gauge, geom, 0.12).packed()),
+            ("clover:", lambda: DiracCloverPC(gauge, geom, 0.12, 1.0))):
+        d = dirac()
+        op = d.pairs(torch.float32)
+        lo = d.pairs(torch.bfloat16)
+        rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
 
-    def run_fused(n):
-        return fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=n)
+        def run_fused(n):
+            return fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=n)
 
-    def run_reliable(n):
-        return cg_reliable(op.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
-                           maxiter=n, codec=codec)
+        def run_reliable(n):
+            return cg_reliable(op.MdagM_pairs, lo.MdagM_pairs, rhs,
+                               tol=1e-30, maxiter=n, codec=codec)
 
-    for label, run in (("fused_cg", run_fused),
-                       ("cg_reliable", run_reliable)):
-        run(3)                                               # warm-up
+        for label, run in (("fused_cg", run_fused),
+                           ("cg_reliable", run_reliable)):
+            run(3)                                           # warm-up
+            torch.cuda.synchronize()
+            _profile(family + label, lambda: run(ITERS), torch)
+        del d, op, lo, rhs
+
+    def wall_ms(fn):
         torch.cuda.synchronize()
-        _profile(label, lambda: run(ITERS), torch)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    DiracCloverPC(gauge, geom, 0.12, 1.0).pairs(torch.float32)  # warm-up
+    _, f_ms = wall_ms(lambda: fmunu.field_strength(gauge))
+    blocks, b_ms = wall_ms(lambda: qcl.clover_blocks(gauge, 0.06))
+    _, inv_ms = wall_ms(lambda: qcl.invert_clover(
+        even_odd_split(blocks, geom)[1]))
+    d, pc_ms = wall_ms(lambda: DiracCloverPC(gauge, geom, 0.12, 1.0))
+    _, pairs_ms = wall_ms(lambda: d.pairs(torch.float32))
+    print(json.dumps({
+        "clover_setup_ms": {"field_strength": f_ms,
+                            "clover_blocks_with_field_strength": b_ms,
+                            "invert_clover_half": inv_ms,
+                            "DiracCloverPC": pc_ms, "pairs_f32": pairs_ms},
+        "dims_xyzt": list(DIMS),
+        "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -14,7 +14,10 @@ Phases, one JSON line each (``"phase": ...``):
              f32/bf16 storage, f32/bf16 output) for both target parities at
              4x6x8x10 and at the production size, the CG tail (B2) and
              axpy_norm2 (B3, f32 and bf16) at the production half-lattice
-             size.  Fails above the tolerance the kernel's module states.
+             size, and every form of the fused clover hop (B7: K1 post and
+             K2 diag_hop, full/r12 links, f32/bf16 storage) for both target
+             parities at 4x6x8x10 and at the production size.  Fails above
+             the tolerance the kernel's module states.
 4. invert  — the main path at the production size: a random SU(3) gauge and
              a Gaussian source made on the card from a seeded
              torch.Generator, init_quda -> load_gauge_quda ->
@@ -32,15 +35,24 @@ Phases, one JSON line each (``"phase": ...``):
              its df64 full-lattice true_res <= 1e-10 and an independent
              complex128 residual of x + x_df64_lo, with the plain
              full-lattice operator (ops/wilson.py) on the card, agrees.
+   invert_clover — dslash_type="clover", csw 1.0, on the same gauge and
+             source: single/single, single/half with full links and with
+             recon-12.  Fails unless converged, true_res <= 1e-5, every
+             clover block positive definite (a block without a Cholesky
+             factor is reported on this phase line first), K1 and K2 each
+             launched >= 2x per iteration and, for half, B3 >= 1x per
+             iteration with a reliable update.
 5. reference — the same solves at 4x6x8x10 on the card and on the CPU (the
              plain path): single/single within 1e-4 and 2 iterations,
-             single/half within 1e-3 and 10% of the iterations.
+             single/half within 1e-3 and 10% of the iterations; the clover
+             single/single solve (csw 1.0) within 1e-4 and 2 iterations.
 6. timing  — medians of 25 CUDA-event timings (each over 10 back-to-back
              calls) of each kernel form and its plain version at the
              production size, beside the bound (the larger of bytes over
              3.35 TB/s and flops over 67 TFLOP/s f32), and the seconds per
              iteration of fused_cg (f32) and of cg_reliable (single/half,
-             full and r12 links; reliable updates included).
+             full and r12 links; reliable updates included), for the Wilson
+             and for the clover operator.
 
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
@@ -62,6 +74,7 @@ SEED = 0
 KAPPA = 0.12
 TOL = 1e-6
 TRUE_RES_MAX = 1e-5
+CSW = 1.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 REPEATS = 25
@@ -122,10 +135,13 @@ def main() -> int:
     from quda_tpu_torch.fields.geometry import LatticeGeometry
     from quda_tpu_torch.fields.spinor import (ColorSpinorField,
                                               even_odd_split)
+    from quda_tpu_torch.models.clover import DiracCloverPC
     from quda_tpu_torch.models.wilson import DiracWilson, DiracWilsonPC
     from quda_tpu_torch.ops import blas
     from quda_tpu_torch.ops import blas_pallas as bpl
+    from quda_tpu_torch.ops import clover_pallas as clp
     from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.ops.clover import CloverNotPositiveDefinite
     from quda_tpu_torch.solvers.fused_iter import fused_cg
     from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
     from quda_tpu_torch.utils import kernels
@@ -140,7 +156,7 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------
     info = kernels.build()
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit({"phase": "build", "seconds": info.seconds, "library":
           str(info.path.relative_to(kernels.BUILD_ROOT.parent.parent)),
           "ptxas": ptxas})
@@ -154,14 +170,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {name: 0.0 for name in b1_names}
 
-    def b1_inputs(dims_xyzt, parity, rows=3, store=f32):
+    def b1_inputs(dims_xyzt, parity, rows=3, store=f32, g=gen):
         geom = LatticeGeometry(dims_xyzt)
         T, Z, Y, X = geom.lattice_shape
         sites = (T, Z, Y * X // 2)
-        psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev)
-        u_here = torch.randn((4, rows, 3, 2) + sites, generator=gen,
+        psi = torch.randn((4, 3, 2) + sites, generator=g, device=dev)
+        u_here = torch.randn((4, rows, 3, 2) + sites, generator=g,
                              device=dev)
-        u_there = torch.randn((4, rows, 3, 2) + sites, generator=gen,
+        u_there = torch.randn((4, rows, 3, 2) + sites, generator=g,
                               device=dev)
         u_bw = wpp.backward_gauge_eo(u_there, geom.lattice_shape, parity)
         return (geom.lattice_shape, u_here.to(store).contiguous(),
@@ -191,6 +207,70 @@ def main() -> int:
                     fail(f"eo hop kernel {name} disagrees with its plain "
                          f"version: {rel:.3e} > {tol:g}")
                 del u_here, u_bw, psi, out_k, out_p
+
+    # every fused clover hop instance: (kernel, rows, storage dtype); K1
+    # (post) writes the storage dtype, K2 (diag_hop) float32
+    b7_forms = [(k, r, st) for k in ("post", "diag_hop") for r in (3, 2)
+                for st in (f32, bf16)]
+    b7_names = [f"{k}:{wpp.form_name(r, st, clp.out_dtype_of(k, st))}"
+                for k, r, st in b7_forms]
+    b7_wrapper = {"post": clp.dslash_eo_pallas_post,
+                  "diag_hop": clp.dslash_eo_pallas_diag_hop}
+    hop_coeff = -KAPPA ** 2
+    # a generator of its own, so the fields of the later phases stay the
+    # ones earlier versions of this script made
+    gen_b7 = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def b7_inputs(dims_xyzt, parity, rows, store):
+        """B1's inputs plus the blocks (1 + 0.1 Gaussian, the size of a
+        clover term) and K2's centre spinor x."""
+        dims, u_here, u_bw, psi = b1_inputs(dims_xyzt, parity, rows, store,
+                                            gen_b7)
+        sites = tuple(psi.shape[3:])
+        blk = 0.1 * torch.randn((2, 6, 6, 2) + sites, generator=gen_b7,
+                                device=dev)
+        blk[:, :, :, 0] += torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+        xc = torch.randn((4, 3, 2) + sites, generator=gen_b7, device=dev)
+        return dims, u_here, u_bw, psi, blk.to(store), xc.to(store)
+
+    def b7_call(kind, args, parity, plain=False):
+        dims, u_here, u_bw, psi, blk, xc = args
+        if kind == "post":
+            if plain:
+                return clp.dslash_eo_post_plain(u_here, u_bw, psi, blk, dims,
+                                                parity)
+            return clp.dslash_eo_pallas_post(u_here, u_bw, psi, dims, parity,
+                                             blk_pl=blk)
+        if plain:
+            return clp.dslash_eo_diag_hop_plain(u_here, u_bw, psi, xc, blk,
+                                                dims, parity, hop_coeff, f32)
+        return clp.dslash_eo_pallas_diag_hop(u_here, u_bw, psi, xc, dims,
+                                             parity, hop_coeff=hop_coeff,
+                                             blk_pl=blk, out_dtype=f32)
+
+    for (kind, rows, store), name in zip(b7_forms, b7_names):
+        out = clp.out_dtype_of(kind, store)
+        tol = clp.TOLERANCE if out == f32 else clp.TOLERANCE_BF16
+        errs[name] = 0.0
+        for dims_xyzt in (SMALL_DIMS, PROD_DIMS):
+            for parity in (0, 1):
+                args = b7_inputs(dims_xyzt, parity, rows, store)
+                out_k = b7_call(kind, args, parity)
+                out_p = b7_call(kind, args, parity, plain=True)
+                torch.cuda.synchronize()
+                if out_k.dtype != out:
+                    fail(f"clover hop {name} wrote {out_k.dtype}")
+                abs_err = (out_k.float() - out_p.float()).abs().max().item()
+                rel = abs_err / out_p.float().abs().max().item()
+                errs[name] = max(errs[name], abs_err)
+                emit({"phase": "check", "kernel": b7_wrapper[kind].__name__,
+                      "form": name, "dims_xyzt": list(dims_xyzt),
+                      "parity": parity, "max_abs_err": abs_err,
+                      "max_rel_err": rel, "tolerance": tol})
+                if not rel <= tol:
+                    fail(f"clover hop kernel {name} disagrees with its "
+                         f"plain version: {rel:.3e} > {tol:g}")
+                del args, out_k, out_p
 
     geom_p = LatticeGeometry(PROD_DIMS)
     n_half = 24 * geom_p.half_volume
@@ -254,6 +334,7 @@ def main() -> int:
 
     def zero_counts():
         wpp.reset_launches()
+        clp.reset_launches()
         bpl.cg_update_norm2_pallas.launches = 0
         bpl.axpy_norm2_pallas.launches = 0
         bpl.axpy_norm2_pallas.launches_by_form = {}
@@ -263,7 +344,12 @@ def main() -> int:
                 "b1_by_form": dict(
                     wpp.dslash_eo_pallas_packed.launches_by_form),
                 "b2": bpl.cg_update_norm2_pallas.launches,
-                "b3_by_form": dict(bpl.axpy_norm2_pallas.launches_by_form)}
+                "b3_by_form": dict(bpl.axpy_norm2_pallas.launches_by_form),
+                "k1": clp.dslash_eo_pallas_post.launches,
+                "k2": clp.dslash_eo_pallas_diag_hop.launches,
+                "b7_by_form": {
+                    f"{k}:{form}": n for k, fn in b7_wrapper.items()
+                    for form, n in fn.launches_by_form.items()}}
 
     def solve(reconstruct=18, **kw):
         """init -> load -> invert -> end at production size, counts zeroed
@@ -360,6 +446,51 @@ def main() -> int:
              f"(df64 {param.true_res:.3e}, complex128 {oracle:.3e})")
     del x
 
+    clover = {}
+    for sloppy, form, rec in (("single", "full", 18), ("half", "full", 18),
+                              ("half", "r12", 12)):
+        label = f"clover:{sloppy}" + (":r12" if form == "r12" else "")
+        row = {"phase": "invert_clover", "dims_xyzt": list(PROD_DIMS),
+               "kappa": KAPPA, "csw": CSW, "tol": TOL,
+               "cuda_prec_sloppy": sloppy, "precision_form": form}
+        try:
+            x, param, counts, finite, shape_ok = solve(
+                rec, dslash_type="clover", csw=CSW, cuda_prec_sloppy=sloppy)
+        except CloverNotPositiveDefinite as err:
+            row.update(blocks_positive_definite=False,
+                       blocks_not_positive_definite=err.bad_blocks,
+                       blocks=err.total)
+            emit(row)
+            fail(f"clover term not positive definite at csw {CSW}: {err}")
+        launches[label] = counts
+        b3 = counts["b3_by_form"].get("bf16", 0)
+        clover[label] = (param.iter_count, param.secs)
+        row.update({
+            "blocks_positive_definite": True, "iters": param.iter_count,
+            "reliable_updates": param.reliable_updates, "secs": param.secs,
+            "true_res": param.true_res, "converged": param.converged,
+            "launches_k1": counts["k1"], "launches_k2": counts["k2"],
+            "launches_k1_k2_per_iter": [counts["k1"] / param.iter_count,
+                                        counts["k2"] / param.iter_count],
+            "launches_clover_hop": counts["b7_by_form"],
+            "launches_axpy_norm2": counts["b3_by_form"],
+            "shape_ok": shape_ok, "finite": finite,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        emit(row)
+        if not (param.converged and param.true_res <= TRUE_RES_MAX
+                and finite and shape_ok):
+            fail(f"clover invert_quda ({label}) did not converge to a "
+                 f"finite solution with true_res <= {TRUE_RES_MAX:g}")
+        if counts["k1"] < 2 * param.iter_count or \
+                counts["k2"] < 2 * param.iter_count:
+            fail(f"clover path ({label}) did not run K1 and K2 twice per "
+                 f"iteration: {counts}")
+        if sloppy == "half" and (b3 < param.iter_count
+                                 or param.reliable_updates < 1):
+            fail(f"clover mixed path ({label}) did not run B3 once per "
+                 f"iteration with a reliable update: {counts}")
+        del x
+
     # -- 5. small solves: card against the CPU's plain path -------------
     geom_s = LatticeGeometry(SMALL_DIMS)
     rng = np.random.default_rng(SEED)
@@ -396,6 +527,29 @@ def main() -> int:
         if not (sol_rel <= sol_tol and it_ok and p_gpu.converged):
             fail(f"the card's small {sloppy}-sloppy solve disagrees with "
                  "the CPU's plain path")
+    # clover on SU(3) links (a numpy-seeded field made on the CPU)
+    g_su3 = GaugeField.random(geom_s, np.random.default_rng(SEED),
+                              dtype=torch.complex64, device="cpu").data
+    sols = {}
+    for where in (dev, "cpu"):
+        qt.init_quda(where)
+        qt.load_gauge_quda(g_su3, qt.GaugeParam(X=SMALL_DIMS,
+                                                cuda_prec="single"))
+        p = qt.InvertParam(dslash_type="clover", inv_type="cg",
+                           solve_type="normop-pc", kappa=KAPPA, csw=CSW,
+                           tol=TOL, maxiter=500, cuda_prec="single")
+        sols[str(where)] = (qt.invert_quda(b_np, p).cpu().numpy(), p)
+        qt.end_quda()
+    (x_gpu, p_gpu), (x_cpu, p_cpu) = sols[str(dev)], sols["cpu"]
+    sol_rel = float(np.linalg.norm(x_gpu - x_cpu) / np.linalg.norm(x_cpu))
+    emit({"phase": "reference", "dims_xyzt": list(SMALL_DIMS),
+          "dslash_type": "clover", "csw": CSW, "cuda_prec_sloppy": "single",
+          "iters_card": p_gpu.iter_count, "iters_cpu": p_cpu.iter_count,
+          "true_res_card": p_gpu.true_res, "solution_rel_diff": sol_rel})
+    if not (sol_rel <= 1e-4 and p_gpu.converged
+            and abs(p_gpu.iter_count - p_cpu.iter_count) <= 2):
+        fail("the card's small clover solve disagrees with the CPU's plain "
+             "path")
 
     # -- 6. timing at production size -----------------------------------
     dims = geom_p.lattice_shape
@@ -429,33 +583,55 @@ def main() -> int:
                           4 * n_half / F32_FLOPS_PER_S)
         timing[f"b3:{name}"] = (k_ms, p_ms, bound)
     del tail_in, b3_in
+    for (kind, rows, store), name in zip(b7_forms, b7_names):
+        args = b7_inputs(PROD_DIMS, 0, rows, store)
+        k_ms = median_ms(lambda: b7_call(kind, args, 0), torch)
+        p_ms = median_ms(lambda: b7_call(kind, args, 0, plain=True), torch)
+        t_bytes = clp.bytes_per_site(kind, rows, store) * half \
+            / HBM_BYTES_PER_S
+        t_ops = clp.flops_per_site(kind, rows) * half / F32_FLOPS_PER_S
+        bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+        timing[name] = (k_ms, p_ms, 1e3 * max(t_bytes, t_ops))
+        del args
 
-    dpk = DiracWilsonPC(gauge, geom_p, KAPPA).packed()
-    op = dpk.pairs(torch.float32)
     be, bo = even_odd_split(src, geom_p)
-    rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
-    n_it = 30
-    fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=2)   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=n_it)
-    torch.cuda.synchronize()
-    iter_ms = 1e3 * (time.perf_counter() - t0) / res.iters
-    mixed_ms = {}
-    for form in ("full", "r12"):
-        hi = dpk.pairs(torch.float32, precision_form=form)
-        lo = dpk.pairs(torch.bfloat16, precision_form=form)
-        codec = pair_inplace_codec(torch.bfloat16)
-        cg_reliable(hi.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
-                    maxiter=2, codec=codec)                  # warm-up
+
+    def iteration_ms(dirac):
+        """ms per fused_cg iteration (f32) and per cg_reliable iteration
+        (single/half, full and r12 links, reliable updates included) of
+        the pair operators ``dirac.pairs`` builds."""
+        op = dirac.pairs(torch.float32)
+        rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+        fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=2)   # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res_m = cg_reliable(hi.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
-                            maxiter=MIXED_ITER_TIMED, codec=codec)
+        res = fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=30)
         torch.cuda.synchronize()
-        mixed_ms[form] = (1e3 * (time.perf_counter() - t0) / res_m.iters,
-                          res_m.iters, res_m.reliable_updates)
-        del hi, lo
+        fused = (1e3 * (time.perf_counter() - t0) / res.iters, res.iters)
+        del op
+        mixed_ms = {}
+        for form in ("full", "r12"):
+            hi = dirac.pairs(torch.float32, precision_form=form)
+            lo = dirac.pairs(torch.bfloat16, precision_form=form)
+            codec = pair_inplace_codec(torch.bfloat16)
+            cg_reliable(hi.MdagM_pairs, lo.MdagM_pairs, rhs, tol=1e-30,
+                        maxiter=2, codec=codec)              # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res_m = cg_reliable(hi.MdagM_pairs, lo.MdagM_pairs, rhs,
+                                tol=1e-30, maxiter=MIXED_ITER_TIMED,
+                                codec=codec)
+            torch.cuda.synchronize()
+            mixed_ms[form] = (1e3 * (time.perf_counter() - t0)
+                              / res_m.iters, res_m.iters,
+                              res_m.reliable_updates)
+            del hi, lo
+        return fused, mixed_ms
+
+    (iter_ms, n_timed), mixed_ms = iteration_ms(
+        DiracWilsonPC(gauge, geom_p, KAPPA).packed())
+    (cl_iter_ms, cl_n_timed), cl_mixed_ms = iteration_ms(
+        DiracCloverPC(gauge, geom_p, KAPPA, CSW))
     row = {"phase": "timing", "dims_xyzt": list(PROD_DIMS),
            "nvidia_smi": smi, "repeats": REPEATS, "calls_per_timing": BATCH}
     for name, (k_ms, p_ms, bound) in timing.items():
@@ -466,14 +642,23 @@ def main() -> int:
         "dslash_eo_GBps": 1e-6 * wpp.BYTES_PER_SITE * half
         / timing["full:f32->f32"][0],
         "cg_iter_ms": iter_ms, "cg_iter_secs": iter_ms / 1e3,
-        "cg_iters_timed": res.iters, "main_path_iters": iters_main,
+        "cg_iters_timed": n_timed, "main_path_iters": iters_main,
         "cg_reliable_half_iter_ms": {f: v[0] for f, v in mixed_ms.items()},
         "cg_reliable_half_iters_timed": {f: v[1]
                                          for f, v in mixed_ms.items()},
         "cg_reliable_half_reliable_updates": {
             f: v[2] for f, v in mixed_ms.items()},
         "mixed_solve_secs_per_iter": {f: v[1] / v[0]
-                                      for f, v in mixed.items()}})
+                                      for f, v in mixed.items()},
+        "clover_cg_iter_ms": cl_iter_ms, "clover_cg_iters_timed": cl_n_timed,
+        "clover_cg_reliable_half_iter_ms": {
+            f: v[0] for f, v in cl_mixed_ms.items()},
+        "clover_cg_reliable_half_iters_timed": {
+            f: v[1] for f, v in cl_mixed_ms.items()},
+        "clover_cg_reliable_half_reliable_updates": {
+            f: v[2] for f, v in cl_mixed_ms.items()},
+        "clover_solve_secs_per_iter": {k: v[1] / v[0]
+                                       for k, v in clover.items()}})
     emit(row)
 
     # which main path each kernel form's launches come from
@@ -508,6 +693,21 @@ def main() -> int:
             "launches": launches[path]["b3_by_form"].get(name, 0),
             "max_abs_err": errs[f"b3:{name}"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None})
+    # the clover forms: f32 full from the single solve, bf16 full from the
+    # half solve, and both r12 forms from the half r12 solve (its f32 r12
+    # operator makes the reliable updates)
+    for (kind, rows, store), name in zip(b7_forms, b7_names):
+        path = ("clover:single" if store == f32 and rows == 3 else
+                "clover:half" if rows == 3 else "clover:half:r12")
+        k_ms, p_ms, bound = timing[name]
+        rows_out.append({
+            "name": f"{b7_wrapper[kind].__name__}[{name.split(':', 1)[1]}]",
+            "route": "cuda", "source": "quda_tpu_torch/csrc/clover_eo.cu",
+            "replaces": "quda_tpu/ops/clover_pallas.py:213",
+            "launches": launches[path]["b7_by_form"].get(name, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by[name],
             "library_ms": None})
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:

@@ -1,0 +1,188 @@
+// Fused clover even/odd hop (kernel B7, K1 and K2): the eo Wilson hop
+// D_{p <- 1-p} psi with the clover diagonal applied in its epilogue.
+//
+// Replaces: quda_tpu/ops/clover_pallas.py::_fused_eo_call, the Pallas TPU
+// kernel (pallas_call at :213, body _epilogue_kernel at :109-155), in its
+// clover forms (dslash_eo_pallas_post, dslash_eo_pallas_diag_hop).  Plain
+// versions: quda_tpu_torch/ops/clover_pallas.py::dslash_eo_post_plain and
+// dslash_eo_diag_hop_plain.
+//
+//   K1 (post):     out = B * round_O(hop)                 out in storage type
+//   K2 (diag_hop): out = B * x + coeff * hop, coeff = -kappa^2, out in f32
+//
+// Layouts: psi, x, out (4, 3, 2, T, Z, Y*Xh); links as in wilson_hop.cuh;
+// blocks B (2, 6, 6, 2, T, Z, Y*Xh): the chiral 6x6 blocks, chirality
+// ch = s / 2, block row i = 3 * (s % 2) + c (_blk_mul of the JAX module).
+// Storage forms (template arguments): psi, links, blocks (and x) all
+// float32 or all bfloat16; R = 3 link rows, or R = 2 with tb_sign; K1
+// writes the storage type, K2 float32.  8 instances behind one C entry.
+//
+// Rounding: the TPU kernel writes the hop to its out tile at the out dtype
+// and reads it back before B is applied.  K1 does the same in registers:
+// with bf16 storage each accumulator is rounded to bf16 and back
+// (__float2bfloat16_rn / __bfloat162float) before the block multiply; with
+// f32 storage that is a no-op.  Every other sum is f32, and a bf16 out is
+// rounded once at the store.
+//
+// What bounds it on an H100: device memory.  A site needs 1320 + 504 flop
+// (+48 for K2's axpy, +336 with R = 2) against at least 1344 B in f32
+// (K1: psi 96, links 576, blocks 576, out 96; K2 adds x 96), 672 B for K1
+// bf16 -> bf16: under 2 flop/B, far below the ~20 flop/B where f32
+// arithmetic binds.  The blocks are half of the f32 traffic.
+//
+// Design: one thread per target half-site; the hop is wilson_hop.cuh's
+// eo_hop_sum (the B1 code), 24 f32 accumulators in registers.  The
+// epilogue streams the block entries plane by plane (coalesced across the
+// warp, as the links are) into the 6x6 complex mat-vec, one output row at a
+// time, stored as soon as it is summed: the 144 block numbers of a site are
+// never held in registers at once.  K2 reads the six spinor components of
+// x of one chirality at a time.  Hermitian compression of the blocks
+// (72 reals), shared-memory reuse and wgmma/TMA are left for later.
+#include <type_traits>
+
+#include "wilson_hop.cuh"
+
+namespace {
+
+using namespace qtt;
+
+constexpr int kThreads = 128;
+
+// entry (ch, i, j) of the blocks at half-site `site`
+template <typename S>
+__device__ __forceinline__ float2 ld_blk(const S* __restrict__ blk, int ch,
+                                         int i, int j, int64_t n,
+                                         int64_t site) {
+  const S* q = blk + static_cast<int64_t>(((ch * 6 + i) * 6 + j) * 2) * n +
+               site;
+  return make_float2(ld(q), ld(q + n));
+}
+
+// v rounded to the storage type O and back to f32
+template <typename O>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<O, __nv_bfloat16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+template <typename S, typename O, int R, bool DIAG_HOP>
+__global__ void __launch_bounds__(kThreads)
+    clover_eo_kernel(O* __restrict__ out, const S* __restrict__ psi,
+                     const S* __restrict__ u_here,
+                     const S* __restrict__ u_bw, const S* __restrict__ blk,
+                     const S* __restrict__ xc, int T, int Z, int Y, int Xh,
+                     int parity, int tb_sign, float coeff) {
+  const int64_t YXh = static_cast<int64_t>(Y) * Xh;
+  const int64_t ZYXh = static_cast<int64_t>(Z) * YXh;
+  const int64_t n = static_cast<int64_t>(T) * ZYXh;
+  const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (site >= n) return;
+
+  float2 acc[4][3];
+  eo_hop_sum<R>(acc, psi, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n, parity,
+                tb_sign, site);
+
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    // the six components of this chirality the blocks act on
+    float2 v[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if constexpr (DIAG_HOP) {
+        v[j] = ld_psi(xc, 2 * ch + j / 3, j % 3, n, site);
+      } else {
+        const float2 a = acc[2 * ch + j / 3][j % 3];
+        v[j] = make_float2(round_to<O>(a.x), round_to<O>(a.y));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float2 o = cmul(ld_blk(blk, ch, i, 0, n, site), v[0]);
+#pragma unroll
+      for (int j = 1; j < 6; ++j) {
+        o = cadd(o, cmul(ld_blk(blk, ch, i, j, n, site), v[j]));
+      }
+      if constexpr (DIAG_HOP) {
+        const float2 h = acc[2 * ch + i / 3][i % 3];
+        o = make_float2(o.x + coeff * h.x, o.y + coeff * h.y);
+      }
+      O* q = out + static_cast<int64_t>(((2 * ch + i / 3) * 3 + i % 3) * 2) *
+                       n + site;
+      st(q, o.x);
+      st(q + n, o.y);
+    }
+  }
+}
+
+template <typename S, typename O, int R, bool DIAG_HOP>
+cudaError_t launch(void* out, const void* psi, const void* u_here,
+                   const void* u_bw, const void* blk, const void* xc, int T,
+                   int Z, int Y, int Xh, int parity, int tb_sign, float coeff,
+                   unsigned blocks, cudaStream_t stream) {
+  clover_eo_kernel<S, O, R, DIAG_HOP><<<blocks, kThreads, 0, stream>>>(
+      static_cast<O*>(out), static_cast<const S*>(psi),
+      static_cast<const S*>(u_here), static_cast<const S*>(u_bw),
+      static_cast<const S*>(blk), static_cast<const S*>(xc), T, Z, Y, Xh,
+      parity, tb_sign, coeff);
+  return cudaGetLastError();
+}
+
+template <typename S, typename O, bool DIAG_HOP>
+cudaError_t launch_rows(int rows, void* out, const void* psi,
+                        const void* u_here, const void* u_bw,
+                        const void* blk, const void* xc, int T, int Z, int Y,
+                        int Xh, int parity, int tb_sign, float coeff,
+                        unsigned blocks, cudaStream_t stream) {
+  return rows == 3
+             ? launch<S, O, 3, DIAG_HOP>(out, psi, u_here, u_bw, blk, xc, T,
+                                         Z, Y, Xh, parity, tb_sign, coeff,
+                                         blocks, stream)
+             : launch<S, O, 2, DIAG_HOP>(out, psi, u_here, u_bw, blk, xc, T,
+                                         Z, Y, Xh, parity, tb_sign, coeff,
+                                         blocks, stream);
+}
+
+}  // namespace
+
+// store_bf16: psi, links, blocks and x are bfloat16 (else float32); rows: 3
+// or 2; diag_hop: 0 = K1 (out in the storage type, xc and coeff unused),
+// 1 = K2 (out float32, xc required).
+extern "C" int qtt_clover_eo(void* out, const void* psi, const void* u_here,
+                             const void* u_bw, const void* blk,
+                             const void* xc, int T, int Z, int Y, int Xh,
+                             int parity, int store_bf16, int rows,
+                             int tb_sign, int diag_hop, float coeff,
+                             void* stream) {
+  const int64_t n = static_cast<int64_t>(T) * Z * Y * Xh;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (n <= 0 || blocks > 0x7fffffff || (parity != 0 && parity != 1) ||
+      (rows != 2 && rows != 3) || blk == nullptr ||
+      (diag_hop && xc == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  cudaError_t err;
+  if (!store_bf16) {
+    err = diag_hop
+              ? launch_rows<float, float, true>(rows, out, psi, u_here, u_bw,
+                                                blk, xc, T, Z, Y, Xh, parity,
+                                                tb_sign, coeff, nb, s)
+              : launch_rows<float, float, false>(rows, out, psi, u_here, u_bw,
+                                                 blk, xc, T, Z, Y, Xh, parity,
+                                                 tb_sign, coeff, nb, s);
+  } else {
+    err = diag_hop
+              ? launch_rows<bf, float, true>(rows, out, psi, u_here, u_bw,
+                                             blk, xc, T, Z, Y, Xh, parity,
+                                             tb_sign, coeff, nb, s)
+              : launch_rows<bf, bf, false>(rows, out, psi, u_here, u_bw, blk,
+                                           xc, T, Z, Y, Xh, parity, tb_sign,
+                                           coeff, nb, s);
+  }
+  return static_cast<int>(err);
+}

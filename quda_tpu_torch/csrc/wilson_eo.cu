@@ -32,152 +32,20 @@
 // most 5.7 flop/B, far under the ~20 flop/B where f32 arithmetic binds.
 //
 // Design: one thread per target half-site, 24 f32 accumulators in registers.
-// A thread computes its 8 neighbour indices directly: t, z and y wrap on
-// their own axes (y by Xh on the fused Y*Xh axis), and x is the slot-parity
-// select of shift_eo_packed, with r0 = ((t+z+y+parity) % 2 == 0) constant
-// along a row.  The TPU kernel's roll/splice shift network and z-block tiles
-// are gone: a CUDA thread just reads its neighbour.  Each hop projects to a
+// The hop itself is eo_hop_sum of wilson_hop.cuh, shared with the fused
+// clover hop (clover_eo.cu).  A thread computes its 8 neighbour indices
+// directly: the TPU kernel's roll/splice shift network and z-block tiles
+// are gone, a CUDA thread just reads its neighbour.  Each hop projects to a
 // half spinor, multiplies by U (or U^dag) in colour and reconstructs, with
 // the spin tables as compile-time constants so the +-1/+-i factors fold
 // away.  The planar layout keeps the re and im parts of a number S elements
 // apart, so a bf16 load is one 2-byte element per thread; a warp still reads
 // 64 contiguous bytes per plane.  Offsets are 64-bit.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "wilson_hop.cuh"
 
 namespace {
 
-// Spin-projection table of P = 1 - sign*gamma_mu (quda_tpu_torch/ops/
-// wilson_pallas.py TABLES): h_a = psi_a + c_a psi_{j_a} for a = 0, 1;
-// out_2 = d_2 h_{k_2}, out_3 = d_3 h_{k_3}.  Complex factors as (re, im).
-struct Tab {
-  int j0, c0r, c0i, j1, c1r, c1i, k2, d2r, d2i, k3, d3r, d3i;
-};
-
-__host__ __device__ constexpr Tab tab(int mu, int sign) {
-  // tests/test_torch_wilson.py parses these rows and checks them
-  // against TABLES.
-  constexpr Tab rows[8] = {
-      {3, 0, -1, 2, 0, -1, 1, 0, 1, 0, 0, 1},    // mu=0 sign=+1
-      {3, 0, 1, 2, 0, 1, 1, 0, -1, 0, 0, -1},    // mu=0 sign=-1
-      {3, 1, 0, 2, -1, 0, 1, -1, 0, 0, 1, 0},    // mu=1 sign=+1
-      {3, -1, 0, 2, 1, 0, 1, 1, 0, 0, -1, 0},    // mu=1 sign=-1
-      {2, 0, -1, 3, 0, 1, 0, 0, 1, 1, 0, -1},    // mu=2 sign=+1
-      {2, 0, 1, 3, 0, -1, 0, 0, -1, 1, 0, 1},    // mu=2 sign=-1
-      {2, -1, 0, 3, -1, 0, 0, -1, 0, 1, -1, 0},  // mu=3 sign=+1
-      {2, 1, 0, 3, 1, 0, 0, 1, 0, 1, 1, 0},      // mu=3 sign=-1
-  };
-  return rows[2 * mu + (sign < 0 ? 1 : 0)];
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// c * x for c in {+1, -1, +i, -i}
-template <int CR, int CI>
-__device__ __forceinline__ float2 cscale(float2 x) {
-  static_assert((CR == 0) != (CI == 0), "factors are +-1 or +-i");
-  if constexpr (CI == 0) {
-    return CR > 0 ? x : make_float2(-x.x, -x.y);
-  } else {
-    return CI > 0 ? make_float2(-x.y, x.x) : make_float2(x.y, -x.x);
-  }
-}
-
-// storage element -> f32, and f32 -> storage element
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// component (s, c) of psi at half-site i
-template <typename S>
-__device__ __forceinline__ float2 ld_psi(const S* __restrict__ psi, int s,
-                                         int c, int64_t n, int64_t i) {
-  const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + i;
-  return make_float2(ld(q), ld(q + n));
-}
-
-// The 3x3 link of direction mu at half-site i.  With R = 2 only rows 0 and
-// 1 are stored: row 2 = conj(row0 x row1) * row2_sign.
-template <int R, typename S>
-__device__ __forceinline__ void ld_link(float2 (&u)[3][3],
-                                        const S* __restrict__ g, int mu,
-                                        int64_t n, int64_t i,
-                                        float row2_sign) {
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const S* q = g + static_cast<int64_t>(((mu * R + a) * 3 + b) * 2) * n + i;
-      u[a][b] = make_float2(ld(q), ld(q + n));
-    }
-  if constexpr (R == 2) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int b1 = (b + 1) % 3, b2 = (b + 2) % 3;
-      const float2 p = cmul(u[0][b1], u[1][b2]);
-      const float2 q = cmul(u[0][b2], u[1][b1]);
-      u[2][b] = make_float2((p.x - q.x) * row2_sign,
-                            -(p.y - q.y) * row2_sign);
-    }
-  }
-}
-
-// One hop: psi read at neighbour nb, links at the target site.  SIGN > 0 is
-// the forward hop (1 - gamma_mu) U psi(x+mu); SIGN < 0 the backward hop
-// (1 + gamma_mu) U^dag psi(x-mu), U^dag[a][b] = conj(U[b][a]).
-template <int MU, int SIGN, int R, typename S>
-__device__ __forceinline__ void hop(float2 (&acc)[4][3],
-                                    const S* __restrict__ psi,
-                                    const S* __restrict__ g, int64_t n,
-                                    int64_t nb, int64_t site,
-                                    float row2_sign) {
-  constexpr Tab t = tab(MU, SIGN);
-  float2 h[2][3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    h[0][c] = cadd(ld_psi(psi, 0, c, n, nb),
-                   cscale<t.c0r, t.c0i>(ld_psi(psi, t.j0, c, n, nb)));
-    h[1][c] = cadd(ld_psi(psi, 1, c, n, nb),
-                   cscale<t.c1r, t.c1i>(ld_psi(psi, t.j1, c, n, nb)));
-  }
-  float2 u[3][3];
-  ld_link<R>(u, g, MU, n, site, row2_sign);
-  float2 uh[2][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float2 m[3];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      m[b] = SIGN > 0 ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      float2 v = cmul(m[0], h[s][0]);
-      v = cadd(v, cmul(m[1], h[s][1]));
-      uh[s][a] = cadd(v, cmul(m[2], h[s][2]));
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    acc[0][c] = cadd(acc[0][c], uh[0][c]);
-    acc[1][c] = cadd(acc[1][c], uh[1][c]);
-    acc[2][c] = cadd(acc[2][c], cscale<t.d2r, t.d2i>(uh[t.k2][c]));
-    acc[3][c] = cadd(acc[3][c], cscale<t.d3r, t.d3i>(uh[t.k3][c]));
-  }
-}
+using namespace qtt;
 
 constexpr int kThreads = 128;
 
@@ -192,40 +60,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t n = static_cast<int64_t>(T) * ZYXh;
   const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (site >= n) return;
-  const int xh = static_cast<int>(site % Xh);
-  const int y = static_cast<int>((site / Xh) % Y);
-  const int z = static_cast<int>((site / YXh) % Z);
-  const int t = static_cast<int>(site / ZYXh);
-
-  // neighbour half-sites, with shift_eo_packed's semantics
-  const bool r0 = ((t + z + y + parity) & 1) == 0;
-  const int64_t row = site - xh;
-  const int64_t x_fwd = row + (r0 ? xh : (xh + 1 == Xh ? 0 : xh + 1));
-  const int64_t x_bwd = row + (r0 ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
-  const int64_t y_fwd = site + (y + 1 == Y ? -(Y - 1) * static_cast<int64_t>(Xh) : Xh);
-  const int64_t y_bwd = site + (y == 0 ? (Y - 1) * static_cast<int64_t>(Xh) : -Xh);
-  const int64_t z_fwd = site + (z + 1 == Z ? -(Z - 1) * YXh : YXh);
-  const int64_t z_bwd = site + (z == 0 ? (Z - 1) * YXh : -YXh);
-  const int64_t t_fwd = site + (t + 1 == T ? -(T - 1) * ZYXh : ZYXh);
-  const int64_t t_bwd = site + (t == 0 ? (T - 1) * ZYXh : -ZYXh);
-  // sign of the rebuilt row 2 of the t links (R = 2 only)
-  const float s_t_fwd = (tb_sign && t == T - 1) ? -1.f : 1.f;
-  const float s_t_bwd = (tb_sign && t == 0) ? -1.f : 1.f;
 
   float2 acc[4][3];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[s][c] = make_float2(0.f, 0.f);
-
-  hop<0, +1, R>(acc, psi, u_here, n, x_fwd, site, 1.f);
-  hop<0, -1, R>(acc, psi, u_bw, n, x_bwd, site, 1.f);
-  hop<1, +1, R>(acc, psi, u_here, n, y_fwd, site, 1.f);
-  hop<1, -1, R>(acc, psi, u_bw, n, y_bwd, site, 1.f);
-  hop<2, +1, R>(acc, psi, u_here, n, z_fwd, site, 1.f);
-  hop<2, -1, R>(acc, psi, u_bw, n, z_bwd, site, 1.f);
-  hop<3, +1, R>(acc, psi, u_here, n, t_fwd, site, s_t_fwd);
-  hop<3, -1, R>(acc, psi, u_bw, n, t_bwd, site, s_t_bwd);
+  eo_hop_sum<R>(acc, psi, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n, parity,
+                tb_sign, site);
 
 #pragma unroll
   for (int s = 0; s < 4; ++s)

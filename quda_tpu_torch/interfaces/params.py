@@ -62,6 +62,8 @@ class InvertParam:
     solve_type: str = "normop-pc"
     matpc_type: str = "even-even"
     kappa: float = 0.12
+    # clover coefficient c_sw of dslash_type "clover"
+    csw: float = 0.0
     tol: float = 1e-10
     tol_hq: float = 0.0
     maxiter: int = 10000

@@ -1,23 +1,28 @@
 """Public entry points: init_quda / load_gauge_quda / invert_quda / end_quda.
 
-Port of the Wilson even/odd CG paths of quda_tpu/interfaces/quda_api.py.
-``invert_quda`` serves dslash_type="wilson", inv_type="cg",
-solve_type="normop-pc" with cuda_prec="single" on three routes, all on
-the packed pair representation (``_WilsonPairsSolve``):
+Port of the Wilson and Wilson-clover even/odd CG paths of
+quda_tpu/interfaces/quda_api.py.  ``invert_quda`` serves
+dslash_type="wilson" and "clover", inv_type="cg", solve_type="normop-pc"
+with cuda_prec="single", on the packed pair representation (the float32
+and bfloat16 pair operators that ``pairs`` builds, the same way for both
+families):
 
-* sloppy = single, tol >= 5e-8: ``fused_cg`` on the float32 pair
-  operator (every hop on the eo kernel, the CG tail on the fused tail
-  kernel);
-* sloppy = half, tol >= 5e-8: ``cg_reliable`` with a bfloat16 sloppy
-  operator and reliable updates on the float32 one;
-* tol < 5e-8, sloppy single or half: the df64 route, ``cg_reliable_df``
-  against a float32-pair precise operator (``_invert_wilson_df64``),
-  which publishes ``param.x_df64_lo``.
+* sloppy = single: ``fused_cg`` on the float32 pair operator (every hop
+  on the eo kernel, or for clover on the fused clover hop; the CG tail on
+  the fused tail kernel);
+* sloppy = half: ``cg_reliable`` with a bfloat16 sloppy operator and
+  reliable updates on the float32 one;
+* Wilson only, tol < 5e-8, sloppy single or half: the df64 route,
+  ``cg_reliable_df`` against a float32-pair precise operator
+  (``_invert_wilson_df64``), which publishes ``param.x_df64_lo``.  As in
+  the JAX package the gate is Wilson-only: a clover solve below 5e-8
+  takes its float32 route; ``converged`` is the solver's own claim, as
+  there, and ``true_res`` says how far the float32 solve got.
 
 Links are full or recon-12 (``GaugeParam.reconstruct`` 18 or 12).  The
-epilogue checks the true residual of
-M x = b with the full-lattice complex operator (ops/wilson.py), which no
-kernel touches; the df64 route reports its df64 full-lattice residual.
+epilogue checks the true residual of M x = b with the full-lattice
+complex operator (ops/wilson.py, models/clover.py), which no kernel
+touches; the df64 route reports its df64 full-lattice residual.
 Every other route raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.
 
@@ -110,13 +115,17 @@ def _antiperiodic() -> bool:
 
 
 def _build_dirac(p: InvertParam, pc: bool, dtype):
+    from ..models import clover as mclover
     from ..models import wilson as mwil
     geom = _ctx["geom"]
     g = _ctx["gauge"].to(dtype)
+    ap = _antiperiodic()
     matpc = EVEN if p.matpc_type == "even-even" else ODD
-    if pc:
-        return mwil.DiracWilsonPC(g, geom, p.kappa, _antiperiodic(), matpc)
-    return mwil.DiracWilson(g, geom, p.kappa, _antiperiodic())
+    if p.dslash_type == "clover":
+        return (mclover.DiracCloverPC(g, geom, p.kappa, p.csw, ap, matpc)
+                if pc else mclover.DiracClover(g, geom, p.kappa, p.csw, ap))
+    return (mwil.DiracWilsonPC(g, geom, p.kappa, ap, matpc) if pc
+            else mwil.DiracWilson(g, geom, p.kappa, ap))
 
 
 def _resolve_sloppy(param: InvertParam) -> str:
@@ -140,11 +149,11 @@ def _link_form() -> str:
 
 def _check_route(param: InvertParam, sloppy: str):
     """Raise for every route this port does not serve yet."""
-    if param.dslash_type != "wilson":
+    if param.dslash_type not in ("wilson", "clover"):
         raise NotImplementedError(
-            f"dslash_type {param.dslash_type!r} is not ported yet: clover "
-            "and twisted (ROADMAP A10), staggered/HISQ (A9), domain wall "
-            "(A10)")
+            f"dslash_type {param.dslash_type!r} is not ported yet: twisted "
+            "mass and twisted clover (ROADMAP A10), staggered/HISQ (A9), "
+            "domain wall (A10)")
     if param.inv_type != "cg":
         raise NotImplementedError(
             f"inv_type {param.inv_type!r} is not ported yet (ROADMAP A11)")
@@ -170,37 +179,13 @@ def _check_route(param: InvertParam, sloppy: str):
 
 def _df64_route(param: InvertParam) -> bool:
     """The deep-tolerance gate (quda_api.py:1135-1147 of the JAX package):
-    below tol 5e-8 an f32 precise side cannot certify the residual."""
-    return param.tol < 5e-8
+    below tol 5e-8 an f32 precise side cannot certify the residual.
+    Wilson only, as in the JAX package (``df64_able``)."""
+    return param.dslash_type == "wilson" and param.tol < 5e-8
 
 
 def _store_dtype(sloppy: str):
     return torch.bfloat16 if sloppy == "half" else torch.float32
-
-
-class _WilsonPairsSolve:
-    """The Wilson PC solve on the packed pair representation: prepare,
-    Mdag, MdagM and reconstruct of the float32 pair operator, whose every
-    hop runs the eo kernel."""
-
-    def __init__(self, dpk, form: str):
-        self._dpk = dpk
-        self.op = dpk.pairs(torch.float32, precision_form=form)
-
-    def prepare(self, b_even, b_odd):
-        return self.op.prepare_pairs(b_even, b_odd)
-
-    def Mdag(self, x_pp):
-        return self.op.Mdag_pairs(x_pp)
-
-    def MdagM(self, x_pp):
-        return self.op.MdagM_pairs(x_pp)
-
-    def reconstruct(self, x_pp, b_even, b_odd):
-        return self.op.reconstruct_pairs(x_pp, b_even, b_odd)
-
-    def flops_per_site_M(self) -> int:
-        return self._dpk.flops_per_site_M()
 
 
 def _solve_supervision(param: InvertParam, api: str, converged) -> None:
@@ -274,30 +259,35 @@ def invert_quda(source, param: InvertParam):
     t0 = time.perf_counter()
     param.x_df64_lo = None
 
-    dpk = _build_dirac(param, True, dtype).packed()
+    # ``dirac.pairs`` builds every pair operator of the solve, for each
+    # family: DiracWilsonPCPacked -> the eo hop kernel, DiracCloverPC ->
+    # the fused clover hop
+    dirac = _build_dirac(param, True, dtype)
+    if param.dslash_type == "wilson":
+        dirac = dirac.packed()
     # normal equations: MdagM x = Mdag b, two M applies per iteration
     mv_applies = 2.0
     if _df64_route(param):
-        x_full, res = _invert_wilson_df64(b, param, dpk, sloppy, form)
+        x_full, res = _invert_wilson_df64(b, param, dirac, sloppy, form)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         param.secs = time.perf_counter() - t0
     else:
-        d = _WilsonPairsSolve(dpk, form)
+        op = dirac.pairs(torch.float32, precision_form=form)
         be, bo = even_odd_split(b, geom)
-        sys_rhs = d.Mdag(d.prepare(be, bo))
+        sys_rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
         if sloppy == param.cuda_prec:
             res = solvers.create(param.inv_type)(
-                d.MdagM, sys_rhs, tol=param.tol, maxiter=param.maxiter,
-                tol_hq=param.tol_hq)
+                op.MdagM_pairs, sys_rhs, tol=param.tol,
+                maxiter=param.maxiter, tol_hq=param.tol_hq)
         else:
             store = _store_dtype(sloppy)
-            sl = dpk.pairs(store, precision_form=form)
+            sl = dirac.pairs(store, precision_form=form)
             res = solvers.cg_reliable(
-                d.MdagM, sl.MdagM_pairs, sys_rhs,
+                op.MdagM_pairs, sl.MdagM_pairs, sys_rhs,
                 solvers.pair_inplace_codec(store), tol=param.tol,
                 maxiter=param.maxiter, delta=param.reliable_delta)
-        xe, xo = d.reconstruct(res.x, be, bo)
+        xe, xo = op.reconstruct_pairs(res.x, be, bo)
         x_full = even_odd_join(xe, xo, geom)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -310,8 +300,8 @@ def invert_quda(source, param: InvertParam):
     # flops_per_site_M counts per UPDATED site, and the PC operator
     # updates one parity: volume/2 sites
     sites = geom.volume // 2
-    param.gflops = (param.iter_count * mv_applies * dpk.flops_per_site_M()
-                    * sites) / 1e9
+    param.gflops = (param.iter_count * mv_applies
+                    * dirac.flops_per_site_M() * sites) / 1e9
     _solve_supervision(param, "invert_quda", res.converged)
     log.info("invert_quda[%s/%s]: %d iters, true_res %.2e, %.2f s",
              param.dslash_type, param.inv_type, param.iter_count,

@@ -13,7 +13,10 @@ The packed pair operator (``DiracWilsonPCPackedSloppy``, reached through
 wrapper (ops/wilson_pallas_packed.dslash_eo_pallas_packed): on the card
 the kernel, on CPU tensors its plain version.  Its storage is float32
 (the precise operator) or bfloat16 (the sloppy operator of mixed
-precision), with full or reconstruct-12 links.
+precision), with full or reconstruct-12 links.  ``_SchurPairOpBase``
+is the same hop under a Schur operator with a diagonal (the clover
+family, models/clover.py), whose two hops per apply run the fused clover
+kernel.
 """
 
 from __future__ import annotations
@@ -199,6 +202,82 @@ class _PackedHopMixin:
         T, Z, Y, X = self.dims
         return wpk.unpack_spinor(wpk.from_packed_pairs(x, dtype),
                                  (T, Z, Y, X // 2))
+
+
+class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
+    """Template for clover-type Schur pair operators (single RHS)
+
+        M_pc(s) = diag_p(s) - kappa^2 D Ainv_q(s) D
+        prepare:      b_p + kappa D Ainv_q b_q
+        reconstruct:  x_q = Ainv_q (b_q + kappa D x_p)
+
+    written once over the ``_Ainv_q_sign_pairs`` hook (prepare and
+    reconstruct) and the fused-epilogue hooks ``_fused_k1_params`` /
+    ``_fused_k2_params``.  Each apply of M runs two launches of the fused
+    clover hop (ops/clover_pallas): K1 = Ainv_q(D_{q<-p} x), K2 =
+    diag_p(x) - kappa^2 D_{p<-q} t; on CPU tensors their plain versions,
+    the staged composition.  Mdag = g5 M(-s) g5; the twist sign s is
+    ignored by the g5-hermitian clover family.  The multi-RHS forms wait
+    for ROADMAP A8."""
+
+    def _Ainv_q_sign_pairs(self, x, sign, out_dtype):
+        raise NotImplementedError
+
+    def _fused_k1_params(self, sign):
+        """-> (blk_pl, twist (c, scale) or None) of K1's epilogue."""
+        raise NotImplementedError
+
+    def _fused_k2_params(self, sign):
+        """-> (blk_pl, diag_twist c or None) of K2's diagonal."""
+        raise NotImplementedError
+
+    def _M_sign_pairs(self, x, sign):
+        from ..ops import clover_pallas as clp
+        p = self.matpc
+        k1_blk, k1_twist = self._fused_k1_params(sign)
+        k2_blk, k2_twist = self._fused_k2_params(sign)
+        # K1: Ainv_q(D_{q<-p} x), the hop rounded to store_dtype first
+        t = clp.dslash_eo_pallas_post(
+            self.gauge_eo_pp[1 - p], self._u_bw[1 - p], x, self.dims,
+            1 - p, blk_pl=k1_blk, twist=k1_twist,
+            out_dtype=self.store_dtype, tb_sign=self._tb_sign)
+        # K2: diag_p(x) - kappa^2 D_{p<-q} t in float32, cast to storage
+        out = clp.dslash_eo_pallas_diag_hop(
+            self.gauge_eo_pp[p], self._u_bw[p], t, x, self.dims, p,
+            hop_coeff=-(self.kappa ** 2), blk_pl=k2_blk,
+            diag_twist=k2_twist, out_dtype=torch.float32,
+            tb_sign=self._tb_sign)
+        return out.to(self.store_dtype)
+
+    def M_pairs(self, x):
+        return self._M_sign_pairs(x, +1)
+
+    def Mdag_pairs(self, x):
+        return self._g5_pairs(self._M_sign_pairs(self._g5_pairs(x), -1))
+
+    def prepare_pairs(self, b_even, b_odd):
+        """Canonical complex parity sources -> pair-form PC rhs
+        b_p + kappa D Ainv_q b_q, in the storage dtype."""
+        p = self.matpc
+        b_p, b_q = (b_even, b_odd) if p == EVEN else (b_odd, b_even)
+        t = self._Ainv_q_sign_pairs(self._to_pairs(b_q), +1,
+                                    self.store_dtype)
+        t = self._d_to(t, p, torch.float32)
+        rhs = self._to_pairs(b_p).to(torch.float32) + self.kappa * t
+        return rhs.to(self.store_dtype)
+
+    def reconstruct_pairs(self, x_pp, b_even, b_odd):
+        """x_q = Ainv_q (b_q + kappa D x_p); canonical complex parity
+        fields out."""
+        p = self.matpc
+        b_q = b_odd if p == EVEN else b_even
+        t = self._d_to(x_pp, 1 - p, torch.float32)
+        xq_pp = self._Ainv_q_sign_pairs(
+            self._to_pairs(b_q).to(torch.float32) + self.kappa * t, +1,
+            torch.float32)
+        x_p = self._from_pairs(x_pp, b_q.dtype)
+        x_q = self._from_pairs(xq_pp, b_q.dtype)
+        return (x_p, x_q) if p == EVEN else (x_q, x_p)
 
 
 class DiracWilsonPCPacked:

@@ -1,0 +1,200 @@
+"""The fused clover eo hop (B7, K1 and K2) and its plain versions.
+
+Replaces quda_tpu/ops/clover_pallas.py::_fused_eo_call (the Pallas TPU
+kernel: the B1 hop with the family diagonal in its epilogue) with the
+hand-written CUDA kernel ``csrc/clover_eo.cu``.  Two shapes serve the
+clover Schur operator M_pc = A_p - kappa^2 D_{p<-q} A_q^-1 D_{q<-p}:
+
+* K1 ``dslash_eo_pallas_post``: out = B (D_{p<-q} psi), with the hop
+  rounded to the output dtype before B is applied (the staged rounding of
+  the composition hop -> store dtype -> A_q^-1 it replaces).
+* K2 ``dslash_eo_pallas_diag_hop``: out = B x + hop_coeff * D_{p<-q} psi,
+  x a sixth spinor operand at the target sites, float32 out.
+
+Layouts are the JAX package's pallas layout (ops/wilson_pallas_packed);
+the blocks are models/clover.pack_clover_pairs' (2,6,6,2,T,Z,Y*Xh):
+spins (0,1) -> chirality 0, (2,3) -> 1, block row i = 3*(s%2) + c.
+Storage forms, each a kernel instance: psi, links and blocks all float32
+or all bfloat16; R = 3 link rows or R = 2 (recon-12, ``tb_sign``); K1
+writes the storage dtype, K2 float32.  The twisted epilogues (``twist``,
+``diag_twist``) and the block-free forms wait for ROADMAP A10 (twisted).
+
+The wrappers dispatch on the tensors' device: CPU tensors run the plain
+version (``dslash_eo_post_plain``, ``dslash_eo_diag_hop_plain``), CUDA
+tensors launch the kernel or raise.  Each wrapper counts its launches in
+``.launches`` and per form in ``.launches_by_form`` (``"full:f32->f32"``,
+``"r12:bf16->bf16"``, ...).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.clover import apply_clover_pairs
+from ..utils import kernels
+from . import wilson_pallas_packed as wpp
+
+# Kernel vs plain version, max |kernel - plain| / max |plain|, for float32
+# output: the same f32 terms summed in another order and with fused
+# multiply-adds on the card.
+TOLERANCE = 1e-6
+# The same for bfloat16 output (K1 from bf16 storage): one bf16 ulp, at
+# most 2^-7 of max |plain|, as for the eo hop.
+TOLERANCE_BF16 = 2.0 ** -7
+# flops per target site: the hop, the two 6x6 complex block mat-vecs, and
+# (K2) the axpy that adds the scaled hop
+FLOPS_PER_SITE = {"post": wpp.FLOPS_PER_SITE + 504,
+                  "diag_hop": wpp.FLOPS_PER_SITE + 504 + 48}
+_STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_TWIST_QUEUED = ("the twisted-mass and twisted-clover epilogues of the "
+                 "fused clover hop are not ported yet (ROADMAP A10, "
+                 "twisted)")
+
+
+def bytes_per_site(kind: str, rows: int = 3,
+                   store_dtype=torch.float32) -> int:
+    """Floor of the device-memory traffic per target half-site, each
+    input read once and the output written once: psi 24 numbers, links
+    8 x rows x 3 complex, blocks 2 x 6 x 6 complex, out 24 (K1 in the
+    storage dtype, K2 in float32) and, for K2, x 24."""
+    sb = _STORE_BYTES[store_dtype]
+    hop_in = 24 * sb + 8 * rows * 3 * 2 * sb
+    if kind == "post":
+        return hop_in + 144 * sb + 24 * sb
+    return hop_in + 144 * sb + 24 * 4 + 24 * sb
+
+
+def flops_per_site(kind: str, rows: int = 3) -> int:
+    return FLOPS_PER_SITE[kind] + (wpp.RECON_FLOPS_PER_SITE if rows == 2
+                                   else 0)
+
+
+def out_dtype_of(kind: str, store_dtype):
+    """The output dtype of each kernel instance."""
+    return store_dtype if kind == "post" else torch.float32
+
+
+def dslash_eo_post_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl, dims,
+                         target_parity: int, out_dtype=None,
+                         tb_sign: bool = True) -> torch.Tensor:
+    """Plain version of K1: the B1 hop rounded to ``out_dtype`` (default
+    psi's), then the blocks in float32, rounded once more."""
+    odt = out_dtype or psi_pl.dtype
+    hop = wpp.dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                     target_parity, odt, tb_sign)
+    return apply_clover_pairs(blk_pl, hop, odt)
+
+
+def dslash_eo_diag_hop_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
+                             dims, target_parity: int, hop_coeff: float,
+                             out_dtype=None,
+                             tb_sign: bool = True) -> torch.Tensor:
+    """Plain version of K2: B x + hop_coeff * hop, all in float32."""
+    hop = wpp.dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                     target_parity, torch.float32, tb_sign)
+    out = apply_clover_pairs(blk_pl, xc_pl, torch.float32) + hop_coeff * hop
+    return out.to(out_dtype or psi_pl.dtype)
+
+
+def _link_rows(u_here_pl) -> int:
+    rows = u_here_pl.shape[1] if u_here_pl.ndim == 7 else 0
+    if rows not in (2, 3):
+        raise ValueError(f"links of shape {tuple(u_here_pl.shape)}: "
+                         "expected (4, R, 3, 2, T, Z, Y*Xh) with R = 3 "
+                         "(full) or 2 (recon-12)")
+    return rows
+
+
+def _check_args(target_parity, blk_pl, twist):
+    if twist is not None:
+        raise NotImplementedError(_TWIST_QUEUED)
+    if blk_pl is None:
+        raise NotImplementedError(
+            "the block-free (twist-only) form of the fused clover hop "
+            "serves the twisted family (ROADMAP A10, twisted)")
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+
+
+def _launch(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl, dims,
+            target_parity, out_dtype, hop_coeff, tb_sign, rows):
+    """Check the operands and launch one kernel instance on the card."""
+    T, Z, Y, X = dims
+    Xh = X // 2
+    store = psi_pl.dtype
+    if store not in _STORE_BYTES:
+        raise TypeError(f"psi {store}: the kernel takes float32 or bfloat16")
+    if out_dtype != out_dtype_of(kind, store):
+        raise TypeError(f"{kind}: {store} storage with {out_dtype} output "
+                        "has no kernel instance")
+    sites = (T, Z, Y * Xh)
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
+    kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, store)
+    kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, store)
+    kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, store)
+    if xc_pl is not None:
+        kernels.require(xc_pl, "xc_pl", (4, 3, 2) + sites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_clover_eo(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_bw_pl.data_ptr(), blk_pl.data_ptr(),
+        None if xc_pl is None else xc_pl.data_ptr(), T, Z, Y, Xh,
+        int(target_parity), int(store == torch.bfloat16), rows,
+        int(bool(tb_sign)), int(kind == "diag_hop"),
+        ctypes.c_float(hop_coeff), kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_clover_eo")
+    wrapper.launches += 1
+    form = wpp.form_name(rows, store, out_dtype)
+    wrapper.launches_by_form[form] = wrapper.launches_by_form.get(form, 0) + 1
+    return out
+
+
+def dslash_eo_pallas_post(u_here_pl, u_bw_pl, psi_pl, dims,
+                          target_parity: int, *, blk_pl=None, twist=None,
+                          out_dtype=None, tb_sign: bool = True):
+    """K1: B(D_{p<-q} psi) in one pass, B the resident chiral blocks
+    ``blk_pl`` (e.g. the clover inverse A_q^-1).  Output in
+    ``out_dtype`` (default psi's; the kernel writes the storage dtype)."""
+    _check_args(target_parity, blk_pl, twist)
+    rows = _link_rows(u_here_pl)
+    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, blk_pl)
+    out_dtype = out_dtype or psi_pl.dtype
+    if kind == "cpu":
+        return dslash_eo_post_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl, dims,
+                                    target_parity, out_dtype, tb_sign)
+    return _launch(dslash_eo_pallas_post, "post", u_here_pl, u_bw_pl, psi_pl,
+                   None, blk_pl, dims, target_parity, out_dtype, 0.0,
+                   tb_sign, rows)
+
+
+def dslash_eo_pallas_diag_hop(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
+                              target_parity: int, *, hop_coeff: float,
+                              blk_pl=None, diag_twist=None, out_dtype=None,
+                              tb_sign: bool = True):
+    """K2: B x + hop_coeff * D_{p<-q} psi in one pass, x = ``xc_pl`` at
+    the target sites (e.g. A_p x - kappa^2 D t).  Pass
+    ``out_dtype=torch.float32``, the kernel's output."""
+    _check_args(target_parity, blk_pl, diag_twist)
+    rows = _link_rows(u_here_pl)
+    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, xc_pl,
+                                   blk_pl)
+    out_dtype = out_dtype or psi_pl.dtype
+    if kind == "cpu":
+        return dslash_eo_diag_hop_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl,
+                                        blk_pl, dims, target_parity,
+                                        hop_coeff, out_dtype, tb_sign)
+    return _launch(dslash_eo_pallas_diag_hop, "diag_hop", u_here_pl, u_bw_pl,
+                   psi_pl, xc_pl, blk_pl, dims, target_parity, out_dtype,
+                   float(hop_coeff), tb_sign, rows)
+
+
+def reset_launches() -> None:
+    for fn in (dslash_eo_pallas_post, dslash_eo_pallas_diag_hop):
+        fn.launches = 0
+        fn.launches_by_form = {}
+
+
+reset_launches()

@@ -1,7 +1,8 @@
 """SU(3) matrix utilities for the port: what GaugeField needs.
 
 Port of the complex-representation half of quda_tpu/ops/su3.py:
-``dagger``, the Gell-Mann generators, the su(3) Gaussian, the
+``dagger``, ``mat_mul``, ``mat_i`` and ``trace`` (what ops/fmunu.py
+needs), the Gell-Mann generators, the su(3) Gaussian, the
 scaling-and-squaring exponential and random links.  Batched over any
 leading axes.
 """
@@ -33,6 +34,21 @@ GELL_MANN = _l
 def dagger(m: torch.Tensor) -> torch.Tensor:
     """Hermitian conjugate over the trailing (c,c) axes."""
     return torch.conj(m.transpose(-1, -2))
+
+
+def mat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched matrix product over the trailing (c,c) axes."""
+    return torch.matmul(a, b)
+
+
+def trace(m: torch.Tensor) -> torch.Tensor:
+    """Complex trace over the trailing (c,c) axes."""
+    return torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+
+
+def mat_i(m: torch.Tensor) -> torch.Tensor:
+    """i * m."""
+    return 1j * m
 
 
 def random_hermitian_traceless(generator, shape, dtype=torch.complex128,

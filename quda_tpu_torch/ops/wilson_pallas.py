@@ -6,8 +6,8 @@ ported.  The tables are DERIVED from ops/gamma.py and asserted: for
 P = 1 - sign*gamma_mu, the half spinor is h_a = psi_a + c_a psi_{j_a}
 (a = 0, 1) and the reconstructed rows are out_2 = d_2 h_{k_2},
 out_3 = d_3 h_{k_3}.  Both the plain stencil (ops/wilson_packed.py) and
-the CUDA kernel (csrc/wilson_eo.cu, which carries them as compile-time
-constants) use these tables.
+the CUDA kernels (csrc/wilson_hop.cuh, shared by the eo hop and the fused
+clover hop, carries them as compile-time constants) use these tables.
 """
 
 from __future__ import annotations

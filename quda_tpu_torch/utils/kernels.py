@@ -4,8 +4,9 @@ The sources under ``quda_tpu_torch/csrc/`` have a plain C interface.  At
 first use on the card, each ``.cu`` is compiled by its own ``nvcc``
 process (all started together), and the objects are linked into one
 shared library under ``quda_tpu_torch/_build/<hash>/``, keyed by a hash
-of the sources and flags; ``ctypes`` loads it.  Compiling against
-PyTorch's headers would take minutes per build instead of seconds.
+of the sources, the headers they include and the flags; ``ctypes``
+loads it.  Compiling against PyTorch's headers would take minutes per
+build instead of seconds.
 
 Every kernel wrapper first calls ``dispatch_device``: CPU tensors take the
 plain PyTorch version beside the kernel, CUDA tensors launch the kernel
@@ -30,18 +31,25 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("wilson_eo.cu", "blas_fused.cu")
+SOURCES = ("wilson_eo.cu", "clover_eo.cu", "blas_fused.cu")
+# headers the sources include: part of the build's hash, never compiled alone
+HEADERS = ("wilson_hop.cuh",)
 LIB_NAME = "libquda_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
     # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, store_bf16, out_bf16,
     # rows, tb_sign, stream
     "qtt_wilson_eo": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P),
+    # out, psi, u_here, u_bw, blk, xc, T, Z, Y, Xh, parity, store_bf16,
+    # rows, tb_sign, diag_hop, coeff, stream
+    "qtt_clover_eo": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _F, _P),
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),
@@ -86,7 +94,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

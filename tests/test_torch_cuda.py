@@ -16,6 +16,7 @@ import torch
 import quda_tpu_torch as qt
 from quda_tpu_torch.ops import blas
 from quda_tpu_torch.ops import blas_pallas as bpl
+from quda_tpu_torch.ops import clover_pallas as clp
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
 from tests.torch_inputs import (ASYM, SMALL, gaussian, lattice_shape,
@@ -82,6 +83,83 @@ def test_eo_kernel_forms_match_plain(form, parity, tb_sign):
     tol = wpp.TOLERANCE if out == torch.float32 else wpp.TOLERANCE_BF16
     assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
         <= tol
+
+
+# (kernel, rows, storage) of each fused clover hop instance
+CLOVER_FORMS = [(k, r, s) for k in ("post", "diag_hop") for r in (3, 2)
+                for s in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", CLOVER_FORMS, ids=lambda f: f"{f[0]}:" + (
+    wpp.form_name(f[1], f[2], clp.out_dtype_of(f[0], f[2]))))
+def test_clover_kernel_forms_match_plain(form, parity):
+    """K1 and K2 on 4x6x8x10 (both t boundary planes hold sites of each
+    parity), blocks 1 + 0.1 Gaussian: f32 output within TOLERANCE, bf16
+    output within TOLERANCE_BF16 of max |plain|."""
+    dev = require_cuda()
+    kind, rows, store = form
+    out = clp.out_dtype_of(kind, store)
+    dims = lattice_shape(ASYM)
+    gen = torch.Generator(device=dev).manual_seed(11 + parity)
+    sites = pair_spinor_shape(ASYM)[3:]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    psi, xc = (randn(4, 3, 2, *sites).to(store) for _ in range(2))
+    u_here = randn(4, rows, 3, 2, *sites).to(store)
+    u_bw = wpp.backward_gauge_eo(randn(4, rows, 3, 2, *sites), dims,
+                                 parity).to(store).contiguous()
+    eye = torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+    blk = 0.1 * randn(2, 6, 6, 2, *sites)
+    blk[:, :, :, 0] += eye
+    blk = blk.to(store)
+    wrapper = (clp.dslash_eo_pallas_post if kind == "post"
+               else clp.dslash_eo_pallas_diag_hop)
+    name = wpp.form_name(rows, store, out)
+    n0 = wrapper.launches_by_form.get(name, 0)
+    if kind == "post":
+        got = wrapper(u_here, u_bw, psi, dims, parity, blk_pl=blk)
+        want = clp.dslash_eo_post_plain(u_here, u_bw, psi, blk, dims, parity)
+    else:
+        got = wrapper(u_here, u_bw, psi, xc, dims, parity, hop_coeff=-0.0144,
+                      blk_pl=blk, out_dtype=torch.float32)
+        want = clp.dslash_eo_diag_hop_plain(u_here, u_bw, psi, xc, blk, dims,
+                                            parity, -0.0144, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out
+    assert wrapper.launches_by_form[name] == n0 + 1
+    tol = clp.TOLERANCE if out == torch.float32 else clp.TOLERANCE_BF16
+    assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
+        <= tol
+
+
+@pytest.mark.parametrize("sloppy,rec", [("single", 18), ("half", 18),
+                                        ("half", 12)],
+                         ids=["single", "half", "half-r12"])
+def test_clover_invert_on_card_matches_cpu(sloppy, rec):
+    """invert_quda(clover) on 4^3x8 SU(3) links, csw 1: the card (K1 and
+    K2 each launched once per M apply, twice per iteration) against the
+    CPU's plain path, iterations within 2 (single) or 10% (half),
+    solutions within 1e-4 (single) or 1e-3 (half)."""
+    dev = require_cuda()
+    g = su3_gauge(SMALL, seed=33)
+    b = gaussian(lattice_shape(SMALL) + (4, 3), seed=34)
+    kw = dict(dslash_type="clover", csw=1.0, cuda_prec_sloppy=sloppy,
+              reconstruct=rec)
+    clp.reset_launches()
+    xg, pg = _solve(g, b, dev, **kw)
+    k1 = clp.dslash_eo_pallas_post.launches
+    k2 = clp.dslash_eo_pallas_diag_hop.launches
+    assert k1 >= 2 * pg.iter_count and k2 >= 2 * pg.iter_count
+    xc, pc = _solve(g, b, "cpu", **kw)
+    assert pg.converged and pg.true_res <= 1e-5
+    assert (pg.reliable_updates >= 1) == (sloppy == "half")
+    it_tol = 2 if sloppy == "single" else 0.1 * pc.iter_count
+    sol_tol = 1e-4 if sloppy == "single" else 1e-3
+    assert abs(pg.iter_count - pc.iter_count) <= it_tol
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < sol_tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -97,7 +97,7 @@ def test_init_quda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    {"dslash_type": "clover"}, {"inv_type": "bicgstab"},
+    {"dslash_type": "twisted-mass"}, {"inv_type": "bicgstab"},
     {"solve_type": "direct-pc"}, {"cuda_prec": "double"},
     {"cuda_prec_sloppy": "quarter"}, {"precision_form": "r12f"},
     {"reconstruct": 8}],

@@ -22,6 +22,7 @@ import torch
 
 from quda_tpu_torch.ops import blas
 from quda_tpu_torch.ops import blas_pallas as bpl
+from quda_tpu_torch.ops import clover_pallas as clp
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 from quda_tpu_torch.utils import kernels
 
@@ -65,6 +66,8 @@ def card_request(monkeypatch):
     monkeypatch.setattr(wpp, "dslash_eo_packed_plain", plain_reached)
     monkeypatch.setattr(blas, "triple_cg_update", plain_reached)
     monkeypatch.setattr(bpl, "axpy_norm2_plain", plain_reached)
+    monkeypatch.setattr(clp, "dslash_eo_post_plain", plain_reached)
+    monkeypatch.setattr(clp, "dslash_eo_diag_hop_plain", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -96,6 +99,51 @@ def test_eo_hop_wrapper_raises_on_card_request(card_request):
         wpp.dslash_eo_pallas_packed(u, ubw, psi.float(), DIMS, 0)
     assert wpp.dslash_eo_pallas_packed.launches == n0
     assert wpp.dslash_eo_pallas_packed.launches_by_form == by_form
+
+
+def _counts():
+    return [(f.launches, dict(f.launches_by_form)) for f in
+            (clp.dslash_eo_pallas_post, clp.dslash_eo_pallas_diag_hop)]
+
+
+def test_clover_hop_wrappers_raise_on_card_request(card_request):
+    n0 = _counts()
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype, rows in ((f32, 3), (f32, 2), (bf16, 3), (bf16, 2)):
+        u, ubw, psi = _hop_args(dtype, rows)
+        blk = torch.zeros((2, 6, 6, 2) + SITES, dtype=dtype)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, blk_pl=blk)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi, DIMS, 1,
+                                          hop_coeff=-0.01, blk_pl=blk,
+                                          out_dtype=f32)
+    u, ubw, psi = _hop_args()
+    blk = torch.zeros((2, 6, 6, 2) + SITES)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, blk_pl=blk,
+                                  out_dtype=bf16)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        clp.dslash_eo_pallas_diag_hop(*_hop_args(bf16), psi.to(bf16), DIMS,
+                                      0, hop_coeff=-0.01,
+                                      blk_pl=blk.to(bf16))
+    with pytest.raises(ValueError, match="blk_pl"):
+        clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, blk_pl=blk[:1])
+    with pytest.raises(TypeError):
+        clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0,
+                                  blk_pl=blk.to(bf16))
+    with pytest.raises(ValueError, match="xc_pl"):
+        clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi[:2], DIMS, 0,
+                                      hop_coeff=-0.01, blk_pl=blk,
+                                      out_dtype=f32)
+    for kw in ({"blk_pl": blk, "twist": (0.1, 1.0)}, {"blk_pl": None}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi, DIMS, 0,
+                                      hop_coeff=-0.01, blk_pl=blk,
+                                      diag_twist=0.1)
+    assert _counts() == n0
 
 
 def test_cg_tail_wrapper_raises_on_card_request(card_request):
@@ -145,6 +193,18 @@ def test_wrappers_reject_other_devices():
         bpl.cg_update_norm2_pallas(torch.tensor(0.5), torch.zeros(4),
                                    torch.zeros(4), torch.zeros(4),
                                    torch.zeros(4, device="meta"))
+
+
+def test_clover_wrappers_reject_other_devices():
+    u, ubw, psi = _hop_args()
+    blk = torch.zeros((2, 6, 6, 2) + SITES)
+    with pytest.raises(ValueError, match="meta"):
+        clp.dslash_eo_pallas_post(u.to("meta"), ubw.to("meta"),
+                                  psi.to("meta"), DIMS, 0,
+                                  blk_pl=blk.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi.to("meta"), DIMS, 0,
+                                      hop_coeff=-0.01, blk_pl=blk)
 
 
 def test_chip_smoke_without_card_or_package_prints_no_result(tmp_path):

@@ -146,7 +146,7 @@ def test_cuda_spin_tables_match_derived_tables():
     """The kernel carries the spin tables as compile-time constants; they
     must be the ones ops/wilson_pallas.py derives from the gamma
     matrices."""
-    src = (CSRC / "wilson_eo.cu").read_text()
+    src = (CSRC / "wilson_hop.cuh").read_text()
     rows = re.findall(r"\{([-\d,\s]+)\},\s*// mu=(\d) sign=([+-]1)", src)
     assert len(rows) == 8
     for body, mu, sign in rows:
