@@ -13,14 +13,17 @@ SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
   loop, reliable updates on the float32 one (the mixed route; the
   window's reliable updates are part of its cost).
 
+* ``batched_cg_pairs`` on the float32 pair operator's multi-RHS forms
+  with 12 Gaussian sources (the batched route of invert_multi_src_quda).
+
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
-fused clover hop kernel, the CG tail kernel, the axpy_norm2 kernel, and
-the plain PyTorch kernels around them), the wall time per iteration and
-the device's idle share of the window.  Last, one line with the wall
-time of the clover operator's set-up by part (F_munu, the blocks, their
-inverse, the whole DiracCloverPC, its f32 pair operator), after one
-warm-up build.  Needs one card.
+fused clover hop kernel, their multi-RHS forms, the CG tail kernel, the
+axpy_norm2 kernel, and the plain PyTorch kernels around them), the wall
+time per iteration and the device's idle share of the window.  Last, one
+line with the wall time of the clover operator's set-up by part (F_munu,
+the blocks, their inverse, the whole DiracCloverPC, its f32 pair
+operator), after one warm-up build.  Needs one card.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import time
 DIMS = (32, 32, 32, 64)     # (X, Y, Z, T)
 ITERS = 20
 SEED = 0
+NRHS = 12                   # sources of the batched solve
 
 
 def _profile(label, run, torch):
@@ -55,13 +59,18 @@ def _profile(label, run, torch):
     rows.sort(key=lambda r: -r[2])
     busy_us = sum(r[2] for r in rows)
     groups = {"eo_hop_kernel": 0.0, "clover_hop_kernel": 0.0,
+              "eo_hop_mrhs_kernel": 0.0, "clover_hop_mrhs_kernel": 0.0,
               "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
               "plain_torch": 0.0}
     # the partial-sum pass belongs to whichever norm kernel this solver ran
     partials = ("axpy_norm2_kernel" if label.endswith("cg_reliable")
                 else "cg_tail_kernel")
     for name, _, us in rows:
-        if "wilson_eo_kernel" in name:
+        if "wilson_eo_mrhs_kernel" in name:
+            groups["eo_hop_mrhs_kernel"] += us
+        elif "clover_eo_mrhs_kernel" in name:
+            groups["clover_hop_mrhs_kernel"] += us
+        elif "wilson_eo_kernel" in name:
             groups["eo_hop_kernel"] += us
         elif "clover_eo_kernel" in name:
             groups["clover_hop_kernel"] += us
@@ -73,14 +82,14 @@ def _profile(label, run, torch):
             groups[partials] += us
         else:
             groups["plain_torch"] += us
-    n = res.iters
+    n = int(max(res.iters)) if hasattr(res.iters, "max") else res.iters
     for name, count, us in rows[:15]:
         print(json.dumps({"solver": label, "kernel": name[:120],
                           "count": count, "device_us_per_iter": us / n}),
               flush=True)
     print(json.dumps({
         "solver": label, "dims_xyzt": list(DIMS), "iters": n,
-        "reliable_updates": res.reliable_updates,
+        "reliable_updates": getattr(res, "reliable_updates", 0),
         "wall_ms_per_iter": wall_us / n / 1e3,
         "device_busy_ms_per_iter": busy_us / n / 1e3,
         "idle_share": max(0.0, 1.0 - busy_us / wall_us),
@@ -101,6 +110,7 @@ def main() -> int:
     from quda_tpu_torch.models.wilson import DiracWilsonPC
     from quda_tpu_torch.ops import clover as qcl
     from quda_tpu_torch.ops import fmunu
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
     from quda_tpu_torch.solvers.fused_iter import fused_cg
     from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
 
@@ -113,6 +123,12 @@ def main() -> int:
                                     device=dev).data
     codec = pair_inplace_codec(torch.bfloat16)
     be, bo = even_odd_split(src, geom)
+    halves = [even_odd_split(ColorSpinorField.gaussian(
+        geom, gen, dtype=torch.complex64, device=dev).data, geom)
+        for _ in range(NRHS)]
+    be_b = torch.stack([h[0] for h in halves])
+    bo_b = torch.stack([h[1] for h in halves])
+    del halves
     for family, dirac in (
             ("", lambda: DiracWilsonPC(gauge, geom, 0.12).packed()),
             ("clover:", lambda: DiracCloverPC(gauge, geom, 0.12, 1.0))):
@@ -128,12 +144,19 @@ def main() -> int:
             return cg_reliable(op.MdagM_pairs, lo.MdagM_pairs, rhs,
                                tol=1e-30, maxiter=n, codec=codec)
 
+        rhs_b = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be_b, bo_b))
+
+        def run_batched(n):
+            return batched_cg_pairs(op.MdagM_pairs_mrhs, rhs_b, tol=1e-30,
+                                    maxiter=n)
+
         for label, run in (("fused_cg", run_fused),
-                           ("cg_reliable", run_reliable)):
+                           ("cg_reliable", run_reliable),
+                           (f"batched_cg_pairs[{NRHS}]", run_batched)):
             run(3)                                           # warm-up
             torch.cuda.synchronize()
             _profile(family + label, lambda: run(ITERS), torch)
-        del d, op, lo, rhs
+        del d, op, lo, rhs, rhs_b
 
     def wall_ms(fn):
         torch.cuda.synchronize()

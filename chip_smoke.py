@@ -16,8 +16,12 @@ Phases, one JSON line each (``"phase": ...``):
              axpy_norm2 (B3, f32 and bf16) at the production half-lattice
              size, and every form of the fused clover hop (B7: K1 post and
              K2 diag_hop, full/r12 links, f32/bf16 storage) for both target
-             parities at 4x6x8x10 and at the production size.  Fails above
-             the tolerance the kernel's module states.
+             parities at 4x6x8x10 and at the production size, and the
+             multi-RHS kernels (B5-eo and K1/K2-mrhs, f32, full/r12 links)
+             at N = 1, 3 and 12 on 4x6x8x10 (both parities) and at N = 12
+             on the production size, against their plain versions and
+             against N launches of the single-RHS kernel.  Fails above the
+             tolerance the kernel's module states.
 4. invert  — the main path at the production size: a random SU(3) gauge and
              a Gaussian source made on the card from a seeded
              torch.Generator, init_quda -> load_gauge_quda ->
@@ -42,17 +46,32 @@ Phases, one JSON line each (``"phase": ...``):
              factor is reported on this phase line first), K1 and K2 each
              launched >= 2x per iteration and, for half, B3 >= 1x per
              iteration with a reliable update.
+   invert_multi_src — invert_multi_src_quda with 12 Gaussian sources (a
+             generator of their own) on the same gauge: Wilson batched
+             with full links, with recon-12, with block CG
+             (QUDA_TORCH_MULTI_SRC_BLOCK=1); clover (csw 1.0) batched,
+             full and recon-12.  Fails unless every lane converged with
+             true_res <= 1e-5, lane 0 is within 2 iterations of
+             invert_quda on source 0, B5-eo ran 4x (Wilson) or K1-mrhs and
+             K2-mrhs 2x (clover) per iteration, and no single-RHS hop (B1,
+             K1, K2) ran inside the batched solve.
 5. reference — the same solves at 4x6x8x10 on the card and on the CPU (the
              plain path): single/single within 1e-4 and 2 iterations,
              single/half within 1e-3 and 10% of the iterations; the clover
-             single/single solve (csw 1.0) within 1e-4 and 2 iterations.
+             single/single solve (csw 1.0) within 1e-4 and 2 iterations;
+             3-source invert_multi_src_quda, Wilson and clover, within
+             1e-4 and 2 iterations per lane.
 6. timing  — medians of 25 CUDA-event timings (each over 10 back-to-back
              calls) of each kernel form and its plain version at the
              production size, beside the bound (the larger of bytes over
              3.35 TB/s and flops over 67 TFLOP/s f32), and the seconds per
              iteration of fused_cg (f32) and of cg_reliable (single/half,
              full and r12 links; reliable updates included), for the Wilson
-             and for the clover operator.
+             and for the clover operator; each multi-RHS form at N = 12 at
+             every chunk width, beside 12 launches of its single-RHS form
+             and its bound from bytes_per_site_mrhs; and the milliseconds
+             per 12-source batched_cg_pairs iteration against 12 fused_cg
+             iterations.
 
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
@@ -63,6 +82,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -81,6 +101,8 @@ REPEATS = 25
 BATCH = 10                       # calls per timed CUDA-event interval
 DF64_TOL = 1e-10
 MIXED_ITER_TIMED = 30
+MULTI_SRC_N = 12                 # sources of the multi-source phase
+BATCHED_ITER_TIMED = 20
 
 
 def emit(obj) -> None:
@@ -142,6 +164,7 @@ def main() -> int:
     from quda_tpu_torch.ops import clover_pallas as clp
     from quda_tpu_torch.ops import wilson_pallas_packed as wpp
     from quda_tpu_torch.ops.clover import CloverNotPositiveDefinite
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
     from quda_tpu_torch.solvers.fused_iter import fused_cg
     from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
     from quda_tpu_torch.utils import kernels
@@ -272,6 +295,95 @@ def main() -> int:
                          f"plain version: {rel:.3e} > {tol:g}")
                 del args, out_k, out_p
 
+    # the multi-RHS kernels (B5-eo, K1/K2-mrhs), float32, full and r12:
+    # against their plain versions (tolerance of the single-RHS kernels)
+    # and against N launches of the single-RHS kernel (reported)
+    mrhs_forms = [(k, r) for k in ("hop", "post", "diag_hop") for r in (3, 2)]
+    mrhs_names = [f"{k}:{wpp.form_name(r, f32, f32)}" for k, r in mrhs_forms]
+    mrhs_wrapper = {"hop": wpp.dslash_eo_pallas_packed_mrhs,
+                    "post": clp.dslash_eo_pallas_post_mrhs,
+                    "diag_hop": clp.dslash_eo_pallas_diag_hop_mrhs}
+    gen_mrhs = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def mrhs_inputs(dims_xyzt, parity, rows, n):
+        """B7's inputs (float32) with n-RHS psi and x batches."""
+        dims, u_here, u_bw, psi, blk, _ = b7_inputs(dims_xyzt, parity, rows,
+                                                    f32)
+        sites = tuple(psi.shape[3:])
+        psi_b = torch.randn((n, 4, 3, 2) + sites, generator=gen_mrhs,
+                            device=dev)
+        xc_b = torch.randn((n, 4, 3, 2) + sites, generator=gen_mrhs,
+                           device=dev)
+        return dims, u_here, u_bw, psi_b, blk, xc_b
+
+    def mrhs_call(kind, args, parity, how="kernel", chunk=None):
+        """One multi-RHS call: the kernel, its plain version, or the batch
+        through N launches of the single-RHS kernel (a list of the N
+        outputs)."""
+        dims, u_here, u_bw, psi, blk, xc = args
+        if how == "single":
+            outs = []
+            for r in range(psi.shape[0]):
+                if kind == "hop":
+                    outs.append(wpp.dslash_eo_pallas_packed(
+                        u_here, u_bw, psi[r], dims, parity))
+                else:
+                    outs.append(b7_call(kind, (dims, u_here, u_bw, psi[r],
+                                               blk, xc[r]), parity))
+            return outs
+        plain = how == "plain"
+        if kind == "hop":
+            if plain:
+                return wpp.dslash_eo_packed_mrhs_plain(u_here, u_bw, psi,
+                                                       dims, parity)
+            return wpp.dslash_eo_pallas_packed_mrhs(u_here, u_bw, psi, dims,
+                                                    parity, chunk=chunk)
+        if kind == "post":
+            if plain:
+                return clp.dslash_eo_post_mrhs_plain(u_here, u_bw, psi, blk,
+                                                     dims, parity)
+            return clp.dslash_eo_pallas_post_mrhs(u_here, u_bw, psi, dims,
+                                                  parity, blk_pl=blk,
+                                                  chunk=chunk)
+        if plain:
+            return clp.dslash_eo_diag_hop_mrhs_plain(
+                u_here, u_bw, psi, xc, blk, dims, parity, hop_coeff, f32)
+        return clp.dslash_eo_pallas_diag_hop_mrhs(
+            u_here, u_bw, psi, xc, dims, parity, hop_coeff=hop_coeff,
+            blk_pl=blk, out_dtype=f32, chunk=chunk)
+
+    mrhs_vs_single = {}
+    for (kind, rows), name in zip(mrhs_forms, mrhs_names):
+        tol = wpp.TOLERANCE if kind == "hop" else clp.TOLERANCE
+        errs[f"mrhs:{name}"] = 0.0
+        mrhs_vs_single[name] = 0.0
+        cases = [(SMALL_DIMS, parity, n) for parity in (0, 1)
+                 for n in (1, 3, 12)] + [(PROD_DIMS, 0, MULTI_SRC_N)]
+        for dims_xyzt, parity, n in cases:
+            args = mrhs_inputs(dims_xyzt, parity, rows, n)
+            out_k = mrhs_call(kind, args, parity)
+            out_p = mrhs_call(kind, args, parity, "plain")
+            out_s = torch.stack(mrhs_call(kind, args, parity, "single"))
+            torch.cuda.synchronize()
+            scale = out_p.abs().max().item()
+            abs_err = (out_k - out_p).abs().max().item()
+            rel = abs_err / scale
+            rel_single = (out_k - out_s).abs().max().item() / scale
+            errs[f"mrhs:{name}"] = max(errs[f"mrhs:{name}"], abs_err)
+            mrhs_vs_single[name] = max(mrhs_vs_single[name], rel_single)
+            emit({"phase": "check", "kernel": mrhs_wrapper[kind].__name__,
+                  "form": name, "dims_xyzt": list(dims_xyzt),
+                  "parity": parity, "nrhs": n, "chunk": wpp.MRHS_CHUNK,
+                  "max_abs_err": abs_err, "max_rel_err": rel,
+                  "max_rel_diff_single_launches": rel_single,
+                  "tolerance": tol})
+            if not (rel <= tol and rel_single <= tol and
+                    out_k.shape == args[3].shape):
+                fail(f"multi-RHS kernel {name} disagrees with its plain "
+                     f"version or with {n} single-RHS launches: {rel:.3e}, "
+                     f"{rel_single:.3e} > {tol:g}")
+            del args, out_k, out_p, out_s
+
     geom_p = LatticeGeometry(PROD_DIMS)
     n_half = 24 * geom_p.half_volume
     half_shape = (4, 3, 2, geom_p.T, geom_p.Z, geom_p.Y * geom_p.X // 2)
@@ -347,6 +459,9 @@ def main() -> int:
                 "b3_by_form": dict(bpl.axpy_norm2_pallas.launches_by_form),
                 "k1": clp.dslash_eo_pallas_post.launches,
                 "k2": clp.dslash_eo_pallas_diag_hop.launches,
+                "mrhs_by_form": {
+                    f"{k}:{form}": n for k, fn in mrhs_wrapper.items()
+                    for form, n in fn.launches_by_form.items()},
                 "b7_by_form": {
                     f"{k}:{form}": n for k, fn in b7_wrapper.items()
                     for form, n in fn.launches_by_form.items()}}
@@ -491,6 +606,91 @@ def main() -> int:
                  f"iteration with a reliable update: {counts}")
         del x
 
+    # -- the multi-source path: invert_multi_src_quda, N sources ---------
+    gen_src = torch.Generator(device=dev).manual_seed(SEED + 4)
+    srcs = torch.stack([ColorSpinorField.gaussian(
+        geom_p, gen_src, dtype=torch.complex64, device=dev).data
+        for _ in range(MULTI_SRC_N)])
+    lane0 = {}
+    for family in ("wilson", "clover"):
+        kw = {"csw": CSW} if family == "clover" else {}
+        qt.init_quda(dev)
+        try:
+            qt.load_gauge_quda(gauge, qt.GaugeParam(X=PROD_DIMS,
+                                                    cuda_prec="single"))
+            p0 = qt.InvertParam(dslash_type=family, inv_type="cg",
+                                solve_type="normop-pc", kappa=KAPPA, tol=TOL,
+                                maxiter=2000, cuda_prec="single", **kw)
+            qt.invert_quda(srcs[0], p0)
+        finally:
+            qt.end_quda()
+        lane0[family] = p0.iter_count
+
+    multi = {}
+    for label, family, rec, block in (
+            ("wilson", "wilson", 18, False), ("wilson:r12", "wilson", 12, False),
+            ("wilson:block", "wilson", 18, True),
+            ("clover", "clover", 18, False), ("clover:r12", "clover", 12, False)):
+        kw = {"csw": CSW} if family == "clover" else {}
+        qt.init_quda(dev)
+        try:
+            qt.load_gauge_quda(gauge, qt.GaugeParam(
+                X=PROD_DIMS, cuda_prec="single", reconstruct=rec))
+            param = qt.InvertParam(dslash_type=family, inv_type="cg",
+                                   solve_type="normop-pc", kappa=KAPPA,
+                                   tol=TOL, maxiter=2000, cuda_prec="single",
+                                   **kw)
+            os.environ["QUDA_TORCH_MULTI_SRC_BLOCK"] = "1" if block else ""
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            x = qt.invert_multi_src_quda(srcs, param)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            os.environ.pop("QUDA_TORCH_MULTI_SRC_BLOCK", None)
+            qt.end_quda()
+        launches[f"multi:{label}"] = counts
+        finite = bool(torch.isfinite(torch.view_as_real(x)).all())
+        shape_ok = tuple(x.shape) == (MULTI_SRC_N,) + geom_p.spinor_shape()
+        iters = param.iter_count_multi
+        multi[label] = (iters, param.secs)
+        by = counts["mrhs_by_form"]
+        emit({"phase": "invert_multi_src", "label": label,
+              "dims_xyzt": list(PROD_DIMS), "nrhs": MULTI_SRC_N,
+              "dslash_type": family, "kappa": KAPPA, "tol": TOL,
+              "reconstruct": rec, "block_cg": block,
+              "chunk": wpp.MRHS_CHUNK, "iters_per_lane": iters,
+              "iter_count": param.iter_count,
+              "invert_quda_iters_source0": lane0[family],
+              "true_res_worst": param.true_res,
+              "true_res_multi": param.true_res_multi,
+              "converged_multi": param.converged_multi, "secs": param.secs,
+              "gflop": param.gflops, "launches_mrhs": by,
+              "launches_single_rhs": {"b1": counts["b1"], "k1": counts["k1"],
+                                      "k2": counts["k2"]},
+              "shape_ok": shape_ok, "finite": finite,
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        if not (param.converged and all(param.converged_multi)
+                and param.true_res <= TRUE_RES_MAX and finite and shape_ok):
+            fail(f"invert_multi_src_quda ({label}) did not converge every "
+                 f"lane to a finite solution with true_res <= "
+                 f"{TRUE_RES_MAX:g}")
+        if abs(iters[0] - lane0[family]) > 2:
+            fail(f"invert_multi_src_quda ({label}): lane 0 took {iters[0]} "
+                 f"iterations, invert_quda on source 0 {lane0[family]}")
+        form = wpp.form_name(2 if rec == 12 else 3, f32, f32)
+        hops = by.get(f"hop:{form}", 0)
+        k1m, k2m = by.get(f"post:{form}", 0), by.get(f"diag_hop:{form}", 0)
+        n_it = max(iters)
+        if hops < 1 or (family == "wilson" and hops < 4 * n_it) or (
+                family == "clover" and (k1m < 2 * n_it or k2m < 2 * n_it)):
+            fail(f"multi-source path ({label}) did not run through the "
+                 f"multi-RHS kernels: {counts}")
+        if counts["b1"] or counts["k1"] or counts["k2"]:
+            fail(f"multi-source path ({label}) launched a single-RHS hop: "
+                 f"{counts}")
+        del x
+
     # -- 5. small solves: card against the CPU's plain path -------------
     geom_s = LatticeGeometry(SMALL_DIMS)
     rng = np.random.default_rng(SEED)
@@ -551,6 +751,37 @@ def main() -> int:
         fail("the card's small clover solve disagrees with the CPU's plain "
              "path")
 
+    # the multi-source route on 3 sources (Wilson, clover)
+    b_multi = np.stack([b_np] + [
+        (rng.standard_normal(sshp) + 1j * rng.standard_normal(sshp)
+         ).astype(np.complex64) for _ in range(2)])
+    for family in ("wilson", "clover"):
+        sols = {}
+        for where in (dev, "cpu"):
+            qt.init_quda(where)
+            qt.load_gauge_quda(g_su3, qt.GaugeParam(X=SMALL_DIMS,
+                                                    cuda_prec="single"))
+            p = qt.InvertParam(dslash_type=family, inv_type="cg",
+                               solve_type="normop-pc", kappa=KAPPA, csw=CSW,
+                               tol=TOL, maxiter=500, cuda_prec="single")
+            sols[str(where)] = (
+                qt.invert_multi_src_quda(b_multi, p).cpu().numpy(), p)
+            qt.end_quda()
+        (x_gpu, p_gpu), (x_cpu, p_cpu) = sols[str(dev)], sols["cpu"]
+        sol_rel = float(np.linalg.norm(x_gpu - x_cpu)
+                        / np.linalg.norm(x_cpu))
+        emit({"phase": "reference", "dims_xyzt": list(SMALL_DIMS),
+              "api": "invert_multi_src_quda", "dslash_type": family,
+              "nrhs": len(b_multi), "iters_card": p_gpu.iter_count_multi,
+              "iters_cpu": p_cpu.iter_count_multi,
+              "true_res_card": p_gpu.true_res_multi,
+              "solution_rel_diff": sol_rel})
+        if not (sol_rel <= 1e-4 and p_gpu.converged and all(
+                abs(a - b) <= 2 for a, b in zip(p_gpu.iter_count_multi,
+                                                p_cpu.iter_count_multi))):
+            fail(f"the card's small {family} multi-source solve disagrees "
+                 "with the CPU's plain path")
+
     # -- 6. timing at production size -----------------------------------
     dims = geom_p.lattice_shape
     half = geom_p.half_volume
@@ -594,6 +825,35 @@ def main() -> int:
         timing[name] = (k_ms, p_ms, 1e3 * max(t_bytes, t_ops))
         del args
 
+    # multi-RHS kernels at N = MULTI_SRC_N: each chunk width, the plain
+    # version (a few calls: it takes ~N x a single plain call) and N
+    # launches of the single-RHS kernel of the same form
+    mrhs_timing, mrhs_chunks = {}, {}
+    for (kind, rows), name in zip(mrhs_forms, mrhs_names):
+        args = mrhs_inputs(PROD_DIMS, 0, rows, MULTI_SRC_N)
+        by_chunk = {nb: median_ms(lambda: mrhs_call(kind, args, 0,
+                                                    chunk=nb), torch)
+                    for nb in wpp.MRHS_CHUNKS}
+        single_ms = median_ms(lambda: mrhs_call(kind, args, 0, "single"),
+                              torch, repeats=10, batch=2)
+        p_ms = median_ms(lambda: mrhs_call(kind, args, 0, "plain"), torch,
+                         repeats=3, batch=1)
+        if kind == "hop":
+            nbytes = wpp.bytes_per_site_mrhs(MULTI_SRC_N, rows)
+            nflop = wpp.flops_per_site_mrhs(MULTI_SRC_N, rows)
+        else:
+            nbytes = clp.bytes_per_site_mrhs(kind, MULTI_SRC_N, rows)
+            nflop = clp.flops_per_site_mrhs(kind, MULTI_SRC_N, rows)
+        t_bytes = nbytes * half / HBM_BYTES_PER_S
+        t_ops = nflop * half / F32_FLOPS_PER_S
+        bound_by[f"mrhs:{name}"] = "bytes" if t_bytes >= t_ops else \
+            "operations"
+        k_ms = by_chunk[wpp.MRHS_CHUNK]
+        mrhs_timing[name] = (k_ms, p_ms, 1e3 * max(t_bytes, t_ops),
+                             single_ms)
+        mrhs_chunks[name] = by_chunk
+        del args
+
     be, bo = even_odd_split(src, geom_p)
 
     def iteration_ms(dirac):
@@ -632,10 +892,49 @@ def main() -> int:
         DiracWilsonPC(gauge, geom_p, KAPPA).packed())
     (cl_iter_ms, cl_n_timed), cl_mixed_ms = iteration_ms(
         DiracCloverPC(gauge, geom_p, KAPPA, CSW))
+
+    def batched_iteration_ms(dirac):
+        """ms per batched_cg_pairs iteration (N = MULTI_SRC_N lanes, f32
+        pair operator, multi-RHS kernels)."""
+        op = dirac.pairs(torch.float32)
+        be_b, bo_b = (torch.stack(h).contiguous() for h in zip(
+            *(even_odd_split(srcs[i], geom_p) for i in range(MULTI_SRC_N))))
+        rhs_b = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be_b, bo_b))
+        del be_b, bo_b
+        batched_cg_pairs(op.MdagM_pairs_mrhs, rhs_b, tol=1e-30,
+                         maxiter=2)                           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batched_cg_pairs(op.MdagM_pairs_mrhs, rhs_b, tol=1e-30,
+                               maxiter=BATCHED_ITER_TIMED)
+        torch.cuda.synchronize()
+        n_it = int(res.iters.max())
+        return 1e3 * (time.perf_counter() - t0) / n_it, n_it
+
+    b_iter_ms, b_n_timed = batched_iteration_ms(
+        DiracWilsonPC(gauge, geom_p, KAPPA).packed())
+    cl_b_iter_ms, cl_b_n_timed = batched_iteration_ms(
+        DiracCloverPC(gauge, geom_p, KAPPA, CSW))
     row = {"phase": "timing", "dims_xyzt": list(PROD_DIMS),
            "nvidia_smi": smi, "repeats": REPEATS, "calls_per_timing": BATCH}
     for name, (k_ms, p_ms, bound) in timing.items():
         row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound}
+    for name, (k_ms, p_ms, bound, single_ms) in mrhs_timing.items():
+        row[f"mrhs:{name}"] = {
+            "nrhs": MULTI_SRC_N, "chunk": wpp.MRHS_CHUNK, "ms": k_ms,
+            "ms_by_chunk": mrhs_chunks[name], "plain_ms": p_ms,
+            "bound_ms": bound, "share_of_bound": bound / k_ms,
+            "single_rhs_launches_ms": single_ms,
+            "amortisation": single_ms / k_ms}
+    row.update({
+        "batched_cg_iter_ms": b_iter_ms, "batched_cg_iters_timed": b_n_timed,
+        "batched_vs_single_cg_iters": b_iter_ms / (MULTI_SRC_N * iter_ms),
+        "clover_batched_cg_iter_ms": cl_b_iter_ms,
+        "clover_batched_cg_iters_timed": cl_b_n_timed,
+        "clover_batched_vs_single_cg_iters":
+            cl_b_iter_ms / (MULTI_SRC_N * cl_iter_ms),
+        "multi_src_secs": {k: v[1] for k, v in multi.items()},
+        "multi_src_iters": {k: v[0] for k, v in multi.items()}})
     row.update({
         "dslash_eo_ms": timing["full:f32->f32"][0],
         "dslash_eo_bound_no_l2_ms": b1_nol2_ms,
@@ -709,6 +1008,25 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by[name],
             "library_ms": None})
+    # the multi-RHS forms: launches from the multi-source runs
+    for (kind, rows), name in zip(mrhs_forms, mrhs_names):
+        family = "wilson" if kind == "hop" else "clover"
+        path = f"multi:{family}" + (":r12" if rows == 2 else "")
+        k_ms, p_ms, bound, _ = mrhs_timing[name]
+        rows_out.append({
+            "name": f"{mrhs_wrapper[kind].__name__}"
+                    f"[{name.split(':', 1)[1]}]",
+            "route": "cuda",
+            "source": ("quda_tpu_torch/csrc/wilson_eo_mrhs.cu"
+                       if kind == "hop" else
+                       "quda_tpu_torch/csrc/clover_eo_mrhs.cu"),
+            "replaces": ("quda_tpu/ops/wilson_pallas_packed.py:613"
+                         if kind == "hop" else
+                         "quda_tpu/ops/clover_pallas.py:283"),
+            "launches": launches[path]["mrhs_by_form"].get(name, 0),
+            "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:
         fail(f"kernels never launched on their main path: {unlaunched}")

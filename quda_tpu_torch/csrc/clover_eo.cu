@@ -48,16 +48,6 @@ using namespace qtt;
 
 constexpr int kThreads = 128;
 
-// entry (ch, i, j) of the blocks at half-site `site`
-template <typename S>
-__device__ __forceinline__ float2 ld_blk(const S* __restrict__ blk, int ch,
-                                         int i, int j, int64_t n,
-                                         int64_t site) {
-  const S* q = blk + static_cast<int64_t>(((ch * 6 + i) * 6 + j) * 2) * n +
-               site;
-  return make_float2(ld(q), ld(q + n));
-}
-
 // v rounded to the storage type O and back to f32
 template <typename O>
 __device__ __forceinline__ float round_to(float v) {
@@ -81,9 +71,9 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (site >= n) return;
 
-  float2 acc[4][3];
-  eo_hop_sum<R>(acc, psi, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n, parity,
-                tb_sign, site);
+  float2 acc[1][4][3];
+  eo_hop_sum<R, 1>(acc, psi, 0, 1, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n,
+                   parity, tb_sign, site);
 
 #pragma unroll
   for (int ch = 0; ch < 2; ++ch) {
@@ -94,7 +84,7 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (DIAG_HOP) {
         v[j] = ld_psi(xc, 2 * ch + j / 3, j % 3, n, site);
       } else {
-        const float2 a = acc[2 * ch + j / 3][j % 3];
+        const float2 a = acc[0][2 * ch + j / 3][j % 3];
         v[j] = make_float2(round_to<O>(a.x), round_to<O>(a.y));
       }
     }
@@ -106,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
         o = cadd(o, cmul(ld_blk(blk, ch, i, j, n, site), v[j]));
       }
       if constexpr (DIAG_HOP) {
-        const float2 h = acc[2 * ch + i / 3][i % 3];
+        const float2 h = acc[0][2 * ch + i / 3][i % 3];
         o = make_float2(o.x + coeff * h.x, o.y + coeff * h.y);
       }
       O* q = out + static_cast<int64_t>(((2 * ch + i / 3) * 3 + i % 3) * 2) *

@@ -61,17 +61,17 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (site >= n) return;
 
-  float2 acc[4][3];
-  eo_hop_sum<R>(acc, psi, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n, parity,
-                tb_sign, site);
+  float2 acc[1][4][3];
+  eo_hop_sum<R, 1>(acc, psi, 0, 1, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n,
+                   parity, tb_sign, site);
 
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       O* q = out + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
-      st(q, acc[s][c].x);
-      st(q + n, acc[s][c].y);
+      st(q, acc[0][s][c].x);
+      st(q + n, acc[0][s][c].y);
     }
 }
 

@@ -1,8 +1,14 @@
 // Device code of the even/odd Wilson hop on the packed pair layout, shared
 // by the eo hop kernel (B1, wilson_eo.cu) and the fused clover hop (B7,
 // clover_eo.cu): the spin tables, the f32/bf16 loads and stores, the link
-// load (R = 3 rows, or R = 2 with row 2 rebuilt), one hop direction, and
-// eo_hop_sum, the whole 8-direction hop at one target half-site.
+// load (R = 3 rows, or R = 2 with row 2 rebuilt), the clover block entry
+// load, one hop direction, and
+// eo_hop_sum, the whole 8-direction hop at one target half-site.  Both take
+// a compile-time count NB of right-hand sides: each direction's link is
+// loaded (and its row 2 rebuilt) once and applied to NB spinors, which is
+// what the multi-RHS kernels (B5-eo, wilson_eo_mrhs.cu; B7-mrhs,
+// clover_eo_mrhs.cu) are for.  The single-RHS kernels run NB = 1; every
+// right-hand side sees the same arithmetic in the same order for any NB.
 //
 // Layout; every spin/colour/re-im component is its own plane of
 // S = T*Z*Y*Xh half-sites, so adjacent threads read adjacent addresses:
@@ -10,7 +16,10 @@
 //   u_here    (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x) at the target sites x
 //   u_bw      (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x - mu), taken from the opposite
 //                                       parity and shifted once per gauge load
-// Every load converts to f32 and every sum is f32.  Offsets are 64-bit.
+// The NB spinors of one call lie rstride elements apart (24 * S for a
+// (N, 4, 3, 2, T, Z, Y*Xh) batch); only the first nvalid of them are read
+// (a tail chunk).  Every load converts to f32 and every sum is f32.
+// Offsets are 64-bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +90,17 @@ __device__ __forceinline__ float2 ld_psi(const S* __restrict__ psi, int s,
   return make_float2(ld(q), ld(q + n));
 }
 
+// Entry (ch, i, j) of the clover blocks (2, 6, 6, 2, T, Z, Y*Xh) at half-site
+// i: the epilogue load of the fused clover hops (clover_eo.cu,
+// clover_eo_mrhs.cu).
+template <typename S>
+__device__ __forceinline__ float2 ld_blk(const S* __restrict__ blk, int ch,
+                                         int a, int b, int64_t n,
+                                         int64_t i) {
+  const S* q = blk + static_cast<int64_t>(((ch * 6 + a) * 6 + b) * 2) * n + i;
+  return make_float2(ld(q), ld(q + n));
+}
+
 // The 3x3 link of direction mu at half-site i.  With R = 2 only rows 0 and
 // 1 are stored: row 2 = conj(row0 x row1) * row2_sign.
 template <int R, typename S>
@@ -107,47 +127,55 @@ __device__ __forceinline__ void ld_link(float2 (&u)[3][3],
   }
 }
 
-// One hop: psi read at neighbour nb, links at the target site.  SIGN > 0 is
-// the forward hop (1 - gamma_mu) U psi(x+mu); SIGN < 0 the backward hop
-// (1 + gamma_mu) U^dag psi(x-mu), U^dag[a][b] = conj(U[b][a]).
-template <int MU, int SIGN, int R, typename S>
-__device__ __forceinline__ void hop(float2 (&acc)[4][3],
+// One hop for NB right-hand sides: psi read at neighbour nb, links at the
+// target site.  SIGN > 0 is the forward hop (1 - gamma_mu) U psi(x+mu);
+// SIGN < 0 the backward hop (1 + gamma_mu) U^dag psi(x-mu), U^dag[a][b] =
+// conj(U[b][a]).  The link is loaded once for all NB spinors.
+template <int MU, int SIGN, int R, int NB, typename S>
+__device__ __forceinline__ void hop(float2 (&acc)[NB][4][3],
                                     const S* __restrict__ psi,
+                                    int64_t rstride, int nvalid,
                                     const S* __restrict__ g, int64_t n,
                                     int64_t nb, int64_t site,
                                     float row2_sign) {
   constexpr Tab t = tab(MU, SIGN);
-  float2 h[2][3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    h[0][c] = cadd(ld_psi(psi, 0, c, n, nb),
-                   cscale<t.c0r, t.c0i>(ld_psi(psi, t.j0, c, n, nb)));
-    h[1][c] = cadd(ld_psi(psi, 1, c, n, nb),
-                   cscale<t.c1r, t.c1i>(ld_psi(psi, t.j1, c, n, nb)));
-  }
   float2 u[3][3];
   ld_link<R>(u, g, MU, n, site, row2_sign);
-  float2 uh[2][3];
+  float2 m[3][3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float2 m[3];
+  for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
-      m[b] = SIGN > 0 ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
+      m[a][b] = SIGN > 0 ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
     }
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      float2 v = cmul(m[0], h[s][0]);
-      v = cadd(v, cmul(m[1], h[s][1]));
-      uh[s][a] = cadd(v, cmul(m[2], h[s][2]));
-    }
-  }
+  for (int r = 0; r < NB; ++r) {
+    if (NB > 1 && r >= nvalid) break;
+    const S* p = psi + r * rstride;
+    float2 h[2][3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    acc[0][c] = cadd(acc[0][c], uh[0][c]);
-    acc[1][c] = cadd(acc[1][c], uh[1][c]);
-    acc[2][c] = cadd(acc[2][c], cscale<t.d2r, t.d2i>(uh[t.k2][c]));
-    acc[3][c] = cadd(acc[3][c], cscale<t.d3r, t.d3i>(uh[t.k3][c]));
+    for (int c = 0; c < 3; ++c) {
+      h[0][c] = cadd(ld_psi(p, 0, c, n, nb),
+                     cscale<t.c0r, t.c0i>(ld_psi(p, t.j0, c, n, nb)));
+      h[1][c] = cadd(ld_psi(p, 1, c, n, nb),
+                     cscale<t.c1r, t.c1i>(ld_psi(p, t.j1, c, n, nb)));
+    }
+    float2 uh[2][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float2 v = cmul(m[a][0], h[s][0]);
+        v = cadd(v, cmul(m[a][1], h[s][1]));
+        uh[s][a] = cadd(v, cmul(m[a][2], h[s][2]));
+      }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      acc[r][0][c] = cadd(acc[r][0][c], uh[0][c]);
+      acc[r][1][c] = cadd(acc[r][1][c], uh[1][c]);
+      acc[r][2][c] = cadd(acc[r][2][c], cscale<t.d2r, t.d2i>(uh[t.k2][c]));
+      acc[r][3][c] = cadd(acc[r][3][c], cscale<t.d3r, t.d3i>(uh[t.k3][c]));
+    }
   }
 }
 
@@ -159,10 +187,13 @@ __device__ __forceinline__ void hop(float2 (&acc)[4][3],
 // negated on the antiperiodic boundary planes: forward links on t = T-1,
 // pre-shifted backward links on t = 0.
 // The caller passes the plane strides it computed (YXh = Y*Xh, ZYXh =
-// Z*YXh, n = T*ZYXh), so the kernel and the hop share one set.
-template <int R, typename S>
-__device__ __forceinline__ void eo_hop_sum(float2 (&acc)[4][3],
+// Z*YXh, n = T*ZYXh), so the kernel and the hop share one set.  The NB
+// right-hand sides are psi + r * rstride, r < nvalid; acc[r] is zeroed and
+// summed for each of them.
+template <int R, int NB, typename S>
+__device__ __forceinline__ void eo_hop_sum(float2 (&acc)[NB][4][3],
                                            const S* __restrict__ psi,
+                                           int64_t rstride, int nvalid,
                                            const S* __restrict__ u_here,
                                            const S* __restrict__ u_bw,
                                            int T, int Z, int Y, int Xh,
@@ -190,18 +221,21 @@ __device__ __forceinline__ void eo_hop_sum(float2 (&acc)[4][3],
   const float s_t_bwd = (tb_sign && t == 0) ? -1.f : 1.f;
 
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
+  for (int r = 0; r < NB; ++r)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc[s][c] = make_float2(0.f, 0.f);
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[r][s][c] = make_float2(0.f, 0.f);
 
-  hop<0, +1, R>(acc, psi, u_here, n, x_fwd, site, 1.f);
-  hop<0, -1, R>(acc, psi, u_bw, n, x_bwd, site, 1.f);
-  hop<1, +1, R>(acc, psi, u_here, n, y_fwd, site, 1.f);
-  hop<1, -1, R>(acc, psi, u_bw, n, y_bwd, site, 1.f);
-  hop<2, +1, R>(acc, psi, u_here, n, z_fwd, site, 1.f);
-  hop<2, -1, R>(acc, psi, u_bw, n, z_bwd, site, 1.f);
-  hop<3, +1, R>(acc, psi, u_here, n, t_fwd, site, s_t_fwd);
-  hop<3, -1, R>(acc, psi, u_bw, n, t_bwd, site, s_t_bwd);
+  const int64_t rs = rstride;
+  hop<0, +1, R>(acc, psi, rs, nvalid, u_here, n, x_fwd, site, 1.f);
+  hop<0, -1, R>(acc, psi, rs, nvalid, u_bw, n, x_bwd, site, 1.f);
+  hop<1, +1, R>(acc, psi, rs, nvalid, u_here, n, y_fwd, site, 1.f);
+  hop<1, -1, R>(acc, psi, rs, nvalid, u_bw, n, y_bwd, site, 1.f);
+  hop<2, +1, R>(acc, psi, rs, nvalid, u_here, n, z_fwd, site, 1.f);
+  hop<2, -1, R>(acc, psi, rs, nvalid, u_bw, n, z_bwd, site, 1.f);
+  hop<3, +1, R>(acc, psi, rs, nvalid, u_here, n, t_fwd, site, s_t_fwd);
+  hop<3, -1, R>(acc, psi, rs, nvalid, u_bw, n, t_bwd, site, s_t_bwd);
 }
 
 }  // namespace qtt

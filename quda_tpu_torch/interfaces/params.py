@@ -7,7 +7,7 @@ defaults and enum spellings, for the fields the ported routes read.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 DSLASH_TYPES = ("wilson", "clover", "twisted-mass", "twisted-clover",
                 "ndeg-twisted-mass", "ndeg-twisted-clover", "staggered",
@@ -84,6 +84,13 @@ class InvertParam:
     # reliable updates made by the mixed-precision and df64 routes (a
     # result the JAX package reports only in its traced events)
     reliable_updates: int = 0
+    # multi-source results (invert_multi_src_quda): per-RHS true
+    # residuals, iteration counts and convergence claims; iter_count and
+    # gflops then hold the per-RHS sums, true_res the worst lane and
+    # converged whether every lane converged
+    true_res_multi: Sequence[float] = ()
+    iter_count_multi: Sequence[int] = ()
+    converged_multi: Sequence[bool] = ()
 
     def validate(self):
         _check(self.dslash_type in DSLASH_TYPES,

@@ -26,12 +26,19 @@ touches; the df64 route reports its df64 full-lattice residual.
 Every other route raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.
 
+``invert_multi_src_quda`` solves N sources on one gauge field.  Wilson and
+clover ``normop-pc`` CG-family solves at cuda_prec="single" and
+tol >= 5e-8 take the batched pair route: every Krylov iterate is an
+(N,4,3,2,T,Z,Y*Xh) batch and every hop one launch of a multi-RHS kernel
+(B5-eo, B7-mrhs).  Every other request loops over ``invert_quda``.
+
 Resident state (device, geometry, gauge) lives in a module-level context,
 as interface_quda.cpp keeps it, between ``init_quda`` and ``end_quda``.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import time
@@ -188,20 +195,33 @@ def _store_dtype(sloppy: str):
     return torch.bfloat16 if sloppy == "half" else torch.float32
 
 
-def _solve_supervision(param: InvertParam, api: str, converged) -> None:
-    """``param.converged`` from the solver's own claim; a solve that
-    stops without meeting tol warns once per (api, solver) and session."""
-    param.converged = bool(converged)
-    if not param.converged:
-        key = f"unconverged:{api}:{param.inv_type}"
-        if key not in _ctx["warned"]:
-            _ctx["warned"].add(key)
-            log.warning(
-                "%s[%s/%s]: solve exited without meeting tol %g (achieved "
-                "true_res %.2e); InvertParam.converged=False — further "
-                "occurrences are flagged silently on the param", api,
-                param.dslash_type, param.inv_type, param.tol,
-                param.true_res)
+def _solve_supervision(param: InvertParam, api: str, converged=None,
+                       converged_multi=None) -> None:
+    """``param.converged`` (and, for a batch, ``converged_multi``) from
+    the solver's own claim; a solve that stops without meeting tol, or a
+    batch with a lane that does, warns once per (api, solver) and
+    session."""
+    if converged_multi is not None:
+        param.converged_multi = [bool(c) for c in converged_multi]
+        param.converged = all(param.converged_multi)
+    else:
+        param.converged = bool(converged)
+    if param.converged:
+        return
+    key = f"unconverged:{api}:{param.inv_type}"
+    if key in _ctx["warned"]:
+        return
+    _ctx["warned"].add(key)
+    lanes = ""
+    if converged_multi is not None:
+        lanes = (f"{param.converged_multi.count(False)} of "
+                 f"{len(param.converged_multi)} sources: ")
+    log.warning(
+        "%s[%s/%s]: %ssolve exited without meeting tol %g (achieved "
+        "true_res %.2e); InvertParam.converged=False — further "
+        "occurrences are flagged silently on the param", api,
+        param.dslash_type, param.inv_type, lanes, param.tol,
+        param.true_res)
 
 
 def _invert_wilson_df64(b, param: InvertParam, dpk, sloppy: str,
@@ -305,5 +325,152 @@ def invert_quda(source, param: InvertParam):
     _solve_supervision(param, "invert_quda", res.converged)
     log.info("invert_quda[%s/%s]: %d iters, true_res %.2e, %.2f s",
              param.dslash_type, param.inv_type, param.iter_count,
+             param.true_res, param.secs)
+    return x_full
+
+
+def _split_batch(B, geom):
+    """(N,T,Z,Y,X,4,3) -> (even, odd) (N,T,Z,Y,Xh,4,3) batches."""
+    e, o = even_odd_split(B.movedim(0, 4), geom)
+    return e.movedim(4, 0), o.movedim(4, 0)
+
+
+def _join_batch(even, odd, geom):
+    return even_odd_join(even.movedim(0, 4), odd.movedim(0, 4),
+                         geom).movedim(4, 0)
+
+
+def invert_multi_src_quda(sources, param: InvertParam):
+    """invertMultiSrcQuda: solve M x_i = b_i for a batch of sources
+    (N,T,Z,Y,X,4,3) on the resident gauge; returns the (N,...) solutions
+    on the session's device.  Fills ``true_res_multi``,
+    ``iter_count_multi`` and ``converged_multi`` per source,
+    ``iter_count`` (their sum), ``true_res`` (the worst, NaN if any lane
+    is NaN), ``converged`` (all lanes), ``secs`` and ``gflops`` (each
+    source charged its own iterations).
+
+    Routes, as the JAX package's (quda_api.py:1503-1820):
+
+    * batched: dslash_type "wilson" or "clover", solve_type
+      "normop-pc", inv_type in the CG family, cuda_prec "single",
+      tol >= 5e-8.  Every iterate is an f32 pair batch (N,4,3,2,T,Z,Y*Xh)
+      on the float32 pair operator, links full or recon-12 as
+      ``GaugeParam.reconstruct`` says, whatever ``cuda_prec_sloppy`` says
+      (it is ignored here, as in the JAX package).  CGNR, 2 M applies per
+      iteration: ``batched_cg_pairs`` (independent lanes), or with
+      QUDA_TORCH_MULTI_SRC_BLOCK=1 ``block_cg_pairs`` (one shared Krylov
+      space).  Every hop is one launch of a multi-RHS kernel: B5-eo for
+      Wilson, K1/K2-mrhs for clover.
+    * per-source: everything else loops over ``invert_quda`` (so tol <
+      5e-8 Wilson reaches the df64 route per source, and stacks its low
+      words into ``param.x_df64_lo``); what ``invert_quda`` does not
+      serve raises there.
+    * split grid (QUDA_TORCH_MULTI_SRC_SPLIT=1): multi-device, ROADMAP
+      A15; forcing it raises ValueError until then.
+
+    Each lane's true residual is recomputed with the full-lattice complex
+    operator, built once per call.  ``secs`` ends when the solutions
+    are ready, before that check."""
+    _require_init()
+    param.validate()
+    if _ctx["gauge"] is None:
+        raise RuntimeError("load_gauge_quda() first")
+    geom = _ctx["geom"]
+    dtype = complex_dtype(param.cuda_prec)
+    if isinstance(sources, torch.Tensor):
+        B = sources.to(device=_ctx["device"], dtype=dtype)
+    else:
+        B = spinor_from_host(sources, _ctx["device"], dtype)
+    if B.ndim != 7 or tuple(B.shape[1:]) != geom.spinor_shape():
+        raise ValueError(f"sources of shape {tuple(B.shape)}: expected "
+                         f"(N,) + {geom.spinor_shape()}")
+    return _invert_multi_src_body(B, param)
+
+
+def _invert_multi_src_body(B, param: InvertParam):
+    from .. import solvers
+    from ..parallel.split import multi_src_route
+    from ..solvers.block import _check_nrhs
+    from ..utils import config
+
+    n_src = B.shape[0]
+    _check_nrhs(n_src)
+    t0 = time.perf_counter()
+    pc = param.solve_type.endswith("-pc")
+    cg_family = param.inv_type in ("cg", "pcg", "cgnr", "cgne")
+    # f32 pairs cannot certify tolerances below the f32 floor: deep-tol
+    # batches take the per-source route, whose invert_quda engages df64
+    tol_ok = param.tol >= 5e-8
+    batched_able = (pc and param.dslash_type in ("wilson", "clover")
+                    and cg_family and tol_ok and param.cuda_prec == "single")
+    route, _, _ = multi_src_route(
+        n_src, split_mode=config.get("QUDA_TORCH_MULTI_SRC_SPLIT"),
+        split_gate=(pc and param.dslash_type == "wilson" and cg_family
+                    and tol_ok),
+        batched_gate=batched_able)
+    param.x_df64_lo = None
+    param.reliable_updates = 0
+
+    if route == "per_source":
+        xs, lows = [], []
+        iters, res_rhs, conv, gflops = [], [], [], 0.0
+        for i in range(n_src):
+            p_i = copy.copy(param)
+            xs.append(invert_quda(B[i], p_i))
+            iters.append(p_i.iter_count)
+            res_rhs.append(p_i.true_res)
+            conv.append(p_i.converged)
+            gflops += p_i.gflops
+            lows.append(p_i.x_df64_lo)
+            param.reliable_updates += p_i.reliable_updates
+        x_full = torch.stack(xs)
+        if all(lo is not None for lo in lows):
+            param.x_df64_lo = torch.stack(lows)
+        param.secs = time.perf_counter() - t0
+    else:
+        geom = _ctx["geom"]
+        dev = _ctx["device"]
+        form = _link_form()
+        dirac = _build_dirac(param, True, B.dtype)
+        if param.dslash_type == "wilson":
+            dirac = dirac.packed()
+        op = dirac.pairs(torch.float32, precision_form=form)
+        be, bo = _split_batch(B, geom)
+        # CGNR on the batched normal equations: MdagM x = Mdag b
+        sys_rhs = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be, bo))
+        if config.get("QUDA_TORCH_MULTI_SRC_BLOCK") == "1":
+            res = solvers.block_cg_pairs(op.MdagM_pairs_mrhs, sys_rhs,
+                                         tol=param.tol,
+                                         maxiter=param.maxiter)
+            iters = [int(res.iters)] * n_src
+        else:
+            res = solvers.batched_cg_pairs(op.MdagM_pairs_mrhs, sys_rhs,
+                                           tol=param.tol,
+                                           maxiter=param.maxiter)
+            iters = [int(i) for i in res.iters]
+        conv = [bool(c) for c in res.converged]
+        x_full = _join_batch(*op.reconstruct_pairs_mrhs(res.x, be, bo), geom)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        param.secs = time.perf_counter() - t0
+        d_chk = _build_dirac(param, False, B.dtype)
+        res_rhs = [math.sqrt(float(blas.norm2(B[i] - d_chk.M(x_full[i])))
+                             / float(blas.norm2(B[i])))
+                   for i in range(n_src)]
+        # per UPDATED site (volume/2) and M apply, 2 applies per iteration;
+        # each source is charged its own converged iterations
+        gflops = (sum(iters) * 2.0 * dirac.flops_per_site_M()
+                  * (geom.volume // 2)) / 1e9
+    param.iter_count_multi = [int(i) for i in iters]
+    param.true_res_multi = [float(r) for r in res_rhs]
+    param.iter_count = sum(param.iter_count_multi)
+    # max that propagates a NaN lane, as np.max does
+    param.true_res = float(torch.tensor(param.true_res_multi,
+                                        dtype=torch.float64).max())
+    param.gflops = gflops
+    _solve_supervision(param, "invert_multi_src_quda", converged_multi=conv)
+    log.info("invert_multi_src_quda[%s/%s] (%s): %d sources, iters %s, "
+             "worst true_res %.2e, %.2f s", param.dslash_type,
+             param.inv_type, route, n_src, param.iter_count_multi,
              param.true_res, param.secs)
     return x_full

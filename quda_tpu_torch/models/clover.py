@@ -122,20 +122,28 @@ def pack_clover_pairs(blocks: torch.Tensor, store_dtype) -> torch.Tensor:
 def apply_clover_pairs(blk_pp: torch.Tensor, x_pp: torch.Tensor,
                        out_dtype=None) -> torch.Tensor:
     """A psi on pair arrays: blk_pp (2,6,6,2,T,Z,YXh), x_pp
-    (4,3,2,T,Z,YXh).  The (4,3) spin-color axes reshape to (2,6)
-    chirality blocks (spins 0,1 -> chirality 0 in DeGrand-Rossi);
-    complex matvec as four real einsums in float32."""
+    (4,3,2,T,Z,YXh), or (N,4,3,2,T,Z,YXh) with a leading RHS axis, which
+    moves beside the site axes so the blocks broadcast over it.  The (4,3)
+    spin-color axes reshape to (2,6) chirality blocks (spins 0,1 ->
+    chirality 0 in DeGrand-Rossi); complex matvec as four real einsums in
+    float32."""
     odt = out_dtype or x_pp.dtype
     f = x_pp.to(torch.float32)
-    chi = f.reshape((2, 6) + tuple(f.shape[2:]))     # (2,6,2,T,Z,YXh)
+    batched = f.ndim == 7
+    if batched:
+        f = f.movedim(0, 3)                          # (4,3,2,N,T,Z,YXh)
+    chi = f.reshape((2, 6) + tuple(f.shape[2:]))     # (2,6,2,[N],T,Z,YXh)
     ar = blk_pp[:, :, :, 0].to(torch.float32)        # (2,6,6,T,Z,YXh)
     ai = blk_pp[:, :, :, 1].to(torch.float32)
-    xr, xi = chi[:, :, 0], chi[:, :, 1]              # (2,6,T,Z,YXh)
+    xr, xi = chi[:, :, 0], chi[:, :, 1]              # (2,6,[N],T,Z,YXh)
     outr = (torch.einsum("cij...,cj...->ci...", ar, xr)
             - torch.einsum("cij...,cj...->ci...", ai, xi))
     outi = (torch.einsum("cij...,cj...->ci...", ar, xi)
             + torch.einsum("cij...,cj...->ci...", ai, xr))
-    out = torch.stack([outr, outi], dim=2)           # (2,6,2,T,Z,YXh)
+    out = torch.stack([outr, outi], dim=2)           # (2,6,2,[N],T,Z,YXh)
+    out = out.reshape((4, 3) + tuple(out.shape[2:]))
+    if batched:
+        out = out.movedim(3, 0).contiguous()
     return out.reshape(x_pp.shape).to(odt)
 
 

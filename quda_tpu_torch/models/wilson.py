@@ -16,7 +16,10 @@ the kernel, on CPU tensors its plain version.  Its storage is float32
 precision), with full or reconstruct-12 links.  ``_SchurPairOpBase``
 is the same hop under a Schur operator with a diagonal (the clover
 family, models/clover.py), whose two hops per apply run the fused clover
-kernel.
+kernel.  Every pair operator also has ``_mrhs`` forms on a leading axis of
+N right-hand sides, (N,4,3,2,T,Z,Y*Xh): the same composition, each hop one
+launch of a multi-RHS kernel (B5-eo, or the fused clover B7-mrhs), the
+glue broadcast over that axis.
 """
 
 from __future__ import annotations
@@ -122,25 +125,49 @@ class _PairSloppyBase:
     def _d_to(self, psi_pairs, target_parity, out_dtype):
         raise NotImplementedError
 
-    def M_pairs(self, x):
-        """x - kappa^2 D_p D_{1-p} x."""
+    def _d_to_mrhs(self, psi_b, target_parity, out_dtype):
+        """The stencil on a batch (N, ...) of right-hand sides."""
+        raise NotImplementedError
+
+    def _M_with(self, x, d_to):
+        """x - kappa^2 D_p D_{1-p} x, on hop ``d_to``."""
         p = self.matpc
-        tmp = self._d_to(x, 1 - p, self.store_dtype)
-        dd = self._d_to(tmp, p, torch.float32)
+        tmp = d_to(x, 1 - p, self.store_dtype)
+        dd = d_to(tmp, p, torch.float32)
         out = x.to(torch.float32) - (self.kappa ** 2) * dd
         return out.to(self.store_dtype)
 
-    def _g5_pairs(self, x):
-        """gamma5 = diag(+1,+1,-1,-1) on the spin axis, computed in f32
+    def M_pairs(self, x):
+        return self._M_with(x, self._d_to)
+
+    @staticmethod
+    def _g5_on(x, spin_axis):
+        """gamma5 = diag(+1,+1,-1,-1) on ``spin_axis``, computed in f32
         and cast back to x's dtype."""
-        sign = _g5_sign(x.device, x.ndim, self._spin_axis % x.ndim)
+        sign = _g5_sign(x.device, x.ndim, spin_axis)
         return (x.to(torch.float32) * sign).to(x.dtype)
+
+    def _g5_pairs(self, x):
+        return self._g5_on(x, self._spin_axis % x.ndim)
 
     def Mdag_pairs(self, x):
         return self._g5_pairs(self.M_pairs(self._g5_pairs(x)))
 
     def MdagM_pairs(self, x):
         return self.Mdag_pairs(self.M_pairs(x))
+
+    # -- multi-RHS forms: a leading axis of N right-hand sides ------------
+    def _g5_pairs_mrhs(self, x):
+        return self._g5_on(x, self._spin_axis % (x.ndim - 1) + 1)
+
+    def M_pairs_mrhs(self, x):
+        return self._M_with(x, self._d_to_mrhs)
+
+    def Mdag_pairs_mrhs(self, x):
+        return self._g5_pairs_mrhs(self.M_pairs_mrhs(self._g5_pairs_mrhs(x)))
+
+    def MdagM_pairs_mrhs(self, x):
+        return self.Mdag_pairs_mrhs(self.M_pairs_mrhs(x))
 
 
 class _PackedHopMixin:
@@ -193,15 +220,31 @@ class _PackedHopMixin:
             psi_pp, self.dims, target_parity, out_dtype=out_dtype,
             tb_sign=self._tb_sign)
 
+    def _d_to_mrhs(self, psi_b, target_parity, out_dtype):
+        """The multi-RHS hop (B5-eo) on psi_b (N,4,3,2,T,Z,Y*Xh): one
+        launch for the batch, each link loaded once per chunk of
+        right-hand sides.  (The r12f, fold and int8 link forms, which have
+        their own multi-RHS kernels in the JAX package, are refused at
+        construction: ROADMAP B9.)"""
+        return wpp.dslash_eo_pallas_packed_mrhs(
+            self.gauge_eo_pp[target_parity], self._u_bw[target_parity],
+            psi_b, self.dims, target_parity, out_dtype=out_dtype,
+            tb_sign=self._tb_sign)
+
     def _to_pairs(self, x):
-        """Canonical (T,Z,Y,Xh,4,3) complex -> packed pairs."""
+        """Canonical (..., T,Z,Y,Xh,4,3) complex -> packed pairs; leading
+        (RHS) axes stay in front."""
         return wpk.to_packed_pairs(wpk.pack_spinor(x), self.store_dtype)
 
     def _from_pairs(self, x, dtype):
-        """Packed pairs -> canonical (T,Z,Y,Xh,4,3) complex."""
+        """Packed pairs -> canonical (..., T,Z,Y,Xh,4,3) complex."""
         T, Z, Y, X = self.dims
         return wpk.unpack_spinor(wpk.from_packed_pairs(x, dtype),
                                  (T, Z, Y, X // 2))
+
+    def solution_from_pairs_mrhs(self, x_b, dtype=torch.complex64):
+        """Batched pair solutions -> canonical complex (N,T,Z,Y,Xh,4,3)."""
+        return self._from_pairs(x_b, dtype)
 
 
 class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
@@ -217,8 +260,12 @@ class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
     clover hop (ops/clover_pallas): K1 = Ainv_q(D_{q<-p} x), K2 =
     diag_p(x) - kappa^2 D_{p<-q} t; on CPU tensors their plain versions,
     the staged composition.  Mdag = g5 M(-s) g5; the twist sign s is
-    ignored by the g5-hermitian clover family.  The multi-RHS forms wait
-    for ROADMAP A8."""
+    ignored by the g5-hermitian clover family.  The ``_mrhs`` forms run
+    the same composition on a batch: K1 and K2 become the multi-RHS fused
+    hops (B7-mrhs), prepare and reconstruct the multi-RHS hop (B5-eo).
+
+    ``_Ainv_q_sign_pairs`` serves both: it must broadcast over a leading
+    RHS axis (the clover term's ``apply_clover_pairs`` does)."""
 
     def _Ainv_q_sign_pairs(self, x, sign, out_dtype):
         raise NotImplementedError
@@ -231,23 +278,32 @@ class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
         """-> (blk_pl, diag_twist c or None) of K2's diagonal."""
         raise NotImplementedError
 
-    def _M_sign_pairs(self, x, sign):
-        from ..ops import clover_pallas as clp
+    def _schur_with(self, x, sign, k1, k2):
+        """diag_p(x) - kappa^2 D Ainv_q(s) D x through the fused hops
+        ``k1`` (K1 or K1-mrhs) and ``k2`` (K2 or K2-mrhs)."""
         p = self.matpc
         k1_blk, k1_twist = self._fused_k1_params(sign)
         k2_blk, k2_twist = self._fused_k2_params(sign)
         # K1: Ainv_q(D_{q<-p} x), the hop rounded to store_dtype first
-        t = clp.dslash_eo_pallas_post(
-            self.gauge_eo_pp[1 - p], self._u_bw[1 - p], x, self.dims,
-            1 - p, blk_pl=k1_blk, twist=k1_twist,
-            out_dtype=self.store_dtype, tb_sign=self._tb_sign)
+        t = k1(self.gauge_eo_pp[1 - p], self._u_bw[1 - p], x, self.dims,
+               1 - p, blk_pl=k1_blk, twist=k1_twist,
+               out_dtype=self.store_dtype, tb_sign=self._tb_sign)
         # K2: diag_p(x) - kappa^2 D_{p<-q} t in float32, cast to storage
-        out = clp.dslash_eo_pallas_diag_hop(
-            self.gauge_eo_pp[p], self._u_bw[p], t, x, self.dims, p,
-            hop_coeff=-(self.kappa ** 2), blk_pl=k2_blk,
-            diag_twist=k2_twist, out_dtype=torch.float32,
-            tb_sign=self._tb_sign)
+        out = k2(self.gauge_eo_pp[p], self._u_bw[p], t, x, self.dims, p,
+                 hop_coeff=-(self.kappa ** 2), blk_pl=k2_blk,
+                 diag_twist=k2_twist, out_dtype=torch.float32,
+                 tb_sign=self._tb_sign)
         return out.to(self.store_dtype)
+
+    def _M_sign_pairs(self, x, sign):
+        from ..ops import clover_pallas as clp
+        return self._schur_with(x, sign, clp.dslash_eo_pallas_post,
+                                clp.dslash_eo_pallas_diag_hop)
+
+    def _M_sign_pairs_mrhs(self, x, sign):
+        from ..ops import clover_pallas as clp
+        return self._schur_with(x, sign, clp.dslash_eo_pallas_post_mrhs,
+                                clp.dslash_eo_pallas_diag_hop_mrhs)
 
     def M_pairs(self, x):
         return self._M_sign_pairs(x, +1)
@@ -255,29 +311,53 @@ class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
     def Mdag_pairs(self, x):
         return self._g5_pairs(self._M_sign_pairs(self._g5_pairs(x), -1))
 
-    def prepare_pairs(self, b_even, b_odd):
-        """Canonical complex parity sources -> pair-form PC rhs
-        b_p + kappa D Ainv_q b_q, in the storage dtype."""
+    def M_pairs_mrhs(self, x):
+        return self._M_sign_pairs_mrhs(x, +1)
+
+    def Mdag_pairs_mrhs(self, x):
+        return self._g5_pairs_mrhs(
+            self._M_sign_pairs_mrhs(self._g5_pairs_mrhs(x), -1))
+
+    def _prepare_with(self, b_even, b_odd, d_to):
         p = self.matpc
         b_p, b_q = (b_even, b_odd) if p == EVEN else (b_odd, b_even)
         t = self._Ainv_q_sign_pairs(self._to_pairs(b_q), +1,
                                     self.store_dtype)
-        t = self._d_to(t, p, torch.float32)
+        t = d_to(t, p, torch.float32)
         rhs = self._to_pairs(b_p).to(torch.float32) + self.kappa * t
         return rhs.to(self.store_dtype)
 
-    def reconstruct_pairs(self, x_pp, b_even, b_odd):
-        """x_q = Ainv_q (b_q + kappa D x_p); canonical complex parity
-        fields out."""
+    def _reconstruct_with(self, x_pp, b_even, b_odd, d_to):
         p = self.matpc
         b_q = b_odd if p == EVEN else b_even
-        t = self._d_to(x_pp, 1 - p, torch.float32)
+        t = d_to(x_pp, 1 - p, torch.float32)
         xq_pp = self._Ainv_q_sign_pairs(
             self._to_pairs(b_q).to(torch.float32) + self.kappa * t, +1,
             torch.float32)
         x_p = self._from_pairs(x_pp, b_q.dtype)
         x_q = self._from_pairs(xq_pp, b_q.dtype)
         return (x_p, x_q) if p == EVEN else (x_q, x_p)
+
+    def prepare_pairs(self, b_even, b_odd):
+        """Canonical complex parity sources -> pair-form PC rhs
+        b_p + kappa D Ainv_q b_q, in the storage dtype."""
+        return self._prepare_with(b_even, b_odd, self._d_to)
+
+    def reconstruct_pairs(self, x_pp, b_even, b_odd):
+        """x_q = Ainv_q (b_q + kappa D x_p); canonical complex parity
+        fields out."""
+        return self._reconstruct_with(x_pp, b_even, b_odd, self._d_to)
+
+    def prepare_pairs_mrhs(self, b_even_b, b_odd_b):
+        """Batched prepare_pairs: (N,T,Z,Y,Xh,4,3) complex parity sources
+        in, (N,4,3,2,T,Z,Y*Xh) out, the hop on the multi-RHS kernel."""
+        return self._prepare_with(b_even_b, b_odd_b, self._d_to_mrhs)
+
+    def reconstruct_pairs_mrhs(self, x_b, b_even_b, b_odd_b):
+        """Batched reconstruct_pairs: canonical complex (even, odd)
+        batches out."""
+        return self._reconstruct_with(x_b, b_even_b, b_odd_b,
+                                      self._d_to_mrhs)
 
 
 class DiracWilsonPCPacked:
@@ -316,22 +396,39 @@ class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
         self.kappa = float(dpk.kappa)
         self.matpc = dpk.matpc
 
-    def prepare_pairs(self, b_even, b_odd):
-        """Canonical complex parity sources -> pair-form PC rhs
-        b_p + kappa D b_q."""
+    def _prepare_with(self, b_even, b_odd, d_to):
         p = self.matpc
         b_p, b_q = (b_even, b_odd) if p == EVEN else (b_odd, b_even)
         return (self._to_pairs(b_p).to(torch.float32)
-                + self.kappa * self._d_to(self._to_pairs(b_q), p,
-                                          torch.float32))
+                + self.kappa * d_to(self._to_pairs(b_q), p, torch.float32))
 
-    def reconstruct_pairs(self, x_pp, b_even, b_odd):
-        """Pair-form PC solution + canonical complex sources -> canonical
-        complex parity fields, x_q = b_q + kappa D x_p on the same hop."""
+    def _reconstruct_with(self, x_pp, b_even, b_odd, d_to):
         p = self.matpc
         b_q = b_odd if p == EVEN else b_even
-        t = self._d_to(x_pp, 1 - p, torch.float32)
+        t = d_to(x_pp, 1 - p, torch.float32)
         xq_pp = self._to_pairs(b_q).to(torch.float32) + self.kappa * t
         x_p = self._from_pairs(x_pp, b_q.dtype)
         x_q = self._from_pairs(xq_pp, b_q.dtype)
         return (x_p, x_q) if p == EVEN else (x_q, x_p)
+
+    def prepare_pairs(self, b_even, b_odd):
+        """Canonical complex parity sources -> pair-form PC rhs
+        b_p + kappa D b_q."""
+        return self._prepare_with(b_even, b_odd, self._d_to)
+
+    def reconstruct_pairs(self, x_pp, b_even, b_odd):
+        """Pair-form PC solution + canonical complex sources -> canonical
+        complex parity fields, x_q = b_q + kappa D x_p on the same hop."""
+        return self._reconstruct_with(x_pp, b_even, b_odd, self._d_to)
+
+    def prepare_pairs_mrhs(self, b_even_b, b_odd_b):
+        """Batched prepare_pairs: (N,T,Z,Y,Xh,4,3) complex parity sources
+        in, the f32 (N,4,3,2,T,Z,Y*Xh) rhs out; the multi-RHS hop serves
+        source preparation too."""
+        return self._prepare_with(b_even_b, b_odd_b, self._d_to_mrhs)
+
+    def reconstruct_pairs_mrhs(self, x_b, b_even_b, b_odd_b):
+        """Batched reconstruct_pairs: x_q = b_q + kappa D x_p on the
+        multi-RHS hop; canonical complex (even, odd) batches out."""
+        return self._reconstruct_with(x_b, b_even_b, b_odd_b,
+                                      self._d_to_mrhs)

@@ -19,11 +19,19 @@ or all bfloat16; R = 3 link rows or R = 2 (recon-12, ``tb_sign``); K1
 writes the storage dtype, K2 float32.  The twisted epilogues (``twist``,
 ``diag_twist``) and the block-free forms wait for ROADMAP A10 (twisted).
 
+The multi-RHS forms (B7-mrhs) ``dslash_eo_pallas_post_mrhs`` and
+``dslash_eo_pallas_diag_hop_mrhs`` replace the JAX module's
+``_fused_eo_call_mrhs`` with ``csrc/clover_eo_mrhs.cu``: psi, x and out
+carry a leading axis of N right-hand sides, and each link and block entry
+is loaded once for a chunk of ``wilson_pallas_packed.MRHS_CHUNK`` of
+them.  Their forms are float32 with full or recon-12 links; bf16 storage
+waits for ROADMAP B5, the twist epilogues for A10.
+
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
-version (``dslash_eo_post_plain``, ``dslash_eo_diag_hop_plain``), CUDA
-tensors launch the kernel or raise.  Each wrapper counts its launches in
-``.launches`` and per form in ``.launches_by_form`` (``"full:f32->f32"``,
-``"r12:bf16->bf16"``, ...).
+versions (``dslash_eo_post_plain``, ``dslash_eo_diag_hop_plain`` and
+their ``_mrhs`` twins), CUDA tensors launch the kernel or raise.  Each
+wrapper counts its launches in ``.launches`` and per form in
+``.launches_by_form`` (``"full:f32->f32"``, ``"r12:bf16->bf16"``, ...).
 """
 
 from __future__ import annotations
@@ -66,9 +74,22 @@ def bytes_per_site(kind: str, rows: int = 3,
     return hop_in + 144 * sb + 24 * 4 + 24 * sb
 
 
+def bytes_per_site_mrhs(kind: str, n: int, rows: int = 3) -> int:
+    """Floor of B7-mrhs's traffic per target half-site for ``n``
+    right-hand sides in float32: the links and blocks once, each spinor
+    (and for K2 each x) read once and each output written once."""
+    per_rhs = 192 if kind == "post" else 288
+    return per_rhs * n + 8 * rows * 3 * 2 * 4 + 144 * 4
+
+
 def flops_per_site(kind: str, rows: int = 3) -> int:
     return FLOPS_PER_SITE[kind] + (wpp.RECON_FLOPS_PER_SITE if rows == 2
                                    else 0)
+
+
+def flops_per_site_mrhs(kind: str, n: int, rows: int = 3) -> int:
+    return FLOPS_PER_SITE[kind] * n + (wpp.RECON_FLOPS_PER_SITE if rows == 2
+                                       else 0)
 
 
 def out_dtype_of(kind: str, store_dtype):
@@ -98,13 +119,28 @@ def dslash_eo_diag_hop_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
     return out.to(out_dtype or psi_pl.dtype)
 
 
-def _link_rows(u_here_pl) -> int:
-    rows = u_here_pl.shape[1] if u_here_pl.ndim == 7 else 0
-    if rows not in (2, 3):
-        raise ValueError(f"links of shape {tuple(u_here_pl.shape)}: "
-                         "expected (4, R, 3, 2, T, Z, Y*Xh) with R = 3 "
-                         "(full) or 2 (recon-12)")
-    return rows
+def dslash_eo_post_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl, dims,
+                              target_parity: int, out_dtype=None,
+                              tb_sign: bool = True) -> torch.Tensor:
+    """Plain version of K1-mrhs: ``dslash_eo_post_plain`` broadcast over
+    the leading RHS axis of psi."""
+    odt = out_dtype or psi_pl.dtype
+    hop = wpp.dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                          target_parity, odt, tb_sign)
+    return apply_clover_pairs(blk_pl, hop, odt)
+
+
+def dslash_eo_diag_hop_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
+                                  dims, target_parity: int,
+                                  hop_coeff: float, out_dtype=None,
+                                  tb_sign: bool = True) -> torch.Tensor:
+    """Plain version of K2-mrhs: ``dslash_eo_diag_hop_plain`` broadcast
+    over the leading RHS axis of psi and x."""
+    hop = wpp.dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                          target_parity, torch.float32,
+                                          tb_sign)
+    out = apply_clover_pairs(blk_pl, xc_pl, torch.float32) + hop_coeff * hop
+    return out.to(out_dtype or psi_pl.dtype)
 
 
 def _check_args(target_parity, blk_pl, twist):
@@ -159,7 +195,7 @@ def dslash_eo_pallas_post(u_here_pl, u_bw_pl, psi_pl, dims,
     ``blk_pl`` (e.g. the clover inverse A_q^-1).  Output in
     ``out_dtype`` (default psi's; the kernel writes the storage dtype)."""
     _check_args(target_parity, blk_pl, twist)
-    rows = _link_rows(u_here_pl)
+    rows = wpp.link_rows(u_here_pl)
     kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, blk_pl)
     out_dtype = out_dtype or psi_pl.dtype
     if kind == "cpu":
@@ -178,7 +214,7 @@ def dslash_eo_pallas_diag_hop(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
     the target sites (e.g. A_p x - kappa^2 D t).  Pass
     ``out_dtype=torch.float32``, the kernel's output."""
     _check_args(target_parity, blk_pl, diag_twist)
-    rows = _link_rows(u_here_pl)
+    rows = wpp.link_rows(u_here_pl)
     kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, xc_pl,
                                    blk_pl)
     out_dtype = out_dtype or psi_pl.dtype
@@ -191,8 +227,90 @@ def dslash_eo_pallas_diag_hop(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
                    float(hop_coeff), tb_sign, rows)
 
 
+def _launch_mrhs(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
+                 dims, target_parity, out_dtype, hop_coeff, tb_sign, rows,
+                 chunk):
+    """Check the operands and launch one multi-RHS kernel instance."""
+    T, Z, Y, X = dims
+    Xh = X // 2
+    f32 = torch.float32
+    if psi_pl.dtype != f32 or out_dtype != f32:
+        raise TypeError(f"{kind}_mrhs: psi {psi_pl.dtype} -> out "
+                        f"{out_dtype}: the multi-RHS clover hop has float32 "
+                        "forms only; bf16 storage waits for ROADMAP B5")
+    sites = (T, Z, Y * Xh)
+    nrhs = psi_pl.shape[0]
+    nb = wpp.mrhs_chunk(chunk, nrhs, T * Z * Y * Xh)
+    kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
+    kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, f32)
+    kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, f32)
+    kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, f32)
+    if xc_pl is not None:
+        kernels.require(xc_pl, "xc_pl", (nrhs, 4, 3, 2) + sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_clover_eo_mrhs(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_bw_pl.data_ptr(), blk_pl.data_ptr(),
+        None if xc_pl is None else xc_pl.data_ptr(), T, Z, Y, Xh,
+        int(target_parity), rows, int(bool(tb_sign)),
+        int(kind == "diag_hop"), ctypes.c_float(hop_coeff), nrhs, nb,
+        kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_clover_eo_mrhs")
+    wrapper.launches += 1
+    form = wpp.form_name(rows, f32, f32)
+    wrapper.launches_by_form[form] = wrapper.launches_by_form.get(form, 0) + 1
+    return out
+
+
+def dslash_eo_pallas_post_mrhs(u_here_pl, u_bw_pl, psi_pl, dims,
+                               target_parity: int, *, blk_pl=None,
+                               twist=None, out_dtype=None,
+                               tb_sign: bool = True, chunk=None):
+    """K1 over a batch: B(D_{p<-q} psi_r) for psi (N,4,3,2,T,Z,Y*Xh), the
+    links and blocks loaded once per chunk of right-hand sides."""
+    _check_args(target_parity, blk_pl, twist)
+    rows = wpp.link_rows(u_here_pl)
+    wpp.check_batch(psi_pl)
+    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, blk_pl)
+    out_dtype = out_dtype or psi_pl.dtype
+    if kind == "cpu":
+        return dslash_eo_post_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl,
+                                         dims, target_parity, out_dtype,
+                                         tb_sign)
+    return _launch_mrhs(dslash_eo_pallas_post_mrhs, "post", u_here_pl,
+                        u_bw_pl, psi_pl, None, blk_pl, dims, target_parity,
+                        out_dtype, 0.0, tb_sign, rows, chunk)
+
+
+def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
+                                   target_parity: int, *, hop_coeff: float,
+                                   blk_pl=None, diag_twist=None,
+                                   out_dtype=None, tb_sign: bool = True,
+                                   chunk=None):
+    """K2 over a batch: B x_r + hop_coeff * D_{p<-q} psi_r, x batched like
+    psi.  Pass ``out_dtype=torch.float32``, the kernel's output."""
+    _check_args(target_parity, blk_pl, diag_twist)
+    rows = wpp.link_rows(u_here_pl)
+    wpp.check_batch(psi_pl)
+    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, xc_pl,
+                                   blk_pl)
+    out_dtype = out_dtype or psi_pl.dtype
+    if kind == "cpu":
+        return dslash_eo_diag_hop_mrhs_plain(u_here_pl, u_bw_pl, psi_pl,
+                                             xc_pl, blk_pl, dims,
+                                             target_parity, hop_coeff,
+                                             out_dtype, tb_sign)
+    return _launch_mrhs(dslash_eo_pallas_diag_hop_mrhs, "diag_hop",
+                        u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl, dims,
+                        target_parity, out_dtype, float(hop_coeff), tb_sign,
+                        rows, chunk)
+
+
 def reset_launches() -> None:
-    for fn in (dslash_eo_pallas_post, dslash_eo_pallas_diag_hop):
+    """Zero the launch counts of K1 and K2, single- and multi-RHS."""
+    for fn in (dslash_eo_pallas_post, dslash_eo_pallas_diag_hop,
+               dslash_eo_pallas_post_mrhs, dslash_eo_pallas_diag_hop_mrhs):
         fn.launches = 0
         fn.launches_by_form = {}
 

@@ -31,14 +31,22 @@ from .wilson_pallas import TABLES
 # -- pack / unpack (host order <-> packed order) ---------------------------
 
 def pack_spinor(psi: torch.Tensor) -> torch.Tensor:
-    """(T,Z,Y,X,4,3) -> (4,3,T,Z,Y*X)."""
-    T, Z, Y, X = psi.shape[:4]
-    return psi.permute(4, 5, 0, 1, 2, 3).reshape(4, 3, T, Z, Y * X)
+    """(..., T,Z,Y,X,4,3) -> (..., 4,3,T,Z,Y*X); leading (RHS) axes stay
+    in front."""
+    lead = tuple(psi.shape[:-6])
+    T, Z, Y, X = psi.shape[-6:-2]
+    k = len(lead)
+    perm = tuple(range(k)) + (k + 4, k + 5, k, k + 1, k + 2, k + 3)
+    return psi.permute(perm).reshape(lead + (4, 3, T, Z, Y * X))
 
 
 def unpack_spinor(pp: torch.Tensor, lattice_shape) -> torch.Tensor:
+    """(..., 4,3,T,Z,Y*X) -> (..., T,Z,Y,X,4,3)."""
     T, Z, Y, X = lattice_shape
-    return pp.reshape(4, 3, T, Z, Y, X).permute(2, 3, 4, 5, 0, 1)
+    lead = tuple(pp.shape[:-5])
+    k = len(lead)
+    perm = tuple(range(k)) + (k + 2, k + 3, k + 4, k + 5, k, k + 1)
+    return pp.reshape(lead + (4, 3, T, Z, Y, X)).permute(perm)
 
 
 def pack_gauge(gauge: torch.Tensor) -> torch.Tensor:

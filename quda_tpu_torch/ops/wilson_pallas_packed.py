@@ -15,11 +15,18 @@ bfloat16; out float32, or bfloat16 from bf16 storage; R = 3 link rows
 rebuilt at use, with ``tb_sign`` negating it on the antiperiodic t
 boundary planes).  Sums are float32 in every form.
 
-The wrapper dispatches on the tensors' device: CPU tensors run the plain
-version (``dslash_eo_packed_plain``), CUDA tensors launch the kernel or
-raise.  ``dslash_eo_pallas_packed.launches`` counts launches, and
-``.launches_by_form`` counts them per form (``"full:f32->f32"``,
-``"r12:bf16->bf16"``, ...).
+The multi-RHS hop (B5-eo) ``dslash_eo_pallas_packed_mrhs`` replaces
+dslash_eo_pallas_packed_mrhs of the same JAX module with
+``csrc/wilson_eo_mrhs.cu``: psi and out carry a leading axis of N
+right-hand sides, (N, 4, 3, 2, T, Z, Y*Xh), and each link is loaded once
+for a chunk of ``MRHS_CHUNK`` of them.  Its forms are ``full:f32->f32``
+and ``r12:f32->f32``; the bf16 forms wait for ROADMAP B5.
+
+The wrappers dispatch on the tensors' device: CPU tensors run the plain
+versions (``dslash_eo_packed_plain``, ``dslash_eo_packed_mrhs_plain``),
+CUDA tensors launch the kernel or raise.  Each wrapper counts its
+launches in ``.launches`` and per form in ``.launches_by_form``
+(``"full:f32->f32"``, ``"r12:bf16->bf16"``, ...).
 """
 
 from __future__ import annotations
@@ -45,6 +52,18 @@ RECON_FLOPS_PER_SITE = 8 * 3 * 14
 _STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
+# Right-hand sides per thread of the multi-RHS kernels (the template
+# argument NB of csrc/wilson_eo_mrhs.cu and clover_eo_mrhs.cu), and the
+# default, chosen from ptxas' registers and the card's times (PERF.md):
+# 2 is the fastest multi-RHS width (4 needs 206-240 registers and ran
+# 1.3-2.4x slower); 1 gives each right-hand side its own thread, the
+# single-RHS kernels' arithmetic, which the card tests hold them to.
+MRHS_CHUNKS = (1, 2)
+MRHS_CHUNK = 2
+MRHS_THREADS = 128                 # threads per block of those kernels
+_MAX_BLOCKS = 2 ** 31 - 1
+
+
 def bytes_per_site(rows: int = 3, store_dtype=torch.float32,
                    out_dtype=None) -> int:
     sb = _STORE_BYTES[store_dtype]
@@ -55,8 +74,54 @@ def bytes_per_site(rows: int = 3, store_dtype=torch.float32,
 BYTES_PER_SITE = bytes_per_site()          # 768, the f32 full form
 
 
+def bytes_per_site_mrhs(n: int, rows: int = 3) -> int:
+    """Floor of B5-eo's traffic per target half-site for ``n`` right-hand
+    sides in float32: each spinor read and written once (192 n), the
+    links once (8 x rows x 3 complex)."""
+    return 192 * n + 8 * rows * 3 * 2 * 4
+
+
 def flops_per_site(rows: int = 3) -> int:
     return FLOPS_PER_SITE + (RECON_FLOPS_PER_SITE if rows == 2 else 0)
+
+
+def flops_per_site_mrhs(n: int, rows: int = 3) -> int:
+    """The hop's flops for ``n`` right-hand sides; recon-12 rebuilds each
+    link once."""
+    return FLOPS_PER_SITE * n + (RECON_FLOPS_PER_SITE if rows == 2 else 0)
+
+
+def link_rows(u_here_pl) -> int:
+    """R of links (4, R, 3, 2, T, Z, Y*Xh): 3 (full) or 2 (recon-12)."""
+    rows = u_here_pl.shape[1] if u_here_pl.ndim == 7 else 0
+    if rows not in (2, 3):
+        raise ValueError(f"links of shape {tuple(u_here_pl.shape)}: "
+                         "expected (4, R, 3, 2, T, Z, Y*Xh) with R = 3 "
+                         "(full) or 2 (recon-12)")
+    return rows
+
+
+def check_batch(psi_pl) -> None:
+    """Raise unless psi carries a leading RHS axis, (N,4,3,2,T,Z,Y*Xh)."""
+    if psi_pl.ndim != 7:
+        raise ValueError(f"psi of shape {tuple(psi_pl.shape)}: expected "
+                         "(N, 4, 3, 2, T, Z, Y*Xh)")
+
+
+def mrhs_chunk(chunk, nrhs: int, sites: int) -> int:
+    """The chunk width of a multi-RHS launch (``MRHS_CHUNK`` unless given);
+    raises for a width without a kernel instance or a batch whose grid
+    (site blocks x chunks) exceeds 2^31 - 1 blocks."""
+    nb = MRHS_CHUNK if chunk is None else int(chunk)
+    if nb not in MRHS_CHUNKS:
+        raise ValueError(f"chunk {nb}: the multi-RHS kernels have "
+                         f"instances for {MRHS_CHUNKS}")
+    blocks = -(-sites // MRHS_THREADS) * -(-nrhs // nb)
+    if nrhs < 1 or blocks > _MAX_BLOCKS:
+        raise ValueError(f"{nrhs} right-hand sides at {sites} half-sites: "
+                         f"{blocks} blocks, outside the kernel's grid "
+                         f"(1 .. {_MAX_BLOCKS})")
+    return nb
 
 
 def form_name(rows: int, store_dtype, out_dtype) -> str:
@@ -118,24 +183,44 @@ def _t_boundary_sign(T: int, t_plane: int, device) -> torch.Tensor:
     return s
 
 
+def _full_links(u_here_pl, u_bw_pl, dims, tb_sign: bool):
+    """R = 2 links rebuilt to full f32 links (row 2 of the t links negated
+    on t = T-1 forward and t = 0 backward when ``tb_sign``); R = 3 links
+    as they are."""
+    if u_here_pl.shape[1] != 2:
+        return u_here_pl, u_bw_pl
+    T = dims[0]
+    dev = u_here_pl.device
+    sf = _t_boundary_sign(T, T - 1, dev) if tb_sign else None
+    sb = _t_boundary_sign(T, 0, dev) if tb_sign else None
+    return (torch.cat([recon12_rows(u_here_pl[:3]),
+                       recon12_rows(u_here_pl[3:], sf)]),
+            torch.cat([recon12_rows(u_bw_pl[:3]),
+                       recon12_rows(u_bw_pl[3:], sb)]))
+
+
 def dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                            target_parity: int, out_dtype=None,
                            tb_sign: bool = True):
     """Plain PyTorch version of the kernel, on the kernel's inputs.  R = 2
-    links are rebuilt to full f32 links first (row 2 of the t links
-    negated on t = T-1 forward and t = 0 backward when ``tb_sign``), then
-    the full-link stencil runs."""
-    if u_here_pl.shape[1] == 2:
-        T = dims[0]
-        dev = u_here_pl.device
-        sf = _t_boundary_sign(T, T - 1, dev) if tb_sign else None
-        sb = _t_boundary_sign(T, 0, dev) if tb_sign else None
-        u_here_pl = torch.cat([recon12_rows(u_here_pl[:3]),
-                               recon12_rows(u_here_pl[3:], sf)])
-        u_bw_pl = torch.cat([recon12_rows(u_bw_pl[:3]),
-                             recon12_rows(u_bw_pl[3:], sb)])
+    links are rebuilt to full f32 links first, then the full-link stencil
+    runs."""
+    u_here_pl, u_bw_pl = _full_links(u_here_pl, u_bw_pl, dims, tb_sign)
     return wpk.dslash_eo_packed_pairs_bw(u_here_pl, u_bw_pl, psi_pl, dims,
                                          target_parity, out_dtype)
+
+
+def dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                target_parity: int, out_dtype=None,
+                                tb_sign: bool = True):
+    """Plain version of the multi-RHS kernel: the single-RHS plain stencil
+    broadcast over the leading RHS axis of psi (N,4,3,2,T,Z,Y*Xh), which
+    moves beside the site axes while the links gain a size-1 axis there."""
+    u_here_pl, u_bw_pl = _full_links(u_here_pl, u_bw_pl, dims, tb_sign)
+    out = wpk.dslash_eo_packed_pairs_bw(
+        u_here_pl.unsqueeze(-4), u_bw_pl.unsqueeze(-4), psi_pl.movedim(0, 3),
+        dims, target_parity, out_dtype)
+    return out.movedim(3, 0).contiguous()
 
 
 def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
@@ -148,11 +233,7 @@ def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
     ``out_dtype`` (default: psi's dtype)."""
     T, Z, Y, X = dims
     Xh = X // 2
-    rows = u_here_pl.shape[1] if u_here_pl.ndim == 7 else 0
-    if rows not in (2, 3):
-        raise ValueError(f"links of shape {tuple(u_here_pl.shape)}: "
-                         "expected (4, R, 3, 2, T, Z, Y*Xh) with R = 3 "
-                         "(full) or 2 (recon-12)")
+    rows = link_rows(u_here_pl)
     if target_parity not in (0, 1):
         raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
     kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl)
@@ -186,9 +267,56 @@ def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
     return out
 
 
+def dslash_eo_pallas_packed_mrhs(u_here_pl: torch.Tensor,
+                                 u_bw_pl: torch.Tensor, psi_pl: torch.Tensor,
+                                 dims, target_parity: int, out_dtype=None,
+                                 tb_sign: bool = True,
+                                 chunk=None) -> torch.Tensor:
+    """Multi-RHS checkerboarded Wilson hop D_{p <- 1-p}: the batched
+    solvers' stencil.  psi_pl (N,4,3,2,T,Z,Y*Xh) of parity 1-p; links as
+    for ``dslash_eo_pallas_packed``, loaded once per chunk of ``chunk``
+    (default ``MRHS_CHUNK``) right-hand sides.  float32 in and out."""
+    T, Z, Y, X = dims
+    Xh = X // 2
+    rows = link_rows(u_here_pl)
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+    check_batch(psi_pl)
+    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                           target_parity, out_dtype, tb_sign)
+    f32 = torch.float32
+    out_dtype = out_dtype or psi_pl.dtype
+    if psi_pl.dtype != f32 or out_dtype != f32:
+        raise TypeError(f"psi {psi_pl.dtype} -> out {out_dtype}: the "
+                        "multi-RHS hop has float32 forms only; its bf16 "
+                        "forms wait for ROADMAP B5")
+    sites = (T, Z, Y * Xh)
+    nrhs = psi_pl.shape[0]
+    nb = mrhs_chunk(chunk, nrhs, T * Z * Y * Xh)
+    kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
+    kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, f32)
+    kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_wilson_eo_mrhs(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_bw_pl.data_ptr(), T, Z, Y, Xh, int(target_parity), rows,
+        int(bool(tb_sign)), nrhs, nb, kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_eo_mrhs")
+    dslash_eo_pallas_packed_mrhs.launches += 1
+    form = form_name(rows, f32, f32)
+    by_form = dslash_eo_pallas_packed_mrhs.launches_by_form
+    by_form[form] = by_form.get(form, 0) + 1
+    return out
+
+
 def reset_launches() -> None:
-    dslash_eo_pallas_packed.launches = 0
-    dslash_eo_pallas_packed.launches_by_form = {}
+    """Zero the launch counts of the eo hop (B1) and its multi-RHS form."""
+    for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs):
+        fn.launches = 0
+        fn.launches_by_form = {}
 
 
 reset_launches()

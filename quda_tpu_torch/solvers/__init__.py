@@ -1,9 +1,12 @@
-"""Krylov solvers.  CG (ROADMAP A5) and the mixed-precision reliable-update
-CGs with their storage codecs (A7) are ported; the rest of
-quda_tpu/solvers/ is queued under A8 and A11."""
+"""Krylov solvers.  CG (ROADMAP A5), the mixed-precision reliable-update
+CGs with their storage codecs (A7) and the multi-RHS pair solvers
+``batched_cg_pairs`` and ``block_cg_pairs`` (A8) are ported; the rest of
+quda_tpu/solvers/ is queued under A11 and A12."""
 
 from __future__ import annotations
 
+from .block import (BatchedCGResult, BlockCGResult, batched_cg_pairs,
+                    block_cg_pairs)
 from .cg import SolverResult, cg
 from .fused_iter import fused_cg
 from .mixed import (StorageCodec, cg_reliable, cg_reliable_df,
@@ -22,6 +25,7 @@ def create(name: str):
     return _REGISTRY[key]
 
 
-__all__ = ["SolverResult", "StorageCodec", "cg", "cg_reliable",
-           "cg_reliable_df", "create", "fused_cg", "packed_pair_codec",
-           "pair_inplace_codec"]
+__all__ = ["BatchedCGResult", "BlockCGResult", "SolverResult",
+           "StorageCodec", "batched_cg_pairs", "block_cg_pairs", "cg",
+           "cg_reliable", "cg_reliable_df", "create", "fused_cg",
+           "packed_pair_codec", "pair_inplace_codec"]

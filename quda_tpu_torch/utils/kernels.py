@@ -31,7 +31,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("wilson_eo.cu", "clover_eo.cu", "blas_fused.cu")
+SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
+           "clover_eo_mrhs.cu", "blas_fused.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh",)
 LIB_NAME = "libquda_tpu_torch_kernels.so"
@@ -50,6 +51,14 @@ SIGNATURES = {
     # rows, tb_sign, diag_hop, coeff, stream
     "qtt_clover_eo": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _F, _P),
+    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, rows, tb_sign, nrhs, nb,
+    # stream
+    "qtt_wilson_eo_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    # out, psi, u_here, u_bw, blk, xc, T, Z, Y, Xh, parity, rows, tb_sign,
+    # diag_hop, coeff, nrhs, nb, stream
+    "qtt_clover_eo_mrhs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _I, _P),
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),

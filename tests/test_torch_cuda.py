@@ -263,3 +263,179 @@ def test_invert_on_card_matches_cpu():
     assert pg.converged and pg.true_res <= 1e-5
     assert abs(pg.iter_count - pc.iter_count) <= 2
     assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-4
+
+
+# -- the multi-RHS kernels (B5-eo, B7-mrhs) -------------------------------
+
+def _mrhs_inputs(dev, rows, parity, n, seed):
+    """4x6x8x10 links (forward, pre-shifted backward), an n-RHS psi and
+    x batch, and blocks 1 + 0.1 Gaussian."""
+    dims = lattice_shape(ASYM)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sites = pair_spinor_shape(ASYM)[3:]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    u_here = randn(4, rows, 3, 2, *sites)
+    u_bw = wpp.backward_gauge_eo(randn(4, rows, 3, 2, *sites), dims,
+                                 parity).contiguous()
+    psi, xc = randn(n, 4, 3, 2, *sites), randn(n, 4, 3, 2, *sites)
+    blk = 0.1 * randn(2, 6, 6, 2, *sites)
+    blk[:, :, :, 0] += torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+    return dims, u_here, u_bw, psi, xc, blk
+
+
+def _mrhs_call(kind, args, parity, plain=False, single=False, chunk=None):
+    """One multi-RHS call (kernel or plain), or the batch through N
+    single-RHS kernel launches."""
+    dims, u_here, u_bw, psi, xc, blk = args
+    if single:
+        fn = {"hop": wpp.dslash_eo_pallas_packed,
+              "post": clp.dslash_eo_pallas_post,
+              "diag_hop": clp.dslash_eo_pallas_diag_hop}[kind]
+        outs = []
+        for r in range(psi.shape[0]):
+            if kind == "hop":
+                outs.append(fn(u_here, u_bw, psi[r], dims, parity))
+            elif kind == "post":
+                outs.append(fn(u_here, u_bw, psi[r], dims, parity,
+                               blk_pl=blk))
+            else:
+                outs.append(fn(u_here, u_bw, psi[r], xc[r], dims, parity,
+                               hop_coeff=-0.0144, blk_pl=blk,
+                               out_dtype=torch.float32))
+        return torch.stack(outs)
+    if kind == "hop":
+        if plain:
+            return wpp.dslash_eo_packed_mrhs_plain(u_here, u_bw, psi, dims,
+                                                   parity)
+        return wpp.dslash_eo_pallas_packed_mrhs(u_here, u_bw, psi, dims,
+                                                parity, chunk=chunk)
+    if kind == "post":
+        if plain:
+            return clp.dslash_eo_post_mrhs_plain(u_here, u_bw, psi, blk,
+                                                 dims, parity)
+        return clp.dslash_eo_pallas_post_mrhs(u_here, u_bw, psi, dims,
+                                              parity, blk_pl=blk,
+                                              chunk=chunk)
+    if plain:
+        return clp.dslash_eo_diag_hop_mrhs_plain(u_here, u_bw, psi, xc, blk,
+                                                 dims, parity, -0.0144,
+                                                 torch.float32)
+    return clp.dslash_eo_pallas_diag_hop_mrhs(u_here, u_bw, psi, xc, dims,
+                                              parity, hop_coeff=-0.0144,
+                                              blk_pl=blk,
+                                              out_dtype=torch.float32,
+                                              chunk=chunk)
+
+
+_MRHS_WRAPPER = {"hop": wpp.dslash_eo_pallas_packed_mrhs,
+                 "post": clp.dslash_eo_pallas_post_mrhs,
+                 "diag_hop": clp.dslash_eo_pallas_diag_hop_mrhs}
+
+
+@pytest.mark.parametrize("n", [1, 3, 12])
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("kind", ["hop", "post", "diag_hop"])
+def test_mrhs_kernels_match_plain_and_single_launches(kind, rows, parity,
+                                                      chunk, n):
+    """B5-eo and K1/K2-mrhs on 4x6x8x10 at every chunk width, with a tail
+    chunk where n is not a multiple of it: within TOLERANCE of the plain
+    version, and within TOLERANCE of n launches of the single-RHS kernel
+    (each right-hand side sees the single kernel's arithmetic in its
+    order); one launch counted."""
+    dev = require_cuda()
+    args = _mrhs_inputs(dev, rows, parity, n, seed=51 + parity)
+    wrapper = _MRHS_WRAPPER[kind]
+    n0 = wrapper.launches
+    got = _mrhs_call(kind, args, parity, chunk=chunk)
+    assert wrapper.launches == n0 + 1
+    want = _mrhs_call(kind, args, parity, plain=True)
+    single = _mrhs_call(kind, args, parity, single=True)
+    torch.cuda.synchronize()
+    assert got.shape == args[3].shape and got.dtype == torch.float32
+    tol = wpp.TOLERANCE if kind == "hop" else clp.TOLERANCE
+    got, want, single = (t.cpu().numpy() for t in (got, want, single))
+    assert rel_err(got, want) <= tol
+    assert rel_err(got, single) <= tol
+
+
+@pytest.mark.parametrize("kind", ["hop", "post", "diag_hop"])
+def test_mrhs_kernels_refuse_what_they_lack(kind):
+    """bf16 storage (ROADMAP B5) and chunk widths without an instance
+    raise; nothing launches."""
+    dev = require_cuda()
+    args = _mrhs_inputs(dev, 3, 0, 2, seed=55)
+    wrapper = _MRHS_WRAPPER[kind]
+    n0 = wrapper.launches
+    with pytest.raises(ValueError, match="chunk"):
+        _mrhs_call(kind, args, 0, chunk=3)
+    dims, u_here, u_bw, psi, xc, blk = args
+    bf = torch.bfloat16
+    with pytest.raises(TypeError, match="ROADMAP B5"):
+        _mrhs_call(kind, (dims, u_here.to(bf), u_bw.to(bf), psi.to(bf),
+                          xc.to(bf), blk.to(bf)), 0)
+    assert wrapper.launches == n0
+
+
+def _solve_multi(g, B, device, reconstruct=18, **kw):
+    qt.init_quda(device=device)
+    try:
+        qt.load_gauge_quda(g, qt.GaugeParam(X=SMALL, cuda_prec="single",
+                                            reconstruct=reconstruct))
+        base = dict(dslash_type="wilson", inv_type="cg",
+                    solve_type="normop-pc", kappa=0.12, tol=1e-6,
+                    maxiter=1000, cuda_prec="single")
+        base.update(kw)
+        p = qt.InvertParam(**base)
+        x = qt.invert_multi_src_quda(B, p)
+    finally:
+        qt.end_quda()
+    return x.cpu().numpy(), p
+
+
+@pytest.mark.parametrize("family,rec", [("wilson", 18), ("wilson", 12),
+                                        ("clover", 18)],
+                         ids=["wilson", "wilson-r12", "clover"])
+def test_invert_multi_src_on_card_matches_cpu(family, rec):
+    """invert_multi_src_quda on 4^3x8 SU(3) links, 3 sources: the card
+    (multi-RHS kernels only, no single-RHS hop) against the CPU's plain
+    path, per-lane iterations within 2, solutions within 1e-4."""
+    dev = require_cuda()
+    g = su3_gauge(SMALL, seed=57)
+    B = gaussian((3,) + lattice_shape(SMALL) + (4, 3), seed=58)
+    kw = dict(dslash_type=family, reconstruct=rec)
+    if family == "clover":
+        kw["csw"] = 1.0
+    wpp.reset_launches()
+    clp.reset_launches()
+    xg, pg = _solve_multi(g, B, dev, **kw)
+    assert wpp.dslash_eo_pallas_packed.launches == 0
+    assert clp.dslash_eo_pallas_post.launches == 0
+    assert clp.dslash_eo_pallas_diag_hop.launches == 0
+    it = max(pg.iter_count_multi)
+    if family == "wilson":
+        assert wpp.dslash_eo_pallas_packed_mrhs.launches >= 4 * it
+    else:
+        assert clp.dslash_eo_pallas_post_mrhs.launches >= 2 * it
+        assert clp.dslash_eo_pallas_diag_hop_mrhs.launches >= 2 * it
+    xc, pc = _solve_multi(g, B, "cpu", **kw)
+    assert pg.converged and max(pg.true_res_multi) <= 1e-5
+    assert all(abs(a - b) <= 2 for a, b in zip(pg.iter_count_multi,
+                                                pc.iter_count_multi))
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["hop", "post", "diag_hop"])
+def test_mrhs_chunk_one_is_the_single_kernel(kind):
+    """At chunk width 1 the multi-RHS kernel runs the single-RHS
+    kernel's hop and epilogue on each right-hand side: the same bits."""
+    dev = require_cuda()
+    args = _mrhs_inputs(dev, 3, 1, 3, seed=59)
+    got = _mrhs_call(kind, args, 1, chunk=1)
+    single = _mrhs_call(kind, args, 1, single=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, single)

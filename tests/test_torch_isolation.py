@@ -3,7 +3,7 @@
 * No module of quda_tpu_torch, and not chip_smoke.py, imports jax, jaxlib
   or the JAX package (AST scan).
 * A request for the card that a wrapper cannot serve raises; it never
-  reaches the plain version.  The device check is mocked, since this host
+  reaches the plain version (single- and multi-RHS wrappers alike).  The device check is mocked, since this host
   may have no card.
 * chip_smoke.py exits non-zero and prints no result without a card, or
   alone in a directory without the package.
@@ -68,6 +68,9 @@ def card_request(monkeypatch):
     monkeypatch.setattr(bpl, "axpy_norm2_plain", plain_reached)
     monkeypatch.setattr(clp, "dslash_eo_post_plain", plain_reached)
     monkeypatch.setattr(clp, "dslash_eo_diag_hop_plain", plain_reached)
+    monkeypatch.setattr(wpp, "dslash_eo_packed_mrhs_plain", plain_reached)
+    monkeypatch.setattr(clp, "dslash_eo_post_mrhs_plain", plain_reached)
+    monkeypatch.setattr(clp, "dslash_eo_diag_hop_mrhs_plain", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -144,6 +147,88 @@ def test_clover_hop_wrappers_raise_on_card_request(card_request):
                                       hop_coeff=-0.01, blk_pl=blk,
                                       diag_twist=0.1)
     assert _counts() == n0
+
+
+def _mrhs_counts():
+    return [(f.launches, dict(f.launches_by_form)) for f in
+            (wpp.dslash_eo_pallas_packed_mrhs, clp.dslash_eo_pallas_post_mrhs,
+             clp.dslash_eo_pallas_diag_hop_mrhs)]
+
+
+def test_mrhs_wrappers_raise_on_card_request(card_request):
+    """B5-eo and K1/K2-mrhs: a card request without the library raises
+    (full and r12 links), and so do forms without a kernel instance
+    (bf16, ROADMAP B5), chunk widths without one and wrong shapes; nothing
+    is counted."""
+    n0 = _mrhs_counts()
+    f32, bf16 = torch.float32, torch.bfloat16
+    blk = torch.zeros((2, 6, 6, 2) + SITES)
+    for rows in (3, 2):
+        u, ubw, psi = _hop_args(f32, rows)
+        psi_b = torch.zeros((3,) + tuple(psi.shape))
+        with pytest.raises(RuntimeError, match="unavailable"):
+            wpp.dslash_eo_pallas_packed_mrhs(u, ubw, psi_b, DIMS, 1)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b, DIMS, 0,
+                                           blk_pl=blk)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b, DIMS, 1,
+                                               hop_coeff=-0.01, blk_pl=blk,
+                                               out_dtype=f32)
+    u, ubw, psi = _hop_args(bf16)
+    psi_b = psi[None]
+    with pytest.raises(TypeError, match="ROADMAP B5"):
+        wpp.dslash_eo_pallas_packed_mrhs(u, ubw, psi_b, DIMS, 0)
+    with pytest.raises(TypeError, match="ROADMAP B5"):
+        clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b, DIMS, 0,
+                                       blk_pl=blk.to(bf16))
+    u, ubw, psi = _hop_args()
+    psi_b = psi[None]
+    with pytest.raises(ValueError, match="chunk"):
+        wpp.dslash_eo_pallas_packed_mrhs(u, ubw, psi_b, DIMS, 0, chunk=3)
+    with pytest.raises(ValueError, match="psi_pl"):
+        wpp.dslash_eo_pallas_packed_mrhs(u, ubw, psi_b[..., :2], DIMS, 0)
+    with pytest.raises(ValueError, match="xc_pl"):
+        clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b[..., :2],
+                                           DIMS, 0, hop_coeff=-0.01,
+                                           blk_pl=blk, out_dtype=f32)
+    with pytest.raises(TypeError, match="ROADMAP B5"):
+        clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b, DIMS, 0,
+                                           hop_coeff=-0.01, blk_pl=blk,
+                                           out_dtype=bf16)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b, DIMS, 0, blk_pl=blk,
+                                       twist=(0.1, 1.0))
+    assert _mrhs_counts() == n0
+
+
+def test_mrhs_wrappers_reject_other_devices():
+    u, ubw, psi = _hop_args()
+    psi_b = psi[None]
+    blk = torch.zeros((2, 6, 6, 2) + SITES)
+    with pytest.raises(ValueError, match="meta"):
+        wpp.dslash_eo_pallas_packed_mrhs(u.to("meta"), ubw.to("meta"),
+                                         psi_b.to("meta"), DIMS, 0)
+    with pytest.raises(ValueError, match="several devices"):
+        clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b.to("meta"), DIMS, 0,
+                                       blk_pl=blk)
+    with pytest.raises(ValueError, match="several devices"):
+        clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b.to("meta"),
+                                           DIMS, 0, hop_coeff=-0.01,
+                                           blk_pl=blk)
+
+
+def test_invert_multi_src_defaults_to_the_card():
+    """Without a card, the entry point's session cannot start unless the
+    caller asks for the CPU."""
+    import quda_tpu_torch as qt
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default is servable")
+    qt.end_quda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        qt.init_quda()
+    with pytest.raises(RuntimeError, match="init_quda"):
+        qt.invert_multi_src_quda(torch.zeros(1), qt.InvertParam())
 
 
 def test_cg_tail_wrapper_raises_on_card_request(card_request):
