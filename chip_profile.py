@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a CG iteration of the port spends its time on the card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [all|wilson|staggered]     # default: all
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -16,10 +16,17 @@ SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
 * ``batched_cg_pairs`` on the float32 pair operator's multi-RHS forms
   with 12 Gaussian sources (the batched route of invert_multi_src_quda).
 
+Then the staggered family at 32^4 (HISQ links of a random SU(3) gauge
+from compute_ks_link_quda's construction, m 0.1): ``fused_cg`` on the
+float32 hisq pair operator (the fused fat + Naik hop S1), ``fused_cg`` on
+the fat-only operator (the gather pass S2), and an 8-shift
+``multishift_cg`` (the invert_multishift_quda route).
+
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
-fused clover hop kernel, their multi-RHS forms, the CG tail kernel, the
-axpy_norm2 kernel, and the plain PyTorch kernels around them), the wall
+fused clover hop kernel, their multi-RHS forms, the staggered hops, the
+CG tail kernel, the axpy_norm2 kernel, and the plain PyTorch kernels
+around them), the wall
 time per iteration and the device's idle share of the window.  Last, one
 line with the wall time of the clover operator's set-up by part (F_munu,
 the blocks, their inverse, the whole DiracCloverPC, its f32 pair
@@ -33,12 +40,14 @@ import sys
 import time
 
 DIMS = (32, 32, 32, 64)     # (X, Y, Z, T)
+STAG_DIMS = (32, 32, 32, 32)
+STAG_SHIFTS = (0.0, 5e-4, 2e-3, 8e-3, 3e-2, 0.12, 0.5, 2.0)
 ITERS = 20
 SEED = 0
 NRHS = 12                   # sources of the batched solve
 
 
-def _profile(label, run, torch):
+def _profile(label, run, torch, dims=DIMS):
     """Run ``run()`` (returns a SolverResult) under the profiler and print
     its kernel table and summary."""
     from torch.profiler import ProfilerActivity, profile
@@ -60,13 +69,19 @@ def _profile(label, run, torch):
     busy_us = sum(r[2] for r in rows)
     groups = {"eo_hop_kernel": 0.0, "clover_hop_kernel": 0.0,
               "eo_hop_mrhs_kernel": 0.0, "clover_hop_mrhs_kernel": 0.0,
+              "staggered_fused_kernel": 0.0, "staggered_pass_kernel": 0.0,
               "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
               "plain_torch": 0.0}
     # the partial-sum pass belongs to whichever norm kernel this solver ran
-    partials = ("axpy_norm2_kernel" if label.endswith("cg_reliable")
+    partials = ("axpy_norm2_kernel"
+                if label.endswith(("cg_reliable", "multishift_cg"))
                 else "cg_tail_kernel")
     for name, _, us in rows:
-        if "wilson_eo_mrhs_kernel" in name:
+        if "stag_fused_kernel" in name:
+            groups["staggered_fused_kernel"] += us
+        elif "stag_pass_kernel" in name:
+            groups["staggered_pass_kernel"] += us
+        elif "wilson_eo_mrhs_kernel" in name:
             groups["eo_hop_mrhs_kernel"] += us
         elif "clover_eo_mrhs_kernel" in name:
             groups["clover_hop_mrhs_kernel"] += us
@@ -88,7 +103,7 @@ def _profile(label, run, torch):
                           "count": count, "device_us_per_iter": us / n}),
               flush=True)
     print(json.dumps({
-        "solver": label, "dims_xyzt": list(DIMS), "iters": n,
+        "solver": label, "dims_xyzt": list(dims), "iters": n,
         "reliable_updates": getattr(res, "reliable_updates", 0),
         "wall_ms_per_iter": wall_us / n / 1e3,
         "device_busy_ms_per_iter": busy_us / n / 1e3,
@@ -97,11 +112,54 @@ def _profile(label, run, torch):
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def staggered(torch, dev) -> None:
+    """Profile the staggered solvers at 32^4."""
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
+    from quda_tpu_torch.gauge.hisq import hisq_fattening
+    from quda_tpu_torch.models.staggered import DiracStaggeredPC
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.multishift import multishift_cg
+
+    geom = LatticeGeometry(STAG_DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
+                              device=dev).data
+    src = ColorSpinorField.gaussian(geom, gen, nspin=1,
+                                    dtype=torch.complex64, device=dev).data
+    links = hisq_fattening(gauge)
+    be, bo = even_odd_split(src, geom)
+    for label, dpc in (
+            ("hisq", DiracStaggeredPC(links.fat, geom, 0.1, True,
+                                      links.long)),
+            ("staggered", DiracStaggeredPC(gauge, geom, 0.1))):
+        op = dpc.pairs(torch.float32)
+        rhs = op.prepare_pairs(be, bo)
+        runs = [(f"{label}:fused_cg", lambda n: fused_cg(
+            op.M_pairs, rhs, tol=1e-30, maxiter=n))]
+        if label == "hisq":
+            runs.append((f"{label}:multishift_cg", lambda n: multishift_cg(
+                op.M_pairs, rhs, STAG_SHIFTS, tol=1e-30, maxiter=n)))
+        for name, run in runs:
+            run(3)                                           # warm-up
+            torch.cuda.synchronize()
+            _profile(name, lambda: run(ITERS), torch, STAG_DIMS)
+        del dpc, op, rhs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 1
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which not in ("all", "wilson", "staggered"):
+        print(f"chip_profile: unknown family {which!r}", file=sys.stderr)
+        return 2
+    if which == "staggered":
+        staggered(torch, torch.device("cuda", 0))
+        return 0
 
     from quda_tpu_torch.fields.gauge import GaugeField
     from quda_tpu_torch.fields.geometry import LatticeGeometry
@@ -179,6 +237,9 @@ def main() -> int:
                             "DiracCloverPC": pc_ms, "pairs_f32": pairs_ms},
         "dims_xyzt": list(DIMS),
         "device": torch.cuda.get_device_name(0)}), flush=True)
+    del gauge, src, be, bo, be_b, bo_b, d
+    if which == "all":
+        staggered(torch, dev)
     return 0
 
 

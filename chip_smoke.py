@@ -73,6 +73,29 @@ Phases, one JSON line each (``"phase": ...``):
              per 12-source batched_cg_pairs iteration against 12 fused_cg
              iterations.
 
+7. The staggered family at 32^4 (BASELINE config 4; a random SU(3) gauge
+   and a one-spin Gaussian source from a generator of their own, m 0.1):
+   check   — every S1 (fused fat + Naik hop) and S2 (gather pass, fat and
+             Naik) form against its plain version at 8x10x12x14 (every
+             extent >= 7) and 32^4, both parities (1e-5 f32, one bf16 ulp
+             bf16), and S1 = S2(fat) + S2(naik) within 1e-6.
+   hisq    — compute_ks_link_quda: seconds, max |W^dag W - 1| (<= 1e-5),
+             the norms of the fat and long links.
+   invert_staggered — invert_quda at tol 1e-6: hisq single/single and
+             single/half, asqtad (load_fat_long_quda of the same links),
+             fat-only staggered single and half.  Fails unless converged
+             with true_res <= 1e-5, hisq and asqtad take the same
+             iterations, S1 runs exactly 2 per fused_cg iteration (+2) on
+             hisq/asqtad, the fat-only path runs S2 and no S1, and no
+             plain stencil runs.
+   invert_multishift — invert_multishift_quda, 8 offsets: every shift
+             converged, each with |rhs - (M_pc + s_i) x_i| / |rhs| <= 1e-5
+             by the complex128 PC operator, through S1.
+   reference — an 8^4 hisq solve on the card and on the CPU.
+   timing  — each S1/S2 form and its plain version beside its bound; ms
+             per iteration of fused_cg (hisq, fat-only), cg_reliable
+             (hisq single/half) and an 8-shift multishift_cg.
+
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
 the quda_tpu_torch package beside it) the script exits non-zero and
@@ -103,6 +126,13 @@ DF64_TOL = 1e-10
 MIXED_ITER_TIMED = 30
 MULTI_SRC_N = 12                 # sources of the multi-source phase
 BATCHED_ITER_TIMED = 20
+# the staggered phases: BASELINE config 4's volume, the JAX package's
+# staggered solver mass (bench_suite.py), and 8 RHMC-like shifts
+STAG_DIMS = (32, 32, 32, 32)
+STAG_SMALL_DIMS = (8, 10, 12, 14)  # every extent >= 7: no aliased 3-hop
+STAG_MASS = 0.1
+STAG_SHIFTS = (0.0, 5e-4, 2e-3, 8e-3, 3e-2, 0.12, 0.5, 2.0)
+STAG_ITER_TIMED = 30
 
 
 def emit(obj) -> None:
@@ -142,6 +172,399 @@ def median_ms(fn, torch, repeats=REPEATS, batch=BATCH) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def staggered(torch, dev, smi) -> list:
+    """The staggered slice at BASELINE config 4's 32^4 (phases check,
+    hisq, invert_staggered, invert_multishift, reference, timing); returns
+    the kernels-line rows of S1 and S2."""
+    import numpy as np
+
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import (ColorSpinorField,
+                                              even_odd_split)
+    from quda_tpu_torch.gauge import hisq
+    from quda_tpu_torch.models.staggered import DiracStaggeredPC
+    from quda_tpu_torch.ops import blas_pallas as bpl
+    from quda_tpu_torch.ops import staggered_packed as spk
+    from quda_tpu_torch.ops import staggered_pallas as spl
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
+    from quda_tpu_torch.solvers.multishift import multishift_cg
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    forms = [(f32, f32), (bf16, bf16), (bf16, f32)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    # -- check: every S1 and S2 form against its plain version ----------
+    def inputs(dims_xyzt, store):
+        """fat/long here/there (long at 1/24 the scale) and psi."""
+        T, Z, Y, X = LatticeGeometry(dims_xyzt).lattice_shape
+        sites = (T, Z, Y * X // 2)
+        links = [torch.randn((4, 3, 3, 2) + sites, generator=gen,
+                             device=dev) * (1.0 if i < 2 else 1.0 / 24)
+                 for i in range(4)]
+        psi = torch.randn((3, 2) + sites, generator=gen, device=dev)
+        return ((T, Z, Y, X), [u.to(store).contiguous() for u in links],
+                psi.to(store))
+
+    def pass_args(links, dims, parity, nhop):
+        here, there = (links[0], links[1]) if nhop == 1 else \
+            (links[2], links[3])
+        return here, spl.backward_links_eo(there, dims, parity,
+                                           nhop).contiguous()
+
+    errs = {}
+    for store, out in forms:
+        tol = spl.TOLERANCE if out == f32 else spl.TOLERANCE_BF16
+        for dims_xyzt in (STAG_SMALL_DIMS, STAG_DIMS):
+            for parity in (0, 1):
+                dims, links, psi = inputs(dims_xyzt, store)
+                cases = {spl.form_name(store, out): (
+                    spl.dslash_staggered_eo_pallas_fused(
+                        links[0], links[1], psi, dims, parity, links[2],
+                        links[3], out_dtype=out),
+                    spl.dslash_staggered_eo_fused_plain(
+                        links[0], links[1], psi, dims, parity, links[2],
+                        links[3], out_dtype=out))}
+                for nhop in (1, 3):
+                    here, bw = pass_args(links, dims, parity, nhop)
+                    cases[spl.pass_form_name(nhop, store, out)] = (
+                        spl.dslash_staggered_eo_pass(here, bw, psi, dims,
+                                                     parity, nhop, out),
+                        spl.dslash_staggered_eo_pass_plain(
+                            here, bw, psi, dims, parity, nhop, out))
+                torch.cuda.synchronize()
+                row = {"phase": "check", "kernel": "staggered",
+                       "dims_xyzt": list(dims_xyzt), "parity": parity,
+                       "tolerance": tol}
+                for name, (got, want) in cases.items():
+                    abs_err = (got.float() - want.float()).abs().max().item()
+                    rel = abs_err / want.float().abs().max().item()
+                    errs[name] = max(errs.get(name, 0.0), abs_err)
+                    row[name] = {"max_abs_err": abs_err, "max_rel_err": rel}
+                    if not (rel <= tol and got.dtype == out):
+                        emit(row)
+                        fail(f"staggered kernel {name} disagrees with its "
+                             f"plain version: {rel:.3e} > {tol:g}")
+                if store == f32:
+                    fused = cases[spl.form_name(f32, f32)][0]
+                    two = (cases["fat:f32->f32"][0]
+                           + cases["naik:f32->f32"][0])
+                    rel = ((fused - two).abs().max()
+                           / two.abs().max()).item()
+                    row["s1_minus_s2_sum_rel"] = rel
+                    if not rel <= 1e-6:
+                        emit(row)
+                        fail(f"S1 != S2(fat) + S2(naik): {rel:.3e}")
+                emit(row)
+                del links, psi, cases
+
+    # -- hisq: compute_ks_link_quda at 32^4 ------------------------------
+    geom = LatticeGeometry(STAG_DIMS)
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
+                              device=dev).data
+    src = ColorSpinorField.gaussian(geom, gen, nspin=1,
+                                    dtype=torch.complex64, device=dev).data
+    qt.init_quda(dev)
+    qt.load_gauge_quda(gauge, qt.GaugeParam(X=STAG_DIMS, cuda_prec="single"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    links = qt.compute_ks_link_quda()
+    torch.cuda.synchronize()
+    ks_secs = time.perf_counter() - t0
+    w_dev = hisq.unitarity_violation(links.w_unitarized)
+    fat, lng = links.fat, links.long
+    del links
+    row = {"phase": "hisq", "dims_xyzt": list(STAG_DIMS),
+           "seconds": ks_secs, "max_abs_WdagW_minus_1": w_dev,
+           "fat_norm": torch.linalg.vector_norm(fat).item(),
+           "long_norm": torch.linalg.vector_norm(lng).item(),
+           "fat_max_abs": fat.abs().max().item(),
+           "long_max_abs": lng.abs().max().item()}
+    emit(row)
+    if not (w_dev <= 1e-5 and bool(torch.isfinite(
+            torch.view_as_real(fat)).all()) and bool(torch.isfinite(
+            torch.view_as_real(lng)).all())):
+        fail(f"compute_ks_link_quda: W not unitary ({w_dev:.3e}) or "
+             "non-finite links")
+
+    # -- invert_staggered ------------------------------------------------
+    # every plain stencil of the staggered path counts its calls: none may
+    # run on the card's main paths
+    plain_calls = {"n": 0}
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            plain_calls["n"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    originals = {(m, n): getattr(m, n) for m, n in (
+        (spl, "dslash_staggered_eo_fused_plain"),
+        (spl, "dslash_staggered_eo_pass_plain"), (spk, "hopset_pairs"),
+        (spk, "dslash_staggered_eo_packed_pairs"))}
+    for (m, n), fn in originals.items():
+        setattr(m, n, counting(fn))
+
+    def counts():
+        return {"s1": dict(spl.dslash_staggered_eo_pallas_fused
+                           .launches_by_form),
+                "s2": dict(spl.dslash_staggered_eo_pass.launches_by_form),
+                "b2": bpl.cg_update_norm2_pallas.launches,
+                "b3": dict(bpl.axpy_norm2_pallas.launches_by_form),
+                "plain_stencil_calls": plain_calls["n"]}
+
+    def zero():
+        spl.reset_launches()
+        bpl.cg_update_norm2_pallas.launches = 0
+        bpl.axpy_norm2_pallas.launches_by_form = {}
+        plain_calls["n"] = 0
+
+    def stag_param(**kw):
+        base = dict(dslash_type="hisq", inv_type="cg",
+                    solve_type="direct-pc", mass=STAG_MASS, tol=TOL,
+                    maxiter=5000, cuda_prec="single",
+                    cuda_prec_sloppy="single")
+        base.update(kw)
+        return qt.InvertParam(**base)
+
+    launches, iters = {}, {}
+    try:
+        for label, kw in (
+                ("hisq", {}),
+                ("hisq:half", {"cuda_prec_sloppy": "half"}),
+                ("asqtad", {"dslash_type": "asqtad"}),
+                ("staggered", {"dslash_type": "staggered"}),
+                ("staggered:half", {"dslash_type": "staggered",
+                                    "cuda_prec_sloppy": "half"})):
+            if label == "asqtad":
+                qt.load_fat_long_quda(fat, lng)
+            param = stag_param(**kw)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero()
+            x = qt.invert_quda(src, param)
+            torch.cuda.synchronize()
+            c = counts()
+            launches[label] = c
+            iters[label] = (param.iter_count, param.secs)
+            finite = bool(torch.isfinite(torch.view_as_real(x)).all())
+            shape_ok = tuple(x.shape) == geom.spinor_shape(1)
+            n_s1 = sum(c["s1"].values())
+            n_s2 = sum(c["s2"].values())
+            emit({"phase": "invert_staggered", "label": label,
+                  "dims_xyzt": list(STAG_DIMS), "dslash_type":
+                  param.dslash_type, "mass": STAG_MASS, "tol": TOL,
+                  "cuda_prec_sloppy": param.cuda_prec_sloppy,
+                  "iters": param.iter_count,
+                  "reliable_updates": param.reliable_updates,
+                  "secs": param.secs, "true_res": param.true_res,
+                  "converged": param.converged, "gflop": param.gflops,
+                  "launches_s1": c["s1"], "launches_s2": c["s2"],
+                  "launches_b2": c["b2"], "launches_b3": c["b3"],
+                  "plain_stencil_calls": c["plain_stencil_calls"],
+                  "shape_ok": shape_ok, "finite": finite,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+            if not (param.converged and param.true_res <= TRUE_RES_MAX
+                    and finite and shape_ok):
+                fail(f"invert_quda ({label}) did not converge to a finite "
+                     f"solution with true_res <= {TRUE_RES_MAX:g}")
+            if c["plain_stencil_calls"]:
+                fail(f"invert_quda ({label}) ran a plain stencil: {c}")
+            it = param.iter_count
+            improved = param.dslash_type != "staggered"
+            if label in ("hisq", "asqtad") and not (
+                    n_s1 == 2 * it + 2 and n_s2 == 0):
+                fail(f"{label} path did not launch S1 exactly twice per "
+                     f"fused_cg iteration (+ prepare, reconstruct): {c}")
+            if label == "hisq:half" and not (
+                    c["s1"].get("full:bf16->bf16", 0) >= it and n_s2 == 0):
+                fail(f"hisq half path did not run the bf16 S1: {c}")
+            if not improved and not (n_s1 == 0 and n_s2 >= 2 * it):
+                fail(f"fat-only path ({label}) did not run S2 alone: {c}")
+            del x
+        if iters["hisq"][0] != iters["asqtad"][0]:
+            fail(f"hisq ({iters['hisq'][0]}) and asqtad "
+                 f"({iters['asqtad'][0]}) on the same links took different "
+                 "iterations")
+
+        # -- invert_multishift -------------------------------------------
+        param = stag_param(inv_type="multi-shift-cg",
+                           num_offset=len(STAG_SHIFTS), offset=STAG_SHIFTS)
+        zero()
+        xs = qt.invert_multishift_quda(src, param)
+        torch.cuda.synchronize()
+        c = counts()
+        launches["multishift"] = c
+        iters["multishift"] = (param.iter_count, param.secs)
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+        qt.end_quda()
+    c128 = torch.complex128
+    dpc = DiracStaggeredPC(fat.to(c128), geom, STAG_MASS, True, lng.to(c128))
+    be, bo = even_odd_split(src.to(c128), geom)
+    rhs = dpc.prepare(be, bo)
+    shift_res = []
+    for i, sigma in enumerate(STAG_SHIFTS):
+        xi = xs[i].to(c128)
+        shift_res.append((torch.linalg.vector_norm(
+            rhs - (dpc.M(xi) + sigma * xi))
+            / torch.linalg.vector_norm(rhs)).item())
+    del dpc, rhs, be, bo
+    emit({"phase": "invert_multishift", "dims_xyzt": list(STAG_DIMS),
+          "dslash_type": "hisq", "mass": STAG_MASS, "tol": TOL,
+          "offsets": list(STAG_SHIFTS), "iters": param.iter_count,
+          "secs": param.secs, "true_res_base_pairs": param.true_res,
+          "true_res_per_shift_complex128": shift_res,
+          "converged_multi": param.converged_multi,
+          "launches_s1": c["s1"], "launches_b3": c["b3"],
+          "plain_stencil_calls": c["plain_stencil_calls"],
+          "shape": list(xs.shape)})
+    if not (all(param.converged_multi) and max(shift_res) <= TRUE_RES_MAX
+            and c["plain_stencil_calls"] == 0
+            and sum(c["s1"].values()) >= param.iter_count):
+        fail("invert_multishift_quda did not converge every shift with "
+             f"true_res <= {TRUE_RES_MAX:g} through S1: {shift_res}, {c}")
+    del xs
+
+    # -- reference: an 8^4 hisq solve on the card and on the CPU --------
+    small = (8, 8, 8, 8)
+    rng = np.random.default_rng(SEED + 9)
+    g_np = GaugeField.random(LatticeGeometry(small), rng, scale=0.7,
+                             dtype=torch.complex64, device="cpu").data
+    b_np = ColorSpinorField.gaussian(LatticeGeometry(small), rng, nspin=1,
+                                     dtype=torch.complex64,
+                                     device="cpu").data
+    sols = {}
+    for where in (dev, "cpu"):
+        qt.init_quda(where)
+        try:
+            qt.load_gauge_quda(g_np, qt.GaugeParam(X=small,
+                                                   cuda_prec="single"))
+            qt.compute_ks_link_quda()
+            p = stag_param(maxiter=1000)
+            sols[str(where)] = (qt.invert_quda(b_np, p).cpu(), p)
+        finally:
+            qt.end_quda()
+    (x_gpu, p_gpu), (x_cpu, p_cpu) = sols[str(dev)], sols["cpu"]
+    sol_rel = (torch.linalg.vector_norm(x_gpu - x_cpu)
+               / torch.linalg.vector_norm(x_cpu)).item()
+    emit({"phase": "reference", "dims_xyzt": list(small),
+          "dslash_type": "hisq", "iters_card": p_gpu.iter_count,
+          "iters_cpu": p_cpu.iter_count, "true_res_card": p_gpu.true_res,
+          "solution_rel_diff": sol_rel})
+    if not (sol_rel <= 1e-4 and p_gpu.converged
+            and abs(p_gpu.iter_count - p_cpu.iter_count) <= 2):
+        fail("the card's small hisq solve disagrees with the CPU's plain "
+             "path")
+
+    # -- timing ----------------------------------------------------------
+    half = geom.half_volume
+    timing, bound_by = {}, {}
+
+    def bound(nbytes, nflop):
+        t_bytes = nbytes * half / HBM_BYTES_PER_S
+        t_ops = nflop * half / F32_FLOPS_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    for store, out in forms:
+        dims, lk, psi = inputs(STAG_DIMS, store)
+        name = spl.form_name(store, out)
+        k_ms = median_ms(lambda: spl.dslash_staggered_eo_pallas_fused(
+            lk[0], lk[1], psi, dims, 0, lk[2], lk[3], out_dtype=out), torch)
+        p_ms = median_ms(lambda: spl.dslash_staggered_eo_fused_plain(
+            lk[0], lk[1], psi, dims, 0, lk[2], lk[3], out_dtype=out), torch,
+            repeats=5, batch=2)
+        b_ms, bound_by[name] = bound(spl.fused_bytes_per_site(store, out),
+                                     spl.FUSED_FLOPS_PER_SITE)
+        timing[name] = (k_ms, p_ms, b_ms)
+        for nhop in (1, 3):
+            name = spl.pass_form_name(nhop, store, out)
+            here, bw = pass_args(lk, dims, 0, nhop)
+            k_ms = median_ms(lambda: spl.dslash_staggered_eo_pass(
+                here, bw, psi, dims, 0, nhop, out), torch)
+            p_ms = median_ms(lambda: spl.dslash_staggered_eo_pass_plain(
+                here, bw, psi, dims, 0, nhop, out), torch, repeats=5,
+                batch=2)
+            b_ms, bound_by[name] = bound(spl.pass_bytes_per_site(store, out),
+                                         spl.PASS_FLOPS_PER_SITE)
+            timing[name] = (k_ms, p_ms, b_ms)
+            del here, bw
+        del lk, psi
+
+    be, bo = even_odd_split(src, geom)
+
+    def per_iter_ms(run, n=STAG_ITER_TIMED):
+        run(2)                                                # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(n)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / res.iters, res.iters
+
+    iter_ms = {}
+    for label, improved in (("hisq", True), ("staggered", False)):
+        dpc = DiracStaggeredPC(fat if improved else gauge, geom, STAG_MASS,
+                               improved, lng if improved else None)
+        op = dpc.pairs(f32)
+        rhs = op.prepare_pairs(be, bo)
+        iter_ms[f"{label}_fused_cg"] = per_iter_ms(
+            lambda n: fused_cg(op.M_pairs, rhs, tol=1e-30, maxiter=n))
+        if improved:
+            lo = dpc.pairs(bf16)
+            iter_ms["hisq_cg_reliable_half"] = per_iter_ms(
+                lambda n: cg_reliable(op.M_pairs, lo.M_pairs, rhs,
+                                      pair_inplace_codec(bf16), tol=1e-30,
+                                      maxiter=n))
+            iter_ms["hisq_multishift_8"] = per_iter_ms(
+                lambda n: multishift_cg(op.M_pairs, rhs, STAG_SHIFTS,
+                                        tol=1e-30, maxiter=n))
+            del lo
+        del dpc, op, rhs
+    emit({"phase": "timing", "family": "staggered",
+          "dims_xyzt": list(STAG_DIMS), "nvidia_smi": smi,
+          "repeats": REPEATS, "calls_per_timing": BATCH,
+          **{name: {"ms": k, "plain_ms": p, "bound_ms": b,
+                    "share_of_bound": b / k}
+             for name, (k, p, b) in timing.items()},
+          "iteration_ms": {k: v[0] for k, v in iter_ms.items()},
+          "iterations_timed": {k: v[1] for k, v in iter_ms.items()},
+          "solve_secs": {k: v[1] for k, v in iters.items()},
+          "solve_iters": {k: v[0] for k, v in iters.items()}})
+
+    # launches of each form on its main path; S2's Naik forms run on no
+    # ported path (the improved operator takes S1), so they stay in the
+    # check and timing phases and have no row
+    s1_path = {"full:f32->f32": "hisq", "full:bf16->bf16": "hisq:half",
+               "full:bf16->f32": "hisq:half"}
+    s2_path = {"fat:f32->f32": "staggered", "fat:bf16->bf16":
+               "staggered:half", "fat:bf16->f32": "staggered:half"}
+    rows = []
+    for name, path in s1_path.items():
+        k_ms, p_ms, b_ms = timing[name]
+        rows.append({
+            "name": f"dslash_staggered_eo_pallas_fused[{name}]",
+            "route": "cuda", "source": "quda_tpu_torch/csrc/staggered_eo.cu",
+            "replaces": "quda_tpu/ops/staggered_pallas.py:966",
+            "launches": launches[path]["s1"].get(name, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": bound_by[name],
+            "library_ms": None})
+    for name, path in s2_path.items():
+        k_ms, p_ms, b_ms = timing[name]
+        rows.append({
+            "name": f"dslash_staggered_eo_pass[{name}]",
+            "route": "cuda", "source": "quda_tpu_torch/csrc/staggered_eo.cu",
+            "replaces": "quda_tpu/ops/staggered_pallas.py:204",
+            "launches": launches[path]["s2"].get(name, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": bound_by[name],
+            "library_ms": None})
+    return rows
 
 
 def main() -> int:
@@ -1027,6 +1450,7 @@ def main() -> int:
             "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
+    rows_out.extend(staggered(torch, dev, smi))
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:
         fail(f"kernels never launched on their main path: {unlaunched}")

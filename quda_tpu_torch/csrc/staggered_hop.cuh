@@ -1,0 +1,147 @@
+// Device code of the even/odd staggered hops on the packed pair layout,
+// shared by the fused fat + Naik hop (S1) and the one-hop-set gather pass
+// (S2), both in staggered_eo.cu: the neighbour index of a half-site at
+// x + s*n*mu for n in {1, 3}, the colour-vector load, and the 3x3 colour
+// multiply of one hop.  The link load and the f32/bf16 loads and stores
+// are wilson_hop.cuh's (links have the Wilson R = 3 layout).
+//
+// Layout; every colour/re-im component is its own plane of
+// S = T*Z*Y*Xh half-sites, so adjacent threads read adjacent addresses:
+//   psi, out  (3, 2, T, Z, Y*Xh)
+//   links     (4, 3, 3, 2, T, Z, Y*Xh)
+// The staggered phases and the antiperiodic t boundary are folded into the
+// links (the long links' boundary on the last three t planes), so no hop
+// carries a sign of its own.  Offsets are 64-bit.
+#pragma once
+
+#include "wilson_hop.cuh"
+
+namespace qtt {
+
+// Site coordinates of half-site `site` of parity `parity`: the packed rule
+// mask_r0 = ((t+z+y+parity) % 2 == 0) puts the site of slot xh at
+// x = 2*xh + ((t+z+y+parity) & 1).
+struct EoSite {
+  int t, z, y, xh, x;
+  int64_t site, row;  // row: the half-site of slot 0 on this (t, z, y) row
+};
+
+__device__ __forceinline__ EoSite eo_site(int64_t site, int Z, int Y,
+                                          int Xh, int64_t YXh,
+                                          int64_t ZYXh, int parity) {
+  EoSite s;
+  s.xh = static_cast<int>(site % Xh);
+  s.y = static_cast<int>((site / Xh) % Y);
+  s.z = static_cast<int>((site / YXh) % Z);
+  s.t = static_cast<int>(site / ZYXh);
+  s.x = 2 * s.xh + ((s.t + s.z + s.y + parity) & 1);
+  s.site = site;
+  s.row = site - s.xh;
+  return s;
+}
+
+// c + d wrapped into [0, e), for any |d| (extents may be below 3)
+__device__ __forceinline__ int wrap(int c, int d, int e) {
+  int v = (c + d) % e;
+  return v < 0 ? v + e : v;
+}
+
+// Half-site index (on the opposite parity: n is odd) of x + d*mu, d = +-n.
+// x moves to x' = (x + d) mod X, slot x'/2; y, z and t keep xh and move
+// their own plane.
+template <int MU>
+__device__ __forceinline__ int64_t eo_neighbour(const EoSite& s, int d,
+                                                int T, int Z, int Y,
+                                                int Xh, int64_t YXh,
+                                                int64_t ZYXh) {
+  if constexpr (MU == 0) {
+    return s.row + wrap(s.x, d, 2 * Xh) / 2;
+  } else if constexpr (MU == 1) {
+    return s.site + static_cast<int64_t>(wrap(s.y, d, Y) - s.y) * Xh;
+  } else if constexpr (MU == 2) {
+    return s.site + static_cast<int64_t>(wrap(s.z, d, Z) - s.z) * YXh;
+  } else {
+    return s.site + static_cast<int64_t>(wrap(s.t, d, T) - s.t) * ZYXh;
+  }
+}
+
+// colour vector (3 complex) at half-site i of a (3, 2, S) field
+template <typename S>
+__device__ __forceinline__ void ld_cvec(float2 (&v)[3],
+                                        const S* __restrict__ psi,
+                                        int64_t n, int64_t i) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const S* q = psi + static_cast<int64_t>(2 * c) * n + i;
+    v[c] = make_float2(ld(q), ld(q + n));
+  }
+}
+
+// One hop into acc: acc += 0.5 U psi (FWD) or acc -= 0.5 U^dag psi, with
+// U^dag[a][b] = conj(U[b][a]); the link of direction MU at link half-site
+// li, psi at half-site pi.  As the TPU kernel: the colour sum first, then
+// the +-0.5 scale.
+template <int MU, bool FWD, typename S>
+__device__ __forceinline__ void stag_hop(float2 (&acc)[3],
+                                         const S* __restrict__ psi,
+                                         const S* __restrict__ g,
+                                         int64_t n, int64_t li,
+                                         int64_t pi) {
+  float2 u[3][3];
+  ld_link<3>(u, g, MU, n, li, 1.f);
+  float2 v[3];
+  ld_cvec(v, psi, n, pi);
+  const float s = FWD ? 0.5f : -0.5f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const float2 m = FWD ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
+      t = cadd(t, cmul(m, v[b]));
+    }
+    acc[a] = make_float2(acc[a].x + s * t.x, acc[a].y + s * t.y);
+  }
+}
+
+// Both hops of direction MU, hop count N, into acc.  The backward link is
+// read at index `bw_at_nb ? neighbour : site` of `g_bw`: the fused kernel
+// reads the unshifted opposite-parity links at the backward neighbour, the
+// gather pass its pre-shifted copy at the target site.
+template <int MU, int N, typename S>
+__device__ __forceinline__ void stag_dir(float2 (&acc)[3],
+                                         const S* __restrict__ psi,
+                                         const S* __restrict__ g_fwd,
+                                         const S* __restrict__ g_bw,
+                                         bool bw_at_nb, const EoSite& s,
+                                         int T, int Z, int Y, int Xh,
+                                         int64_t YXh, int64_t ZYXh,
+                                         int64_t n) {
+  const int64_t fwd = eo_neighbour<MU>(s, +N, T, Z, Y, Xh, YXh, ZYXh);
+  const int64_t bwd = eo_neighbour<MU>(s, -N, T, Z, Y, Xh, YXh, ZYXh);
+  stag_hop<MU, true>(acc, psi, g_fwd, n, s.site, fwd);
+  stag_hop<MU, false>(acc, psi, g_bw, n, bw_at_nb ? bwd : s.site, bwd);
+}
+
+// The whole hop set of hop count N (8 hops) into acc, directions in the
+// TPU kernel's order (x, y, z, t; forward before backward).
+template <int N, typename S>
+__device__ __forceinline__ void stag_hopset(float2 (&acc)[3],
+                                            const S* __restrict__ psi,
+                                            const S* __restrict__ g_fwd,
+                                            const S* __restrict__ g_bw,
+                                            bool bw_at_nb, const EoSite& s,
+                                            int T, int Z, int Y, int Xh,
+                                            int64_t YXh, int64_t ZYXh,
+                                            int64_t n) {
+  stag_dir<0, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
+                 n);
+  stag_dir<1, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
+                 n);
+  stag_dir<2, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
+                 n);
+  stag_dir<3, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
+                 n);
+}
+
+}  // namespace qtt

@@ -61,6 +61,8 @@ class InvertParam:
     inv_type: str = "cg"
     solve_type: str = "normop-pc"
     matpc_type: str = "even-even"
+    # staggered mass m of M = 2m + D (MILC convention)
+    mass: float = -0.9
     kappa: float = 0.12
     # clover coefficient c_sw of dslash_type "clover"
     csw: float = 0.0
@@ -68,6 +70,9 @@ class InvertParam:
     tol_hq: float = 0.0
     maxiter: int = 10000
     reliable_delta: float = 0.1
+    # invert_multishift_quda: the shifts sigma_i of (M + sigma_i) x_i = b
+    num_offset: int = 0
+    offset: Sequence[float] = ()
     cuda_prec: str = "double"
     # "auto" resolves to cuda_prec (the JAX package's non-TPU branch);
     # "half" is bfloat16 pair storage with reliable updates
@@ -87,7 +92,8 @@ class InvertParam:
     # multi-source results (invert_multi_src_quda): per-RHS true
     # residuals, iteration counts and convergence claims; iter_count and
     # gflops then hold the per-RHS sums, true_res the worst lane and
-    # converged whether every lane converged
+    # converged whether every lane converged.  invert_multishift_quda
+    # fills converged_multi per shift
     true_res_multi: Sequence[float] = ()
     iter_count_multi: Sequence[int] = ()
     converged_multi: Sequence[bool] = ()
@@ -107,4 +113,6 @@ class InvertParam:
                f"bad sloppy prec {self.cuda_prec_sloppy}")
         _check(0.0 < self.reliable_delta < 1.0,
                f"bad reliable_delta {self.reliable_delta}")
+        if self.num_offset:
+            _check(len(self.offset) == self.num_offset, "offset mismatch")
         return self

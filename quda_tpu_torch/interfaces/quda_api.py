@@ -1,11 +1,13 @@
-"""Public entry points: init_quda / load_gauge_quda / invert_quda / end_quda.
+"""Public entry points: init_quda / load_gauge_quda / invert_quda / end_quda,
+compute_ks_link_quda / load_fat_long_quda / invert_multishift_quda.
 
-Port of the Wilson and Wilson-clover even/odd CG paths of
+Port of the Wilson, Wilson-clover and staggered even/odd CG paths of
 quda_tpu/interfaces/quda_api.py.  ``invert_quda`` serves
-dslash_type="wilson" and "clover", inv_type="cg", solve_type="normop-pc"
-with cuda_prec="single", on the packed pair representation (the float32
-and bfloat16 pair operators that ``pairs`` builds, the same way for both
-families):
+dslash_type="wilson" and "clover" (solve_type="normop-pc") and
+"staggered", "asqtad" and "hisq" (solve_type "normop-pc" or "direct-pc"),
+inv_type="cg", with cuda_prec="single", on the packed pair
+representation (the float32 and bfloat16 pair operators that ``pairs``
+builds, the same way for every family):
 
 * sloppy = single: ``fused_cg`` on the float32 pair operator (every hop
   on the eo kernel, or for clover on the fused clover hop; the CG tail on
@@ -19,9 +21,18 @@ families):
   takes its float32 route; ``converged`` is the solver's own claim, as
   there, and ``true_res`` says how far the float32 solve got.
 
-Links are full or recon-12 (``GaugeParam.reconstruct`` 18 or 12).  The
-epilogue checks the true residual of M x = b with the full-lattice
-complex operator (ops/wilson.py, models/clover.py), which no kernel
+The staggered PC operator 4m^2 - D_pq D_qp is Hermitian positive
+definite, so its CG runs on ``M_pairs`` itself (one apply per
+iteration, no normal equations), on the fused fat + Naik hop kernel S1
+(asqtad, hisq: the fat and long links of ``compute_ks_link_quda`` or
+``load_fat_long_quda``) or the gather pass S2 (fat-only "staggered":
+the gauge links are the fat links).  ``invert_multishift_quda`` runs
+``multishift_cg`` on the same float32 pair operator.
+
+Links are full or recon-12 (``GaugeParam.reconstruct`` 18 or 12; the
+staggered family takes 18 only, ROADMAP C).  The epilogue checks the
+true residual of M x = b with the full-lattice complex operator
+(ops/wilson.py, models/clover.py, models/staggered.py), which no kernel
 touches; the df64 route reports its df64 full-lattice residual.
 Every other route raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.
@@ -61,8 +72,12 @@ _ctx = {
     "geom": None,
     "gauge": None,          # resident gauge (4,T,Z,Y,X,3,3) on the device
     "gauge_param": None,
+    "fat": None,            # resident staggered fat links (4,T,Z,Y,X,3,3)
+    "long": None,           # resident staggered long (Naik) links
     "warned": set(),        # one-time warning keys of this session
 }
+
+STAGGERED_TYPES = ("staggered", "asqtad", "hisq")
 
 
 def init_quda(device="cuda"):
@@ -73,13 +88,13 @@ def init_quda(device="cuda"):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     _ctx.update(initialized=True, device=dev, geom=None, gauge=None,
-                gauge_param=None, warned=set())
+                gauge_param=None, fat=None, long=None, warned=set())
     log.debug("initialized on %s", dev)
 
 
 def end_quda():
     _ctx.update(initialized=False, device=None, geom=None, gauge=None,
-                gauge_param=None, warned=set())
+                gauge_param=None, fat=None, long=None, warned=set())
 
 
 def _require_init():
@@ -117,6 +132,42 @@ def free_gauge_quda():
     _ctx["gauge"] = None
 
 
+def compute_ks_link_quda(naik_eps: float = 0.0):
+    """computeKSLinkQuda: HISQ-fatten the resident gauge (fat7, U(3)
+    reunitarisation, level-2 fat links and Naik links, gauge/hisq.py) in
+    its precision, and keep the fat and long links resident for the
+    asqtad/hisq inverts.  Returns the ``HisqLinks``."""
+    from ..gauge.hisq import hisq_fattening
+    _require_init()
+    if _ctx["gauge"] is None:
+        raise RuntimeError("load_gauge_quda() first")
+    links = hisq_fattening(_ctx["gauge"], naik_eps)
+    _ctx["fat"] = links.fat
+    _ctx["long"] = links.long
+    return links
+
+
+def load_fat_long_quda(fat, long_links):
+    """Make (fat, long) links (4,T,Z,Y,X,3,3), numpy (for instance the
+    JAX package's HisqLinks) or tensors, the resident staggered links,
+    in the resident gauge's precision."""
+    from ..utils.convert import fat_long_from_host
+    _require_init()
+    dev = _ctx["device"]
+    dtype = _ctx["gauge"].dtype if _ctx["gauge"] is not None else None
+    if isinstance(fat, torch.Tensor) and isinstance(long_links,
+                                                   torch.Tensor):
+        f = fat.to(device=dev, dtype=dtype or fat.dtype)
+        lg = long_links.to(device=dev, dtype=dtype or long_links.dtype)
+    else:
+        f, lg = fat_long_from_host(fat, long_links, dev, dtype)
+    if tuple(f.shape) != tuple(lg.shape) or f.ndim != 7 or f.shape[0] != 4:
+        raise ValueError(f"fat {tuple(f.shape)} and long "
+                         f"{tuple(lg.shape)}: expected two "
+                         "(4,T,Z,Y,X,3,3) link fields")
+    _ctx["fat"], _ctx["long"] = f, lg
+
+
 def _antiperiodic() -> bool:
     return _ctx["gauge_param"].t_boundary == "antiperiodic"
 
@@ -128,6 +179,20 @@ def _build_dirac(p: InvertParam, pc: bool, dtype):
     g = _ctx["gauge"].to(dtype)
     ap = _antiperiodic()
     matpc = EVEN if p.matpc_type == "even-even" else ODD
+    if p.dslash_type in STAGGERED_TYPES:
+        from ..models import staggered as mstag
+        improved = p.dslash_type != "staggered"
+        fat, lng = g, None
+        if improved:
+            if _ctx["fat"] is None or _ctx["long"] is None:
+                raise RuntimeError(
+                    f"dslash_type {p.dslash_type!r} needs "
+                    "compute_ks_link_quda() or load_fat_long_quda() first")
+            fat, lng = _ctx["fat"].to(dtype), _ctx["long"].to(dtype)
+        return (mstag.DiracStaggeredPC(fat, geom, p.mass, improved, lng,
+                                       matpc, antiperiodic_t=ap) if pc
+                else mstag.DiracStaggered(fat, geom, p.mass, improved, lng,
+                                          antiperiodic_t=ap))
     if p.dslash_type == "clover":
         return (mclover.DiracCloverPC(g, geom, p.kappa, p.csw, ap, matpc)
                 if pc else mclover.DiracClover(g, geom, p.kappa, p.csw, ap))
@@ -143,10 +208,16 @@ def _resolve_sloppy(param: InvertParam) -> str:
     return param.cuda_prec
 
 
-def _link_form() -> str:
+def _link_form(staggered: bool = False) -> str:
     """The packed operators' link form from the resident gauge's
     ``reconstruct``."""
     rec = _ctx["gauge_param"].reconstruct
+    if staggered and rec != 18:
+        raise NotImplementedError(
+            f"reconstruct {rec} on the staggered family: HISQ/asqtad long "
+            "links are -(1+eps)/24 W W W with W a U(3) projection, not "
+            "+-SU(3), so a rebuilt row 2 applies a wrong operator "
+            "(ROADMAP C); the port serves full (18) staggered links")
     if rec == 8:
         raise NotImplementedError(
             "reconstruct 8 is not ported yet (ROADMAP A7/B9); the port "
@@ -156,15 +227,21 @@ def _link_form() -> str:
 
 def _check_route(param: InvertParam, sloppy: str):
     """Raise for every route this port does not serve yet."""
-    if param.dslash_type not in ("wilson", "clover"):
+    if param.dslash_type not in ("wilson", "clover") + STAGGERED_TYPES:
         raise NotImplementedError(
             f"dslash_type {param.dslash_type!r} is not ported yet: twisted "
-            "mass and twisted clover (ROADMAP A10), staggered/HISQ (A9), "
-            "domain wall (A10)")
+            "mass and twisted clover (ROADMAP A10), domain wall (A10)")
     if param.inv_type != "cg":
         raise NotImplementedError(
-            f"inv_type {param.inv_type!r} is not ported yet (ROADMAP A11)")
-    if param.solve_type != "normop-pc":
+            f"inv_type {param.inv_type!r} is not ported yet (ROADMAP A11; "
+            "multi-shift CG through invert_multishift_quda)")
+    if param.dslash_type in STAGGERED_TYPES:
+        if param.solve_type not in ("normop-pc", "direct-pc"):
+            raise NotImplementedError(
+                f"solve_type {param.solve_type!r}: the staggered family "
+                "serves the Hermitian PC operator (normop-pc, direct-pc); "
+                "the unpreconditioned routes come with ROADMAP A11")
+    elif param.solve_type != "normop-pc":
         raise NotImplementedError(
             f"solve_type {param.solve_type!r}: only normop-pc is ported; "
             "the direct and unpreconditioned routes come with the "
@@ -254,9 +331,10 @@ def _invert_wilson_df64(b, param: InvertParam, dpk, sloppy: str,
 
 
 def invert_quda(source, param: InvertParam):
-    """invertQuda: solve M x = b; returns x (T,Z,Y,X,4,3) on the session's
-    device and fills param.true_res, iter_count, secs, gflops, converged
-    and reliable_updates (and x_df64_lo on the df64 route)."""
+    """invertQuda: solve M x = b; returns x (T,Z,Y,X,4,3), or
+    (T,Z,Y,X,1,3) for the staggered family, on the session's device and
+    fills param.true_res, iter_count, secs, gflops, converged and
+    reliable_updates (and x_df64_lo on the df64 route)."""
     from .. import solvers
 
     _require_init()
@@ -265,28 +343,24 @@ def invert_quda(source, param: InvertParam):
         raise RuntimeError("load_gauge_quda() first")
     sloppy = _resolve_sloppy(param)
     _check_route(param, sloppy)
-    form = _link_form()
+    form = _link_form(param.dslash_type in STAGGERED_TYPES)
     dev = _ctx["device"]
     geom = _ctx["geom"]
     dtype = complex_dtype(param.cuda_prec)
-    if isinstance(source, torch.Tensor):
-        b = source.to(device=dev, dtype=dtype)
-    else:
-        b = spinor_from_host(source, dev, dtype)
-    if tuple(b.shape) != geom.spinor_shape():
-        raise ValueError(f"source shape {tuple(b.shape)} != "
-                         f"{geom.spinor_shape()}")
+    b = _source_on_device(source, param, dtype)
     t0 = time.perf_counter()
     param.x_df64_lo = None
 
     # ``dirac.pairs`` builds every pair operator of the solve, for each
     # family: DiracWilsonPCPacked -> the eo hop kernel, DiracCloverPC ->
-    # the fused clover hop
+    # the fused clover hop, DiracStaggeredPC -> the staggered hops
     dirac = _build_dirac(param, True, dtype)
     if param.dslash_type == "wilson":
         dirac = dirac.packed()
-    # normal equations: MdagM x = Mdag b, two M applies per iteration
-    mv_applies = 2.0
+    # normal equations: MdagM x = Mdag b, two M applies per iteration;
+    # the Hermitian staggered PC operator is solved directly, one apply
+    hermitian = getattr(dirac, "hermitian", False)
+    mv_applies = 1.0 if hermitian else 2.0
     if _df64_route(param):
         x_full, res = _invert_wilson_df64(b, param, dirac, sloppy, form)
         if dev.type == "cuda":
@@ -295,16 +369,21 @@ def invert_quda(source, param: InvertParam):
     else:
         op = dirac.pairs(torch.float32, precision_form=form)
         be, bo = even_odd_split(b, geom)
-        sys_rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+        rhs = op.prepare_pairs(be, bo)
+        sys_rhs = rhs if hermitian else op.Mdag_pairs(rhs)
+
+        def system(o):
+            return o.M_pairs if hermitian else o.MdagM_pairs
+
         if sloppy == param.cuda_prec:
             res = solvers.create(param.inv_type)(
-                op.MdagM_pairs, sys_rhs, tol=param.tol,
+                system(op), sys_rhs, tol=param.tol,
                 maxiter=param.maxiter, tol_hq=param.tol_hq)
         else:
             store = _store_dtype(sloppy)
             sl = dirac.pairs(store, precision_form=form)
             res = solvers.cg_reliable(
-                op.MdagM_pairs, sl.MdagM_pairs, sys_rhs,
+                system(op), system(sl), sys_rhs,
                 solvers.pair_inplace_codec(store), tol=param.tol,
                 maxiter=param.maxiter, delta=param.reliable_delta)
         xe, xo = op.reconstruct_pairs(res.x, be, bo)
@@ -327,6 +406,93 @@ def invert_quda(source, param: InvertParam):
              param.dslash_type, param.inv_type, param.iter_count,
              param.true_res, param.secs)
     return x_full
+
+
+def _source_on_device(source, param: InvertParam, dtype):
+    """The source (a numpy array or a tensor) on the session's device,
+    checked against the lattice: (T,Z,Y,X,4,3), or (T,Z,Y,X,1,3) for the
+    staggered family."""
+    dev = _ctx["device"]
+    nspin = 1 if param.dslash_type in STAGGERED_TYPES else 4
+    if isinstance(source, torch.Tensor):
+        b = source.to(device=dev, dtype=dtype)
+    else:
+        b = spinor_from_host(source, dev, dtype, nspin)
+    want = _ctx["geom"].spinor_shape(nspin)
+    if tuple(b.shape) != want:
+        raise ValueError(f"source shape {tuple(b.shape)} != {want}")
+    return b
+
+
+def invert_multishift_quda(source, param: InvertParam):
+    """invertMultiShiftQuda: (M_pc + offset_i) x_i = rhs for every
+    ``param.offset`` at once, on the staggered family's Hermitian PC
+    operator (the RHMC rational-force solve), rhs = 2m b_p - D_pq b_q.
+    Returns the ``num_offset`` parity-p solutions stacked,
+    (n, T,Z,Y,Xh,1,3), as the JAX route does.
+
+    ``multishift_cg`` runs on the float32 pair operator (the fused hop
+    S1, or S2 for fat-only), whatever ``cuda_prec_sloppy`` says, as in
+    the JAX package.  Fills ``iter_count``, ``secs``, ``gflops``,
+    ``converged_multi`` (per shift), ``converged`` (all) and
+    ``true_res``: the pair-space residual of the base (first) shift,
+    |rhs - (M_pc + offset_0) x_0| / |rhs|."""
+    from .. import solvers
+
+    _require_init()
+    param.validate()
+    if _ctx["gauge"] is None:
+        raise RuntimeError("load_gauge_quda() first")
+    if param.dslash_type not in STAGGERED_TYPES:
+        raise NotImplementedError(
+            f"invert_multishift_quda for dslash_type "
+            f"{param.dslash_type!r} is not ported yet (ROADMAP A18: "
+            "Wilson and clover multishift); the port serves the "
+            f"staggered family {STAGGERED_TYPES}")
+    if param.inv_type not in ("cg", "multi-shift-cg"):
+        raise NotImplementedError(
+            f"inv_type {param.inv_type!r}: invert_multishift_quda runs "
+            "multi-shift CG")
+    if param.cuda_prec != "single":
+        raise NotImplementedError(
+            f"cuda_prec {param.cuda_prec!r}: only single is ported "
+            "(ROADMAP A7)")
+    if param.num_offset < 1:
+        raise ValueError("invert_multishift_quda needs num_offset >= 1 "
+                         "shifts in param.offset")
+    form = _link_form(True)
+    dev = _ctx["device"]
+    geom = _ctx["geom"]
+    dtype = complex_dtype(param.cuda_prec)
+    b = _source_on_device(source, param, dtype)
+    t0 = time.perf_counter()
+    dirac = _build_dirac(param, True, dtype)
+    op = dirac.pairs(torch.float32, precision_form=form)
+    be, bo = even_odd_split(b, geom)
+    rhs = op.prepare_pairs(be, bo)
+    offsets = tuple(float(o) for o in param.offset)
+    res = solvers.multishift_cg(op.M_pairs, rhs, offsets, tol=param.tol,
+                                maxiter=param.maxiter)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    param.secs = time.perf_counter() - t0
+    param.iter_count = int(res.iters)
+    param.reliable_updates = 0
+    param.x_df64_lo = None
+    # per UPDATED site (volume/2), one M apply per iteration
+    param.gflops = (param.iter_count * dirac.flops_per_site_M()
+                    * (geom.volume // 2)) / 1e9
+    x0 = res.x[0]
+    r0 = rhs - (op.M_pairs(x0) + offsets[0] * x0)
+    param.true_res = math.sqrt(float(blas.norm2(r0))
+                               / float(blas.norm2(rhs)))
+    _solve_supervision(param, "invert_multishift_quda",
+                       converged_multi=res.converged)
+    log.info("invert_multishift_quda[%s]: %d shifts, %d iters, base "
+             "true_res %.2e, %.2f s", param.dslash_type, len(offsets),
+             param.iter_count, param.true_res, param.secs)
+    return torch.stack([op._from_pairs(res.x[i], b.dtype)
+                        for i in range(len(offsets))])
 
 
 def _split_batch(B, geom):
@@ -375,6 +541,11 @@ def invert_multi_src_quda(sources, param: InvertParam):
     param.validate()
     if _ctx["gauge"] is None:
         raise RuntimeError("load_gauge_quda() first")
+    if param.dslash_type in STAGGERED_TYPES:
+        raise NotImplementedError(
+            "invert_multi_src_quda for the staggered family is not ported "
+            "yet: it comes with its batched route on the multi-RHS gather "
+            "pass _stag_pass_mrhs (ROADMAP A9/B6, the next slice)")
     geom = _ctx["geom"]
     dtype = complex_dtype(param.cuda_prec)
     if isinstance(sources, torch.Tensor):

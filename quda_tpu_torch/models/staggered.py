@@ -1,0 +1,290 @@
+"""Staggered and improved-staggered (asqtad/HISQ) Dirac operators.
+
+Port of the single-device part of quda_tpu/models/staggered.py.
+M = 2m + D with anti-Hermitian D (MILC mass convention).  The even/odd
+operator on parity p is the Hermitian positive definite
+
+    M_pc x_p = 4m^2 x_p - D_pq D_qp x_p
+
+so CG runs on it directly: no normal equations.  prepare/reconstruct of
+the PC solve of M x = b:
+
+    rhs_p = 2m b_p - D_pq b_q,      x_q = (b_q - D_qp x_p) / 2m
+
+The pair operator ``DiracStaggeredPCPairs`` (``DiracStaggeredPC.pairs``)
+runs every hop through a CUDA kernel's wrapper: improved staggered on the
+fused fat + Naik hop S1 (form ``fused``), fat-only staggered on the
+gather pass S2 (form ``two_pass``; the improved two-pass form runs the
+fat and Naik passes and sums them).  On CPU tensors the wrappers run
+their plain versions.  Storage float32 (the precise operator) or
+bfloat16 (the sloppy operator of mixed precision); full links only.  The
+JAX package's form race, its mesh route, its r12/fold precision forms,
+the multi-RHS forms and the v3 kernels are not ported (ROADMAP A9, B6,
+B9, A15, A17, C).
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..fields.geometry import EVEN, LatticeGeometry
+from ..ops import staggered as sops
+from ..ops import staggered_packed as spk
+from ..ops import staggered_pallas as spl
+from ..ops import wilson_packed as wpk
+from ..ops.boundary import apply_staggered_phases
+from ..ops.wilson import split_gauge_eo
+from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
+
+log = logging.getLogger("quda_tpu_torch")
+
+STORE_DTYPES = (torch.float32, torch.bfloat16)
+STAGGERED_FORMS = ("fused", "two_pass")
+# forms of the JAX package's staggered pair operator that are not ported
+QUEUED_FORMS = {"v3": "ROADMAP B6", "auto": "ROADMAP A17 (the tuner)"}
+QUEUED_PRECISION_FORMS = {
+    "r12": "ROADMAP C: HISQ long links are not +-SU(3), so a rebuilt "
+           "row 2 is wrong",
+    "fold": "ROADMAP B9", "auto": "ROADMAP A17 (the tuner)"}
+
+
+def _fold(fat, long_links, geom, antiperiodic_t):
+    """KS phases (and the t boundary, depth 3 for the long links) folded
+    into the links."""
+    fat = apply_staggered_phases(fat, geom, antiperiodic_t)
+    if long_links is not None:
+        long_links = apply_staggered_phases(long_links, geom,
+                                            antiperiodic_t, nhop=3)
+    return fat, long_links
+
+
+class DiracStaggered(Dirac):
+    """Full-lattice staggered operator M = 2m + D (nspin = 1 fields)."""
+
+    g5_hermitian = False   # staggered uses epsilon(x) = (-1)^(x+y+z+t)
+
+    def __init__(self, gauge: torch.Tensor, geom: LatticeGeometry,
+                 mass: float, improved: bool = False,
+                 long_links: torch.Tensor | None = None,
+                 fold_phases: bool = True, antiperiodic_t: bool = True):
+        self.geom = geom
+        self.mass = mass
+        self.improved = improved
+        if fold_phases:
+            gauge, long_links = _fold(gauge, long_links, geom,
+                                      antiperiodic_t)
+        self.fat = gauge
+        self.long = long_links if improved else None
+
+    def D(self, psi):
+        return sops.dslash_full(self.fat, psi, self.long)
+
+    def M(self, psi):
+        return 2.0 * self.mass * psi + self.D(psi)
+
+    def Mdag(self, psi):
+        # D anti-Hermitian: Mdag = 2m - D
+        return 2.0 * self.mass * psi - self.D(psi)
+
+    def flops_per_site_M(self) -> int:
+        return (1146 if self.improved else 570) + 24
+
+
+class DiracStaggeredPC(DiracPC):
+    """The parity-p staggered normal operator 4m^2 - D_pq D_qp, complex
+    canonical fields (T,Z,Y,Xh,1,3).  It IS the solver operator
+    (Hermitian positive definite)."""
+
+    hermitian = True
+    g5_hermitian = False
+
+    def __init__(self, gauge: torch.Tensor, geom: LatticeGeometry,
+                 mass: float, improved: bool = False,
+                 long_links: torch.Tensor | None = None,
+                 matpc: int = MATPC_EVEN_EVEN, fold_phases: bool = True,
+                 antiperiodic_t: bool = True):
+        self.geom = geom
+        self.mass = mass
+        self.matpc = matpc
+        self.improved = improved
+        if fold_phases:
+            gauge, long_links = _fold(gauge, long_links, geom,
+                                      antiperiodic_t)
+        self.fat_eo = split_gauge_eo(gauge, geom)
+        self.long_eo = (split_gauge_eo(long_links, geom)
+                        if improved and long_links is not None else None)
+
+    def D_to(self, psi, target_parity):
+        return sops.dslash_eo(self.fat_eo, psi, self.geom, target_parity,
+                              self.long_eo)
+
+    def M(self, x_p):
+        p = self.matpc
+        return (4.0 * self.mass ** 2) * x_p - self.D_to(
+            self.D_to(x_p, 1 - p), p)
+
+    def Mdag(self, x_p):
+        return self.M(x_p)
+
+    def flops_per_site_M(self) -> int:
+        # two half-lattice hops and the shifted axpy, per updated site
+        return 2 * (1146 if self.improved else 570) + 24
+
+    def prepare(self, b_even, b_odd):
+        p = self.matpc
+        b_p, b_q = (b_even, b_odd) if p == EVEN else (b_odd, b_even)
+        return 2.0 * self.mass * b_p - self.D_to(b_q, p)
+
+    def reconstruct(self, x_p, b_even, b_odd):
+        p = self.matpc
+        b_q = b_odd if p == EVEN else b_even
+        x_q = (b_q - self.D_to(x_p, 1 - p)) / (2.0 * self.mass)
+        return (x_p, x_q) if p == EVEN else (x_q, x_p)
+
+    def pairs(self, store_dtype=torch.float32, form: str | None = None,
+              mesh=None, precision_form: str | None = None
+              ) -> "DiracStaggeredPCPairs":
+        """Pair-storage companion: float32 storage is the precise
+        operator, bfloat16 the sloppy one.  ``form``: "fused" (improved
+        only) or "two_pass"; default fused for improved and two_pass
+        for fat-only."""
+        return DiracStaggeredPCPairs(self, store_dtype, form=form,
+                                     mesh=mesh,
+                                     precision_form=precision_form)
+
+
+class DiracStaggeredPCPairs:
+    """Pair-form DiracStaggeredPC on the packed layout: half-lattice
+    links (4,3,3,2,T,Z,Y*Xh) and spinors (3,2,T,Z,Y*Xh) in
+    ``store_dtype``, sums in float32, every hop on a kernel wrapper.
+    ``prepare_pairs``/``reconstruct_pairs`` take and give canonical
+    complex parity fields."""
+
+    hermitian = True
+
+    def __init__(self, dpc: DiracStaggeredPC, store_dtype=torch.float32,
+                 form: str | None = None, mesh=None,
+                 precision_form: str | None = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded staggered operators are not ported yet "
+                "(ROADMAP A15)")
+        pform = precision_form or "full"
+        if pform in QUEUED_PRECISION_FORMS:
+            raise NotImplementedError(
+                f"staggered precision_form {pform!r} is not ported: "
+                f"{QUEUED_PRECISION_FORMS[pform]}; the port serves 'full'")
+        if pform != "full":
+            raise ValueError(f"unknown precision_form {pform!r}")
+        if store_dtype not in STORE_DTYPES:
+            raise NotImplementedError(
+                f"pair storage {store_dtype}: float32 and bfloat16 are "
+                "ported (ROADMAP A7/B9 for int8)")
+        improved = dpc.long_eo is not None
+        if form is None:
+            form = "fused" if improved else "two_pass"
+        if form in QUEUED_FORMS:
+            raise NotImplementedError(
+                f"staggered form {form!r} is not ported yet "
+                f"({QUEUED_FORMS[form]}); the port serves "
+                f"{STAGGERED_FORMS}")
+        if form not in STAGGERED_FORMS:
+            raise ValueError(f"staggered form must be one of "
+                             f"{STAGGERED_FORMS}, got {form!r}")
+        if form == "fused" and not improved:
+            # the fused kernel IS the fat + Naik fusion: a fat-only
+            # operator has one hop set
+            log.info("staggered form: fused needs fat+Naik links; the "
+                     "fat-only operator runs two_pass")
+            form = "two_pass"
+        self.geom = dpc.geom
+        self.mass = float(dpc.mass)
+        self.matpc = dpc.matpc
+        self.dims = tuple(dpc.geom.lattice_shape)
+        self.store_dtype = store_dtype
+        self.form = form
+
+        def packed(links_eo):
+            return tuple(wpk.to_packed_pairs(spk.pack_links(g),
+                                             store_dtype).contiguous()
+                         for g in links_eo)
+
+        self.fat_eo_pp = packed(dpc.fat_eo)
+        self.long_eo_pp = packed(dpc.long_eo) if improved else None
+        self._fat_bw = self._long_bw = None
+        if form == "two_pass":
+            # resident pre-shifted backward links, one set per target
+            # parity, built once per link load
+            def bw(links_pp, nhop):
+                return tuple(spl.backward_links_eo(
+                    links_pp[1 - p], self.dims, p, nhop).contiguous()
+                    for p in (0, 1))
+            self._fat_bw = bw(self.fat_eo_pp, 1)
+            if improved:
+                self._long_bw = bw(self.long_eo_pp, 3)
+
+    def D_to_pairs(self, psi_pp, target_parity, out_dtype=None):
+        """The hop D_{p <- 1-p} on pair arrays, out in ``out_dtype``
+        (default the storage dtype)."""
+        out_dtype = out_dtype or self.store_dtype
+        p = target_parity
+        lng = self.long_eo_pp
+        if self.form == "fused":
+            return spl.dslash_staggered_eo_pallas_fused(
+                self.fat_eo_pp[p], self.fat_eo_pp[1 - p], psi_pp, self.dims,
+                p, long_here_pl=lng[p], long_there_pl=lng[1 - p],
+                out_dtype=out_dtype)
+        return spl.dslash_staggered_eo_pallas(
+            self.fat_eo_pp[p], self._fat_bw[p], psi_pp, self.dims, p,
+            long_here_pl=lng[p] if lng is not None else None,
+            long_bw_pl=(self._long_bw[p] if self._long_bw is not None
+                        else None),
+            out_dtype=out_dtype)
+
+    def M_pairs(self, x_pp):
+        """(4m^2 - D_pq D_qp) x on pair arrays: the first hop rounded to
+        storage, the second in float32, the axpy in float32."""
+        p = self.matpc
+        dd = self.D_to_pairs(self.D_to_pairs(x_pp, 1 - p), p,
+                             out_dtype=torch.float32)
+        out = (4.0 * self.mass ** 2) * x_pp.to(torch.float32) - dd
+        return out.to(self.store_dtype)
+
+    Mdag_pairs = M_pairs
+
+    def MdagM_pairs(self, x_pp):
+        return self.M_pairs(self.M_pairs(x_pp))
+
+    # -- canonical complex <-> pairs --------------------------------------
+    def _to_pairs(self, x):
+        """Canonical (..., T,Z,Y,Xh,1,3) complex -> (..., 3,2,T,Z,Y*Xh)."""
+        return wpk.to_packed_pairs(spk.pack_staggered(x), self.store_dtype)
+
+    def _from_pairs(self, x_pp, dtype):
+        T, Z, Y, X = self.dims
+        return spk.unpack_staggered(wpk.from_packed_pairs(x_pp, dtype),
+                                    (T, Z, Y, X // 2))
+
+    def prepare_pairs(self, b_even, b_odd):
+        """Canonical complex parity sources -> pair-form PC rhs
+        2m b_p - D_pq b_q, in the storage dtype."""
+        p = self.matpc
+        b_p, b_q = (b_even, b_odd) if p == EVEN else (b_odd, b_even)
+        bp = self._to_pairs(b_p).to(torch.float32)
+        dq = self.D_to_pairs(self._to_pairs(b_q), p,
+                             out_dtype=torch.float32)
+        return ((2.0 * self.mass) * bp - dq).to(self.store_dtype)
+
+    def reconstruct_pairs(self, x_pp, b_even, b_odd):
+        """Pair-form PC solution -> canonical complex (x_even, x_odd),
+        x_q = (b_q - D_qp x_p) / 2m with the hop on pair arrays."""
+        p = self.matpc
+        b_q = b_odd if p == EVEN else b_even
+        dq = self.D_to_pairs(x_pp, 1 - p, out_dtype=torch.float32)
+        x_q_pp = (self._to_pairs(b_q).to(torch.float32) - dq) / (
+            2.0 * self.mass)
+        x_p = self._from_pairs(x_pp, b_q.dtype)
+        x_q = self._from_pairs(x_q_pp, b_q.dtype)
+        return (x_p, x_q) if p == EVEN else (x_q, x_p)

@@ -1,0 +1,251 @@
+"""The even/odd staggered hop kernels (S1, S2) and their plain versions.
+
+Replace two Pallas TPU kernels of quda_tpu/ops/staggered_pallas.py with
+the hand-written CUDA kernels of ``csrc/staggered_eo.cu``:
+
+* S1 ``dslash_staggered_eo_pallas_fused`` (``_stag_fused_call``, eo
+  form): the fat 1-hop and the Naik 3-hop sets in one launch, backward
+  hops read from the unshifted opposite-parity links.  The improved
+  (asqtad/HISQ) operator's hop.  Forms ``full:f32->f32``,
+  ``full:bf16->bf16`` and ``full:bf16->f32`` (storage -> out; "full":
+  18 reals per link).
+* S2 ``dslash_staggered_eo_pass`` (``_stag_pass``, eo form): one hop set,
+  nhop 1 (``fat``) or 3 (``naik``), with the pre-shifted backward links
+  of ``backward_links_eo``.  ``dslash_staggered_eo_pallas`` composes it
+  as the JAX function does: the fat pass alone (fat-only staggered), or
+  the fat and Naik passes in float32 summed (the two-pass improved form).
+  Forms ``fat:`` and ``naik:`` x ``f32->f32``, ``bf16->bf16``,
+  ``bf16->f32``.
+
+Layouts are the JAX package's pallas layout:
+
+    psi, out        (3, 2, T, Z, Y*Xh)
+    links           (4, 3, 3, 2, T, Z, Y*Xh)   KS phases and the t
+                                               boundary folded in
+
+The wrappers dispatch on the tensors' device: CPU tensors run the plain
+versions (``dslash_staggered_eo_fused_plain``,
+``dslash_staggered_eo_pass_plain``), CUDA tensors launch the kernel or
+raise.  Each wrapper counts its launches in ``.launches`` and per form in
+``.launches_by_form``.  Recon-12 long links are refused: HISQ long links
+are not +-SU(3) (ROADMAP C).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import kernels
+from . import staggered_packed as spk
+from .wilson_packed import shift_eo_packed
+
+# Kernel vs plain version, max |kernel - plain| / max |plain|: float32
+# output within TOLERANCE (f32 sums in another order, fused multiply-adds
+# on the card), bfloat16 output within one bf16 ulp of max |plain|.
+TOLERANCE = 1e-5
+TOLERANCE_BF16 = 2.0 ** -7
+# flops per target half-site (QUDA's Dslash::flops: 570 a hop set)
+FUSED_FLOPS_PER_SITE = 1146
+PASS_FLOPS_PER_SITE = 570
+_STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HOPSET = {1: "fat", 3: "naik"}
+
+
+def fused_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
+    """Floor of S1's device-memory traffic per target half-site: four
+    link sets (fat and long, here and there, 72 reals each), psi read
+    once, out written once: 1200 B in f32."""
+    sb = _STORE_BYTES[store_dtype]
+    return 4 * 72 * sb + 6 * sb + 6 * _STORE_BYTES[out_dtype or store_dtype]
+
+
+def pass_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
+    """The same for S2: the forward and the pre-shifted backward link
+    sets, psi and out: 624 B in f32."""
+    sb = _STORE_BYTES[store_dtype]
+    return 2 * 72 * sb + 6 * sb + 6 * _STORE_BYTES[out_dtype or store_dtype]
+
+
+def form_name(store_dtype, out_dtype) -> str:
+    """S1's ``launches_by_form`` key, ``"full:f32->f32"``-style."""
+    return f"full:{_SHORT[store_dtype]}->{_SHORT[out_dtype]}"
+
+
+def pass_form_name(nhop: int, store_dtype, out_dtype) -> str:
+    """S2's key, ``"fat:f32->f32"`` or ``"naik:f32->f32"``-style."""
+    return f"{HOPSET[nhop]}:{_SHORT[store_dtype]}->{_SHORT[out_dtype]}"
+
+
+def backward_links_eo(u_there_pl: torch.Tensor, dims, target_parity: int,
+                      nhop: int) -> torch.Tensor:
+    """Pre-shifted backward links on the half lattice:
+    out[mu](x) = U_mu(x - nhop*mu) for parity-``target_parity`` sites,
+    from the opposite-parity links ``u_there_pl`` (4,3,3,2,T,Z,Y*Xh).
+    Computed once per link load."""
+    return torch.stack([
+        shift_eo_packed(u_there_pl[mu], dims, mu, -1, target_parity, nhop)
+        for mu in range(4)])
+
+
+def _eo_shift(dims, target_parity):
+    def sh(arr, mu, sign, nhop):
+        return shift_eo_packed(arr, dims, mu, sign, target_parity, nhop)
+    return sh
+
+
+def dslash_staggered_eo_fused_plain(fat_here_pl, fat_there_pl, psi_pl,
+                                    dims, target_parity: int, long_here_pl,
+                                    long_there_pl, out_dtype=None):
+    """Plain PyTorch version of S1 on its inputs: the fat and Naik hop
+    sets in float32, each with the opposite-parity links shifted back,
+    summed, cast to ``out_dtype`` (default: psi's dtype)."""
+    sh = _eo_shift(dims, target_parity)
+    acc = None
+    for here, there, nhop in ((fat_here_pl, fat_there_pl, 1),
+                              (long_here_pl, long_there_pl, 3)):
+        u_bw = backward_links_eo(there, dims, target_parity, nhop)
+        term = spk.hopset_pairs(here, u_bw, psi_pl, sh, nhop)
+        acc = term if acc is None else acc + term
+    return acc.to(out_dtype or psi_pl.dtype)
+
+
+def dslash_staggered_eo_pass_plain(u_here_pl, u_bw_pl, psi_pl, dims,
+                                   target_parity: int, nhop: int,
+                                   out_dtype=None):
+    """Plain PyTorch version of S2 on its inputs (pre-shifted backward
+    links), float32 sums, cast to ``out_dtype``."""
+    out = spk.hopset_pairs(u_here_pl, u_bw_pl, psi_pl,
+                           _eo_shift(dims, target_parity), nhop)
+    return out.to(out_dtype or psi_pl.dtype)
+
+
+def _checked_form(psi_pl, out_dtype):
+    """(storage, out) dtypes of a card launch; raises for forms without a
+    kernel instance."""
+    store = psi_pl.dtype
+    out_dtype = out_dtype or store
+    if store not in _STORE_BYTES or out_dtype not in _STORE_BYTES:
+        raise TypeError(f"psi {store} -> out {out_dtype}: the kernels take "
+                        "float32 or bfloat16")
+    if store == torch.float32 and out_dtype == torch.bfloat16:
+        raise TypeError("float32 storage with bfloat16 output has no kernel "
+                        "instance")
+    return store, out_dtype
+
+
+def _require_links(name, t, sites, store):
+    if t.ndim == 7 and t.shape[1] == 2:
+        raise NotImplementedError(
+            f"{name}: recon-12 staggered links (R = 2) are refused: HISQ "
+            "long links are not +-SU(3), so a rebuilt row 2 is wrong "
+            "(ROADMAP C)")
+    kernels.require(t, name, (4, 3, 3, 2) + sites, store)
+
+
+def _count(fn, form: str) -> None:
+    fn.launches += 1
+    fn.launches_by_form[form] = fn.launches_by_form.get(form, 0) + 1
+
+
+def dslash_staggered_eo_pallas_fused(fat_here_pl, fat_there_pl, psi_pl,
+                                     dims, target_parity: int,
+                                     long_here_pl=None, long_there_pl=None,
+                                     out_dtype=None) -> torch.Tensor:
+    """Checkerboarded fused fat + Naik hop D_{p <- 1-p} (S1): the
+    improved-staggered CG hot path in one launch.  fat/long here:
+    target-parity links; there: the opposite parity's, unshifted.  psi
+    (3,2,T,Z,Y*Xh) of parity 1-p.  Out in ``out_dtype`` (default psi's)."""
+    if long_here_pl is None or long_there_pl is None:
+        raise ValueError(
+            "the fused kernel IS the fat+Naik fusion; fat-only staggered "
+            "has a single hop set: use dslash_staggered_eo_pallas")
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+    T, Z, Y, X = dims
+    Xh = X // 2
+    links = (fat_here_pl, fat_there_pl, long_here_pl, long_there_pl)
+    kind = kernels.dispatch_device(*links, psi_pl)
+    if kind == "cpu":
+        return dslash_staggered_eo_fused_plain(
+            fat_here_pl, fat_there_pl, psi_pl, dims, target_parity,
+            long_here_pl, long_there_pl, out_dtype)
+    store, out_dtype = _checked_form(psi_pl, out_dtype)
+    sites = (T, Z, Y * Xh)
+    kernels.require(psi_pl, "psi_pl", (3, 2) + sites, store)
+    for name, t in zip(("fat_here_pl", "fat_there_pl", "long_here_pl",
+                        "long_there_pl"), links):
+        _require_links(name, t, sites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_staggered_eo_fused(
+        out.data_ptr(), psi_pl.data_ptr(), *(t.data_ptr() for t in links),
+        T, Z, Y, Xh, int(target_parity), int(store == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_staggered_eo_fused")
+    _count(dslash_staggered_eo_pallas_fused, form_name(store, out_dtype))
+    return out
+
+
+def dslash_staggered_eo_pass(u_here_pl, u_bw_pl, psi_pl, dims,
+                             target_parity: int, nhop: int,
+                             out_dtype=None) -> torch.Tensor:
+    """One hop set of count ``nhop`` (1 fat, 3 Naik) on the half lattice
+    (S2): u_here target-parity forward links, u_bw from
+    ``backward_links_eo``; psi (3,2,T,Z,Y*Xh) of parity 1-p."""
+    if nhop not in HOPSET:
+        raise ValueError(f"nhop must be 1 or 3, got {nhop}")
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+    T, Z, Y, X = dims
+    Xh = X // 2
+    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_staggered_eo_pass_plain(u_here_pl, u_bw_pl, psi_pl,
+                                              dims, target_parity, nhop,
+                                              out_dtype)
+    store, out_dtype = _checked_form(psi_pl, out_dtype)
+    sites = (T, Z, Y * Xh)
+    kernels.require(psi_pl, "psi_pl", (3, 2) + sites, store)
+    _require_links("u_here_pl", u_here_pl, sites, store)
+    _require_links("u_bw_pl", u_bw_pl, sites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_staggered_eo_pass(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_bw_pl.data_ptr(), T, Z, Y, Xh, int(target_parity), int(nhop),
+        int(store == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_staggered_eo_pass")
+    _count(dslash_staggered_eo_pass, pass_form_name(nhop, store, out_dtype))
+    return out
+
+
+def dslash_staggered_eo_pallas(fat_here_pl, fat_bw_pl, psi_pl, dims,
+                               target_parity: int, long_here_pl=None,
+                               long_bw_pl=None,
+                               out_dtype=None) -> torch.Tensor:
+    """Checkerboarded staggered (fat only) or two-pass improved hop on
+    S2: the fat pass, plus with long links the Naik pass, each written in
+    float32 and summed (the JAX function's XLA sum), then cast to
+    ``out_dtype`` (default psi's).  Fat only is one launch straight into
+    ``out_dtype``."""
+    if long_here_pl is None:
+        return dslash_staggered_eo_pass(fat_here_pl, fat_bw_pl, psi_pl,
+                                        dims, target_parity, 1, out_dtype)
+    f32 = torch.float32
+    out = dslash_staggered_eo_pass(fat_here_pl, fat_bw_pl, psi_pl, dims,
+                                   target_parity, 1, f32)
+    out = out + dslash_staggered_eo_pass(long_here_pl, long_bw_pl, psi_pl,
+                                         dims, target_parity, 3, f32)
+    return out.to(out_dtype or psi_pl.dtype)
+
+
+def reset_launches() -> None:
+    """Zero the launch counts of S1 and S2."""
+    for fn in (dslash_staggered_eo_pallas_fused, dslash_staggered_eo_pass):
+        fn.launches = 0
+        fn.launches_by_form = {}
+
+
+reset_launches()

@@ -3,8 +3,9 @@
 Port of the complex-representation half of quda_tpu/ops/su3.py:
 ``dagger``, ``mat_mul``, ``mat_i`` and ``trace`` (what ops/fmunu.py
 needs), the Gell-Mann generators, the su(3) Gaussian, the
-scaling-and-squaring exponential and random links.  Batched over any
-leading axes.
+scaling-and-squaring exponential, random links, and the closed-form
+inverse square root ``inv_sqrt_herm3`` (HISQ reunitarisation).  Batched
+over any leading axes.
 """
 
 from __future__ import annotations
@@ -88,3 +89,72 @@ def unit_gauge(shape, dtype=torch.complex128, device="cuda") -> torch.Tensor:
     """Identity links of shape ``shape + (3, 3)``."""
     eye = torch.eye(3, dtype=dtype, device=resolve_device(device))
     return eye.expand(tuple(shape) + (3, 3)).clone()
+
+
+def _det3(m: torch.Tensor) -> torch.Tensor:
+    """det of batched 3x3 matrices by cofactors (elementwise: no batched
+    LU, whatever the batch size)."""
+    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2]
+                            - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2]
+                              - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1]
+                              - m[..., 1, 1] * m[..., 2, 0]))
+
+
+def inv_sqrt_herm3(h: torch.Tensor) -> torch.Tensor:
+    """H^{-1/2} of batched complex Hermitian positive definite 3x3 h, by
+    Cayley-Hamilton, the JAX package's method (ops/su3.py::
+    inv_sqrt_herm3_pairs, QUDA's lib/unitarize_links_quda.cu):
+
+        f(H) = f(l0) + f[l0,l1] (H - l0) + f[l0,l1,l2] (H - l0)(H - l1)
+
+    with the eigenvalues l_i from Cardano's trigonometric form.  Two
+    changes keep float32 accurate where HISQ needs it (V^dag V of a fat7
+    link is nearly a multiple of 1, so its eigenvalues nearly coincide):
+    Cardano runs on K = H/s - 1, s = tr H / 3, whose invariants carry no
+    cancellation, and the divided differences of f = l^{-1/2} take their
+    closed forms in x_i = sqrt(l_i),
+
+        f[a,b] = -1 / (x_a x_b (x_a + x_b))
+        f[a,b,c] = (x_a + x_b + x_c) / (x_a x_b x_c (x_a + x_b)
+                                         (x_b + x_c) (x_a + x_c)),
+
+    exact at coincident eigenvalues, so no branch is needed.
+    Elementwise arithmetic only: any batch size runs (a batched eigh of
+    the 4.2 M links of a 32^4 lattice is refused by cuSOLVER on the
+    card)."""
+    rdt = h.real.dtype
+    eye = torch.eye(3, dtype=h.dtype, device=h.device)
+    s = torch.diagonal(h, dim1=-2, dim2=-1).real.sum(-1) / 3.0
+    k = h / s[..., None, None].to(h.dtype) - eye
+    t1 = torch.diagonal(k, dim1=-2, dim2=-1).real.sum(-1)
+    t2 = (k.real * k.real + k.imag * k.imag).sum((-2, -1))  # tr K^2
+    # characteristic polynomial of K: mu^3 + a mu^2 + b mu + c
+    a = -t1
+    b = 0.5 * (t1 * t1 - t2)
+    c = -_det3(k).real
+    # depressed cubic y^3 + p y + r, mu = y - a/3
+    p = b - a * a / 3.0
+    r = 2.0 * a ** 3 / 27.0 - a * b / 3.0 + c
+    m = 2.0 * torch.sqrt(torch.clamp(-p / 3.0, min=0.0))
+    pm = p * m
+    arg = torch.clamp(3.0 * r / torch.where(pm == 0, torch.ones_like(pm),
+                                            pm), -1.0, 1.0)
+    theta = torch.arccos(arg) / 3.0
+    tiny = torch.finfo(rdt).tiny
+    x = [torch.sqrt(torch.clamp(
+        s * (1.0 + m * torch.cos(theta - j * (2.0 * np.pi / 3.0)) - a / 3.0),
+        min=tiny)) for j in range(3)]
+    x0, x1, x2 = x
+    f0 = 1.0 / x0
+    d01 = -1.0 / (x0 * x1 * (x0 + x1))
+    d012 = (x0 + x1 + x2) / (x0 * x1 * x2 * (x0 + x1) * (x1 + x2)
+                             * (x0 + x2))
+
+    def sc(v):
+        return v[..., None, None].to(h.dtype)
+
+    h_l0 = h - sc(x0 * x0) * eye
+    h_l1 = h - sc(x1 * x1) * eye
+    return sc(f0) * eye + sc(d01) * h_l0 + sc(d012) * mat_mul(h_l0, h_l1)

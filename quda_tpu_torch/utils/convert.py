@@ -38,9 +38,11 @@ def gauge_from_host(np_gauge, device="cuda", dtype=None) -> torch.Tensor:
     return g
 
 
-def spinor_from_host(np_spinor, device="cuda", dtype=None) -> torch.Tensor:
-    """(T,Z,Y,X[/2],4,3) complex numpy spinor -> tensor on ``device``."""
-    return _complex_from_host(np_spinor, device, dtype, (4, 3))
+def spinor_from_host(np_spinor, device="cuda", dtype=None,
+                     nspin: int = 4) -> torch.Tensor:
+    """(T,Z,Y,X[/2],nspin,3) complex numpy spinor -> tensor on ``device``
+    (nspin 1 for the staggered family)."""
+    return _complex_from_host(np_spinor, device, dtype, (nspin, 3))
 
 
 def pairs_from_numpy(arr, device="cuda") -> torch.Tensor:
@@ -59,3 +61,11 @@ def pairs_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.cpu().numpy()
+
+
+def fat_long_from_host(fat, long_links, device="cuda", dtype=None):
+    """The fat and long links of the JAX package's ``HisqLinks`` (or of
+    any host source), each (4,T,Z,Y,X,3,3) complex numpy, -> a
+    (fat, long) pair of tensors on ``device``."""
+    return (gauge_from_host(fat, device, dtype),
+            gauge_from_host(long_links, device, dtype))

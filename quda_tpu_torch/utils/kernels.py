@@ -32,9 +32,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
-           "clover_eo_mrhs.cu", "blas_fused.cu")
+           "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu")
 # headers the sources include: part of the build's hash, never compiled alone
-HEADERS = ("wilson_hop.cuh",)
+HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,6 +64,14 @@ SIGNATURES = {
                                 _P),
     # a, x, y, y_out, partial, n2, n, nblocks, bf16, stream
     "qtt_axpy_norm2": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # out, psi, fat_here, fat_there, long_here, long_there, T, Z, Y, Xh,
+    # parity, store_bf16, out_bf16, stream
+    "qtt_staggered_eo_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
+    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, nhop, store_bf16,
+    # out_bf16, stream
+    "qtt_staggered_eo_pass": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P),
 }
 
 

@@ -17,6 +17,7 @@ import quda_tpu_torch as qt
 from quda_tpu_torch.ops import blas
 from quda_tpu_torch.ops import blas_pallas as bpl
 from quda_tpu_torch.ops import clover_pallas as clp
+from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
 from tests.torch_inputs import (ASYM, SMALL, gaussian, lattice_shape,
@@ -439,3 +440,147 @@ def test_mrhs_chunk_one_is_the_single_kernel(kind):
     single = _mrhs_call(kind, args, 1, single=True)
     torch.cuda.synchronize()
     assert torch.equal(got, single)
+
+
+# -- the staggered hops (S1 fused fat + Naik, S2 gather pass) ---------------
+
+# (T, Z, Y, X): every extent >= 7 (a 3-hop aliases no shorter hop), all
+# four different
+STAG_DIMS = (14, 12, 10, 8)
+STAG_FORMS = [(torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+def _stag_inputs(dev, store, seed):
+    """Four link sets (fat and long, here and there; the long ones at
+    1/24 the scale) and psi, random normal on the card, in ``store``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sites = (STAG_DIMS[0], STAG_DIMS[1], STAG_DIMS[2] * STAG_DIMS[3] // 2)
+    links = [torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
+             * (1.0 if i < 2 else 1.0 / 24) for i in range(4)]
+    psi = torch.randn((3, 2) + sites, generator=gen, device=dev)
+    return [u.to(store).contiguous() for u in links], psi.to(store)
+
+
+def _stag_tol(out):
+    return spl.TOLERANCE if out == torch.float32 else spl.TOLERANCE_BF16
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", STAG_FORMS,
+                         ids=lambda f: spl.form_name(*f))
+def test_stag_fused_kernel_matches_plain(form, parity):
+    dev = require_cuda()
+    store, out = form
+    (fh, ft, lh, lt), psi = _stag_inputs(dev, store, 60 + parity)
+    name = spl.form_name(store, out)
+    n0 = spl.dslash_staggered_eo_pallas_fused.launches_by_form.get(name, 0)
+    got = spl.dslash_staggered_eo_pallas_fused(fh, ft, psi, STAG_DIMS,
+                                               parity, lh, lt, out_dtype=out)
+    want = spl.dslash_staggered_eo_fused_plain(fh, ft, psi, STAG_DIMS,
+                                               parity, lh, lt, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert spl.dslash_staggered_eo_pallas_fused.launches_by_form[name] == \
+        n0 + 1
+    assert rel_err(got.float().cpu().numpy(),
+                   want.float().cpu().numpy()) < _stag_tol(out)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", STAG_FORMS,
+                         ids=lambda f: spl.form_name(*f).split(":")[1])
+@pytest.mark.parametrize("nhop", [1, 3], ids=["fat", "naik"])
+def test_stag_pass_kernel_matches_plain(nhop, form, parity):
+    dev = require_cuda()
+    store, out = form
+    (fh, ft, _, _), psi = _stag_inputs(dev, store, 62 + parity)
+    ubw = spl.backward_links_eo(ft, STAG_DIMS, parity, nhop).contiguous()
+    name = spl.pass_form_name(nhop, store, out)
+    n0 = spl.dslash_staggered_eo_pass.launches_by_form.get(name, 0)
+    got = spl.dslash_staggered_eo_pass(fh, ubw, psi, STAG_DIMS, parity, nhop,
+                                       out_dtype=out)
+    want = spl.dslash_staggered_eo_pass_plain(fh, ubw, psi, STAG_DIMS,
+                                              parity, nhop, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert spl.dslash_staggered_eo_pass.launches_by_form[name] == n0 + 1
+    assert rel_err(got.float().cpu().numpy(),
+                   want.float().cpu().numpy()) < _stag_tol(out)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_stag_fused_equals_two_passes(parity):
+    """S1 = S2(fat) + S2(naik) on the card, float32, within 1e-6."""
+    dev = require_cuda()
+    (fh, ft, lh, lt), psi = _stag_inputs(dev, torch.float32, 64 + parity)
+    fused = spl.dslash_staggered_eo_pallas_fused(fh, ft, psi, STAG_DIMS,
+                                                 parity, lh, lt)
+    fbw = spl.backward_links_eo(ft, STAG_DIMS, parity, 1).contiguous()
+    lbw = spl.backward_links_eo(lt, STAG_DIMS, parity, 3).contiguous()
+    two = spl.dslash_staggered_eo_pallas(fh, fbw, psi, STAG_DIMS, parity,
+                                         lh, lbw)
+    torch.cuda.synchronize()
+    assert rel_err(fused.cpu().numpy(), two.cpu().numpy()) < 1e-6
+
+
+def test_stag_kernels_refuse_what_they_lack():
+    dev = require_cuda()
+    (fh, ft, lh, lt), psi = _stag_inputs(dev, torch.float32, 66)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        spl.dslash_staggered_eo_pallas_fused(fh, ft, psi, STAG_DIMS, 0, lh,
+                                             lt, out_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        spl.dslash_staggered_eo_pallas_fused(fh, ft, psi, STAG_DIMS, 0,
+                                             lh[:, :2].contiguous(), lt)
+    strided = torch.zeros(psi.shape[:-1] + (2 * psi.shape[-1],),
+                          device=dev)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        spl.dslash_staggered_eo_pass(fh, ft, strided, STAG_DIMS, 0, 1)
+    with pytest.raises(ValueError, match="nhop"):
+        spl.dslash_staggered_eo_pass(fh, ft, psi, STAG_DIMS, 0, 2)
+
+
+@pytest.mark.parametrize("dslash,sloppy", [("hisq", "single"),
+                                           ("hisq", "half"),
+                                           ("staggered", "single")])
+def test_staggered_invert_on_card_matches_cpu(dslash, sloppy):
+    """invert_quda on the staggered family at 8^4 (SU(3) links, m 0.1):
+    the card (S1 for hisq, twice per fused_cg iteration; S2 and no S1
+    for fat-only) against the CPU's plain path, iterations within 2,
+    solutions within 1e-4 (1e-3 at half)."""
+    dev = require_cuda()
+    dims = (8, 8, 8, 8)
+    g = su3_gauge(dims, seed=67)
+    b = gaussian(lattice_shape(dims) + (1, 3), seed=68)
+    out = {}
+    for where in (dev, "cpu"):
+        qt.init_quda(device=where)
+        try:
+            qt.load_gauge_quda(g, qt.GaugeParam(X=dims, cuda_prec="single"))
+            qt.compute_ks_link_quda()
+            p = qt.InvertParam(dslash_type=dslash, inv_type="cg",
+                               solve_type="direct-pc", mass=0.1, tol=1e-6,
+                               maxiter=2000, cuda_prec="single",
+                               cuda_prec_sloppy=sloppy)
+            spl.reset_launches()
+            x = qt.invert_quda(b, p)
+            counts = (spl.dslash_staggered_eo_pallas_fused.launches,
+                      spl.dslash_staggered_eo_pass.launches)
+        finally:
+            qt.end_quda()
+        out[str(where)] = (x.cpu().numpy(), p, counts)
+    xg, pg, (s1, s2) = out[str(dev)]
+    xc, pc, _ = out["cpu"]
+    assert pg.converged and pg.true_res <= 1e-5
+    if dslash == "hisq":
+        assert s2 == 0 and s1 >= 2 * pg.iter_count
+        if sloppy == "single":
+            assert s1 == 2 * pg.iter_count + 2
+    else:
+        assert s1 == 0 and s2 == 2 * pg.iter_count + 2
+    di = abs(pg.iter_count - pc.iter_count)
+    assert di <= (2 if sloppy == "single" else max(2, pc.iter_count // 10))
+    tol = 1e-4 if sloppy == "single" else 1e-3
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < tol

@@ -3,7 +3,8 @@
 * No module of quda_tpu_torch, and not chip_smoke.py, imports jax, jaxlib
   or the JAX package (AST scan).
 * A request for the card that a wrapper cannot serve raises; it never
-  reaches the plain version (single- and multi-RHS wrappers alike).  The device check is mocked, since this host
+  reaches the plain version (single- and multi-RHS wrappers, and the
+  staggered hops, alike).  The device check is mocked, since this host
   may have no card.
 * chip_smoke.py exits non-zero and prints no result without a card, or
   alone in a directory without the package.
@@ -23,6 +24,7 @@ import torch
 from quda_tpu_torch.ops import blas
 from quda_tpu_torch.ops import blas_pallas as bpl
 from quda_tpu_torch.ops import clover_pallas as clp
+from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 from quda_tpu_torch.utils import kernels
 
@@ -71,6 +73,9 @@ def card_request(monkeypatch):
     monkeypatch.setattr(wpp, "dslash_eo_packed_mrhs_plain", plain_reached)
     monkeypatch.setattr(clp, "dslash_eo_post_mrhs_plain", plain_reached)
     monkeypatch.setattr(clp, "dslash_eo_diag_hop_mrhs_plain", plain_reached)
+    monkeypatch.setattr(spl, "dslash_staggered_eo_fused_plain",
+                        plain_reached)
+    monkeypatch.setattr(spl, "dslash_staggered_eo_pass_plain", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -216,6 +221,65 @@ def test_mrhs_wrappers_reject_other_devices():
         clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b.to("meta"),
                                            DIMS, 0, hop_coeff=-0.01,
                                            blk_pl=blk)
+
+
+def _stag_counts():
+    return [(f.launches, dict(f.launches_by_form)) for f in
+            (spl.dslash_staggered_eo_pallas_fused,
+             spl.dslash_staggered_eo_pass)]
+
+
+def test_staggered_wrappers_raise_on_card_request(card_request):
+    """S1 and S2 (and the two-pass composition): a card request without
+    the library raises for every form; forms without a kernel instance,
+    recon-12 links, a wrong nhop and strided tensors raise before any
+    launch; nothing is counted."""
+    n0 = _stag_counts()
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        u = torch.zeros((4, 3, 3, 2) + SITES, dtype=dtype)
+        psi = torch.zeros((3, 2) + SITES, dtype=dtype)
+        for out in {dtype, f32}:
+            with pytest.raises(RuntimeError, match="unavailable"):
+                spl.dslash_staggered_eo_pallas_fused(u, u, psi, DIMS, 0, u, u,
+                                                     out_dtype=out)
+            for nhop in (1, 3):
+                with pytest.raises(RuntimeError, match="unavailable"):
+                    spl.dslash_staggered_eo_pass(u, u, psi, DIMS, 1, nhop,
+                                                 out_dtype=out)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            spl.dslash_staggered_eo_pallas(u, u, psi, DIMS, 0, u, u)
+    u = torch.zeros((4, 3, 3, 2) + SITES)
+    psi = torch.zeros((3, 2) + SITES)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        spl.dslash_staggered_eo_pallas_fused(u, u, psi, DIMS, 0, u, u,
+                                             out_dtype=bf16)
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        spl.dslash_staggered_eo_pallas_fused(u, u, psi, DIMS, 0, u[:, :2],
+                                             u)
+    with pytest.raises(ValueError, match="nhop"):
+        spl.dslash_staggered_eo_pass(u, u, psi, DIMS, 0, 2)
+    strided = torch.zeros((3, 2, SITES[0], SITES[2], SITES[1]))
+    with pytest.raises(ValueError, match="contiguous"):
+        spl.dslash_staggered_eo_pass(u, u, strided.transpose(-1, -2), DIMS,
+                                     0, 1)
+    with pytest.raises(ValueError, match="psi_pl"):
+        spl.dslash_staggered_eo_pass(u, u, psi[..., :2], DIMS, 0, 1)
+    with pytest.raises(TypeError):
+        spl.dslash_staggered_eo_pallas_fused(u, u, psi.to(bf16), DIMS, 0,
+                                             u, u)
+    assert _stag_counts() == n0
+
+
+def test_staggered_wrappers_reject_other_devices():
+    u = torch.zeros((4, 3, 3, 2) + SITES)
+    psi = torch.zeros((3, 2) + SITES)
+    with pytest.raises(ValueError, match="meta"):
+        spl.dslash_staggered_eo_pass(u.to("meta"), u.to("meta"),
+                                     psi.to("meta"), DIMS, 0, 1)
+    with pytest.raises(ValueError, match="several devices"):
+        spl.dslash_staggered_eo_pallas_fused(u, u, psi.to("meta"), DIMS, 0,
+                                             u, u)
 
 
 def test_invert_multi_src_defaults_to_the_card():
