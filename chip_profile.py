@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a CG iteration of the port spends its time on the card.
 
-    python3 chip_profile.py [all|wilson|staggered]     # default: all
+    python3 chip_profile.py [all|wilson|double|staggered]   # default: all
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -16,11 +16,19 @@ SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
 * ``batched_cg_pairs`` on the float32 pair operator's multi-RHS forms
   with 12 Gaussian sources (the batched route of invert_multi_src_quda).
 
+Then the double routes of invert_quda at 32^3 x 64 (tol 1e-10): the
+Wilson ``fused_cg`` on the float64 pair operator (double/double: B1 and
+B2 in f64), ``cg_reliable`` with a float32 sloppy and float64 precise
+operator (double/single), and ``cg_reliable_df`` (the df64 route at
+cuda_prec single).
+
 Then the staggered family at 32^4 (HISQ links of a random SU(3) gauge
 from compute_ks_link_quda's construction, m 0.1): ``fused_cg`` on the
 float32 hisq pair operator (the fused fat + Naik hop S1), ``fused_cg`` on
-the fat-only operator (the gather pass S2), and an 8-shift
-``multishift_cg`` (the invert_multishift_quda route).
+the fat-only operator (the gather pass S2), an 8-shift
+``multishift_cg`` (the invert_multishift_quda route) and a 12-source
+``batched_cg_pairs`` on each operator's multi-RHS forms (the multi-RHS
+gather pass S2-mrhs; the invert_multi_src_quda route).
 
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
@@ -70,14 +78,18 @@ def _profile(label, run, torch, dims=DIMS):
     groups = {"eo_hop_kernel": 0.0, "clover_hop_kernel": 0.0,
               "eo_hop_mrhs_kernel": 0.0, "clover_hop_mrhs_kernel": 0.0,
               "staggered_fused_kernel": 0.0, "staggered_pass_kernel": 0.0,
+              "staggered_pass_mrhs_kernel": 0.0,
               "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
               "plain_torch": 0.0}
     # the partial-sum pass belongs to whichever norm kernel this solver ran
     partials = ("axpy_norm2_kernel"
-                if label.endswith(("cg_reliable", "multishift_cg"))
+                if label.endswith(("cg_reliable", "multishift_cg",
+                                   "cg_reliable_df"))
                 else "cg_tail_kernel")
     for name, _, us in rows:
-        if "stag_fused_kernel" in name:
+        if "stag_pass_mrhs_kernel" in name:
+            groups["staggered_pass_mrhs_kernel"] += us
+        elif "stag_fused_kernel" in name:
             groups["staggered_fused_kernel"] += us
         elif "stag_pass_kernel" in name:
             groups["staggered_pass_kernel"] += us
@@ -119,6 +131,7 @@ def staggered(torch, dev) -> None:
     from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
     from quda_tpu_torch.gauge.hisq import hisq_fattening
     from quda_tpu_torch.models.staggered import DiracStaggeredPC
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
     from quda_tpu_torch.solvers.fused_iter import fused_cg
     from quda_tpu_torch.solvers.multishift import multishift_cg
 
@@ -130,6 +143,12 @@ def staggered(torch, dev) -> None:
                                     dtype=torch.complex64, device=dev).data
     links = hisq_fattening(gauge)
     be, bo = even_odd_split(src, geom)
+    halves = [even_odd_split(ColorSpinorField.gaussian(
+        geom, gen, nspin=1, dtype=torch.complex64, device=dev).data, geom)
+        for _ in range(NRHS)]
+    be_b = torch.stack([h[0] for h in halves])
+    bo_b = torch.stack([h[1] for h in halves])
+    del halves
     for label, dpc in (
             ("hisq", DiracStaggeredPC(links.fat, geom, 0.1, True,
                                       links.long)),
@@ -141,11 +160,58 @@ def staggered(torch, dev) -> None:
         if label == "hisq":
             runs.append((f"{label}:multishift_cg", lambda n: multishift_cg(
                 op.M_pairs, rhs, STAG_SHIFTS, tol=1e-30, maxiter=n)))
+        op_b = dpc.pairs(torch.float32, form="two_pass")
+        rhs_b = op_b.prepare_pairs_mrhs(be_b, bo_b)
+        runs.append((f"{label}:batched_cg_pairs[{NRHS}]",
+                     lambda n: batched_cg_pairs(op_b.M_pairs_mrhs, rhs_b,
+                                                tol=1e-30, maxiter=n)))
         for name, run in runs:
             run(3)                                           # warm-up
             torch.cuda.synchronize()
             _profile(name, lambda: run(ITERS), torch, STAG_DIMS)
-        del dpc, op, rhs
+        del dpc, op, rhs, op_b, rhs_b
+
+
+def double(torch, dev) -> None:
+    """Profile the double routes' solvers and the df64 route at 32^3 x 64
+    on the normal equations of the Wilson PC operator."""
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.ops import wilson_df64 as wdf
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import (cg_reliable, cg_reliable_df,
+                                              pair_inplace_codec)
+
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex128,
+                              device=dev).data
+    src = ColorSpinorField.gaussian(geom, gen, dtype=torch.complex128,
+                                    device=dev).data
+    be, bo = even_odd_split(src, geom)
+    f32, f64 = torch.float32, torch.float64
+    dpk = DiracWilsonPC(gauge, geom, 0.12).packed()
+    hi, lo = dpk.pairs(f64), dpk.pairs(f32)
+    rhs = hi.Mdag_pairs(hi.prepare_pairs(be, bo))
+    codec = pair_inplace_codec(f32, f64)
+    dpk32 = DiracWilsonPC(gauge.to(torch.complex64), geom, 0.12).packed()
+    op_df = wdf.WilsonPCDF64(dpk32)
+    rhs_df = op_df.prepare_df(be.to(torch.complex64), bo.to(torch.complex64))
+    lo32 = dpk32.pairs(f32)
+    runs = (("double/double:fused_cg", lambda n: fused_cg(
+                hi.MdagM_pairs, rhs, tol=1e-30, maxiter=n)),
+            ("double/single:cg_reliable", lambda n: cg_reliable(
+                hi.MdagM_pairs, lo.MdagM_pairs, rhs, codec, tol=1e-30,
+                maxiter=n)),
+            ("df64:cg_reliable_df", lambda n: cg_reliable_df(
+                op_df, lo32.MdagM_pairs, rhs_df, pair_inplace_codec(f32),
+                tol=1e-30, maxiter=n)))
+    for name, run in runs:
+        run(3)                                               # warm-up
+        torch.cuda.synchronize()
+        _profile(name, lambda: run(ITERS), torch)
 
 
 def main() -> int:
@@ -154,11 +220,12 @@ def main() -> int:
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 1
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("all", "wilson", "staggered"):
+    if which not in ("all", "wilson", "double", "staggered"):
         print(f"chip_profile: unknown family {which!r}", file=sys.stderr)
         return 2
-    if which == "staggered":
-        staggered(torch, torch.device("cuda", 0))
+    if which in ("staggered", "double"):
+        (staggered if which == "staggered" else double)(
+            torch, torch.device("cuda", 0))
         return 0
 
     from quda_tpu_torch.fields.gauge import GaugeField
@@ -239,6 +306,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0)}), flush=True)
     del gauge, src, be, bo, be_b, bo_b, d
     if which == "all":
+        double(torch, dev)
         staggered(torch, dev)
     return 0
 

@@ -73,12 +73,36 @@ Phases, one JSON line each (``"phase": ...``):
              per 12-source batched_cg_pairs iteration against 12 fused_cg
              iterations.
 
-7. The staggered family at 32^4 (BASELINE config 4; a random SU(3) gauge
+7. The full-lattice hop and native double (BASELINE configs 1 and 2;
+   fields from a generator of their own):
+   check   — B4 (full-lattice hop: full:f32->f32, r12:f32->f32,
+             full:f64->f64) at 14x12x10x8 (both t boundary signs) and
+             32^3 x 64, B1's full:f64->f64 at 4x6x8x10 and 32^3 x 64, and
+             B2's f64 form, against their plain versions (f64 within 1e-12).
+   dslash  — dslash_quda, mat_quda and mat_dag_mat_quda at 32^3 x 64
+             (single full, single recon-12, double) and 8^4 (double, config
+             1) against the complex128 operators on the card; each call
+             runs B1 once and B4 three times; B4's ms, share of bound and
+             GFLOPS at 1320 flop/site.
+   invert_double — invert_quda at tol 1e-10, double/single and
+             double/double at 32^3 x 64 and 16^4 (config 2), and the df64
+             route at 32^3 x 64: true_res <= 1e-10 by the solve and by a
+             complex128 recomputation; double/double on B1 and B2 in f64,
+             double/single on B1 f32 with B1 f64 at the reliable updates;
+             then a line comparing the three at 32^3 x 64.
+   timing  — B4, B1 f64 and B2 f64 against their bounds (f64 flops at
+             34 TFLOP/s).
+
+8. The staggered family at 32^4 (BASELINE config 4; a random SU(3) gauge
    and a one-spin Gaussian source from a generator of their own, m 0.1):
    check   — every S1 (fused fat + Naik hop) and S2 (gather pass, fat and
              Naik) form against its plain version at 8x10x12x14 (every
              extent >= 7) and 32^4, both parities (1e-5 f32, one bf16 ulp
-             bf16), and S1 = S2(fat) + S2(naik) within 1e-6.
+             bf16), and S1 = S2(fat) + S2(naik) within 1e-6; S2-mrhs (the
+             multi-RHS gather pass, fat and Naik) at 8x10x12x14 (N = 3 and
+             12) and 32^4 (N = 12), both parities, against its plain
+             version, each lane bit for bit against single S2 launches,
+             and its fat + Naik composition bit for bit S1, lane by lane.
    hisq    — compute_ks_link_quda: seconds, max |W^dag W - 1| (<= 1e-5),
              the norms of the fat and long links.
    invert_staggered — invert_quda at tol 1e-6: hisq single/single and
@@ -91,10 +115,18 @@ Phases, one JSON line each (``"phase": ...``):
    invert_multishift — invert_multishift_quda, 8 offsets: every shift
              converged, each with |rhs - (M_pc + s_i) x_i| / |rhs| <= 1e-5
              by the complex128 PC operator, through S1.
+   invert_multi_src ("family": "staggered") — invert_multi_src_quda with
+             12 one-spin sources (a generator of their own), hisq and
+             fat-only: every lane converged with true_res <= 1e-5 and the
+             iterations invert_quda takes on that source; S2-mrhs launched
+             4 (hisq) or 2 (fat-only) times per iteration plus prepare and
+             reconstruct, and no single-RHS hop or plain stencil.
    reference — an 8^4 hisq solve on the card and on the CPU.
-   timing  — each S1/S2 form and its plain version beside its bound; ms
-             per iteration of fused_cg (hisq, fat-only), cg_reliable
-             (hisq single/half) and an 8-shift multishift_cg.
+   timing  — each S1/S2 form and its plain version beside its bound;
+             S2-mrhs at N = 12 beside 12 single S2 launches; ms per iteration of fused_cg (hisq, fat-only),
+             cg_reliable (hisq single/half), an 8-shift multishift_cg and
+             a 12-source batched_cg_pairs (hisq, fat-only) against 12
+             fused_cg iterations.
 
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
@@ -120,6 +152,14 @@ TRUE_RES_MAX = 1e-5
 CSW = 1.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12          # H100 SXM f64 outside the tensor cores
+F64_TOLERANCE = 1e-12            # an f64 kernel against its plain version
+# the full-lattice hop and the double routes: a non-cubic lattice (T, Z,
+# Y, X = 14, 12, 10, 8), BASELINE config 1 (Wilson Dslash, 8^4, double)
+# and config 2 (Wilson CG, 16^4, mixed double/single)
+FULL_SMALL_DIMS = (8, 10, 12, 14)
+CONFIG1_DIMS = (8, 8, 8, 8)
+CONFIG2_DIMS = (16, 16, 16, 16)
 REPEATS = 25
 BATCH = 10                       # calls per timed CUDA-event interval
 DF64_TOL = 1e-10
@@ -190,6 +230,7 @@ def staggered(torch, dev, smi) -> list:
     from quda_tpu_torch.ops import blas_pallas as bpl
     from quda_tpu_torch.ops import staggered_packed as spk
     from quda_tpu_torch.ops import staggered_pallas as spl
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
     from quda_tpu_torch.solvers.fused_iter import fused_cg
     from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
     from quda_tpu_torch.solvers.multishift import multishift_cg
@@ -199,14 +240,14 @@ def staggered(torch, dev, smi) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
 
     # -- check: every S1 and S2 form against its plain version ----------
-    def inputs(dims_xyzt, store):
+    def inputs(dims_xyzt, store, g=gen):
         """fat/long here/there (long at 1/24 the scale) and psi."""
         T, Z, Y, X = LatticeGeometry(dims_xyzt).lattice_shape
         sites = (T, Z, Y * X // 2)
-        links = [torch.randn((4, 3, 3, 2) + sites, generator=gen,
+        links = [torch.randn((4, 3, 3, 2) + sites, generator=g,
                              device=dev) * (1.0 if i < 2 else 1.0 / 24)
                  for i in range(4)]
-        psi = torch.randn((3, 2) + sites, generator=gen, device=dev)
+        psi = torch.randn((3, 2) + sites, generator=g, device=dev)
         return ((T, Z, Y, X), [u.to(store).contiguous() for u in links],
                 psi.to(store))
 
@@ -262,12 +303,76 @@ def staggered(torch, dev, smi) -> list:
                 emit(row)
                 del links, psi, cases
 
+    # -- check: S2-mrhs (fat, Naik, their composition) ------------------
+    # against its plain version, each lane bit for bit against single S2
+    # launches (fat, Naik) and its fat + Naik composition against S1
+    mrhs_names = [spl.pass_form_name(nhop, f32, f32) for nhop in (1, 3)]
+    for name in mrhs_names:
+        errs[f"mrhs:{name}"] = 0.0
+    # a generator of its own, so the later phases see the fields earlier
+    # versions of this script made
+    gen_m = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def mrhs_psi(dims, n):
+        T, Z, Y, X = dims
+        return torch.randn((n, 3, 2, T, Z, Y * X // 2), generator=gen_m,
+                           device=dev)
+
+    for dims_xyzt, n, parities in ((STAG_SMALL_DIMS, 3, (0, 1)),
+                                   (STAG_SMALL_DIMS, MULTI_SRC_N, (0, 1)),
+                                   (STAG_DIMS, MULTI_SRC_N, (0, 1))):
+        for parity in parities:
+            dims, links, _ = inputs(dims_xyzt, f32, gen_m)
+            psi_b = mrhs_psi(dims, n)
+            row = {"phase": "check", "kernel": "staggered_mrhs",
+                   "dims_xyzt": list(dims_xyzt), "parity": parity,
+                   "nrhs": n, "chunk": spl.MRHS_CHUNK,
+                   "tolerance": spl.TOLERANCE}
+            passes = {}
+            for nhop, name in zip((1, 3), mrhs_names):
+                here, bw = pass_args(links, dims, parity, nhop)
+                got = spl.dslash_staggered_eo_pass_mrhs(here, bw, psi_b,
+                                                        dims, parity, nhop)
+                want = spl.dslash_staggered_eo_pass_mrhs_plain(
+                    here, bw, psi_b, dims, parity, nhop)
+                lanes = all(torch.equal(got[r], spl.dslash_staggered_eo_pass(
+                    here, bw, psi_b[r], dims, parity, nhop)) for r in range(n))
+                torch.cuda.synchronize()
+                abs_err = (got - want).abs().max().item()
+                rel = abs_err / want.abs().max().item()
+                errs[f"mrhs:{name}"] = max(errs[f"mrhs:{name}"], abs_err)
+                row[name] = {"max_abs_err": abs_err, "max_rel_err": rel,
+                             "lanes_equal_single_s2": lanes}
+                passes[nhop] = (here, bw)
+                if not (rel <= spl.TOLERANCE and lanes):
+                    emit(row)
+                    fail(f"S2-mrhs {name} disagrees with its plain version "
+                         f"({rel:.3e}) or with single S2 launches")
+                del got, want
+            both = spl.dslash_staggered_eo_pallas_mrhs(
+                *passes[1], psi_b, dims, parity, *passes[3])
+            s1_equal = all(torch.equal(both[r], spl.dslash_staggered_eo_pallas_fused(
+                links[0], links[1], psi_b[r], dims, parity, links[2],
+                links[3])) for r in range(n))
+            torch.cuda.synchronize()
+            row["fat_plus_naik_lanes_equal_s1"] = s1_equal
+            emit(row)
+            if not s1_equal:
+                fail("S2-mrhs fat + Naik is not S1 lane by lane, bit for bit")
+            del links, psi_b, passes, both
+
     # -- hisq: compute_ks_link_quda at 32^4 ------------------------------
     geom = LatticeGeometry(STAG_DIMS)
     gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
                               device=dev).data
     src = ColorSpinorField.gaussian(geom, gen, nspin=1,
                                     dtype=torch.complex64, device=dev).data
+    # the multi-source phase's sources: a generator of their own
+    gen_src = torch.Generator(device=dev).manual_seed(SEED + 11)
+    srcs_s = torch.stack([ColorSpinorField.gaussian(
+        geom, gen_src, nspin=1, dtype=torch.complex64, device=dev).data
+        for _ in range(MULTI_SRC_N)])
+    multi_s = {}
     qt.init_quda(dev)
     qt.load_gauge_quda(gauge, qt.GaugeParam(X=STAG_DIMS, cuda_prec="single"))
     torch.cuda.synchronize()
@@ -304,7 +409,8 @@ def staggered(torch, dev, smi) -> list:
 
     originals = {(m, n): getattr(m, n) for m, n in (
         (spl, "dslash_staggered_eo_fused_plain"),
-        (spl, "dslash_staggered_eo_pass_plain"), (spk, "hopset_pairs"),
+        (spl, "dslash_staggered_eo_pass_plain"),
+        (spl, "dslash_staggered_eo_pass_mrhs_plain"), (spk, "hopset_pairs"),
         (spk, "dslash_staggered_eo_packed_pairs"))}
     for (m, n), fn in originals.items():
         setattr(m, n, counting(fn))
@@ -313,6 +419,8 @@ def staggered(torch, dev, smi) -> list:
         return {"s1": dict(spl.dslash_staggered_eo_pallas_fused
                            .launches_by_form),
                 "s2": dict(spl.dslash_staggered_eo_pass.launches_by_form),
+                "s2_mrhs": dict(spl.dslash_staggered_eo_pass_mrhs
+                                .launches_by_form),
                 "b2": bpl.cg_update_norm2_pallas.launches,
                 "b3": dict(bpl.axpy_norm2_pallas.launches_by_form),
                 "plain_stencil_calls": plain_calls["n"]}
@@ -399,6 +507,59 @@ def staggered(torch, dev, smi) -> list:
         c = counts()
         launches["multishift"] = c
         iters["multishift"] = (param.iter_count, param.secs)
+
+        # -- invert_multi_src: 12 sources on S2-mrhs ---------------------
+        for label, dt in (("hisq", "hisq"), ("staggered", "staggered")):
+            lane_iters = []
+            for i in range(MULTI_SRC_N):
+                p_i = stag_param(dslash_type=dt)
+                qt.invert_quda(srcs_s[i], p_i)
+                lane_iters.append(p_i.iter_count)
+            pmul = stag_param(dslash_type=dt)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero()
+            x = qt.invert_multi_src_quda(srcs_s, pmul)
+            torch.cuda.synchronize()
+            cm = counts()
+            launches[f"multi:{label}"] = cm
+            multi_s[label] = (pmul.iter_count_multi, pmul.secs, lane_iters)
+            finite = bool(torch.isfinite(torch.view_as_real(x)).all())
+            shape_ok = tuple(x.shape) == (MULTI_SRC_N,) + geom.spinor_shape(1)
+            n_it = max(pmul.iter_count_multi)
+            per_apply = 4 if dt == "hisq" else 2
+            mrhs_total = sum(cm["s2_mrhs"].values())
+            emit({"phase": "invert_multi_src", "family": "staggered",
+                  "label": label, "dims_xyzt": list(STAG_DIMS),
+                  "nrhs": MULTI_SRC_N, "dslash_type": dt, "mass": STAG_MASS,
+                  "tol": TOL, "chunk": spl.MRHS_CHUNK,
+                  "iters_per_lane": pmul.iter_count_multi,
+                  "invert_quda_iters_per_source": lane_iters,
+                  "true_res_worst": pmul.true_res,
+                  "true_res_multi": pmul.true_res_multi,
+                  "converged_multi": pmul.converged_multi,
+                  "secs": pmul.secs, "gflop": pmul.gflops,
+                  "launches_s2_mrhs": cm["s2_mrhs"],
+                  "launches_s2_mrhs_expected": per_apply * (n_it + 1),
+                  "launches_single_rhs": {"s1": cm["s1"], "s2": cm["s2"]},
+                  "plain_stencil_calls": cm["plain_stencil_calls"],
+                  "shape_ok": shape_ok, "finite": finite,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+            if not (pmul.converged and all(pmul.converged_multi)
+                    and pmul.true_res <= TRUE_RES_MAX and finite
+                    and shape_ok):
+                fail(f"staggered invert_multi_src_quda ({label}) did not "
+                     "converge every lane to a finite solution with "
+                     f"true_res <= {TRUE_RES_MAX:g}")
+            if pmul.iter_count_multi != lane_iters:
+                fail(f"staggered invert_multi_src_quda ({label}): lanes "
+                     f"took {pmul.iter_count_multi} iterations, "
+                     f"invert_quda per source {lane_iters}")
+            if (mrhs_total != per_apply * (n_it + 1) or cm["s1"] or cm["s2"]
+                    or cm["plain_stencil_calls"]):
+                fail(f"staggered multi-source path ({label}) did not run "
+                     f"S2-mrhs {per_apply} times per iteration (+ prepare, "
+                     f"reconstruct) and nothing else: {cm}")
+            del x
     finally:
         for (m, n), fn in originals.items():
             setattr(m, n, fn)
@@ -496,6 +657,29 @@ def staggered(torch, dev, smi) -> list:
             del here, bw
         del lk, psi
 
+    # S2-mrhs at N = 12: each pass (the Naik pass accumulating, as on the
+    # improved path), beside 12 single S2 launches
+    dims, lk, _ = inputs(STAG_DIMS, f32, gen_m)
+    psi_b = mrhs_psi(dims, MULTI_SRC_N)
+    mrhs_timing = {}
+    acc_b = torch.zeros_like(psi_b)
+    for nhop, name in zip((1, 3), mrhs_names):
+        here, bw = pass_args(lk, dims, 0, nhop)
+        acc = acc_b if nhop == 3 else None
+        k_ms = median_ms(lambda: spl.dslash_staggered_eo_pass_mrhs(
+            here, bw, psi_b, dims, 0, nhop, acc=acc), torch)
+        single_ms = median_ms(lambda: [spl.dslash_staggered_eo_pass(
+            here, bw, psi_b[r], dims, 0, nhop) for r in range(MULTI_SRC_N)],
+            torch, repeats=10, batch=2)
+        p_ms = median_ms(lambda: spl.dslash_staggered_eo_pass_mrhs_plain(
+            here, bw, psi_b, dims, 0, nhop), torch, repeats=3, batch=1)
+        b_ms, bound_by[f"mrhs:{name}"] = bound(
+            spl.pass_mrhs_bytes_per_site(MULTI_SRC_N, nhop == 3),
+            spl.PASS_FLOPS_PER_SITE * MULTI_SRC_N)
+        mrhs_timing[name] = (k_ms, p_ms, b_ms, single_ms)
+        del here, bw
+    del lk, psi_b, acc_b
+
     be, bo = even_odd_split(src, geom)
 
     def per_iter_ms(run, n=STAG_ITER_TIMED):
@@ -504,7 +688,10 @@ def staggered(torch, dev, smi) -> list:
         t0 = time.perf_counter()
         res = run(n)
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / res.iters, res.iters
+        # a batched result counts per lane: its loop ran the most
+        its = (int(res.iters.max()) if torch.is_tensor(res.iters)
+               else res.iters)
+        return 1e3 * (time.perf_counter() - t0) / its, its
 
     iter_ms = {}
     for label, improved in (("hisq", True), ("staggered", False)):
@@ -524,21 +711,42 @@ def staggered(torch, dev, smi) -> list:
                 lambda n: multishift_cg(op.M_pairs, rhs, STAG_SHIFTS,
                                         tol=1e-30, maxiter=n))
             del lo
-        del dpc, op, rhs
+        # one 12-source batched_cg_pairs iteration on S2-mrhs
+        op = dpc.pairs(f32, form="two_pass")
+        be_b, bo_b = (torch.stack(h).contiguous() for h in zip(
+            *(even_odd_split(srcs_s[i], geom) for i in range(MULTI_SRC_N))))
+        rhs_b = op.prepare_pairs_mrhs(be_b, bo_b)
+        del be_b, bo_b
+        iter_ms[f"{label}_batched_cg_12"] = per_iter_ms(
+            lambda n: batched_cg_pairs(op.M_pairs_mrhs, rhs_b, tol=1e-30,
+                                       maxiter=n))
+        del dpc, op, rhs, rhs_b
     emit({"phase": "timing", "family": "staggered",
           "dims_xyzt": list(STAG_DIMS), "nvidia_smi": smi,
           "repeats": REPEATS, "calls_per_timing": BATCH,
           **{name: {"ms": k, "plain_ms": p, "bound_ms": b,
                     "share_of_bound": b / k}
              for name, (k, p, b) in timing.items()},
+          **{f"mrhs:{name}": {
+              "nrhs": MULTI_SRC_N, "chunk": spl.MRHS_CHUNK, "ms": k,
+              "plain_ms": p, "bound_ms": b, "share_of_bound": b / k,
+              "single_rhs_launches_ms": one, "amortisation": one / k}
+             for name, (k, p, b, one) in mrhs_timing.items()},
           "iteration_ms": {k: v[0] for k, v in iter_ms.items()},
           "iterations_timed": {k: v[1] for k, v in iter_ms.items()},
+          "batched_vs_single_iters": {
+              label: iter_ms[f"{label}_batched_cg_12"][0]
+              / (MULTI_SRC_N * iter_ms[f"{label}_fused_cg"][0])
+              for label in ("hisq", "staggered")},
           "solve_secs": {k: v[1] for k, v in iters.items()},
-          "solve_iters": {k: v[0] for k, v in iters.items()}})
+          "solve_iters": {k: v[0] for k, v in iters.items()},
+          "multi_src_secs": {k: v[1] for k, v in multi_s.items()},
+          "multi_src_iters": {k: v[0] for k, v in multi_s.items()}})
 
-    # launches of each form on its main path; S2's Naik forms run on no
-    # ported path (the improved operator takes S1), so they stay in the
-    # check and timing phases and have no row
+    # launches of each form on its main path; S2's single-RHS Naik forms
+    # run on no ported path (the improved single-source operator takes S1),
+    # so they stay in the check and timing phases and have no row; the
+    # multi-RHS Naik pass runs on the hisq multi-source path
     s1_path = {"full:f32->f32": "hisq", "full:bf16->bf16": "hisq:half",
                "full:bf16->f32": "hisq:half"}
     s2_path = {"fat:f32->f32": "staggered", "fat:bf16->bf16":
@@ -564,6 +772,372 @@ def staggered(torch, dev, smi) -> list:
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": bound_by[name],
             "library_ms": None})
+    for name in mrhs_names:
+        k_ms, p_ms, b_ms, _ = mrhs_timing[name]
+        rows.append({
+            "name": f"dslash_staggered_eo_pass_mrhs[{name}]",
+            "route": "cuda",
+            "source": "quda_tpu_torch/csrc/staggered_eo_mrhs.cu",
+            "replaces": "quda_tpu/ops/staggered_pallas.py:1106",
+            "launches": launches["multi:hisq"]["s2_mrhs"].get(name, 0),
+            "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
+    return rows
+
+
+def operator_and_double(torch, dev, smi) -> list:
+    """The full-lattice hop B4 and the double forms (phases check, dslash,
+    invert_double, timing; BASELINE configs 1 and 2); returns the
+    kernels-line rows of B4, B1 f64 and B2 f64."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import (ColorSpinorField,
+                                              even_odd_split)
+    from quda_tpu_torch.models.wilson import DiracWilson, DiracWilsonPC
+    from quda_tpu_torch.ops import blas
+    from quda_tpu_torch.ops import blas_pallas as bpl
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+    f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    errs, timing, bound_by = {}, {}, {}
+    b4_forms = [(3, f32), (2, f32), (3, f64)]
+    b4_names = [wpp.form_name(r, dt, dt) for r, dt in b4_forms]
+
+    def bound(nbytes, nflop, dtype, sites):
+        t_bytes = nbytes * sites / HBM_BYTES_PER_S
+        peak = F64_FLOPS_PER_S if dtype == f64 else F32_FLOPS_PER_S
+        t_ops = nflop * sites / peak
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def b4_inputs(dims_xyzt, rows, dtype):
+        T, Z, Y, X = LatticeGeometry(dims_xyzt).lattice_shape
+        sites = (T, Z, Y * X)
+        u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev,
+                        dtype=f64).to(dtype)
+        psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev,
+                          dtype=f64).to(dtype)
+        return X, u, wpp.backward_gauge(u, X).contiguous(), psi
+
+    def tolerance(dtype):
+        return F64_TOLERANCE if dtype == f64 else wpp.TOLERANCE
+
+    def compare(got, want):
+        abs_err = (got - want).abs().max().item()
+        return abs_err, abs_err / want.abs().max().item()
+
+    # -- check: B4 (14x12x10x8 and 32^3 x 64), B1 f64, B2 f64 -------------
+    for (rows, dt), name in zip(b4_forms, b4_names):
+        errs[name] = 0.0
+        for dims_xyzt, tb in ((FULL_SMALL_DIMS, True),
+                              (FULL_SMALL_DIMS, False), (PROD_DIMS, True)):
+            X, u, ubw, psi = b4_inputs(dims_xyzt, rows, dt)
+            got = wpp.dslash_pallas_packed(u, psi, X, gauge_bw=ubw,
+                                           tb_sign=tb)
+            want = wpp.dslash_packed_plain(u, ubw, psi, X, tb)
+            torch.cuda.synchronize()
+            abs_err, rel = compare(got, want)
+            errs[name] = max(errs[name], abs_err)
+            emit({"phase": "check", "kernel": "dslash_pallas_packed",
+                  "form": name, "dims_xyzt": list(dims_xyzt), "tb_sign": tb,
+                  "max_abs_err": abs_err, "max_rel_err": rel,
+                  "tolerance": tolerance(dt)})
+            if not (rel <= tolerance(dt) and got.dtype == dt):
+                fail(f"full-lattice hop {name} disagrees with its plain "
+                     f"version: {rel:.3e} > {tolerance(dt):g}")
+            del u, ubw, psi, got, want
+    b1_f64 = wpp.form_name(3, f64, f64)
+    errs[b1_f64] = 0.0
+
+    def b1_inputs(dims_xyzt, parity):
+        geom = LatticeGeometry(dims_xyzt)
+        T, Z, Y, X = geom.lattice_shape
+        sites = (T, Z, Y * X // 2)
+        rnd = [torch.randn(shape + sites, generator=gen, device=dev,
+                           dtype=f64) for shape in
+               ((4, 3, 2), (4, 3, 3, 2), (4, 3, 3, 2))]
+        u_bw = wpp.backward_gauge_eo(rnd[2], geom.lattice_shape,
+                                     parity).contiguous()
+        return geom.lattice_shape, rnd[1], u_bw, rnd[0]
+
+    for dims_xyzt in (SMALL_DIMS, PROD_DIMS):
+        for parity in (0, 1):
+            dims, uh, ubw, psi = b1_inputs(dims_xyzt, parity)
+            got = wpp.dslash_eo_pallas_packed(uh, ubw, psi, dims, parity)
+            want = wpp.dslash_eo_packed_plain(uh, ubw, psi, dims, parity)
+            torch.cuda.synchronize()
+            abs_err, rel = compare(got, want)
+            errs[b1_f64] = max(errs[b1_f64], abs_err)
+            emit({"phase": "check", "kernel": "dslash_eo_pallas_packed",
+                  "form": b1_f64, "dims_xyzt": list(dims_xyzt),
+                  "parity": parity, "max_abs_err": abs_err,
+                  "max_rel_err": rel, "tolerance": F64_TOLERANCE})
+            if not (rel <= F64_TOLERANCE and got.dtype == f64):
+                fail(f"eo hop {b1_f64} disagrees with its plain version: "
+                     f"{rel:.3e}")
+            del uh, ubw, psi, got, want
+    geom_p = LatticeGeometry(PROD_DIMS)
+    half_shape = (4, 3, 2, geom_p.T, geom_p.Z, geom_p.Y * geom_p.X // 2)
+    tail = [torch.randn(half_shape, generator=gen, device=dev, dtype=f64)
+            for _ in range(4)]
+    alpha = torch.tensor(0.37, dtype=f64, device=dev)
+    xk, rk, r2k = bpl.cg_update_norm2_pallas(alpha, *tail)
+    xp, rp, r2p = blas.triple_cg_update(alpha, *tail)
+    torch.cuda.synchronize()
+    vec_err = max(compare(xk, xp)[0], compare(rk, rp)[0])
+    vec_rel = vec_err / max(xp.abs().max().item(), rp.abs().max().item())
+    r2_rel = abs(r2k.item() - r2p.item()) / r2p.item()
+    errs["b2:f64"] = vec_err
+    emit({"phase": "check", "kernel": "cg_update_norm2_pallas",
+          "form": "f64", "elements": xk.numel(), "max_abs_err": vec_err,
+          "max_rel_err": vec_rel, "r2_rel_err": r2_rel,
+          "tolerance": F64_TOLERANCE})
+    if not (vec_rel <= F64_TOLERANCE and r2_rel <= F64_TOLERANCE
+            and r2k.dtype == f64):
+        fail("the f64 CG tail kernel disagrees with its plain version")
+    del xk, rk, xp, rp
+
+    # -- dslash: dslash_quda, mat_quda, mat_dag_mat_quda -----------------
+    def counts():
+        return {"b1": dict(wpp.dslash_eo_pallas_packed.launches_by_form),
+                "b4": dict(wpp.dslash_pallas_packed.launches_by_form),
+                "b2": dict(bpl.cg_update_norm2_pallas.launches_by_form),
+                "b3": dict(bpl.axpy_norm2_pallas.launches_by_form)}
+
+    def zero():
+        wpp.reset_launches()
+        bpl.cg_update_norm2_pallas.launches_by_form = {}
+        bpl.axpy_norm2_pallas.launches_by_form = {}
+
+    fields = {}
+
+    def gauge_and_source(dims_xyzt):
+        if dims_xyzt not in fields:
+            geom = LatticeGeometry(dims_xyzt)
+            fields[dims_xyzt] = (
+                geom, GaugeField.random(geom, gen, dtype=c128,
+                                        device=dev).data,
+                ColorSpinorField.gaussian(geom, gen, dtype=c128,
+                                          device=dev).data)
+        return fields[dims_xyzt]
+
+    launches = {}
+    for dims_xyzt, prec, rec in ((PROD_DIMS, "single", 18),
+                                 (PROD_DIMS, "single", 12),
+                                 (PROD_DIMS, "double", 18),
+                                 (CONFIG1_DIMS, "double", 18)):
+        geom, gauge, psi = gauge_and_source(dims_xyzt)
+        cdt = c128 if prec == "double" else c64
+        be, bo = even_odd_split(psi, geom)
+        qt.init_quda(dev)
+        try:
+            qt.load_gauge_quda(gauge.to(cdt), qt.GaugeParam(
+                X=dims_xyzt, cuda_prec=prec, reconstruct=rec))
+            p = qt.InvertParam(dslash_type="wilson", kappa=KAPPA,
+                               cuda_prec=prec)
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = {"dslash_quda": qt.dslash_quda(bo.to(cdt), p, 0),
+                   "mat_quda": qt.mat_quda(psi.to(cdt), p),
+                   "mat_dag_mat_quda": qt.mat_dag_mat_quda(psi.to(cdt), p)}
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            c = counts()
+        finally:
+            qt.end_quda()
+        label = f"{prec}:{'r12' if rec == 12 else 'full'}:" + "x".join(
+            map(str, dims_xyzt))
+        launches[label] = c
+        # the complex plain operators on the card, in complex128
+        g128 = gauge.to(c128)
+        want = {"dslash_quda": DiracWilsonPC(g128, geom, KAPPA).D_to(bo, 0),
+                "mat_quda": DiracWilson(g128, geom, KAPPA).M(psi),
+                "mat_dag_mat_quda": DiracWilson(g128, geom, KAPPA).MdagM(psi)}
+        rel = {k: compare(out[k].to(c128), want[k])[1] for k in out}
+        tol = F64_TOLERANCE if prec == "double" else wpp.TOLERANCE
+        form = wpp.form_name(2 if rec == 12 else 3, *(
+            (f64, f64) if prec == "double" else (f32, f32)))
+        row = {"phase": "dslash", "dims_xyzt": list(dims_xyzt),
+               "cuda_prec": prec, "reconstruct": rec, "kappa": KAPPA,
+               "rel_err_vs_complex128": rel, "tolerance": tol,
+               "dtypes": {k: str(v.dtype) for k, v in out.items()},
+               "secs_three_calls": secs, "launches_b1": c["b1"],
+               "launches_b4": c["b4"]}
+        if dims_xyzt == PROD_DIMS:
+            op = DiracWilson(gauge.to(cdt), geom, KAPPA).pairs(
+                f64 if prec == "double" else f32,
+                "r12" if rec == 12 else "full")
+            x = op._to_pairs(psi.to(cdt))
+            ms = median_ms(lambda: op.D_pairs(x), torch)
+            b_ms = bound(wpp.bytes_per_site(
+                2 if rec == 12 else 3, op.store_dtype),
+                wpp.flops_per_site(2 if rec == 12 else 3),
+                op.store_dtype, geom.volume)[0]
+            row.update({"b4_form": form, "b4_ms": ms, "b4_bound_ms": b_ms,
+                        "b4_share_of_bound": b_ms / ms,
+                        "b4_gflops_1320": 1320 * geom.volume / ms / 1e6})
+            del op, x
+        emit(row)
+        if not (all(r <= tol for r in rel.values())
+                and all(v.dtype == cdt for v in out.values())):
+            fail(f"operator API ({label}) disagrees with the complex "
+                 f"operator: {rel}")
+        if not (c["b4"].get(form, 0) == 3 and c["b1"].get(form, 0) == 1):
+            fail(f"operator API ({label}) did not run B1 once and B4 "
+                 f"three times: {c}")
+        del out, want, g128
+
+    # -- invert_double: native f64 (double/single, double/double) and df64
+    rows_d = {}
+    for dims_xyzt in (PROD_DIMS, CONFIG2_DIMS):
+        geom, gauge, _ = gauge_and_source(dims_xyzt)
+        src = ColorSpinorField.gaussian(geom, gen, dtype=c128,
+                                        device=dev).data
+        cases = [("double", "single"), ("double", "double")]
+        if dims_xyzt == PROD_DIMS:
+            cases.append(("single", "single"))            # the df64 route
+        for prec, sloppy in cases:
+            cdt = c128 if prec == "double" else c64
+            qt.init_quda(dev)
+            try:
+                qt.load_gauge_quda(gauge.to(cdt), qt.GaugeParam(
+                    X=dims_xyzt, cuda_prec=prec))
+                p = qt.InvertParam(dslash_type="wilson", inv_type="cg",
+                                   solve_type="normop-pc", kappa=KAPPA,
+                                   tol=DF64_TOL, maxiter=4000,
+                                   cuda_prec=prec, cuda_prec_sloppy=sloppy)
+                torch.cuda.reset_peak_memory_stats(dev)
+                zero()
+                x = qt.invert_quda(src.to(cdt), p)
+                torch.cuda.synchronize()
+                c = counts()
+            finally:
+                qt.end_quda()
+            x128 = x.to(c128)
+            if p.x_df64_lo is not None:
+                x128 = x128 + p.x_df64_lo.to(c128)
+            # the system the solve was given (the df64 route's gauge and
+            # source are complex64), applied in complex128
+            d128 = DiracWilson(gauge.to(cdt).to(c128), geom, KAPPA)
+            b128 = src.to(cdt).to(c128)
+            oracle = (torch.linalg.vector_norm(b128 - d128.M(x128))
+                      / torch.linalg.vector_norm(b128)).item()
+            label = ("df64" if prec == "single" else
+                     f"double/{sloppy}") + ":" + "x".join(map(str, dims_xyzt))
+            launches[label] = c
+            rows_d[label] = {"iters": p.iter_count, "secs": p.secs,
+                             "true_res": p.true_res,
+                             "true_res_complex128": oracle}
+            emit({"phase": "invert_double", "label": label,
+                  "dims_xyzt": list(dims_xyzt), "kappa": KAPPA,
+                  "tol": DF64_TOL, "cuda_prec": prec,
+                  "cuda_prec_sloppy": sloppy, "iters": p.iter_count,
+                  "reliable_updates": p.reliable_updates, "secs": p.secs,
+                  "true_res": p.true_res, "true_res_complex128": oracle,
+                  "converged": p.converged, "launches_b1": c["b1"],
+                  "launches_b2": c["b2"], "launches_b3": c["b3"],
+                  "gflop": p.gflops,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+            if not (p.converged and p.true_res <= DF64_TOL
+                    and oracle <= DF64_TOL):
+                fail(f"invert_quda ({label}) missed true_res <= "
+                     f"{DF64_TOL:g}: {p.true_res:.3e}, complex128 "
+                     f"{oracle:.3e}")
+            it = p.iter_count
+            if prec == "double" and sloppy == "double" and not (
+                    c["b1"].get(b1_f64, 0) >= 4 * it
+                    and c["b2"].get("f64", 0) == it):
+                fail(f"double/double ({label}) did not run B1 and B2 in "
+                     f"f64: {c}")
+            if prec == "double" and sloppy == "single" and not (
+                    c["b1"].get("full:f32->f32", 0) >= 4 * it
+                    and c["b1"].get(b1_f64, 0) >= 4 * p.reliable_updates
+                    and c["b3"].get("f32", 0) >= it):
+                fail(f"double/single ({label}) did not run B1 f32 with B1 "
+                     f"f64 at the reliable updates: {c}")
+            del x, x128, d128, b128
+    prod = ":" + "x".join(map(str, PROD_DIMS))
+    emit({"phase": "invert_double", "label": "native_f64_vs_df64",
+          "dims_xyzt": list(PROD_DIMS), "tol": DF64_TOL,
+          **{k[:-len(prod)]: v for k, v in rows_d.items()
+             if k.endswith(prod)}})
+
+    # -- timing: B4, B1 f64, B2 f64 against their bounds -------------------
+    for (rows, dt), name in zip(b4_forms, b4_names):
+        X, u, ubw, psi = b4_inputs(PROD_DIMS, rows, dt)
+        k_ms = median_ms(lambda: wpp.dslash_pallas_packed(
+            u, psi, X, gauge_bw=ubw), torch)
+        p_ms = median_ms(lambda: wpp.dslash_packed_plain(u, ubw, psi, X),
+                         torch, repeats=5, batch=2)
+        b_ms, bound_by[name] = bound(wpp.bytes_per_site(rows, dt),
+                                     wpp.flops_per_site(rows), dt,
+                                     geom_p.volume)
+        timing[name] = (k_ms, p_ms, b_ms)
+        del u, ubw, psi
+    dims, uh, ubw, psi = b1_inputs(PROD_DIMS, 0)
+    k_ms = median_ms(lambda: wpp.dslash_eo_pallas_packed(uh, ubw, psi, dims,
+                                                         0), torch)
+    p_ms = median_ms(lambda: wpp.dslash_eo_packed_plain(uh, ubw, psi, dims,
+                                                        0), torch,
+                     repeats=5, batch=2)
+    b_ms, bound_by[b1_f64] = bound(wpp.bytes_per_site(3, f64),
+                                   wpp.FLOPS_PER_SITE, f64,
+                                   geom_p.half_volume)
+    timing["b1:" + b1_f64] = (k_ms, p_ms, b_ms)
+    del uh, ubw, psi
+    k_ms = median_ms(lambda: bpl.cg_update_norm2_pallas(alpha, *tail), torch)
+    p_ms = median_ms(lambda: blas.triple_cg_update(alpha, *tail), torch)
+    n_el = tail[0].numel()
+    b_ms, bound_by["b2:f64"] = bound(
+        bpl.CG_UPDATE_BYTES_PER_ELEMENT[f64], 6, f64, n_el)
+    timing["b2:f64"] = (k_ms, p_ms, b_ms)
+    del tail
+    emit({"phase": "timing", "family": "operator_and_double",
+          "dims_xyzt": list(PROD_DIMS), "nvidia_smi": smi,
+          "repeats": REPEATS, "calls_per_timing": BATCH,
+          **{name: {"ms": k, "plain_ms": pm, "bound_ms": b,
+                    "share_of_bound": b / k}
+             for name, (k, pm, b) in timing.items()},
+          "b4_gflops_1320": {name: 1320 * geom_p.volume / timing[name][0]
+                             / 1e6 for name in b4_names},
+          "solves": rows_d})
+
+    full = "x".join(map(str, PROD_DIMS))
+    rows = []
+    for (r, dt), name in zip(b4_forms, b4_names):
+        path = (f"{'double' if dt == f64 else 'single'}:"
+                f"{'r12' if r == 2 else 'full'}:{full}")
+        k_ms, p_ms, b_ms = timing[name]
+        rows.append({
+            "name": f"dslash_pallas_packed[{name}]", "route": "cuda",
+            "source": "quda_tpu_torch/csrc/wilson_full.cu",
+            "replaces": "quda_tpu/ops/wilson_pallas_packed.py:441",
+            "launches": launches[path]["b4"].get(name, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": bound_by[name],
+            "library_ms": None})
+    k_ms, p_ms, b_ms = timing["b1:" + b1_f64]
+    rows.append({
+        "name": f"dslash_eo_pallas_packed[{b1_f64}]", "route": "cuda",
+        "source": "quda_tpu_torch/csrc/wilson_eo.cu",
+        "replaces": "quda_tpu/ops/wilson_pallas_packed.py:1011",
+        "launches": launches[f"double/double:{full}"]["b1"].get(b1_f64, 0),
+        "max_abs_err": errs[b1_f64], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": bound_by[b1_f64], "library_ms": None})
+    k_ms, p_ms, b_ms = timing["b2:f64"]
+    rows.append({
+        "name": "cg_update_norm2_pallas[f64]", "route": "cuda",
+        "source": "quda_tpu_torch/csrc/blas_fused.cu",
+        "replaces": "quda_tpu/ops/blas_pallas.py:104",
+        "launches": launches[f"double/double:{full}"]["b2"].get("f64", 0),
+        "max_abs_err": errs["b2:f64"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": bound_by["b2:f64"],
+        "library_ms": None})
     return rows
 
 
@@ -1450,6 +2024,7 @@ def main() -> int:
             "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
+    rows_out.extend(operator_and_double(torch, dev, smi))
     rows_out.extend(staggered(torch, dev, smi))
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:

@@ -3,7 +3,9 @@
 // B2, the CG tail: x' = x + alpha p, r' = r - alpha Ap, |r'|^2.  Replaces
 // cg_update_norm2_pallas (pallas_call at :104); plain version quda_tpu_torch/
 // ops/blas.py::triple_cg_update.  Per element it reads 4 floats and writes
-// 2 (24 B) for 3 multiply-adds.
+// 2 (24 B) for 3 multiply-adds.  Its float64 form (the tail of the native
+// double fused_cg; no TPU twin, a TPU has no f64) moves 48 B an element,
+// with alpha, the vectors and |r'|^2 all float64.
 //
 // B3, the residual update of the reliable-update CG: y' = y + a x and
 // |y'|^2, for float32 or bfloat16 storage.  Replaces axpy_norm2_pallas
@@ -54,22 +56,23 @@ __device__ __forceinline__ double block_sum(double v) {
   return v;
 }
 
+template <typename Re>
 __global__ void __launch_bounds__(kThreads)
-    cg_update_norm2_kernel(const float* __restrict__ alpha,
-                           const float* __restrict__ p,
-                           const float* __restrict__ ap,
-                           const float* __restrict__ x,
-                           const float* __restrict__ r,
-                           float* __restrict__ x_out,
-                           float* __restrict__ r_out,
+    cg_update_norm2_kernel(const Re* __restrict__ alpha,
+                           const Re* __restrict__ p,
+                           const Re* __restrict__ ap,
+                           const Re* __restrict__ x,
+                           const Re* __restrict__ r,
+                           Re* __restrict__ x_out,
+                           Re* __restrict__ r_out,
                            double* __restrict__ partial, int64_t n) {
-  const float a = __ldg(alpha);
+  const Re a = __ldg(alpha);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   double acc = 0.0;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
-    const float xv = x[i] + a * p[i];
-    const float rv = r[i] - a * ap[i];
+    const Re xv = x[i] + a * p[i];
+    const Re rv = r[i] - a * ap[i];
     x_out[i] = xv;
     r_out[i] = rv;
     acc += static_cast<double>(rv) * static_cast<double>(rv);
@@ -78,13 +81,28 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) partial[blockIdx.x] = acc;
 }
 
+template <typename Re>
 __global__ void __launch_bounds__(kThreads)
     sum_partials_kernel(const double* __restrict__ partial, int nblocks,
-                        float* __restrict__ r2) {
+                        Re* __restrict__ r2) {
   double acc = 0.0;
   for (int i = threadIdx.x; i < nblocks; i += kThreads) acc += partial[i];
   acc = block_sum(acc);
-  if (threadIdx.x == 0) *r2 = static_cast<float>(acc);
+  if (threadIdx.x == 0) *r2 = static_cast<Re>(acc);
+}
+
+template <typename Re>
+int cg_update_norm2(const Re* alpha, const Re* p, const Re* ap, const Re* x,
+                    const Re* r, Re* x_out, Re* r_out, double* partial,
+                    Re* r2, long long n, int nblocks, void* stream) {
+  if (n <= 0 || nblocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cg_update_norm2_kernel<Re><<<nblocks, kThreads, 0, s>>>(
+      alpha, p, ap, x, r, x_out, r_out, partial, static_cast<int64_t>(n));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_partials_kernel<Re><<<1, kThreads, 0, s>>>(partial, nblocks, r2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ float axpy_rn(float a, float x, float y) {
@@ -153,14 +171,19 @@ extern "C" int qtt_cg_update_norm2_f32(const float* alpha, const float* p,
                                        float* r_out, double* partial,
                                        float* r2, long long n, int nblocks,
                                        void* stream) {
-  if (n <= 0 || nblocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cg_update_norm2_kernel<<<nblocks, kThreads, 0, s>>>(
-      alpha, p, ap, x, r, x_out, r_out, partial, static_cast<int64_t>(n));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<1, kThreads, 0, s>>>(partial, nblocks, r2);
-  return static_cast<int>(cudaGetLastError());
+  return cg_update_norm2<float>(alpha, p, ap, x, r, x_out, r_out, partial,
+                                r2, n, nblocks, stream);
+}
+
+// The float64 form: every array, alpha and |r'|^2 float64.
+extern "C" int qtt_cg_update_norm2_f64(const double* alpha, const double* p,
+                                       const double* ap, const double* x,
+                                       const double* r, double* x_out,
+                                       double* r_out, double* partial,
+                                       double* r2, long long n, int nblocks,
+                                       void* stream) {
+  return cg_update_norm2<double>(alpha, p, ap, x, r, x_out, r_out, partial,
+                                 r2, n, nblocks, stream);
 }
 
 // bf16: x, y and y_out are bfloat16 (else float32); a is one float32 on the
@@ -183,6 +206,6 @@ extern "C" int qtt_axpy_norm2(const float* a, const void* x, const void* y,
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<1, kThreads, 0, s>>>(partial, nblocks, n2);
+  sum_partials_kernel<float><<<1, kThreads, 0, s>>>(partial, nblocks, n2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,18 +52,6 @@ using namespace qtt;
 
 constexpr int kThreads = 128;
 
-template <typename O>
-__device__ __forceinline__ void st_cvec(O* __restrict__ out,
-                                        const float2 (&v)[3], int64_t n,
-                                        int64_t i) {
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    O* q = out + static_cast<int64_t>(2 * c) * n + i;
-    st(q, v[c].x);
-    st(q + n, v[c].y);
-  }
-}
-
 template <typename S, typename O>
 __global__ void __launch_bounds__(kThreads)
     stag_fused_kernel(O* __restrict__ out, const S* __restrict__ psi,
@@ -79,19 +67,19 @@ __global__ void __launch_bounds__(kThreads)
   if (site >= n) return;
   const EoSite s = eo_site(site, Z, Y, Xh, YXh, ZYXh, parity);
 
-  float2 acc_fat[3], acc_lng[3];
+  float2 acc_fat[1][3], acc_lng[1][3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    acc_fat[c] = make_float2(0.f, 0.f);
-    acc_lng[c] = make_float2(0.f, 0.f);
+    acc_fat[0][c] = make_float2(0.f, 0.f);
+    acc_lng[0][c] = make_float2(0.f, 0.f);
   }
-  stag_hopset<1>(acc_fat, psi, fat_here, fat_there, true, s, T, Z, Y, Xh,
-                 YXh, ZYXh, n);
-  stag_hopset<3>(acc_lng, psi, long_here, long_there, true, s, T, Z, Y, Xh,
-                 YXh, ZYXh, n);
+  stag_hopset<1>(acc_fat, psi, 0, 1, fat_here, fat_there, true, s, T, Z, Y,
+                 Xh, YXh, ZYXh, n);
+  stag_hopset<3>(acc_lng, psi, 0, 1, long_here, long_there, true, s, T, Z,
+                 Y, Xh, YXh, ZYXh, n);
   float2 sum[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) sum[c] = cadd(acc_fat[c], acc_lng[c]);
+  for (int c = 0; c < 3; ++c) sum[c] = cadd(acc_fat[0][c], acc_lng[0][c]);
   st_cvec(out, sum, n, site);
 }
 
@@ -108,12 +96,12 @@ __global__ void __launch_bounds__(kThreads)
   if (site >= n) return;
   const EoSite s = eo_site(site, Z, Y, Xh, YXh, ZYXh, parity);
 
-  float2 acc[3];
+  float2 acc[1][3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) acc[c] = make_float2(0.f, 0.f);
-  stag_hopset<NHOP>(acc, psi, u_here, u_bw, false, s, T, Z, Y, Xh, YXh,
-                    ZYXh, n);
-  st_cvec(out, acc, n, site);
+  for (int c = 0; c < 3; ++c) acc[0][c] = make_float2(0.f, 0.f);
+  stag_hopset<NHOP>(acc, psi, 0, 1, u_here, u_bw, false, s, T, Z, Y, Xh,
+                    YXh, ZYXh, n);
+  st_cvec(out, acc[0], n, site);
 }
 
 // grid size, or -1 for arguments the kernels do not take

@@ -1,9 +1,14 @@
 // Device code of the even/odd staggered hops on the packed pair layout,
 // shared by the fused fat + Naik hop (S1) and the one-hop-set gather pass
-// (S2), both in staggered_eo.cu: the neighbour index of a half-site at
+// (S2), both in staggered_eo.cu, and the multi-RHS gather pass (S2-mrhs,
+// staggered_eo_mrhs.cu): the neighbour index of a half-site at
 // x + s*n*mu for n in {1, 3}, the colour-vector load, and the 3x3 colour
 // multiply of one hop.  The link load and the f32/bf16 loads and stores
-// are wilson_hop.cuh's (links have the Wilson R = 3 layout).
+// are wilson_hop.cuh's (links have the Wilson R = 3 layout).  Like the
+// Wilson hop, each hop takes a compile-time count NB of right-hand sides
+// (rstride elements apart, the first nvalid of them read): the link is
+// loaded once and applied to each in turn, so every right-hand side sees
+// the single-RHS arithmetic in its order.  S1 and S2 run NB = 1.
 //
 // Layout; every colour/re-im component is its own plane of
 // S = T*Z*Y*Xh half-sites, so adjacent threads read adjacent addresses:
@@ -77,40 +82,47 @@ __device__ __forceinline__ void ld_cvec(float2 (&v)[3],
   }
 }
 
-// One hop into acc: acc += 0.5 U psi (FWD) or acc -= 0.5 U^dag psi, with
-// U^dag[a][b] = conj(U[b][a]); the link of direction MU at link half-site
-// li, psi at half-site pi.  As the TPU kernel: the colour sum first, then
-// the +-0.5 scale.
-template <int MU, bool FWD, typename S>
-__device__ __forceinline__ void stag_hop(float2 (&acc)[3],
+// One hop into acc for NB right-hand sides: acc[r] += 0.5 U psi_r (FWD)
+// or acc[r] -= 0.5 U^dag psi_r, with U^dag[a][b] = conj(U[b][a]); the link
+// of direction MU at link half-site li (loaded once), psi_r at half-site pi
+// of psi + r * rstride.  As the TPU kernel: the colour sum first, then the
+// +-0.5 scale.
+template <int MU, bool FWD, int NB, typename S>
+__device__ __forceinline__ void stag_hop(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
+                                         int64_t rstride, int nvalid,
                                          const S* __restrict__ g,
                                          int64_t n, int64_t li,
                                          int64_t pi) {
   float2 u[3][3];
   ld_link<3>(u, g, MU, n, li, 1.f);
-  float2 v[3];
-  ld_cvec(v, psi, n, pi);
   const float s = FWD ? 0.5f : -0.5f;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float2 t = make_float2(0.f, 0.f);
+  for (int r = 0; r < NB; ++r) {
+    if (NB > 1 && r >= nvalid) break;
+    float2 v[3];
+    ld_cvec(v, psi + r * rstride, n, pi);
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const float2 m = FWD ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
-      t = cadd(t, cmul(m, v[b]));
+    for (int a = 0; a < 3; ++a) {
+      float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const float2 m = FWD ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
+        t = cadd(t, cmul(m, v[b]));
+      }
+      acc[r][a] = make_float2(acc[r][a].x + s * t.x, acc[r][a].y + s * t.y);
     }
-    acc[a] = make_float2(acc[a].x + s * t.x, acc[a].y + s * t.y);
   }
 }
 
 // Both hops of direction MU, hop count N, into acc.  The backward link is
 // read at index `bw_at_nb ? neighbour : site` of `g_bw`: the fused kernel
 // reads the unshifted opposite-parity links at the backward neighbour, the
-// gather pass its pre-shifted copy at the target site.
-template <int MU, int N, typename S>
-__device__ __forceinline__ void stag_dir(float2 (&acc)[3],
+// gather passes their pre-shifted copy at the target site.
+template <int MU, int N, int NB, typename S>
+__device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
+                                         int64_t rstride, int nvalid,
                                          const S* __restrict__ g_fwd,
                                          const S* __restrict__ g_bw,
                                          bool bw_at_nb, const EoSite& s,
@@ -119,29 +131,44 @@ __device__ __forceinline__ void stag_dir(float2 (&acc)[3],
                                          int64_t n) {
   const int64_t fwd = eo_neighbour<MU>(s, +N, T, Z, Y, Xh, YXh, ZYXh);
   const int64_t bwd = eo_neighbour<MU>(s, -N, T, Z, Y, Xh, YXh, ZYXh);
-  stag_hop<MU, true>(acc, psi, g_fwd, n, s.site, fwd);
-  stag_hop<MU, false>(acc, psi, g_bw, n, bw_at_nb ? bwd : s.site, bwd);
+  stag_hop<MU, true>(acc, psi, rstride, nvalid, g_fwd, n, s.site, fwd);
+  stag_hop<MU, false>(acc, psi, rstride, nvalid, g_bw, n,
+                      bw_at_nb ? bwd : s.site, bwd);
 }
 
 // The whole hop set of hop count N (8 hops) into acc, directions in the
 // TPU kernel's order (x, y, z, t; forward before backward).
-template <int N, typename S>
-__device__ __forceinline__ void stag_hopset(float2 (&acc)[3],
+template <int N, int NB, typename S>
+__device__ __forceinline__ void stag_hopset(float2 (&acc)[NB][3],
                                             const S* __restrict__ psi,
+                                            int64_t rstride, int nvalid,
                                             const S* __restrict__ g_fwd,
                                             const S* __restrict__ g_bw,
                                             bool bw_at_nb, const EoSite& s,
                                             int T, int Z, int Y, int Xh,
                                             int64_t YXh, int64_t ZYXh,
                                             int64_t n) {
-  stag_dir<0, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
-                 n);
-  stag_dir<1, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
-                 n);
-  stag_dir<2, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
-                 n);
-  stag_dir<3, N>(acc, psi, g_fwd, g_bw, bw_at_nb, s, T, Z, Y, Xh, YXh, ZYXh,
-                 n);
+  stag_dir<0, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
+                 Y, Xh, YXh, ZYXh, n);
+  stag_dir<1, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
+                 Y, Xh, YXh, ZYXh, n);
+  stag_dir<2, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
+                 Y, Xh, YXh, ZYXh, n);
+  stag_dir<3, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
+                 Y, Xh, YXh, ZYXh, n);
+}
+
+// out = acc (3 complex) at half-site i of a (3, 2, S) field
+template <typename O>
+__device__ __forceinline__ void st_cvec(O* __restrict__ out,
+                                        const float2 (&v)[3], int64_t n,
+                                        int64_t i) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    O* q = out + static_cast<int64_t>(2 * c) * n + i;
+    st(q, v[c].x);
+    st(q + n, v[c].y);
+  }
 }
 
 }  // namespace qtt

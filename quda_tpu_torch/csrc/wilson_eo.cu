@@ -16,7 +16,10 @@
 // (full) or R = 2 (reconstruct-12: row 2 = conj(row0 x row1), rebuilt in
 // registers).  Every load converts to f32 and every sum is f32; a bf16 out
 // is rounded to nearest even once, at the store (__float2bfloat16_rn, what
-// torch's .to(torch.bfloat16) does).
+// torch's .to(torch.bfloat16) does).  The native double form
+// (full:f64->f64, R = 3) loads, sums and stores float64 throughout: the
+// precise operator of the double routes.  It has no TPU twin (a TPU has no
+// f64); its oracle is the complex128 plain version.
 //
 // Reconstruct-12 and the antiperiodic t boundary: the links carry the
 // boundary phase folded in, so a t-link on the boundary plane is -U, and
@@ -30,6 +33,8 @@
 // 768 B in f32 (psi 96, links 576, out 96, when L2 serves the neighbour
 // re-reads of psi), 384 B bf16 -> bf16 and 288 B bf16 R = 2 -> bf16: at
 // most 5.7 flop/B, far under the ~20 flop/B where f32 arithmetic binds.
+// In f64 it is 1536 B for the same 1320 flop, 0.86 flop/B against the
+// card's ~10 f64 flop/B (34 TFLOP/s without tensor cores): memory too.
 //
 // Design: one thread per target half-site, 24 f32 accumulators in registers.
 // The hop itself is eo_hop_sum of wilson_hop.cuh, shared with the fused
@@ -61,7 +66,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (site >= n) return;
 
-  float2 acc[1][4][3];
+  cplx_t<S> acc[1][4][3];
   eo_hop_sum<R, 1>(acc, psi, 0, 1, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n,
                    parity, tb_sign, site);
 
@@ -89,29 +94,36 @@ cudaError_t launch(void* out, const void* psi, const void* u_here,
 
 }  // namespace
 
-// store_bf16: psi and links are bfloat16 (else float32); out_bf16: out is
-// bfloat16 (else float32, and bf16 out needs bf16 storage); rows: 3 or 2.
+// store: psi and links are float32 (0), bfloat16 (1) or float64 (2);
+// out_store: out likewise (bf16 out needs bf16 storage; f64 goes with
+// f64 only, and with rows 3); rows: 3 or 2.
 extern "C" int qtt_wilson_eo(void* out, const void* psi, const void* u_here,
                              const void* u_bw, int T, int Z, int Y, int Xh,
-                             int parity, int store_bf16, int out_bf16,
-                             int rows, int tb_sign, void* stream) {
+                             int parity, int store, int out_store, int rows,
+                             int tb_sign, void* stream) {
   const int64_t n = static_cast<int64_t>(T) * Z * Y * Xh;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
+  const bool forms_ok = (store == 0 && out_store == 0) ||
+                        (store == 1 && (out_store == 0 || out_store == 1)) ||
+                        (store == 2 && out_store == 2 && rows == 3);
   if (n <= 0 || blocks > 0x7fffffff || (parity != 0 && parity != 1) ||
-      (rows != 2 && rows != 3) || (out_bf16 && !store_bf16)) {
+      (rows != 2 && rows != 3) || !forms_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned nb = static_cast<unsigned>(blocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   cudaError_t err;
-  if (!store_bf16) {
+  if (store == 2) {
+    err = launch<double, double, 3>(out, psi, u_here, u_bw, T, Z, Y, Xh,
+                                    parity, tb_sign, nb, s);
+  } else if (store == 0) {
     err = rows == 3
               ? launch<float, float, 3>(out, psi, u_here, u_bw, T, Z, Y, Xh,
                                         parity, tb_sign, nb, s)
               : launch<float, float, 2>(out, psi, u_here, u_bw, T, Z, Y, Xh,
                                         parity, tb_sign, nb, s);
-  } else if (out_bf16) {
+  } else if (out_store == 1) {
     err = rows == 3 ? launch<bf, bf, 3>(out, psi, u_here, u_bw, T, Z, Y, Xh,
                                         parity, tb_sign, nb, s)
                     : launch<bf, bf, 2>(out, psi, u_here, u_bw, T, Z, Y, Xh,

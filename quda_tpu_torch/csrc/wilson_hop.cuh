@@ -1,25 +1,32 @@
-// Device code of the even/odd Wilson hop on the packed pair layout, shared
-// by the eo hop kernel (B1, wilson_eo.cu) and the fused clover hop (B7,
-// clover_eo.cu): the spin tables, the f32/bf16 loads and stores, the link
-// load (R = 3 rows, or R = 2 with row 2 rebuilt), the clover block entry
-// load, one hop direction, and
-// eo_hop_sum, the whole 8-direction hop at one target half-site.  Both take
-// a compile-time count NB of right-hand sides: each direction's link is
+// Device code of the Wilson hop on the packed pair layout, shared by the
+// eo hop kernel (B1, wilson_eo.cu), the fused clover hop (B7,
+// clover_eo.cu) and the full-lattice hop (B4, wilson_full.cu): the spin
+// tables, the f32/bf16/f64 loads and stores, the link load (R = 3 rows,
+// or R = 2 with row 2 rebuilt), the clover block entry load, one hop
+// direction, and the whole 8-direction hop at one target site: eo_hop_sum
+// on the half lattice, full_hop_sum on the full one.  Both take a
+// compile-time count NB of right-hand sides: each direction's link is
 // loaded (and its row 2 rebuilt) once and applied to NB spinors, which is
 // what the multi-RHS kernels (B5-eo, wilson_eo_mrhs.cu; B7-mrhs,
 // clover_eo_mrhs.cu) are for.  The single-RHS kernels run NB = 1; every
 // right-hand side sees the same arithmetic in the same order for any NB.
 //
+// Real type: the hop works in the accumulator type of its storage,
+// cplx_t<S>: float2 for float32 and bfloat16 storage (every load converts
+// to f32, every sum is f32), double2 for float64 storage (the native
+// double forms; no float literal or float temporary touches a double
+// value).
+//
 // Layout; every spin/colour/re-im component is its own plane of
-// S = T*Z*Y*Xh half-sites, so adjacent threads read adjacent addresses:
+// S = T*Z*Y*Xh half-sites (or T*Z*Y*X sites for the full-lattice hop), so
+// adjacent threads read adjacent addresses:
 //   psi       (4, 3, 2, T, Z, Y*Xh)     parity 1-p in
 //   u_here    (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x) at the target sites x
 //   u_bw      (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x - mu), taken from the opposite
 //                                       parity and shifted once per gauge load
 // The NB spinors of one call lie rstride elements apart (24 * S for a
 // (N, 4, 3, 2, T, Z, Y*Xh) batch); only the first nvalid of them are read
-// (a tail chunk).  Every load converts to f32 and every sum is f32.
-// Offsets are 64-bit.
+// (a tail chunk).  Offsets are 64-bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,58 +60,95 @@ __host__ __device__ constexpr Tab tab(int mu, int sign) {
   return rows[2 * mu + (sign < 0 ? 1 : 0)];
 }
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
+// complex numbers as (re, im) in float2 (f32) or double2 (f64)
+__device__ __forceinline__ float2 mkc(float re, float im) {
+  return make_float2(re, im);
+}
+__device__ __forceinline__ double2 mkc(double re, double im) {
+  return make_double2(re, im);
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+template <typename C>
+__device__ __forceinline__ C czero();
+template <>
+__device__ __forceinline__ float2 czero<float2>() {
+  return make_float2(0.f, 0.f);
+}
+template <>
+__device__ __forceinline__ double2 czero<double2>() {
+  return make_double2(0.0, 0.0);
+}
+
+template <typename C>
+__device__ __forceinline__ C cadd(C a, C b) {
+  return mkc(a.x + b.x, a.y + b.y);
+}
+
+template <typename C>
+__device__ __forceinline__ C cmul(C a, C b) {
+  return mkc(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
 // c * x for c in {+1, -1, +i, -i}
-template <int CR, int CI>
-__device__ __forceinline__ float2 cscale(float2 x) {
+template <int CR, int CI, typename C>
+__device__ __forceinline__ C cscale(C x) {
   static_assert((CR == 0) != (CI == 0), "factors are +-1 or +-i");
   if constexpr (CI == 0) {
-    return CR > 0 ? x : make_float2(-x.x, -x.y);
+    return CR > 0 ? x : mkc(-x.x, -x.y);
   } else {
-    return CI > 0 ? make_float2(-x.y, x.x) : make_float2(x.y, -x.x);
+    return CI > 0 ? mkc(-x.y, x.x) : mkc(x.y, -x.x);
   }
 }
 
-// storage element -> f32, and f32 -> storage element
+// storage element -> the accumulator's real, and back
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
+__device__ __forceinline__ double ld(const double* p) { return __ldg(p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void st(double* p, double v) { *p = v; }
+
+// the complex accumulator type of storage S
+template <typename S>
+struct Cplx {
+  using type = float2;
+};
+template <>
+struct Cplx<double> {
+  using type = double2;
+};
+template <typename S>
+using cplx_t = typename Cplx<S>::type;
 
 // component (s, c) of psi at half-site i
 template <typename S>
-__device__ __forceinline__ float2 ld_psi(const S* __restrict__ psi, int s,
-                                         int c, int64_t n, int64_t i) {
+__device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
+                                            int s, int c, int64_t n,
+                                            int64_t i) {
   const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + i;
-  return make_float2(ld(q), ld(q + n));
+  return mkc(ld(q), ld(q + n));
 }
 
 // Entry (ch, i, j) of the clover blocks (2, 6, 6, 2, T, Z, Y*Xh) at half-site
 // i: the epilogue load of the fused clover hops (clover_eo.cu,
 // clover_eo_mrhs.cu).
 template <typename S>
-__device__ __forceinline__ float2 ld_blk(const S* __restrict__ blk, int ch,
-                                         int a, int b, int64_t n,
-                                         int64_t i) {
+__device__ __forceinline__ cplx_t<S> ld_blk(const S* __restrict__ blk,
+                                            int ch, int a, int b,
+                                            int64_t n, int64_t i) {
   const S* q = blk + static_cast<int64_t>(((ch * 6 + a) * 6 + b) * 2) * n + i;
-  return make_float2(ld(q), ld(q + n));
+  return mkc(ld(q), ld(q + n));
 }
 
 // The 3x3 link of direction mu at half-site i.  With R = 2 only rows 0 and
-// 1 are stored: row 2 = conj(row0 x row1) * row2_sign.
-template <int R, typename S>
-__device__ __forceinline__ void ld_link(float2 (&u)[3][3],
+// 1 are stored: row 2 = conj(row0 x row1) * row2_sign (+-1, exact in any
+// real type).
+template <int R, typename S, typename C>
+__device__ __forceinline__ void ld_link(C (&u)[3][3],
                                         const S* __restrict__ g, int mu,
                                         int64_t n, int64_t i,
                                         float row2_sign) {
@@ -113,16 +157,17 @@ __device__ __forceinline__ void ld_link(float2 (&u)[3][3],
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       const S* q = g + static_cast<int64_t>(((mu * R + a) * 3 + b) * 2) * n + i;
-      u[a][b] = make_float2(ld(q), ld(q + n));
+      u[a][b] = mkc(ld(q), ld(q + n));
     }
   if constexpr (R == 2) {
+    using Re = decltype(u[0][0].x);
+    const Re sg = static_cast<Re>(row2_sign);
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       const int b1 = (b + 1) % 3, b2 = (b + 2) % 3;
-      const float2 p = cmul(u[0][b1], u[1][b2]);
-      const float2 q = cmul(u[0][b2], u[1][b1]);
-      u[2][b] = make_float2((p.x - q.x) * row2_sign,
-                            -(p.y - q.y) * row2_sign);
+      const C p = cmul(u[0][b1], u[1][b2]);
+      const C q = cmul(u[0][b2], u[1][b1]);
+      u[2][b] = mkc((p.x - q.x) * sg, -(p.y - q.y) * sg);
     }
   }
 }
@@ -131,28 +176,28 @@ __device__ __forceinline__ void ld_link(float2 (&u)[3][3],
 // target site.  SIGN > 0 is the forward hop (1 - gamma_mu) U psi(x+mu);
 // SIGN < 0 the backward hop (1 + gamma_mu) U^dag psi(x-mu), U^dag[a][b] =
 // conj(U[b][a]).  The link is loaded once for all NB spinors.
-template <int MU, int SIGN, int R, int NB, typename S>
-__device__ __forceinline__ void hop(float2 (&acc)[NB][4][3],
+template <int MU, int SIGN, int R, int NB, typename S, typename C>
+__device__ __forceinline__ void hop(C (&acc)[NB][4][3],
                                     const S* __restrict__ psi,
                                     int64_t rstride, int nvalid,
                                     const S* __restrict__ g, int64_t n,
                                     int64_t nb, int64_t site,
                                     float row2_sign) {
   constexpr Tab t = tab(MU, SIGN);
-  float2 u[3][3];
+  C u[3][3];
   ld_link<R>(u, g, MU, n, site, row2_sign);
-  float2 m[3][3];
+  C m[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
-      m[a][b] = SIGN > 0 ? u[a][b] : make_float2(u[b][a].x, -u[b][a].y);
+      m[a][b] = SIGN > 0 ? u[a][b] : mkc(u[b][a].x, -u[b][a].y);
     }
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
     if (NB > 1 && r >= nvalid) break;
     const S* p = psi + r * rstride;
-    float2 h[2][3];
+    C h[2][3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       h[0][c] = cadd(ld_psi(p, 0, c, n, nb),
@@ -160,12 +205,12 @@ __device__ __forceinline__ void hop(float2 (&acc)[NB][4][3],
       h[1][c] = cadd(ld_psi(p, 1, c, n, nb),
                      cscale<t.c1r, t.c1i>(ld_psi(p, t.j1, c, n, nb)));
     }
-    float2 uh[2][3];
+    C uh[2][3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        float2 v = cmul(m[a][0], h[s][0]);
+        C v = cmul(m[a][0], h[s][0]);
         v = cadd(v, cmul(m[a][1], h[s][1]));
         uh[s][a] = cadd(v, cmul(m[a][2], h[s][2]));
       }
@@ -179,19 +224,70 @@ __device__ __forceinline__ void hop(float2 (&acc)[NB][4][3],
   }
 }
 
+// Neighbour indices of one target site, forward and backward per
+// direction, and the sign of the rebuilt row 2 of its t links (R = 2
+// only): with tb_sign it is negated on the antiperiodic boundary planes,
+// forward links on t = T-1, pre-shifted backward links on t = 0.
+struct Nbrs {
+  int64_t fwd[4], bwd[4];
+  float s_t_fwd, s_t_bwd;
+};
+
+// y, z and t neighbours and the t-boundary signs, shared by both
+// lattices: the fused row axis holds W = Xh (eo) or X (full) slots.
+__device__ __forceinline__ void yzt_nbrs(Nbrs& nb, int64_t site, int y,
+                                         int z, int t, int T, int Z, int Y,
+                                         int64_t W, int64_t YW,
+                                         int64_t ZYW, int tb_sign) {
+  nb.fwd[1] = site + (y + 1 == Y ? -(Y - 1) * W : W);
+  nb.bwd[1] = site + (y == 0 ? (Y - 1) * W : -W);
+  nb.fwd[2] = site + (z + 1 == Z ? -(Z - 1) * YW : YW);
+  nb.bwd[2] = site + (z == 0 ? (Z - 1) * YW : -YW);
+  nb.fwd[3] = site + (t + 1 == T ? -(T - 1) * ZYW : ZYW);
+  nb.bwd[3] = site + (t == 0 ? (T - 1) * ZYW : -ZYW);
+  nb.s_t_fwd = (tb_sign && t == T - 1) ? -1.f : 1.f;
+  nb.s_t_bwd = (tb_sign && t == 0) ? -1.f : 1.f;
+}
+
+// The 8 hops at target site ``site`` into acc (zeroed first), in the TPU
+// kernel's order: x, y, z, t, forward before backward.
+template <int R, int NB, typename S, typename C>
+__device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
+                                        const S* __restrict__ psi,
+                                        int64_t rs, int nvalid,
+                                        const S* __restrict__ u_here,
+                                        const S* __restrict__ u_bw,
+                                        int64_t n, const Nbrs& nb,
+                                        int64_t site) {
+#pragma unroll
+  for (int r = 0; r < NB; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[r][s][c] = czero<C>();
+
+  hop<0, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[0], site, 1.f);
+  hop<0, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[0], site, 1.f);
+  hop<1, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[1], site, 1.f);
+  hop<1, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[1], site, 1.f);
+  hop<2, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[2], site, 1.f);
+  hop<2, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[2], site, 1.f);
+  hop<3, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[3], site,
+                nb.s_t_fwd);
+  hop<3, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[3], site,
+                nb.s_t_bwd);
+}
+
 // The hop sum D_{p <- 1-p} psi at target half-site ``site`` into acc.  A
 // thread computes its 8 neighbour indices directly: t, z and y wrap on
 // their own axes (y by Xh on the fused Y*Xh axis), and x is the slot-parity
 // select of shift_eo_packed, with r0 = ((t+z+y+parity) % 2 == 0) constant
-// along a row.  With R = 2 and tb_sign the rebuilt row 2 of the t links is
-// negated on the antiperiodic boundary planes: forward links on t = T-1,
-// pre-shifted backward links on t = 0.
-// The caller passes the plane strides it computed (YXh = Y*Xh, ZYXh =
-// Z*YXh, n = T*ZYXh), so the kernel and the hop share one set.  The NB
-// right-hand sides are psi + r * rstride, r < nvalid; acc[r] is zeroed and
-// summed for each of them.
-template <int R, int NB, typename S>
-__device__ __forceinline__ void eo_hop_sum(float2 (&acc)[NB][4][3],
+// along a row.  The caller passes the plane strides it computed (YXh =
+// Y*Xh, ZYXh = Z*YXh, n = T*ZYXh), so the kernel and the hop share one set.
+// The NB right-hand sides are psi + r * rstride, r < nvalid; acc[r] is
+// zeroed and summed for each of them.
+template <int R, int NB, typename S, typename C>
+__device__ __forceinline__ void eo_hop_sum(C (&acc)[NB][4][3],
                                            const S* __restrict__ psi,
                                            int64_t rstride, int nvalid,
                                            const S* __restrict__ u_here,
@@ -206,36 +302,39 @@ __device__ __forceinline__ void eo_hop_sum(float2 (&acc)[NB][4][3],
   const int t = static_cast<int>(site / ZYXh);
 
   // neighbour half-sites, with shift_eo_packed's semantics
+  Nbrs nb;
   const bool r0 = ((t + z + y + parity) & 1) == 0;
   const int64_t row = site - xh;
-  const int64_t x_fwd = row + (r0 ? xh : (xh + 1 == Xh ? 0 : xh + 1));
-  const int64_t x_bwd = row + (r0 ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
-  const int64_t y_fwd = site + (y + 1 == Y ? -(Y - 1) * static_cast<int64_t>(Xh) : Xh);
-  const int64_t y_bwd = site + (y == 0 ? (Y - 1) * static_cast<int64_t>(Xh) : -Xh);
-  const int64_t z_fwd = site + (z + 1 == Z ? -(Z - 1) * YXh : YXh);
-  const int64_t z_bwd = site + (z == 0 ? (Z - 1) * YXh : -YXh);
-  const int64_t t_fwd = site + (t + 1 == T ? -(T - 1) * ZYXh : ZYXh);
-  const int64_t t_bwd = site + (t == 0 ? (T - 1) * ZYXh : -ZYXh);
-  // sign of the rebuilt row 2 of the t links (R = 2 only)
-  const float s_t_fwd = (tb_sign && t == T - 1) ? -1.f : 1.f;
-  const float s_t_bwd = (tb_sign && t == 0) ? -1.f : 1.f;
+  nb.fwd[0] = row + (r0 ? xh : (xh + 1 == Xh ? 0 : xh + 1));
+  nb.bwd[0] = row + (r0 ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
+  yzt_nbrs(nb, site, y, z, t, T, Z, Y, Xh, YXh, ZYXh, tb_sign);
+  hop_sum<R>(acc, psi, rstride, nvalid, u_here, u_bw, n, nb, site);
+}
 
-#pragma unroll
-  for (int r = 0; r < NB; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) acc[r][s][c] = make_float2(0.f, 0.f);
+// The full-lattice hop sum D psi at site ``site`` (layouts over
+// S = T*Z*Y*X sites, YX = Y*X, ZYX = Z*YX): the x hop wraps inside its own
+// row of X slots of the fused Y*X axis and never carries into y
+// (wilson_packed._x_wrap_masks), y, z and t as on the half lattice.
+template <int R, int NB, typename S, typename C>
+__device__ __forceinline__ void full_hop_sum(C (&acc)[NB][4][3],
+                                             const S* __restrict__ psi,
+                                             int64_t rstride, int nvalid,
+                                             const S* __restrict__ u_here,
+                                             const S* __restrict__ u_bw,
+                                             int T, int Z, int Y, int X,
+                                             int64_t YX, int64_t ZYX,
+                                             int64_t n, int tb_sign,
+                                             int64_t site) {
+  const int x = static_cast<int>(site % X);
+  const int y = static_cast<int>((site / X) % Y);
+  const int z = static_cast<int>((site / YX) % Z);
+  const int t = static_cast<int>(site / ZYX);
 
-  const int64_t rs = rstride;
-  hop<0, +1, R>(acc, psi, rs, nvalid, u_here, n, x_fwd, site, 1.f);
-  hop<0, -1, R>(acc, psi, rs, nvalid, u_bw, n, x_bwd, site, 1.f);
-  hop<1, +1, R>(acc, psi, rs, nvalid, u_here, n, y_fwd, site, 1.f);
-  hop<1, -1, R>(acc, psi, rs, nvalid, u_bw, n, y_bwd, site, 1.f);
-  hop<2, +1, R>(acc, psi, rs, nvalid, u_here, n, z_fwd, site, 1.f);
-  hop<2, -1, R>(acc, psi, rs, nvalid, u_bw, n, z_bwd, site, 1.f);
-  hop<3, +1, R>(acc, psi, rs, nvalid, u_here, n, t_fwd, site, s_t_fwd);
-  hop<3, -1, R>(acc, psi, rs, nvalid, u_bw, n, t_bwd, site, s_t_bwd);
+  Nbrs nb;
+  nb.fwd[0] = site + (x + 1 == X ? -(X - 1) : 1);
+  nb.bwd[0] = site + (x == 0 ? X - 1 : -1);
+  yzt_nbrs(nb, site, y, z, t, T, Z, Y, X, YX, ZYX, tb_sign);
+  hop_sum<R>(acc, psi, rstride, nvalid, u_here, u_bw, n, nb, site);
 }
 
 }  // namespace qtt

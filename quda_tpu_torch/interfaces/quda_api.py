@@ -5,16 +5,21 @@ Port of the Wilson, Wilson-clover and staggered even/odd CG paths of
 quda_tpu/interfaces/quda_api.py.  ``invert_quda`` serves
 dslash_type="wilson" and "clover" (solve_type="normop-pc") and
 "staggered", "asqtad" and "hisq" (solve_type "normop-pc" or "direct-pc"),
-inv_type="cg", with cuda_prec="single", on the packed pair
-representation (the float32 and bfloat16 pair operators that ``pairs``
-builds, the same way for every family):
+inv_type="cg", with cuda_prec="single" (and "double" for Wilson), on the
+packed pair representation (the float32, bfloat16 and float64 pair
+operators that ``pairs`` builds, the same way for every family):
 
 * sloppy = single: ``fused_cg`` on the float32 pair operator (every hop
   on the eo kernel, or for clover on the fused clover hop; the CG tail on
   the fused tail kernel);
 * sloppy = half: ``cg_reliable`` with a bfloat16 sloppy operator and
   reliable updates on the float32 one;
-* Wilson only, tol < 5e-8, sloppy single or half: the df64 route,
+* Wilson at cuda_prec="double" (native f64, as the JAX package's CPU
+  route): sloppy double runs ``fused_cg`` on the float64 pair operator
+  (B1 and B2 in f64), sloppy single ``cg_reliable`` with the float32 pair
+  operator as sloppy and the float64 one for the reliable updates;
+* Wilson only, cuda_prec="single", tol < 5e-8, sloppy single or half:
+  the df64 route,
   ``cg_reliable_df`` against a float32-pair precise operator
   (``_invert_wilson_df64``), which publishes ``param.x_df64_lo``.  As in
   the JAX package the gate is Wilson-only: a clover solve below 5e-8
@@ -37,11 +42,17 @@ touches; the df64 route reports its df64 full-lattice residual.
 Every other route raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.
 
-``invert_multi_src_quda`` solves N sources on one gauge field.  Wilson and
-clover ``normop-pc`` CG-family solves at cuda_prec="single" and
+``dslash_quda``, ``mat_quda`` and ``mat_dag_mat_quda`` apply the Wilson
+operator to canonical complex fields, as the JAX package's do: the eo hop
+on B1, M = 1 - kappa D and its normal operator on the full-lattice hop
+B4, in float32 (cuda_prec "single") or float64 ("double").
+
+``invert_multi_src_quda`` solves N sources on one gauge field.  Wilson,
+clover and staggered-family PC CG-family solves at cuda_prec="single" and
 tol >= 5e-8 take the batched pair route: every Krylov iterate is an
-(N,4,3,2,T,Z,Y*Xh) batch and every hop one launch of a multi-RHS kernel
-(B5-eo, B7-mrhs).  Every other request loops over ``invert_quda``.
+(N,4,3,2,T,Z,Y*Xh) (staggered (N,3,2,T,Z,Y*Xh)) batch and every hop one
+launch of a multi-RHS kernel (B5-eo, B7-mrhs, S2-mrhs).  Every other
+request loops over ``invert_quda``.
 
 Resident state (device, geometry, gauge) lives in a module-level context,
 as interface_quda.cpp keeps it, between ``init_quda`` and ``end_quda``.
@@ -246,11 +257,20 @@ def _check_route(param: InvertParam, sloppy: str):
             f"solve_type {param.solve_type!r}: only normop-pc is ported; "
             "the direct and unpreconditioned routes come with the "
             "remaining solvers (ROADMAP A11)")
+    if param.cuda_prec == "double":
+        if param.dslash_type != "wilson" or sloppy not in ("double",
+                                                           "single"):
+            raise NotImplementedError(
+                f"cuda_prec 'double' with dslash_type "
+                f"{param.dslash_type!r} and sloppy {sloppy!r}: the native "
+                "double route serves Wilson with sloppy double or single; "
+                "the clover, staggered and half-sloppy double routes wait "
+                "for ROADMAP A7")
+        return
     if param.cuda_prec != "single":
         raise NotImplementedError(
-            f"cuda_prec {param.cuda_prec!r}: only single is ported; native "
-            "f64 against df64 on the card is a later, measured step of "
-            "ROADMAP A7")
+            f"cuda_prec {param.cuda_prec!r}: single and (Wilson) double are "
+            "ported (ROADMAP A7)")
     if sloppy == "quarter":
         raise NotImplementedError(
             "cuda_prec_sloppy 'quarter' (int8 block-float links) is not "
@@ -264,12 +284,18 @@ def _check_route(param: InvertParam, sloppy: str):
 def _df64_route(param: InvertParam) -> bool:
     """The deep-tolerance gate (quda_api.py:1135-1147 of the JAX package):
     below tol 5e-8 an f32 precise side cannot certify the residual.
-    Wilson only, as in the JAX package (``df64_able``)."""
-    return param.dslash_type == "wilson" and param.tol < 5e-8
+    Wilson at cuda_prec "single" only, as in the JAX package
+    (``df64_able``): a double solve is native f64."""
+    return (param.dslash_type == "wilson" and param.cuda_prec == "single"
+            and param.tol < 5e-8)
+
+
+_STORE = {"half": torch.bfloat16, "single": torch.float32,
+          "double": torch.float64}
 
 
 def _store_dtype(sloppy: str):
-    return torch.bfloat16 if sloppy == "half" else torch.float32
+    return _STORE[sloppy]
 
 
 def _solve_supervision(param: InvertParam, api: str, converged=None,
@@ -367,7 +393,7 @@ def invert_quda(source, param: InvertParam):
             torch.cuda.synchronize(dev)
         param.secs = time.perf_counter() - t0
     else:
-        op = dirac.pairs(torch.float32, precision_form=form)
+        op = dirac.pairs(_store_dtype(param.cuda_prec), precision_form=form)
         be, bo = even_odd_split(b, geom)
         rhs = op.prepare_pairs(be, bo)
         sys_rhs = rhs if hermitian else op.Mdag_pairs(rhs)
@@ -384,8 +410,9 @@ def invert_quda(source, param: InvertParam):
             sl = dirac.pairs(store, precision_form=form)
             res = solvers.cg_reliable(
                 system(op), system(sl), sys_rhs,
-                solvers.pair_inplace_codec(store), tol=param.tol,
-                maxiter=param.maxiter, delta=param.reliable_delta)
+                solvers.pair_inplace_codec(store, op.store_dtype),
+                tol=param.tol, maxiter=param.maxiter,
+                delta=param.reliable_delta)
         xe, xo = op.reconstruct_pairs(res.x, be, bo)
         x_full = even_odd_join(xe, xo, geom)
         if dev.type == "cuda":
@@ -408,17 +435,17 @@ def invert_quda(source, param: InvertParam):
     return x_full
 
 
-def _source_on_device(source, param: InvertParam, dtype):
+def _source_on_device(source, param: InvertParam, dtype, sites=None):
     """The source (a numpy array or a tensor) on the session's device,
-    checked against the lattice: (T,Z,Y,X,4,3), or (T,Z,Y,X,1,3) for the
-    staggered family."""
+    checked against the lattice (``sites``, default the full lattice's):
+    (T,Z,Y,X,4,3), or (T,Z,Y,X,1,3) for the staggered family."""
     dev = _ctx["device"]
     nspin = 1 if param.dslash_type in STAGGERED_TYPES else 4
     if isinstance(source, torch.Tensor):
         b = source.to(device=dev, dtype=dtype)
     else:
         b = spinor_from_host(source, dev, dtype, nspin)
-    want = _ctx["geom"].spinor_shape(nspin)
+    want = tuple(sites or _ctx["geom"].lattice_shape) + (nspin, 3)
     if tuple(b.shape) != want:
         raise ValueError(f"source shape {tuple(b.shape)} != {want}")
     return b
@@ -517,16 +544,19 @@ def invert_multi_src_quda(sources, param: InvertParam):
 
     Routes, as the JAX package's (quda_api.py:1503-1820):
 
-    * batched: dslash_type "wilson" or "clover", solve_type
-      "normop-pc", inv_type in the CG family, cuda_prec "single",
-      tol >= 5e-8.  Every iterate is an f32 pair batch (N,4,3,2,T,Z,Y*Xh)
-      on the float32 pair operator, links full or recon-12 as
-      ``GaugeParam.reconstruct`` says, whatever ``cuda_prec_sloppy`` says
-      (it is ignored here, as in the JAX package).  CGNR, 2 M applies per
-      iteration: ``batched_cg_pairs`` (independent lanes), or with
+    * batched: dslash_type "wilson", "clover" or the staggered family,
+      a PC solve_type, inv_type in the CG family, cuda_prec "single",
+      tol >= 5e-8.  Every iterate is an f32 pair batch (N,4,3,2,T,Z,Y*Xh),
+      or (N,3,2,T,Z,Y*Xh) staggered, on the float32 pair operator, links
+      full or recon-12 as ``GaugeParam.reconstruct`` says (staggered: full
+      only), whatever ``cuda_prec_sloppy`` says (it is ignored here, as in
+      the JAX package).  Wilson and clover run CGNR, 2 M applies per
+      iteration; the Hermitian staggered PC operator runs CG directly, 1
+      apply: ``batched_cg_pairs`` (independent lanes), or with
       QUDA_TORCH_MULTI_SRC_BLOCK=1 ``block_cg_pairs`` (one shared Krylov
       space).  Every hop is one launch of a multi-RHS kernel: B5-eo for
-      Wilson, K1/K2-mrhs for clover.
+      Wilson, K1/K2-mrhs for clover, two S2-mrhs passes (fat, then Naik
+      added) for asqtad/hisq and one for fat-only staggered.
     * per-source: everything else loops over ``invert_quda`` (so tol <
       5e-8 Wilson reaches the df64 route per source, and stacks its low
       words into ``param.x_df64_lo``); what ``invert_quda`` does not
@@ -541,20 +571,16 @@ def invert_multi_src_quda(sources, param: InvertParam):
     param.validate()
     if _ctx["gauge"] is None:
         raise RuntimeError("load_gauge_quda() first")
-    if param.dslash_type in STAGGERED_TYPES:
-        raise NotImplementedError(
-            "invert_multi_src_quda for the staggered family is not ported "
-            "yet: it comes with its batched route on the multi-RHS gather "
-            "pass _stag_pass_mrhs (ROADMAP A9/B6, the next slice)")
     geom = _ctx["geom"]
     dtype = complex_dtype(param.cuda_prec)
+    nspin = 1 if param.dslash_type in STAGGERED_TYPES else 4
     if isinstance(sources, torch.Tensor):
         B = sources.to(device=_ctx["device"], dtype=dtype)
     else:
-        B = spinor_from_host(sources, _ctx["device"], dtype)
-    if B.ndim != 7 or tuple(B.shape[1:]) != geom.spinor_shape():
+        B = spinor_from_host(sources, _ctx["device"], dtype, nspin)
+    if B.ndim != 7 or tuple(B.shape[1:]) != geom.spinor_shape(nspin):
         raise ValueError(f"sources of shape {tuple(B.shape)}: expected "
-                         f"(N,) + {geom.spinor_shape()}")
+                         f"(N,) + {geom.spinor_shape(nspin)}")
     return _invert_multi_src_body(B, param)
 
 
@@ -572,7 +598,9 @@ def _invert_multi_src_body(B, param: InvertParam):
     # f32 pairs cannot certify tolerances below the f32 floor: deep-tol
     # batches take the per-source route, whose invert_quda engages df64
     tol_ok = param.tol >= 5e-8
-    batched_able = (pc and param.dslash_type in ("wilson", "clover")
+    stag = param.dslash_type in STAGGERED_TYPES
+    batched_able = (pc and (param.dslash_type in ("wilson", "clover")
+                            or stag)
                     and cg_family and tol_ok and param.cuda_prec == "single")
     route, _, _ = multi_src_route(
         n_src, split_mode=config.get("QUDA_TORCH_MULTI_SRC_SPLIT"),
@@ -601,22 +629,30 @@ def _invert_multi_src_body(B, param: InvertParam):
     else:
         geom = _ctx["geom"]
         dev = _ctx["device"]
-        form = _link_form()
+        form = _link_form(stag)
         dirac = _build_dirac(param, True, B.dtype)
         if param.dslash_type == "wilson":
             dirac = dirac.packed()
-        op = dirac.pairs(torch.float32, precision_form=form)
+        # staggered: the gather form, as the JAX route pins it; every hop
+        # of the batch is S2-mrhs
+        kw = {"form": "two_pass"} if stag else {}
+        op = dirac.pairs(torch.float32, precision_form=form, **kw)
         be, bo = _split_batch(B, geom)
-        # CGNR on the batched normal equations: MdagM x = Mdag b
-        sys_rhs = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be, bo))
+        rhs_b = op.prepare_pairs_mrhs(be, bo)
+        if stag:
+            # the staggered PC operator is Hermitian positive definite:
+            # CG on it directly, one M apply per iteration
+            sys_rhs, mv_b, mv_applies = rhs_b, op.M_pairs_mrhs, 1.0
+        else:
+            # CGNR on the batched normal equations: MdagM x = Mdag b
+            sys_rhs = op.Mdag_pairs_mrhs(rhs_b)
+            mv_b, mv_applies = op.MdagM_pairs_mrhs, 2.0
         if config.get("QUDA_TORCH_MULTI_SRC_BLOCK") == "1":
-            res = solvers.block_cg_pairs(op.MdagM_pairs_mrhs, sys_rhs,
-                                         tol=param.tol,
+            res = solvers.block_cg_pairs(mv_b, sys_rhs, tol=param.tol,
                                          maxiter=param.maxiter)
             iters = [int(res.iters)] * n_src
         else:
-            res = solvers.batched_cg_pairs(op.MdagM_pairs_mrhs, sys_rhs,
-                                           tol=param.tol,
+            res = solvers.batched_cg_pairs(mv_b, sys_rhs, tol=param.tol,
                                            maxiter=param.maxiter)
             iters = [int(i) for i in res.iters]
         conv = [bool(c) for c in res.converged]
@@ -628,9 +664,9 @@ def _invert_multi_src_body(B, param: InvertParam):
         res_rhs = [math.sqrt(float(blas.norm2(B[i] - d_chk.M(x_full[i])))
                              / float(blas.norm2(B[i])))
                    for i in range(n_src)]
-        # per UPDATED site (volume/2) and M apply, 2 applies per iteration;
-        # each source is charged its own converged iterations
-        gflops = (sum(iters) * 2.0 * dirac.flops_per_site_M()
+        # per UPDATED site (volume/2) and M apply (staggered: 2 * (1146
+        # or 570) + 24); each source is charged its own iterations
+        gflops = (sum(iters) * mv_applies * dirac.flops_per_site_M()
                   * (geom.volume // 2)) / 1e9
     param.iter_count_multi = [int(i) for i in iters]
     param.true_res_multi = [float(r) for r in res_rhs]
@@ -645,3 +681,58 @@ def _invert_multi_src_body(B, param: InvertParam):
              param.inv_type, route, n_src, param.iter_count_multi,
              param.true_res, param.secs)
     return x_full
+
+
+def _operator_route(param: InvertParam, api: str):
+    """The Wilson operator of the operator API, in the precision
+    ``cuda_prec`` names (float32 or float64 pairs), links full or recon-12
+    as the resident gauge says; raises for the families it does not
+    serve yet."""
+    _require_init()
+    param.validate()
+    if _ctx["gauge"] is None:
+        raise RuntimeError("load_gauge_quda() first")
+    queued = {"clover": "ROADMAP A17 (the full-lattice clover kernel "
+                        "clover_pallas_packed)",
+              "staggered": "ROADMAP A12 (the full-lattice staggered forms)",
+              "asqtad": "ROADMAP A12 (the full-lattice staggered forms)",
+              "hisq": "ROADMAP A12 (the full-lattice staggered forms)"}
+    if param.dslash_type != "wilson":
+        raise NotImplementedError(
+            f"{api} for dslash_type {param.dslash_type!r} is not ported "
+            f"yet: {queued.get(param.dslash_type, 'ROADMAP A10')}; the "
+            "port serves Wilson")
+    if param.cuda_prec not in ("single", "double"):
+        raise NotImplementedError(
+            f"{api} at cuda_prec {param.cuda_prec!r}: single and double "
+            "are ported (ROADMAP A7)")
+    return _store_dtype(param.cuda_prec), _link_form()
+
+
+def dslash_quda(psi, param: InvertParam, parity: int):
+    """dslashQuda: the PC hop D_{parity, 1-parity} on a canonical complex
+    half-lattice field (T,Z,Y,Xh,4,3) of parity 1-parity, on B1."""
+    from ..ops import wilson_packed as wpk
+    _, form = _operator_route(param, "dslash_quda")
+    dtype = complex_dtype(param.cuda_prec)
+    dpk = _build_dirac(param, True, dtype).packed(precision_form=form)
+    half = _ctx["geom"].half_lattice_shape
+    x = _source_on_device(psi, param, dtype, half)
+    return wpk.unpack_spinor(dpk.D_to(wpk.pack_spinor(x), int(parity)), half)
+
+
+def mat_quda(psi, param: InvertParam):
+    """MatQuda: M = 1 - kappa D on a canonical complex (T,Z,Y,X,4,3) field,
+    the hop on B4."""
+    store, form = _operator_route(param, "mat_quda")
+    dtype = complex_dtype(param.cuda_prec)
+    op = _build_dirac(param, False, dtype).pairs(store, precision_form=form)
+    return op.M(_source_on_device(psi, param, dtype))
+
+
+def mat_dag_mat_quda(psi, param: InvertParam):
+    """MatDagMatQuda: M^dag M = g5 M g5 M, two B4 launches."""
+    store, form = _operator_route(param, "mat_dag_mat_quda")
+    dtype = complex_dtype(param.cuda_prec)
+    op = _build_dirac(param, False, dtype).pairs(store, precision_form=form)
+    return op.MdagM(_source_on_device(psi, param, dtype))

@@ -15,12 +15,14 @@ The pair operator ``DiracStaggeredPCPairs`` (``DiracStaggeredPC.pairs``)
 runs every hop through a CUDA kernel's wrapper: improved staggered on the
 fused fat + Naik hop S1 (form ``fused``), fat-only staggered on the
 gather pass S2 (form ``two_pass``; the improved two-pass form runs the
-fat and Naik passes and sums them).  On CPU tensors the wrappers run
-their plain versions.  Storage float32 (the precise operator) or
+fat and Naik passes and sums them).  The ``_mrhs`` forms act on a leading axis
+of N right-hand sides, (N,3,2,T,Z,Y*Xh): every hop is one call of the
+multi-RHS gather pass S2-mrhs (the fat pass, then the Naik pass added
+into it), on the ``two_pass`` form only.  On CPU tensors the wrappers
+run their plain versions.  Storage float32 (the precise operator) or
 bfloat16 (the sloppy operator of mixed precision); full links only.  The
-JAX package's form race, its mesh route, its r12/fold precision forms,
-the multi-RHS forms and the v3 kernels are not ported (ROADMAP A9, B6,
-B9, A15, A17, C).
+JAX package's form race, its mesh route, its r12/fold precision forms
+and the v3 kernels are not ported (ROADMAP B6, B9, A15, A17, C).
 """
 
 from __future__ import annotations
@@ -257,10 +259,46 @@ class DiracStaggeredPCPairs:
     def MdagM_pairs(self, x_pp):
         return self.M_pairs(self.M_pairs(x_pp))
 
+    # -- multi-RHS forms: a leading axis of N right-hand sides ------------
+    def _d_to_mrhs(self, psi_b, target_parity, out_dtype=None):
+        """The hop D_{p <- 1-p} on a batch psi_b (N,3,2,T,Z,Y*Xh): the
+        fat and (improved) Naik passes of S2-mrhs, links loaded once per
+        chunk of right-hand sides.  The two_pass form's: the batched route
+        runs the gather kernel only, as the JAX package's does."""
+        if self.form != "two_pass":
+            raise NotImplementedError(
+                f"the multi-RHS staggered hop runs on the two_pass form "
+                f"(S2-mrhs), not {self.form!r}: build the operator with "
+                f"pairs(form='two_pass')")
+        p = target_parity
+        lng = self.long_eo_pp
+        return spl.dslash_staggered_eo_pallas_mrhs(
+            self.fat_eo_pp[p], self._fat_bw[p], psi_b, self.dims, p,
+            long_here_pl=lng[p] if lng is not None else None,
+            long_bw_pl=(self._long_bw[p] if self._long_bw is not None
+                        else None),
+            out_dtype=out_dtype or self.store_dtype)
+
+    def M_pairs_mrhs(self, x_b):
+        """(4m^2 - D_pq D_qp) per lane: Hermitian positive definite, so
+        the batched CG runs it directly (one apply per iteration)."""
+        p = self.matpc
+        tmp = self._d_to_mrhs(x_b, 1 - p, self.store_dtype)
+        dd = self._d_to_mrhs(tmp, p, torch.float32)
+        out = (4.0 * self.mass ** 2) * x_b.to(torch.float32) - dd
+        return out.to(self.store_dtype)
+
+    Mdag_pairs_mrhs = M_pairs_mrhs
+
+    def MdagM_pairs_mrhs(self, x_b):
+        return self.M_pairs_mrhs(self.M_pairs_mrhs(x_b))
+
     # -- canonical complex <-> pairs --------------------------------------
     def _to_pairs(self, x):
-        """Canonical (..., T,Z,Y,Xh,1,3) complex -> (..., 3,2,T,Z,Y*Xh)."""
-        return wpk.to_packed_pairs(spk.pack_staggered(x), self.store_dtype)
+        """Canonical (..., T,Z,Y,Xh,1,3) complex -> (..., 3,2,T,Z,Y*Xh),
+        contiguous (the kernels read raw pointers)."""
+        return wpk.to_packed_pairs(spk.pack_staggered(x),
+                                   self.store_dtype).contiguous()
 
     def _from_pairs(self, x_pp, dtype):
         T, Z, Y, X = self.dims
@@ -287,4 +325,31 @@ class DiracStaggeredPCPairs:
             2.0 * self.mass)
         x_p = self._from_pairs(x_pp, b_q.dtype)
         x_q = self._from_pairs(x_q_pp, b_q.dtype)
+        return (x_p, x_q) if p == EVEN else (x_q, x_p)
+
+    def prepare_pairs_mrhs(self, b_even_b, b_odd_b):
+        """Batched prepare_pairs: (N,T,Z,Y,Xh,1,3) complex parity sources
+        in, the (N,3,2,T,Z,Y*Xh) rhs 2m b_p - D_pq b_q out, the hop on
+        S2-mrhs."""
+        p = self.matpc
+        b_p, b_q = ((b_even_b, b_odd_b) if p == EVEN
+                    else (b_odd_b, b_even_b))
+        bp = self._to_pairs(b_p).to(torch.float32)
+        dq = self._d_to_mrhs(self._to_pairs(b_q), p, torch.float32)
+        return ((2.0 * self.mass) * bp - dq).to(self.store_dtype)
+
+    def solution_from_pairs_mrhs(self, x_b, dtype=torch.complex64):
+        """Batched pair solutions -> canonical complex (N,T,Z,Y,Xh,1,3)."""
+        return self._from_pairs(x_b, dtype)
+
+    def reconstruct_pairs_mrhs(self, x_b, b_even_b, b_odd_b):
+        """Batched reconstruct_pairs: x_q = (b_q - D_qp x_p) / 2m on
+        S2-mrhs; canonical complex (even, odd) batches out."""
+        p = self.matpc
+        b_q = b_odd_b if p == EVEN else b_even_b
+        dq = self._d_to_mrhs(x_b, 1 - p, torch.float32)
+        xq_b = (self._to_pairs(b_q).to(torch.float32) - dq) / (
+            2.0 * self.mass)
+        x_p = self.solution_from_pairs_mrhs(x_b, b_q.dtype)
+        x_q = self.solution_from_pairs_mrhs(xq_b, b_q.dtype)
         return (x_p, x_q) if p == EVEN else (x_q, x_p)

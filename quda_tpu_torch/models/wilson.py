@@ -12,8 +12,14 @@ The packed pair operator (``DiracWilsonPCPackedSloppy``, reached through
 ``DiracWilsonPCPacked.pairs``) runs every hop through the CUDA kernel's
 wrapper (ops/wilson_pallas_packed.dslash_eo_pallas_packed): on the card
 the kernel, on CPU tensors its plain version.  Its storage is float32
-(the precise operator) or bfloat16 (the sloppy operator of mixed
-precision), with full or reconstruct-12 links.  ``_SchurPairOpBase``
+(the precise operator), bfloat16 (the sloppy operator of mixed
+precision) or float64 (the precise operator of the native double
+routes, full links, sums in float64), with full or reconstruct-12 links.
+``DiracWilsonPCPacked.D_to/M/Mdag/MdagM`` act on complex packed fields
+through it.  The full-lattice operator's pair companion
+(``DiracWilsonPackedPairs``, ``DiracWilson.pairs``) runs the full-lattice
+hop B4 (``dslash_pallas_packed``): the operator API's ``mat_quda`` and
+``mat_dag_mat_quda``.  ``_SchurPairOpBase``
 is the same hop under a Schur operator with a diagonal (the clover
 family, models/clover.py), whose two hops per apply run the fused clover
 kernel.  Every pair operator also has ``_mrhs`` forms on a leading axis of
@@ -34,6 +40,8 @@ from ..ops.boundary import apply_t_boundary
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
 
 STORE_DTYPES = (torch.float32, torch.bfloat16)
+# the Wilson pair operators also take float64 (B1 and B4's double form)
+WILSON_STORE_DTYPES = STORE_DTYPES + (torch.float64,)
 PRECISION_FORMS = ("full", "r12")
 # forms of the JAX package's packed operator that wait for ROADMAP A7/B9
 QUEUED_FORMS = ("auto", "bzfull", "fold", "r12f", "int8")
@@ -55,6 +63,14 @@ def _g5_sign(device, ndim: int, spin_axis: int) -> torch.Tensor:
     return sign
 
 
+def _check_double_form(store_dtype, precision_form: str) -> None:
+    if store_dtype == torch.float64 and precision_form != "full":
+        raise NotImplementedError(
+            f"precision_form {precision_form!r} in float64: the double "
+            "forms of B1 and B4 take full links; recon-12 under double "
+            "waits for ROADMAP A7")
+
+
 class DiracWilson(Dirac):
     """Full-lattice Wilson operator M = 1 - kappa D."""
 
@@ -62,6 +78,7 @@ class DiracWilson(Dirac):
                  kappa: float, antiperiodic_t: bool = True):
         self.geom = geom
         self.kappa = kappa
+        self.antiperiodic_t = antiperiodic_t
         self.gauge = apply_t_boundary(gauge, geom, -1 if antiperiodic_t else 1)
 
     def D(self, psi):
@@ -70,8 +87,34 @@ class DiracWilson(Dirac):
     def M(self, psi):
         return psi - self.kappa * self.D(psi)
 
+    # --- diag + per-direction hop decomposition (MG coarsening probes) ---
+    def diag(self, psi):
+        return psi
+
+    def hop(self, psi, mu: int, sign: int):
+        """-kappa * the single-direction Wilson hop (M = diag + sum hops)."""
+        from ..ops.gamma import PROJ_MINUS, PROJ_PLUS
+        from ..ops.shift import shift
+        from ..ops.su3 import dagger
+        if sign > 0:
+            u = self.gauge[mu]
+            proj = PROJ_MINUS[mu]
+            h = torch.einsum("...ab,...sb->...sa", u, shift(psi, mu, +1))
+        else:
+            u = shift(dagger(self.gauge[mu]), mu, -1)
+            proj = PROJ_PLUS[mu]
+            h = torch.einsum("...ab,...sb->...sa", u, shift(psi, mu, -1))
+        proj = torch.as_tensor(proj, dtype=psi.dtype, device=psi.device)
+        return -self.kappa * torch.einsum("st,...tc->...sc", proj, h)
+
     def flops_per_site_M(self) -> int:
         return 1320 + 48
+
+    def pairs(self, store_dtype=torch.float32,
+              precision_form: str = "full") -> "DiracWilsonPackedPairs":
+        """Pair companion on the full packed lattice, every hop on B4:
+        float32 (full or recon-12 links) or float64 (full)."""
+        return DiracWilsonPackedPairs(self, store_dtype, precision_form)
 
 
 class DiracWilsonPC(DiracPC):
@@ -86,6 +129,19 @@ class DiracWilsonPC(DiracPC):
         self.antiperiodic_t = antiperiodic_t
         g = apply_t_boundary(gauge, geom, -1 if antiperiodic_t else 1)
         self.gauge_eo = wops.split_gauge_eo(g, geom)
+
+    @classmethod
+    def from_eo(cls, gauge_eo, geom: LatticeGeometry, kappa: float,
+                matpc: int = MATPC_EVEN_EVEN):
+        """Construct from pre-split (even, odd) links, boundary phase
+        already folded in."""
+        self = object.__new__(cls)
+        self.geom = geom
+        self.kappa = kappa
+        self.matpc = matpc
+        self.antiperiodic_t = True
+        self.gauge_eo = gauge_eo
+        return self
 
     def D_to(self, psi, target_parity):
         """Hop from parity (1-target) into target parity."""
@@ -110,8 +166,8 @@ class DiracWilsonPC(DiracPC):
     def flops_per_site_M(self) -> int:
         return 2 * 1320 + 48
 
-    def packed(self) -> "DiracWilsonPCPacked":
-        return DiracWilsonPCPacked(self)
+    def packed(self, precision_form: str = "full") -> "DiracWilsonPCPacked":
+        return DiracWilsonPCPacked(self, precision_form)
 
 
 class _PairSloppyBase:
@@ -129,12 +185,17 @@ class _PairSloppyBase:
         """The stencil on a batch (N, ...) of right-hand sides."""
         raise NotImplementedError
 
+    @property
+    def _acc(self):
+        """The glue's arithmetic: float32, float64 for float64 storage."""
+        return wpk.compute_dtype(self.store_dtype)
+
     def _M_with(self, x, d_to):
         """x - kappa^2 D_p D_{1-p} x, on hop ``d_to``."""
         p = self.matpc
         tmp = d_to(x, 1 - p, self.store_dtype)
-        dd = d_to(tmp, p, torch.float32)
-        out = x.to(torch.float32) - (self.kappa ** 2) * dd
+        dd = d_to(tmp, p, self._acc)
+        out = x.to(self._acc) - (self.kappa ** 2) * dd
         return out.to(self.store_dtype)
 
     def M_pairs(self, x):
@@ -143,9 +204,10 @@ class _PairSloppyBase:
     @staticmethod
     def _g5_on(x, spin_axis):
         """gamma5 = diag(+1,+1,-1,-1) on ``spin_axis``, computed in f32
-        and cast back to x's dtype."""
-        sign = _g5_sign(x.device, x.ndim, spin_axis)
-        return (x.to(torch.float32) * sign).to(x.dtype)
+        (f64 for f64 x) and cast back to x's dtype."""
+        cdt = wpk.compute_dtype(x.dtype)
+        sign = _g5_sign(x.device, x.ndim, spin_axis).to(cdt)
+        return (x.to(cdt) * sign).to(x.dtype)
 
     def _g5_pairs(self, x):
         return self._g5_on(x, self._spin_axis % x.ndim)
@@ -179,18 +241,19 @@ class _PackedHopMixin:
 
     def _setup_hop(self, geom: LatticeGeometry, gauge_eo_packed,
                    store_dtype, tb_sign: bool = True,
-                   precision_form: str = "full"):
+                   precision_form: str = "full",
+                   store_dtypes=STORE_DTYPES):
         """gauge_eo_packed: (even, odd) complex packed (4,3,3,T,Z,Y*Xh)
         links (wilson_packed.pack_gauge_eo), boundary phase folded in.
         ``precision_form``: "full" (18 reals per link) or "r12" (two rows,
         row 2 rebuilt in the hop).  ``tb_sign``: the t boundary is
         antiperiodic, so the recon-12 hop negates the rebuilt row of the
         boundary t links."""
-        if store_dtype not in STORE_DTYPES:
+        if store_dtype not in store_dtypes:
             raise NotImplementedError(
-                f"pair storage {store_dtype}: float32 and bfloat16 are "
-                "ported; int8 block-float links ('quarter') wait for "
-                "ROADMAP A7/B9")
+                f"pair storage {store_dtype}: {store_dtypes} are ported "
+                "here; int8 block-float links ('quarter') and the clover "
+                "and staggered double forms wait for ROADMAP A7/B9")
         form = precision_form
         if form in QUEUED_FORMS:
             raise NotImplementedError(
@@ -198,6 +261,7 @@ class _PackedHopMixin:
                 f"A7/B9); the port serves {PRECISION_FORMS}")
         if form not in PRECISION_FORMS:
             raise ValueError(f"unknown precision_form {form!r}")
+        _check_double_form(store_dtype, form)
         self.geom = geom
         self.dims = tuple(geom.lattice_shape)
         self.store_dtype = store_dtype
@@ -233,8 +297,10 @@ class _PackedHopMixin:
 
     def _to_pairs(self, x):
         """Canonical (..., T,Z,Y,Xh,4,3) complex -> packed pairs; leading
-        (RHS) axes stay in front."""
-        return wpk.to_packed_pairs(wpk.pack_spinor(x), self.store_dtype)
+        (RHS) axes stay in front; contiguous (the kernels read raw
+        pointers)."""
+        return wpk.to_packed_pairs(wpk.pack_spinor(x),
+                                   self.store_dtype).contiguous()
 
     def _from_pairs(self, x, dtype):
         """Packed pairs -> canonical (..., T,Z,Y,Xh,4,3) complex."""
@@ -362,14 +428,49 @@ class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
 
 class DiracWilsonPCPacked:
     """PC Wilson operator with its links in the packed half-lattice
-    layout.  The Krylov loop runs on its pair companion (``pairs``)."""
+    layout.  The Krylov loop runs on its pair companion (``pairs``);
+    ``D_to``, ``M``, ``Mdag`` and ``MdagM`` act on complex packed fields
+    (4,3,T,Z,Y*Xh) through the pair companion of their precision (float32
+    for complex64, float64 for complex128) and ``precision_form`` ("full"
+    or "r12" links), every hop on B1."""
 
-    def __init__(self, dpc: DiracWilsonPC):
+    def __init__(self, dpc: DiracWilsonPC, precision_form: str = "full"):
         self.geom = dpc.geom
         self.kappa = dpc.kappa
         self.matpc = dpc.matpc
         self._dpc = dpc
+        self.dims = tuple(dpc.geom.lattice_shape)
         self.gauge_eo_p = wpk.pack_gauge_eo(dpc.gauge_eo)
+        self.precision_form = precision_form
+        self._pair_ops: dict = {}
+
+    def _pair_op(self, dtype) -> "DiracWilsonPCPackedSloppy":
+        store = wpk.compute_dtype(torch.empty((), dtype=dtype).real.dtype)
+        op = self._pair_ops.get(store)
+        if op is None:
+            op = self._pair_ops[store] = self.pairs(store,
+                                                    self.precision_form)
+        return op
+
+    def D_to(self, psi_p, target_parity):
+        """Hop from parity (1-target) into target parity on complex packed
+        (4,3,T,Z,Y*Xh) fields."""
+        op = self._pair_op(psi_p.dtype)
+        out = op._d_to(wpk.to_packed_pairs(psi_p, op.store_dtype),
+                       target_parity, op.store_dtype)
+        return wpk.from_packed_pairs(out, psi_p.dtype)
+
+    def M(self, x_p):
+        p = self.matpc
+        tmp = self.D_to(x_p, 1 - p)
+        return x_p - (self.kappa ** 2) * self.D_to(tmp, p)
+
+    def Mdag(self, x_p):
+        g5 = _g5_sign(x_p.device, x_p.ndim, 0).to(x_p.real.dtype)
+        return g5 * self.M(g5 * x_p)
+
+    def MdagM(self, x_p):
+        return self.Mdag(self.M(x_p))
 
     def flops_per_site_M(self) -> int:
         return self._dpc.flops_per_site_M()
@@ -379,7 +480,8 @@ class DiracWilsonPCPacked:
         """Pair-storage companion, every hop on the eo kernel: with
         float32 storage the precise operator in a complex-free
         representation, with bfloat16 the sloppy operator of the mixed
-        solve.  ``precision_form``: "full" or "r12" links."""
+        solve, with float64 the precise operator of the double routes.
+        ``precision_form``: "full" or "r12" links (float64: full)."""
         return DiracWilsonPCPackedSloppy(self, store_dtype, precision_form)
 
 
@@ -392,21 +494,22 @@ class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
                  precision_form: str = "full"):
         self._setup_hop(dpk.geom, dpk.gauge_eo_p, store_dtype,
                         tb_sign=dpk._dpc.antiperiodic_t,
-                        precision_form=precision_form)
+                        precision_form=precision_form,
+                        store_dtypes=WILSON_STORE_DTYPES)
         self.kappa = float(dpk.kappa)
         self.matpc = dpk.matpc
 
     def _prepare_with(self, b_even, b_odd, d_to):
         p = self.matpc
         b_p, b_q = (b_even, b_odd) if p == EVEN else (b_odd, b_even)
-        return (self._to_pairs(b_p).to(torch.float32)
-                + self.kappa * d_to(self._to_pairs(b_q), p, torch.float32))
+        return (self._to_pairs(b_p).to(self._acc)
+                + self.kappa * d_to(self._to_pairs(b_q), p, self._acc))
 
     def _reconstruct_with(self, x_pp, b_even, b_odd, d_to):
         p = self.matpc
         b_q = b_odd if p == EVEN else b_even
-        t = d_to(x_pp, 1 - p, torch.float32)
-        xq_pp = self._to_pairs(b_q).to(torch.float32) + self.kappa * t
+        t = d_to(x_pp, 1 - p, self._acc)
+        xq_pp = self._to_pairs(b_q).to(self._acc) + self.kappa * t
         x_p = self._from_pairs(x_pp, b_q.dtype)
         x_q = self._from_pairs(xq_pp, b_q.dtype)
         return (x_p, x_q) if p == EVEN else (x_q, x_p)
@@ -432,3 +535,76 @@ class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
         multi-RHS hop; canonical complex (even, odd) batches out."""
         return self._reconstruct_with(x_b, b_even_b, b_odd_b,
                                       self._d_to_mrhs)
+
+
+class DiracWilsonPackedPairs:
+    """Pair companion of the full-lattice Wilson operator M = 1 - kappa D
+    on the packed layout: spinors (4,3,2,T,Z,Y*X), links and their
+    pre-shifted backward copy (4,R,3,2,T,Z,Y*X), every hop one launch of
+    the full-lattice kernel B4 (its plain version on CPU tensors).
+    float32 (full or recon-12 links) or float64 (full); the glue in the
+    storage's precision.  ``D``, ``M``, ``Mdag`` and ``MdagM`` take and
+    give canonical complex (T,Z,Y,X,4,3) fields."""
+
+    def __init__(self, dw: DiracWilson, store_dtype=torch.float32,
+                 precision_form: str = "full"):
+        if store_dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(
+                f"pair storage {store_dtype}: B4 takes float32 and float64 "
+                "(its bf16 forms wait for ROADMAP A7)")
+        if precision_form not in PRECISION_FORMS:
+            raise NotImplementedError(
+                f"precision_form {precision_form!r} is not ported for the "
+                f"full-lattice hop (ROADMAP A7/B9); it serves "
+                f"{PRECISION_FORMS}")
+        _check_double_form(store_dtype, precision_form)
+        self.geom = dw.geom
+        self.kappa = float(dw.kappa)
+        self.dims = tuple(dw.geom.lattice_shape)
+        self.store_dtype = store_dtype
+        self._tb_sign = bool(dw.antiperiodic_t)
+        gp = wpk.to_packed_pairs(wpk.pack_gauge(dw.gauge), store_dtype)
+        if precision_form == "r12":
+            gp = wpp.to_recon12(gp)
+        self.gauge_pl = gp.contiguous()
+        self.gauge_bw = wpp.backward_gauge(self.gauge_pl,
+                                           self.dims[3]).contiguous()
+
+    def D_pairs(self, psi_pl):
+        """The hop sum D psi (B4), in the storage dtype."""
+        return wpp.dslash_pallas_packed(self.gauge_pl, psi_pl, self.dims[3],
+                                        gauge_bw=self.gauge_bw,
+                                        tb_sign=self._tb_sign)
+
+    def M_pairs(self, x):
+        return (x - self.kappa * self.D_pairs(x)).to(self.store_dtype)
+
+    def Mdag_pairs(self, x):
+        g5 = _PairSloppyBase._g5_on
+        return g5(self.M_pairs(g5(x, 0)), 0)
+
+    def MdagM_pairs(self, x):
+        return self.Mdag_pairs(self.M_pairs(x))
+
+    def _to_pairs(self, x):
+        """Canonical (..., T,Z,Y,X,4,3) complex -> (..., 4,3,2,T,Z,Y*X)."""
+        return wpk.to_packed_pairs(wpk.pack_spinor(x),
+                                   self.store_dtype).contiguous()
+
+    def _from_pairs(self, x, dtype):
+        return wpk.unpack_spinor(wpk.from_packed_pairs(x, dtype), self.dims)
+
+    def _on_canonical(self, fn, psi):
+        return self._from_pairs(fn(self._to_pairs(psi)), psi.dtype)
+
+    def D(self, psi):
+        return self._on_canonical(self.D_pairs, psi)
+
+    def M(self, psi):
+        return self._on_canonical(self.M_pairs, psi)
+
+    def Mdag(self, psi):
+        return self._on_canonical(self.Mdag_pairs, psi)
+
+    def MdagM(self, psi):
+        return self._on_canonical(self.MdagM_pairs, psi)

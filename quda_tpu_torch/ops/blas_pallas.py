@@ -5,7 +5,8 @@ hand-written CUDA kernels of ``csrc/blas_fused.cu``:
 
 * B2 ``cg_update_norm2_pallas``: x' = x + alpha p, r' = r - alpha Ap and
   |r'|^2 in one pass (the fused_cg tail).  Plain version
-  ``ops/blas.triple_cg_update``.
+  ``ops/blas.triple_cg_update``.  Forms ``f32`` and ``f64`` (the native
+  double fused_cg; no TPU twin), counted in ``launches_by_form``.
 * B3 ``axpy_norm2_pallas``: y' = y + a x rounded to y's storage dtype
   (float32 or bfloat16), and |y'|^2 of the rounded value (the residual
   update of cg_reliable).  Plain version ``axpy_norm2_plain``.
@@ -34,14 +35,17 @@ from . import blas
 TOLERANCE = 1e-5
 THREADS = 256
 BLOCKS_PER_SM = 8
-# Floor of the traffic per element in bytes: read p, Ap, x, r; write x', r'.
+# Floor of the traffic per element in bytes: read p, Ap, x, r; write x', r'
+# (float32; 48 in float64).
 BYTES_PER_ELEMENT = 24
+CG_UPDATE_BYTES_PER_ELEMENT = {torch.float32: 24, torch.float64: 48}
 # B3 against its plain version: y' is bit-identical (both round a*x and
 # y + a*x separately, in f32); |y'|^2 agrees to TOLERANCE (f64 partial
 # sums on the card against torch.sum's f32 order).  Its traffic per
 # element: read x, y; write y' -- 12 B in float32, 6 B in bfloat16.
 AXPY_BYTES_PER_ELEMENT = {torch.float32: 12, torch.bfloat16: 6}
-_FORM = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_FORM = {torch.float32: "f32", torch.bfloat16: "bf16"}        # B3's forms
+_CG_FORM = {torch.float32: "f32", torch.float64: "f64"}       # B2's forms
 
 
 def _grid(t: torch.Tensor) -> int:
@@ -50,14 +54,19 @@ def _grid(t: torch.Tensor) -> int:
 
 
 def cg_update_norm2_pallas(alpha, p, Ap, x, r):
-    """x' = x + alpha p; r' = r - alpha Ap; returns (x', r', |r'|^2)."""
+    """x' = x + alpha p; r' = r - alpha Ap; returns (x', r', |r'|^2), all
+    float32 or all float64 (alpha a one-element tensor of that dtype)."""
     kind = kernels.dispatch_device(alpha, p, Ap, x, r)
     if kind == "cpu":
         return blas.triple_cg_update(alpha, p, Ap, x, r)
+    dt = x.dtype
+    if dt not in _CG_FORM:
+        raise TypeError(f"x: dtype {dt}, the kernel takes float32 or "
+                        "float64")
     shape = tuple(x.shape)
     for name, t in (("p", p), ("Ap", Ap), ("x", x), ("r", r)):
-        kernels.require(t, name, shape)
-    kernels.require(alpha, "alpha")
+        kernels.require(t, name, shape, dt)
+    kernels.require(alpha, "alpha", None, dt)
     if alpha.numel() != 1:
         raise ValueError(f"alpha: one element expected, got {alpha.numel()}")
     lib = kernels.library()
@@ -66,17 +75,23 @@ def cg_update_norm2_pallas(alpha, p, Ap, x, r):
     x_out = torch.empty_like(x)
     r_out = torch.empty_like(r)
     partial = torch.empty(nblocks, dtype=torch.float64, device=x.device)
-    r2 = torch.empty((), dtype=torch.float32, device=x.device)
-    rc = lib.qtt_cg_update_norm2_f32(
-        alpha.data_ptr(), p.data_ptr(), Ap.data_ptr(), x.data_ptr(),
-        r.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), partial.data_ptr(),
-        r2.data_ptr(), n, nblocks, kernels.stream_of(x))
-    kernels.check_launch(rc, "qtt_cg_update_norm2_f32")
+    r2 = torch.empty((), dtype=dt, device=x.device)
+    fn = (lib.qtt_cg_update_norm2_f64 if dt == torch.float64
+          else lib.qtt_cg_update_norm2_f32)
+    rc = fn(alpha.data_ptr(), p.data_ptr(), Ap.data_ptr(), x.data_ptr(),
+            r.data_ptr(), x_out.data_ptr(), r_out.data_ptr(),
+            partial.data_ptr(), r2.data_ptr(), n, nblocks,
+            kernels.stream_of(x))
+    form = _CG_FORM[dt]
+    kernels.check_launch(rc, "qtt_cg_update_norm2_" + form)
     cg_update_norm2_pallas.launches += 1
+    by_form = cg_update_norm2_pallas.launches_by_form
+    by_form[form] = by_form.get(form, 0) + 1
     return x_out, r_out, r2
 
 
 cg_update_norm2_pallas.launches = 0
+cg_update_norm2_pallas.launches_by_form = {}
 
 
 def axpy_norm2_plain(a, x, y):

@@ -16,6 +16,15 @@ the hand-written CUDA kernels of ``csrc/staggered_eo.cu``:
   the fat and Naik passes in float32 summed (the two-pass improved form).
   Forms ``fat:`` and ``naik:`` x ``f32->f32``, ``bf16->bf16``,
   ``bf16->f32``.
+* S2-mrhs ``dslash_staggered_eo_pass_mrhs`` (``_stag_pass_mrhs``, eo
+  form, ``csrc/staggered_eo_mrhs.cu``): S2 over a leading axis of N
+  right-hand sides, psi and out (N, 3, 2, T, Z, Y*Xh), each link loaded
+  once for a chunk of ``MRHS_CHUNK`` = 4 of them; with ``acc`` the pass adds
+  into that float32 batch in place.  ``dslash_staggered_eo_pallas_mrhs``
+  composes it as the JAX function does: the fat pass, then with long
+  links the Naik pass added into it, so out = fat + naik bit for bit.
+  Forms ``fat:f32->f32`` and ``naik:f32->f32``: float32 and full links
+  only, as the JAX batched staggered route builds them.
 
 Layouts are the JAX package's pallas layout:
 
@@ -25,8 +34,8 @@ Layouts are the JAX package's pallas layout:
 
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_staggered_eo_fused_plain``,
-``dslash_staggered_eo_pass_plain``), CUDA tensors launch the kernel or
-raise.  Each wrapper counts its launches in ``.launches`` and per form in
+``dslash_staggered_eo_pass_plain``, ``dslash_staggered_eo_pass_mrhs_plain``),
+CUDA tensors launch the kernel or raise.  Each wrapper counts its launches in ``.launches`` and per form in
 ``.launches_by_form``.  Recon-12 long links are refused: HISQ long links
 are not +-SU(3) (ROADMAP C).
 """
@@ -37,6 +46,7 @@ import torch
 
 from ..utils import kernels
 from . import staggered_packed as spk
+from . import wilson_pallas_packed as wpp
 from .wilson_packed import shift_eo_packed
 
 # Kernel vs plain version, max |kernel - plain| / max |plain|: float32
@@ -50,6 +60,9 @@ PASS_FLOPS_PER_SITE = 570
 _STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HOPSET = {1: "fat", 3: "naik"}
+# Right-hand sides per thread of S2-mrhs (kNB of csrc/staggered_eo_mrhs.cu,
+# the fastest of 1, 2, 4 and 8 on the card at N = 12: PERF.md)
+MRHS_CHUNK = 4
 
 
 def fused_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
@@ -65,6 +78,13 @@ def pass_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
     sets, psi and out: 624 B in f32."""
     sb = _STORE_BYTES[store_dtype]
     return 2 * 72 * sb + 6 * sb + 6 * _STORE_BYTES[out_dtype or store_dtype]
+
+
+def pass_mrhs_bytes_per_site(n: int, accumulate: bool = False) -> int:
+    """Floor of S2-mrhs's traffic per target half-site for ``n``
+    right-hand sides in float32: psi read and out written once (48 n),
+    the two link sets once (576); an accumulating pass reads out too."""
+    return (72 if accumulate else 48) * n + 2 * 72 * 4
 
 
 def form_name(store_dtype, out_dtype) -> str:
@@ -118,6 +138,17 @@ def dslash_staggered_eo_pass_plain(u_here_pl, u_bw_pl, psi_pl, dims,
     out = spk.hopset_pairs(u_here_pl, u_bw_pl, psi_pl,
                            _eo_shift(dims, target_parity), nhop)
     return out.to(out_dtype or psi_pl.dtype)
+
+
+def dslash_staggered_eo_pass_mrhs_plain(u_here_pl, u_bw_pl, psi_b, dims,
+                                        target_parity: int, nhop: int,
+                                        out_dtype=None):
+    """Plain version of S2-mrhs: S2's plain version, lane by lane over the
+    leading RHS axis of psi_b (N,3,2,T,Z,Y*Xh)."""
+    return torch.stack([
+        dslash_staggered_eo_pass_plain(u_here_pl, u_bw_pl, q, dims,
+                                       target_parity, nhop, out_dtype)
+        for q in psi_b])
 
 
 def _checked_form(psi_pl, out_dtype):
@@ -221,6 +252,72 @@ def dslash_staggered_eo_pass(u_here_pl, u_bw_pl, psi_pl, dims,
     return out
 
 
+def dslash_staggered_eo_pass_mrhs(u_here_pl, u_bw_pl, psi_b, dims,
+                                  target_parity: int, nhop: int,
+                                  acc=None) -> torch.Tensor:
+    """One hop set of count ``nhop`` over N right-hand sides (S2-mrhs):
+    psi_b (N,3,2,T,Z,Y*Xh) float32 of parity 1-p, links as for S2.
+    Returns the float32 batch; with ``acc`` (a float32 batch of psi_b's
+    shape) the pass is added into ``acc`` in place, which is returned."""
+    if nhop not in HOPSET:
+        raise ValueError(f"nhop must be 1 or 3, got {nhop}")
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+    if psi_b.ndim != 6:
+        raise ValueError(f"psi of shape {tuple(psi_b.shape)}: expected "
+                         "(N, 3, 2, T, Z, Y*Xh)")
+    T, Z, Y, X = dims
+    Xh = X // 2
+    f32 = torch.float32
+    tensors = (u_here_pl, u_bw_pl, psi_b) + ((acc,) if acc is not None
+                                             else ())
+    kind = kernels.dispatch_device(*tensors)
+    if kind == "cpu":
+        out = dslash_staggered_eo_pass_mrhs_plain(
+            u_here_pl, u_bw_pl, psi_b, dims, target_parity, nhop, f32)
+        return out if acc is None else acc.add_(out)
+    sites = (T, Z, Y * Xh)
+    nrhs = psi_b.shape[0]
+    wpp.check_mrhs_grid(nrhs, T * Z * Y * Xh, MRHS_CHUNK)
+    if psi_b.dtype != f32:
+        raise TypeError(f"psi {psi_b.dtype}: S2-mrhs has float32 forms "
+                        "only, as the JAX batched staggered route")
+    kernels.require(psi_b, "psi_b", (nrhs, 3, 2) + sites, f32)
+    _require_links("u_here_pl", u_here_pl, sites, f32)
+    _require_links("u_bw_pl", u_bw_pl, sites, f32)
+    if acc is None:
+        out = torch.empty(psi_b.shape, dtype=f32, device=psi_b.device)
+    else:
+        kernels.require(acc, "acc", tuple(psi_b.shape), f32)
+        out = acc
+    lib = kernels.library()
+    rc = lib.qtt_staggered_eo_pass_mrhs(
+        out.data_ptr(), psi_b.data_ptr(), u_here_pl.data_ptr(),
+        u_bw_pl.data_ptr(), T, Z, Y, Xh, int(target_parity), int(nhop),
+        int(acc is not None), nrhs, kernels.stream_of(psi_b))
+    kernels.check_launch(rc, "qtt_staggered_eo_pass_mrhs")
+    _count(dslash_staggered_eo_pass_mrhs, pass_form_name(nhop, f32, f32))
+    return out
+
+
+def dslash_staggered_eo_pallas_mrhs(fat_here_pl, fat_bw_pl, psi_b, dims,
+                                    target_parity: int, long_here_pl=None,
+                                    long_bw_pl=None,
+                                    out_dtype=None) -> torch.Tensor:
+    """Multi-RHS checkerboarded staggered hop: the batched staggered
+    solver's stencil, ``dslash_staggered_eo_pallas`` with a leading RHS
+    axis on psi (N,3,2,T,Z,Y*Xh), parity 1-p.  The fat pass (nhop 1),
+    then with long links the Naik pass (nhop 3) added into it, each one
+    S2-mrhs launch with its links loaded once per chunk; cast to
+    ``out_dtype`` (default psi's)."""
+    out = dslash_staggered_eo_pass_mrhs(fat_here_pl, fat_bw_pl, psi_b, dims,
+                                        target_parity, 1)
+    if long_here_pl is not None:
+        out = dslash_staggered_eo_pass_mrhs(long_here_pl, long_bw_pl, psi_b,
+                                            dims, target_parity, 3, acc=out)
+    return out.to(out_dtype or psi_b.dtype)
+
+
 def dslash_staggered_eo_pallas(fat_here_pl, fat_bw_pl, psi_pl, dims,
                                target_parity: int, long_here_pl=None,
                                long_bw_pl=None,
@@ -242,8 +339,9 @@ def dslash_staggered_eo_pallas(fat_here_pl, fat_bw_pl, psi_pl, dims,
 
 
 def reset_launches() -> None:
-    """Zero the launch counts of S1 and S2."""
-    for fn in (dslash_staggered_eo_pallas_fused, dslash_staggered_eo_pass):
+    """Zero the launch counts of S1, S2 and S2-mrhs."""
+    for fn in (dslash_staggered_eo_pallas_fused, dslash_staggered_eo_pass,
+               dslash_staggered_eo_pass_mrhs):
         fn.launches = 0
         fn.launches_by_form = {}
 

@@ -18,7 +18,12 @@ ops/shift.shift_eo.
 
 ``dslash_eo_packed_pairs_bw`` is the plain version of the CUDA kernel B1
 (ops/wilson_pallas_packed.dslash_eo_pallas_packed): the same hop sum on
-the same inputs, pre-shifted backward links included.
+the same inputs, pre-shifted backward links included;
+``dslash_packed_pairs_bw`` that of the full-lattice kernel B4
+(``dslash_pallas_packed``), and ``dslash_packed_pairs`` (JAX :335) the
+full-lattice pair stencil B4 is held against.  The pair stencils sum in
+float32 as the JAX package's do, and in float64 for float64 input (the
+double forms, which the JAX package has no twin of).
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ def to_packed_pairs(arr: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def from_packed_pairs(p: torch.Tensor, dtype=torch.complex64) -> torch.Tensor:
-    f = p.to(torch.float32)
+    f = p.to(torch.float64 if p.dtype == torch.float64 else torch.float32)
     return torch.complex(f[..., 0, :, :, :], f[..., 1, :, :, :]).to(dtype)
 
 
@@ -146,6 +151,12 @@ def shift_eo_packed(arr: torch.Tensor, dims, mu: int, sign: int,
 
 # -- the pair-form stencil --------------------------------------------------
 
+def compute_dtype(dtype) -> torch.dtype:
+    """The pair stencils' arithmetic: float64 for float64 storage, float32
+    for everything narrower."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _pp_cscale(c: complex, x: torch.Tensor) -> torch.Tensor:
     """c * x for x of shape (..., 2, *site) with re/im on axis 1 of the
     colour-major (3, 2, *site) block."""
@@ -190,21 +201,52 @@ def dslash_eo_packed_pairs_bw(u_here: torch.Tensor, u_bw, psi_pp: torch.Tensor,
     u_here: (4,3,3,2,T,Z,Y*Xh) forward links at parity-p sites;
     u_bw[mu]: U_mu(x - mu) at parity-p sites x, read from the opposite
     parity (ops/wilson_pallas_packed.backward_gauge_eo); psi_pp:
-    (4,3,2,T,Z,Y*Xh) of parity 1-p.  Computes at f32; output cast to
-    ``out_dtype`` (default: psi's dtype)."""
+    (4,3,2,T,Z,Y*Xh) of parity 1-p.  Computes at f32 (f64 for f64 psi);
+    output cast to ``out_dtype`` (default: psi's dtype)."""
+    def shifted(arr, mu, sign):
+        return shift_eo_packed(arr, dims, mu, sign, target_parity)
+    return _hop_sum_bw(u_here, u_bw, psi_pp, shifted, out_dtype)
+
+
+def _hop_sum_bw(u_here, u_bw, psi_pp, shifted, out_dtype):
+    """sum_mu fwd + bwd with the neighbour spinor from ``shifted(psi, mu,
+    sign)`` and pre-shifted backward links, in ``compute_dtype``."""
     out_dtype = out_dtype or psi_pp.dtype
-    psi = psi_pp.to(torch.float32)
+    cdt = compute_dtype(psi_pp.dtype)
+    psi = psi_pp.to(cdt)
     acc = None
     for mu in range(4):
-        fwd = _hop_packed_pairs(
-            shift_eo_packed(psi, dims, mu, +1, target_parity),
-            u_here[mu].to(torch.float32), TABLES[(mu, +1)], adjoint=False)
-        bwd = _hop_packed_pairs(
-            shift_eo_packed(psi, dims, mu, -1, target_parity),
-            u_bw[mu].to(torch.float32), TABLES[(mu, -1)], adjoint=True)
+        fwd = _hop_packed_pairs(shifted(psi, mu, +1), u_here[mu].to(cdt),
+                                TABLES[(mu, +1)], adjoint=False)
+        bwd = _hop_packed_pairs(shifted(psi, mu, -1), u_bw[mu].to(cdt),
+                                TABLES[(mu, -1)], adjoint=True)
         term = fwd + bwd
         acc = term if acc is None else acc + term
     return acc.to(out_dtype)
+
+
+def dslash_packed_pairs_bw(gauge_pp, gauge_bw, psi_pp: torch.Tensor, X: int,
+                           Y: int, out_dtype=None) -> torch.Tensor:
+    """Full-lattice Wilson hop given PRE-SHIFTED backward links
+    (gauge_bw[mu](x) = U_mu(x - mu), ops/wilson_pallas_packed.
+    backward_gauge): the plain version of the kernel B4.  gauge_pp
+    (4,3,3,2,T,Z,Y*X), psi_pp (4,3,2,T,Z,Y*X)."""
+    def shifted(arr, mu, sign):
+        return shift_packed(arr, mu, sign, X, Y)
+    return _hop_sum_bw(gauge_pp, gauge_bw, psi_pp, shifted, out_dtype)
+
+
+def dslash_packed_pairs(gauge_pp, psi_pp: torch.Tensor, X: int, Y: int,
+                        out_dtype=None) -> torch.Tensor:
+    """Full-lattice Wilson hop on pair-form packed arrays, no complex
+    dtype anywhere (JAX ``dslash_packed_pairs``).
+
+    gauge_pp: (4,3,3,2,T,Z,Y*X) storage, phases folded; psi_pp:
+    (4,3,2,T,Z,Y*X).  The backward links U_mu(x - mu) are shifted here.
+    Computes at f32 (f64 for f64 psi); output cast to ``out_dtype``
+    (default: psi's dtype)."""
+    u_bw = [shift_packed(gauge_pp[mu], mu, -1, X, Y) for mu in range(4)]
+    return dslash_packed_pairs_bw(gauge_pp, u_bw, psi_pp, X, Y, out_dtype)
 
 
 def dslash_eo_packed_pairs(gauge_eo_pp, psi_pp: torch.Tensor, dims,

@@ -15,6 +15,17 @@ bfloat16; out float32, or bfloat16 from bf16 storage; R = 3 link rows
 rebuilt at use, with ``tb_sign`` negating it on the antiperiodic t
 boundary planes).  Sums are float32 in every form.
 
+The native double form ``full:f64->f64`` (psi, links and out float64,
+R = 3, sums in float64) is the precise operator of the double routes; it
+has no TPU twin (a TPU has no f64), and its oracle is the complex128
+plain version.
+
+The full-lattice hop (B4) ``dslash_pallas_packed`` replaces
+dslash_pallas_packed of the same JAX module (``_make_kernel`` with no eo)
+with ``csrc/wilson_full.cu``: psi and out (4, 3, 2, T, Z, Y*X), links and
+the pre-shifted ``backward_gauge`` (4, R, 3, 2, T, Z, Y*X); forms
+``full:f32->f32``, ``r12:f32->f32`` and ``full:f64->f64``.
+
 The multi-RHS hop (B5-eo) ``dslash_eo_pallas_packed_mrhs`` replaces
 dslash_eo_pallas_packed_mrhs of the same JAX module with
 ``csrc/wilson_eo_mrhs.cu``: psi and out carry a leading axis of N
@@ -23,7 +34,8 @@ for a chunk of ``MRHS_CHUNK`` of them.  Its forms are ``full:f32->f32``
 and ``r12:f32->f32``; the bf16 forms wait for ROADMAP B5.
 
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
-versions (``dslash_eo_packed_plain``, ``dslash_eo_packed_mrhs_plain``),
+versions (``dslash_eo_packed_plain``, ``dslash_packed_plain``,
+``dslash_eo_packed_mrhs_plain``),
 CUDA tensors launch the kernel or raise.  Each wrapper counts its
 launches in ``.launches`` and per form in ``.launches_by_form``
 (``"full:f32->f32"``, ``"r12:bf16->bf16"``, ...).
@@ -49,7 +61,10 @@ TOLERANCE_BF16 = 2.0 ** -7
 # 8 x 9 or 8 x 6 complex, out 24), by (rows, storage bytes, out bytes).
 FLOPS_PER_SITE = 1320
 RECON_FLOPS_PER_SITE = 8 * 3 * 14
-_STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float64: 8}
+# the C entry points' storage codes
+_STORE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 
 
 # Right-hand sides per thread of the multi-RHS kernels (the template
@@ -116,19 +131,66 @@ def mrhs_chunk(chunk, nrhs: int, sites: int) -> int:
     if nb not in MRHS_CHUNKS:
         raise ValueError(f"chunk {nb}: the multi-RHS kernels have "
                          f"instances for {MRHS_CHUNKS}")
+    check_mrhs_grid(nrhs, sites, nb)
+    return nb
+
+
+def check_mrhs_grid(nrhs: int, sites: int, nb: int) -> None:
+    """Raise unless a batch of ``nrhs`` right-hand sides in chunks of
+    ``nb`` at ``sites`` half-sites fits the multi-RHS kernels' grid
+    (1 .. 2^31 - 1 blocks of MRHS_THREADS)."""
     blocks = -(-sites // MRHS_THREADS) * -(-nrhs // nb)
     if nrhs < 1 or blocks > _MAX_BLOCKS:
         raise ValueError(f"{nrhs} right-hand sides at {sites} half-sites: "
                          f"{blocks} blocks, outside the kernel's grid "
                          f"(1 .. {_MAX_BLOCKS})")
-    return nb
 
 
 def form_name(rows: int, store_dtype, out_dtype) -> str:
     """``"full:f32->f32"``-style key of ``launches_by_form``."""
-    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
-    return (f"{'r12' if rows == 2 else 'full'}:{short[store_dtype]}->"
-            f"{short[out_dtype]}")
+    return (f"{'r12' if rows == 2 else 'full'}:{_SHORT[store_dtype]}->"
+            f"{_SHORT[out_dtype]}")
+
+
+def _checked_forms(store, out_dtype, rows: int):
+    """Raise for a (storage, out, rows) form without a kernel instance of
+    B1/B4: f32 -> f32, bf16 -> bf16 or f32, and f64 -> f64 with R = 3."""
+    if store not in _STORE_BYTES or out_dtype not in _STORE_BYTES:
+        raise TypeError(f"psi {store} -> out {out_dtype}: the kernel takes "
+                        "float32, bfloat16 or float64")
+    f64 = torch.float64
+    if (store == f64) != (out_dtype == f64) or (store == f64 and rows != 3):
+        raise TypeError(f"psi {store} -> out {out_dtype}, R = {rows}: the "
+                        "double form is full:f64->f64 only")
+    if store == torch.float32 and out_dtype == torch.bfloat16:
+        raise TypeError("float32 storage with bfloat16 output has no kernel "
+                        "instance")
+
+
+def _count(fn, form: str) -> None:
+    fn.launches += 1
+    fn.launches_by_form[form] = fn.launches_by_form.get(form, 0) + 1
+
+
+# -- layout conversion and the full-lattice backward links ----------------
+
+def to_pallas_layout(arr: torch.Tensor) -> torch.Tensor:
+    """complex packed (..., T, Z, YX) -> f32 pairs (..., 2, T, Z, YX)."""
+    return wpk.to_packed_pairs(arr, torch.float32)
+
+
+def from_pallas_layout(arr: torch.Tensor,
+                       dtype=torch.complex64) -> torch.Tensor:
+    return wpk.from_packed_pairs(arr, dtype)
+
+
+def backward_gauge(gauge_pl: torch.Tensor, X: int) -> torch.Tensor:
+    """Links shifted one site backward in their own direction on the full
+    lattice: out[mu](x) = U_mu(x - mu), on the pair layout
+    (4,R,3,2,T,Z,YX).  Computed once per gauge load."""
+    Y = gauge_pl.shape[-1] // X
+    return torch.stack([wpk.shift_packed(gauge_pl[mu], mu, -1, X, Y)
+                        for mu in range(4)])
 
 
 def to_recon12(gauge_pl: torch.Tensor) -> torch.Tensor:
@@ -210,6 +272,18 @@ def dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                                          target_parity, out_dtype)
 
 
+def dslash_packed_plain(gauge_pl, gauge_bw, psi_pl, X: int,
+                        tb_sign: bool = True):
+    """Plain PyTorch version of B4 on its inputs: R = 2 links rebuilt to
+    full links first (row 2 of the t links negated on t = T-1 forward and
+    t = 0 backward when ``tb_sign``), then the full-lattice stencil with
+    the pre-shifted backward links, sums in float32 (float64 for float64
+    input), out in psi's dtype."""
+    dims = (psi_pl.shape[-3], psi_pl.shape[-2], psi_pl.shape[-1] // X, X)
+    u, u_bw = _full_links(gauge_pl, gauge_bw, dims, tb_sign)
+    return wpk.dslash_packed_pairs_bw(u, u_bw, psi_pl, X, dims[2])
+
+
 def dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                                 target_parity: int, out_dtype=None,
                                 tb_sign: bool = True):
@@ -242,12 +316,7 @@ def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
                                       target_parity, out_dtype, tb_sign)
     store = psi_pl.dtype
     out_dtype = out_dtype or store
-    if store not in _STORE_BYTES or out_dtype not in _STORE_BYTES:
-        raise TypeError(f"psi {store} -> out {out_dtype}: the kernel takes "
-                        "float32 or bfloat16")
-    if store == torch.float32 and out_dtype == torch.bfloat16:
-        raise TypeError("float32 storage with bfloat16 output has no kernel "
-                        "instance")
+    _checked_forms(store, out_dtype, rows)
     sites = (T, Z, Y * Xh)
     kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
     kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, store)
@@ -257,13 +326,50 @@ def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
     rc = lib.qtt_wilson_eo(
         out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
         u_bw_pl.data_ptr(), T, Z, Y, Xh, int(target_parity),
-        int(store == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        rows, int(bool(tb_sign)), kernels.stream_of(psi_pl))
+        _STORE_CODE[store], _STORE_CODE[out_dtype], rows,
+        int(bool(tb_sign)), kernels.stream_of(psi_pl))
     kernels.check_launch(rc, "qtt_wilson_eo")
-    dslash_eo_pallas_packed.launches += 1
-    form = form_name(rows, store, out_dtype)
-    by_form = dslash_eo_pallas_packed.launches_by_form
-    by_form[form] = by_form.get(form, 0) + 1
+    _count(dslash_eo_pallas_packed, form_name(rows, store, out_dtype))
+    return out
+
+
+def dslash_pallas_packed(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
+                         X: int, gauge_bw: torch.Tensor | None = None,
+                         tb_sign: bool = True) -> torch.Tensor:
+    """Full-lattice Wilson hop sum D psi (B4) on pair arrays.
+
+    gauge_pl: (4,R,3,2,T,Z,YX), boundary phase folded in, R = 3 or 2
+    (``to_recon12``; ``tb_sign`` re-applies the folded antiperiodic t
+    phase to the rebuilt row); psi_pl: (4,3,2,T,Z,YX).  ``gauge_bw`` is
+    ``backward_gauge(gauge_pl, X)``: pass it when the gauge is applied
+    many times (it is built here otherwise).  float32 (R = 3 or 2) or
+    float64 (R = 3); the output has psi's dtype and layout."""
+    rows = link_rows(gauge_pl)
+    if gauge_bw is None:
+        gauge_bw = backward_gauge(gauge_pl, X)
+    kind = kernels.dispatch_device(gauge_pl, gauge_bw, psi_pl)
+    if kind == "cpu":
+        return dslash_packed_plain(gauge_pl, gauge_bw, psi_pl, X, tb_sign)
+    store = psi_pl.dtype
+    if store not in (torch.float32, torch.float64):
+        raise TypeError(f"psi {store}: B4 takes float32 or float64")
+    _checked_forms(store, store, rows)
+    T, Z, YX = psi_pl.shape[-3:]
+    if YX % X:
+        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
+    sites = (T, Z, YX)
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
+    kernels.require(gauge_pl, "gauge_pl", (4, rows, 3, 2) + sites, store)
+    kernels.require(gauge_bw, "gauge_bw", (4, rows, 3, 2) + sites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=store, device=psi_pl.device)
+    rc = lib.qtt_wilson_full(
+        out.data_ptr(), psi_pl.data_ptr(), gauge_pl.data_ptr(),
+        gauge_bw.data_ptr(), T, Z, YX // X, X, rows,
+        int(store == torch.float64), int(bool(tb_sign)),
+        kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_full")
+    _count(dslash_pallas_packed, form_name(rows, store, store))
     return out
 
 
@@ -305,16 +411,15 @@ def dslash_eo_pallas_packed_mrhs(u_here_pl: torch.Tensor,
         u_bw_pl.data_ptr(), T, Z, Y, Xh, int(target_parity), rows,
         int(bool(tb_sign)), nrhs, nb, kernels.stream_of(psi_pl))
     kernels.check_launch(rc, "qtt_wilson_eo_mrhs")
-    dslash_eo_pallas_packed_mrhs.launches += 1
-    form = form_name(rows, f32, f32)
-    by_form = dslash_eo_pallas_packed_mrhs.launches_by_form
-    by_form[form] = by_form.get(form, 0) + 1
+    _count(dslash_eo_pallas_packed_mrhs, form_name(rows, f32, f32))
     return out
 
 
 def reset_launches() -> None:
-    """Zero the launch counts of the eo hop (B1) and its multi-RHS form."""
-    for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs):
+    """Zero the launch counts of the eo hop (B1), its multi-RHS form
+    (B5-eo) and the full-lattice hop (B4)."""
+    for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs,
+               dslash_pallas_packed):
         fn.launches = 0
         fn.launches_by_form = {}
 

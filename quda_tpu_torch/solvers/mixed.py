@@ -79,12 +79,13 @@ def packed_pair_codec(store_dtype, precise_dtype) -> StorageCodec:
         lambda x: wpk.from_packed_pairs(x, precise_dtype), store_dtype)
 
 
-def pair_inplace_codec(store_dtype) -> StorageCodec:
-    """Codec for a precise representation that is itself a float32 pair
-    array on the sloppy storage's layout (the complex-free solve path):
+def pair_inplace_codec(store_dtype, precise_dtype=F32) -> StorageCodec:
+    """Codec for a precise representation that is itself a pair array on
+    the sloppy storage's layout (the complex-free solve path): float32,
+    or float64 on the native double route with float32 sloppy storage.
     down/up are plain dtype casts."""
     return _make_pair_codec(lambda x: x.to(store_dtype),
-                            lambda x: x.to(F32), store_dtype)
+                            lambda x: x.to(precise_dtype), store_dtype)
 
 
 def _reliable_result(x, k, r2_fin, stop, n_rel):
@@ -123,8 +124,10 @@ def cg_reliable(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor,
     r_lo = codec.down(b)
     p = r_lo
     x_lo = torch.zeros_like(r_lo)  # sloppy partial solution since the update
-    r2_lo = b2
-    r2 = r2max = float(r2_lo)
+    # the sloppy loop's scalars are float32 whatever the precise dtype
+    # (B3 takes a float32 coefficient)
+    r2_lo = b2.to(F32)
+    r2 = r2max = float(b2)
     k = n_rel = 0
     while r2 > stop and k < maxiter:
         x_lo, r_lo, p, r2_new = _sloppy_step(codec, matvec_lo, p, x_lo,

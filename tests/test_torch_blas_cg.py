@@ -22,6 +22,7 @@ from quda_tpu_torch.solvers import create
 from quda_tpu_torch.solvers.fused_iter import fused_cg
 
 from tests.torch_inputs import SMALL, gaussian, pair_spinor_shape, rel_err
+from tests.torch_inputs import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-6
 

@@ -41,6 +41,7 @@ from tests.host_reference.clover_ref import (clover_matrix_ref,
                                              field_strength_ref)
 from tests.torch_inputs import (ASYM, gaussian, lattice_shape,
                                 pair_spinor_shape, rel_err, su3_gauge)
+from tests.torch_inputs import one_torch_thread  # noqa: F401 (autouse)
 
 KAPPA = 0.12
 CSW = 1.0

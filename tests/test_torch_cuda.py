@@ -584,3 +584,245 @@ def test_staggered_invert_on_card_matches_cpu(dslash, sloppy):
     assert di <= (2 if sloppy == "single" else max(2, pc.iter_count // 10))
     tol = 1e-4 if sloppy == "single" else 1e-3
     assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < tol
+
+
+# -- the multi-RHS staggered gather pass (S2-mrhs) ---------------------------
+
+@pytest.mark.parametrize("n", [1, 3, 5, 12])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_stag_mrhs_kernel_matches_plain_and_single_launches(parity, n):
+    """S2-mrhs on 14x12x10x8, each hop count, with a tail chunk where n is
+    not a multiple of MRHS_CHUNK: within TOLERANCE of its plain version,
+    and each lane bit for bit S2 (fat, Naik); the fat + Naik composition
+    bit for bit the two-pass S2 sum and S1, one launch per pass."""
+    dev = require_cuda()
+    (fh, ft, lh, lt), _ = _stag_inputs(dev, torch.float32, 70 + parity)
+    gen = torch.Generator(device=dev).manual_seed(72 + n)
+    psi = torch.randn((n, 3, 2) + tuple(fh.shape[-3:]), generator=gen,
+                      device=dev)
+    fbw = spl.backward_links_eo(ft, STAG_DIMS, parity, 1).contiguous()
+    lbw = spl.backward_links_eo(lt, STAG_DIMS, parity, 3).contiguous()
+    fn = spl.dslash_staggered_eo_pass_mrhs
+    for here, bw, nhop in ((fh, fbw, 1), (lh, lbw, 3)):
+        name = spl.pass_form_name(nhop, torch.float32, torch.float32)
+        n0 = fn.launches_by_form.get(name, 0)
+        got = fn(here, bw, psi, STAG_DIMS, parity, nhop)
+        want = spl.dslash_staggered_eo_pass_mrhs_plain(here, bw, psi,
+                                                       STAG_DIMS, parity,
+                                                       nhop)
+        torch.cuda.synchronize()
+        assert fn.launches_by_form[name] == n0 + 1
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < spl.TOLERANCE
+        for r in range(n):
+            assert torch.equal(got[r], spl.dslash_staggered_eo_pass(
+                here, bw, psi[r], STAG_DIMS, parity, nhop))
+    n0 = fn.launches
+    both = spl.dslash_staggered_eo_pallas_mrhs(fh, fbw, psi, STAG_DIMS,
+                                               parity, lh, lbw)
+    assert fn.launches == n0 + 2
+    for r in range(n):
+        assert torch.equal(both[r], spl.dslash_staggered_eo_pallas(
+            fh, fbw, psi[r], STAG_DIMS, parity, lh, lbw))
+        assert torch.equal(both[r], spl.dslash_staggered_eo_pallas_fused(
+            fh, ft, psi[r], STAG_DIMS, parity, lh, lt))
+
+
+def test_stag_mrhs_kernel_refuses_what_it_lacks():
+    dev = require_cuda()
+    (fh, ft, _, _), _ = _stag_inputs(dev, torch.float32, 74)
+    psi = torch.zeros((2, 3, 2) + tuple(fh.shape[-3:]), device=dev)
+    fn = spl.dslash_staggered_eo_pass_mrhs
+    with pytest.raises(TypeError, match="float32"):
+        fn(fh.bfloat16(), ft.bfloat16(), psi.bfloat16(), STAG_DIMS, 0, 1)
+    with pytest.raises(ValueError, match="right-hand sides"):
+        fn(fh, ft, psi[:0], STAG_DIMS, 0, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        fn(fh[:, :2].contiguous(), ft, psi, STAG_DIMS, 0, 1)
+
+
+@pytest.mark.parametrize("dslash", ["hisq", "staggered"])
+def test_staggered_invert_multi_src_on_card_matches_cpu(dslash):
+    """invert_multi_src_quda, 3 sources at 8^4: the card (S2-mrhs only: 4
+    launches per hisq iteration, 2 fat-only, plus prepare and
+    reconstruct; no single-RHS hop) against the CPU's plain path,
+    iterations within 2 per lane, solutions within 1e-4."""
+    dev = require_cuda()
+    dims = (8, 8, 8, 8)
+    g = su3_gauge(dims, seed=75)
+    B = gaussian((3,) + lattice_shape(dims) + (1, 3), seed=76)
+    out = {}
+    for where in (dev, "cpu"):
+        qt.init_quda(device=where)
+        try:
+            qt.load_gauge_quda(g, qt.GaugeParam(X=dims, cuda_prec="single"))
+            qt.compute_ks_link_quda()
+            p = qt.InvertParam(dslash_type=dslash, inv_type="cg",
+                               solve_type="direct-pc", mass=0.1, tol=1e-6,
+                               maxiter=2000, cuda_prec="single")
+            spl.reset_launches()
+            x = qt.invert_multi_src_quda(B, p)
+            counts = (spl.dslash_staggered_eo_pass_mrhs.launches,
+                      spl.dslash_staggered_eo_pallas_fused.launches
+                      + spl.dslash_staggered_eo_pass.launches)
+        finally:
+            qt.end_quda()
+        out[str(where)] = (x.cpu().numpy(), p, counts)
+    xg, pg, (mrhs, single) = out[str(dev)]
+    xc, pc, _ = out["cpu"]
+    assert pg.converged and pg.true_res <= 1e-5 and single == 0
+    per_hop = 2 if dslash == "hisq" else 1
+    assert mrhs == 2 * per_hop * (max(pg.iter_count_multi) + 1)
+    assert all(abs(a - b) <= 2 for a, b in zip(pg.iter_count_multi,
+                                               pc.iter_count_multi))
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-4
+
+
+# -- the full-lattice hop (B4) and the double forms (B1, B2, B4 f64) --------
+
+# (T, Z, Y, X), all four different
+FULL_DIMS = (14, 12, 10, 8)
+B4_FORMS = [(3, torch.float32), (2, torch.float32), (3, torch.float64)]
+
+
+def _full_inputs(dev, rows, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    T, Z, Y, X = FULL_DIMS
+    sites = (T, Z, Y * X)
+    u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev,
+                    dtype=torch.float64).to(dtype)
+    psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev,
+                      dtype=torch.float64).to(dtype)
+    return u, wpp.backward_gauge(u, X).contiguous(), psi
+
+
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("form", B4_FORMS,
+                         ids=lambda f: wpp.form_name(f[0], f[1], f[1]))
+def test_full_hop_kernel_matches_plain(form, tb_sign):
+    """B4 on 14x12x10x8: f32 forms within TOLERANCE of the plain version,
+    the f64 form within 1e-12 (its sums are float64); one launch."""
+    dev = require_cuda()
+    rows, dtype = form
+    u, ubw, psi = _full_inputs(dev, rows, dtype, 80 + rows)
+    name = wpp.form_name(rows, dtype, dtype)
+    n0 = wpp.dslash_pallas_packed.launches_by_form.get(name, 0)
+    got = wpp.dslash_pallas_packed(u, psi, FULL_DIMS[3], gauge_bw=ubw,
+                                   tb_sign=tb_sign)
+    want = wpp.dslash_packed_plain(u, ubw, psi, FULL_DIMS[3], tb_sign)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert wpp.dslash_pallas_packed.launches_by_form[name] == n0 + 1
+    tol = 1e-12 if dtype == torch.float64 else wpp.TOLERANCE
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < tol
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_eo_kernel_f64_matches_plain(parity):
+    """B1's full:f64->f64 on 4x6x8x10 within 1e-12 of its plain version."""
+    dev = require_cuda()
+    dims = lattice_shape(ASYM)
+    gen = torch.Generator(device=dev).manual_seed(84 + parity)
+    sites = pair_spinor_shape(ASYM)[3:]
+    f64 = torch.float64
+    psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev, dtype=f64)
+    u_here = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev,
+                         dtype=f64)
+    u_bw = wpp.backward_gauge_eo(
+        torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev,
+                    dtype=f64), dims, parity).contiguous()
+    n0 = wpp.dslash_eo_pallas_packed.launches_by_form.get("full:f64->f64", 0)
+    got = wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims, parity)
+    want = wpp.dslash_eo_packed_plain(u_here, u_bw, psi, dims, parity)
+    torch.cuda.synchronize()
+    assert got.dtype == f64
+    assert wpp.dslash_eo_pallas_packed.launches_by_form["full:f64->f64"] == \
+        n0 + 1
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 1e-12
+
+
+def test_cg_tail_kernel_f64_matches_plain():
+    dev = require_cuda()
+    tin = [torch.from_numpy(gaussian(pair_spinor_shape(SMALL), seed=86 + i,
+                                     dtype=np.float64)).to(dev)
+           for i in range(4)]
+    alpha = torch.tensor(0.37, dtype=torch.float64, device=dev)
+    n0 = bpl.cg_update_norm2_pallas.launches_by_form.get("f64", 0)
+    kx, kr, kr2 = bpl.cg_update_norm2_pallas(alpha, *tin)
+    px, pr, pr2 = blas.triple_cg_update(alpha, *tin)
+    torch.cuda.synchronize()
+    assert kr2.dtype == torch.float64
+    assert bpl.cg_update_norm2_pallas.launches_by_form["f64"] == n0 + 1
+    assert rel_err(kx.cpu().numpy(), px.cpu().numpy()) < 1e-14
+    assert rel_err(kr.cpu().numpy(), pr.cpu().numpy()) < 1e-14
+    assert abs(float(kr2) - float(pr2)) <= 1e-12 * float(pr2)
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_operator_api_on_card_matches_cpu(prec):
+    """dslash_quda (B1), mat_quda (B4, one launch) and mat_dag_mat_quda
+    (B4, two launches) at 4x4x4x8 on the card against the CPU: 1e-6 in
+    single, 1e-12 in double."""
+    dev = require_cuda()
+    dims = SMALL
+    g = su3_gauge(dims, seed=88, dtype=np.complex128)
+    psi = gaussian(lattice_shape(dims) + (4, 3), seed=89,
+                   dtype=np.complex128)
+    half = psi[:, :, :, : dims[0] // 2]
+    out = {}
+    for where in (dev, "cpu"):
+        qt.init_quda(device=where)
+        try:
+            qt.load_gauge_quda(g, qt.GaugeParam(X=dims, cuda_prec=prec))
+            p = qt.InvertParam(dslash_type="wilson", kappa=0.12,
+                               cuda_prec=prec)
+            wpp.reset_launches()
+            res = [qt.dslash_quda(half, p, 1), qt.mat_quda(psi, p),
+                   qt.mat_dag_mat_quda(psi, p)]
+            n4 = wpp.dslash_pallas_packed.launches
+        finally:
+            qt.end_quda()
+        out[str(where)] = ([r.cpu().numpy() for r in res], n4)
+    (got, n4), (want, _) = out[str(dev)], out["cpu"]
+    assert n4 == 3
+    tol = 1e-6 if prec == "single" else 1e-12
+    for a, b in zip(got, want):
+        assert rel_err(a, b) < tol
+
+
+@pytest.mark.parametrize("sloppy", ["double", "single"])
+def test_double_invert_on_card(sloppy):
+    """invert_quda(double) at 4x4x4x8, tol 1e-10: converged, true_res <=
+    1e-10, against the CPU's plain path within 1e-9; double/double on B1
+    and B2 in f64, double/single on B1 f32 with B1 f64 at the reliable
+    updates."""
+    dev = require_cuda()
+    g = su3_gauge(SMALL, seed=90, dtype=np.complex128)
+    b = gaussian(lattice_shape(SMALL) + (4, 3), seed=91, dtype=np.complex128)
+    out = {}
+    for where in (dev, "cpu"):
+        qt.init_quda(device=where)
+        try:
+            qt.load_gauge_quda(g, qt.GaugeParam(X=SMALL, cuda_prec="double"))
+            p = qt.InvertParam(dslash_type="wilson", inv_type="cg",
+                               solve_type="normop-pc", kappa=0.12, tol=1e-10,
+                               maxiter=1000, cuda_prec="double",
+                               cuda_prec_sloppy=sloppy)
+            wpp.reset_launches()
+            bpl.cg_update_norm2_pallas.launches_by_form = {}
+            x = qt.invert_quda(b, p)
+            by = (dict(wpp.dslash_eo_pallas_packed.launches_by_form),
+                  dict(bpl.cg_update_norm2_pallas.launches_by_form))
+        finally:
+            qt.end_quda()
+        out[str(where)] = (x.cpu().numpy(), p, by)
+    xg, pg, (hops, tails) = out[str(dev)]
+    xc, pc, _ = out["cpu"]
+    assert pg.converged and pg.true_res <= 1e-10
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-9
+    if sloppy == "double":
+        assert hops.get("full:f64->f64", 0) >= 4 * pg.iter_count
+        assert tails.get("f64", 0) == pg.iter_count
+    else:
+        assert hops.get("full:f32->f32", 0) >= 4 * pg.iter_count
+        assert hops.get("full:f64->f64", 0) >= 4 * pg.reliable_updates

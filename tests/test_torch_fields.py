@@ -26,6 +26,7 @@ from quda_tpu_torch.utils import convert
 
 from tests.torch_inputs import (ASYM, SMALL, gaussian, lattice_shape,
                                 noisy_gauge, pair_spinor_shape)
+from tests.torch_inputs import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_geometry_orders():

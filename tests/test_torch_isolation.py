@@ -76,6 +76,9 @@ def card_request(monkeypatch):
     monkeypatch.setattr(spl, "dslash_staggered_eo_fused_plain",
                         plain_reached)
     monkeypatch.setattr(spl, "dslash_staggered_eo_pass_plain", plain_reached)
+    monkeypatch.setattr(spl, "dslash_staggered_eo_pass_mrhs_plain",
+                        plain_reached)
+    monkeypatch.setattr(wpp, "dslash_packed_plain", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -89,8 +92,18 @@ def test_eo_hop_wrapper_raises_on_card_request(card_request):
     by_form = dict(wpp.dslash_eo_pallas_packed.launches_by_form)
     with pytest.raises(RuntimeError, match="unavailable"):
         wpp.dslash_eo_pallas_packed(*_hop_args(), DIMS, 0)
-    with pytest.raises(TypeError):
+    # float64 has one instance, full:f64->f64: it reaches the kernel, and
+    # the double forms without an instance raise
+    with pytest.raises(RuntimeError, match="unavailable"):
         wpp.dslash_eo_pallas_packed(*_hop_args(torch.float64), DIMS, 0)
+    with pytest.raises(TypeError, match="f64"):
+        wpp.dslash_eo_pallas_packed(*_hop_args(torch.float64), DIMS, 0,
+                                    out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="f64"):
+        wpp.dslash_eo_pallas_packed(*_hop_args(torch.float64, rows=2),
+                                    DIMS, 0)
+    with pytest.raises(TypeError):
+        wpp.dslash_eo_pallas_packed(*_hop_args(torch.float16), DIMS, 0)
     u, ubw, psi = _hop_args()
     with pytest.raises(ValueError):
         wpp.dslash_eo_pallas_packed(u, ubw, psi.transpose(-1, -2), DIMS, 0)
@@ -271,6 +284,63 @@ def test_staggered_wrappers_raise_on_card_request(card_request):
     assert _stag_counts() == n0
 
 
+def test_staggered_mrhs_wrapper_raises_on_card_request(card_request):
+    """S2-mrhs (and its fat + Naik composition): a card request without
+    the library raises for both hop counts, accumulating or not; bf16
+    psi, recon-12 links, a missing RHS axis, an empty batch and a
+    mis-shaped accumulator raise before any launch; nothing is counted."""
+    fn = spl.dslash_staggered_eo_pass_mrhs
+    n0 = (fn.launches, dict(fn.launches_by_form))
+    u = torch.zeros((4, 3, 3, 2) + SITES)
+    psi_b = torch.zeros((3, 3, 2) + SITES)
+    for nhop in (1, 3):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fn(u, u, psi_b, DIMS, 0, nhop)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fn(u, u, psi_b, DIMS, 1, nhop, acc=torch.zeros_like(psi_b))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        spl.dslash_staggered_eo_pallas_mrhs(u, u, psi_b, DIMS, 0, u, u)
+    with pytest.raises(TypeError, match="float32"):
+        fn(u.bfloat16(), u.bfloat16(), psi_b.bfloat16(), DIMS, 0, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        fn(u[:, :2].contiguous(), u, psi_b, DIMS, 0, 3)
+    with pytest.raises(ValueError, match="N, 3, 2"):
+        fn(u, u, psi_b[0], DIMS, 0, 1)
+    with pytest.raises(ValueError, match="right-hand sides"):
+        fn(u, u, psi_b[:0], DIMS, 0, 1)
+    with pytest.raises(ValueError, match="acc"):
+        fn(u, u, psi_b, DIMS, 0, 3, acc=torch.zeros_like(psi_b[:2]))
+    assert (fn.launches, dict(fn.launches_by_form)) == n0
+
+
+def test_full_hop_wrapper_raises_on_card_request(card_request):
+    """B4: a card request without the library raises for full and r12
+    float32 and full float64 links; bf16, recon-12 under float64, mixed
+    dtypes and a fused axis that is not a multiple of X raise before any
+    launch; nothing is counted."""
+    fn = wpp.dslash_pallas_packed
+    n0 = (fn.launches, dict(fn.launches_by_form))
+    full = (4, 2, 2 * 4)                   # (T, Z, Y*X) of a 4x2x2x4 lattice
+    for dtype, rows in ((torch.float32, 3), (torch.float32, 2),
+                        (torch.float64, 3)):
+        u = torch.zeros((4, rows, 3, 2) + full, dtype=dtype)
+        psi = torch.zeros((4, 3, 2) + full, dtype=dtype)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fn(u, psi, 4, gauge_bw=u)
+    u = torch.zeros((4, 3, 3, 2) + full)
+    psi = torch.zeros((4, 3, 2) + full)
+    with pytest.raises(TypeError):
+        fn(u.bfloat16(), psi.bfloat16(), 4, gauge_bw=u.bfloat16())
+    with pytest.raises(TypeError, match="f64"):
+        u2 = torch.zeros((4, 2, 3, 2) + full, dtype=torch.float64)
+        fn(u2, psi.double(), 4, gauge_bw=u2)
+    with pytest.raises(TypeError):
+        fn(u, psi.double(), 4, gauge_bw=u)
+    with pytest.raises(ValueError, match="multiple of X"):
+        fn(u, psi, 3, gauge_bw=u)
+    assert (fn.launches, dict(fn.launches_by_form)) == n0
+
+
 def test_staggered_wrappers_reject_other_devices():
     u = torch.zeros((4, 3, 3, 2) + SITES)
     psi = torch.zeros((3, 2) + SITES)
@@ -300,9 +370,16 @@ def test_cg_tail_wrapper_raises_on_card_request(card_request):
     n0 = bpl.cg_update_norm2_pallas.launches
     with pytest.raises(RuntimeError, match="unavailable"):
         bpl.cg_update_norm2_pallas(torch.tensor(0.5), *vecs)
+    # the float64 form reaches the kernel too; mixed dtypes do not
+    with pytest.raises(RuntimeError, match="unavailable"):
+        bpl.cg_update_norm2_pallas(torch.tensor(0.5, dtype=torch.float64),
+                                   *(v.double() for v in vecs))
     with pytest.raises(TypeError):
         bpl.cg_update_norm2_pallas(torch.tensor(0.5, dtype=torch.float64),
                                    *vecs)
+    with pytest.raises(TypeError):
+        bpl.cg_update_norm2_pallas(torch.tensor(0.5, dtype=torch.bfloat16),
+                                   *(v.bfloat16() for v in vecs))
     with pytest.raises(ValueError):
         bpl.cg_update_norm2_pallas(torch.zeros(2), *vecs)
     with pytest.raises(ValueError):

@@ -47,6 +47,7 @@ from quda_tpu_torch.solvers import mixed as tmixed
 from tests.torch_inputs import (ASYM, SMALL, gaussian, lattice_shape,
                                 noisy_gauge, pair_spinor_shape, rel_err,
                                 su3_gauge)
+from tests.torch_inputs import one_torch_thread  # noqa: F401 (autouse)
 
 KAPPA = 0.12
 TOL = 1e-6

@@ -52,6 +52,7 @@ from quda_tpu_torch.utils.convert import fat_long_from_host
 
 from tests.host_reference.staggered_ref import staggered_dslash_ref
 from tests.torch_inputs import gaussian, lattice_shape, rel_err, su3_gauge
+from tests.torch_inputs import one_torch_thread  # noqa: F401 (autouse)
 
 HYPERCUBE = (4, 4, 4, 4)
 CUBE8 = (8, 8, 8, 8)
@@ -569,14 +570,16 @@ def test_invert_multishift_quda(api_inputs):
                                   "no-links", "bicgstab"])
 def test_unported_staggered_routes_raise(api_inputs, case):
     g, b = api_inputs
-    _session(g, reconstruct={"reconstruct-12": 12,
-                             "reconstruct-8": 8}.get(case, 18))
+    # staggered multi-source solves are served (test_torch_staggered_mrhs
+    # .py); with recon-12 links they still raise (ROADMAP C)
+    _session(g, reconstruct={"reconstruct-12": 12, "reconstruct-8": 8,
+                             "multi-src": 12}.get(case, 18))
     try:
         if case.startswith("reconstruct"):
             with pytest.raises(NotImplementedError, match="ROADMAP C"):
                 qt.invert_quda(b, _param(dslash_type="staggered"))
         elif case == "multi-src":
-            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            with pytest.raises(NotImplementedError, match="ROADMAP C"):
                 qt.invert_multi_src_quda(b[None], _param())
         elif case == "wilson-multishift":
             with pytest.raises(NotImplementedError, match="ROADMAP A18"):

@@ -33,6 +33,7 @@ from quda_tpu_torch.ops.wilson_pallas import TABLES
 from tests.host_reference.wilson_ref import wilson_dslash_ref
 from tests.torch_inputs import (ASYM, gaussian, lattice_shape, noisy_gauge,
                                 pair_spinor_shape, rel_err)
+from tests.torch_inputs import one_torch_thread  # noqa: F401 (autouse)
 
 KAPPA = 0.12
 CSRC = Path(__file__).resolve().parent.parent / "quda_tpu_torch" / "csrc"

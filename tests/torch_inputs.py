@@ -15,6 +15,19 @@ ASYM = (4, 6, 8, 10)
 SMALL = (4, 4, 4, 8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests on one PyTorch CPU thread, restoring the count
+    after it.  The parity tests apply many small operators; with several
+    pytest-xdist workers on one host, PyTorch's default of one OpenMP
+    thread per core oversubscribes the cores and small operators slow down
+    a hundredfold.  A module imports this fixture to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def lattice_shape(dims):
     X, Y, Z, T = dims
     return (T, Z, Y, X)
