@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a CG iteration of the port spends its time on the card.
 
-    python3 chip_profile.py [all|wilson|double|staggered]   # default: all
+    python3 chip_profile.py [all|wilson|double|staggered|zoo]   # default: all
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -29,6 +29,14 @@ the fat-only operator (the gather pass S2), an 8-shift
 ``multishift_cg`` (the invert_multishift_quda route) and a 12-source
 ``batched_cg_pairs`` on each operator's multi-RHS forms (the multi-RHS
 gather pass S2-mrhs; the invert_multi_src_quda route).
+
+Then the twisted and domain-wall families at 32^3 x 64 (``zoo``; kappa
+0.12, mu 0.1, csw 1.0; Ls 12, m5 -1.8, b5 1.5, c5 0.5, mf 0.1): ``fused_cg``
+on the twisted-mass and twisted-clover pair operators (K1/K2's twist
+forms), a 12-source twisted-mass ``batched_cg_pairs`` (K1/K2-mrhs), and
+``fused_cg`` on the Möbius and the 5d-PC domain-wall pair operators (the
+4d hop on B5-eo with N = Ls; the (Ls, Ls) s-operator einsums run as
+cuBLAS GEMMs, the ``m5_algebra`` group).
 
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
@@ -80,7 +88,7 @@ def _profile(label, run, torch, dims=DIMS):
               "staggered_fused_kernel": 0.0, "staggered_pass_kernel": 0.0,
               "staggered_pass_mrhs_kernel": 0.0,
               "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
-              "plain_torch": 0.0}
+              "m5_algebra": 0.0, "plain_torch": 0.0}
     # the partial-sum pass belongs to whichever norm kernel this solver ran
     partials = ("axpy_norm2_kernel"
                 if label.endswith(("cg_reliable", "multishift_cg",
@@ -107,6 +115,9 @@ def _profile(label, run, torch, dims=DIMS):
             groups["axpy_norm2_kernel"] += us
         elif "sum_partials" in name:
             groups[partials] += us
+        elif label.startswith(("mobius", "domain-wall")) and "gemm" in \
+                name.lower():
+            groups["m5_algebra"] += us
         else:
             groups["plain_torch"] += us
     n = int(max(res.iters)) if hasattr(res.iters, "max") else res.iters
@@ -214,18 +225,86 @@ def double(torch, dev) -> None:
         _profile(name, lambda: run(ITERS), torch)
 
 
+def zoo(torch, dev) -> None:
+    """Profile the twisted and domain-wall solvers at 32^3 x 64."""
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
+    from quda_tpu_torch.models.domain_wall import (DiracDomainWall5DPC,
+                                                   DiracMobiusPC)
+    from quda_tpu_torch.models.twisted import (DiracTwistedCloverPC,
+                                               DiracTwistedMassPC)
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
+                              device=dev).data
+
+    def source():
+        return ColorSpinorField.gaussian(geom, gen, dtype=torch.complex64,
+                                         device=dev).data
+
+    be, bo = even_odd_split(source(), geom)
+    halves = [even_odd_split(source(), geom) for _ in range(NRHS)]
+    be_b = torch.stack([h[0] for h in halves])
+    bo_b = torch.stack([h[1] for h in halves])
+    del halves
+    for label, dpc in (
+            ("twisted-mass", DiracTwistedMassPC(gauge, geom, 0.12, 0.1)),
+            ("twisted-clover", DiracTwistedCloverPC(gauge, geom, 0.12, 0.1,
+                                                    1.0))):
+        op = dpc.pairs(torch.float32)
+        rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+        runs = [(f"{label}:fused_cg", lambda n: fused_cg(
+            op.MdagM_pairs, rhs, tol=1e-30, maxiter=n))]
+        if label == "twisted-mass":
+            rhs_b = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be_b, bo_b))
+            runs.append((f"{label}:batched_cg_pairs[{NRHS}]",
+                         lambda n: batched_cg_pairs(
+                             op.MdagM_pairs_mrhs, rhs_b, tol=1e-30,
+                             maxiter=n)))
+        for name, run in runs:
+            run(3)                                           # warm-up
+            torch.cuda.synchronize()
+            _profile(name, lambda: run(ITERS), torch)
+        del dpc, op, rhs
+    del be, bo, be_b, bo_b, rhs_b
+    ls = 12
+    b5 = torch.stack([source() for _ in range(ls)])
+    for label, dpc in (
+            ("mobius", DiracMobiusPC(gauge, geom, ls, 1.8, 0.1, 1.5, 0.5)),
+            ("domain-wall", DiracDomainWall5DPC(gauge, geom, ls, 1.8,
+                                                0.1))):
+        op = dpc.pairs(torch.float32)
+        hb = (dpc.split5(b5) if label == "domain-wall" else
+              tuple(torch.stack(h) for h in zip(
+                  *(even_odd_split(v, geom) for v in b5))))
+        rhs = op.Mdag_pairs(op.prepare_pairs(*hb))
+        del hb
+
+        def run(n):
+            return fused_cg(op.MdagM_pairs, rhs, tol=1e-30, maxiter=n)
+
+        run(3)                                               # warm-up
+        torch.cuda.synchronize()
+        _profile(f"{label}[Ls={ls}]:fused_cg", lambda: run(ITERS), torch)
+        del dpc, op, rhs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 1
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("all", "wilson", "double", "staggered"):
+    families = {"staggered": staggered, "double": double, "zoo": zoo}
+    if which not in ("all", "wilson") + tuple(families):
         print(f"chip_profile: unknown family {which!r}", file=sys.stderr)
         return 2
-    if which in ("staggered", "double"):
-        (staggered if which == "staggered" else double)(
-            torch, torch.device("cuda", 0))
+    if which in families:
+        families[which](torch, torch.device("cuda", 0))
         return 0
 
     from quda_tpu_torch.fields.gauge import GaugeField
@@ -308,6 +387,7 @@ def main() -> int:
     if which == "all":
         double(torch, dev)
         staggered(torch, dev)
+        zoo(torch, dev)
     return 0
 
 

@@ -128,6 +128,33 @@ Phases, one JSON line each (``"phase": ...``):
              a 12-source batched_cg_pairs (hisq, fat-only) against 12
              fused_cg iterations.
 
+9. The twisted and domain-wall families at 32^3 x 64 (ROADMAP A10; a
+   random SU(3) gauge and sources from a generator of their own; kappa
+   0.12, mu 0.1, epsilon 0.05, csw 1.0; Ls 12, m5 -1.8, b5 1.5, c5 0.5,
+   mf 0.1):
+   check   — every twist form of K1/K2 (K1 block-free twist, K2 twist
+             and blocks + twist; full/r12 links, f32/bf16 storage) and
+             of K1/K2-mrhs (f32, N = 12) against its plain version at
+             both target parities (1e-6 f32, one bf16 ulp bf16).
+   invert_twisted — invert_quda, twisted-mass and twisted-clover,
+             single and single/half, full and recon-12 links: converged,
+             true_res <= 1e-5, K1 and K2 twice an iteration in their
+             twist forms (twisted clover: K1 on its inverse blocks).
+   invert_multi_src ("family": "twisted-*") — 12 sources batched on
+             K1/K2-mrhs, full and recon-12: every lane converged, in the
+             iterations invert_quda takes on its source, no single-RHS
+             hop.
+   invert_doublet — ndeg-twisted-mass and ndeg-twisted-clover: the
+             staged composition, B1 once per flavour (8 an iteration).
+   invert_dwf — mobius (full, r12), domain-wall-4d, domain-wall (5d PC)
+             at Ls 12, mobius-eofa at 16^4: converged, true_res <= 1e-5,
+             the 4d hop on B5-eo with N = Ls (4 an iteration; 8 for the
+             5d PC, one per parity group), no B1.
+   timing  — each twist form and B5-eo at N = Ls against its bound and
+             plain version; ms per iteration of fused_cg and cg_reliable
+             (twisted), 12-source batched_cg_pairs against 12 fused_cg
+             iterations, and Möbius and 5d-PC fused_cg at Ls 12.
+
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
 the quda_tpu_torch package beside it) the script exits non-zero and
@@ -173,6 +200,23 @@ STAG_SMALL_DIMS = (8, 10, 12, 14)  # every extent >= 7: no aliased 3-hop
 STAG_MASS = 0.1
 STAG_SHIFTS = (0.0, 5e-4, 2e-3, 8e-3, 3e-2, 0.12, 0.5, 2.0)
 STAG_ITER_TIMED = 30
+# the twisted and domain-wall phases (ROADMAP A10): a = 2 kappa mu, b = 2
+# kappa epsilon; the twist of the kernel checks is larger, so the
+# epilogue moves the output well above the tolerance
+ZOO_MU = 0.1
+ZOO_EPS = 0.05
+ZOO_CHECK_A = 0.3
+ZOO_MAXITER = 5000
+# Möbius / domain wall at full width: Ls 12, b5 1.5, c5 0.5, m5 -1.8 (QUDA
+# sign), and a quark mass at which the hot gauge converges; EOFA on a
+# smaller lattice, with the JAX package's test masses and shift
+DWF_LS = 12
+DWF_MASS = 0.1
+DWF_M5 = -1.8
+DWF_B5, DWF_C5 = 1.5, 0.5
+EOFA_DIMS = (16, 16, 16, 16)
+EOFA_MQ = (0.04, 0.5, 1.0)
+EOFA_SHIFT = 0.3
 
 
 def emit(obj) -> None:
@@ -1141,6 +1185,532 @@ def operator_and_double(torch, dev, smi) -> list:
     return rows
 
 
+def zoo(torch, dev, smi) -> list:
+    """The twisted and domain-wall families (ROADMAP A10) at 32^3 x 64 on
+    a gauge of their own (phases check, invert_twisted, invert_multi_src,
+    invert_doublet, invert_dwf, timing); returns the kernels-line rows of
+    the twist forms of K1/K2 and K1/K2-mrhs and of B5-eo at N = Ls."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import (ColorSpinorField,
+                                              even_odd_split)
+    from quda_tpu_torch.models.domain_wall import (DiracDomainWall5DPC,
+                                                   DiracMobiusPC)
+    from quda_tpu_torch.models.twisted import (DiracTwistedCloverPC,
+                                               DiracTwistedMassPC)
+    from quda_tpu_torch.ops import blas_pallas as bpl
+    from quda_tpu_torch.ops import clover_pallas as clp
+    from quda_tpu_torch.ops import dwf_pallas as dwp
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    geom = LatticeGeometry(PROD_DIMS)
+    half = geom.half_volume
+    sites = (geom.T, geom.Z, geom.Y * geom.X // 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    errs, timing, bound_by = {}, {}, {}
+
+    def bound(nbytes, nflop):
+        t_bytes = nbytes * half / HBM_BYTES_PER_S
+        t_ops = nflop * half / F32_FLOPS_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    # -- check: every twist form against its plain version, full width ---
+    # (kernel, epilogue): K1's block-free twist (twisted mass), K2's
+    # block-free twist (twisted mass) and blocks + twist (twisted clover)
+    epis = [("post", "twist"), ("diag_hop", "twist"),
+            ("diag_hop", "blk+twist")]
+    tw = (-ZOO_CHECK_A, 1.0 / (1.0 + ZOO_CHECK_A ** 2))
+    wrapper = {"post": clp.dslash_eo_pallas_post,
+               "diag_hop": clp.dslash_eo_pallas_diag_hop}
+    mrhs_wrapper = {"post": clp.dslash_eo_pallas_post_mrhs,
+                    "diag_hop": clp.dslash_eo_pallas_diag_hop_mrhs}
+
+    def inputs(parity, rows, store, n=None):
+        lead = () if n is None else (n,)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        psi, xc = (randn(*lead, 4, 3, 2, *sites).to(store) for _ in "px")
+        u_here = randn(4, rows, 3, 2, *sites).to(store)
+        u_bw = wpp.backward_gauge_eo(randn(4, rows, 3, 2, *sites),
+                                     geom.lattice_shape,
+                                     parity).to(store).contiguous()
+        blk = 0.1 * randn(2, 6, 6, 2, *sites)
+        blk[:, :, :, 0] += torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+        return u_here, u_bw, psi, xc, blk.to(store)
+
+    def call(kind, epi, args, parity, plain=False, mrhs=False):
+        u_here, u_bw, psi, xc, blk = args
+        dims = geom.lattice_shape
+        b = blk if epi == "blk+twist" else None
+        if kind == "post":
+            if plain:
+                fn = (clp.dslash_eo_post_mrhs_plain if mrhs
+                      else clp.dslash_eo_post_plain)
+                return fn(u_here, u_bw, psi, None, dims, parity, twist=tw)
+            return (mrhs_wrapper if mrhs else wrapper)[kind](
+                u_here, u_bw, psi, dims, parity, twist=tw)
+        if plain:
+            fn = (clp.dslash_eo_diag_hop_mrhs_plain if mrhs
+                  else clp.dslash_eo_diag_hop_plain)
+            return fn(u_here, u_bw, psi, xc, b, dims, parity,
+                      -KAPPA ** 2, f32, diag_twist=-tw[0])
+        return (mrhs_wrapper if mrhs else wrapper)[kind](
+            u_here, u_bw, psi, xc, dims, parity, hop_coeff=-KAPPA ** 2,
+            blk_pl=b, diag_twist=-tw[0], out_dtype=f32)
+
+    def check(name, got, want, tol, **info):
+        abs_err = (got.float() - want.float()).abs().max().item()
+        rel = abs_err / want.float().abs().max().item()
+        errs[name] = max(errs.get(name, 0.0), abs_err)
+        emit({"phase": "check", "form": name, "dims_xyzt": list(PROD_DIMS),
+              **info, "max_abs_err": abs_err, "max_rel_err": rel,
+              "tolerance": tol})
+        if not rel <= tol:
+            fail(f"twist form {name} disagrees with its plain version: "
+                 f"{rel:.3e} > {tol:g}")
+
+    single_forms = [(k, e, r, st) for k, e in epis for r in (3, 2)
+                    for st in (f32, bf16)]
+
+    def single_name(kind, epi, rows, store):
+        out = clp.out_dtype_of(kind, store)
+        return f"{kind}:{wpp.form_name(rows, store, out)}:{epi}"
+
+    for kind, epi, rows, store in single_forms:
+        name = single_name(kind, epi, rows, store)
+        out = clp.out_dtype_of(kind, store)
+        tol = clp.TOLERANCE if out == f32 else clp.TOLERANCE_BF16
+        for parity in (0, 1):
+            args = inputs(parity, rows, store)
+            got = call(kind, epi, args, parity)
+            want = call(kind, epi, args, parity, plain=True)
+            torch.cuda.synchronize()
+            if got.dtype != out:
+                fail(f"twist form {name} wrote {got.dtype}")
+            check(name, got, want, tol, kernel=wrapper[kind].__name__,
+                  parity=parity)
+            del args, got, want
+    mrhs_forms = [(k, e, r) for k, e in epis for r in (3, 2)]
+
+    def mrhs_name(kind, epi, rows):
+        return f"mrhs:{kind}:{wpp.form_name(rows, f32, f32)}:{epi}"
+
+    for kind, epi, rows in mrhs_forms:
+        name = mrhs_name(kind, epi, rows)
+        for parity in (0, 1):
+            args = inputs(parity, rows, f32, MULTI_SRC_N)
+            got = call(kind, epi, args, parity, mrhs=True)
+            want = call(kind, epi, args, parity, plain=True, mrhs=True)
+            torch.cuda.synchronize()
+            check(name, got, want, clp.TOLERANCE,
+                  kernel=mrhs_wrapper[kind].__name__, parity=parity,
+                  nrhs=MULTI_SRC_N, chunk=wpp.MRHS_CHUNK)
+            del args, got, want
+    torch.cuda.empty_cache()
+
+    # -- the solves ------------------------------------------------------
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
+                              device=dev).data
+    src = ColorSpinorField.gaussian(geom, gen, dtype=torch.complex64,
+                                    device=dev).data
+    launches = {}
+
+    def zero_counts():
+        wpp.reset_launches()
+        clp.reset_launches()
+        bpl.cg_update_norm2_pallas.launches = 0
+        bpl.axpy_norm2_pallas.launches = 0
+        bpl.axpy_norm2_pallas.launches_by_form = {}
+
+    def read_counts():
+        return {
+            "b1": wpp.dslash_eo_pallas_packed.launches,
+            "b1_by_form": dict(wpp.dslash_eo_pallas_packed.launches_by_form),
+            "b5eo_by_form": dict(
+                wpp.dslash_eo_pallas_packed_mrhs.launches_by_form),
+            "b2": bpl.cg_update_norm2_pallas.launches,
+            "b3": bpl.axpy_norm2_pallas.launches,
+            "k1": clp.dslash_eo_pallas_post.launches,
+            "k2": clp.dslash_eo_pallas_diag_hop.launches,
+            "by_form": {f"{k}:{form}": n for k, fn in wrapper.items()
+                        for form, n in fn.launches_by_form.items()},
+            "mrhs_by_form": {f"mrhs:{k}:{form}": n
+                             for k, fn in mrhs_wrapper.items()
+                             for form, n in fn.launches_by_form.items()}}
+
+    def session(g, dims, reconstruct, fn):
+        qt.init_quda(dev)
+        try:
+            qt.load_gauge_quda(g, qt.GaugeParam(
+                X=dims, cuda_prec="single", reconstruct=reconstruct))
+            return fn()
+        finally:
+            qt.end_quda()
+
+    def param(**kw):
+        base = dict(inv_type="cg", solve_type="normop-pc", kappa=KAPPA,
+                    mu=ZOO_MU, epsilon=ZOO_EPS, csw=CSW, tol=TOL,
+                    maxiter=ZOO_MAXITER, cuda_prec="single")
+        base.update(kw)
+        return qt.InvertParam(**base)
+
+    def zsolve(b, dims=PROD_DIMS, g=None, reconstruct=18, multi=False,
+               **kw):
+        """init -> load -> invert -> end, counts zeroed just before the
+        invert call and read just after."""
+        def run():
+            p = param(**kw)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            x = (qt.invert_multi_src_quda if multi else qt.invert_quda)(b, p)
+            torch.cuda.synchronize()
+            return x, p, read_counts()
+        x, p, counts = session(gauge if g is None else g, dims, reconstruct,
+                               run)
+        ok = (bool(torch.isfinite(torch.view_as_real(x)).all())
+              and tuple(x.shape) == tuple(b.shape))
+        return p, counts, ok, torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def need(cond, msg):
+        if not cond:
+            fail(msg)
+
+    def epilogue_of(form):
+        """':twist' of 'post:full:f32->f32:twist'; '' for the clover
+        blocks."""
+        parts = form.split(":")
+        return ":" + ":".join(parts[3:]) if len(parts) > 3 else ""
+
+    twisted = {}
+    for family, k1_epi, k2_epi in (("twisted-mass", ":twist", ":twist"),
+                                   ("twisted-clover", "", ":blk+twist")):
+        for sloppy, rec in (("single", 18), ("single", 12), ("half", 18),
+                            ("half", 12)):
+            label = (f"{family}:{sloppy}" + (":r12" if rec == 12 else ""))
+            p, counts, ok, mem = zsolve(src, reconstruct=rec,
+                                        dslash_type=family,
+                                        cuda_prec_sloppy=sloppy)
+            launches[label] = counts
+            twisted[label] = (p.iter_count, p.secs)
+            by = counts["by_form"]
+            k1_tw = sum(n for f, n in by.items() if f.startswith("post:")
+                        and epilogue_of(f) == k1_epi)
+            k2_tw = sum(n for f, n in by.items()
+                        if f.startswith("diag_hop:")
+                        and epilogue_of(f) == k2_epi)
+            emit({"phase": "invert_twisted", "label": label,
+                  "dims_xyzt": list(PROD_DIMS), "kappa": KAPPA, "mu": ZOO_MU,
+                  "csw": CSW if family == "twisted-clover" else None,
+                  "tol": TOL, "cuda_prec_sloppy": sloppy,
+                  "reconstruct": rec, "iters": p.iter_count,
+                  "reliable_updates": p.reliable_updates, "secs": p.secs,
+                  "true_res": p.true_res, "converged": p.converged,
+                  "launches_k1_k2": [counts["k1"], counts["k2"]],
+                  "launches_by_form": by, "launches_b1": counts["b1"],
+                  "launches_b3": counts["b3"], "finite_and_shape_ok": ok,
+                  "peak_mem_gb": mem})
+            need(p.converged and p.true_res <= TRUE_RES_MAX and ok,
+                 f"{label}: no finite solution with true_res <= "
+                 f"{TRUE_RES_MAX:g}")
+            need(counts["k1"] >= 2 * p.iter_count
+                 and counts["k2"] >= 2 * p.iter_count
+                 and k1_tw >= 2 * p.iter_count
+                 and k2_tw >= 2 * p.iter_count,
+                 f"{label} did not run its K1/K2 epilogue forms twice per "
+                 f"iteration: {counts}")
+            need(sloppy == "single" or (counts["b3"] >= p.iter_count
+                                        and p.reliable_updates >= 1),
+                 f"{label}: no B3 per iteration or no reliable update")
+
+    # 12 sources, batched (K1/K2-mrhs twist forms), every lane against
+    # invert_quda on its source
+    gen_src = torch.Generator(device=dev).manual_seed(SEED + 18)
+    srcs = torch.stack([ColorSpinorField.gaussian(
+        geom, gen_src, dtype=torch.complex64, device=dev).data
+        for _ in range(MULTI_SRC_N)])
+    multi = {}
+    for family in ("twisted-mass", "twisted-clover"):
+        for rec in (18, 12):
+            label = f"multi:{family}" + (":r12" if rec == 12 else "")
+            single_iters = []
+            for i in range(MULTI_SRC_N):
+                p_i, _, _, _ = zsolve(srcs[i], reconstruct=rec,
+                                      dslash_type=family)
+                single_iters.append(p_i.iter_count)
+            p, counts, ok, mem = zsolve(srcs, reconstruct=rec, multi=True,
+                                        dslash_type=family)
+            launches[label] = counts
+            multi[label] = (p.iter_count_multi, p.secs)
+            n_it = max(p.iter_count_multi)
+            by = counts["mrhs_by_form"]
+            k2_epi = ":twist" if family == "twisted-mass" else ":blk+twist"
+            k2m = sum(n for f, n in by.items()
+                      if f.startswith("mrhs:diag_hop:") and f.endswith(k2_epi))
+            k1m = sum(n for f, n in by.items() if f.startswith("mrhs:post:"))
+            emit({"phase": "invert_multi_src", "family": family,
+                  "label": label, "dims_xyzt": list(PROD_DIMS),
+                  "nrhs": MULTI_SRC_N, "reconstruct": rec,
+                  "iters_per_lane": p.iter_count_multi,
+                  "invert_quda_iters_per_source": single_iters,
+                  "true_res_worst": p.true_res,
+                  "converged_multi": p.converged_multi, "secs": p.secs,
+                  "launches_mrhs": by, "launches_b5eo": counts["b5eo_by_form"],
+                  "launches_single_rhs": {"b1": counts["b1"],
+                                          "k1": counts["k1"],
+                                          "k2": counts["k2"]},
+                  "finite_and_shape_ok": ok, "peak_mem_gb": mem})
+            need(p.converged and p.true_res <= TRUE_RES_MAX and ok,
+                 f"{label}: not every lane converged with true_res <= "
+                 f"{TRUE_RES_MAX:g}")
+            need(list(p.iter_count_multi) == single_iters,
+                 f"{label}: lanes took {p.iter_count_multi} iterations, "
+                 f"invert_quda {single_iters}")
+            need(k1m >= 2 * n_it and k2m >= 2 * n_it,
+                 f"{label} did not run K1/K2-mrhs: {counts}")
+            need(counts["b1"] == counts["k1"] == counts["k2"] == 0,
+                 f"{label} launched a single-RHS hop: {counts}")
+    del srcs
+
+    # the flavour doublets: the staged composition, B1 once per flavour
+    src2 = torch.stack([src, ColorSpinorField.gaussian(
+        geom, gen, dtype=torch.complex64, device=dev).data], dim=-3)
+    for family in ("ndeg-twisted-mass", "ndeg-twisted-clover"):
+        p, counts, ok, mem = zsolve(src2, dslash_type=family)
+        launches[family] = counts
+        emit({"phase": "invert_doublet", "label": family,
+              "dims_xyzt": list(PROD_DIMS), "mu": ZOO_MU,
+              "epsilon": ZOO_EPS, "iters": p.iter_count, "secs": p.secs,
+              "true_res": p.true_res, "converged": p.converged,
+              "launches_b1": counts["b1"], "launches_k1_k2":
+              [counts["k1"], counts["k2"]], "finite_and_shape_ok": ok,
+              "peak_mem_gb": mem})
+        need(p.converged and p.true_res <= TRUE_RES_MAX and ok,
+             f"{family}: no finite solution with true_res <= "
+             f"{TRUE_RES_MAX:g}")
+        need(counts["b1"] >= 8 * p.iter_count and counts["k1"] == 0,
+             f"{family} did not run B1 per flavour: {counts}")
+    del src2
+    torch.cuda.empty_cache()
+
+    # the domain-wall family, Ls = DWF_LS (EOFA at EOFA_DIMS)
+    def src5(g_geom, ls):
+        return torch.stack([ColorSpinorField.gaussian(
+            g_geom, gen, dtype=torch.complex64, device=dev).data
+            for _ in range(ls)])
+
+    b5 = src5(geom, DWF_LS)
+    geom_e = LatticeGeometry(EOFA_DIMS)
+    gauge_e = GaugeField.random(geom_e, gen, dtype=torch.complex64,
+                                device=dev).data
+    b5_e = src5(geom_e, DWF_LS)
+    dwf_kw = dict(mass=DWF_MASS, m5=DWF_M5, Ls=DWF_LS, b5=DWF_B5, c5=DWF_C5)
+    dwf = {}
+    for label, dslash, rec, per_iter in (
+            ("mobius", "mobius", 18, 4), ("mobius:r12", "mobius", 12, 4),
+            ("domain-wall-4d", "domain-wall-4d", 18, 4),
+            ("domain-wall", "domain-wall", 18, 8),
+            ("mobius-eofa", "mobius-eofa", 18, 4)):
+        eofa = dslash == "mobius-eofa"
+        kw = dict(dwf_kw, dslash_type=dslash)
+        if eofa:
+            kw.update(eofa_mq1=EOFA_MQ[0], eofa_mq2=EOFA_MQ[1],
+                      eofa_mq3=EOFA_MQ[2], eofa_shift=EOFA_SHIFT)
+        p, counts, ok, mem = zsolve(b5_e if eofa else b5,
+                                    EOFA_DIMS if eofa else PROD_DIMS,
+                                    gauge_e if eofa else None, rec, **kw)
+        launches[f"dwf:{label}"] = counts
+        dwf[label] = (p.iter_count, p.secs)
+        b5eo = sum(counts["b5eo_by_form"].values())
+        emit({"phase": "invert_dwf", "label": label,
+              "dims_xyzt": list(EOFA_DIMS if eofa else PROD_DIMS),
+              "Ls": DWF_LS, "mass": DWF_MASS, "m5": DWF_M5,
+              "b5": DWF_B5 if dslash in ("mobius", "mobius-eofa") else 1.0,
+              "c5": DWF_C5 if dslash in ("mobius", "mobius-eofa") else 0.0,
+              "reconstruct": rec, "tol": TOL, "iters": p.iter_count,
+              "secs": p.secs, "true_res": p.true_res,
+              "converged": p.converged, "launches_b5eo":
+              counts["b5eo_by_form"], "launches_b1": counts["b1"],
+              "b5eo_per_iter": b5eo / p.iter_count,
+              "finite_and_shape_ok": ok, "peak_mem_gb": mem})
+        need(p.converged and p.true_res <= TRUE_RES_MAX and ok,
+             f"{label}: no finite solution with true_res <= "
+             f"{TRUE_RES_MAX:g}")
+        need(b5eo >= per_iter * p.iter_count and counts["b1"] == 0,
+             f"{label}: the 4d hop did not run on B5-eo with N = Ls (or a "
+             f"single-RHS hop ran): {counts}")
+    del b5_e, gauge_e
+    torch.cuda.empty_cache()
+
+    # -- timing ----------------------------------------------------------
+    for kind, epi, rows, store in single_forms:
+        name = single_name(kind, epi, rows, store)
+        args = inputs(0, rows, store)
+        k_ms = median_ms(lambda: call(kind, epi, args, 0), torch)
+        p_ms = median_ms(lambda: call(kind, epi, args, 0, plain=True),
+                         torch)
+        with_blk = epi == "blk+twist"
+        b_ms, bound_by[name] = bound(
+            clp.bytes_per_site(kind, rows, store, with_blk),
+            clp.flops_per_site(kind, rows, with_blk, twist=True))
+        timing[name] = (k_ms, p_ms, b_ms)
+        del args
+    for kind, epi, rows in mrhs_forms:
+        name = mrhs_name(kind, epi, rows)
+        args = inputs(0, rows, f32, MULTI_SRC_N)
+        k_ms = median_ms(lambda: call(kind, epi, args, 0, mrhs=True), torch)
+        p_ms = median_ms(lambda: call(kind, epi, args, 0, plain=True,
+                                      mrhs=True), torch, repeats=3, batch=1)
+        with_blk = epi == "blk+twist"
+        b_ms, bound_by[name] = bound(
+            clp.bytes_per_site_mrhs(kind, MULTI_SRC_N, rows, with_blk),
+            clp.flops_per_site_mrhs(kind, MULTI_SRC_N, rows, with_blk,
+                                    twist=True))
+        timing[name] = (k_ms, p_ms, b_ms)
+        del args
+    for rows in (3, 2):
+        name = f"b5eo_ls:{wpp.form_name(rows, f32, f32)}"
+        u_here, u_bw, psi, _, _ = inputs(0, rows, f32, DWF_LS)
+        k_ms = median_ms(lambda: dwp.dslash_eo_pallas_packed_ls(
+            u_here, u_bw, psi, geom.lattice_shape, 0), torch)
+        p_ms = median_ms(lambda: wpp.dslash_eo_packed_mrhs_plain(
+            u_here, u_bw, psi, geom.lattice_shape, 0), torch, repeats=3,
+            batch=1)
+        b_ms, bound_by[name] = bound(wpp.bytes_per_site_mrhs(DWF_LS, rows),
+                                     wpp.flops_per_site_mrhs(DWF_LS, rows))
+        timing[name] = (k_ms, p_ms, b_ms)
+        err = (dwp.dslash_eo_pallas_packed_ls(
+            u_here, u_bw, psi, geom.lattice_shape, 0)
+            - wpp.dslash_eo_packed_mrhs_plain(
+                u_here, u_bw, psi, geom.lattice_shape, 0)).abs().max().item()
+        errs[name] = err
+        del u_here, u_bw, psi
+    torch.cuda.empty_cache()
+
+    be, bo = even_odd_split(src, geom)
+
+    def iter_ms(op, rhs, mv, solver=fused_cg, n=30, **kw):
+        solver(mv, rhs, tol=1e-30, maxiter=2, **kw)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver(mv, rhs, tol=1e-30, maxiter=n, **kw)
+        torch.cuda.synchronize()
+        it = int(res.iters.max()) if hasattr(res.iters, "max") else res.iters
+        return 1e3 * (time.perf_counter() - t0) / it
+
+    per_iter = {}
+    codec = pair_inplace_codec(bf16)
+    for family, dpc in (
+            ("twisted-mass", DiracTwistedMassPC(gauge, geom, KAPPA, ZOO_MU)),
+            ("twisted-clover", DiracTwistedCloverPC(gauge, geom, KAPPA,
+                                                    ZOO_MU, CSW))):
+        op, lo = dpc.pairs(f32), dpc.pairs(bf16)
+        rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+        per_iter[f"{family}:fused_cg"] = iter_ms(op, rhs, op.MdagM_pairs)
+        per_iter[f"{family}:cg_reliable_half"] = iter_ms(
+            op, rhs, op.MdagM_pairs, solver=lambda hi, r, **kw: cg_reliable(
+                hi, lo.MdagM_pairs, r, codec=codec, **kw),
+            n=MIXED_ITER_TIMED)
+        halves = [even_odd_split(ColorSpinorField.gaussian(
+            geom, gen, dtype=torch.complex64, device=dev).data, geom)
+            for _ in range(MULTI_SRC_N)]
+        be_b = torch.stack([h[0] for h in halves])
+        bo_b = torch.stack([h[1] for h in halves])
+        del halves
+        rhs_b = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be_b, bo_b))
+        del be_b, bo_b
+        per_iter[f"{family}:batched_cg_pairs_12"] = iter_ms(
+            op, rhs_b, op.MdagM_pairs_mrhs, solver=batched_cg_pairs,
+            n=BATCHED_ITER_TIMED)
+        per_iter[f"{family}:batched_vs_12_single"] = (
+            per_iter[f"{family}:batched_cg_pairs_12"]
+            / (MULTI_SRC_N * per_iter[f"{family}:fused_cg"]))
+        del op, lo, rhs, rhs_b, dpc
+    torch.cuda.empty_cache()
+    be5, bo5 = (torch.stack(h) for h in zip(
+        *(even_odd_split(v, geom) for v in b5)))
+    for label, dpc in (
+            ("mobius", DiracMobiusPC(gauge, geom, DWF_LS, -DWF_M5, DWF_MASS,
+                                     DWF_B5, DWF_C5)),
+            ("domain-wall", DiracDomainWall5DPC(gauge, geom, DWF_LS, -DWF_M5,
+                                                DWF_MASS))):
+        op = dpc.pairs(f32)
+        hb = (dpc.split5(b5) if label == "domain-wall" else (be5, bo5))
+        rhs = op.Mdag_pairs(op.prepare_pairs(*hb))
+        per_iter[f"{label}:fused_cg"] = iter_ms(op, rhs, op.MdagM_pairs,
+                                                n=20)
+        del op, rhs, hb, dpc
+    del b5, be5, bo5
+    torch.cuda.empty_cache()
+    row = {"phase": "timing", "family": "zoo", "dims_xyzt": list(PROD_DIMS),
+           "nvidia_smi": smi, "repeats": REPEATS, "calls_per_timing": BATCH,
+           "iteration_ms": per_iter,
+           "solve_secs": {k: v[1] for k, v in {**twisted, **dwf}.items()},
+           "solve_iters": {k: v[0] for k, v in {**twisted, **dwf}.items()},
+           "multi_src_secs": {k: v[1] for k, v in multi.items()}}
+    for name, (k_ms, p_ms, b_ms) in timing.items():
+        row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "share_of_bound": b_ms / k_ms}
+    emit(row)
+
+    # -- kernels-line rows: launches from the main path of each form -----
+    rows_out = []
+
+    def single_path(kind, epi, rows, store):
+        family = "twisted-clover" if epi == "blk+twist" else "twisted-mass"
+        sloppy = "single" if store == f32 else "half"
+        return f"{family}:{sloppy}" + (":r12" if rows == 2 else "")
+
+    for kind, epi, rows, store in single_forms:
+        name = single_name(kind, epi, rows, store)
+        form = name.split(":", 1)[1]
+        k_ms, p_ms, b_ms = timing[name]
+        rows_out.append({
+            "name": f"{wrapper[kind].__name__}[{form}]", "route": "cuda",
+            "source": "quda_tpu_torch/csrc/clover_eo.cu",
+            "replaces": "quda_tpu/ops/clover_pallas.py:213",
+            "launches": launches[single_path(kind, epi, rows, store)][
+                "by_form"].get(name, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": bound_by[name],
+            "library_ms": None})
+    for kind, epi, rows in mrhs_forms:
+        name = mrhs_name(kind, epi, rows)
+        family = "twisted-clover" if epi == "blk+twist" else "twisted-mass"
+        path = f"multi:{family}" + (":r12" if rows == 2 else "")
+        k_ms, p_ms, b_ms = timing[name]
+        rows_out.append({
+            "name": f"{mrhs_wrapper[kind].__name__}"
+                    f"[{name.split(':', 2)[2]}]",
+            "route": "cuda", "source": "quda_tpu_torch/csrc/clover_eo_mrhs.cu",
+            "replaces": "quda_tpu/ops/clover_pallas.py:283",
+            "launches": launches[path]["mrhs_by_form"].get(name, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": bound_by[name],
+            "library_ms": None})
+    for rows in (3, 2):
+        form = wpp.form_name(rows, f32, f32)
+        name = f"b5eo_ls:{form}"
+        k_ms, p_ms, b_ms = timing[name]
+        path = "dwf:mobius" + (":r12" if rows == 2 else "")
+        rows_out.append({
+            "name": f"dslash_eo_pallas_packed_mrhs[{form}, N=Ls={DWF_LS}]",
+            "route": "cuda", "source": "quda_tpu_torch/csrc/wilson_eo_mrhs.cu",
+            "replaces": "quda_tpu/ops/wilson_pallas_packed.py:613",
+            "launches": launches[path]["b5eo_by_form"].get(form, 0),
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": bound_by[name],
+            "library_ms": None})
+    return rows_out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2026,6 +2596,7 @@ def main() -> int:
             "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
     rows_out.extend(operator_and_double(torch, dev, smi))
     rows_out.extend(staggered(torch, dev, smi))
+    rows_out.extend(zoo(torch, dev, smi))
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:
         fail(f"kernels never launched on their main path: {unlaunched}")

@@ -61,11 +61,27 @@ class InvertParam:
     inv_type: str = "cg"
     solve_type: str = "normop-pc"
     matpc_type: str = "even-even"
-    # staggered mass m of M = 2m + D (MILC convention)
+    # staggered mass m of M = 2m + D (MILC convention); the domain-wall
+    # quark mass mf
     mass: float = -0.9
     kappa: float = 0.12
-    # clover coefficient c_sw of dslash_type "clover"
+    # twisted mass mu (a = 2 kappa mu) and the doublet's splitting epsilon
+    mu: float = 0.0
+    epsilon: float = 0.0
+    # clover coefficient c_sw of dslash_type "clover" and "twisted-clover"
     csw: float = 0.0
+    # domain wall: height m5 (QUDA sign convention), Ls, Möbius b5 and c5
+    m5: float = -1.8
+    Ls: int = 8
+    b5: float = 1.5
+    c5: float = 0.5
+    # Möbius EOFA: chirality of the shift, the shift, and mq1-3 (None =
+    # the quark mass)
+    eofa_pm: bool = True
+    eofa_shift: float = 0.0
+    eofa_mq1: float = None
+    eofa_mq2: float = None
+    eofa_mq3: float = None
     tol: float = 1e-10
     tol_hq: float = 0.0
     maxiter: int = 10000

@@ -1,19 +1,25 @@
 """Public entry points: init_quda / load_gauge_quda / invert_quda / end_quda,
 compute_ks_link_quda / load_fat_long_quda / invert_multishift_quda.
 
-Port of the Wilson, Wilson-clover and staggered even/odd CG paths of
-quda_tpu/interfaces/quda_api.py.  ``invert_quda`` serves
-dslash_type="wilson" and "clover" (solve_type="normop-pc") and
-"staggered", "asqtad" and "hisq" (solve_type "normop-pc" or "direct-pc"),
-inv_type="cg", with cuda_prec="single" (and "double" for Wilson), on the
-packed pair representation (the float32, bfloat16 and float64 pair
-operators that ``pairs`` builds, the same way for every family):
+Port of the Wilson, Wilson-clover, twisted, domain-wall and staggered
+even/odd CG paths of quda_tpu/interfaces/quda_api.py.  ``invert_quda``
+serves dslash_type="wilson", "clover", "twisted-mass", "twisted-clover",
+"ndeg-twisted-mass", "ndeg-twisted-clover", "mobius", "domain-wall-4d",
+"domain-wall" (5d-checkerboard PC) and "mobius-eofa" (solve_type
+"normop-pc") and "staggered", "asqtad" and "hisq" (solve_type
+"normop-pc" or "direct-pc"), inv_type="cg", with cuda_prec="single" (and
+"double" for Wilson), on the packed pair representation (the float32,
+bfloat16 and float64 pair operators that ``pairs`` builds, the same way
+for every family):
 
 * sloppy = single: ``fused_cg`` on the float32 pair operator (every hop
-  on the eo kernel, or for clover on the fused clover hop; the CG tail on
-  the fused tail kernel);
+  on the eo kernel; for clover and the degenerate twisted operators on
+  the fused hop with its clover or twist epilogue; for the domain-wall
+  family on the multi-RHS hop with Ls as the batch; the CG tail on the
+  fused tail kernel);
 * sloppy = half: ``cg_reliable`` with a bfloat16 sloppy operator and
-  reliable updates on the float32 one;
+  reliable updates on the float32 one (not the domain-wall family: its
+  hop has float32 forms only, ROADMAP A7/B5);
 * Wilson at cuda_prec="double" (native f64, as the JAX package's CPU
   route): sloppy double runs ``fused_cg`` on the float64 pair operator
   (B1 and B2 in f64), sloppy single ``cg_reliable`` with the float32 pair
@@ -25,6 +31,9 @@ operators that ``pairs`` builds, the same way for every family):
   the JAX package the gate is Wilson-only: a clover solve below 5e-8
   takes its float32 route; ``converged`` is the solver's own claim, as
   there, and ``true_res`` says how far the float32 solve got.
+
+Sources and solutions are (T,Z,Y,X,4,3), (T,Z,Y,X,2,4,3) for the
+flavour doublets and (Ls,T,Z,Y,X,4,3) for the domain-wall family.
 
 The staggered PC operator 4m^2 - D_pq D_qp is Hermitian positive
 definite, so its CG runs on ``M_pairs`` itself (one apply per
@@ -48,11 +57,12 @@ on B1, M = 1 - kappa D and its normal operator on the full-lattice hop
 B4, in float32 (cuda_prec "single") or float64 ("double").
 
 ``invert_multi_src_quda`` solves N sources on one gauge field.  Wilson,
-clover and staggered-family PC CG-family solves at cuda_prec="single" and
-tol >= 5e-8 take the batched pair route: every Krylov iterate is an
-(N,4,3,2,T,Z,Y*Xh) (staggered (N,3,2,T,Z,Y*Xh)) batch and every hop one
-launch of a multi-RHS kernel (B5-eo, B7-mrhs, S2-mrhs).  Every other
-request loops over ``invert_quda``.
+clover, twisted-mass, twisted-clover and staggered-family PC CG-family
+solves at cuda_prec="single" and tol >= 5e-8 take the batched pair route:
+every Krylov iterate is an (N,4,3,2,T,Z,Y*Xh) (staggered
+(N,3,2,T,Z,Y*Xh)) batch and every hop one launch of a multi-RHS kernel
+(B5-eo, B7-mrhs, S2-mrhs).  Every other request, the flavour doublets and
+the domain-wall family included, loops over ``invert_quda``.
 
 Resident state (device, geometry, gauge) lives in a module-level context,
 as interface_quda.cpp keeps it, between ``init_quda`` and ``end_quda``.
@@ -89,6 +99,11 @@ _ctx = {
 }
 
 STAGGERED_TYPES = ("staggered", "asqtad", "hisq")
+TWISTED_TYPES = ("twisted-mass", "twisted-clover")
+NDEG_TYPES = ("ndeg-twisted-mass", "ndeg-twisted-clover")
+DWF_TYPES = ("domain-wall", "domain-wall-4d", "mobius", "mobius-eofa")
+# the PC families whose CG runs the normal equations of a pair operator
+SCHUR_TYPES = ("wilson", "clover") + TWISTED_TYPES + NDEG_TYPES + DWF_TYPES
 
 
 def init_quda(device="cuda"):
@@ -183,6 +198,50 @@ def _antiperiodic() -> bool:
     return _ctx["gauge_param"].t_boundary == "antiperiodic"
 
 
+def _build_zoo(p: InvertParam, pc: bool, g, geom, ap, matpc):
+    """The twisted and domain-wall operators of ``p.dslash_type`` (JAX
+    quda_api.py:411-462)."""
+    from ..models import domain_wall as mdw
+    from ..models import twisted as mtw
+    t = p.dslash_type
+    if t == "twisted-mass":
+        return (mtw.DiracTwistedMassPC(g, geom, p.kappa, p.mu, ap, matpc)
+                if pc else mtw.DiracTwistedMass(g, geom, p.kappa, p.mu, ap))
+    if t == "twisted-clover":
+        return (mtw.DiracTwistedCloverPC(g, geom, p.kappa, p.mu, p.csw, ap,
+                                         matpc) if pc
+                else mtw.DiracTwistedClover(g, geom, p.kappa, p.mu, p.csw,
+                                            ap))
+    if t == "ndeg-twisted-mass":
+        return (mtw.DiracNdegTwistedMassPC(g, geom, p.kappa, p.mu,
+                                           p.epsilon, ap, matpc) if pc
+                else mtw.DiracNdegTwistedMass(g, geom, p.kappa, p.mu,
+                                              p.epsilon, ap))
+    if t == "ndeg-twisted-clover":
+        return (mtw.DiracNdegTwistedCloverPC(g, geom, p.kappa, p.mu,
+                                             p.epsilon, p.csw, ap, matpc)
+                if pc else
+                mtw.DiracNdegTwistedClover(g, geom, p.kappa, p.mu, p.epsilon,
+                                           p.csw, ap))
+    m5 = -p.m5  # QUDA passes m5 negative
+    if t == "mobius-eofa":
+        kw = dict(mq1=p.eofa_mq1, mq2=p.eofa_mq2, mq3=p.eofa_mq3,
+                  eofa_pm=p.eofa_pm, eofa_shift=p.eofa_shift)
+        if pc:
+            return mdw.DiracMobiusEofaPC(g, geom, p.Ls, m5, p.mass, p.b5,
+                                         p.c5, antiperiodic_t=ap,
+                                         matpc=matpc, **kw)
+        return mdw.DiracMobiusEofa(g, geom, p.Ls, m5, p.mass, p.b5, p.c5,
+                                   antiperiodic_t=ap, **kw)
+    b5, c5 = (p.b5, p.c5) if t == "mobius" else (1.0, 0.0)
+    if not pc:
+        return mdw.DiracMobius(g, geom, p.Ls, m5, p.mass, b5, c5, ap)
+    if t == "domain-wall":
+        # QUDA's plain "domain-wall" preconditions on the 5d checkerboard
+        return mdw.DiracDomainWall5DPC(g, geom, p.Ls, m5, p.mass, ap, matpc)
+    return mdw.DiracMobiusPC(g, geom, p.Ls, m5, p.mass, b5, c5, ap, matpc)
+
+
 def _build_dirac(p: InvertParam, pc: bool, dtype):
     from ..models import clover as mclover
     from ..models import wilson as mwil
@@ -190,6 +249,8 @@ def _build_dirac(p: InvertParam, pc: bool, dtype):
     g = _ctx["gauge"].to(dtype)
     ap = _antiperiodic()
     matpc = EVEN if p.matpc_type == "even-even" else ODD
+    if p.dslash_type in TWISTED_TYPES + NDEG_TYPES + DWF_TYPES:
+        return _build_zoo(p, pc, g, geom, ap, matpc)
     if p.dslash_type in STAGGERED_TYPES:
         from ..models import staggered as mstag
         improved = p.dslash_type != "staggered"
@@ -238,10 +299,10 @@ def _link_form(staggered: bool = False) -> str:
 
 def _check_route(param: InvertParam, sloppy: str):
     """Raise for every route this port does not serve yet."""
-    if param.dslash_type not in ("wilson", "clover") + STAGGERED_TYPES:
+    if param.dslash_type not in SCHUR_TYPES + STAGGERED_TYPES:
         raise NotImplementedError(
-            f"dslash_type {param.dslash_type!r} is not ported yet: twisted "
-            "mass and twisted clover (ROADMAP A10), domain wall (A10)")
+            f"dslash_type {param.dslash_type!r} is not ported yet (ROADMAP "
+            "A14: the Laplace operator)")
     if param.inv_type != "cg":
         raise NotImplementedError(
             f"inv_type {param.inv_type!r} is not ported yet (ROADMAP A11; "
@@ -279,6 +340,11 @@ def _check_route(param: InvertParam, sloppy: str):
         raise NotImplementedError(
             f"cuda_prec_sloppy {sloppy!r} above cuda_prec 'single' is not "
             "a mixed-precision route (ROADMAP A7)")
+    if param.dslash_type in DWF_TYPES and sloppy != "single":
+        raise NotImplementedError(
+            f"cuda_prec_sloppy {sloppy!r} for {param.dslash_type!r}: the "
+            "domain-wall hop runs on B5-eo, whose bf16 forms wait for "
+            "ROADMAP A7/B5; the port serves sloppy single")
 
 
 def _df64_route(param: InvertParam) -> bool:
@@ -394,7 +460,7 @@ def invert_quda(source, param: InvertParam):
         param.secs = time.perf_counter() - t0
     else:
         op = dirac.pairs(_store_dtype(param.cuda_prec), precision_form=form)
-        be, bo = even_odd_split(b, geom)
+        be, bo = _split(b, param, op)
         rhs = op.prepare_pairs(be, bo)
         sys_rhs = rhs if hermitian else op.Mdag_pairs(rhs)
 
@@ -414,7 +480,7 @@ def invert_quda(source, param: InvertParam):
                 tol=param.tol, maxiter=param.maxiter,
                 delta=param.reliable_delta)
         xe, xo = op.reconstruct_pairs(res.x, be, bo)
-        x_full = even_odd_join(xe, xo, geom)
+        x_full = _join(xe, xo, param, op)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         param.secs = time.perf_counter() - t0
@@ -423,11 +489,8 @@ def invert_quda(source, param: InvertParam):
                                    / float(blas.norm2(b)))
     param.iter_count = int(res.iters)
     param.reliable_updates = int(res.reliable_updates)
-    # flops_per_site_M counts per UPDATED site, and the PC operator
-    # updates one parity: volume/2 sites
-    sites = geom.volume // 2
     param.gflops = (param.iter_count * mv_applies
-                    * dirac.flops_per_site_M() * sites) / 1e9
+                    * dirac.flops_per_site_M() * _pc_sites(dirac)) / 1e9
     _solve_supervision(param, "invert_quda", res.converged)
     log.info("invert_quda[%s/%s]: %d iters, true_res %.2e, %.2f s",
              param.dslash_type, param.inv_type, param.iter_count,
@@ -435,20 +498,60 @@ def invert_quda(source, param: InvertParam):
     return x_full
 
 
-def _source_on_device(source, param: InvertParam, dtype, sites=None):
+def _pc_sites(dirac) -> int:
+    """The sites a PC operator updates, which flops_per_site_M counts
+    per: one parity, volume/2 (times Ls for a 5d operator)."""
+    return _ctx["geom"].volume // 2 * getattr(dirac, "ls", 1)
+
+
+def _source_shape(param: InvertParam):
+    """A source's shape: (T,Z,Y,X,4,3); (T,Z,Y,X,1,3) for the staggered
+    family, (T,Z,Y,X,2,4,3) for the flavour doublets and
+    (Ls,T,Z,Y,X,4,3) for the domain-wall family."""
+    lat = tuple(_ctx["geom"].lattice_shape)
+    t = param.dslash_type
+    if t in STAGGERED_TYPES:
+        return lat + (1, 3)
+    if t in NDEG_TYPES:
+        return lat + (2, 4, 3)
+    if t in DWF_TYPES:
+        return (int(param.Ls),) + lat + (4, 3)
+    return lat + (4, 3)
+
+
+def _source_on_device(source, param: InvertParam, dtype, shape=None):
     """The source (a numpy array or a tensor) on the session's device,
-    checked against the lattice (``sites``, default the full lattice's):
-    (T,Z,Y,X,4,3), or (T,Z,Y,X,1,3) for the staggered family."""
+    checked against ``shape`` (default ``_source_shape(param)``)."""
     dev = _ctx["device"]
-    nspin = 1 if param.dslash_type in STAGGERED_TYPES else 4
+    want = tuple(shape or _source_shape(param))
     if isinstance(source, torch.Tensor):
         b = source.to(device=dev, dtype=dtype)
     else:
-        b = spinor_from_host(source, dev, dtype, nspin)
-    want = tuple(sites or _ctx["geom"].lattice_shape) + (nspin, 3)
+        b = spinor_from_host(source, dev, dtype, want[-2])
     if tuple(b.shape) != want:
         raise ValueError(f"source shape {tuple(b.shape)} != {want}")
     return b
+
+
+def _split(b, param: InvertParam, op):
+    """Full-lattice source(s) -> (even, odd) halves: the 5d checkerboard's
+    slice-aligned split where the operator has one, the 4d split of
+    every s slice for the domain-wall family."""
+    geom = _ctx["geom"]
+    if hasattr(op, "split5"):
+        return op.split5(b)
+    if param.dslash_type in DWF_TYPES:
+        return _split_batch(b, geom)
+    return even_odd_split(b, geom)
+
+
+def _join(xe, xo, param: InvertParam, op):
+    geom = _ctx["geom"]
+    if hasattr(op, "join5"):
+        return op.join5(xe, xo)
+    if param.dslash_type in DWF_TYPES:
+        return _join_batch(xe, xo, geom)
+    return even_odd_join(xe, xo, geom)
 
 
 def invert_multishift_quda(source, param: InvertParam):
@@ -544,20 +647,23 @@ def invert_multi_src_quda(sources, param: InvertParam):
 
     Routes, as the JAX package's (quda_api.py:1503-1820):
 
-    * batched: dslash_type "wilson", "clover" or the staggered family,
+    * batched: dslash_type "wilson", "clover", "twisted-mass",
+      "twisted-clover" or the staggered family,
       a PC solve_type, inv_type in the CG family, cuda_prec "single",
       tol >= 5e-8.  Every iterate is an f32 pair batch (N,4,3,2,T,Z,Y*Xh),
       or (N,3,2,T,Z,Y*Xh) staggered, on the float32 pair operator, links
       full or recon-12 as ``GaugeParam.reconstruct`` says (staggered: full
       only), whatever ``cuda_prec_sloppy`` says (it is ignored here, as in
-      the JAX package).  Wilson and clover run CGNR, 2 M applies per
+      the JAX package).  Wilson, clover and twisted run CGNR, 2 M applies per
       iteration; the Hermitian staggered PC operator runs CG directly, 1
       apply: ``batched_cg_pairs`` (independent lanes), or with
       QUDA_TORCH_MULTI_SRC_BLOCK=1 ``block_cg_pairs`` (one shared Krylov
       space).  Every hop is one launch of a multi-RHS kernel: B5-eo for
-      Wilson, K1/K2-mrhs for clover, two S2-mrhs passes (fat, then Naik
-      added) for asqtad/hisq and one for fat-only staggered.
-    * per-source: everything else loops over ``invert_quda`` (so tol <
+      Wilson, K1/K2-mrhs for clover and twisted (their twist forms), two
+      S2-mrhs passes (fat, then Naik added) for asqtad/hisq and one for
+      fat-only staggered.
+    * per-source: everything else, the flavour doublets and the
+      domain-wall family included, loops over ``invert_quda`` (so tol <
       5e-8 Wilson reaches the df64 route per source, and stacks its low
       words into ``param.x_df64_lo``); what ``invert_quda`` does not
       serve raises there.
@@ -571,16 +677,15 @@ def invert_multi_src_quda(sources, param: InvertParam):
     param.validate()
     if _ctx["gauge"] is None:
         raise RuntimeError("load_gauge_quda() first")
-    geom = _ctx["geom"]
     dtype = complex_dtype(param.cuda_prec)
-    nspin = 1 if param.dslash_type in STAGGERED_TYPES else 4
+    want = _source_shape(param)
     if isinstance(sources, torch.Tensor):
         B = sources.to(device=_ctx["device"], dtype=dtype)
     else:
-        B = spinor_from_host(sources, _ctx["device"], dtype, nspin)
-    if B.ndim != 7 or tuple(B.shape[1:]) != geom.spinor_shape(nspin):
+        B = spinor_from_host(sources, _ctx["device"], dtype, want[-2])
+    if tuple(B.shape[1:]) != want:
         raise ValueError(f"sources of shape {tuple(B.shape)}: expected "
-                         f"(N,) + {geom.spinor_shape(nspin)}")
+                         f"(N,) + {want}")
     return _invert_multi_src_body(B, param)
 
 
@@ -599,8 +704,10 @@ def _invert_multi_src_body(B, param: InvertParam):
     # batches take the per-source route, whose invert_quda engages df64
     tol_ok = param.tol >= 5e-8
     stag = param.dslash_type in STAGGERED_TYPES
+    # the doublets and the domain-wall family stay per source, as in the
+    # JAX package: their flavour and Ls axes already lead the batch
     batched_able = (pc and (param.dslash_type in ("wilson", "clover")
-                            or stag)
+                            + TWISTED_TYPES or stag)
                     and cg_family and tol_ok and param.cuda_prec == "single")
     route, _, _ = multi_src_route(
         n_src, split_mode=config.get("QUDA_TORCH_MULTI_SRC_SPLIT"),
@@ -665,9 +772,10 @@ def _invert_multi_src_body(B, param: InvertParam):
                              / float(blas.norm2(B[i])))
                    for i in range(n_src)]
         # per UPDATED site (volume/2) and M apply (staggered: 2 * (1146
-        # or 570) + 24); each source is charged its own iterations
+        # or 570) + 24; twisted mass 2 * 1320 + 192; twisted clover as
+        # clover); each source is charged its own iterations
         gflops = (sum(iters) * mv_applies * dirac.flops_per_site_M()
-                  * (geom.volume // 2)) / 1e9
+                  * _pc_sites(dirac)) / 1e9
     param.iter_count_multi = [int(i) for i in iters]
     param.true_res_multi = [float(r) for r in res_rhs]
     param.iter_count = sum(param.iter_count_multi)
@@ -696,12 +804,15 @@ def _operator_route(param: InvertParam, api: str):
                         "clover_pallas_packed)",
               "staggered": "ROADMAP A12 (the full-lattice staggered forms)",
               "asqtad": "ROADMAP A12 (the full-lattice staggered forms)",
-              "hisq": "ROADMAP A12 (the full-lattice staggered forms)"}
+              "hisq": "ROADMAP A12 (the full-lattice staggered forms)",
+              "laplace": "ROADMAP A14 (the Laplace operator)"}
+    zoo = ("ROADMAP A19 (the operator API of the twisted and domain-wall "
+           "families)")
     if param.dslash_type != "wilson":
         raise NotImplementedError(
             f"{api} for dslash_type {param.dslash_type!r} is not ported "
-            f"yet: {queued.get(param.dslash_type, 'ROADMAP A10')}; the "
-            "port serves Wilson")
+            f"yet: {queued.get(param.dslash_type, zoo)}; the port serves "
+            "Wilson")
     if param.cuda_prec not in ("single", "double"):
         raise NotImplementedError(
             f"{api} at cuda_prec {param.cuda_prec!r}: single and double "
@@ -717,7 +828,7 @@ def dslash_quda(psi, param: InvertParam, parity: int):
     dtype = complex_dtype(param.cuda_prec)
     dpk = _build_dirac(param, True, dtype).packed(precision_form=form)
     half = _ctx["geom"].half_lattice_shape
-    x = _source_on_device(psi, param, dtype, half)
+    x = _source_on_device(psi, param, dtype, half + (4, 3))
     return wpk.unpack_spinor(dpk.D_to(wpk.pack_spinor(x), int(parity)), half)
 
 

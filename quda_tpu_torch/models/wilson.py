@@ -20,9 +20,9 @@ through it.  The full-lattice operator's pair companion
 (``DiracWilsonPackedPairs``, ``DiracWilson.pairs``) runs the full-lattice
 hop B4 (``dslash_pallas_packed``): the operator API's ``mat_quda`` and
 ``mat_dag_mat_quda``.  ``_SchurPairOpBase``
-is the same hop under a Schur operator with a diagonal (the clover
-family, models/clover.py), whose two hops per apply run the fused clover
-kernel.  Every pair operator also has ``_mrhs`` forms on a leading axis of
+is the same hop under a Schur operator with a diagonal (the clover and
+twisted families, models/clover.py and models/twisted.py), whose two
+hops per apply run the fused clover kernel.  Every pair operator also has ``_mrhs`` forms on a leading axis of
 N right-hand sides, (N,4,3,2,T,Z,Y*Xh): the same composition, each hop one
 launch of a multi-RHS kernel (B5-eo, or the fused clover B7-mrhs), the
 glue broadcast over that axis.
@@ -323,18 +323,30 @@ class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
     written once over the ``_Ainv_q_sign_pairs`` hook (prepare and
     reconstruct) and the fused-epilogue hooks ``_fused_k1_params`` /
     ``_fused_k2_params``.  Each apply of M runs two launches of the fused
-    clover hop (ops/clover_pallas): K1 = Ainv_q(D_{q<-p} x), K2 =
-    diag_p(x) - kappa^2 D_{p<-q} t; on CPU tensors their plain versions,
-    the staged composition.  Mdag = g5 M(-s) g5; the twist sign s is
-    ignored by the g5-hermitian clover family.  The ``_mrhs`` forms run
-    the same composition on a batch: K1 and K2 become the multi-RHS fused
-    hops (B7-mrhs), prepare and reconstruct the multi-RHS hop (B5-eo).
+    hop (ops/clover_pallas): K1 = Ainv_q(D_{q<-p} x), K2 =
+    diag_p(x) - kappa^2 D_{p<-q} t; on CPU tensors their plain versions.
+    An operator the fused kernels cannot host (models/formsel.
+    fused_capable: the flavour doublets) runs the staged composition on
+    its ``_d_to`` and the ``_diag_sign_pairs`` hook instead.
+    Mdag = g5 M(-s) g5; the twist sign s is ignored by the g5-hermitian
+    clover family.  The ``_mrhs`` forms run the fused composition on a
+    batch: K1 and K2 become the multi-RHS fused hops (B7-mrhs), prepare
+    and reconstruct the multi-RHS hop (B5-eo).
 
     ``_Ainv_q_sign_pairs`` serves both: it must broadcast over a leading
     RHS axis (the clover term's ``apply_clover_pairs`` does)."""
 
     def _Ainv_q_sign_pairs(self, x, sign, out_dtype):
         raise NotImplementedError
+
+    def _diag_sign_pairs(self, x, sign, out_dtype):
+        """diag_p(s) x of the staged composition."""
+        raise NotImplementedError
+
+    @property
+    def _fused(self) -> bool:
+        from .formsel import fused_capable
+        return fused_capable(self) is None
 
     def _fused_k1_params(self, sign):
         """-> (blk_pl, twist (c, scale) or None) of K1's epilogue."""
@@ -363,11 +375,23 @@ class _SchurPairOpBase(_PackedHopMixin, _PairSloppyBase):
 
     def _M_sign_pairs(self, x, sign):
         from ..ops import clover_pallas as clp
-        return self._schur_with(x, sign, clp.dslash_eo_pallas_post,
-                                clp.dslash_eo_pallas_diag_hop)
+        if self._fused:
+            return self._schur_with(x, sign, clp.dslash_eo_pallas_post,
+                                    clp.dslash_eo_pallas_diag_hop)
+        p = self.matpc
+        t = self._d_to(x, 1 - p, self.store_dtype)
+        t = self._Ainv_q_sign_pairs(t, sign, self.store_dtype)
+        dd = self._d_to(t, p, torch.float32)
+        out = (self._diag_sign_pairs(x, sign, torch.float32)
+               - (self.kappa ** 2) * dd)
+        return out.to(self.store_dtype)
 
     def _M_sign_pairs_mrhs(self, x, sign):
         from ..ops import clover_pallas as clp
+        if not self._fused:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no batched form: "
+                "invert_multi_src_quda solves it source by source")
         return self._schur_with(x, sign, clp.dslash_eo_pallas_post_mrhs,
                                 clp.dslash_eo_pallas_diag_hop_mrhs)
 

@@ -1,37 +1,45 @@
-"""The fused clover eo hop (B7, K1 and K2) and its plain versions.
+"""The fused clover / twisted eo hop (B7, K1 and K2) and its plain versions.
 
 Replaces quda_tpu/ops/clover_pallas.py::_fused_eo_call (the Pallas TPU
 kernel: the B1 hop with the family diagonal in its epilogue) with the
 hand-written CUDA kernel ``csrc/clover_eo.cu``.  Two shapes serve the
-clover Schur operator M_pc = A_p - kappa^2 D_{p<-q} A_q^-1 D_{q<-p}:
+Schur operators M_pc = diag_p - kappa^2 D_{p<-q} Ainv_q D_{q<-p} of the
+clover, twisted-mass and twisted-clover families:
 
-* K1 ``dslash_eo_pallas_post``: out = B (D_{p<-q} psi), with the hop
-  rounded to the output dtype before B is applied (the staged rounding of
-  the composition hop -> store dtype -> A_q^-1 it replaces).
-* K2 ``dslash_eo_pallas_diag_hop``: out = B x + hop_coeff * D_{p<-q} psi,
-  x a sixth spinor operand at the target sites, float32 out.
+* K1 ``dslash_eo_pallas_post``: out = B v, or with ``twist=(c, scale)``
+  and no blocks out = scale (v + i c g5 v), v = D_{p<-q} psi rounded to
+  the output dtype before the epilogue (the staged rounding of the
+  composition hop -> store dtype -> Ainv_q it replaces).
+* K2 ``dslash_eo_pallas_diag_hop``: out = B x (or x) + i c g5 x (with
+  ``diag_twist=c``) + hop_coeff * D_{p<-q} psi, x a sixth spinor operand
+  at the target sites, float32 out.  The twist rotates the original x.
+
+An epilogue needs blocks or a twist: the block-free forms (``blk_pl=None``)
+are the twisted-mass ones.  The twist's scale is a multiply, as in the
+TPU kernel; the staged composition divides by 1 + a^2 instead.
 
 Layouts are the JAX package's pallas layout (ops/wilson_pallas_packed);
 the blocks are models/clover.pack_clover_pairs' (2,6,6,2,T,Z,Y*Xh):
 spins (0,1) -> chirality 0, (2,3) -> 1, block row i = 3*(s%2) + c.
 Storage forms, each a kernel instance: psi, links and blocks all float32
 or all bfloat16; R = 3 link rows or R = 2 (recon-12, ``tb_sign``); K1
-writes the storage dtype, K2 float32.  The twisted epilogues (``twist``,
-``diag_twist``) and the block-free forms wait for ROADMAP A10 (twisted).
+writes the storage dtype, K2 float32; epilogues blocks or twist (K1),
+blocks, twist or both (K2).
 
 The multi-RHS forms (B7-mrhs) ``dslash_eo_pallas_post_mrhs`` and
 ``dslash_eo_pallas_diag_hop_mrhs`` replace the JAX module's
 ``_fused_eo_call_mrhs`` with ``csrc/clover_eo_mrhs.cu``: psi, x and out
 carry a leading axis of N right-hand sides, and each link and block entry
 is loaded once for a chunk of ``wilson_pallas_packed.MRHS_CHUNK`` of
-them.  Their forms are float32 with full or recon-12 links; bf16 storage
-waits for ROADMAP B5, the twist epilogues for A10.
+them.  Their forms are float32 with full or recon-12 links and the same
+three epilogues; bf16 storage waits for ROADMAP B5.
 
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_eo_post_plain``, ``dslash_eo_diag_hop_plain`` and
 their ``_mrhs`` twins), CUDA tensors launch the kernel or raise.  Each
 wrapper counts its launches in ``.launches`` and per form in
-``.launches_by_form`` (``"full:f32->f32"``, ``"r12:bf16->bf16"``, ...).
+``.launches_by_form`` (``"full:f32->f32"``, ``"r12:bf16->bf16"``, with
+``":twist"`` or ``":blk+twist"`` after a twisted epilogue).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import ctypes
 import torch
 
 from ..models.clover import apply_clover_pairs
+from ..models.twisted import _ig5_rot_pairs
 from ..utils import kernels
 from . import wilson_pallas_packed as wpp
 
@@ -55,41 +64,59 @@ TOLERANCE_BF16 = 2.0 ** -7
 # (K2) the axpy that adds the scaled hop
 FLOPS_PER_SITE = {"post": wpp.FLOPS_PER_SITE + 504,
                   "diag_hop": wpp.FLOPS_PER_SITE + 504 + 48}
+BLOCK_FLOPS_PER_SITE = 504
+# the twist epilogue: i c g5 v and the scale (K1) or the add (K2)
+TWIST_FLOPS_PER_SITE = 72
 _STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
-_TWIST_QUEUED = ("the twisted-mass and twisted-clover epilogues of the "
-                 "fused clover hop are not ported yet (ROADMAP A10, "
-                 "twisted)")
+
+
+def epilogue_name(with_blk: bool = True, twist: bool = False) -> str:
+    """Suffix of an epilogue in ``launches_by_form``: "" (the clover
+    blocks), ":twist" (block-free twist), ":blk+twist"."""
+    if not twist:
+        return ""
+    return ":blk+twist" if with_blk else ":twist"
 
 
 def bytes_per_site(kind: str, rows: int = 3,
-                   store_dtype=torch.float32) -> int:
+                   store_dtype=torch.float32, with_blk: bool = True) -> int:
     """Floor of the device-memory traffic per target half-site, each
     input read once and the output written once: psi 24 numbers, links
-    8 x rows x 3 complex, blocks 2 x 6 x 6 complex, out 24 (K1 in the
-    storage dtype, K2 in float32) and, for K2, x 24."""
+    8 x rows x 3 complex, blocks 2 x 6 x 6 complex (none without blocks),
+    out 24 (K1 in the storage dtype, K2 in float32) and, for K2, x 24.
+    The twist adds no bytes."""
     sb = _STORE_BYTES[store_dtype]
-    hop_in = 24 * sb + 8 * rows * 3 * 2 * sb
+    hop_in = 24 * sb + 8 * rows * 3 * 2 * sb + (144 * sb if with_blk else 0)
     if kind == "post":
-        return hop_in + 144 * sb + 24 * sb
-    return hop_in + 144 * sb + 24 * 4 + 24 * sb
+        return hop_in + 24 * sb
+    return hop_in + 24 * 4 + 24 * sb
 
 
-def bytes_per_site_mrhs(kind: str, n: int, rows: int = 3) -> int:
+def bytes_per_site_mrhs(kind: str, n: int, rows: int = 3,
+                        with_blk: bool = True) -> int:
     """Floor of B7-mrhs's traffic per target half-site for ``n``
     right-hand sides in float32: the links and blocks once, each spinor
     (and for K2 each x) read once and each output written once."""
     per_rhs = 192 if kind == "post" else 288
-    return per_rhs * n + 8 * rows * 3 * 2 * 4 + 144 * 4
+    return (per_rhs * n + 8 * rows * 3 * 2 * 4
+            + (144 * 4 if with_blk else 0))
 
 
-def flops_per_site(kind: str, rows: int = 3) -> int:
-    return FLOPS_PER_SITE[kind] + (wpp.RECON_FLOPS_PER_SITE if rows == 2
-                                   else 0)
+def _epilogue_flops(kind: str, with_blk: bool, twist: bool) -> int:
+    return (FLOPS_PER_SITE[kind] - (0 if with_blk else BLOCK_FLOPS_PER_SITE)
+            + (TWIST_FLOPS_PER_SITE if twist else 0))
 
 
-def flops_per_site_mrhs(kind: str, n: int, rows: int = 3) -> int:
-    return FLOPS_PER_SITE[kind] * n + (wpp.RECON_FLOPS_PER_SITE if rows == 2
-                                       else 0)
+def flops_per_site(kind: str, rows: int = 3, with_blk: bool = True,
+                   twist: bool = False) -> int:
+    return (_epilogue_flops(kind, with_blk, twist)
+            + (wpp.RECON_FLOPS_PER_SITE if rows == 2 else 0))
+
+
+def flops_per_site_mrhs(kind: str, n: int, rows: int = 3,
+                        with_blk: bool = True, twist: bool = False) -> int:
+    return (_epilogue_flops(kind, with_blk, twist) * n
+            + (wpp.RECON_FLOPS_PER_SITE if rows == 2 else 0))
 
 
 def out_dtype_of(kind: str, store_dtype):
@@ -97,65 +124,102 @@ def out_dtype_of(kind: str, store_dtype):
     return store_dtype if kind == "post" else torch.float32
 
 
+def _post_epilogue(hop, blk_pl, twist, out_dtype):
+    """K1's epilogue on the hop, already rounded to ``out_dtype``: the
+    blocks and the twist in float32, rounded once more."""
+    v = (apply_clover_pairs(blk_pl, hop, torch.float32) if blk_pl is not None
+         else hop.to(torch.float32))
+    if twist is not None:
+        c, scale = twist
+        v = (v + _ig5_rot_pairs(v, c)) * scale
+    return v.to(out_dtype)
+
+
+def _diag_epilogue(hop, xc_pl, blk_pl, diag_twist, hop_coeff, out_dtype):
+    """K2's epilogue: B x (or x) + i c g5 x + hop_coeff * hop in float32."""
+    d = (apply_clover_pairs(blk_pl, xc_pl, torch.float32)
+         if blk_pl is not None else xc_pl.to(torch.float32))
+    if diag_twist is not None:
+        d = d + _ig5_rot_pairs(xc_pl, diag_twist)
+    return (d + hop_coeff * hop).to(out_dtype)
+
+
 def dslash_eo_post_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl, dims,
                          target_parity: int, out_dtype=None,
-                         tb_sign: bool = True) -> torch.Tensor:
+                         tb_sign: bool = True, twist=None) -> torch.Tensor:
     """Plain version of K1: the B1 hop rounded to ``out_dtype`` (default
-    psi's), then the blocks in float32, rounded once more."""
+    psi's), then the blocks and the twist in float32, rounded once more."""
     odt = out_dtype or psi_pl.dtype
     hop = wpp.dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                                      target_parity, odt, tb_sign)
-    return apply_clover_pairs(blk_pl, hop, odt)
+    return _post_epilogue(hop, blk_pl, twist, odt)
 
 
 def dslash_eo_diag_hop_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
                              dims, target_parity: int, hop_coeff: float,
-                             out_dtype=None,
-                             tb_sign: bool = True) -> torch.Tensor:
-    """Plain version of K2: B x + hop_coeff * hop, all in float32."""
+                             out_dtype=None, tb_sign: bool = True,
+                             diag_twist=None) -> torch.Tensor:
+    """Plain version of K2: B x + i c g5 x + hop_coeff * hop, all in
+    float32."""
     hop = wpp.dslash_eo_packed_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                                      target_parity, torch.float32, tb_sign)
-    out = apply_clover_pairs(blk_pl, xc_pl, torch.float32) + hop_coeff * hop
-    return out.to(out_dtype or psi_pl.dtype)
+    return _diag_epilogue(hop, xc_pl, blk_pl, diag_twist, hop_coeff,
+                          out_dtype or psi_pl.dtype)
 
 
 def dslash_eo_post_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl, dims,
                               target_parity: int, out_dtype=None,
-                              tb_sign: bool = True) -> torch.Tensor:
+                              tb_sign: bool = True,
+                              twist=None) -> torch.Tensor:
     """Plain version of K1-mrhs: ``dslash_eo_post_plain`` broadcast over
     the leading RHS axis of psi."""
     odt = out_dtype or psi_pl.dtype
     hop = wpp.dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                                           target_parity, odt, tb_sign)
-    return apply_clover_pairs(blk_pl, hop, odt)
+    return _post_epilogue(hop, blk_pl, twist, odt)
 
 
 def dslash_eo_diag_hop_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
                                   dims, target_parity: int,
                                   hop_coeff: float, out_dtype=None,
-                                  tb_sign: bool = True) -> torch.Tensor:
+                                  tb_sign: bool = True,
+                                  diag_twist=None) -> torch.Tensor:
     """Plain version of K2-mrhs: ``dslash_eo_diag_hop_plain`` broadcast
     over the leading RHS axis of psi and x."""
     hop = wpp.dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
                                           target_parity, torch.float32,
                                           tb_sign)
-    out = apply_clover_pairs(blk_pl, xc_pl, torch.float32) + hop_coeff * hop
-    return out.to(out_dtype or psi_pl.dtype)
+    return _diag_epilogue(hop, xc_pl, blk_pl, diag_twist, hop_coeff,
+                          out_dtype or psi_pl.dtype)
 
 
-def _check_args(target_parity, blk_pl, twist):
-    if twist is not None:
-        raise NotImplementedError(_TWIST_QUEUED)
-    if blk_pl is None:
-        raise NotImplementedError(
-            "the block-free (twist-only) form of the fused clover hop "
-            "serves the twisted family (ROADMAP A10, twisted)")
+def _check_args(target_parity, blk_pl, twist, kind="diag_hop"):
+    if blk_pl is None and twist is None:
+        raise ValueError(
+            "the fused hop's epilogue needs blocks (blk_pl) or a twist; "
+            "the bare hop is dslash_eo_pallas_packed")
+    if kind == "post" and blk_pl is not None and twist is not None:
+        raise ValueError(
+            "K1 takes blocks or a twist, not both: its twist is the "
+            "block-free twisted-mass form, and the twisted clover folds its "
+            "twist into the blocks")
     if target_parity not in (0, 1):
         raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
 
 
+def _twist_args(kind, twist):
+    """(twist flag, c, scale) of the C entry: K1's ``twist=(c, scale)``,
+    K2's ``diag_twist=c``."""
+    if twist is None:
+        return 0, 0.0, 1.0
+    if kind == "post":
+        c, scale = twist
+        return 1, float(c), float(scale)
+    return 1, float(twist), 1.0
+
+
 def _launch(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl, dims,
-            target_parity, out_dtype, hop_coeff, tb_sign, rows):
+            target_parity, out_dtype, hop_coeff, tb_sign, rows, twist):
     """Check the operands and launch one kernel instance on the card."""
     T, Z, Y, X = dims
     Xh = X // 2
@@ -169,67 +233,76 @@ def _launch(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl, dims,
     kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
     kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, store)
     kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, store)
-    kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, store)
+    if blk_pl is not None:
+        kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, store)
     if xc_pl is not None:
         kernels.require(xc_pl, "xc_pl", (4, 3, 2) + sites, store)
+    tw, tw_c, tw_scale = _twist_args(kind, twist)
     lib = kernels.library()
     out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
     rc = lib.qtt_clover_eo(
         out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
-        u_bw_pl.data_ptr(), blk_pl.data_ptr(),
+        u_bw_pl.data_ptr(), None if blk_pl is None else blk_pl.data_ptr(),
         None if xc_pl is None else xc_pl.data_ptr(), T, Z, Y, Xh,
         int(target_parity), int(store == torch.bfloat16), rows,
         int(bool(tb_sign)), int(kind == "diag_hop"),
-        ctypes.c_float(hop_coeff), kernels.stream_of(psi_pl))
+        ctypes.c_float(hop_coeff), int(blk_pl is not None), tw,
+        ctypes.c_float(tw_c), ctypes.c_float(tw_scale),
+        kernels.stream_of(psi_pl))
     kernels.check_launch(rc, "qtt_clover_eo")
-    wrapper.launches += 1
-    form = wpp.form_name(rows, store, out_dtype)
-    wrapper.launches_by_form[form] = wrapper.launches_by_form.get(form, 0) + 1
+    wpp._count(wrapper, wpp.form_name(rows, store, out_dtype)
+               + epilogue_name(blk_pl is not None, bool(tw)))
     return out
 
 
 def dslash_eo_pallas_post(u_here_pl, u_bw_pl, psi_pl, dims,
                           target_parity: int, *, blk_pl=None, twist=None,
                           out_dtype=None, tb_sign: bool = True):
-    """K1: B(D_{p<-q} psi) in one pass, B the resident chiral blocks
-    ``blk_pl`` (e.g. the clover inverse A_q^-1).  Output in
-    ``out_dtype`` (default psi's; the kernel writes the storage dtype)."""
-    _check_args(target_parity, blk_pl, twist)
+    """K1: E(D_{p<-q} psi) in one pass, E the resident chiral blocks
+    ``blk_pl`` (e.g. the clover inverse A_q^-1, or the dense twisted-clover
+    inverse) or the twist ``twist=(c, scale)``: v -> scale (v + i c g5 v).
+    Output in ``out_dtype`` (default psi's; the kernel writes the storage
+    dtype)."""
+    _check_args(target_parity, blk_pl, twist, "post")
     rows = wpp.link_rows(u_here_pl)
-    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, blk_pl)
+    kind = kernels.dispatch_device(
+        *[t for t in (u_here_pl, u_bw_pl, psi_pl, blk_pl) if t is not None])
     out_dtype = out_dtype or psi_pl.dtype
     if kind == "cpu":
         return dslash_eo_post_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl, dims,
-                                    target_parity, out_dtype, tb_sign)
+                                    target_parity, out_dtype, tb_sign, twist)
     return _launch(dslash_eo_pallas_post, "post", u_here_pl, u_bw_pl, psi_pl,
                    None, blk_pl, dims, target_parity, out_dtype, 0.0,
-                   tb_sign, rows)
+                   tb_sign, rows, twist)
 
 
 def dslash_eo_pallas_diag_hop(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
                               target_parity: int, *, hop_coeff: float,
                               blk_pl=None, diag_twist=None, out_dtype=None,
                               tb_sign: bool = True):
-    """K2: B x + hop_coeff * D_{p<-q} psi in one pass, x = ``xc_pl`` at
-    the target sites (e.g. A_p x - kappa^2 D t).  Pass
-    ``out_dtype=torch.float32``, the kernel's output."""
+    """K2: B x (+ i c g5 x with ``diag_twist=c``) + hop_coeff *
+    D_{p<-q} psi in one pass, x = ``xc_pl`` at the target sites (e.g. A_p
+    x - kappa^2 D t), B optional.  Pass ``out_dtype=torch.float32``, the
+    kernel's output."""
     _check_args(target_parity, blk_pl, diag_twist)
     rows = wpp.link_rows(u_here_pl)
-    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, xc_pl,
-                                   blk_pl)
+    kind = kernels.dispatch_device(
+        *[t for t in (u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl)
+          if t is not None])
     out_dtype = out_dtype or psi_pl.dtype
     if kind == "cpu":
         return dslash_eo_diag_hop_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl,
                                         blk_pl, dims, target_parity,
-                                        hop_coeff, out_dtype, tb_sign)
+                                        hop_coeff, out_dtype, tb_sign,
+                                        diag_twist)
     return _launch(dslash_eo_pallas_diag_hop, "diag_hop", u_here_pl, u_bw_pl,
                    psi_pl, xc_pl, blk_pl, dims, target_parity, out_dtype,
-                   float(hop_coeff), tb_sign, rows)
+                   float(hop_coeff), tb_sign, rows, diag_twist)
 
 
 def _launch_mrhs(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
                  dims, target_parity, out_dtype, hop_coeff, tb_sign, rows,
-                 chunk):
+                 chunk, twist):
     """Check the operands and launch one multi-RHS kernel instance."""
     T, Z, Y, X = dims
     Xh = X // 2
@@ -244,22 +317,24 @@ def _launch_mrhs(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
     kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
     kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, f32)
     kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, f32)
-    kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, f32)
+    if blk_pl is not None:
+        kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, f32)
     if xc_pl is not None:
         kernels.require(xc_pl, "xc_pl", (nrhs, 4, 3, 2) + sites, f32)
+    tw, tw_c, tw_scale = _twist_args(kind, twist)
     lib = kernels.library()
     out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
     rc = lib.qtt_clover_eo_mrhs(
         out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
-        u_bw_pl.data_ptr(), blk_pl.data_ptr(),
+        u_bw_pl.data_ptr(), None if blk_pl is None else blk_pl.data_ptr(),
         None if xc_pl is None else xc_pl.data_ptr(), T, Z, Y, Xh,
         int(target_parity), rows, int(bool(tb_sign)),
-        int(kind == "diag_hop"), ctypes.c_float(hop_coeff), nrhs, nb,
-        kernels.stream_of(psi_pl))
+        int(kind == "diag_hop"), ctypes.c_float(hop_coeff),
+        int(blk_pl is not None), tw, ctypes.c_float(tw_c),
+        ctypes.c_float(tw_scale), nrhs, nb, kernels.stream_of(psi_pl))
     kernels.check_launch(rc, "qtt_clover_eo_mrhs")
-    wrapper.launches += 1
-    form = wpp.form_name(rows, f32, f32)
-    wrapper.launches_by_form[form] = wrapper.launches_by_form.get(form, 0) + 1
+    wpp._count(wrapper, wpp.form_name(rows, f32, f32)
+               + epilogue_name(blk_pl is not None, bool(tw)))
     return out
 
 
@@ -267,20 +342,22 @@ def dslash_eo_pallas_post_mrhs(u_here_pl, u_bw_pl, psi_pl, dims,
                                target_parity: int, *, blk_pl=None,
                                twist=None, out_dtype=None,
                                tb_sign: bool = True, chunk=None):
-    """K1 over a batch: B(D_{p<-q} psi_r) for psi (N,4,3,2,T,Z,Y*Xh), the
-    links and blocks loaded once per chunk of right-hand sides."""
-    _check_args(target_parity, blk_pl, twist)
+    """K1 over a batch: E(D_{p<-q} psi_r) for psi (N,4,3,2,T,Z,Y*Xh), E
+    as for ``dslash_eo_pallas_post``, the links and blocks loaded once per
+    chunk of right-hand sides."""
+    _check_args(target_parity, blk_pl, twist, "post")
     rows = wpp.link_rows(u_here_pl)
     wpp.check_batch(psi_pl)
-    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, blk_pl)
+    kind = kernels.dispatch_device(
+        *[t for t in (u_here_pl, u_bw_pl, psi_pl, blk_pl) if t is not None])
     out_dtype = out_dtype or psi_pl.dtype
     if kind == "cpu":
         return dslash_eo_post_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, blk_pl,
                                          dims, target_parity, out_dtype,
-                                         tb_sign)
+                                         tb_sign, twist)
     return _launch_mrhs(dslash_eo_pallas_post_mrhs, "post", u_here_pl,
                         u_bw_pl, psi_pl, None, blk_pl, dims, target_parity,
-                        out_dtype, 0.0, tb_sign, rows, chunk)
+                        out_dtype, 0.0, tb_sign, rows, chunk, twist)
 
 
 def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
@@ -288,23 +365,25 @@ def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
                                    blk_pl=None, diag_twist=None,
                                    out_dtype=None, tb_sign: bool = True,
                                    chunk=None):
-    """K2 over a batch: B x_r + hop_coeff * D_{p<-q} psi_r, x batched like
-    psi.  Pass ``out_dtype=torch.float32``, the kernel's output."""
+    """K2 over a batch: B x_r (+ i c g5 x_r) + hop_coeff * D_{p<-q} psi_r,
+    x batched like psi.  Pass ``out_dtype=torch.float32``, the kernel's
+    output."""
     _check_args(target_parity, blk_pl, diag_twist)
     rows = wpp.link_rows(u_here_pl)
     wpp.check_batch(psi_pl)
-    kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl, xc_pl,
-                                   blk_pl)
+    kind = kernels.dispatch_device(
+        *[t for t in (u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl)
+          if t is not None])
     out_dtype = out_dtype or psi_pl.dtype
     if kind == "cpu":
         return dslash_eo_diag_hop_mrhs_plain(u_here_pl, u_bw_pl, psi_pl,
                                              xc_pl, blk_pl, dims,
                                              target_parity, hop_coeff,
-                                             out_dtype, tb_sign)
+                                             out_dtype, tb_sign, diag_twist)
     return _launch_mrhs(dslash_eo_pallas_diag_hop_mrhs, "diag_hop",
                         u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl, dims,
                         target_parity, out_dtype, float(hop_coeff), tb_sign,
-                        rows, chunk)
+                        rows, chunk, diag_twist)
 
 
 def reset_launches() -> None:

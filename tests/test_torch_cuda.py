@@ -826,3 +826,180 @@ def test_double_invert_on_card(sloppy):
     else:
         assert hops.get("full:f32->f32", 0) >= 4 * pg.iter_count
         assert hops.get("full:f64->f64", 0) >= 4 * pg.reliable_updates
+
+
+# -- the twist epilogues of the fused hop (K1/K2 and K1/K2-mrhs) -----------
+
+# (kernel, epilogue): K1 block-free twist (twisted mass); K2 block-free
+# twist (twisted mass) and blocks + twist (twisted clover)
+TWIST_EPILOGUES = [("post", "twist"), ("diag_hop", "twist"),
+                   ("diag_hop", "blk+twist")]
+TW_A = 0.0288                       # a = 2 kappa mu at kappa 0.12, mu 0.12
+
+
+def _twist_inputs(dev, rows, store, parity, seed, n=None):
+    """4x6x8x10 links, psi and x (an n-RHS batch when n is given) and
+    blocks 1 + 0.1 Gaussian, in the storage dtype."""
+    dims = lattice_shape(ASYM)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sites = pair_spinor_shape(ASYM)[3:]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    lead = () if n is None else (n,)
+    psi, xc = (randn(*lead, 4, 3, 2, *sites).to(store) for _ in range(2))
+    u_here = randn(4, rows, 3, 2, *sites).to(store)
+    u_bw = wpp.backward_gauge_eo(randn(4, rows, 3, 2, *sites), dims,
+                                 parity).to(store).contiguous()
+    blk = 0.1 * randn(2, 6, 6, 2, *sites)
+    blk[:, :, :, 0] += torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+    return dims, u_here, u_bw, psi, xc, blk.to(store)
+
+
+def _twist_call(kind, epi, args, parity, how="kernel", mrhs=False,
+                chunk=None):
+    """One call of a twist form: the kernel, its plain version, or (mrhs)
+    the batch through single-RHS kernel launches; sign s = -1's
+    parameters, as an Mdag apply passes them."""
+    dims, u_here, u_bw, psi, xc, blk = args
+    b = blk if epi == "blk+twist" else None
+    if how == "single":
+        return torch.stack([_twist_call(kind, epi, (dims, u_here, u_bw,
+                                                    psi[r], xc[r], blk),
+                                        parity) for r in range(len(psi))])
+    if kind == "post":
+        tw = (TW_A, 1.0 / (1.0 + TW_A ** 2))
+        if how == "plain":
+            fn = (clp.dslash_eo_post_mrhs_plain if mrhs
+                  else clp.dslash_eo_post_plain)
+            return fn(u_here, u_bw, psi, None, dims, parity, twist=tw)
+        fn = (clp.dslash_eo_pallas_post_mrhs if mrhs
+              else clp.dslash_eo_pallas_post)
+        kw = {"chunk": chunk} if mrhs else {}
+        return fn(u_here, u_bw, psi, dims, parity, twist=tw, **kw)
+    if how == "plain":
+        fn = (clp.dslash_eo_diag_hop_mrhs_plain if mrhs
+              else clp.dslash_eo_diag_hop_plain)
+        return fn(u_here, u_bw, psi, xc, b, dims, parity, -0.0144,
+                  torch.float32, diag_twist=-TW_A)
+    fn = (clp.dslash_eo_pallas_diag_hop_mrhs if mrhs
+          else clp.dslash_eo_pallas_diag_hop)
+    kw = {"chunk": chunk} if mrhs else {}
+    return fn(u_here, u_bw, psi, xc, dims, parity, hop_coeff=-0.0144,
+              blk_pl=b, diag_twist=-TW_A, out_dtype=torch.float32, **kw)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("kind,epi", TWIST_EPILOGUES,
+                         ids=[f"{k}:{e}" for k, e in TWIST_EPILOGUES])
+def test_twist_kernel_forms_match_plain(kind, epi, rows, store, parity):
+    """Every twist form of K1/K2 on 4x6x8x10 against its plain version:
+    f32 output within TOLERANCE, bf16 within TOLERANCE_BF16 (one bf16
+    ulp of max |plain|); the launch counted under its epilogue's form."""
+    dev = require_cuda()
+    args = _twist_inputs(dev, rows, store, parity, seed=61 + parity)
+    out = clp.out_dtype_of(kind, store)
+    wrapper = (clp.dslash_eo_pallas_post if kind == "post"
+               else clp.dslash_eo_pallas_diag_hop)
+    name = wpp.form_name(rows, store, out) + f":{epi}"
+    n0 = wrapper.launches_by_form.get(name, 0)
+    got = _twist_call(kind, epi, args, parity)
+    want = _twist_call(kind, epi, args, parity, "plain")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out
+    assert wrapper.launches_by_form[name] == n0 + 1
+    tol = clp.TOLERANCE if out == torch.float32 else clp.TOLERANCE_BF16
+    assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
+        <= tol
+
+
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("kind,epi", TWIST_EPILOGUES,
+                         ids=[f"{k}:{e}" for k, e in TWIST_EPILOGUES])
+def test_twist_mrhs_kernels_match_plain_and_single_launches(kind, epi, rows,
+                                                            parity, chunk):
+    """K1/K2-mrhs twist forms over 3 right-hand sides (a tail chunk at
+    chunk 2): within TOLERANCE of the plain version and of 3 single-RHS
+    launches; at chunk 1 the same bits as those launches."""
+    dev = require_cuda()
+    args = _twist_inputs(dev, rows, torch.float32, parity, seed=67 + parity,
+                         n=3)
+    got = _twist_call(kind, epi, args, parity, mrhs=True, chunk=chunk)
+    want = _twist_call(kind, epi, args, parity, "plain", mrhs=True)
+    single = _twist_call(kind, epi, args, parity, "single")
+    torch.cuda.synchronize()
+    assert got.shape == args[3].shape
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= clp.TOLERANCE
+    if chunk == 1:
+        assert torch.equal(got, single)
+    assert rel_err(got.cpu().numpy(), single.cpu().numpy()) <= clp.TOLERANCE
+
+
+@pytest.mark.parametrize("matpc", [0, 1])
+def test_dw5d_strided_groups_on_card(matpc):
+    """The 5d-checkerboard operator hops the slices x[r::2] of each 5d
+    parity, strided views: B5-eo refuses them as they are, and the
+    operator makes them contiguous, two launches per 4d hop, so M and
+    Mdag on the card agree with the CPU's plain path (1e-5) at both
+    matpc parities."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.models.domain_wall import DiracDomainWall5DPC
+    from quda_tpu_torch.ops import dwf_pallas as dwp
+    dev = require_cuda()
+    ls = 6
+    g = torch.from_numpy(su3_gauge(ASYM, seed=71))
+    x = torch.from_numpy(gaussian((ls,) + pair_spinor_shape(ASYM), seed=72,
+                                  dtype=np.float32))
+    ops = {d: DiracDomainWall5DPC(g.to(d), LatticeGeometry(ASYM), ls, 1.8,
+                                  0.1, matpc=matpc).pairs(torch.float32)
+           for d in ("cpu", dev)}
+    op = ops[dev]
+    with pytest.raises(ValueError, match="contiguous"):
+        dwp.dslash_eo_pallas_packed_ls(op.gauge_eo_pp[0], op._u_bw[0],
+                                       x.to(dev)[0::2], op.dims, 0)
+    wpp.reset_launches()
+    for fn in ("M_pairs", "Mdag_pairs"):
+        got = getattr(op, fn)(x.to(dev))
+        want = getattr(ops["cpu"], fn)(x)
+        torch.cuda.synchronize()
+        assert rel_err(got.cpu().numpy(), want.numpy()) < 1e-5
+    assert wpp.dslash_eo_pallas_packed_mrhs.launches == 2 * 2 * 2
+    assert wpp.dslash_eo_pallas_packed.launches == 0
+
+
+@pytest.mark.parametrize("dslash", ["twisted-mass", "twisted-clover",
+                                    "mobius"])
+def test_zoo_invert_on_card_matches_cpu(dslash):
+    """invert_quda on 4^3x8 SU(3) links: the card (K1/K2 twist forms, or
+    B5-eo with N = Ls for Möbius, and no single-RHS hop in the Möbius
+    solve) against the CPU's plain path, iterations within 2, solutions
+    within 1e-4."""
+    dev = require_cuda()
+    g = su3_gauge(SMALL, seed=73)
+    kw = dict(dslash_type=dslash, mu=0.12)
+    shape = lattice_shape(SMALL) + (4, 3)
+    if dslash == "twisted-clover":
+        kw["csw"] = 1.0
+    if dslash == "mobius":
+        kw = dict(dslash_type=dslash, mass=0.1, Ls=6)
+        shape = (6,) + shape
+    b = gaussian(shape, seed=74)
+    wpp.reset_launches()
+    clp.reset_launches()
+    xg, pg = _solve(g, b, dev, **kw)
+    if dslash == "mobius":
+        assert wpp.dslash_eo_pallas_packed_mrhs.launches >= 4 * pg.iter_count
+        assert wpp.dslash_eo_pallas_packed.launches == 0
+    else:
+        assert clp.dslash_eo_pallas_post.launches >= 2 * pg.iter_count
+        assert clp.dslash_eo_pallas_diag_hop.launches >= 2 * pg.iter_count
+    xc, pc = _solve(g, b, "cpu", **kw)
+    assert pg.converged and pg.true_res <= 1e-5
+    assert abs(pg.iter_count - pc.iter_count) <= 2
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-4

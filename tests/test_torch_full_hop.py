@@ -299,7 +299,7 @@ def test_operator_api_routes_and_refusals(api_case):
         assert rel_err(qt.dslash_quda(bo, p, 0).numpy(),
                        want["single"]["dslash"]) < 1e-6
         for dt, item in (("clover", "A17"), ("hisq", "A12"),
-                         ("twisted-mass", "A10")):
+                         ("twisted-mass", "A19")):
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
                 qt.mat_quda(psi, qt.InvertParam(dslash_type=dt, kappa=KAPPA,
                                                 cuda_prec="single"))

@@ -98,7 +98,7 @@ def test_init_quda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    {"dslash_type": "twisted-mass"}, {"inv_type": "bicgstab"},
+    {"dslash_type": "laplace"}, {"inv_type": "bicgstab"},
     {"solve_type": "direct-pc"},
     # Wilson double is served now (test_torch_double.py); double clover
     # still waits for ROADMAP A7

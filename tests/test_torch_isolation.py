@@ -47,6 +47,10 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "quda_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {f"quda_tpu_torch/{m}.py" for m in (
+        "models/twisted", "models/domain_wall", "models/hasenbusch",
+        "models/formsel", "ops/dwf", "ops/dwf_pallas")} <= scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -157,13 +161,28 @@ def test_clover_hop_wrappers_raise_on_card_request(card_request):
         clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi[:2], DIMS, 0,
                                       hop_coeff=-0.01, blk_pl=blk,
                                       out_dtype=f32)
-    for kw in ({"blk_pl": blk, "twist": (0.1, 1.0)}, {"blk_pl": None}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    # the twist epilogues reach the kernel too (K1 block-free, K2 with and
+    # without blocks); an epilogue with neither blocks nor a twist, and K1
+    # with both, have no instance
+    for dtype in (f32, bf16):
+        u, ubw, psi = _hop_args(dtype)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0,
+                                      twist=(0.1, 0.99))
+        for b in (blk.to(dtype), None):
+            with pytest.raises(RuntimeError, match="unavailable"):
+                clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi, DIMS, 1,
+                                              hop_coeff=-0.01, blk_pl=b,
+                                              diag_twist=0.1, out_dtype=f32)
+    u, ubw, psi = _hop_args()
+    with pytest.raises(ValueError, match="blocks .* or a twist"):
+        clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, blk_pl=None)
+    with pytest.raises(ValueError, match="blocks .* or a twist"):
         clp.dslash_eo_pallas_diag_hop(u, ubw, psi, psi, DIMS, 0,
-                                      hop_coeff=-0.01, blk_pl=blk,
-                                      diag_twist=0.1)
+                                      hop_coeff=-0.01, out_dtype=f32)
+    with pytest.raises(ValueError, match="not both"):
+        clp.dslash_eo_pallas_post(u, ubw, psi, DIMS, 0, blk_pl=blk,
+                                  twist=(0.1, 0.99))
     assert _counts() == n0
 
 
@@ -214,9 +233,19 @@ def test_mrhs_wrappers_raise_on_card_request(card_request):
         clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b, DIMS, 0,
                                            hop_coeff=-0.01, blk_pl=blk,
                                            out_dtype=bf16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(RuntimeError, match="unavailable"):
+        clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b, DIMS, 0,
+                                       twist=(0.1, 0.99))
+    with pytest.raises(ValueError, match="not both"):
         clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b, DIMS, 0, blk_pl=blk,
-                                       twist=(0.1, 1.0))
+                                       twist=(0.1, 0.99))
+    for b in (blk, None):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            clp.dslash_eo_pallas_diag_hop_mrhs(u, ubw, psi_b, psi_b, DIMS, 1,
+                                               hop_coeff=-0.01, blk_pl=b,
+                                               diag_twist=0.1, out_dtype=f32)
+    with pytest.raises(ValueError, match="blocks .* or a twist"):
+        clp.dslash_eo_pallas_post_mrhs(u, ubw, psi_b, DIMS, 0)
     assert _mrhs_counts() == n0
 
 

@@ -398,10 +398,9 @@ def test_mrhs_wrappers_refuse_unbatched_psi():
     blk = torch.zeros((2, 6, 6, 2) + sites)
     with pytest.raises(ValueError, match=r"\(N, 4, 3, 2"):
         clp.dslash_eo_pallas_post_mrhs(u, u, psi, dims, 0, blk_pl=blk)
-    with pytest.raises(NotImplementedError, match="A10"):
-        clp.dslash_eo_pallas_diag_hop_mrhs(u, u, psi[None], psi[None], dims,
-                                           0, hop_coeff=-0.01, blk_pl=blk,
-                                           diag_twist=0.1)
+    with pytest.raises(ValueError, match=r"\(N, 4, 3, 2"):
+        clp.dslash_eo_pallas_diag_hop_mrhs(u, u, psi, psi, dims, 0,
+                                           hop_coeff=-0.01, diag_twist=0.1)
 
 
 def test_mrhs_chunk_and_grid_limits():
@@ -540,17 +539,18 @@ def test_per_source_route_reaches_df64(monkeypatch):
     assert p.iter_count == sum(p.iter_count_multi) > 0
 
 
-@pytest.mark.parametrize("dslash_type", ["twisted-mass", "staggered"])
+@pytest.mark.parametrize("dslash_type", ["laplace", "staggered"])
 def test_unported_operators_raise(multi_system, dslash_type):
-    """Twisted mass waits for ROADMAP A10.  Staggered multi-source solves
-    are served (test_torch_staggered_mrhs.py); on recon-12 links they
-    raise (ROADMAP C)."""
+    """The Laplace operator waits for ROADMAP A14 (twisted mass, served
+    since the zoo slice, is in test_torch_twisted.py).  Staggered
+    multi-source solves are served (test_torch_staggered_mrhs.py); on
+    recon-12 links they raise (ROADMAP C)."""
     g, B = multi_system
     kw = {}
     if dslash_type == "staggered":
         B, kw = B[..., :1, :], {"reconstruct": 12, "mass": 0.1,
                                 "solve_type": "direct-pc"}
-    with pytest.raises(NotImplementedError, match="ROADMAP (A10|C)"):
+    with pytest.raises(NotImplementedError, match="ROADMAP (A14|C)"):
         _solve_multi(g, B, dslash_type=dslash_type, **kw)
 
 
