@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a CG iteration of the port spends its time on the card.
 
-    python3 chip_profile.py [all|wilson|double|staggered|zoo]   # default: all
+    python3 chip_profile.py [all|wilson|double|staggered|zoo|mg]  # default all
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -37,6 +37,22 @@ forms), a 12-source twisted-mass ``batched_cg_pairs`` (K1/K2-mrhs), and
 ``fused_cg`` on the Möbius and the 5d-PC domain-wall pair operators (the
 4d hop on B5-eo with N = Ls; the (Ls, Ls) s-operator einsums run as
 cuBLAS GEMMs, the ``m5_algebra`` group).
+
+Then the Wilson multigrid (``mg``) at 32^3 x 64: a quenched gauge from
+a cold start and MG_SWEEPS heatbath sweeps at beta 6.0 (each followed by
+4 overrelaxation sweeps), kappa MG_KAPPA, chip_smoke.py's hierarchy (3
+levels, blocks 4^4 then 2^4, n_vec 24, null vectors from M v = 0).  After the set-up (its phase
+seconds printed), the profiler windows are the set-up's pieces (3
+iterations of the level-0 null-vector BiCGStab on B5, 3 of the level-1
+one on B8's multi-RHS form, one transfer build and one coarse build per level) and one
+outer GCR cycle of 16 iterations, each preconditioned by a V-cycle: per
+iteration, B4 (the fine M and smoother) and B8 (the coarse M, smoother
+and bottom solve) against the plain PyTorch glue and the idle share.
+Before them the seconds of a heatbath and an overrelaxation sweep and of
+``staple_sum`` with its 3x3 products as ``su3.mat_mul`` against
+``torch.matmul``; after them whole solves: CG, and ``gcr-mg`` on
+hierarchies whose null vectors solve M v = 0 (QUDA's set-up) and M v = r
+(the JAX package's).
 
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
@@ -87,6 +103,8 @@ def _profile(label, run, torch, dims=DIMS):
               "eo_hop_mrhs_kernel": 0.0, "clover_hop_mrhs_kernel": 0.0,
               "staggered_fused_kernel": 0.0, "staggered_pass_kernel": 0.0,
               "staggered_pass_mrhs_kernel": 0.0,
+              "full_hop_kernel": 0.0, "full_hop_mrhs_kernel": 0.0,
+              "coarse_kernel": 0.0, "coarse_mrhs_kernel": 0.0,
               "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
               "m5_algebra": 0.0, "plain_torch": 0.0}
     # the partial-sum pass belongs to whichever norm kernel this solver ran
@@ -101,6 +119,14 @@ def _profile(label, run, torch, dims=DIMS):
             groups["staggered_fused_kernel"] += us
         elif "stag_pass_kernel" in name:
             groups["staggered_pass_kernel"] += us
+        elif "wilson_full_mrhs_kernel" in name:
+            groups["full_hop_mrhs_kernel"] += us
+        elif "wilson_full_kernel" in name:
+            groups["full_hop_kernel"] += us
+        elif "coarse_apply_kernel" in name:
+            groups["coarse_kernel"] += us
+        elif "coarse_apply_mrhs_kernel" in name:
+            groups["coarse_mrhs_kernel"] += us
         elif "wilson_eo_mrhs_kernel" in name:
             groups["eo_hop_mrhs_kernel"] += us
         elif "clover_eo_mrhs_kernel" in name:
@@ -293,13 +319,154 @@ def zoo(torch, dev) -> None:
         del dpc, op, rhs
 
 
+MG_KAPPA = 0.155
+MG_BETA = 6.0
+MG_SWEEPS = 8               # heatbath sweeps, each with 4 overrelaxation ones
+
+
+class _Once:
+    """A profiled piece of work counted as one iteration."""
+    iters = 1
+
+
+def mg(torch, dev) -> None:
+    """Profile the Wilson multigrid's set-up pieces and one outer GCR
+    cycle at 32^3 x 64 on a heatbath gauge."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from unittest import mock
+
+    from quda_tpu_torch.gauge import smear
+    from quda_tpu_torch.gauge.heatbath import (cold_start, heatbath_evolve,
+                                               sweep)
+    from quda_tpu_torch.gauge.smear import staple_sum
+    from quda_tpu_torch.mg.gemm import build_coarse_pairs_gemm
+    from quda_tpu_torch.mg.pair import PairTransfer
+    from quda_tpu_torch.ops.pair import to_pairs
+    from quda_tpu_torch.solvers.block import batched_bicgstab_pairs
+    from quda_tpu_torch.solvers.gcr import gcr
+
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # the heatbath's sweeps, and its staples with the 3x3 products as
+    # su3.mat_mul's broadcast multiply-adds against torch.matmul
+    g = cold_start(geom, device=dev)
+    g, hb_sweep_s = wall_s(lambda: sweep(gen, g, geom, MG_BETA, True))
+    g, or_sweep_s = wall_s(lambda: sweep(gen, g, geom, MG_BETA, False))
+    _, staple_s = wall_s(lambda: staple_sum(g, 0))
+    with mock.patch.object(smear, "mat_mul", torch.matmul):
+        _, staple_matmul_s = wall_s(lambda: staple_sum(g, 0))
+    print(json.dumps({"heatbath_sweep_s": hb_sweep_s,
+                      "overrelaxation_sweep_s": or_sweep_s,
+                      "staple_sum_s": staple_s,
+                      "staple_sum_torch_matmul_s": staple_matmul_s,
+                      "dims_xyzt": list(DIMS), "dtype": str(g.dtype),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    t0 = time.perf_counter()
+    g = heatbath_evolve(gen, g, geom, MG_BETA, MG_SWEEPS - 1,
+                        n_or_per_hb=4).to(torch.complex64)
+    torch.cuda.synchronize()
+    hb_s = time.perf_counter() - t0 + hb_sweep_s + or_sweep_s
+    src = torch.randn(geom.lattice_shape + (4, 3), generator=gen,
+                      device=dev, dtype=torch.complex64)
+    qt.init_quda(dev)
+    qt.load_gauge_quda(g, qt.GaugeParam(X=DIMS, cuda_prec="single"))
+    del g
+    ip = qt.InvertParam(dslash_type="wilson", inv_type="gcr-mg",
+                        solve_type="direct", kappa=MG_KAPPA, tol=1e-6,
+                        cuda_prec="single")
+    mp = qt.MultigridParamAPI(n_level=3,
+                              geo_block_size=((4, 4, 4, 4), (2, 2, 2, 2)),
+                              n_vec=(24, 24), setup_source=("zero", "zero"),
+                              coarse_chunk=16)
+    hier = qt.new_multigrid_quda(mp, ip)
+    print(json.dumps({"mg_setup_s": hier.setup_seconds,
+                      "setup_breakdown": hier.setup_breakdown,
+                      "heatbath_s": hb_s, "plaquette": qt.plaq_quda(),
+                      "dims_xyzt": list(DIMS), "kappa": MG_KAPPA,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    op0 = hier.levels[0]["op"]
+    op1 = hier.levels[1]["op"]
+    for label, op, lat, k in (
+            ("setup:null_bicgstab[level0,24]", op0, geom.lattice_shape, 6),
+            ("setup:null_bicgstab[level1,24]", op1,
+             hier.levels[0]["transfer"].coarse_shape, 24)):
+        bs = torch.randn((24,) + tuple(lat) + (2, k, 2), generator=gen,
+                         device=dev)
+        to_l = getattr(op, "to_mrhs_layout", lambda v: v)
+        mv = getattr(op, "M_mrhs_pl", op.M)
+        bb = to_l(bs)
+        del bs
+        batched_bicgstab_pairs(mv, bb, tol=1e-30, maxiter=1)     # warm-up
+        torch.cuda.synchronize()
+        _profile(label, lambda: batched_bicgstab_pairs(
+            mv, bb, tol=1e-30, maxiter=3), torch)
+        del bb
+    for li, lv in enumerate(hier.levels):
+        tr = lv["transfer"]
+
+        def build_transfer(tr=tr):
+            lat = tr.fine_shape
+            nv = torch.randn((tr.n_vec,) + tuple(lat) + (2, tr.k_fine, 2),
+                             generator=gen, device=dev)
+            PairTransfer.from_null_vectors(nv, tr.block)
+            return _Once()
+
+        def build_coarse(lv=lv):
+            build_coarse_pairs_gemm(lv["op"], lv["transfer"])
+            return _Once()
+
+        _profile(f"setup:transfer_build[level{li}]", build_transfer, torch)
+        _profile(f"setup:coarse_build[level{li}]", build_coarse, torch)
+    b = to_pairs(src, torch.float32)
+
+    def outer(n):
+        return gcr(op0.M_std, b, precond=hier.precondition, tol=1e-30,
+                   nkrylov=n, max_restarts=1)
+
+    outer(2)                                                 # warm-up
+    torch.cuda.synchronize()
+    _profile("gcr-mg:outer_iteration", lambda: outer(16), torch)
+    # whole solves: the hierarchy above (QUDA's null vectors, M v = 0) and
+    # one set up the JAX package's way (M v = r), against CG
+    del hier, op0, op1, b
+    p_cg = qt.InvertParam(dslash_type="wilson", kappa=MG_KAPPA, tol=1e-6,
+                          maxiter=10000, cuda_prec="single")
+    qt.invert_quda(src, p_cg)
+    solves = {"cg": {"iters": p_cg.iter_count, "secs": p_cg.secs}}
+    for source in ("zero", "random"):
+        qt.destroy_multigrid_quda()
+        torch.cuda.empty_cache()
+        mp.setup_source = (source, source)
+        hier = qt.new_multigrid_quda(mp, ip)
+        qt.invert_quda(src, ip)
+        solves[source] = {"setup_s": hier.setup_seconds,
+                          "outer_iters": ip.iter_count, "secs": ip.secs,
+                          "true_res": ip.true_res,
+                          "converged": ip.converged}
+        del hier
+    print(json.dumps({"mg_solves": solves, "kappa": MG_KAPPA, "tol": 1e-6,
+                      "dims_xyzt": list(DIMS),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    qt.end_quda()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 1
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    families = {"staggered": staggered, "double": double, "zoo": zoo}
+    families = {"staggered": staggered, "double": double, "zoo": zoo,
+                "mg": mg}
     if which not in ("all", "wilson") + tuple(families):
         print(f"chip_profile: unknown family {which!r}", file=sys.stderr)
         return 2
@@ -388,6 +555,7 @@ def main() -> int:
         double(torch, dev)
         staggered(torch, dev)
         zoo(torch, dev)
+        mg(torch, dev)
     return 0
 
 

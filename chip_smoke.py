@@ -155,6 +155,30 @@ Phases, one JSON line each (``"phase": ...``):
              (twisted), 12-source batched_cg_pairs against 12 fused_cg
              iterations, and Möbius and 5d-PC fused_cg at Ls 12.
 
+10. The Wilson multigrid at 32^3 x 64 (ROADMAP A12, A14; a generator of
+   its own):
+   gauge_gen — a quenched gauge from a cold start: MG_HB_SWEEPS heatbath
+             sweeps at beta 6.0, each followed by MG_OR_PER_HB
+             overrelaxation sweeps (complex128), the plaquette every 10
+             sweeps.  Fails unless the plaquette is within 0.005 of the
+             published 0.5937 and the links are unitary.
+   invert_cg — load_gauge_quda, plaq_quda, and the baseline: Wilson
+             invert_quda CG (normop-pc, fused_cg, tol 1e-6) at kappa
+             0.155.  Fails unless it converges in >= 300 iterations.
+   mg_setup — new_multigrid_quda: 3 levels, blocks 4^4 then 2^4, n_vec
+             24, BiCGStab null vectors from M v = 0 (setup_source
+             "zero"); the seconds per level and phase, verify(), launches.
+             Fails unless R P = 1 and Galerkin hold to 1e-4 at every level.
+   invert_mg — invert_quda(inv_type="gcr-mg", solve_type="direct") twice
+             on the same source.  Fails unless converged with true_res <=
+             1e-5 in fewer outer iterations than the CG, and the second
+             solve reuses the hierarchy (no B5 launch).
+   check   — B5 at N = 24 and 12 against its plain version and each lane
+             bit for bit against B4; B8 at both coarse levels and its
+             multi-RHS form at N = 24 against their plain versions.
+   timing  — B5 against 24 B4 launches, B8 and B8-mrhs against the einsum
+             (their library call) and their bounds.
+
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
 the quda_tpu_torch package beside it) the script exits non-zero and
@@ -217,6 +241,26 @@ DWF_B5, DWF_C5 = 1.5, 0.5
 EOFA_DIMS = (16, 16, 16, 16)
 EOFA_MQ = (0.04, 0.5, 1.0)
 EOFA_SHIFT = 0.3
+# the multigrid family (ROADMAP A12, A14): a quenched gauge generated from
+# a cold start at beta 6.0 (heatbath sweeps, each followed by
+# overrelaxation sweeps), gated on the published plaquette; kappa near
+# the quenched kappa_c ~ 0.157, where CG needs hundreds of iterations; 3
+# levels, blocks 4^4 then 2^4 (coarse lattices 8^3 x 16 and 4^3 x 8),
+# n_vec 24 at both, null vectors from M v = 0 and a random guess (QUDA's
+# set-up; the JAX package's M v = r needs more outer iterations than CG
+# takes here, PERF.md), probe columns 16 at a time (device memory)
+MG_BETA = 6.0
+MG_PLAQ = 0.5937                 # quenched <P> at beta 6.0, published
+MG_PLAQ_TOL = 0.005
+MG_HB_SWEEPS = 8
+MG_OR_PER_HB = 4
+MG_KAPPA = 0.155
+MG_CG_MIN_ITERS = 300
+MG_NVEC = 24
+MG_PARAMS = dict(n_level=3, geo_block_size=((4, 4, 4, 4), (2, 2, 2, 2)),
+                 n_vec=(MG_NVEC, MG_NVEC), setup_iters=(150, 150),
+                 setup_source=("zero", "zero"), coarse_chunk=16)
+MG_VERIFY_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -1711,6 +1755,306 @@ def zoo(torch, dev, smi) -> list:
     return rows_out
 
 
+def multigrid(torch, dev, smi) -> list:
+    """The Wilson multigrid at 32^3 x 64 on a quenched gauge the port
+    generates (ROADMAP A12, A14; phases gauge_gen, invert_cg, mg_setup,
+    invert_mg, check, timing); returns the kernels-line rows of B5 and
+    B8."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.gauge.heatbath import cold_start, sweep
+    from quda_tpu_torch.interfaces import quda_api as api
+    from quda_tpu_torch.gauge.observables import plaquette
+    from quda_tpu_torch.ops import coarse_pallas as cop
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+    f32 = torch.float32
+    geom = LatticeGeometry(PROD_DIMS)
+    vol = geom.volume
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    torch.cuda.empty_cache()
+
+    def bound(nbytes, nflop, sites):
+        t_bytes = nbytes * sites / HBM_BYTES_PER_S
+        t_ops = nflop * sites / F32_FLOPS_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    # -- gauge_gen: cold start, heatbath + overrelaxation at beta 6.0 -----
+    t0 = time.perf_counter()
+    g = cold_start(geom, device=dev)
+    n_sweeps, plaq_hist = 0, []
+    for _ in range(MG_HB_SWEEPS):
+        for hb in (True,) + (False,) * MG_OR_PER_HB:
+            g = sweep(gen, g, geom, MG_BETA, heatbath=hb)
+            n_sweeps += 1
+            if n_sweeps % 10 == 0:
+                plaq_hist.append([n_sweeps, float(plaquette(g)[0]),
+                                  time.perf_counter() - t0])
+    plaq = [float(x) for x in plaquette(g)]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    unit = (torch.matmul(g, g.conj().transpose(-1, -2))
+            - torch.eye(3, dtype=g.dtype, device=dev)).abs().max().item()
+    emit({"phase": "gauge_gen", "dims_xyzt": list(PROD_DIMS), "beta": MG_BETA,
+          "start": "cold", "heatbath_sweeps": MG_HB_SWEEPS,
+          "overrelaxation_per_heatbath": MG_OR_PER_HB, "sweeps": n_sweeps,
+          "plaquette_every_10_sweeps": plaq_hist,
+          "plaquette": plaq, "plaquette_published": MG_PLAQ,
+          "max_unitarity_err": unit, "seconds": gen_s, "dtype": str(g.dtype)})
+    if not (abs(plaq[0] - MG_PLAQ) <= MG_PLAQ_TOL and unit <= 1e-10):
+        fail(f"heatbath plaquette {plaq[0]:.5f} not within {MG_PLAQ_TOL} of "
+             f"{MG_PLAQ} (or links not unitary: {unit:.2e})")
+    gauge = g.to(torch.complex64)
+    del g
+    src = torch.randn(geom.lattice_shape + (4, 3), generator=gen, device=dev,
+                      dtype=torch.complex64)
+
+    def counts():
+        return {"b4": wpp.dslash_pallas_packed.launches,
+                "b5": wpp.dslash_pallas_packed_mrhs.launches,
+                "b8": cop.coarse_apply_pallas.launches,
+                "b8_mrhs": cop.coarse_apply_pallas_mrhs.launches}
+
+    def zero():
+        wpp.reset_launches()
+        cop.reset_launches()
+
+    qt.init_quda(dev)
+    qt.load_gauge_quda(gauge, qt.GaugeParam(X=PROD_DIMS, cuda_prec="single"))
+    plaq_api = qt.plaq_quda()
+    # -- invert_cg: the baseline on the same system --------------------
+    p_cg = qt.InvertParam(dslash_type="wilson", inv_type="cg",
+                          solve_type="normop-pc", kappa=MG_KAPPA, tol=TOL,
+                          maxiter=10000, cuda_prec="single")
+    qt.invert_quda(src, p_cg)
+    emit({"phase": "invert_cg", "dims_xyzt": list(PROD_DIMS),
+          "kappa": MG_KAPPA, "tol": TOL, "iters": p_cg.iter_count,
+          "secs": p_cg.secs, "true_res": p_cg.true_res,
+          "converged": p_cg.converged, "plaq_quda": plaq_api})
+    if not (p_cg.converged and p_cg.iter_count >= MG_CG_MIN_ITERS):
+        fail(f"baseline CG at kappa {MG_KAPPA}: {p_cg.iter_count} "
+             f"iterations, converged {p_cg.converged} (needs >= "
+             f"{MG_CG_MIN_ITERS} and converged)")
+    # -- mg_setup and invert_mg: the main path --------------------------
+    ip = qt.InvertParam(dslash_type="wilson", inv_type="gcr-mg",
+                        solve_type="direct", kappa=MG_KAPPA, tol=TOL,
+                        cuda_prec="single")
+    mp = qt.MultigridParamAPI(**MG_PARAMS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    hier = qt.new_multigrid_quda(mp, ip)
+    c_setup = counts()
+    report = hier.verify(galerkin_tol=MG_VERIFY_TOL, pr_tol=MG_VERIFY_TOL)
+    emit({"phase": "mg_setup", "dims_xyzt": list(PROD_DIMS),
+          "kappa": MG_KAPPA, "params": {k: v for k, v in MG_PARAMS.items()},
+          "coarse_lattices": [list(lv["transfer"].coarse_shape)
+                              for lv in hier.levels],
+          "setup_seconds": hier.setup_seconds,
+          "setup_breakdown": hier.setup_breakdown,
+          "null_vector_cg_fallback_levels": hier.null_fallbacks,
+          "verify": report, "launches": c_setup,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    solves = []
+    for rep in range(2):
+        zero()
+        x = qt.invert_quda(src, ip)
+        c = counts()
+        solves.append({"iters": ip.iter_count, "secs": ip.secs,
+                       "true_res": ip.true_res, "converged": ip.converged,
+                       "launches": c})
+        emit({"phase": "invert_mg", "solve": rep, "kappa": MG_KAPPA,
+              "tol": TOL, "gcr_nkrylov": ip.gcrNkrylov,
+              "outer_iters": ip.iter_count, "secs": ip.secs,
+              "true_res": ip.true_res, "converged": ip.converged,
+              "hierarchy_reused": api._ctx["mg"] is hier,
+              "launches": c, "cg_iters": p_cg.iter_count,
+              "cg_secs": p_cg.secs,
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        if not (ip.converged and ip.true_res <= TRUE_RES_MAX
+                and ip.iter_count < p_cg.iter_count):
+            fail(f"gcr-mg: converged {ip.converged}, true_res "
+                 f"{ip.true_res:.3e}, {ip.iter_count} outer iterations "
+                 f"against CG's {p_cg.iter_count}")
+        if rep == 1 and not (api._ctx["mg"] is hier and c["b5"] == 0):
+            fail("the second gcr-mg solve did not reuse the hierarchy")
+    # the main path: new_multigrid_quda and the first invert_quda
+    path = {k: c_setup[k] + solves[0]["launches"][k] for k in c_setup}
+    if min(path.values()) < 1:
+        fail(f"the multigrid path did not run B4, B5 and B8 (both forms): "
+             f"{path}")
+    coarse = [lv["coarse"] for lv in hier.levels]
+    b4_gauge = (hier.adapter.gauge_pl, hier.adapter.gauge_bw)
+    setup_s = hier.setup_seconds
+    del x, hier
+    qt.destroy_multigrid_quda()
+    qt.end_quda()
+    del gauge, src
+
+    # -- check: B5 at N = 24 and 12, each lane against B4; B8 at both
+    # coarse levels, on the main path's links --------------------------
+    T, Z, Y, X = geom.lattice_shape
+    u, ubw = b4_gauge
+    errs, timing, bound_by = {}, {}, {}
+    for n in (MG_NVEC, MG_NVEC // 2):
+        psi = torch.randn((n, 4, 3, 2, T, Z, Y * X), generator=gen,
+                          device=dev)
+        got = wpp.dslash_pallas_packed_mrhs(u, psi, X, gauge_bw=ubw)
+        lanes_equal = all(torch.equal(got[i], wpp.dslash_pallas_packed(
+            u, psi[i].contiguous(), X, gauge_bw=ubw)) for i in range(n))
+        want = wpp.dslash_packed_mrhs_plain(u, ubw, psi, X)
+        torch.cuda.synchronize()
+        abs_err = (got - want).abs().max().item()
+        rel = abs_err / want.abs().max().item()
+        errs[f"b5:{n}"] = abs_err
+        emit({"phase": "check", "kernel": "dslash_pallas_packed_mrhs",
+              "form": "full:f32->f32", "dims_xyzt": list(PROD_DIMS),
+              "nrhs": n, "max_abs_err": abs_err, "max_rel_err": rel,
+              "tolerance": wpp.TOLERANCE, "lanes_bitwise_b4": lanes_equal})
+        if not (rel <= wpp.TOLERANCE and lanes_equal):
+            fail(f"B5 at N = {n} disagrees with its plain version "
+                 f"({rel:.3e}) or a lane with B4 ({lanes_equal})")
+        b5_ms = median_ms(lambda: wpp.dslash_pallas_packed_mrhs(
+            u, psi, X, gauge_bw=ubw), torch)
+        timing[f"b5:{n}:ms"] = b5_ms
+        if n == MG_NVEC:
+            singles = [psi[i].contiguous() for i in range(n)]
+            b4x_ms = median_ms(lambda: [wpp.dslash_pallas_packed(
+                u, q, X, gauge_bw=ubw) for q in singles], torch, batch=2)
+            p_ms = median_ms(lambda: wpp.dslash_packed_mrhs_plain(
+                u, ubw, psi, X), torch, repeats=3, batch=1)
+            b_ms, bound_by["b5"] = bound(wpp.bytes_per_site_mrhs(n),
+                                         wpp.flops_per_site_mrhs(n), vol)
+            timing["b5"] = (b5_ms, p_ms, b_ms, b4x_ms)
+            del singles
+        del psi, got, want
+    del u, ubw, b4_gauge
+    for li, co in enumerate(coarse):
+        links = co.links9()
+        v = torch.randn(co.x_diag.shape[:4] + (2, co.n_vec, 2),
+                        generator=gen, device=dev)
+        psi9 = co.psi9(v)
+        got = cop.coarse_apply_pallas(links, psi9)
+        want = cop.coarse_apply_ref(links, psi9)
+        torch.cuda.synchronize()
+        abs_err = (got - want).abs().max().item()
+        rel = abs_err / want.abs().max().item()
+        S, E = psi9.shape[1:]
+        errs[f"b8:{li + 1}"] = abs_err
+        emit({"phase": "check", "kernel": "coarse_apply_pallas",
+              "level": li + 1, "coarse_lattice": list(co.x_diag.shape[:4]),
+              "sites": S, "E": E, "max_abs_err": abs_err,
+              "max_rel_err": rel, "tolerance": cop.TOLERANCE})
+        if not rel <= cop.TOLERANCE:
+            fail(f"B8 at level {li + 1} disagrees with its plain version: "
+                 f"{rel:.3e}")
+        k_ms = median_ms(lambda: cop.coarse_apply_pallas(links, psi9),
+                         torch)
+        lib_ms = median_ms(lambda: torch.einsum("ksab,ksb->sa", links, psi9),
+                           torch)
+        p_ms = median_ms(lambda: cop.coarse_apply_ref(links, psi9), torch,
+                         repeats=5, batch=2)
+        model = cop.coarse_model(E // 2)
+        b_ms, bound_by[f"b8:{li + 1}"] = bound(model["bytes_per_site"],
+                                               model["flops_per_site"], S)
+        timing[f"b8:{li + 1}"] = (k_ms, p_ms, b_ms, lib_ms)
+        if li == 0:
+            # the multi-RHS form at the level-1 null-vector solves' width
+            vb = torch.randn((MG_NVEC,) + tuple(v.shape), generator=gen,
+                             device=dev)
+            psi9_b = co.psi9(vb)
+            got = cop.coarse_apply_pallas_mrhs(links, psi9_b)
+            want = cop.coarse_apply_mrhs_ref(links, psi9_b)
+            singles = [psi9_b[i] for i in range(MG_NVEC)]
+            lanes = torch.stack([cop.coarse_apply_pallas(links, q)
+                                 for q in singles])
+            torch.cuda.synchronize()
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / want.abs().max().item()
+            rel_lanes = ((got - lanes).abs().max() / lanes.abs().max()).item()
+            errs["b8_mrhs"] = abs_err
+            emit({"phase": "check", "kernel": "coarse_apply_pallas_mrhs",
+                  "level": 1, "sites": S, "E": E, "nrhs": MG_NVEC,
+                  "max_abs_err": abs_err, "max_rel_err": rel,
+                  "max_rel_err_vs_single": rel_lanes,
+                  "lanes_bitwise_single": bool(torch.equal(got, lanes)),
+                  "tolerance": cop.TOLERANCE})
+            if not (rel <= cop.TOLERANCE and rel_lanes <= cop.TOLERANCE):
+                fail(f"B8's multi-RHS form disagrees with its plain version "
+                     f"({rel:.3e}) or with single launches ({rel_lanes:.3e})")
+            k_ms = median_ms(lambda: cop.coarse_apply_pallas_mrhs(
+                links, psi9_b), torch)
+            single_ms = median_ms(lambda: [cop.coarse_apply_pallas(links, q)
+                                           for q in singles], torch, batch=2)
+            lib_ms = median_ms(lambda: torch.einsum("ksab,nksb->nsa", links,
+                                                    psi9_b), torch)
+            p_ms = median_ms(lambda: cop.coarse_apply_mrhs_ref(links,
+                                                               psi9_b),
+                             torch, repeats=5, batch=2)
+            n = MG_NVEC
+            b_ms, bound_by["b8_mrhs"] = bound(
+                (36 * E * E + 40 * E * n) / n, 18 * E * E, S * n)
+            timing["b8_mrhs"] = (k_ms, p_ms, b_ms, lib_ms, single_ms)
+            del vb, psi9_b, singles, lanes
+        del links, psi9, got, want
+    emit({"phase": "timing", "family": "multigrid",
+          "dims_xyzt": list(PROD_DIMS), "nvidia_smi": smi,
+          "repeats": REPEATS, "calls_per_timing": BATCH,
+          "b5": {"nrhs": MG_NVEC, "chunk": wpp.MRHS_CHUNK,
+                 "ms": timing["b5"][0], "plain_ms": timing["b5"][1],
+                 "bound_ms": timing["b5"][2],
+                 "share_of_bound": timing["b5"][2] / timing["b5"][0],
+                 "b4_launches_ms": timing["b5"][3],
+                 "amortisation": timing["b5"][3] / timing["b5"][0],
+                 f"ms_at_n{MG_NVEC // 2}": timing[f"b5:{MG_NVEC // 2}:ms"],
+                 f"bound_ms_at_n{MG_NVEC // 2}": bound(
+                     wpp.bytes_per_site_mrhs(MG_NVEC // 2),
+                     wpp.flops_per_site_mrhs(MG_NVEC // 2), vol)[0]},
+          **{f"b8_level{li + 1}": {
+              "ms": timing[f"b8:{li + 1}"][0],
+              "plain_ms": timing[f"b8:{li + 1}"][1],
+              "bound_ms": timing[f"b8:{li + 1}"][2],
+              "share_of_bound": timing[f"b8:{li + 1}"][2]
+              / timing[f"b8:{li + 1}"][0],
+              "einsum_ms": timing[f"b8:{li + 1}"][3]}
+             for li in range(len(coarse))},
+          "b8_mrhs_level1": {
+              "nrhs": MG_NVEC, "ms": timing["b8_mrhs"][0],
+              "plain_ms": timing["b8_mrhs"][1],
+              "bound_ms": timing["b8_mrhs"][2],
+              "share_of_bound": timing["b8_mrhs"][2] / timing["b8_mrhs"][0],
+              "einsum_ms": timing["b8_mrhs"][3],
+              "single_launches_ms": timing["b8_mrhs"][4],
+              "amortisation": timing["b8_mrhs"][4] / timing["b8_mrhs"][0]},
+          "cg": {"iters": p_cg.iter_count, "secs": p_cg.secs},
+          "mg": {"setup_seconds": setup_s, "solves": solves}})
+    k_ms, p_ms, b_ms, _ = timing["b5"]
+    rows = [{"name": "dslash_pallas_packed_mrhs[full:f32->f32]",
+             "route": "cuda", "source": "quda_tpu_torch/csrc/wilson_full.cu",
+             "replaces": "quda_tpu/ops/wilson_pallas_packed.py:557",
+             "launches": path["b5"], "max_abs_err": errs[f"b5:{MG_NVEC}"],
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": bound_by["b5"], "library_ms": None}]
+    k_ms, p_ms, b_ms, lib_ms = timing["b8:1"]
+    rows.append({"name": "coarse_apply_pallas", "route": "cuda",
+                 "source": "quda_tpu_torch/csrc/coarse.cu",
+                 "replaces": "quda_tpu/ops/coarse_pallas.py:99",
+                 "launches": path["b8"],
+                 "max_abs_err": max(v for k, v in errs.items()
+                                    if k.startswith("b8")),
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": bound_by["b8:1"], "library_ms": lib_ms})
+    k_ms, p_ms, b_ms, lib_ms, _ = timing["b8_mrhs"]
+    rows.append({"name": "coarse_apply_pallas_mrhs", "route": "cuda",
+                 "source": "quda_tpu_torch/csrc/coarse.cu",
+                 "replaces": "quda_tpu/ops/coarse_pallas.py:99",
+                 "launches": path["b8_mrhs"],
+                 "max_abs_err": errs["b8_mrhs"], "ms": k_ms,
+                 "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": bound_by["b8_mrhs"], "library_ms": lib_ms})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2597,6 +2941,7 @@ def main() -> int:
     rows_out.extend(operator_and_double(torch, dev, smi))
     rows_out.extend(staggered(torch, dev, smi))
     rows_out.extend(zoo(torch, dev, smi))
+    rows_out.extend(multigrid(torch, dev, smi))
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:
         fail(f"kernels never launched on their main path: {unlaunched}")

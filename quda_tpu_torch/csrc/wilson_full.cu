@@ -1,4 +1,5 @@
-// Full-lattice Wilson hop D psi on the packed pair layout (kernel B4).
+// Full-lattice Wilson hop D psi on the packed pair layout (kernel B4), and
+// its multi-RHS form (kernel B5, at the end of this file).
 //
 // Replaces: quda_tpu/ops/wilson_pallas_packed.py::dslash_pallas_packed, the
 // Pallas TPU kernel (pallas_call at :441, body _make_kernel with no eo at
@@ -103,5 +104,123 @@ extern "C" int qtt_wilson_full(void* out, const void* psi, const void* u,
   } else {
     err = launch<float, 2>(out, psi, u, u_bw, T, Z, Y, X, tb_sign, nb, s);
   }
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Multi-RHS full-lattice hop (kernel B5): B4's hop over N right-hand sides,
+// each link loaded once for a chunk of them.
+//
+// Replaces: quda_tpu/ops/wilson_pallas_packed.py::dslash_pallas_packed_mrhs,
+// the Pallas TPU kernel (pallas_call at :557; B4's body under _mrhs_wrap on a
+// grid whose gauge index maps ignore the RHS index).  Plain version:
+// quda_tpu_torch/ops/wilson_pallas_packed.py::dslash_packed_mrhs_plain.  The
+// multigrid set-up's null-vector block solve runs it (mg/pair.py,
+// PairWilsonLevelOp.M_mrhs_pl).
+//
+// Layout: psi, out (N, 4, 3, 2, T, Z, Y*X), right-hand sides 24 * S elements
+// apart (S = T*Z*Y*X sites); links and backward links as for B4.  Forms:
+// full:f32->f32 and r12:f32->f32 (R = 2 with tb_sign as in B4).  Sums f32.
+//
+// What bounds it on an H100: device memory.  Per site N spinors in and out
+// (192 N bytes in f32, when L2 serves the neighbour re-reads) and the links
+// once (576 B): at 32^3 x 64 and N = 24 a floor of 10.87 GB, 3.245 ms at
+// 3.35 TB/s.  1320 N flop against (192 N + 576) B is at most 6.9 flop/B.
+//
+// Design: B5-eo's (wilson_eo_mrhs.cu) on the full lattice.  One thread per
+// site and chunk of NB right-hand sides (NB a compile-time 1 or 2; a tail
+// chunk reads and writes only the sides that exist); full_hop_sum<R, NB> of
+// wilson_hop.cuh loads each direction's link once and applies it to the NB
+// spinors, so each right-hand side sees B4's arithmetic in B4's order and
+// matches a B4 launch bit for bit.  The chunk index varies fastest across
+// the grid, so the blocks that serve one site block run side by side and
+// find its links in L2.
+namespace {
+
+template <int R, int NB>
+__global__ void __launch_bounds__(kThreads)
+    wilson_full_mrhs_kernel(float* __restrict__ out,
+                            const float* __restrict__ psi,
+                            const float* __restrict__ u,
+                            const float* __restrict__ u_bw, int T, int Z,
+                            int Y, int X, int tb_sign, int nrhs,
+                            int nchunks) {
+  const int64_t YX = static_cast<int64_t>(Y) * X;
+  const int64_t ZYX = static_cast<int64_t>(Z) * YX;
+  const int64_t n = static_cast<int64_t>(T) * ZYX;
+  const int64_t b = blockIdx.x;
+  const int chunk = static_cast<int>(b % nchunks);
+  const int64_t site = (b / nchunks) * kThreads + threadIdx.x;
+  if (site >= n) return;
+  const int r0 = chunk * NB;
+  const int nvalid = min(NB, nrhs - r0);
+  const int64_t rstride = 24 * n;
+
+  float2 acc[NB][4][3];
+  full_hop_sum<R, NB>(acc, psi + r0 * rstride, rstride, nvalid, u, u_bw, T,
+                      Z, Y, X, YX, ZYX, n, tb_sign, site);
+
+#pragma unroll
+  for (int r = 0; r < NB; ++r) {
+    if (NB > 1 && r >= nvalid) break;
+    float* o = out + (r0 + r) * rstride;
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float* q = o + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
+        q[0] = acc[r][s][c].x;
+        q[n] = acc[r][s][c].y;
+      }
+  }
+}
+
+template <int R, int NB>
+cudaError_t launch_mrhs(void* out, const void* psi, const void* u,
+                        const void* u_bw, int T, int Z, int Y, int X,
+                        int tb_sign, int nrhs, int nchunks, unsigned blocks,
+                        cudaStream_t stream) {
+  wilson_full_mrhs_kernel<R, NB><<<blocks, kThreads, 0, stream>>>(
+      static_cast<float*>(out), static_cast<const float*>(psi),
+      static_cast<const float*>(u), static_cast<const float*>(u_bw), T, Z, Y,
+      X, tb_sign, nrhs, nchunks);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_mrhs_nb(int nb, void* out, const void* psi, const void* u,
+                           const void* u_bw, int T, int Z, int Y, int X,
+                           int tb_sign, int nrhs, int nchunks,
+                           unsigned blocks, cudaStream_t stream) {
+  return nb == 1 ? launch_mrhs<R, 1>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
+                                     nrhs, nchunks, blocks, stream)
+                 : launch_mrhs<R, 2>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
+                                     nrhs, nchunks, blocks, stream);
+}
+
+}  // namespace
+
+// All float32.  rows: 3 or 2; nrhs: the batch's right-hand sides; nb: the
+// chunk width, 1 or 2.  A grid of more than 2^31 - 1 blocks is refused.
+extern "C" int qtt_wilson_full_mrhs(void* out, const void* psi, const void* u,
+                                    const void* u_bw, int T, int Z, int Y,
+                                    int X, int rows, int tb_sign, int nrhs,
+                                    int nb, void* stream) {
+  const int64_t n = static_cast<int64_t>(T) * Z * Y * X;
+  if (n <= 0 || nrhs <= 0 || (nb != 1 && nb != 2) ||
+      (rows != 2 && rows != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t nchunks = (nrhs + nb - 1) / nb;
+  const int64_t blocks = (n + kThreads - 1) / kThreads * nchunks;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned nblk = static_cast<unsigned>(blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = static_cast<int>(nchunks);
+  const cudaError_t err =
+      rows == 3 ? launch_mrhs_nb<3>(nb, out, psi, u, u_bw, T, Z, Y, X,
+                                    tb_sign, nrhs, nc, nblk, s)
+                : launch_mrhs_nb<2>(nb, out, psi, u, u_bw, T, Z, Y, X,
+                                    tb_sign, nrhs, nc, nblk, s);
   return static_cast<int>(err);
 }

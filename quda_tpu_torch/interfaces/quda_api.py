@@ -56,6 +56,16 @@ operator to canonical complex fields, as the JAX package's do: the eo hop
 on B1, M = 1 - kappa D and its normal operator on the full-lattice hop
 B4, in float32 (cuda_prec "single") or float64 ("double").
 
+``invert_quda(inv_type="gcr-mg")`` solves the full Wilson system at
+cuda_prec "single" with flexible GCR preconditioned by the pair
+multigrid V-cycle (mg/pair.py): the fine operator on the full-lattice
+hop B4, the set-up's null-vector block solve on its multi-RHS form B5,
+every coarse operator on the coarse stencil B8.  The hierarchy is
+resident: ``new_multigrid_quda`` builds it, ``invert_quda`` reuses it,
+and rebuilds it once the gauge has changed since its set-up.  Every
+other family and precision raises, naming ROADMAP A12.  ``plaq_quda``
+returns the resident gauge's plaquette.
+
 ``invert_multi_src_quda`` solves N sources on one gauge field.  Wilson,
 clover, twisted-mass, twisted-clover and staggered-family PC CG-family
 solves at cuda_prec="single" and tol >= 5e-8 take the batched pair route:
@@ -64,8 +74,9 @@ every Krylov iterate is an (N,4,3,2,T,Z,Y*Xh) (staggered
 (B5-eo, B7-mrhs, S2-mrhs).  Every other request, the flavour doublets and
 the domain-wall family included, loops over ``invert_quda``.
 
-Resident state (device, geometry, gauge) lives in a module-level context,
-as interface_quda.cpp keeps it, between ``init_quda`` and ``end_quda``.
+Resident state (device, geometry, gauge, multigrid) lives in a module-level
+context, as interface_quda.cpp keeps it, between ``init_quda`` and
+``end_quda``.
 """
 
 from __future__ import annotations
@@ -83,7 +94,7 @@ from ..ops import blas
 from ..utils.convert import gauge_from_host, spinor_from_host
 from ..utils.device import resolve_device
 from ..utils.precision import complex_dtype
-from .params import GaugeParam, InvertParam
+from .params import GaugeParam, InvertParam, MultigridParamAPI
 
 log = logging.getLogger("quda_tpu_torch")
 
@@ -96,6 +107,10 @@ _ctx = {
     "fat": None,            # resident staggered fat links (4,T,Z,Y,X,3,3)
     "long": None,           # resident staggered long (Naik) links
     "warned": set(),        # one-time warning keys of this session
+    "gauge_epoch": 0,       # counts gauge loads: a hierarchy's gauge
+    "mg": None,             # resident multigrid hierarchy (mg/pair.PairMG)
+    "mg_epoch": None,       # gauge_epoch the hierarchy was built on
+    "mg_param": None,       # the MultigridParamAPI it was built with
 }
 
 STAGGERED_TYPES = ("staggered", "asqtad", "hisq")
@@ -114,13 +129,15 @@ def init_quda(device="cuda"):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     _ctx.update(initialized=True, device=dev, geom=None, gauge=None,
-                gauge_param=None, fat=None, long=None, warned=set())
+                gauge_param=None, fat=None, long=None, warned=set(),
+                mg=None, mg_epoch=None, mg_param=None)
     log.debug("initialized on %s", dev)
 
 
 def end_quda():
     _ctx.update(initialized=False, device=None, geom=None, gauge=None,
-                gauge_param=None, fat=None, long=None, warned=set())
+                gauge_param=None, fat=None, long=None, warned=set(),
+                mg=None, mg_epoch=None, mg_param=None)
 
 
 def _require_init():
@@ -151,7 +168,8 @@ def load_gauge_quda(gauge, param: GaugeParam):
                            device=dev)
         scale[:3] = 1.0 / param.anisotropy
         g = g * scale
-    _ctx.update(geom=geom, gauge=g, gauge_param=param)
+    _ctx.update(geom=geom, gauge=g, gauge_param=param,
+                gauge_epoch=_ctx["gauge_epoch"] + 1)
 
 
 def free_gauge_quda():
@@ -297,8 +315,29 @@ def _link_form(staggered: bool = False) -> str:
     return "r12" if rec == 12 else "full"
 
 
+def _check_mg_route(param: InvertParam):
+    """Raise unless the multigrid route serves ``param``: the pair
+    hierarchy, Wilson at cuda_prec "single" (the JAX package's pair
+    gate)."""
+    if param.dslash_type != "wilson":
+        raise NotImplementedError(
+            f"multigrid for dslash_type {param.dslash_type!r} is not ported "
+            "yet (ROADMAP A12: clover and the other families on the "
+            "complex hierarchy, staggered pair MG with B6's full-lattice "
+            "forms); the port serves Wilson")
+    if param.cuda_prec != "single":
+        raise NotImplementedError(
+            f"multigrid at cuda_prec {param.cuda_prec!r}: the pair "
+            "hierarchy runs in float32; the JAX package's complex "
+            "hierarchy for the other precisions is not ported (ROADMAP "
+            "A12)")
+
+
 def _check_route(param: InvertParam, sloppy: str):
     """Raise for every route this port does not serve yet."""
+    if param.inv_type == "gcr-mg":
+        _check_mg_route(param)
+        return
     if param.dslash_type not in SCHUR_TYPES + STAGGERED_TYPES:
         raise NotImplementedError(
             f"dslash_type {param.dslash_type!r} is not ported yet (ROADMAP "
@@ -435,6 +474,8 @@ def invert_quda(source, param: InvertParam):
         raise RuntimeError("load_gauge_quda() first")
     sloppy = _resolve_sloppy(param)
     _check_route(param, sloppy)
+    if param.inv_type == "gcr-mg":
+        return _invert_mg(source, param)
     form = _link_form(param.dslash_type in STAGGERED_TYPES)
     dev = _ctx["device"]
     geom = _ctx["geom"]
@@ -496,6 +537,122 @@ def invert_quda(source, param: InvertParam):
              param.dslash_type, param.inv_type, param.iter_count,
              param.true_res, param.secs)
     return x_full
+
+
+# -- multigrid -------------------------------------------------------------
+
+def _mg_level_params(mp: MultigridParamAPI):
+    """MultigridParamAPI -> the per-level MGLevelParam list (JAX
+    quda_api.py:1840), with the port's setup_source and coarse_chunk."""
+    from ..mg.mg import MGLevelParam
+    return [MGLevelParam(block=tuple(mp.geo_block_size[i]),
+                         n_vec=mp.n_vec[i],
+                         setup_iters=mp.setup_iters[i]
+                         if i < len(mp.setup_iters) else 150,
+                         setup_tol=mp.setup_tol[i]
+                         if i < len(mp.setup_tol) else 5e-6,
+                         setup_source=mp.setup_source[i]
+                         if i < len(mp.setup_source) else "random",
+                         pre_smooth=mp.nu_pre[i] if i < len(mp.nu_pre)
+                         else 0,
+                         post_smooth=mp.nu_post[i] if i < len(mp.nu_post)
+                         else 4,
+                         smoother_omega=mp.smoother_omega,
+                         coarse_solver_iters=mp.coarse_solver_iters,
+                         coarse_chunk=mp.coarse_chunk)
+            for i in range(mp.n_level - 1)]
+
+
+def _build_mg(invert_param: InvertParam, mg_param: MultigridParamAPI):
+    """Set up the pair hierarchy of the resident gauge and make it
+    resident."""
+    from ..mg.pair import PairMG
+    _check_mg_route(invert_param)
+    d = _build_dirac(invert_param, False, complex_dtype("single"))
+    mg = PairMG(d, _ctx["geom"], _mg_level_params(mg_param))
+    _ctx.update(mg=mg, mg_epoch=_ctx["gauge_epoch"], mg_param=mg_param)
+    return mg
+
+
+def new_multigrid_quda(mg_param: MultigridParamAPI,
+                       invert_param: InvertParam):
+    """newMultigridQuda: set up the multigrid hierarchy of the resident
+    gauge for ``invert_param``'s operator and keep it resident for the
+    ``gcr-mg`` solves.  Returns the hierarchy (mg/pair.PairMG): its
+    ``setup_breakdown`` holds the seconds of each (level, phase), and
+    ``verify()`` checks it."""
+    _require_init()
+    mg_param.validate()
+    invert_param.validate()
+    if _ctx["gauge"] is None:
+        raise RuntimeError("load_gauge_quda() first")
+    return _build_mg(invert_param, mg_param)
+
+
+def update_multigrid_quda(mg_param: MultigridParamAPI,
+                          invert_param: InvertParam):
+    """updateMultigridQuda: set the hierarchy up again on the resident
+    gauge (after a new configuration is loaded)."""
+    _require_init()
+    _ctx["mg"] = None
+    return new_multigrid_quda(mg_param, invert_param)
+
+
+def destroy_multigrid_quda():
+    _ctx.update(mg=None, mg_epoch=None, mg_param=None)
+
+
+def _invert_mg(source, param: InvertParam):
+    """The gcr-mg route: flexible GCR(gcrNkrylov) on the full Wilson
+    system in float32 pairs, preconditioned by the resident hierarchy.
+    A hierarchy built on another gauge (the gauge epoch moved) is set up
+    again, as the JAX package does (quda_api.py:1880-1888); where the JAX
+    package then takes the default MultigridParamAPI, the port takes the
+    one the stale hierarchy was built with.  The true residual is
+    computed in pair arithmetic against the operator the solve targeted."""
+    from ..mg.pair import mg_solve_pairs
+    from ..ops.pair import to_pairs
+    dev = _ctx["device"]
+    geom = _ctx["geom"]
+    b = _source_on_device(source, param, complex_dtype("single"))
+    t0 = time.perf_counter()
+    mg = _ctx["mg"]
+    if mg is not None and _ctx["mg_epoch"] != _ctx["gauge_epoch"]:
+        log.info("gauge changed since the MG set-up; rebuilding the "
+                 "hierarchy")
+        mg = None
+    if mg is None:
+        mg = _build_mg(param, _ctx["mg_param"] or MultigridParamAPI())
+    b_pairs = to_pairs(b, torch.float32)
+    res, _ = mg_solve_pairs(mg.adapter.dirac, geom, b_pairs, mg.params,
+                            tol=param.tol, nkrylov=param.gcrNkrylov, mg=mg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    param.secs = time.perf_counter() - t0
+    r = b_pairs - mg.adapter.M_std(res.x)
+    param.true_res = math.sqrt(float(blas.norm2(r))
+                               / float(blas.norm2(b_pairs)))
+    param.iter_count = int(res.iters)
+    param.reliable_updates = 0
+    param.x_df64_lo = None
+    # fine-operator work of the outer solve only (V-cycle work not
+    # charged, QUDA's convention for the outer solver's gflops)
+    param.gflops = (param.iter_count * (1320 + 48) * geom.volume) / 1e9
+    _solve_supervision(param, "invert_quda", res.converged)
+    log.info("invert_quda[wilson/gcr-mg]: %d iters, true_res %.2e, "
+             "%.2f s", param.iter_count, param.true_res, param.secs)
+    return torch.view_as_complex(res.x.contiguous()).to(b.dtype)
+
+
+def plaq_quda():
+    """plaqQuda: (mean, spatial, temporal) plaquette of the resident
+    gauge, Re tr P / 3, as floats."""
+    from ..gauge.observables import plaquette
+    _require_init()
+    if _ctx["gauge"] is None:
+        raise RuntimeError("load_gauge_quda() first")
+    m, s, t = plaquette(_ctx["gauge"])
+    return float(m), float(s), float(t)
 
 
 def _pc_sites(dirac) -> int:

@@ -24,6 +24,13 @@ def norm2(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(_r(x))
 
 
+def cdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """<x, y> = sum conj(x) y; the real dot for real (pair) tensors."""
+    if x.is_complex():
+        return torch.sum(torch.conj(x) * y)
+    return torch.sum(x * y)
+
+
 def redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re<x, y>."""
     if x.is_complex():

@@ -1,8 +1,9 @@
 """Pair-format complex fields, as in quda_tpu/ops/pair.py: the reductions
 the storage codecs of solvers/mixed.py use, the link algebra on pairs
-(``dagger_pairs``, ``color_mul_pairs``, ``spin_mul_pairs``) and the
-full-lattice Wilson hop on canonical pair arrays (``dslash_full_pairs``,
-which the multigrid fine level uses).
+(``dagger_pairs``, ``color_mul_pairs``, ``spin_mul_pairs``), the real
+embedding of pair matrices (``interleave_mat``, ``deinterleave_mat``,
+which the multigrid's Cholesky-QR and coarse links use) and the
+full-lattice Wilson hop on canonical pair arrays (``dslash_full_pairs``).
 
 Sloppy fields are real ``(..., 2)`` pair arrays (re, im last) in a
 storage dtype: bfloat16 for QUDA "half".  All CG coefficients are real,
@@ -36,6 +37,30 @@ def pair_redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def _acc(*ts) -> torch.dtype:
     return (torch.float64 if any(t.dtype == torch.float64 for t in ts)
             else F32)
+
+
+def to_pairs(x: torch.Tensor, dtype=F32) -> torch.Tensor:
+    """complex (...) -> real pairs (..., 2) in ``dtype``."""
+    return torch.view_as_real(x).to(dtype)
+
+
+def interleave_mat(m_pairs: torch.Tensor) -> torch.Tensor:
+    """(..., N, M, 2) pair matrix -> (..., 2N, 2M) real embedding with
+    2x2 entry blocks [[re, -im], [im, re]].  The embedding is a ring
+    homomorphism C -> R^{2x2}: products, inverses and Cholesky factors
+    commute with it."""
+    mr, mi = m_pairs[..., 0], m_pairs[..., 1]
+    blocks = torch.stack([torch.stack([mr, -mi], dim=-1),
+                          torch.stack([mi, mr], dim=-1)], dim=-2)
+    blocks = blocks.movedim(-2, -3)          # (..., N, a, M, b)
+    s = blocks.shape
+    return blocks.reshape(s[:-4] + (2 * s[-4], 2 * s[-2]))
+
+
+def deinterleave_mat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 2N, 2M) embedding -> (..., N, M, 2) pairs (the first column
+    of each 2x2 block)."""
+    return torch.stack([m[..., 0::2, 0::2], m[..., 1::2, 0::2]], dim=-1)
 
 
 # -- link algebra -----------------------------------------------------------

@@ -38,8 +38,15 @@ def dagger(m: torch.Tensor) -> torch.Tensor:
 
 
 def mat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched matrix product over the trailing (c,c) axes."""
-    return torch.matmul(a, b)
+    """Batched matrix product over the trailing (c,c) axes, as broadcast
+    multiply-adds over the inner index: elementwise kernels.  On the card
+    ``torch.matmul`` of millions of 3x3 complex matrices goes through a
+    batched GEMM and runs many times slower (``chip_profile.py mg``
+    measures the heatbath's staples both ways; PERF.md)."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., :, j:j + 1] * b[..., j:j + 1, :]
+    return out
 
 
 def trace(m: torch.Tensor) -> torch.Tensor:

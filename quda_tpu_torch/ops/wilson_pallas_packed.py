@@ -33,11 +33,19 @@ right-hand sides, (N, 4, 3, 2, T, Z, Y*Xh), and each link is loaded once
 for a chunk of ``MRHS_CHUNK`` of them.  Its forms are ``full:f32->f32``
 and ``r12:f32->f32``; the bf16 forms wait for ROADMAP B5.
 
+The multi-RHS full-lattice hop (B5) ``dslash_pallas_packed_mrhs``
+replaces dslash_pallas_packed_mrhs of the same JAX module with the
+second entry of ``csrc/wilson_full.cu``: psi and out (N, 4, 3, 2, T, Z,
+Y*X), links as for B4, each link loaded once per chunk; forms
+``full:f32->f32`` and ``r12:f32->f32``.  Each right-hand side gets B4's
+arithmetic in B4's order.  The multigrid set-up's null-vector block
+solve runs it (mg/pair.py).
+
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_eo_packed_plain``, ``dslash_packed_plain``,
-``dslash_eo_packed_mrhs_plain``),
-CUDA tensors launch the kernel or raise.  Each wrapper counts its
-launches in ``.launches`` and per form in ``.launches_by_form``
+``dslash_eo_packed_mrhs_plain``, ``dslash_packed_mrhs_plain``), CUDA
+tensors launch the kernel or raise.  Each wrapper counts its launches in
+``.launches`` and per form in ``.launches_by_form``
 (``"full:f32->f32"``, ``"r12:bf16->bf16"``, ...).
 """
 
@@ -297,6 +305,18 @@ def dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
     return out.movedim(3, 0).contiguous()
 
 
+def dslash_packed_mrhs_plain(gauge_pl, gauge_bw, psi_pl, X: int,
+                             tb_sign: bool = True):
+    """Plain version of B5: B4's plain version broadcast over the leading
+    RHS axis of psi (N,4,3,2,T,Z,Y*X), which moves beside the site axes
+    while the links gain a size-1 axis there."""
+    dims = (psi_pl.shape[-3], psi_pl.shape[-2], psi_pl.shape[-1] // X, X)
+    u, u_bw = _full_links(gauge_pl, gauge_bw, dims, tb_sign)
+    out = wpk.dslash_packed_pairs_bw(u.unsqueeze(-4), u_bw.unsqueeze(-4),
+                                     psi_pl.movedim(0, 3), X, dims[2])
+    return out.movedim(3, 0).contiguous()
+
+
 def dslash_eo_pallas_packed(u_here_pl: torch.Tensor, u_bw_pl: torch.Tensor,
                             psi_pl: torch.Tensor, dims, target_parity: int,
                             out_dtype=None,
@@ -415,11 +435,52 @@ def dslash_eo_pallas_packed_mrhs(u_here_pl: torch.Tensor,
     return out
 
 
+def dslash_pallas_packed_mrhs(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
+                              X: int, gauge_bw: torch.Tensor | None = None,
+                              tb_sign: bool = True,
+                              chunk=None) -> torch.Tensor:
+    """Multi-RHS full-lattice Wilson hop sum (B5): psi_pl
+    (N,4,3,2,T,Z,Y*X), links as for ``dslash_pallas_packed``, each loaded
+    once per chunk of ``chunk`` (default ``MRHS_CHUNK``) right-hand sides.
+    float32 in and out."""
+    rows = link_rows(gauge_pl)
+    check_batch(psi_pl)
+    if gauge_bw is None:
+        gauge_bw = backward_gauge(gauge_pl, X)
+    kind = kernels.dispatch_device(gauge_pl, gauge_bw, psi_pl)
+    if kind == "cpu":
+        return dslash_packed_mrhs_plain(gauge_pl, gauge_bw, psi_pl, X,
+                                        tb_sign)
+    f32 = torch.float32
+    if psi_pl.dtype != f32:
+        raise TypeError(f"psi {psi_pl.dtype}: the multi-RHS full-lattice "
+                        "hop has float32 forms only; its bf16 forms wait "
+                        "for ROADMAP A7")
+    T, Z, YX = psi_pl.shape[-3:]
+    if YX % X:
+        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
+    sites = (T, Z, YX)
+    nrhs = psi_pl.shape[0]
+    nb = mrhs_chunk(chunk, nrhs, T * Z * YX)
+    kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
+    kernels.require(gauge_pl, "gauge_pl", (4, rows, 3, 2) + sites, f32)
+    kernels.require(gauge_bw, "gauge_bw", (4, rows, 3, 2) + sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_wilson_full_mrhs(
+        out.data_ptr(), psi_pl.data_ptr(), gauge_pl.data_ptr(),
+        gauge_bw.data_ptr(), T, Z, YX // X, X, rows, int(bool(tb_sign)),
+        nrhs, nb, kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_full_mrhs")
+    _count(dslash_pallas_packed_mrhs, form_name(rows, f32, f32))
+    return out
+
+
 def reset_launches() -> None:
     """Zero the launch counts of the eo hop (B1), its multi-RHS form
-    (B5-eo) and the full-lattice hop (B4)."""
+    (B5-eo), the full-lattice hop (B4) and its multi-RHS form (B5)."""
     for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs,
-               dslash_pallas_packed):
+               dslash_pallas_packed, dslash_pallas_packed_mrhs):
         fn.launches = 0
         fn.launches_by_form = {}
 

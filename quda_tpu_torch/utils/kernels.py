@@ -33,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu",
-           "staggered_eo_mrhs.cu", "wilson_full.cu")
+           "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
@@ -80,6 +80,13 @@ SIGNATURES = {
                                    _I, _I, _P),
     # out, psi, u, u_bw, T, Z, Y, X, rows, f64, tb_sign, stream
     "qtt_wilson_full": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # out, psi, u, u_bw, T, Z, Y, X, rows, tb_sign, nrhs, nb, stream
+    "qtt_wilson_full_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
+    # out, links, psi9, S, E, stream
+    "qtt_coarse_apply": (_P, _P, _P, _I, _I, _P),
+    # out, links, psi9, S, E, nrhs, stream
+    "qtt_coarse_apply_mrhs": (_P, _P, _P, _I, _I, _I, _P),
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),

@@ -17,6 +17,7 @@ import quda_tpu_torch as qt
 from quda_tpu_torch.ops import blas
 from quda_tpu_torch.ops import blas_pallas as bpl
 from quda_tpu_torch.ops import clover_pallas as clp
+from quda_tpu_torch.ops import coarse_pallas as cop
 from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
@@ -1003,3 +1004,158 @@ def test_zoo_invert_on_card_matches_cpu(dslash):
     assert pg.converged and pg.true_res <= 1e-5
     assert abs(pg.iter_count - pc.iter_count) <= 2
     assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-4
+
+
+# -- multigrid: B5 (the multi-RHS full-lattice hop) and B8 (the coarse
+# stencil) ------------------------------------------------------------------
+
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("n", [1, 3, 12])
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_full_hop_mrhs_kernel_matches_plain_and_b4(rows, chunk, n, tb_sign):
+    """B5 on 14x12x10x8 (T, Z, Y, X): within TOLERANCE of its plain
+    version, and each lane bit for bit a B4 launch (one hop body); one
+    launch counted."""
+    dev = require_cuda()
+    T, Z, Y, X = 8, 10, 12, 14
+    gen = torch.Generator(device=dev).manual_seed(81 + rows + n)
+    sites = (T, Z, Y * X)
+    u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
+    ubw = wpp.backward_gauge(u, X).contiguous()
+    psi = torch.randn((n, 4, 3, 2) + sites, generator=gen, device=dev)
+    n0 = wpp.dslash_pallas_packed_mrhs.launches
+    got = wpp.dslash_pallas_packed_mrhs(u, psi, X, gauge_bw=ubw,
+                                        tb_sign=tb_sign, chunk=chunk)
+    assert wpp.dslash_pallas_packed_mrhs.launches == n0 + 1
+    want = wpp.dslash_packed_mrhs_plain(u, ubw, psi, X, tb_sign)
+    lanes = torch.stack([wpp.dslash_pallas_packed(
+        u, psi[i].contiguous(), X, gauge_bw=ubw, tb_sign=tb_sign)
+        for i in range(n)])
+    torch.cuda.synchronize()
+    assert got.shape == psi.shape and got.dtype == torch.float32
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= wpp.TOLERANCE
+    assert torch.equal(got, lanes)
+
+
+@pytest.mark.parametrize("e", [8, 16, 20, 48, 96])
+@pytest.mark.parametrize("sites", [7, 64, 2048])
+def test_coarse_kernel_matches_plain(e, sites):
+    """B8 at E = 8 .. 96 (20 is not a multiple of 32 or 16), on both block
+    sizes (256 threads below 2048 sites, 128 from there), within TOLERANCE
+    (1e-5 relative) of the einsum; one launch counted."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(91 + e + sites)
+    links = torch.randn((9, sites, e, e), generator=gen, device=dev)
+    psi9 = torch.randn((9, sites, e), generator=gen, device=dev)
+    n0 = cop.coarse_apply_pallas.launches
+    got = cop.coarse_apply_pallas(links, psi9)
+    assert cop.coarse_apply_pallas.launches == n0 + 1
+    want = cop.coarse_apply_ref(links, psi9)
+    torch.cuda.synchronize()
+    assert got.shape == (sites, e) and got.dtype == torch.float32
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= cop.TOLERANCE
+
+
+@pytest.mark.parametrize("e", [16, 20, 96])
+@pytest.mark.parametrize("n", [1, 3, 8, 24])
+def test_coarse_mrhs_kernel_matches_plain_and_single(n, e):
+    """B8's multi-RHS form at N = 1 .. 24 (tail chunks at 3 and 24 mod 8 =
+    0 both) within TOLERANCE of its plain version and of N single
+    launches; one launch counted."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(93 + n + e)
+    links = torch.randn((9, 33, e, e), generator=gen, device=dev)
+    psi9 = torch.randn((n, 9, 33, e), generator=gen, device=dev)
+    n0 = cop.coarse_apply_pallas_mrhs.launches
+    got = cop.coarse_apply_pallas_mrhs(links, psi9)
+    assert cop.coarse_apply_pallas_mrhs.launches == n0 + 1
+    want = cop.coarse_apply_mrhs_ref(links, psi9)
+    single = torch.stack([cop.coarse_apply_pallas(links, psi9[i])
+                          for i in range(n)])
+    torch.cuda.synchronize()
+    assert got.shape == (n, 33, e)
+    g = got.cpu().numpy()
+    assert rel_err(g, want.cpu().numpy()) <= cop.TOLERANCE
+    assert rel_err(g, single.cpu().numpy()) <= cop.TOLERANCE
+
+
+def test_mg_kernels_refuse_what_they_lack():
+    """B5 without a float32 batch or a valid chunk, and B8 with float64
+    links, an E above MAX_E or mismatched shapes, raise; nothing
+    launches."""
+    dev = require_cuda()
+    sites = (4, 2, 2 * 4)
+    u = torch.zeros((4, 3, 3, 2) + sites, device=dev)
+    psi = torch.zeros((2, 4, 3, 2) + sites, device=dev)
+    n5 = wpp.dslash_pallas_packed_mrhs.launches
+    n8 = cop.coarse_apply_pallas.launches
+    with pytest.raises(TypeError, match="float32"):
+        wpp.dslash_pallas_packed_mrhs(u.double(), psi.double(), 4,
+                                      gauge_bw=u.double())
+    with pytest.raises(ValueError, match="chunk"):
+        wpp.dslash_pallas_packed_mrhs(u, psi, 4, gauge_bw=u, chunk=3)
+    links = torch.zeros((9, 3, 8, 8), device=dev)
+    psi9 = torch.zeros((9, 3, 8), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        cop.coarse_apply_pallas(links.double(), psi9.double())
+    with pytest.raises(ValueError, match="links of shape"):
+        cop.coarse_apply_pallas(links[:, :2], psi9)
+    big = cop.MAX_E + 4
+    with pytest.raises(ValueError, match="E ="):
+        cop.coarse_apply_pallas(torch.zeros((9, 1, big, big), device=dev),
+                                torch.zeros((9, 1, big), device=dev))
+    assert wpp.dslash_pallas_packed_mrhs.launches == n5
+    assert cop.coarse_apply_pallas.launches == n8
+
+
+def test_mg_hierarchy_on_card_matches_cpu():
+    """A two-level Wilson hierarchy set up on the CPU (4^3x8 SU(3) links,
+    blocks 2^4, n_vec 4) and carried to the card (PairMG.from_arrays): its
+    V-cycle (B4, B8) within 1e-5 of the CPU's, verify within 1e-5 on the
+    card, and the set-up on the card (B5) passes verify; the gcr-mg route
+    on the card converges to true_res <= 5e-6."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.mg.mg import MGLevelParam
+    from quda_tpu_torch.mg.pair import PairMG
+    from quda_tpu_torch.models.wilson import DiracWilson
+    dev = require_cuda()
+    g = su3_gauge(SMALL, seed=95)
+    geom = LatticeGeometry(SMALL)
+    params = [MGLevelParam(block=(2, 2, 2, 2), n_vec=4, setup_iters=40)]
+    cpu = PairMG(DiracWilson(torch.from_numpy(g), geom, 0.12), geom, params,
+                 torch.Generator().manual_seed(96))
+    arrays = [{"v": lv["transfer"].v, "x_diag": lv["coarse"].x_diag,
+               "y": lv["coarse"].y} for lv in cpu.levels]
+    card = PairMG.from_arrays(
+        DiracWilson(torch.from_numpy(g).to(dev), geom, 0.12), params, arrays)
+    b = torch.from_numpy(gaussian(lattice_shape(SMALL) + (4, 3, 2), seed=97,
+                                  dtype=np.float32))
+    want = cpu.precondition(b)
+    n4 = wpp.dslash_pallas_packed.launches
+    n8 = cop.coarse_apply_pallas.launches
+    got = card.precondition(b.to(dev))
+    torch.cuda.synchronize()
+    assert wpp.dslash_pallas_packed.launches > n4
+    assert cop.coarse_apply_pallas.launches > n8
+    assert rel_err(got.cpu().numpy(), want.numpy()) < 1e-5
+    assert card.verify(galerkin_tol=1e-5, pr_tol=1e-5)[0]["galerkin"] < 1e-5
+    n5 = wpp.dslash_pallas_packed_mrhs.launches
+    fresh = PairMG(card.adapter.dirac, geom, params,
+                   torch.Generator(device=dev).manual_seed(98))
+    assert wpp.dslash_pallas_packed_mrhs.launches > n5
+    assert fresh.verify(galerkin_tol=1e-5, pr_tol=1e-5)[0]["galerkin"] < 1e-5
+    qt.init_quda(device=dev)
+    try:
+        qt.load_gauge_quda(g, qt.GaugeParam(X=SMALL, cuda_prec="single"))
+        ip = qt.InvertParam(dslash_type="wilson", inv_type="gcr-mg",
+                            kappa=0.12, tol=1e-6, solve_type="direct",
+                            cuda_prec="single", gcrNkrylov=6)
+        qt.new_multigrid_quda(qt.MultigridParamAPI(
+            geo_block_size=((2, 2, 2, 2),), n_vec=(4,), setup_iters=(40,)),
+            ip)
+        qt.invert_quda(gaussian(lattice_shape(SMALL) + (4, 3), seed=99), ip)
+    finally:
+        qt.end_quda()
+    assert ip.converged and ip.true_res <= 5e-6

@@ -24,6 +24,7 @@ import torch
 from quda_tpu_torch.ops import blas
 from quda_tpu_torch.ops import blas_pallas as bpl
 from quda_tpu_torch.ops import clover_pallas as clp
+from quda_tpu_torch.ops import coarse_pallas as cop
 from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 from quda_tpu_torch.utils import kernels
@@ -50,7 +51,10 @@ def test_port_imports_no_jax():
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"quda_tpu_torch/{m}.py" for m in (
         "models/twisted", "models/domain_wall", "models/hasenbusch",
-        "models/formsel", "ops/dwf", "ops/dwf_pallas")} <= scanned
+        "models/formsel", "ops/dwf", "ops/dwf_pallas", "gauge/heatbath",
+        "gauge/smear", "gauge/observables", "solvers/gcr", "mg/mg",
+        "mg/pair", "mg/gemm", "mg/coarse", "mg/transfer",
+        "ops/coarse_pallas")} <= scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -83,6 +87,9 @@ def card_request(monkeypatch):
     monkeypatch.setattr(spl, "dslash_staggered_eo_pass_mrhs_plain",
                         plain_reached)
     monkeypatch.setattr(wpp, "dslash_packed_plain", plain_reached)
+    monkeypatch.setattr(wpp, "dslash_packed_mrhs_plain", plain_reached)
+    monkeypatch.setattr(cop, "coarse_apply_ref", plain_reached)
+    monkeypatch.setattr(cop, "coarse_apply_mrhs_ref", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -474,3 +481,59 @@ def test_chip_smoke_without_card_or_package_prints_no_result(tmp_path):
             assert not json.loads(line).get("ok")
         except (ValueError, AttributeError):
             continue
+
+
+def test_full_hop_mrhs_and_coarse_wrappers_raise_on_card_request(
+        card_request):
+    """B5 (full and r12 links) and B8 (single and multi-RHS): a card
+    request without the library raises and never reaches the plain
+    version; bf16 or f64, chunk widths without an instance and wrong
+    shapes raise; nothing is counted."""
+    n_b5 = wpp.dslash_pallas_packed_mrhs.launches
+    n_b8 = cop.coarse_apply_pallas.launches
+    n_b8m = cop.coarse_apply_pallas_mrhs.launches
+    sites = (4, 2, 2 * 4)
+    X = 4
+    for rows in (3, 2):
+        u = torch.zeros((4, rows, 3, 2) + sites)
+        psi = torch.zeros((3, 4, 3, 2) + sites)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            wpp.dslash_pallas_packed_mrhs(u, psi, X, gauge_bw=u.clone())
+    u = torch.zeros((4, 3, 3, 2) + sites)
+    psi = torch.zeros((3, 4, 3, 2) + sites)
+    with pytest.raises(TypeError, match="float32"):
+        wpp.dslash_pallas_packed_mrhs(u.bfloat16(), psi.bfloat16(), X,
+                                      gauge_bw=u.bfloat16())
+    with pytest.raises(ValueError, match="chunk"):
+        wpp.dslash_pallas_packed_mrhs(u, psi, X, gauge_bw=u, chunk=4)
+    with pytest.raises(ValueError, match="gauge_pl"):
+        wpp.dslash_pallas_packed_mrhs(u[..., :4], psi, X,
+                                      gauge_bw=u[..., :4])
+    with pytest.raises(ValueError, match="N, 4, 3, 2"):
+        wpp.dslash_pallas_packed_mrhs(u, psi[0], X, gauge_bw=u)
+    links = torch.zeros((9, 5, 20, 20))
+    psi9 = torch.zeros((9, 5, 20))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        cop.coarse_apply_pallas(links, psi9)
+    with pytest.raises(TypeError, match="float32"):
+        cop.coarse_apply_pallas(links.double(), psi9.double())
+    with pytest.raises(ValueError, match="links of shape"):
+        cop.coarse_apply_pallas(links[:, :, :19], psi9)
+    with pytest.raises(ValueError, match="psi9 of shape"):
+        cop.coarse_apply_pallas(links, psi9[:8])
+    with pytest.raises(ValueError, match="contiguous"):
+        cop.coarse_apply_pallas(links.transpose(-1, -2), psi9)
+    psi9_b = torch.zeros((3, 9, 5, 20))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        cop.coarse_apply_pallas_mrhs(links, psi9_b)
+    with pytest.raises(TypeError, match="float32"):
+        cop.coarse_apply_pallas_mrhs(links.double(), psi9_b.double())
+    with pytest.raises(ValueError, match="psi9 of shape"):
+        cop.coarse_apply_pallas_mrhs(links, psi9)
+    big = cop.MAX_E_MRHS + 4
+    with pytest.raises(ValueError, match="E ="):
+        cop.coarse_apply_pallas_mrhs(torch.zeros((9, 1, big, big)),
+                                     torch.zeros((2, 9, 1, big)))
+    assert wpp.dslash_pallas_packed_mrhs.launches == n_b5
+    assert cop.coarse_apply_pallas.launches == n_b8
+    assert cop.coarse_apply_pallas_mrhs.launches == n_b8m
