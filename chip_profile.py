@@ -49,10 +49,8 @@ outer GCR cycle of 16 iterations, each preconditioned by a V-cycle: per
 iteration, B4 (the fine M and smoother) and B8 (the coarse M, smoother
 and bottom solve) against the plain PyTorch glue and the idle share.
 Before them the seconds of a heatbath and an overrelaxation sweep and of
-``staple_sum`` with its 3x3 products as ``su3.mat_mul`` against
-``torch.matmul``; after them whole solves: CG, and ``gcr-mg`` on
-hierarchies whose null vectors solve M v = 0 (QUDA's set-up) and M v = r
-(the JAX package's).
+``staple_sum`` with its 3x3 products as ``su3.mat_mul_fma`` against
+``torch.matmul``; after them whole solves: CG and ``gcr-mg``.
 
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
@@ -321,7 +319,7 @@ def zoo(torch, dev) -> None:
 
 MG_KAPPA = 0.155
 MG_BETA = 6.0
-MG_SWEEPS = 8               # heatbath sweeps, each with 4 overrelaxation ones
+MG_SWEEPS = 40              # heatbath sweeps, each with 4 overrelaxation ones
 
 
 class _Once:
@@ -357,12 +355,12 @@ def mg(torch, dev) -> None:
         return out, time.perf_counter() - t
 
     # the heatbath's sweeps, and its staples with the 3x3 products as
-    # su3.mat_mul's broadcast multiply-adds against torch.matmul
+    # su3.mat_mul_fma's broadcast multiply-adds against torch.matmul
     g = cold_start(geom, device=dev)
     g, hb_sweep_s = wall_s(lambda: sweep(gen, g, geom, MG_BETA, True))
     g, or_sweep_s = wall_s(lambda: sweep(gen, g, geom, MG_BETA, False))
     _, staple_s = wall_s(lambda: staple_sum(g, 0))
-    with mock.patch.object(smear, "mat_mul", torch.matmul):
+    with mock.patch.object(smear, "mat_mul_fma", torch.matmul):
         _, staple_matmul_s = wall_s(lambda: staple_sum(g, 0))
     print(json.dumps({"heatbath_sweep_s": hb_sweep_s,
                       "overrelaxation_sweep_s": or_sweep_s,
@@ -385,8 +383,7 @@ def mg(torch, dev) -> None:
                         cuda_prec="single")
     mp = qt.MultigridParamAPI(n_level=3,
                               geo_block_size=((4, 4, 4, 4), (2, 2, 2, 2)),
-                              n_vec=(24, 24), setup_source=("zero", "zero"),
-                              coarse_chunk=16)
+                              n_vec=(24, 24))
     hier = qt.new_multigrid_quda(mp, ip)
     print(json.dumps({"mg_setup_s": hier.setup_seconds,
                       "setup_breakdown": hier.setup_breakdown,
@@ -435,24 +432,20 @@ def mg(torch, dev) -> None:
     outer(2)                                                 # warm-up
     torch.cuda.synchronize()
     _profile("gcr-mg:outer_iteration", lambda: outer(16), torch)
-    # whole solves: the hierarchy above (QUDA's null vectors, M v = 0) and
-    # one set up the JAX package's way (M v = r), against CG
-    del hier, op0, op1, b
+    # whole solves: gcr-mg on the hierarchy above, against CG
+    del op0, op1, b
+    qt.invert_quda(src, ip)
+    solves = {"gcr-mg": {"setup_s": hier.setup_seconds,
+                         "outer_iters": ip.iter_count, "secs": ip.secs,
+                         "true_res": ip.true_res,
+                         "converged": ip.converged}}
+    del hier
+    qt.destroy_multigrid_quda()
+    torch.cuda.empty_cache()
     p_cg = qt.InvertParam(dslash_type="wilson", kappa=MG_KAPPA, tol=1e-6,
                           maxiter=10000, cuda_prec="single")
     qt.invert_quda(src, p_cg)
-    solves = {"cg": {"iters": p_cg.iter_count, "secs": p_cg.secs}}
-    for source in ("zero", "random"):
-        qt.destroy_multigrid_quda()
-        torch.cuda.empty_cache()
-        mp.setup_source = (source, source)
-        hier = qt.new_multigrid_quda(mp, ip)
-        qt.invert_quda(src, ip)
-        solves[source] = {"setup_s": hier.setup_seconds,
-                          "outer_iters": ip.iter_count, "secs": ip.secs,
-                          "true_res": ip.true_res,
-                          "converged": ip.converged}
-        del hier
+    solves["cg"] = {"iters": p_cg.iter_count, "secs": p_cg.secs}
     print(json.dumps({"mg_solves": solves, "kappa": MG_KAPPA, "tol": 1e-6,
                       "dims_xyzt": list(DIMS),
                       "device": torch.cuda.get_device_name(0)}), flush=True)

@@ -25,7 +25,7 @@ import math
 import torch
 
 from ..fields.geometry import LatticeGeometry
-from ..ops.su3 import dagger, mat_mul, random_su3, unit_gauge
+from ..ops.su3 import dagger, mat_mul_fma, random_su3, unit_gauge
 from .smear import staple_sum
 
 # SU(2) subgroup index pairs within SU(3)
@@ -98,7 +98,7 @@ def _subgroup_update(generator, u, a_staple, beta: float, sg,
                      heatbath: bool, n_tries: int):
     """One SU(2)-subgroup update of every link of ``u`` (..., 3, 3)."""
     i, j = sg
-    w = mat_mul(u, dagger(a_staple))
+    w = mat_mul_fma(u, dagger(a_staple))
     b0, b1, b2, b3 = _subgroup_quaternion(w, i, j)
     k = torch.sqrt(b0 ** 2 + b1 ** 2 + b2 ** 2 + b3 ** 2) + 1e-30
     q0, q1, q2, q3 = b0 / k, b1 / k, b2 / k, b3 / k
@@ -128,7 +128,7 @@ def _subgroup_update(generator, u, a_staple, beta: float, sg,
         # microcanonical overrelaxation: a = bhat * bhat (quaternion square)
         a0 = q0 * q0 - q1 * q1 - q2 * q2 - q3 * q3
         a1, a2, a3 = 2 * q0 * q1, 2 * q0 * q2, 2 * q0 * q3
-    return mat_mul(_embed_su2(a0, a1, a2, a3, i, j, u.dtype), u)
+    return mat_mul_fma(_embed_su2(a0, a1, a2, a3, i, j, u.dtype), u)
 
 
 _SITES: dict = {}

@@ -9,14 +9,14 @@ import torch
 
 from ..ops.fmunu import PLANES
 from ..ops.shift import shift
-from ..ops.su3 import dagger, mat_mul, trace
+from ..ops.su3 import dagger, mat_mul_fma, trace
 
 
 def plaquette_field(gauge: torch.Tensor, mu: int, nu: int) -> torch.Tensor:
     """P_{mu nu}(x) = U_mu(x) U_nu(x+mu) U_mu(x+nu)^dag U_nu(x)^dag."""
     u_mu, u_nu = gauge[mu], gauge[nu]
-    return mat_mul(mat_mul(u_mu, shift(u_nu, mu, +1)),
-                   dagger(mat_mul(u_nu, shift(u_mu, nu, +1))))
+    return mat_mul_fma(mat_mul_fma(u_mu, shift(u_nu, mu, +1)),
+                       dagger(mat_mul_fma(u_nu, shift(u_mu, nu, +1))))
 
 
 def plaquette(gauge: torch.Tensor):

@@ -10,17 +10,18 @@ from __future__ import annotations
 import torch
 
 from ..ops.shift import shift
-from ..ops.su3 import dagger, mat_mul
+from ..ops.su3 import dagger, mat_mul_fma
 
 
 def staple(gauge: torch.Tensor, mu: int, nu: int) -> torch.Tensor:
     """Upper + lower staple of U_mu in the (mu, nu) plane."""
     u_mu, u_nu = gauge[mu], gauge[nu]
-    up = mat_mul(mat_mul(u_nu, shift(u_mu, nu, +1)),
-                 dagger(shift(u_nu, mu, +1)))
+    up = mat_mul_fma(mat_mul_fma(u_nu, shift(u_mu, nu, +1)),
+                     dagger(shift(u_nu, mu, +1)))
     u_nu_dn = shift(u_nu, nu, -1)
-    dn = mat_mul(dagger(u_nu_dn),
-                 mat_mul(shift(u_mu, nu, -1), shift(u_nu_dn, mu, +1)))
+    dn = mat_mul_fma(dagger(u_nu_dn),
+                     mat_mul_fma(shift(u_mu, nu, -1),
+                                 shift(u_nu_dn, mu, +1)))
     return up + dn
 
 

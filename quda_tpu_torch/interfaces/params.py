@@ -141,36 +141,25 @@ class InvertParam:
 @dataclasses.dataclass
 class MultigridParamAPI:
     """QudaMultigridParam (quda.h:616), per-level lists, with the JAX
-    package's defaults.  ``coarse_chunk`` is the port's: the probe
-    columns the coarse build applies at once (0 = all 2 n_vec; device
-    memory), which the JAX package reads from QUDA_TPU_MG_COARSE_CHUNK.
-    ``vec_infile``/``vec_outfile`` are kept and, as in the JAX
-    package's routes, not read."""
+    package's defaults.  ``vec_infile``/``vec_outfile`` are kept and, as
+    in the JAX package's routes, not read."""
     n_level: int = 2
     geo_block_size: Sequence[Tuple[int, int, int, int]] = ((2, 2, 2, 2),)
     n_vec: Sequence[int] = (8,)
     setup_iters: Sequence[int] = (150,)
-    # null-vector solve tolerance per level (the block solve stops at
-    # |r| <= tol |b|, setup_iters being the cap)
+    # null-vector solve tolerance per level (the block solve of M v = 0
+    # stops at |r| <= tol |M v0|, setup_iters being the cap)
     setup_tol: Sequence[float] = (5e-6,)
-    # the null-vector solves' right-hand side per level (the port's):
-    # "random" (the JAX package: M v = r, r Gaussian) or "zero" (QUDA's
-    # generateNullVectors: M v = 0 from a Gaussian initial guess)
-    setup_source: Sequence[str] = ("random",)
     nu_pre: Sequence[int] = (0,)
     nu_post: Sequence[int] = (4,)
     smoother_omega: float = 0.85
     coarse_solver_iters: int = 8
     vec_outfile: str = ""
     vec_infile: str = ""
-    coarse_chunk: int = 0
 
     def validate(self):
         n = self.n_level - 1
         _check(n >= 1, f"bad n_level {self.n_level}")
         _check(len(self.geo_block_size) >= n, "need block size per level")
         _check(len(self.n_vec) >= n, "need n_vec per level")
-        _check(self.coarse_chunk >= 0, "bad coarse_chunk")
-        _check(all(v in ("random", "zero") for v in self.setup_source),
-               f"bad setup_source {self.setup_source}")
         return self

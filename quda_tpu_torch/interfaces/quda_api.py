@@ -543,7 +543,7 @@ def invert_quda(source, param: InvertParam):
 
 def _mg_level_params(mp: MultigridParamAPI):
     """MultigridParamAPI -> the per-level MGLevelParam list (JAX
-    quda_api.py:1840), with the port's setup_source and coarse_chunk."""
+    quda_api.py:1840)."""
     from ..mg.mg import MGLevelParam
     return [MGLevelParam(block=tuple(mp.geo_block_size[i]),
                          n_vec=mp.n_vec[i],
@@ -551,15 +551,12 @@ def _mg_level_params(mp: MultigridParamAPI):
                          if i < len(mp.setup_iters) else 150,
                          setup_tol=mp.setup_tol[i]
                          if i < len(mp.setup_tol) else 5e-6,
-                         setup_source=mp.setup_source[i]
-                         if i < len(mp.setup_source) else "random",
                          pre_smooth=mp.nu_pre[i] if i < len(mp.nu_pre)
                          else 0,
                          post_smooth=mp.nu_post[i] if i < len(mp.nu_post)
                          else 4,
                          smoother_omega=mp.smoother_omega,
-                         coarse_solver_iters=mp.coarse_solver_iters,
-                         coarse_chunk=mp.coarse_chunk)
+                         coarse_solver_iters=mp.coarse_solver_iters)
             for i in range(mp.n_level - 1)]
 
 
@@ -604,13 +601,17 @@ def destroy_multigrid_quda():
 
 def _invert_mg(source, param: InvertParam):
     """The gcr-mg route: flexible GCR(gcrNkrylov) on the full Wilson
-    system in float32 pairs, preconditioned by the resident hierarchy.
-    A hierarchy built on another gauge (the gauge epoch moved) is set up
-    again, as the JAX package does (quda_api.py:1880-1888); where the JAX
-    package then takes the default MultigridParamAPI, the port takes the
-    one the stale hierarchy was built with.  The true residual is
-    computed in pair arithmetic against the operator the solve targeted."""
-    from ..mg.pair import mg_solve_pairs
+    system of ``param`` in float32 pairs, preconditioned by the resident
+    hierarchy.  A hierarchy built on another gauge (the gauge epoch
+    moved) is set up again, as the JAX package does
+    (quda_api.py:1880-1888); where the JAX package then takes the default
+    MultigridParamAPI, the port takes the one the stale hierarchy was
+    built with.  A hierarchy built at another kappa stays, as QUDA keeps
+    it: only as the preconditioner, the outer GCR applying ``param``'s
+    operator (the JAX package solves the hierarchy's own system then).
+    The true residual is computed in pair arithmetic against
+    ``param``'s operator."""
+    from ..mg.pair import PairWilsonLevelOp, mg_solve_pairs
     from ..ops.pair import to_pairs
     dev = _ctx["device"]
     geom = _ctx["geom"]
@@ -623,13 +624,17 @@ def _invert_mg(source, param: InvertParam):
         mg = None
     if mg is None:
         mg = _build_mg(param, _ctx["mg_param"] or MultigridParamAPI())
+    outer = mg.adapter
+    if float(param.kappa) != outer.kappa:
+        outer = PairWilsonLevelOp(
+            _build_dirac(param, False, complex_dtype("single")))
     b_pairs = to_pairs(b, torch.float32)
-    res, _ = mg_solve_pairs(mg.adapter.dirac, geom, b_pairs, mg.params,
+    res, _ = mg_solve_pairs(outer, geom, b_pairs, mg.params,
                             tol=param.tol, nkrylov=param.gcrNkrylov, mg=mg)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     param.secs = time.perf_counter() - t0
-    r = b_pairs - mg.adapter.M_std(res.x)
+    r = b_pairs - outer.M_std(res.x)
     param.true_res = math.sqrt(float(blas.norm2(r))
                                / float(blas.norm2(b_pairs)))
     param.iter_count = int(res.iters)

@@ -14,16 +14,20 @@ loop per coarse column:
 
 Per level the build is then one batched diag and 8 batched hop
 applications over the 2 n_vec columns, each followed by one batched
-restriction (the four real GEMMs of a pair product).  ``chunk`` bounds
-the columns applied at once (device memory: each column is a fine
-field).  An extent of 1 along mu makes the neighbour aggregate the
-aggregate itself: the whole direction output feeds the link.  The probes
+restriction (the four real GEMMs of a pair product).  The columns are
+applied in chunks sized to the device memory the process has free
+(``_probe_chunk``: each column is a few live fine fields); the JAX
+package reads the chunk from QUDA_TPU_MG_COARSE_CHUNK.  An extent of 1
+along mu makes the neighbour aggregate the aggregate itself: the whole
+direction output feeds the link.  The probes
 are plain PyTorch, as they are XLA in the JAX package; the JAX package's
 cached constant-free probe programs (mg/opstate.py) have no counterpart:
 PyTorch runs eagerly.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,12 +94,33 @@ def _make_probes(fine_parts, block, latc, fine_shape, nc):
     return probe_diag, probe_dir
 
 
+# live fine fields per probe column at the peak of a chunk: the unblocked
+# column, its hop, the two masked copies, the blocked copy the restriction
+# reads, and the hop's shifted neighbour and product
+_FIELDS_PER_COLUMN = 8
+
+
+def _probe_chunk(transfer, nc: int) -> int:
+    """Probe columns per chunk: all ``nc`` on the CPU; on the card as
+    many as fit, at ``_FIELDS_PER_COLUMN`` fine fields each, in half the
+    memory the process can still take (the device's free memory and what
+    PyTorch's allocator holds unused)."""
+    v = transfer.v
+    if v.device.type != "cuda":
+        return nc
+    free, _ = torch.cuda.mem_get_info(v.device)
+    free += (torch.cuda.memory_reserved(v.device)
+             - torch.cuda.memory_allocated(v.device))
+    field = (int(np.prod(transfer.fine_shape)) * 4 * transfer.k_fine
+             * v.element_size())
+    return max(1, min(nc, free // (2 * _FIELDS_PER_COLUMN * field)))
+
+
 def _build_stencil(v, wb, unblock, probe_diag, probe_dir, nc, chunk,
                    cat_axis):
-    """The chunked probe loop: per chunk, unblock only that chunk's probe
-    columns to fine fields, run the diag and 8 hop probes, and gather X
-    and the 8 links Y."""
-    chunk = nc if chunk <= 0 else min(chunk, nc)
+    """The chunked probe loop: per chunk of ``chunk`` columns, unblock
+    only that chunk's probe columns to fine fields, run the diag and 8
+    hop probes, and gather X and the 8 links Y."""
     x_parts, y_parts = [], {d: [] for d in DIRS}
     for c0 in range(0, nc, chunk):
         Wb = unblock(wb[c0:c0 + chunk])
@@ -113,10 +138,11 @@ def _build_stencil(v, wb, unblock, probe_diag, probe_dir, nc, chunk,
 
 
 def build_coarse_pairs_gemm(fine_parts, transfer, g5_hermitian: bool = True,
-                            chunk: int = 0):
+                            chunk: Optional[int] = None):
     """The coarse operator R M P of ``fine_parts`` (a level operator with
     batch-aware ``diag`` and ``hop``) on pair arrays: the same
-    PairCoarseOperator as mg/pair.build_coarse_pairs, to f32 rounding."""
+    PairCoarseOperator as mg/pair.build_coarse_pairs, to f32 rounding.
+    ``chunk`` (probe columns at once) defaults to ``_probe_chunk``'s."""
     from .pair import PairCoarseOperator, _unblock_fields_pairs
 
     latc = transfer.coarse_shape
@@ -126,6 +152,7 @@ def build_coarse_pairs_gemm(fine_parts, transfer, g5_hermitian: bool = True,
     nc = 2 * n
     v = transfer.v                             # (latc, 2, D, N, 2)
     _check_extents(latc)
+    chunk = _probe_chunk(transfer, nc) if chunk is None else min(chunk, nc)
 
     # probe column c0*n + b: aggregate column b of V on chirality c0
     sel = torch.eye(2, dtype=v.dtype, device=v.device)

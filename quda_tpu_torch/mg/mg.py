@@ -3,9 +3,10 @@ vectors, transfer, coarse operator), the recursive V-cycle and the
 runtime check ``verify``.
 
 Set-up per level: n_vec near-null vectors of the level operator (a loose
-block solve of M v = r over random r), block-orthonormalised into a
-transfer, then the Galerkin coarse stencil R M P built by batched probes
-(mg/gemm.py), and the next level below it.  Apply: the V-cycle (optional
+block solve of M v = 0 from random initial guesses, QUDA's
+generateNullVectors), block-orthonormalised into a transfer, then the
+Galerkin coarse stencil R M P built by batched probes (mg/gemm.py), and
+the next level below it.  Apply: the V-cycle (optional
 pre-smoothing, restrict the residual, recurse or solve the coarsest level
 with fixed GCR, prolong and correct, post-smoothing) preconditions an
 outer flexible GCR (mg/pair.mg_solve_pairs).
@@ -24,11 +25,14 @@ ROADMAP A15.
 
 Randomness comes from a ``torch.Generator`` where JAX takes a PRNG key;
 tests that compare the two hierarchies carry JAX's arrays across
-(``PairMG.from_arrays``).  The probe columns the coarse build applies at
-once are a parameter (``MGLevelParam.coarse_chunk``) where the JAX package
-reads an environment knob; the null vectors of a level are solved in one
-batch (JAX's QUDA_TPU_MG_NULL_CHUNK has no counterpart: 24 lanes at
-32^3 x 64 fit the card, PERF.md).
+(``PairMG.from_arrays``).  The null-vector solve is QUDA's homogeneous
+one, where the JAX package solves M v = r for random r: near kappa_c
+those vectors do not make a hierarchy that beats CG (PERF.md).  The
+probe columns the coarse build applies at once follow from the free
+device memory (mg/gemm.py) where the JAX package reads an environment
+knob; the null vectors of a level are solved in one batch (JAX's
+QUDA_TPU_MG_NULL_CHUNK has no counterpart: 24 lanes at 32^3 x 64 fit the
+card, PERF.md).
 """
 
 from __future__ import annotations
@@ -83,21 +87,16 @@ def _null_solve_mv(op, use_cg):
     return op.MdagM if use_cg else op.M
 
 
-def _null_solve_body(mv, bb, tol, maxiter, use_cg, source="random"):
-    """Tolerance-stopped block solve of a real (pair) batch of random
-    vectors bb, normalised: BiCGStab on M, or CG on MdagM.  With source
-    "random" the solve is A v = bb (the JAX package); with "zero" it is
-    A v = 0 from the initial guess bb (QUDA's generateNullVectors), i.e.
-    v = bb - A^-1 A bb: the components the solve has not removed, which
-    are the low modes."""
+def _null_solve_body(mv, bb, tol, maxiter, use_cg):
+    """Tolerance-stopped block solve of A v = 0 (A = M under BiCGStab,
+    MdagM under CG) from the initial guesses bb, a real (pair) batch of
+    random vectors, normalised, as QUDA's generateNullVectors: v = bb -
+    A^-1 A bb, the components of bb the solve has not removed, which are
+    the low modes."""
     from ..solvers.block import batched_bicgstab_pairs, batched_cg_pairs
     solve = batched_cg_pairs if use_cg else batched_bicgstab_pairs
-    if source == "zero":
-        xs = solve(mv, mv(bb), tol=tol, maxiter=maxiter).x
-        xs = xs.neg_().add_(bb)
-    else:
-        xs = solve(mv, bb, tol=tol, maxiter=maxiter).x
-    return _normalized_batch(xs)
+    xs = solve(mv, mv(bb), tol=tol, maxiter=maxiter).x
+    return _normalized_batch(xs.neg_().add_(bb))
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -108,19 +107,14 @@ def _sync(t: torch.Tensor) -> None:
 @dataclasses.dataclass
 class MGLevelParam:
     """Per-level knobs (QudaMultigridParam analog): the JAX package's
-    fields and defaults, and the port's setup_source and coarse_chunk."""
+    fields and defaults."""
     block: Tuple[int, int, int, int] = (2, 2, 2, 2)
     n_vec: int = 8
     setup_iters: int = 150          # iteration cap per null-vector solve
     setup_tol: float = 5e-6         # null-vector solve tolerance
-    # 'bicgstab': batched BiCGStab on the direct system M v = r (QUDA's
-    # generateNullVectors); 'cg': CG on MdagM v = r
+    # 'bicgstab': batched BiCGStab on the direct system M v = 0 (QUDA's
+    # generateNullVectors); 'cg': CG on MdagM v = 0
     setup_solver: str = "bicgstab"
-    # the null-vector solves' right-hand side: 'random' solves M v = r for
-    # Gaussian r (the JAX package); 'zero' solves M v = 0 from a Gaussian
-    # initial guess, as QUDA's generateNullVectors does (PERF.md: near
-    # kappa_c it is what makes the hierarchy work)
-    setup_source: str = "random"
     pre_smooth: int = 0             # QUDA default: no pre-smoothing
     post_smooth: int = 4
     smoother: str = "mr"            # "mr" | "ca-gcr"
@@ -129,9 +123,6 @@ class MGLevelParam:
     coarse_solver_cycles: int = 2
     # all levels below run replicated on a mesh of chips (ROADMAP A15)
     coarse_replicate: bool = False
-    # probe columns applied per batch in the coarse build (0: all 2 n_vec);
-    # QUDA_TPU_MG_COARSE_CHUNK in the JAX package
-    coarse_chunk: int = 0
 
 
 class MG:
@@ -175,17 +166,13 @@ class MG:
     def _generate_null_vectors(self, level_op, example, n_vec, p,
                                generator):
         """Near-null vectors of one level, normalised: block solves of
-        M v = r over n_vec random sources (or, with ``p.setup_source``
-        "zero", of M v = 0 from random initial guesses), one batch
-        through the level's multi-RHS matvec (the fine level in its
-        kernel layout: the batch is transposed once, not per matvec).  If
+        M v = 0 from n_vec random initial guesses, one batch through the
+        level's multi-RHS matvec (the fine level in its kernel layout: the
+        batch is transposed once, not per matvec).  If
         BiCGStab breaks down (a lane not finite, r0-orthogonality
         collapse near kappa critical), the level falls back to CG on the
         normal equations, which cannot break down, with a warning;
         ``self.null_fallbacks`` records the level."""
-        if p.setup_source not in ("random", "zero"):
-            raise ValueError(f"setup_source {p.setup_source!r}: 'random' or "
-                             "'zero'")
         use_cg = p.setup_solver == "cg"
         to_l, from_l = _null_solve_layout(level_op)
         bs = to_l(torch.stack([self._random_like(example, generator)
@@ -194,7 +181,7 @@ class MG:
         def run_solve(cg_flag):
             return from_l(_null_solve_body(
                 _null_solve_mv(level_op, cg_flag), bs, float(p.setup_tol),
-                int(p.setup_iters), cg_flag, p.setup_source))
+                int(p.setup_iters), cg_flag))
 
         nulls = run_solve(use_cg)
         if not use_cg and not bool(torch.isfinite(nulls).all()):
@@ -242,8 +229,7 @@ class MG:
             del nulls
             self._phase(li, "transfer_build", t0, transfer.v)
             t0 = time.perf_counter()
-            coarse = self._build_coarse_gemm(level_op, transfer,
-                                             chunk=p.coarse_chunk)
+            coarse = self._build_coarse_gemm(level_op, transfer)
             self._phase(li, "coarse_probe", t0, coarse.x_diag)
             self.levels.append(dict(op=level_op, transfer=transfer,
                                     coarse=coarse, param=p))

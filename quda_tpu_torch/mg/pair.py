@@ -517,9 +517,9 @@ class PairMG(MG):
     _transfer_from_nulls = staticmethod(PairTransfer.from_null_vectors)
 
     @staticmethod
-    def _build_coarse_gemm(parts, transfer, chunk: int = 0):
+    def _build_coarse_gemm(parts, transfer):
         from .gemm import build_coarse_pairs_gemm
-        return build_coarse_pairs_gemm(parts, transfer, chunk=chunk)
+        return build_coarse_pairs_gemm(parts, transfer)
 
     def _example_field(self, lat_shape, k, dtype, device):
         """Zero chiral pair field (lat, 2, k, 2)."""
@@ -580,11 +580,21 @@ def mg_solve_pairs(fine_dirac, geom, b_pairs, params: Sequence[MGLevelParam],
                    tol: float = 1e-6, nkrylov: int = 16,
                    max_restarts: int = 100, generator=None,
                    mg: Optional[PairMG] = None):
-    """Outer GCR on canonical pair spinors (T,Z,Y,X,4,3,2) preconditioned
-    by the pair MG V-cycle.  Returns (SolverResult with pair x, mg)."""
+    """Outer GCR on canonical pair spinors (T,Z,Y,X,4,3,2) of
+    ``fine_dirac``'s system (a DiracWilson or its PairWilsonLevelOp),
+    preconditioned by the pair MG V-cycle of ``mg`` (set up on
+    ``fine_dirac`` when None; a given hierarchy may have been built on
+    another operator, as after a change of kappa).  Returns
+    (SolverResult with pair x, mg)."""
     from ..solvers.gcr import gcr
     if mg is None:
         mg = PairMG(fine_dirac, geom, params, generator)
-    res = gcr(mg.adapter.M_std, b_pairs, precond=mg.precondition, tol=tol,
+    if hasattr(fine_dirac, "k_fine"):
+        outer = fine_dirac
+    elif fine_dirac is mg.adapter.dirac:
+        outer = mg.adapter
+    else:
+        outer = PairMG._adapt(fine_dirac)
+    res = gcr(outer.M_std, b_pairs, precond=mg.precondition, tol=tol,
               nkrylov=nkrylov, max_restarts=max_restarts)
     return res, mg

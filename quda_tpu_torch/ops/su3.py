@@ -2,10 +2,10 @@
 
 Port of the complex-representation half of quda_tpu/ops/su3.py:
 ``dagger``, ``mat_mul``, ``mat_i`` and ``trace`` (what ops/fmunu.py
-needs), the Gell-Mann generators, the su(3) Gaussian, the
-scaling-and-squaring exponential, random links, and the closed-form
-inverse square root ``inv_sqrt_herm3`` (HISQ reunitarisation).  Batched
-over any leading axes.
+needs), ``mat_mul_fma`` (the gauge generation's product), the Gell-Mann
+generators, the su(3) Gaussian, the scaling-and-squaring exponential,
+random links, and the closed-form inverse square root ``inv_sqrt_herm3``
+(HISQ reunitarisation).  Batched over any leading axes.
 """
 
 from __future__ import annotations
@@ -38,11 +38,17 @@ def dagger(m: torch.Tensor) -> torch.Tensor:
 
 
 def mat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched matrix product over the trailing (c,c) axes, as broadcast
-    multiply-adds over the inner index: elementwise kernels.  On the card
+    """Batched matrix product over the trailing (c,c) axes."""
+    return torch.matmul(a, b)
+
+
+def mat_mul_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``mat_mul`` as broadcast multiply-adds over the inner index:
+    elementwise kernels, the gauge generation's product (gauge/smear.py,
+    gauge/observables.py, gauge/heatbath.py).  On the card
     ``torch.matmul`` of millions of 3x3 complex matrices goes through a
-    batched GEMM and runs many times slower (``chip_profile.py mg``
-    measures the heatbath's staples both ways; PERF.md)."""
+    batched GEMM and runs many times slower (``chip_profile.py mg`` times
+    the heatbath's staples both ways; PERF.md)."""
     out = a[..., :, 0:1] * b[..., 0:1, :]
     for j in range(1, a.shape[-1]):
         out = out + a[..., :, j:j + 1] * b[..., j:j + 1, :]

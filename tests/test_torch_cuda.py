@@ -1115,7 +1115,8 @@ def test_mg_hierarchy_on_card_matches_cpu():
     blocks 2^4, n_vec 4) and carried to the card (PairMG.from_arrays): its
     V-cycle (B4, B8) within 1e-5 of the CPU's, verify within 1e-5 on the
     card, and the set-up on the card (B5) passes verify; the gcr-mg route
-    on the card converges to true_res <= 5e-6."""
+    on the card converges to true_res <= 5e-6, also at a kappa other than
+    the hierarchy's."""
     from quda_tpu_torch.fields.geometry import LatticeGeometry
     from quda_tpu_torch.mg.mg import MGLevelParam
     from quda_tpu_torch.mg.pair import PairMG
@@ -1155,7 +1156,13 @@ def test_mg_hierarchy_on_card_matches_cpu():
         qt.new_multigrid_quda(qt.MultigridParamAPI(
             geo_block_size=((2, 2, 2, 2),), n_vec=(4,), setup_iters=(40,)),
             ip)
-        qt.invert_quda(gaussian(lattice_shape(SMALL) + (4, 3), seed=99), ip)
+        src = gaussian(lattice_shape(SMALL) + (4, 3), seed=99)
+        qt.invert_quda(src, ip)
+        assert ip.converged and ip.true_res <= 5e-6
+        # another kappa: the outer GCR applies its operator, the resident
+        # hierarchy preconditions
+        ip.kappa = 0.11
+        qt.invert_quda(src, ip)
     finally:
         qt.end_quda()
     assert ip.converged and ip.true_res <= 5e-6

@@ -454,11 +454,10 @@ def test_vcycle_matches_jax_on_shared_hierarchy(fine):
 
 
 def test_zero_source_null_vectors_are_near_null(fine):
-    """setup_source "zero" (QUDA's generateNullVectors: M v = 0 from a
+    """The null-vector solve (QUDA's generateNullVectors: M v = 0 from a
     random guess, v = v0 - M^-1 M v0 after a capped solve) keeps the low
     modes: |M v| / |v| of its vectors is well below that of the random
-    vectors it starts from, and below the "random" source's vectors
-    (M v = r, partly solved); a hierarchy built on them passes verify."""
+    vectors it starts from; a hierarchy built on them passes verify."""
     _, op, _, nulls = fine
     P = op.to_mrhs_layout(_t(nulls))
 
@@ -466,19 +465,13 @@ def test_zero_source_null_vectors_are_near_null(fine):
         return float(torch.mean(torch.sqrt(
             torch.sum((op.M_mrhs_pl(v) ** 2).reshape(NVEC, -1), 1)
             / torch.sum((v ** 2).reshape(NVEC, -1), 1))))
-    zero = mgm._null_solve_body(op.M_mrhs_pl, P, 5e-6, 5, False, "zero")
-    rand = mgm._null_solve_body(op.M_mrhs_pl, P, 5e-6, 5, False, "random")
+    zero = mgm._null_solve_body(op.M_mrhs_pl, P, 5e-6, 5, False)
     # this hot 4^4 gauge at kappa 0.12 has no near-null modes to keep,
-    # so the margins are modest (0.71 against 1.11 for the start)
+    # so the margin is modest (0.71 against 1.11 for the start)
     assert ratio(zero) < 0.8 * ratio(P)
-    assert ratio(zero) < ratio(rand)
-    p = [dataclasses.replace(q, setup_source="zero") for q in _params(1)]
-    mg = pair.PairMG(op, LatticeGeometry(DIMS), p,
+    mg = pair.PairMG(op, LatticeGeometry(DIMS), _params(1),
                      torch.Generator().manual_seed(341))
     assert mg.verify(galerkin_tol=1e-5, pr_tol=1e-5)[0]["galerkin"] < 1e-5
-    with pytest.raises(ValueError, match="setup_source"):
-        pair.PairMG(op, LatticeGeometry(DIMS),
-                    [dataclasses.replace(q, setup_source="ones") for q in p])
 
 
 def test_null_vector_breakdown_falls_back_to_cg(fine, monkeypatch, caplog):
@@ -500,48 +493,58 @@ def test_null_vector_breakdown_falls_back_to_cg(fine, monkeypatch, caplog):
 
 # -- the API route ---------------------------------------------------------
 
-def _mg_params(source="random"):
+def _mg_params():
     return qt.MultigridParamAPI(geo_block_size=(BLOCK,), n_vec=(NVEC,),
-                                setup_iters=(40,), setup_source=(source,))
+                                setup_iters=(40,))
 
 
-@pytest.mark.parametrize("source", ["random", "zero"])
-def test_gcr_mg_route_converges_reuses_and_rebuilds(source):
-    """invert_quda(gcr-mg) on the resident hierarchy (null vectors from
-    either setup_source) converges to true_res < 5e-6 (also by the complex
-    full-lattice operator), the second solve reuses the hierarchy, and a
-    new gauge makes the next solve set it up again, with the same
-    parameters."""
+@pytest.mark.parametrize("kappa2", [KAPPA, 0.105],
+                         ids=["same-kappa", "other-kappa"])
+def test_gcr_mg_route_converges_reuses_and_rebuilds(kappa2):
+    """invert_quda(gcr-mg) on the resident hierarchy converges to true_res
+    < 5e-6 (also by the complex full-lattice operator); a second solve at
+    ``kappa2`` (the hierarchy's kappa, or another) reuses the hierarchy
+    and solves kappa2's system, the hierarchy only preconditioning it
+    (its residual under the hierarchy's own kappa is large); and a new
+    gauge makes the next solve set the hierarchy up again, with the same
+    parameters and the solve's kappa."""
     from quda_tpu_torch.interfaces import quda_api as api
     g = su3_gauge(DIMS, 337)
     b = gaussian(lattice_shape(DIMS) + (4, 3), 338)
+    bt = _t(b).to(torch.complex128)
+
+    def resid(x, kappa):
+        d = DiracWilson(_t(g).to(torch.complex128), LatticeGeometry(DIMS),
+                        kappa)
+        r = bt - d.M(x.to(torch.complex128))
+        return float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(bt))
     qt.init_quda("cpu")
     try:
         qt.load_gauge_quda(g, qt.GaugeParam(X=DIMS, cuda_prec="single"))
         ip = qt.InvertParam(dslash_type="wilson", inv_type="gcr-mg",
                             kappa=KAPPA, tol=1e-6, solve_type="direct",
                             cuda_prec="single", gcrNkrylov=6)
-        mg = qt.new_multigrid_quda(_mg_params(source), ip)
+        mg = qt.new_multigrid_quda(_mg_params(), ip)
         assert isinstance(mg, pair.PairMG)
-        assert mg.params[0].setup_source == source
         x = qt.invert_quda(b, ip)
         assert ip.converged and ip.true_res < 5e-6
         assert ip.iter_count % 6 == 0 and ip.iter_count > 0
-        d = DiracWilson(_t(g).to(torch.complex128), LatticeGeometry(DIMS),
-                        KAPPA)
-        bt = _t(b).to(torch.complex128)
-        r = bt - d.M(x.to(torch.complex128))
-        assert float(torch.linalg.vector_norm(r)
-                     / torch.linalg.vector_norm(bt)) < 5e-6
+        assert resid(x, KAPPA) < 5e-6
         assert x.dtype == torch.complex64 and x.shape == bt.shape
-        qt.invert_quda(b, ip)
-        assert api._ctx["mg"] is mg and ip.true_res < 5e-6
+        ip2 = dataclasses.replace(ip, kappa=kappa2)
+        x2 = qt.invert_quda(b, ip2)
+        assert api._ctx["mg"] is mg and mg.adapter.kappa == KAPPA
+        assert ip2.converged and ip2.true_res < 5e-6
+        assert resid(x2, kappa2) < 5e-6
+        if kappa2 != KAPPA:
+            assert resid(x2, KAPPA) > 1e-3
         qt.load_gauge_quda(su3_gauge(DIMS, 339),
                            qt.GaugeParam(X=DIMS, cuda_prec="single"))
-        qt.invert_quda(b, ip)
-        assert api._ctx["mg"] is not mg and ip.true_res < 5e-6
+        qt.invert_quda(b, ip2)
+        assert api._ctx["mg"] is not mg and ip2.true_res < 5e-6
         assert api._ctx["mg"].params[0].n_vec == NVEC
-        assert api._ctx["mg"].params[0].setup_source == source
+        assert api._ctx["mg"].adapter.kappa == kappa2
         qt.destroy_multigrid_quda()
         assert api._ctx["mg"] is None
     finally:
@@ -615,7 +618,8 @@ def test_vcycle_matches_jax_hierarchy_carried_across():
 def test_gcr_mg_route_matches_jax(monkeypatch):
     """The gcr-mg API route against JAX's (QUDA_TPU_PACKED=1, its pair
     hierarchy): both converge to true_res < 5e-6 and their solutions agree
-    within 1e-5 (their hierarchies differ: random null vectors)."""
+    within 1e-5 (their hierarchies differ: random null vectors, from
+    M v = r in the JAX package and from M v = 0 in the port)."""
     from quda_tpu.interfaces import quda_api as japi
     from quda_tpu.interfaces.params import (GaugeParam as JGaugeParam,
                                             InvertParam as JInvertParam,
