@@ -2,6 +2,7 @@
 """Where a CG iteration of the port spends its time on the card.
 
     python3 chip_profile.py [all|wilson|double|staggered|zoo|mg]  # default all
+    python3 chip_profile.py stag_mg [MASS ...]   # default chip_smoke's mass
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -51,6 +52,17 @@ and bottom solve) against the plain PyTorch glue and the idle share.
 Before them the seconds of a heatbath and an overrelaxation sweep and of
 ``staple_sum`` with its 3x3 products as ``su3.mat_mul_fma`` against
 ``torch.matmul``; after them whole solves: CG and ``gcr-mg``.
+
+``stag_mg`` (not part of ``all``) profiles the staggered/HISQ multigrid
+at 32^3 x 64 on the same kind of heatbath gauge: compute_ks_link_quda,
+chip_smoke.py's hierarchy (3 levels, blocks 4^4 then 2^4, n_vec 24, the
+fat-link stencil; null vectors from CG on the normal equations with
+projected guesses, GCR smoothing), then 3 iterations of the level-0
+null-vector CG (S2-mrhs-full) and one
+outer GCR cycle of 16 iterations on the fat + Naik operator (S1-full),
+each preconditioned by a V-cycle (S2-full, B8), split into kernels and
+glue; then whole hisq solves at each MASS given: ``gcr-mg`` (the
+hierarchy set up at that mass) against CG (normop-pc, fused_cg).
 
 For each it prints JSON lines: the device time by kernel (top 15), then
 one summary line with the device time by group (the eo hop kernel, the
@@ -102,6 +114,9 @@ def _profile(label, run, torch, dims=DIMS):
               "staggered_fused_kernel": 0.0, "staggered_pass_kernel": 0.0,
               "staggered_pass_mrhs_kernel": 0.0,
               "full_hop_kernel": 0.0, "full_hop_mrhs_kernel": 0.0,
+              "staggered_full_fused_kernel": 0.0,
+              "staggered_full_pass_kernel": 0.0,
+              "staggered_full_pass_mrhs_kernel": 0.0,
               "coarse_kernel": 0.0, "coarse_mrhs_kernel": 0.0,
               "cg_tail_kernel": 0.0, "axpy_norm2_kernel": 0.0,
               "m5_algebra": 0.0, "plain_torch": 0.0}
@@ -111,7 +126,13 @@ def _profile(label, run, torch, dims=DIMS):
                                    "cg_reliable_df"))
                 else "cg_tail_kernel")
     for name, _, us in rows:
-        if "stag_pass_mrhs_kernel" in name:
+        if "stag_full_pass_mrhs_kernel" in name:
+            groups["staggered_full_pass_mrhs_kernel"] += us
+        elif "stag_full_fused_kernel" in name:
+            groups["staggered_full_fused_kernel"] += us
+        elif "stag_full_pass_kernel" in name:
+            groups["staggered_full_pass_kernel"] += us
+        elif "stag_pass_mrhs_kernel" in name:
             groups["staggered_pass_mrhs_kernel"] += us
         elif "stag_fused_kernel" in name:
             groups["staggered_fused_kernel"] += us
@@ -320,6 +341,7 @@ def zoo(torch, dev) -> None:
 MG_KAPPA = 0.155
 MG_BETA = 6.0
 MG_SWEEPS = 40              # heatbath sweeps, each with 4 overrelaxation ones
+STAG_MG_MASS = 0.005        # chip_smoke.py's staggered-MG mass
 
 
 class _Once:
@@ -452,6 +474,110 @@ def mg(torch, dev) -> None:
     qt.end_quda()
 
 
+def _heatbath_gauge(torch, dev, geom, gen):
+    """A quenched gauge at beta MG_BETA from a cold start, MG_SWEEPS
+    heatbath sweeps each followed by 4 overrelaxation sweeps, complex64;
+    and the seconds it took."""
+    from quda_tpu_torch.gauge.heatbath import cold_start, heatbath_evolve
+    t0 = time.perf_counter()
+    g = heatbath_evolve(gen, cold_start(geom, device=dev), geom, MG_BETA,
+                        MG_SWEEPS, n_or_per_hb=4).to(torch.complex64)
+    torch.cuda.synchronize()
+    return g, time.perf_counter() - t0
+
+
+def stag_mg(torch, dev, masses=(STAG_MG_MASS,)) -> None:
+    """Profile the staggered/HISQ multigrid's level-0 null-vector
+    iteration and one outer GCR cycle at 32^3 x 64 on a heatbath gauge;
+    then whole hisq solves, gcr-mg against CG, at each mass."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.mg.pair import outer_operator
+    from quda_tpu_torch.ops.pair import to_pairs
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
+    from quda_tpu_torch.solvers.gcr import gcr
+
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    g, hb_s = _heatbath_gauge(torch, dev, geom, gen)
+    src = torch.randn(geom.lattice_shape + (1, 3), generator=gen,
+                      device=dev, dtype=torch.complex64)
+    qt.init_quda(dev)
+    qt.load_gauge_quda(g, qt.GaugeParam(X=DIMS, cuda_prec="single"))
+    del g
+    t0 = time.perf_counter()
+    qt.compute_ks_link_quda()
+    torch.cuda.synchronize()
+    ks_s = time.perf_counter() - t0
+    mp = qt.MultigridParamAPI(n_level=3,
+                              geo_block_size=((4, 4, 4, 4), (2, 2, 2, 2)),
+                              n_vec=(24, 24))
+    solves = {}
+    for i, mass in enumerate(masses):
+        ip = qt.InvertParam(dslash_type="hisq", inv_type="gcr-mg",
+                            solve_type="direct", mass=mass, tol=1e-6,
+                            cuda_prec="single")
+        torch.cuda.reset_peak_memory_stats(dev)
+        hier = qt.new_multigrid_quda(mp, ip)
+        print(json.dumps({"mass": mass, "mg_setup_s": hier.setup_seconds,
+                          "setup_breakdown": hier.setup_breakdown,
+                          "heatbath_s": hb_s, "ks_link_s": ks_s,
+                          "plaquette": qt.plaq_quda(),
+                          "peak_mem_gb":
+                              torch.cuda.max_memory_allocated(dev) / 1e9,
+                          "dims_xyzt": list(DIMS),
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
+        if i == 0:
+            # the level-0 null-vector solve as the set-up runs it: CG on
+            # the normal equations (the staggered default) in the kernel
+            # layout, two S2-mrhs-full launches an iteration
+            op0 = hier.levels[0]["op"]
+            bb = op0.to_mrhs_layout(op0.project_null_source(torch.randn(
+                (24,) + tuple(geom.lattice_shape) + (2, 3, 2),
+                generator=gen, device=dev)))
+            batched_cg_pairs(op0.MdagM_mrhs_pl, bb, tol=1e-30,
+                             maxiter=1)                      # warm-up
+            torch.cuda.synchronize()
+            _profile("stag_setup:null_cg[level0,24]",
+                     lambda: batched_cg_pairs(op0.MdagM_mrhs_pl, bb,
+                                              tol=1e-30, maxiter=3), torch)
+            del bb
+            b = to_pairs(src, torch.float32)
+
+            def outer(n):
+                return gcr(outer_operator(op0), b,
+                           precond=hier.precondition, tol=1e-30,
+                           nkrylov=n, max_restarts=1)
+
+            outer(2)                                         # warm-up
+            torch.cuda.synchronize()
+            _profile("stag_gcr-mg:outer_iteration", lambda: outer(16),
+                     torch)
+            del op0, b
+        qt.invert_quda(src, ip)
+        solves[str(mass)] = {"gcr-mg": {
+            "setup_s": hier.setup_seconds, "outer_iters": ip.iter_count,
+            "secs": ip.secs, "true_res": ip.true_res,
+            "converged": ip.converged}}
+        del hier
+        qt.destroy_multigrid_quda()
+        torch.cuda.empty_cache()
+        p_cg = qt.InvertParam(dslash_type="hisq", mass=mass, tol=1e-6,
+                              maxiter=20000, cuda_prec="single")
+        qt.invert_quda(src, p_cg)
+        solves[str(mass)]["cg"] = {"iters": p_cg.iter_count,
+                                   "secs": p_cg.secs,
+                                   "true_res": p_cg.true_res,
+                                   "converged": p_cg.converged}
+        print(json.dumps({"stag_mg_solves": solves[str(mass)],
+                          "mass": mass, "tol": 1e-6,
+                          "dims_xyzt": list(DIMS),
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
+    qt.end_quda()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -460,6 +586,10 @@ def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     families = {"staggered": staggered, "double": double, "zoo": zoo,
                 "mg": mg}
+    if which == "stag_mg":
+        masses = tuple(float(m) for m in sys.argv[2:]) or (STAG_MG_MASS,)
+        stag_mg(torch, torch.device("cuda", 0), masses)
+        return 0
     if which not in ("all", "wilson") + tuple(families):
         print(f"chip_profile: unknown family {which!r}", file=sys.stderr)
         return 2

@@ -182,6 +182,38 @@ Phases, one JSON line each (``"phase": ...``):
    timing  — B5 against 24 B4 launches, B8 and B8-mrhs against the einsum
              (their library call) and their bounds.
 
+11. The staggered/HISQ multigrid at 32^3 x 64 on family 10's gauge
+   (ROADMAP A12, B6; a generator of its own):
+   hisq_mg — compute_ks_link_quda on the heatbath gauge: seconds, max
+             |W^dag W - 1| (<= 1e-5).
+   invert_stag_cg — the baseline: hisq invert_quda (PC CG, fused_cg,
+             tol 1e-6) at the light mass STAG_MG_MASS.  Fails unless it
+             converges in >= 500 iterations.
+   stag_mg_setup — new_multigrid_quda for hisq: MG_PARAMS' 3 levels on
+             the fat-link stencil (S2-mrhs-full for the level-0 null
+             vectors: CG on the normal equations, projected guesses; GCR
+             smoothing); seconds by level and phase, peak memory.  Fails
+             unless verify <= 1e-4 at every level.
+   invert_stag_mg — invert_quda(gcr-mg) twice on one source: the outer
+             GCR on the fat + Naik operator (S1-full), the V-cycle on
+             S2-full and B8.  Fails unless converged with true_res <= 1e-5
+             (also by the complex128 operator) in fewer outer iterations
+             than the CG, and the second solve reuses the hierarchy (no
+             S2-mrhs-full launch).
+   dslash  ("family": "staggered") — mat_quda and mat_dag_mat_quda for
+             hisq (S1-full) and fat-only staggered (S2-full) within 1e-5
+             of the complex128 operators, 3 launches each; double refused
+             naming A7; S1-full and S2-full at 32^3 x 64 and 32^4: ms,
+             share of bound, GFLOPS at 1146 and 570 flop/site.
+   check   — S2-full (fat, Naik), S1-full and S2-mrhs-full (N = 3, 24)
+             against their plain versions at 8x10x12x14 and 32^3 x 64
+             (1e-6), S2-mrhs-full lanes and its fat + Naik composition bit
+             for bit S2-full and S1-full, S1-full bit for bit S2-full(fat)
+             + S2-full(naik), and S1-full and S2-full on one parity
+             against the eo kernels S1 and S2.
+   timing  — S2-mrhs-full at N = 24 against 24 S2-full launches; each
+             form against its plain version and its bound.
+
 Then the ``kernels`` line, the card's ``name, power limit`` as nvidia-smi
 prints them, and ``{"ok": true, ...}`` last.  Without a card (or without
 the quda_tpu_torch package beside it) the script exits non-zero and
@@ -263,6 +295,13 @@ MG_NVEC = 24
 MG_PARAMS = dict(n_level=3, geo_block_size=((4, 4, 4, 4), (2, 2, 2, 2)),
                  n_vec=(MG_NVEC, MG_NVEC), setup_iters=(150, 150))
 MG_VERIFY_TOL = 1e-4
+# the staggered/HISQ multigrid on multigrid()'s gauge (ROADMAP A12, B6):
+# HISQ links of the beta 6.0 gauge, a light mass picked on the card (m <=
+# 0.02; PERF.md), MG_PARAMS' hierarchy on the fat-link stencil, the outer
+# GCR on the fat + Naik operator
+STAG_MG_MASS = 0.005
+STAG_MG_CG_MIN_ITERS = 500
+STAG_FULL_TOL = 1e-6             # a full-lattice staggered form, f32
 
 
 def emit(obj) -> None:
@@ -1757,11 +1796,12 @@ def zoo(torch, dev, smi) -> list:
     return rows_out
 
 
-def multigrid(torch, dev, smi) -> list:
+def multigrid(torch, dev, smi):
     """The Wilson multigrid at 32^3 x 64 on a quenched gauge the port
     generates (ROADMAP A12, A14; phases gauge_gen, invert_cg, mg_setup,
     invert_mg, check, timing); returns the kernels-line rows of B5 and
-    B8."""
+    B8, and the generated gauge (complex64) for the staggered
+    multigrid."""
     import quda_tpu_torch as qt
     from quda_tpu_torch.fields.geometry import LatticeGeometry
     from quda_tpu_torch.gauge.heatbath import cold_start, sweep
@@ -1896,7 +1936,7 @@ def multigrid(torch, dev, smi) -> list:
     del x, hier
     qt.destroy_multigrid_quda()
     qt.end_quda()
-    del gauge, src
+    del src
 
     # -- check: B5 at N = 24 and 12, each lane against B4; B8 at both
     # coarse levels, on the main path's links --------------------------
@@ -2059,7 +2099,429 @@ def multigrid(torch, dev, smi) -> list:
                  "max_abs_err": errs["b8_mrhs"], "ms": k_ms,
                  "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": bound_by["b8_mrhs"], "library_ms": lib_ms})
-    return rows
+    return rows, gauge
+
+
+def staggered_mg(torch, dev, smi, gauge) -> list:
+    """The staggered/HISQ multigrid at 32^3 x 64 on multigrid()'s
+    generated beta 6.0 gauge and the staggered operator API (ROADMAP
+    A12, B6; phases hisq_mg, invert_stag_cg, stag_mg_setup,
+    invert_stag_mg, dslash, check, timing); returns the kernels-line rows
+    of S2-full, S2-mrhs-full and S1-full."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_join, even_odd_split
+    from quda_tpu_torch.gauge import hisq
+    from quda_tpu_torch.interfaces import quda_api as api
+    from quda_tpu_torch.models.staggered import DiracStaggered
+    from quda_tpu_torch.ops import coarse_pallas as cop
+    from quda_tpu_torch.ops import staggered_packed as spk
+    from quda_tpu_torch.ops import staggered_pallas as spl
+    from quda_tpu_torch.ops import wilson_packed as wpk
+    from quda_tpu_torch.ops.wilson import split_gauge_eo
+
+    f32, c128 = torch.float32, torch.complex128
+    geom = LatticeGeometry(PROD_DIMS)
+    vol = geom.volume
+    T, Z, Y, X = geom.lattice_shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    torch.cuda.empty_cache()
+    fat_name = spl.pass_form_name(1, f32, f32)
+    naik_name = spl.pass_form_name(3, f32, f32)
+    s1_name = spl.form_name(f32, f32)
+
+    def bound(nbytes, nflop, sites):
+        t_bytes = nbytes * sites / HBM_BYTES_PER_S
+        t_ops = nflop * sites / F32_FLOPS_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def counts():
+        return {"s2_full": dict(spl.dslash_staggered_pass.launches_by_form),
+                "s2_mrhs_full":
+                    dict(spl.dslash_staggered_pass_mrhs.launches_by_form),
+                "s1_full":
+                    dict(spl.dslash_staggered_pallas_fused.launches_by_form),
+                "b8": cop.coarse_apply_pallas.launches,
+                "b8_mrhs": cop.coarse_apply_pallas_mrhs.launches,
+                "s1_eo": spl.dslash_staggered_eo_pallas_fused.launches}
+
+    def zero():
+        spl.reset_launches()
+        cop.reset_launches()
+
+    def rel_err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    # -- hisq_mg: HISQ links of the heatbath gauge -----------------------
+    src = torch.randn(geom.lattice_shape + (1, 3), generator=gen, device=dev,
+                      dtype=torch.complex64)
+    qt.init_quda(dev)
+    qt.load_gauge_quda(gauge, qt.GaugeParam(X=PROD_DIMS, cuda_prec="single"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    links = qt.compute_ks_link_quda()
+    torch.cuda.synchronize()
+    ks_secs = time.perf_counter() - t0
+    w_dev = hisq.unitarity_violation(links.w_unitarized)
+    fat, lng = links.fat, links.long
+    del links
+    emit({"phase": "hisq_mg", "dims_xyzt": list(PROD_DIMS),
+          "gauge": "multigrid's heatbath gauge, beta 6.0",
+          "plaq_quda": qt.plaq_quda(), "seconds": ks_secs,
+          "max_unitarity_err": w_dev,
+          "fat_norm": torch.linalg.vector_norm(fat).item(),
+          "long_norm": torch.linalg.vector_norm(lng).item()})
+    if not w_dev <= 1e-5:
+        fail(f"HISQ on the heatbath gauge: |W^dag W - 1| = {w_dev:.2e}")
+
+    # -- invert_stag_cg: the baseline at a light mass -------------------
+    p_cg = qt.InvertParam(dslash_type="hisq", inv_type="cg",
+                          solve_type="direct-pc", mass=STAG_MG_MASS, tol=TOL,
+                          maxiter=20000, cuda_prec="single")
+    qt.invert_quda(src, p_cg)
+    emit({"phase": "invert_stag_cg", "dims_xyzt": list(PROD_DIMS),
+          "mass": STAG_MG_MASS, "tol": TOL, "iters": p_cg.iter_count,
+          "secs": p_cg.secs, "true_res": p_cg.true_res,
+          "converged": p_cg.converged})
+    if not (p_cg.converged and p_cg.iter_count >= STAG_MG_CG_MIN_ITERS):
+        fail(f"baseline hisq CG at m {STAG_MG_MASS}: {p_cg.iter_count} "
+             f"iterations, converged {p_cg.converged} (needs >= "
+             f"{STAG_MG_CG_MIN_ITERS} and converged)")
+
+    # -- stag_mg_setup and invert_stag_mg: the main path ----------------
+    ip = qt.InvertParam(dslash_type="hisq", inv_type="gcr-mg",
+                        solve_type="direct", mass=STAG_MG_MASS, tol=TOL,
+                        cuda_prec="single")
+    mp = qt.MultigridParamAPI(**MG_PARAMS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    hier = qt.new_multigrid_quda(mp, ip)
+    c_setup = counts()
+    report = hier.verify(galerkin_tol=MG_VERIFY_TOL, pr_tol=MG_VERIFY_TOL)
+    emit({"phase": "stag_mg_setup", "dims_xyzt": list(PROD_DIMS),
+          "mass": STAG_MG_MASS, "params": dict(MG_PARAMS),
+          "smoother": [p.smoother for p in hier.params],
+          "setup_solver": [p.setup_solver for p in hier.params],
+          "coarse_lattices": [list(lv["transfer"].coarse_shape)
+                              for lv in hier.levels],
+          "setup_seconds": hier.setup_seconds,
+          "setup_breakdown": hier.setup_breakdown,
+          "null_vector_cg_fallback_levels": hier.null_fallbacks,
+          "verify": report, "launches": c_setup,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    solves = []
+    for rep in range(2):
+        zero()
+        x = qt.invert_quda(src, ip)
+        c = counts()
+        solves.append({"iters": ip.iter_count, "secs": ip.secs,
+                       "true_res": ip.true_res, "converged": ip.converged,
+                       "launches": c})
+        row = {"phase": "invert_stag_mg", "solve": rep, "mass": STAG_MG_MASS,
+               "tol": TOL, "gcr_nkrylov": ip.gcrNkrylov,
+               "outer_iters": ip.iter_count, "secs": ip.secs,
+               "true_res": ip.true_res, "converged": ip.converged,
+               "hierarchy_reused": api._ctx["mg"] is hier, "launches": c,
+               "cg_iters": p_cg.iter_count, "cg_secs": p_cg.secs,
+               "fewer_outer_iters_than_cg":
+                   ip.iter_count < p_cg.iter_count,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if rep == 0:
+            # the true residual once more, with the complex128 fat + Naik
+            # operator (no kernel)
+            d128 = DiracStaggered(fat.to(c128), geom, STAG_MG_MASS,
+                                  improved=True, long_links=lng.to(c128))
+            b128 = src.to(c128)
+            r = b128 - d128.M(x.to(c128))
+            row["true_res_complex128"] = (torch.linalg.vector_norm(r)
+                                          / torch.linalg.vector_norm(
+                                              b128)).item()
+            del d128, b128, r
+        emit(row)
+        if not (ip.converged and ip.true_res <= TRUE_RES_MAX
+                and row.get("true_res_complex128", 0.0) <= TRUE_RES_MAX):
+            fail(f"staggered gcr-mg: converged {ip.converged}, true_res "
+                 f"{ip.true_res:.3e} ({row.get('true_res_complex128')})")
+        # the JAX package's criterion, fewer outer iterations than CG
+        # (it held at STAG_MG_MASS: PERF.md)
+        if not ip.iter_count < p_cg.iter_count:
+            fail(f"staggered gcr-mg: {ip.iter_count} outer iterations "
+                 f"against CG's {p_cg.iter_count}")
+        if rep == 1 and not (api._ctx["mg"] is hier
+                             and not c["s2_mrhs_full"]):
+            fail("the second staggered gcr-mg solve did not reuse the "
+                 "hierarchy")
+    # the main path: new_multigrid_quda and the first invert_quda
+    path = {"fat": c_setup["s2_full"].get(fat_name, 0)
+            + solves[0]["launches"]["s2_full"].get(fat_name, 0),
+            "mrhs": c_setup["s2_mrhs_full"].get(fat_name, 0)
+            + solves[0]["launches"]["s2_mrhs_full"].get(fat_name, 0),
+            "s1": c_setup["s1_full"].get(s1_name, 0)
+            + solves[0]["launches"]["s1_full"].get(s1_name, 0)}
+    if min(path.values()) < 1 or solves[0]["launches"]["s1_eo"]:
+        fail(f"the staggered multigrid path did not run S2-full, "
+             f"S2-mrhs-full and S1-full (or ran the eo S1): {path}")
+    fat_pl = hier.adapter.fat_pl
+    fat_bw = hier.adapter.fat_bw
+    long_pl = hier.adapter.long_pl
+    setup_s = hier.setup_seconds
+    del x, hier
+    qt.destroy_multigrid_quda()
+    torch.cuda.empty_cache()
+
+    # -- dslash: the operator API (hisq, fat-only) against complex128 ---
+    def op_api(dt):
+        p = qt.InvertParam(dslash_type=dt, mass=STAG_MG_MASS,
+                           cuda_prec="single")
+        zero()
+        out = {"mat_quda": qt.mat_quda(src, p),
+               "mat_dag_mat_quda": qt.mat_dag_mat_quda(src, p)}
+        c = counts()
+        improved = dt != "staggered"
+        d = DiracStaggered((fat if improved else gauge).to(c128), geom,
+                           STAG_MG_MASS, improved=improved,
+                           long_links=lng.to(c128))
+        s128 = src.to(c128)
+        want = {"mat_quda": d.M(s128), "mat_dag_mat_quda": d.MdagM(s128)}
+        rel = {k: rel_err(out[k].to(c128), want[k]) for k in out}
+        del d, s128, want, out
+        return rel, c
+    dslash_rows = {}
+    for dt in ("hisq", "staggered"):
+        rel, c = op_api(dt)
+        launched = (c["s1_full"].get(s1_name, 0) if dt == "hisq"
+                    else c["s2_full"].get(fat_name, 0))
+        dslash_rows[dt] = {"rel_err_vs_complex128": rel, "launches": launched}
+        if not (max(rel.values()) <= TRUE_RES_MAX and launched == 3):
+            fail(f"staggered operator API ({dt}) disagrees with the "
+                 f"complex128 operator ({rel}) or ran {launched} launches, "
+                 "not 3")
+    try:
+        qt.mat_quda(src, qt.InvertParam(dslash_type="hisq",
+                                        mass=STAG_MG_MASS,
+                                        cuda_prec="double"))
+        fail("mat_quda for hisq at double did not raise")
+    except NotImplementedError as exc:
+        if "ROADMAP A7" not in str(exc):
+            fail(f"mat_quda at double raised without naming A7: {exc}")
+    qt.end_quda()
+    # S1-full and S2-full at 32^3 x 64 (the heatbath HISQ links) and at
+    # 32^4 (config 4; HISQ links of a random gauge)
+    timing, bound_by = {}, {}
+    psi = torch.randn((3, 2, T, Z, Y * X), generator=gen, device=dev)
+    geom4 = LatticeGeometry(STAG_DIMS)
+    T4, Z4, Y4, X4 = geom4.lattice_shape
+    links4 = hisq.hisq_fattening(GaugeField.random(
+        geom4, gen, dtype=torch.complex64, device=dev).data)
+    d4 = DiracStaggered(links4.fat, geom4, STAG_MG_MASS, improved=True,
+                        long_links=links4.long).pairs()
+    del links4
+    fat4_bw = spl.backward_links(d4.fat_pl, X4, 1).contiguous()
+    psi4 = torch.randn((3, 2, T4, Z4, Y4 * X4), generator=gen, device=dev)
+    for label, sites, args in (
+            ("32^3x64", vol, (fat_pl, fat_bw, long_pl, psi, X)),
+            ("32^4", geom4.volume, (d4.fat_pl, fat4_bw, d4.long_pl, psi4,
+                                    X4))):
+        u, ubw, ul, p, xx = args
+        s1_ms = median_ms(lambda: spl.dslash_staggered_pallas_fused(
+            u, p, xx, ul), torch)
+        s2_ms = median_ms(lambda: spl.dslash_staggered_pass(u, ubw, p, xx,
+                                                            1), torch)
+        s1_b, bound_by["s1"] = bound(spl.FULL_BYTES_PER_SITE,
+                                     spl.FUSED_FLOPS_PER_SITE, sites)
+        s2_b, bound_by["s2"] = bound(spl.FULL_BYTES_PER_SITE,
+                                     spl.PASS_FLOPS_PER_SITE, sites)
+        timing[label] = {
+            "s1_full_ms": s1_ms, "s1_full_bound_ms": s1_b,
+            "s1_full_share_of_bound": s1_b / s1_ms,
+            "s1_full_gflops_1146": spl.FUSED_FLOPS_PER_SITE * sites
+            / s1_ms / 1e6,
+            "s2_full_fat_ms": s2_ms, "s2_full_bound_ms": s2_b,
+            "s2_full_share_of_bound": s2_b / s2_ms,
+            "s2_full_gflops_570": spl.PASS_FLOPS_PER_SITE * sites
+            / s2_ms / 1e6}
+    emit({"phase": "dslash", "family": "staggered", "mass": STAG_MG_MASS,
+          "operator_api": dslash_rows, "tolerance": TRUE_RES_MAX,
+          "double_refused_naming": "A7", "timing": timing,
+          "nvidia_smi": smi})
+    del d4, fat4_bw, psi4
+
+    # -- check: every full-lattice form against its plain version, at
+    # 8x10x12x14 and at full width (the main path's links); lanes and
+    # fat + Naik bit for bit; each form on one parity against the eo form
+    errs = {fat_name: 0.0, naik_name: 0.0, s1_name: 0.0, "mrhs": 0.0}
+    long_bw = spl.backward_links(long_pl, X, 3).contiguous()
+    small = LatticeGeometry(STAG_SMALL_DIMS)
+    Ts, Zs, Ys, Xs = small.lattice_shape
+    small_links = [torch.randn((4, 3, 3, 2, Ts, Zs, Ys * Xs), generator=gen,
+                               device=dev) * sc for sc in (1.0, 1.0 / 24)]
+    for label, (u, ubw, ul, ulbw, xx, shape) in (
+            ("8x10x12x14", (small_links[0],
+                            spl.backward_links(small_links[0], Xs,
+                                               1).contiguous(),
+                            small_links[1],
+                            spl.backward_links(small_links[1], Xs,
+                                               3).contiguous(), Xs,
+                            (Ts, Zs, Ys * Xs))),
+            ("32^3x64", (fat_pl, fat_bw, long_pl, long_bw, X,
+                         (T, Z, Y * X)))):
+        for n in (3, MG_NVEC):
+            pb = torch.randn((n, 3, 2) + shape, generator=gen, device=dev)
+            q = pb[0].contiguous()
+            got = {fat_name: spl.dslash_staggered_pass(u, ubw, q, xx, 1),
+                   naik_name: spl.dslash_staggered_pass(ul, ulbw, q, xx, 3),
+                   s1_name: spl.dslash_staggered_pallas_fused(u, q, xx, ul)}
+            want = {fat_name: spl.dslash_staggered_pass_plain(u, ubw, q, xx,
+                                                              1),
+                    naik_name: spl.dslash_staggered_pass_plain(ul, ulbw, q,
+                                                               xx, 3),
+                    s1_name: spl.dslash_staggered_fused_plain(u, ul, q, xx)}
+            mrhs = spl.dslash_staggered_pass_mrhs(u, ubw, pb, xx, 1)
+            both = spl.dslash_staggered_pallas_mrhs(u, ubw, pb, xx, ul, ulbw)
+            mrhs_want = spl.dslash_staggered_pass_mrhs_plain(u, ubw, pb, xx,
+                                                             1)
+            lanes = all(torch.equal(mrhs[i], spl.dslash_staggered_pass(
+                u, ubw, pb[i].contiguous(), xx, 1)) for i in range(n))
+            lanes_s1 = all(torch.equal(both[i],
+                                       spl.dslash_staggered_pallas_fused(
+                                           u, pb[i].contiguous(), xx, ul))
+                           for i in range(n))
+            torch.cuda.synchronize()
+            row = {"phase": "check", "kernel": "staggered_full",
+                   "dims": label, "nrhs": n, "tolerance": STAG_FULL_TOL,
+                   "mrhs_lanes_bitwise_s2_full": lanes,
+                   "mrhs_fat_plus_naik_bitwise_s1_full": lanes_s1,
+                   "s1_full_bitwise_s2_full_sum": bool(torch.equal(
+                       got[s1_name], got[fat_name] + got[naik_name]))}
+            worst = 0.0
+            for name in got:
+                a = (got[name] - want[name]).abs().max().item()
+                r = a / want[name].abs().max().item()
+                errs[name] = max(errs[name], a)
+                row[name] = {"max_abs_err": a, "max_rel_err": r}
+                worst = max(worst, r)
+            a = (mrhs - mrhs_want).abs().max().item()
+            r = a / mrhs_want.abs().max().item()
+            errs["mrhs"] = max(errs["mrhs"], a)
+            row["mrhs:" + fat_name] = {"max_abs_err": a, "max_rel_err": r}
+            worst = max(worst, r)
+            emit(row)
+            if not (worst <= STAG_FULL_TOL and lanes and lanes_s1
+                    and row["s1_full_bitwise_s2_full_sum"]):
+                fail(f"a full-lattice staggered form disagrees ({label}, N = "
+                     f"{n}): {row}")
+            del pb, q, got, want, mrhs, both, mrhs_want
+    # one parity of the full-lattice forms against the eo kernels
+    lat_full = geom.lattice_shape
+
+    def canon(pl):
+        return wpk.unpack_gauge(wpk.from_packed_pairs(pl), lat_full)
+
+    def eo_links(pl):
+        return [wpk.to_packed_pairs(spk.pack_links(g), f32).contiguous()
+                for g in split_gauge_eo(canon(pl), geom)]
+
+    def pairs(v):
+        return wpk.to_packed_pairs(spk.pack_staggered(v), f32).contiguous()
+
+    fat_eo, long_eo = eo_links(fat_pl), eo_links(long_pl)
+    halves = even_odd_split(src, geom)
+    parity_rel = {}
+    for parity in (0, 1):
+        only = [torch.zeros_like(halves[0]), torch.zeros_like(halves[0])]
+        only[1 - parity] = halves[1 - parity]
+        full_in = pairs(even_odd_join(only[0], only[1], geom))
+        eo_in = pairs(only[1 - parity])
+        ebw = spl.backward_links_eo(fat_eo[1 - parity], lat_full, parity,
+                                    1).contiguous()
+        for name, full_out, eo_out in (
+                (s1_name, spl.dslash_staggered_pallas_fused(
+                    fat_pl, full_in, X, long_pl),
+                 spl.dslash_staggered_eo_pallas_fused(
+                     fat_eo[parity], fat_eo[1 - parity], eo_in, lat_full,
+                     parity, long_eo[parity], long_eo[1 - parity])),
+                (fat_name, spl.dslash_staggered_pass(fat_pl, fat_bw, full_in,
+                                                     X, 1),
+                 spl.dslash_staggered_eo_pass(fat_eo[parity], ebw, eo_in,
+                                              lat_full, parity, 1))):
+            got = even_odd_split(spk.unpack_staggered(
+                wpk.from_packed_pairs(full_out), lat_full), geom)[parity]
+            want = spk.unpack_staggered(wpk.from_packed_pairs(eo_out),
+                                        geom.half_lattice_shape)
+            parity_rel[f"{name}:parity{parity}"] = rel_err(got, want)
+    emit({"phase": "check", "kernel": "staggered_full_vs_eo",
+          "dims_xyzt": list(PROD_DIMS), "rel_err": parity_rel,
+          "tolerance": STAG_FULL_TOL})
+    if max(parity_rel.values()) > STAG_FULL_TOL:
+        fail(f"a full-lattice form on one parity disagrees with the eo "
+             f"kernel: {parity_rel}")
+    del fat_eo, long_eo, halves, small_links
+
+    # -- timing: S2-mrhs-full at N = 24 against 24 S2-full launches, each
+    # form against its plain version and its bound ---------------------
+    n = MG_NVEC
+    pb = torch.randn((n, 3, 2, T, Z, Y * X), generator=gen, device=dev)
+    singles = [pb[i].contiguous() for i in range(n)]
+    k_ms = median_ms(lambda: spl.dslash_staggered_pass_mrhs(
+        fat_pl, fat_bw, pb, X, 1), torch)
+    naik_mrhs_ms = median_ms(lambda: spl.dslash_staggered_pass_mrhs(
+        long_pl, long_bw, pb, X, 3), torch)
+    single_ms = median_ms(lambda: [spl.dslash_staggered_pass(
+        fat_pl, fat_bw, q, X, 1) for q in singles], torch, batch=2)
+    p_ms = median_ms(lambda: spl.dslash_staggered_pass_mrhs_plain(
+        fat_pl, fat_bw, pb, X, 1), torch, repeats=3, batch=1)
+    b_ms, bound_by["mrhs"] = bound(spl.pass_mrhs_bytes_per_site(n),
+                                   spl.PASS_FLOPS_PER_SITE * n, vol)
+    prod = timing["32^3x64"]
+    s2_p_ms = median_ms(lambda: spl.dslash_staggered_pass_plain(
+        fat_pl, fat_bw, psi, X, 1), torch, repeats=5, batch=2)
+    naik_ms = median_ms(lambda: spl.dslash_staggered_pass(
+        long_pl, long_bw, psi, X, 3), torch)
+    s1_p_ms = median_ms(lambda: spl.dslash_staggered_fused_plain(
+        fat_pl, long_pl, psi, X), torch, repeats=5, batch=2)
+    emit({"phase": "timing", "family": "staggered_mg",
+          "dims_xyzt": list(PROD_DIMS), "nvidia_smi": smi,
+          "repeats": REPEATS, "calls_per_timing": BATCH,
+          "s2_full": {"fat_ms": prod["s2_full_fat_ms"], "naik_ms": naik_ms,
+                      "plain_ms": s2_p_ms,
+                      "bound_ms": prod["s2_full_bound_ms"],
+                      "share_of_bound": prod["s2_full_share_of_bound"]},
+          "s1_full": {"ms": prod["s1_full_ms"], "plain_ms": s1_p_ms,
+                      "bound_ms": prod["s1_full_bound_ms"],
+                      "share_of_bound": prod["s1_full_share_of_bound"]},
+          "s2_mrhs_full": {"nrhs": n, "chunk": spl.MRHS_CHUNK,
+                           "fat_ms": k_ms, "naik_ms": naik_mrhs_ms,
+                           "plain_ms": p_ms, "bound_ms": b_ms,
+                           "share_of_bound": b_ms / k_ms,
+                           "s2_full_launches_ms": single_ms,
+                           "amortisation": single_ms / k_ms},
+          "cg": {"iters": p_cg.iter_count, "secs": p_cg.secs},
+          "mg": {"setup_seconds": setup_s, "solves": solves}})
+    del pb, singles, psi
+    src_file = "quda_tpu_torch/csrc/staggered_full.cu"
+    return [
+        {"name": f"dslash_staggered_pass[{fat_name}]", "route": "cuda",
+         "source": src_file,
+         "replaces": "quda_tpu/ops/staggered_pallas.py:204",
+         "launches": path["fat"], "max_abs_err": errs[fat_name],
+         "ms": prod["s2_full_fat_ms"], "plain_ms": s2_p_ms,
+         "bound_ms": prod["s2_full_bound_ms"], "bound_by": bound_by["s2"],
+         "library_ms": None},
+        {"name": f"dslash_staggered_pass_mrhs[{fat_name}]", "route": "cuda",
+         "source": src_file,
+         "replaces": "quda_tpu/ops/staggered_pallas.py:1106",
+         "launches": path["mrhs"], "max_abs_err": errs["mrhs"], "ms": k_ms,
+         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by["mrhs"],
+         "library_ms": None},
+        {"name": f"dslash_staggered_pallas_fused[{s1_name}]",
+         "route": "cuda", "source": src_file,
+         "replaces": "quda_tpu/ops/staggered_pallas.py:966",
+         "launches": path["s1"], "max_abs_err": errs[s1_name],
+         "ms": prod["s1_full_ms"], "plain_ms": s1_p_ms,
+         "bound_ms": prod["s1_full_bound_ms"], "bound_by": bound_by["s1"],
+         "library_ms": None}]
 
 
 def main() -> int:
@@ -2948,7 +3410,10 @@ def main() -> int:
     rows_out.extend(operator_and_double(torch, dev, smi))
     rows_out.extend(staggered(torch, dev, smi))
     rows_out.extend(zoo(torch, dev, smi))
-    rows_out.extend(multigrid(torch, dev, smi))
+    mg_rows, mg_gauge = multigrid(torch, dev, smi)
+    rows_out.extend(mg_rows)
+    rows_out.extend(staggered_mg(torch, dev, smi, mg_gauge))
+    del mg_gauge
     unlaunched = [r["name"] for r in rows_out if r["launches"] < 1]
     if unlaunched:
         fail(f"kernels never launched on their main path: {unlaunched}")

@@ -1,9 +1,12 @@
-// Device code of the even/odd staggered hops on the packed pair layout,
-// shared by the fused fat + Naik hop (S1) and the one-hop-set gather pass
-// (S2), both in staggered_eo.cu, and the multi-RHS gather pass (S2-mrhs,
-// staggered_eo_mrhs.cu): the neighbour index of a half-site at
-// x + s*n*mu for n in {1, 3}, the colour-vector load, and the 3x3 colour
-// multiply of one hop.  The link load and the f32/bf16 loads and stores
+// Device code of the staggered hops on the packed pair layout, shared by
+// the fused fat + Naik hop (S1) and the one-hop-set gather pass (S2), both
+// in staggered_eo.cu, the multi-RHS gather pass (S2-mrhs,
+// staggered_eo_mrhs.cu) and the full-lattice forms of all three
+// (staggered_full.cu): the neighbour index of a site at x + s*n*mu for n
+// in {1, 3} (half lattice: eo_site/EoSite; full lattice:
+// full_site/FullSite), the colour-vector load, and the 3x3 colour
+// multiply of one hop.  Both lattices go through the one hop body, so
+// every form keeps the same arithmetic in the same order.  The link load and the f32/bf16 loads and stores
 // are wilson_hop.cuh's (links have the Wilson R = 3 layout).  Like the
 // Wilson hop, each hop takes a compile-time count NB of right-hand sides
 // (rstride elements apart, the first nvalid of them read): the link is
@@ -11,9 +14,10 @@
 // the single-RHS arithmetic in its order.  S1 and S2 run NB = 1.
 //
 // Layout; every colour/re-im component is its own plane of
-// S = T*Z*Y*Xh half-sites, so adjacent threads read adjacent addresses:
-//   psi, out  (3, 2, T, Z, Y*Xh)
-//   links     (4, 3, 3, 2, T, Z, Y*Xh)
+// S = T*Z*Y*Xh half-sites (T*Z*Y*X sites on the full lattice), so
+// adjacent threads read adjacent addresses:
+//   psi, out  (3, 2, T, Z, Y*Xh)        full lattice: (3, 2, T, Z, Y*X)
+//   links     (4, 3, 3, 2, T, Z, Y*Xh)  full lattice: (4, 3, 3, 2, T, Z, Y*X)
 // The staggered phases and the antiperiodic t boundary are folded into the
 // links (the long links' boundary on the last three t planes), so no hop
 // carries a sign of its own.  Offsets are 64-bit.
@@ -53,20 +57,59 @@ __device__ __forceinline__ int wrap(int c, int d, int e) {
 
 // Half-site index (on the opposite parity: n is odd) of x + d*mu, d = +-n.
 // x moves to x' = (x + d) mod X, slot x'/2; y, z and t keep xh and move
-// their own plane.
+// their own plane.  (W, YW, ZYW) = (Xh, Y*Xh, Z*Y*Xh).
 template <int MU>
-__device__ __forceinline__ int64_t eo_neighbour(const EoSite& s, int d,
-                                                int T, int Z, int Y,
-                                                int Xh, int64_t YXh,
-                                                int64_t ZYXh) {
+__device__ __forceinline__ int64_t site_neighbour(const EoSite& s, int d,
+                                                  int T, int Z, int Y,
+                                                  int W, int64_t YW,
+                                                  int64_t ZYW) {
   if constexpr (MU == 0) {
-    return s.row + wrap(s.x, d, 2 * Xh) / 2;
+    return s.row + wrap(s.x, d, 2 * W) / 2;
   } else if constexpr (MU == 1) {
-    return s.site + static_cast<int64_t>(wrap(s.y, d, Y) - s.y) * Xh;
+    return s.site + static_cast<int64_t>(wrap(s.y, d, Y) - s.y) * W;
   } else if constexpr (MU == 2) {
-    return s.site + static_cast<int64_t>(wrap(s.z, d, Z) - s.z) * YXh;
+    return s.site + static_cast<int64_t>(wrap(s.z, d, Z) - s.z) * YW;
   } else {
-    return s.site + static_cast<int64_t>(wrap(s.t, d, T) - s.t) * ZYXh;
+    return s.site + static_cast<int64_t>(wrap(s.t, d, T) - s.t) * ZYW;
+  }
+}
+
+// Full-lattice site coordinates of `site` in (T, Z, Y*X) order.
+struct FullSite {
+  int t, z, y, x;
+  int64_t site, row;  // row: the site of x = 0 on this (t, z, y) row
+};
+
+__device__ __forceinline__ FullSite full_site(int64_t site, int Z, int Y,
+                                              int X, int64_t YX,
+                                              int64_t ZYX) {
+  FullSite s;
+  s.x = static_cast<int>(site % X);
+  s.y = static_cast<int>((site / X) % Y);
+  s.z = static_cast<int>((site / YX) % Z);
+  s.t = static_cast<int>(site / ZYX);
+  s.site = site;
+  s.row = site - s.x;
+  return s;
+}
+
+// Site index of x + d*mu on the full lattice: an x hop wraps inside its
+// row of X sites of the fused Y*X axis (the JAX package's x-wrap mask,
+// as B4's full_hop_sum), never into the next y; y, z and t move their own
+// plane.  (W, YW, ZYW) = (X, Y*X, Z*Y*X).
+template <int MU>
+__device__ __forceinline__ int64_t site_neighbour(const FullSite& s, int d,
+                                                  int T, int Z, int Y,
+                                                  int W, int64_t YW,
+                                                  int64_t ZYW) {
+  if constexpr (MU == 0) {
+    return s.row + wrap(s.x, d, W);
+  } else if constexpr (MU == 1) {
+    return s.site + static_cast<int64_t>(wrap(s.y, d, Y) - s.y) * W;
+  } else if constexpr (MU == 2) {
+    return s.site + static_cast<int64_t>(wrap(s.z, d, Z) - s.z) * YW;
+  } else {
+    return s.site + static_cast<int64_t>(wrap(s.t, d, T) - s.t) * ZYW;
   }
 }
 
@@ -116,21 +159,22 @@ __device__ __forceinline__ void stag_hop(float2 (&acc)[NB][3],
 }
 
 // Both hops of direction MU, hop count N, into acc.  The backward link is
-// read at index `bw_at_nb ? neighbour : site` of `g_bw`: the fused kernel
-// reads the unshifted opposite-parity links at the backward neighbour, the
-// gather passes their pre-shifted copy at the target site.
-template <int MU, int N, int NB, typename S>
+// read at index `bw_at_nb ? neighbour : site` of `g_bw`: the fused kernels
+// read the unshifted links (the opposite parity's on the half lattice) at
+// the backward neighbour, the gather passes their pre-shifted copy at the
+// target site.  Site is EoSite (W = Xh) or FullSite (W = X).
+template <int MU, int N, int NB, typename S, typename Site>
 __device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
                                          int64_t rstride, int nvalid,
                                          const S* __restrict__ g_fwd,
                                          const S* __restrict__ g_bw,
-                                         bool bw_at_nb, const EoSite& s,
-                                         int T, int Z, int Y, int Xh,
-                                         int64_t YXh, int64_t ZYXh,
+                                         bool bw_at_nb, const Site& s,
+                                         int T, int Z, int Y, int W,
+                                         int64_t YW, int64_t ZYW,
                                          int64_t n) {
-  const int64_t fwd = eo_neighbour<MU>(s, +N, T, Z, Y, Xh, YXh, ZYXh);
-  const int64_t bwd = eo_neighbour<MU>(s, -N, T, Z, Y, Xh, YXh, ZYXh);
+  const int64_t fwd = site_neighbour<MU>(s, +N, T, Z, Y, W, YW, ZYW);
+  const int64_t bwd = site_neighbour<MU>(s, -N, T, Z, Y, W, YW, ZYW);
   stag_hop<MU, true>(acc, psi, rstride, nvalid, g_fwd, n, s.site, fwd);
   stag_hop<MU, false>(acc, psi, rstride, nvalid, g_bw, n,
                       bw_at_nb ? bwd : s.site, bwd);
@@ -138,24 +182,24 @@ __device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
 
 // The whole hop set of hop count N (8 hops) into acc, directions in the
 // TPU kernel's order (x, y, z, t; forward before backward).
-template <int N, int NB, typename S>
+template <int N, int NB, typename S, typename Site>
 __device__ __forceinline__ void stag_hopset(float2 (&acc)[NB][3],
                                             const S* __restrict__ psi,
                                             int64_t rstride, int nvalid,
                                             const S* __restrict__ g_fwd,
                                             const S* __restrict__ g_bw,
-                                            bool bw_at_nb, const EoSite& s,
-                                            int T, int Z, int Y, int Xh,
-                                            int64_t YXh, int64_t ZYXh,
+                                            bool bw_at_nb, const Site& s,
+                                            int T, int Z, int Y, int W,
+                                            int64_t YW, int64_t ZYW,
                                             int64_t n) {
   stag_dir<0, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, Xh, YXh, ZYXh, n);
+                 Y, W, YW, ZYW, n);
   stag_dir<1, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, Xh, YXh, ZYXh, n);
+                 Y, W, YW, ZYW, n);
   stag_dir<2, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, Xh, YXh, ZYXh, n);
+                 Y, W, YW, ZYW, n);
   stag_dir<3, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, Xh, YXh, ZYXh, n);
+                 Y, W, YW, ZYW, n);
 }
 
 // out = acc (3 complex) at half-site i of a (3, 2, S) field

@@ -54,17 +54,24 @@ that will bring it.
 ``dslash_quda``, ``mat_quda`` and ``mat_dag_mat_quda`` apply the Wilson
 operator to canonical complex fields, as the JAX package's do: the eo hop
 on B1, M = 1 - kappa D and its normal operator on the full-lattice hop
-B4, in float32 (cuda_prec "single") or float64 ("double").
+B4, in float32 (cuda_prec "single") or float64 ("double").  For the
+staggered family (single only; double waits for ROADMAP A7) the eo hop
+runs on S1 (asqtad, hisq) or S2 (fat-only), M = 2m + D and M^dag M on
+S1-full or S2-full.
 
-``invert_quda(inv_type="gcr-mg")`` solves the full Wilson system at
-cuda_prec "single" with flexible GCR preconditioned by the pair
-multigrid V-cycle (mg/pair.py): the fine operator on the full-lattice
-hop B4, the set-up's null-vector block solve on its multi-RHS form B5,
-every coarse operator on the coarse stencil B8.  The hierarchy is
-resident: ``new_multigrid_quda`` builds it, ``invert_quda`` reuses it,
-and rebuilds it once the gauge has changed since its set-up.  Every
-other family and precision raises, naming ROADMAP A12.  ``plaq_quda``
-returns the resident gauge's plaquette.
+``invert_quda(inv_type="gcr-mg")`` solves the full Wilson or staggered
+(staggered, asqtad, hisq) system at cuda_prec "single" with flexible GCR
+preconditioned by the pair multigrid V-cycle (mg/pair.py).  Wilson: the
+fine operator on the full-lattice hop B4, the set-up's null-vector block
+solve on its multi-RHS form B5.  Staggered: the fat-link hierarchy's fine
+operator on S2-full and S2-mrhs-full; for asqtad/hisq the outer GCR
+applies the fat + Naik operator on S1-full (defect correction of the
+Naik term).  Every coarse operator runs on the coarse stencil B8.  The
+hierarchy is resident: ``new_multigrid_quda`` builds it, ``invert_quda``
+reuses it, and rebuilds it once the gauge, the fat/long links or the
+family has changed since its set-up.  Clover and the other families,
+double precision, and the Kaehler-Dirac composition raise, naming
+ROADMAP A12.  ``plaq_quda`` returns the resident gauge's plaquette.
 
 ``invert_multi_src_quda`` solves N sources on one gauge field.  Wilson,
 clover, twisted-mass, twisted-clover and staggered-family PC CG-family
@@ -108,8 +115,9 @@ _ctx = {
     "long": None,           # resident staggered long (Naik) links
     "warned": set(),        # one-time warning keys of this session
     "gauge_epoch": 0,       # counts gauge loads: a hierarchy's gauge
+    "links_epoch": 0,       # counts fat/long loads: an improved hierarchy's
     "mg": None,             # resident multigrid hierarchy (mg/pair.PairMG)
-    "mg_epoch": None,       # gauge_epoch the hierarchy was built on
+    "mg_epoch": None,       # _mg_key of the operator it was built on
     "mg_param": None,       # the MultigridParamAPI it was built with
 }
 
@@ -188,6 +196,7 @@ def compute_ks_link_quda(naik_eps: float = 0.0):
     links = hisq_fattening(_ctx["gauge"], naik_eps)
     _ctx["fat"] = links.fat
     _ctx["long"] = links.long
+    _ctx["links_epoch"] += 1
     return links
 
 
@@ -210,6 +219,7 @@ def load_fat_long_quda(fat, long_links):
                          f"{tuple(lg.shape)}: expected two "
                          "(4,T,Z,Y,X,3,3) link fields")
     _ctx["fat"], _ctx["long"] = f, lg
+    _ctx["links_epoch"] += 1
 
 
 def _antiperiodic() -> bool:
@@ -317,14 +327,23 @@ def _link_form(staggered: bool = False) -> str:
 
 def _check_mg_route(param: InvertParam):
     """Raise unless the multigrid route serves ``param``: the pair
-    hierarchy, Wilson at cuda_prec "single" (the JAX package's pair
-    gate)."""
-    if param.dslash_type != "wilson":
+    hierarchy, Wilson and the staggered family (staggered, asqtad, hisq;
+    full links) at cuda_prec "single" (the JAX package's pair gate,
+    ``_mg_pairs_enabled``)."""
+    if param.dslash_type not in ("wilson",) + STAGGERED_TYPES:
         raise NotImplementedError(
             f"multigrid for dslash_type {param.dslash_type!r} is not ported "
             "yet (ROADMAP A12: clover and the other families on the "
-            "complex hierarchy, staggered pair MG with B6's full-lattice "
-            "forms); the port serves Wilson")
+            "complex hierarchy); the port serves Wilson and the staggered "
+            "family")
+    if param.dslash_type in STAGGERED_TYPES:
+        if param.cuda_prec != "single":
+            raise NotImplementedError(
+                f"staggered multigrid at cuda_prec {param.cuda_prec!r}: the "
+                "pair hierarchy and S1-full/S2-full run in float32; double "
+                "needs the complex hierarchy and f64 kernel forms (ROADMAP "
+                "A12/A7)")
+        _link_form(True)
     if param.cuda_prec != "single":
         raise NotImplementedError(
             f"multigrid at cuda_prec {param.cuda_prec!r}: the pair "
@@ -541,10 +560,20 @@ def invert_quda(source, param: InvertParam):
 
 # -- multigrid -------------------------------------------------------------
 
-def _mg_level_params(mp: MultigridParamAPI):
+# (smoother, null-vector solver) of every level, by family: MR smoothing
+# stalls on the near anti-Hermitian staggered operator (its real
+# minimal-residual step is 2m |r|^2 / |M r|^2), and BiCGStab breaks down on
+# it; GCR smoothing and CG on the normal equations do not (PERF.md)
+_MG_SOLVERS = {"wilson": ("mr", "bicgstab"), "staggered": ("ca-gcr", "cg")}
+
+
+def _mg_level_params(mp: MultigridParamAPI, dslash_type: str = "wilson"):
     """MultigridParamAPI -> the per-level MGLevelParam list (JAX
-    quda_api.py:1840)."""
+    quda_api.py:1840), the smoother and set-up solver by family
+    (``_MG_SOLVERS``)."""
     from ..mg.mg import MGLevelParam
+    smoother, setup_solver = _MG_SOLVERS[
+        "staggered" if dslash_type in STAGGERED_TYPES else "wilson"]
     return [MGLevelParam(block=tuple(mp.geo_block_size[i]),
                          n_vec=mp.n_vec[i],
                          setup_iters=mp.setup_iters[i]
@@ -556,7 +585,8 @@ def _mg_level_params(mp: MultigridParamAPI):
                          post_smooth=mp.nu_post[i] if i < len(mp.nu_post)
                          else 4,
                          smoother_omega=mp.smoother_omega,
-                         coarse_solver_iters=mp.coarse_solver_iters)
+                         coarse_solver_iters=mp.coarse_solver_iters,
+                         smoother=smoother, setup_solver=setup_solver)
             for i in range(mp.n_level - 1)]
 
 
@@ -566,9 +596,20 @@ def _build_mg(invert_param: InvertParam, mg_param: MultigridParamAPI):
     from ..mg.pair import PairMG
     _check_mg_route(invert_param)
     d = _build_dirac(invert_param, False, complex_dtype("single"))
-    mg = PairMG(d, _ctx["geom"], _mg_level_params(mg_param))
-    _ctx.update(mg=mg, mg_epoch=_ctx["gauge_epoch"], mg_param=mg_param)
+    mg = PairMG(d, _ctx["geom"],
+                _mg_level_params(mg_param, invert_param.dslash_type))
+    _ctx.update(mg=mg, mg_epoch=_mg_key(invert_param), mg_param=mg_param)
     return mg
+
+
+def _mg_key(param: InvertParam):
+    """What a hierarchy was built on: the operator family (Wilson,
+    fat-only staggered on the gauge, improved staggered on the fat/long
+    links) and the loads of those links since ``init_quda``."""
+    t = param.dslash_type
+    if t in ("asqtad", "hisq"):
+        return ("improved", _ctx["gauge_epoch"], _ctx["links_epoch"])
+    return (t, _ctx["gauge_epoch"])
 
 
 def new_multigrid_quda(mg_param: MultigridParamAPI,
@@ -600,41 +641,46 @@ def destroy_multigrid_quda():
 
 
 def _invert_mg(source, param: InvertParam):
-    """The gcr-mg route: flexible GCR(gcrNkrylov) on the full Wilson
-    system of ``param`` in float32 pairs, preconditioned by the resident
-    hierarchy.  A hierarchy built on another gauge (the gauge epoch
-    moved) is set up again, as the JAX package does
-    (quda_api.py:1880-1888); where the JAX package then takes the default
-    MultigridParamAPI, the port takes the one the stale hierarchy was
-    built with.  A hierarchy built at another kappa stays, as QUDA keeps
-    it: only as the preconditioner, the outer GCR applying ``param``'s
-    operator (the JAX package solves the hierarchy's own system then).
-    The true residual is computed in pair arithmetic against
-    ``param``'s operator."""
-    from ..mg.pair import PairWilsonLevelOp, mg_solve_pairs
+    """The gcr-mg route: flexible GCR(gcrNkrylov) on the full system of
+    ``param`` in float32 pairs (Wilson M = 1 - kappa D, staggered M = 2m +
+    D with the fat + Naik D for asqtad/hisq), preconditioned by the
+    resident hierarchy.  A hierarchy built on another gauge, other
+    fat/long links or another family is set up again, as the JAX package
+    does (quda_api.py:1880-1888); where the JAX package then takes the
+    default MultigridParamAPI, the port takes the one the stale hierarchy
+    was built with.  A hierarchy built at another kappa or mass stays, as
+    QUDA keeps it: only as the preconditioner, the outer GCR applying
+    ``param``'s operator (the JAX package solves the hierarchy's own
+    system then).  The true residual is computed in pair arithmetic
+    against the operator the outer GCR applies (JAX
+    quda_api.py:1912-1916: the fat + Naik operator for improved
+    staggered)."""
+    from ..mg.pair import PairMG, mg_solve_pairs, outer_operator
     from ..ops.pair import to_pairs
     dev = _ctx["device"]
     geom = _ctx["geom"]
     b = _source_on_device(source, param, complex_dtype("single"))
     t0 = time.perf_counter()
     mg = _ctx["mg"]
-    if mg is not None and _ctx["mg_epoch"] != _ctx["gauge_epoch"]:
-        log.info("gauge changed since the MG set-up; rebuilding the "
-                 "hierarchy")
+    if mg is not None and _ctx["mg_epoch"] != _mg_key(param):
+        log.info("gauge, links or family changed since the MG set-up; "
+                 "rebuilding the hierarchy")
         mg = None
     if mg is None:
         mg = _build_mg(param, _ctx["mg_param"] or MultigridParamAPI())
     outer = mg.adapter
-    if float(param.kappa) != outer.kappa:
-        outer = PairWilsonLevelOp(
-            _build_dirac(param, False, complex_dtype("single")))
+    stag = param.dslash_type in STAGGERED_TYPES
+    if float(param.mass if stag else param.kappa) != (
+            outer.mass if stag else outer.kappa):
+        outer = PairMG._adapt(_build_dirac(param, False,
+                                           complex_dtype("single")))
     b_pairs = to_pairs(b, torch.float32)
     res, _ = mg_solve_pairs(outer, geom, b_pairs, mg.params,
                             tol=param.tol, nkrylov=param.gcrNkrylov, mg=mg)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     param.secs = time.perf_counter() - t0
-    r = b_pairs - outer.M_std(res.x)
+    r = b_pairs - outer_operator(outer)(res.x)
     param.true_res = math.sqrt(float(blas.norm2(r))
                                / float(blas.norm2(b_pairs)))
     param.iter_count = int(res.iters)
@@ -642,10 +688,12 @@ def _invert_mg(source, param: InvertParam):
     param.x_df64_lo = None
     # fine-operator work of the outer solve only (V-cycle work not
     # charged, QUDA's convention for the outer solver's gflops)
-    param.gflops = (param.iter_count * (1320 + 48) * geom.volume) / 1e9
+    param.gflops = (param.iter_count * outer.dirac.flops_per_site_M()
+                    * geom.volume) / 1e9
     _solve_supervision(param, "invert_quda", res.converged)
-    log.info("invert_quda[wilson/gcr-mg]: %d iters, true_res %.2e, "
-             "%.2f s", param.iter_count, param.true_res, param.secs)
+    log.info("invert_quda[%s/gcr-mg]: %d iters, true_res %.2e, %.2f s",
+             param.dslash_type, param.iter_count, param.true_res,
+             param.secs)
     return torch.view_as_complex(res.x.contiguous()).to(b.dtype)
 
 
@@ -954,9 +1002,10 @@ def _invert_multi_src_body(B, param: InvertParam):
 
 
 def _operator_route(param: InvertParam, api: str):
-    """The Wilson operator of the operator API, in the precision
+    """The operator of the operator API: Wilson in the precision
     ``cuda_prec`` names (float32 or float64 pairs), links full or recon-12
-    as the resident gauge says; raises for the families it does not
+    as the resident gauge says; the staggered family in float32 pairs on
+    full links.  Raises for the families and precisions it does not
     serve yet."""
     _require_init()
     param.validate()
@@ -964,17 +1013,23 @@ def _operator_route(param: InvertParam, api: str):
         raise RuntimeError("load_gauge_quda() first")
     queued = {"clover": "ROADMAP A17 (the full-lattice clover kernel "
                         "clover_pallas_packed)",
-              "staggered": "ROADMAP A12 (the full-lattice staggered forms)",
-              "asqtad": "ROADMAP A12 (the full-lattice staggered forms)",
-              "hisq": "ROADMAP A12 (the full-lattice staggered forms)",
               "laplace": "ROADMAP A14 (the Laplace operator)"}
     zoo = ("ROADMAP A19 (the operator API of the twisted and domain-wall "
            "families)")
+    if param.dslash_type in STAGGERED_TYPES:
+        form = _link_form(True)
+        if param.cuda_prec != "single":
+            raise NotImplementedError(
+                f"{api} for dslash_type {param.dslash_type!r} at cuda_prec "
+                f"{param.cuda_prec!r}: the staggered kernels S1/S2 and "
+                "S1-full/S2-full have float32 forms only; their float64 "
+                "forms wait for ROADMAP A7")
+        return torch.float32, form
     if param.dslash_type != "wilson":
         raise NotImplementedError(
             f"{api} for dslash_type {param.dslash_type!r} is not ported "
             f"yet: {queued.get(param.dslash_type, zoo)}; the port serves "
-            "Wilson")
+            "Wilson and the staggered family")
     if param.cuda_prec not in ("single", "double"):
         raise NotImplementedError(
             f"{api} at cuda_prec {param.cuda_prec!r}: single and double "
@@ -984,28 +1039,41 @@ def _operator_route(param: InvertParam, api: str):
 
 def dslash_quda(psi, param: InvertParam, parity: int):
     """dslashQuda: the PC hop D_{parity, 1-parity} on a canonical complex
-    half-lattice field (T,Z,Y,Xh,4,3) of parity 1-parity, on B1."""
+    half-lattice field (T,Z,Y,Xh,4,3), or (T,Z,Y,Xh,1,3) staggered, of
+    parity 1-parity, on B1 (staggered: S1 for asqtad/hisq, S2)."""
     from ..ops import wilson_packed as wpk
-    _, form = _operator_route(param, "dslash_quda")
+    store, form = _operator_route(param, "dslash_quda")
     dtype = complex_dtype(param.cuda_prec)
-    dpk = _build_dirac(param, True, dtype).packed(precision_form=form)
     half = _ctx["geom"].half_lattice_shape
+    if param.dslash_type in STAGGERED_TYPES:
+        op = _build_dirac(param, True, dtype).pairs(store)
+        x = _source_on_device(psi, param, dtype, half + (1, 3))
+        d = op.D_to_pairs(op._to_pairs(x), int(parity), out_dtype=store)
+        return op._from_pairs(d, dtype)
+    dpk = _build_dirac(param, True, dtype).packed(precision_form=form)
     x = _source_on_device(psi, param, dtype, half + (4, 3))
     return wpk.unpack_spinor(dpk.D_to(wpk.pack_spinor(x), int(parity)), half)
 
 
+def _full_pair_op(param: InvertParam, api: str):
+    store, form = _operator_route(param, api)
+    dtype = complex_dtype(param.cuda_prec)
+    d = _build_dirac(param, False, dtype)
+    op = (d.pairs(store) if param.dslash_type in STAGGERED_TYPES
+          else d.pairs(store, precision_form=form))
+    return op, dtype
+
+
 def mat_quda(psi, param: InvertParam):
     """MatQuda: M = 1 - kappa D on a canonical complex (T,Z,Y,X,4,3) field,
-    the hop on B4."""
-    store, form = _operator_route(param, "mat_quda")
-    dtype = complex_dtype(param.cuda_prec)
-    op = _build_dirac(param, False, dtype).pairs(store, precision_form=form)
+    the hop on B4; staggered M = 2m + D on (T,Z,Y,X,1,3), D on S1-full
+    (asqtad, hisq) or S2-full."""
+    op, dtype = _full_pair_op(param, "mat_quda")
     return op.M(_source_on_device(psi, param, dtype))
 
 
 def mat_dag_mat_quda(psi, param: InvertParam):
-    """MatDagMatQuda: M^dag M = g5 M g5 M, two B4 launches."""
-    store, form = _operator_route(param, "mat_dag_mat_quda")
-    dtype = complex_dtype(param.cuda_prec)
-    op = _build_dirac(param, False, dtype).pairs(store, precision_form=form)
+    """MatDagMatQuda: M^dag M = g5 M g5 M, two B4 launches; staggered
+    (2m - D)(2m + D), two S1-full or S2-full launches."""
+    op, dtype = _full_pair_op(param, "mat_dag_mat_quda")
     return op.MdagM(_source_on_device(psi, param, dtype))

@@ -134,7 +134,7 @@ class MG:
     _example_field = None
 
     def __init__(self, fine_dirac, geom, params: Sequence[MGLevelParam],
-                 generator=None, verbosity: int = 0):
+                 generator=None, verbosity: int = 0, kd: bool = False):
         if any(p.coarse_replicate for p in params):
             raise NotImplementedError(
                 "coarse_replicate (coarse levels replicated over a mesh "
@@ -144,17 +144,17 @@ class MG:
         self.levels: List[dict] = []
         self.null_fallbacks: List[int] = []
         self.adapter = (fine_dirac if hasattr(fine_dirac, "k_fine")
-                        else self._adapt(fine_dirac))
+                        else self._adapt(fine_dirac, kd=kd))
         if generator is None:
             generator = torch.Generator(device=self.adapter.device)
             generator.manual_seed(2024)
         self._setup(self.adapter, generator, verbosity)
 
     @staticmethod
-    def _adapt(fine_dirac):
+    def _adapt(fine_dirac, kd: bool = False):
         raise NotImplementedError(
             "the complex multigrid hierarchy is not ported (ROADMAP A12); "
-            "mg/pair.PairMG serves Wilson")
+            "mg/pair.PairMG serves Wilson and the staggered family")
 
     # -- layout hooks --------------------------------------------------
     def _random_like(self, example, generator):
@@ -166,7 +166,9 @@ class MG:
     def _generate_null_vectors(self, level_op, example, n_vec, p,
                                generator):
         """Near-null vectors of one level, normalised: block solves of
-        M v = 0 from n_vec random initial guesses, one batch through the
+        M v = 0 from n_vec random initial guesses (projected onto the
+        operator's image where the level has ``project_null_source``, the
+        staggered level), one batch through the
         level's multi-RHS matvec (the fine level in its kernel layout: the
         batch is transposed once, not per matvec).  If
         BiCGStab breaks down (a lane not finite, r0-orthogonality
@@ -175,8 +177,16 @@ class MG:
         ``self.null_fallbacks`` records the level."""
         use_cg = p.setup_solver == "cg"
         to_l, from_l = _null_solve_layout(level_op)
-        bs = to_l(torch.stack([self._random_like(example, generator)
-                               for _ in range(n_vec)]))
+        bs = torch.stack([self._random_like(example, generator)
+                          for _ in range(n_vec)])
+        proj = getattr(level_op, "project_null_source", None)
+        if proj is not None:
+            # the staggered chiral space is twice the image of to_chiral:
+            # the part of a guess outside the image is annihilated by M,
+            # so a solve of M v = 0 would keep it untouched in v (JAX
+            # quda_tpu/mg/mg.py projects its sources the same way)
+            bs = proj(bs)
+        bs = to_l(bs)
 
         def run_solve(cg_flag):
             return from_l(_null_solve_body(

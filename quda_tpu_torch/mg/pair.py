@@ -1,5 +1,6 @@
 """Complex-free multigrid on re/im pair arrays, as in quda_tpu/mg/pair.py:
-the Wilson hierarchy.
+the Wilson and the staggered (fat-only, improved by defect correction)
+hierarchies.
 
 Every object is realified:
 
@@ -12,9 +13,12 @@ orthonormalisation of the null vectors is Cholesky-QR on the interleaved
 real embedding (``cholqr2``, two passes for f32-grade orthonormality).
 The Krylov pieces run the real solvers on the realified operators.
 
-Kernels: the fine level's hop runs on B4 (``PairWilsonLevelOp._d_std``)
-and its multi-RHS form, the null-vector block solve's matvec, on B5
-(``M_mrhs_pl``); every coarse operator apply runs B8
+Kernels: the fine Wilson level's hop runs on B4
+(``PairWilsonLevelOp._d_std``) and its multi-RHS form, the null-vector
+block solve's matvec, on B5 (``M_mrhs_pl``); the fine staggered level's
+fat hop on S2-full and S2-mrhs-full, and the outer solve's fat + Naik
+operator (``PairStaggeredLevelOp.M_std_full``) on S1-full; every coarse
+operator apply runs B8
 (``PairCoarseOperator.M``, ops/coarse_pallas.py).  On CPU tensors the
 wrappers run their plain versions.  The coarse operator keeps the JAX
 package's einsum and embedding forms for its ``diag``/``hop`` (the
@@ -24,8 +28,9 @@ QUDA_TPU_MG_COARSE_FORM/_EMBED knobs wait for ROADMAP A17.
 
 Fields may carry leading batch axes: the lattice axes are located from
 the end, so every operator here serves a batch where the JAX package
-vmaps.  ``PairStaggeredLevelOp`` waits for B6's full-lattice forms
-(ROADMAP A12).
+vmaps.  The Kaehler-Dirac composition of the staggered level
+(mg/staggered_kd.py) is refused, as the JAX package's pair hierarchy
+refuses it (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -38,13 +43,15 @@ import torch
 
 from ..fields.geometry import axis_of_mu
 from ..ops import gamma as g
+from ..ops import staggered_packed as spk
+from ..ops import staggered_pallas as spl
 from ..ops import wilson_packed as wpk
 from ..ops import wilson_pallas_packed as wpp
 from ..ops.coarse_pallas import coarse_apply_pallas, coarse_apply_pallas_mrhs
 from ..ops.pair import (color_mul_pairs, dagger_pairs, deinterleave_mat,
                         interleave_mat, spin_mul_pairs, to_pairs)
 from .coarse import DIRS
-from .mg import MG, MGLevelParam
+from .mg import MG, MGLevelParam, parity_eps
 
 F32 = torch.float32
 
@@ -506,6 +513,179 @@ class PairWilsonLevelOp:
             wilson_hop_pairs(self.gauge_pairs, s, mu, sign, self.kappa))
 
 
+# -- the fine staggered level -----------------------------------------------
+
+def staggered_hop_pairs(links_pairs, psi, mu, sign):
+    """The single-direction staggered hop on (..., T,Z,Y,X, 1,3,2) pair
+    arrays (the pair mirror of ops/staggered.hop_term): +1/2 U_mu(x)
+    psi(x + mu), or -1/2 U_mu(x - mu)^dag psi(x - mu)."""
+    if sign > 0:
+        return 0.5 * color_mul_pairs(links_pairs[mu], _roll(psi, mu, +1, 3))
+    ub = _roll(dagger_pairs(links_pairs[mu]), mu, -1, 3)
+    return -0.5 * color_mul_pairs(ub, _roll(psi, mu, -1, 3))
+
+
+class PairStaggeredLevelOp:
+    """The fine staggered level on pair arrays: K = 3 colours, the
+    chirality is the site parity epsilon(x) (mg/mg.parity_eps), chiral
+    fields (..., lat, 2, 3, 2) with the even-site part in component 0.
+
+    The hierarchy represents the fat-link stencil M = 2m + D_fat (QUDA's
+    coarse construction, lib/staggered_coarse_op.in.cu); with long links
+    ``M_std_full`` applies the full fat + Naik operator, which the outer
+    solve runs, so the fat-only V-cycle defect-corrects the Naik term
+    (mg_solve_pairs).  Standard layout: (..., T,Z,Y,X, 1,3,2) pairs.  The
+    fat links go resident in the kernel layout with their pre-shifted
+    backward copy: the fat hop sum is one S2-full launch (one transpose of
+    the field in and one out), a batch in the kernel layout one
+    S2-mrhs-full launch (``M_mrhs_pl``: the null-vector block solve,
+    transposed once); the fat + Naik D is one S1-full launch on the
+    unshifted fat and long links.  The probes' single-direction hops and
+    ``diag`` run plain PyTorch, as in the JAX package.
+
+    The chiral space (lat, 2, 3) is twice the image of ``to_chiral``: a
+    field whose two components cancel under ``from_chiral`` is
+    annihilated by M.  ``project_null_source`` maps a field onto the
+    image; the set-up projects its random initial guesses with it."""
+
+    k_fine = 3
+    dtype = F32
+    nspin = 1
+
+    def __init__(self, dirac):
+        self.dirac = dirac
+        self.mass = float(dirac.mass)
+        self.device = dirac.fat.device
+        self._X = int(dirac.geom.lattice_shape[-1])
+        self.fat_pairs = to_pairs(dirac.fat, F32)
+
+        def packed(links):
+            return wpk.to_packed_pairs(spk.pack_links(links),
+                                       F32).contiguous()
+
+        self.fat_pl = packed(dirac.fat)
+        self.fat_bw = spl.backward_links(self.fat_pl, self._X,
+                                         1).contiguous()
+        lng = getattr(dirac, "long", None)
+        self.long_pl = packed(lng) if lng is not None else None
+        eps = torch.as_tensor(parity_eps(dirac.geom.lattice_shape, 2),
+                              device=self.device)
+        self._even = eps == 0                       # (T,Z,Y,X,1,1)
+
+    # -- kernel-layout shuttles ----------------------------------------
+    @staticmethod
+    def _pl_of(v):
+        """canonical pairs (..., T,Z,Y,X,1,3,2) -> kernel layout
+        (..., 3,2,T,Z,YX), contiguous."""
+        s = v[..., 0, :, :]
+        k = s.ndim - 6
+        T, Z, Y, X = s.shape[k:k + 4]
+        perm = tuple(range(k)) + tuple(k + i for i in (4, 5, 0, 1, 2, 3))
+        return s.permute(perm).reshape(
+            s.shape[:k] + (3, 2, T, Z, Y * X)).contiguous()
+
+    @staticmethod
+    def _pl_back(out, lat):
+        T, Z, Y, X = lat
+        k = out.ndim - 5
+        o = out.reshape(out.shape[:k] + (3, 2, T, Z, Y, X))
+        perm = tuple(range(k)) + tuple(k + i for i in (2, 3, 4, 5, 0, 1))
+        return o.permute(perm).unsqueeze(-3).contiguous()
+
+    # -- standard layout (..., lat, 1, 3, 2) ----------------------------
+    def _d_std(self, v):
+        """The fat hop sum, one S2-full launch."""
+        d = spl.dslash_staggered_pallas(self.fat_pl, self.fat_bw,
+                                        self._pl_of(v), self._X)
+        return self._pl_back(d, v.shape[-7:-3])
+
+    def M_std(self, v):
+        return torch.add(self._d_std(v), v, alpha=2.0 * self.mass)
+
+    def _mdag_std(self, v):
+        return torch.add(-self._d_std(v), v, alpha=2.0 * self.mass)
+
+    def _d_std_full(self, v):
+        """The fat + Naik hop sum, one S1-full launch."""
+        d = spl.dslash_staggered_pallas_fused(self.fat_pl, self._pl_of(v),
+                                              self._X, self.long_pl)
+        return self._pl_back(d, v.shape[-7:-3])
+
+    def M_std_full(self, v):
+        """The operator the outer solve targets: fat + Naik when long
+        links exist, else ``M_std``."""
+        if self.long_pl is None:
+            return self.M_std(v)
+        return torch.add(self._d_std_full(v), v, alpha=2.0 * self.mass)
+
+    def Mdag_std_full(self, v):
+        if self.long_pl is None:
+            return self._mdag_std(v)
+        return torch.add(-self._d_std_full(v), v, alpha=2.0 * self.mass)
+
+    # -- batched forms in the kernel layout (N, 3,2,T,Z,YX) -------------
+    def to_mrhs_layout(self, Vc):
+        """(N, lat, 2, 3, 2) chiral batch -> (N, 3,2,T,Z,YX)."""
+        return self._pl_of(self.from_chiral(Vc))
+
+    def from_mrhs_layout(self, P):
+        lat = self.dirac.geom.lattice_shape
+        return self.to_chiral(self._pl_back(P, lat))
+
+    def _d_mrhs_pl(self, P):
+        return spl.dslash_staggered_pallas_mrhs(self.fat_pl, self.fat_bw, P,
+                                                self._X)
+
+    def M_mrhs_pl(self, P):
+        """2m + D_fat per RHS of a kernel-layout batch, one S2-mrhs-full
+        launch."""
+        return torch.add(self._d_mrhs_pl(P), P, alpha=2.0 * self.mass)
+
+    def MdagM_mrhs_pl(self, P):
+        """(2m - D)(2m + D) per RHS, two S2-mrhs-full launches."""
+        ms = self.M_mrhs_pl(P)
+        return torch.add(-self._d_mrhs_pl(ms), ms, alpha=2.0 * self.mass)
+
+    def M_mrhs(self, Vc):
+        return self.from_mrhs_layout(self.M_mrhs_pl(self.to_mrhs_layout(Vc)))
+
+    def MdagM_mrhs(self, Vc):
+        return self.from_mrhs_layout(
+            self.MdagM_mrhs_pl(self.to_mrhs_layout(Vc)))
+
+    # -- chiral layout (the hierarchy's view) --------------------------
+    def to_chiral(self, v):
+        s = v[..., 0, :, :]
+        zero = torch.zeros((), dtype=s.dtype, device=s.device)
+        even = torch.where(self._even, s, zero)
+        odd = torch.where(self._even, zero, s)
+        return torch.stack([even, odd], dim=-3)
+
+    def from_chiral(self, vc):
+        return (vc[..., 0, :, :] + vc[..., 1, :, :]).unsqueeze(-3)
+
+    def M(self, v):
+        return self.to_chiral(self.M_std(self.from_chiral(v)))
+
+    def MdagM(self, v):
+        s = self.from_chiral(v)
+        return self.to_chiral(self._mdag_std(self.M_std(s)))
+
+    def diag(self, v):
+        # through the chiral round trip, as the JAX adapter: M = diag +
+        # sum(hop) must hold as chiral-space operators for the probes
+        return self.to_chiral(2.0 * self.mass * self.from_chiral(v))
+
+    def hop(self, v, mu, sign):
+        return self.to_chiral(staggered_hop_pairs(
+            self.fat_pairs, self.from_chiral(v), mu, sign))
+
+    def project_null_source(self, bs):
+        """The image of ``to_chiral``: the part of a chiral field that M
+        sees (the rest is annihilated by M)."""
+        return self.to_chiral(self.from_chiral(bs))
+
+
 # -- the hierarchy ----------------------------------------------------------
 
 class PairMG(MG):
@@ -527,14 +707,23 @@ class PairMG(MG):
                            device=device)
 
     @staticmethod
-    def _adapt(fine_dirac):
+    def _adapt(fine_dirac, kd: bool = False):
+        """The fine level of ``fine_dirac``, by its ``nspin``: staggered
+        (1) or Wilson."""
         from ..models.wilson import DiracWilson
+        if getattr(fine_dirac, "nspin", 4) == 1:
+            if kd:
+                raise NotImplementedError(
+                    "pair staggered MG: the Kaehler-Dirac composition "
+                    "(mg/staggered_kd.py) is not ported, and the JAX "
+                    "package's pair hierarchy refuses it too (ROADMAP A12)")
+            return PairStaggeredLevelOp(fine_dirac)
         if type(fine_dirac) is not DiracWilson:
             raise NotImplementedError(
                 f"pair multigrid for {type(fine_dirac).__name__}: the port "
-                "serves Wilson; staggered pair MG waits for B6's "
-                "full-lattice forms, clover and the other families for "
-                "the complex hierarchy (ROADMAP A12)")
+                "serves Wilson and the staggered family; clover and the "
+                "other families wait for the complex hierarchy (ROADMAP "
+                "A12)")
         return PairWilsonLevelOp(fine_dirac)
 
     @classmethod
@@ -576,16 +765,26 @@ class PairMG(MG):
         return self
 
 
+def outer_operator(level_op):
+    """The operator the outer solve applies: the fat + Naik
+    ``M_std_full`` of an improved staggered level, else ``M_std``."""
+    return getattr(level_op, "M_std_full", level_op.M_std)
+
+
 def mg_solve_pairs(fine_dirac, geom, b_pairs, params: Sequence[MGLevelParam],
                    tol: float = 1e-6, nkrylov: int = 16,
                    max_restarts: int = 100, generator=None,
                    mg: Optional[PairMG] = None):
-    """Outer GCR on canonical pair spinors (T,Z,Y,X,4,3,2) of
-    ``fine_dirac``'s system (a DiracWilson or its PairWilsonLevelOp),
-    preconditioned by the pair MG V-cycle of ``mg`` (set up on
-    ``fine_dirac`` when None; a given hierarchy may have been built on
-    another operator, as after a change of kappa).  Returns
-    (SolverResult with pair x, mg)."""
+    """Outer GCR on canonical pair spinors, (T,Z,Y,X,4,3,2) Wilson or
+    (T,Z,Y,X,1,3,2) staggered, of ``fine_dirac``'s system (a DiracWilson,
+    a DiracStaggered or their level operator), preconditioned by the pair
+    MG V-cycle of ``mg`` (set up on ``fine_dirac`` when None; a given
+    hierarchy may have been built on another operator, as after a change
+    of kappa or mass).  Improved staggered runs the outer GCR on the full
+    fat + Naik operator while the fat-only hierarchy preconditions
+    (flexible-Krylov defect correction of the Naik term, the JAX package's
+    and QUDA's improved-staggered MG wiring).  Returns (SolverResult with
+    pair x, mg)."""
     from ..solvers.gcr import gcr
     if mg is None:
         mg = PairMG(fine_dirac, geom, params, generator)
@@ -595,6 +794,6 @@ def mg_solve_pairs(fine_dirac, geom, b_pairs, params: Sequence[MGLevelParam],
         outer = mg.adapter
     else:
         outer = PairMG._adapt(fine_dirac)
-    res = gcr(outer.M_std, b_pairs, precond=mg.precondition, tol=tol,
-              nkrylov=nkrylov, max_restarts=max_restarts)
+    res = gcr(outer_operator(outer), b_pairs, precond=mg.precondition,
+              tol=tol, nkrylov=nkrylov, max_restarts=max_restarts)
     return res, mg

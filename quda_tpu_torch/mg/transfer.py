@@ -2,7 +2,9 @@
 
 A fine Wilson field enters the hierarchy as (lat..., 2, K): the gamma5
 chirality (spins 0,1 -> 0 and 2,3 -> 1) and K = 6 components (2 spins x 3
-colours) within it.  ``_block_fields`` gathers the sites of each
+colours) within it; a fine staggered field with K = 3 colours, the site
+parity as chirality (mg/pair.PairStaggeredLevelOp).  The blocking is the
+same for any K.  ``_block_fields`` gathers the sites of each
 geometric block into one aggregate axis D = prod(block) * K, keeping the
 chirality outside the aggregate.  The complex ``Transfer`` belongs to the
 complex hierarchy, which is not ported (ROADMAP A12); mg/pair.py holds

@@ -11,6 +11,12 @@ the PC solve of M x = b:
 
     rhs_p = 2m b_p - D_pq b_q,      x_q = (b_q - D_qp x_p) / 2m
 
+The full-lattice pair operator ``DiracStaggeredPackedPairs``
+(``DiracStaggered.pairs``, the operator API's ``mat_quda`` and
+``mat_dag_mat_quda``) runs D on the full-lattice kernels: improved
+staggered on S1-full, fat-only on S2-full, float32 only (their float64
+forms wait for ROADMAP A7).
+
 The pair operator ``DiracStaggeredPCPairs`` (``DiracStaggeredPC.pairs``)
 runs every hop through a CUDA kernel's wrapper: improved staggered on the
 fused fat + Naik hop S1 (form ``fused``), fat-only staggered on the
@@ -63,9 +69,12 @@ def _fold(fat, long_links, geom, antiperiodic_t):
 
 
 class DiracStaggered(Dirac):
-    """Full-lattice staggered operator M = 2m + D (nspin = 1 fields)."""
+    """Full-lattice staggered operator M = 2m + D (nspin = 1 fields):
+    ``fat`` and ``long`` are the phase-folded links the multigrid's fine
+    level reads (``long`` None unless improved)."""
 
     g5_hermitian = False   # staggered uses epsilon(x) = (-1)^(x+y+z+t)
+    nspin = 1
 
     def __init__(self, gauge: torch.Tensor, geom: LatticeGeometry,
                  mass: float, improved: bool = False,
@@ -92,6 +101,85 @@ class DiracStaggered(Dirac):
 
     def flops_per_site_M(self) -> int:
         return (1146 if self.improved else 570) + 24
+
+    def pairs(self, store_dtype=torch.float32) -> "DiracStaggeredPackedPairs":
+        """Pair companion on the full packed lattice, D on S1-full
+        (improved) or S2-full (fat-only), float32."""
+        return DiracStaggeredPackedPairs(self, store_dtype)
+
+
+class DiracStaggeredPackedPairs:
+    """Pair companion of the full-lattice staggered M = 2m + D on the
+    packed layout: spinors (3,2,T,Z,Y*X), links (4,3,3,2,T,Z,Y*X) in
+    float32.  Improved staggered runs D as one S1-full launch on the fat
+    and long links (no backward copy); fat-only as one S2-full launch on
+    the fat links and their resident pre-shifted backward copy.  ``D``,
+    ``M``, ``Mdag`` and ``MdagM`` take and give canonical complex
+    (T,Z,Y,X,1,3) fields."""
+
+    def __init__(self, ds: DiracStaggered, store_dtype=torch.float32):
+        if store_dtype != torch.float32:
+            raise NotImplementedError(
+                f"pair storage {store_dtype}: the full-lattice staggered "
+                "kernels (S1-full, S2-full) have float32 forms only; their "
+                "float64 forms wait for ROADMAP A7")
+        self.geom = ds.geom
+        self.mass = float(ds.mass)
+        self.dims = tuple(ds.geom.lattice_shape)
+        self.store_dtype = store_dtype
+        X = self.dims[3]
+
+        def packed(links):
+            return wpk.to_packed_pairs(spk.pack_links(links),
+                                       store_dtype).contiguous()
+
+        self.fat_pl = packed(ds.fat)
+        self.long_pl = packed(ds.long) if ds.long is not None else None
+        self.fat_bw = (None if self.long_pl is not None else
+                       spl.backward_links(self.fat_pl, X, 1).contiguous())
+
+    def D_pairs(self, psi_pl):
+        """The hop sum D psi: S1-full (improved) or S2-full (fat-only)."""
+        X = self.dims[3]
+        if self.long_pl is not None:
+            return spl.dslash_staggered_pallas_fused(self.fat_pl, psi_pl, X,
+                                                     self.long_pl)
+        return spl.dslash_staggered_pallas(self.fat_pl, self.fat_bw, psi_pl,
+                                           X)
+
+    def M_pairs(self, x):
+        return torch.add(self.D_pairs(x), x, alpha=2.0 * self.mass)
+
+    def Mdag_pairs(self, x):
+        """D is anti-Hermitian: M^dag = 2m - D."""
+        return torch.add(-self.D_pairs(x), x, alpha=2.0 * self.mass)
+
+    def MdagM_pairs(self, x):
+        return self.Mdag_pairs(self.M_pairs(x))
+
+    def _to_pairs(self, x):
+        """Canonical (..., T,Z,Y,X,1,3) complex -> (..., 3,2,T,Z,Y*X)."""
+        return wpk.to_packed_pairs(spk.pack_staggered(x),
+                                   self.store_dtype).contiguous()
+
+    def _from_pairs(self, x, dtype):
+        return spk.unpack_staggered(wpk.from_packed_pairs(x, dtype),
+                                    self.dims)
+
+    def _on_canonical(self, fn, psi):
+        return self._from_pairs(fn(self._to_pairs(psi)), psi.dtype)
+
+    def D(self, psi):
+        return self._on_canonical(self.D_pairs, psi)
+
+    def M(self, psi):
+        return self._on_canonical(self.M_pairs, psi)
+
+    def Mdag(self, psi):
+        return self._on_canonical(self.Mdag_pairs, psi)
+
+    def MdagM(self, psi):
+        return self._on_canonical(self.MdagM_pairs, psi)
 
 
 class DiracStaggeredPC(DiracPC):

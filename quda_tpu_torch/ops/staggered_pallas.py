@@ -32,10 +32,31 @@ Layouts are the JAX package's pallas layout:
     links           (4, 3, 3, 2, T, Z, Y*Xh)   KS phases and the t
                                                boundary folded in
 
+The full-lattice forms (``csrc/staggered_full.cu``, float32 and full
+links only, as the multigrid and the operator API build them) run the same
+hop body on the full lattice, layouts (3, 2, T, Z, Y*X) and (4, 3, 3, 2,
+T, Z, Y*X):
+
+* S2-full ``dslash_staggered_pass`` (``_stag_pass``, pallas_call at :204,
+  through ``dslash_staggered_pallas`` at :219): one hop set with the
+  pre-shifted backward links of ``backward_links``;
+  ``dslash_staggered_pallas`` composes fat (+ Naik, summed in float32) as
+  the JAX function does.  Forms ``fat:f32->f32`` and ``naik:f32->f32``.
+* S2-mrhs-full ``dslash_staggered_pass_mrhs`` (``_stag_pass_mrhs``, :1106,
+  through ``dslash_staggered_pallas_mrhs`` at :1121): S2-full over a
+  leading axis of N right-hand sides, links loaded once per chunk of
+  ``MRHS_CHUNK``; ``acc`` adds the pass into a batch in place.
+* S1-full ``dslash_staggered_pallas_fused`` (``_stag_fused_call``, :966,
+  through :980): the fat and Naik hop sets in one launch, backward hops
+  read from the unshifted links at the neighbour.  Form
+  ``full:f32->f32``.
+
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_staggered_eo_fused_plain``,
-``dslash_staggered_eo_pass_plain``, ``dslash_staggered_eo_pass_mrhs_plain``),
-CUDA tensors launch the kernel or raise.  Each wrapper counts its launches in ``.launches`` and per form in
+``dslash_staggered_eo_pass_plain``, ``dslash_staggered_eo_pass_mrhs_plain``,
+``dslash_staggered_fused_plain``, ``dslash_staggered_pass_plain``,
+``dslash_staggered_pass_mrhs_plain``), CUDA tensors launch the kernel or
+raise.  Each wrapper counts its launches in ``.launches`` and per form in
 ``.launches_by_form``.  Recon-12 long links are refused: HISQ long links
 are not +-SU(3) (ROADMAP C).
 """
@@ -47,7 +68,7 @@ import torch
 from ..utils import kernels
 from . import staggered_packed as spk
 from . import wilson_pallas_packed as wpp
-from .wilson_packed import shift_eo_packed
+from .wilson_packed import shift_eo_packed, shift_packed
 
 # Kernel vs plain version, max |kernel - plain| / max |plain|: float32
 # output within TOLERANCE (f32 sums in another order, fused multiply-adds
@@ -57,6 +78,10 @@ TOLERANCE_BF16 = 2.0 ** -7
 # flops per target half-site (QUDA's Dslash::flops: 570 a hop set)
 FUSED_FLOPS_PER_SITE = 1146
 PASS_FLOPS_PER_SITE = 570
+# floor of S2-full's and S1-full's traffic per site in float32: two link
+# sets read once (S2-full: the links and their pre-shifted copy; S1-full:
+# the fat and the long links), psi read once, out written once
+FULL_BYTES_PER_SITE = 2 * 72 * 4 + 6 * 4 + 6 * 4
 _STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HOPSET = {1: "fat", 3: "naik"}
@@ -338,10 +363,191 @@ def dslash_staggered_eo_pallas(fat_here_pl, fat_bw_pl, psi_pl, dims,
     return out.to(out_dtype or psi_pl.dtype)
 
 
+# -- the full-lattice forms (S2-full, S2-mrhs-full, S1-full) -----------------
+
+def backward_links(links_pl: torch.Tensor, X: int,
+                   nhop: int) -> torch.Tensor:
+    """Pre-shifted backward links on the full lattice:
+    out[mu](x) = U_mu(x - nhop*mu), links (4,3,3,2,T,Z,Y*X).  Computed
+    once per link load, as the JAX function does."""
+    Y = links_pl.shape[-1] // X
+    return torch.stack([shift_packed(links_pl[mu], mu, -1, X, Y, nhop)
+                        for mu in range(4)])
+
+
+def _full_shift(X: int, Y: int):
+    def sh(arr, mu, sign, nhop):
+        return shift_packed(arr, mu, sign, X, Y, nhop)
+    return sh
+
+
+def dslash_staggered_pass_plain(u_pl, u_bw_pl, psi_pl, X: int,
+                                nhop: int) -> torch.Tensor:
+    """Plain PyTorch version of S2-full on its inputs (pre-shifted
+    backward links), float32 sums and output."""
+    Y = psi_pl.shape[-1] // X
+    return spk.hopset_pairs(u_pl, u_bw_pl, psi_pl, _full_shift(X, Y), nhop)
+
+
+def dslash_staggered_pass_mrhs_plain(u_pl, u_bw_pl, psi_b, X: int,
+                                     nhop: int) -> torch.Tensor:
+    """Plain version of S2-mrhs-full: S2-full's, lane by lane over the
+    leading RHS axis of psi_b (N,3,2,T,Z,Y*X)."""
+    return torch.stack([dslash_staggered_pass_plain(u_pl, u_bw_pl, q, X,
+                                                    nhop) for q in psi_b])
+
+
+def dslash_staggered_fused_plain(fat_pl, long_pl, psi_pl,
+                                 X: int) -> torch.Tensor:
+    """Plain version of S1-full on its inputs: the fat and Naik hop sets
+    in float32, each with its links shifted back, summed."""
+    acc = None
+    for links, nhop in ((fat_pl, 1), (long_pl, 3)):
+        term = dslash_staggered_pass_plain(
+            links, backward_links(links, X, nhop), psi_pl, X, nhop)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _full_sites(psi_pl, X: int):
+    T, Z, YX = psi_pl.shape[-3:]
+    if YX % X:
+        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
+    return T, Z, YX // X
+
+
+def _check_nhop(nhop: int) -> None:
+    if nhop not in HOPSET:
+        raise ValueError(f"nhop must be 1 or 3, got {nhop}")
+
+
+def dslash_staggered_pass(u_pl, u_bw_pl, psi_pl, X: int,
+                          nhop: int) -> torch.Tensor:
+    """One hop set of count ``nhop`` (1 fat, 3 Naik) on the full lattice
+    (S2-full): u_pl the links (4,3,3,2,T,Z,Y*X), u_bw_pl from
+    ``backward_links``; psi (3,2,T,Z,Y*X).  float32 in and out."""
+    _check_nhop(nhop)
+    kind = kernels.dispatch_device(u_pl, u_bw_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_staggered_pass_plain(u_pl, u_bw_pl, psi_pl, X, nhop)
+    f32 = torch.float32
+    T, Z, Y = _full_sites(psi_pl, X)
+    sites = (T, Z, Y * X)
+    kernels.require(psi_pl, "psi_pl", (3, 2) + sites, f32)
+    _require_links("u_pl", u_pl, sites, f32)
+    _require_links("u_bw_pl", u_bw_pl, sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_staggered_full_pass(
+        out.data_ptr(), psi_pl.data_ptr(), u_pl.data_ptr(),
+        u_bw_pl.data_ptr(), T, Z, Y, X, int(nhop),
+        kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_staggered_full_pass")
+    _count(dslash_staggered_pass, pass_form_name(nhop, f32, f32))
+    return out
+
+
+def dslash_staggered_pass_mrhs(u_pl, u_bw_pl, psi_b, X: int, nhop: int,
+                               acc=None) -> torch.Tensor:
+    """One hop set of count ``nhop`` over N right-hand sides on the full
+    lattice (S2-mrhs-full): psi_b (N,3,2,T,Z,Y*X) float32, links as for
+    S2-full.  Returns the float32 batch; with ``acc`` (a float32 batch of
+    psi_b's shape) the pass is added into ``acc`` in place, which is
+    returned."""
+    _check_nhop(nhop)
+    if psi_b.ndim != 6:
+        raise ValueError(f"psi of shape {tuple(psi_b.shape)}: expected "
+                         "(N, 3, 2, T, Z, Y*X)")
+    f32 = torch.float32
+    tensors = (u_pl, u_bw_pl, psi_b) + ((acc,) if acc is not None else ())
+    kind = kernels.dispatch_device(*tensors)
+    if kind == "cpu":
+        out = dslash_staggered_pass_mrhs_plain(u_pl, u_bw_pl, psi_b, X, nhop)
+        return out if acc is None else acc.add_(out)
+    T, Z, Y = _full_sites(psi_b, X)
+    sites = (T, Z, Y * X)
+    nrhs = psi_b.shape[0]
+    wpp.check_mrhs_grid(nrhs, T * Z * Y * X, MRHS_CHUNK)
+    if psi_b.dtype != f32:
+        raise TypeError(f"psi {psi_b.dtype}: S2-mrhs-full has a float32 "
+                        "form only")
+    kernels.require(psi_b, "psi_b", (nrhs, 3, 2) + sites, f32)
+    _require_links("u_pl", u_pl, sites, f32)
+    _require_links("u_bw_pl", u_bw_pl, sites, f32)
+    if acc is None:
+        out = torch.empty(psi_b.shape, dtype=f32, device=psi_b.device)
+    else:
+        kernels.require(acc, "acc", tuple(psi_b.shape), f32)
+        out = acc
+    lib = kernels.library()
+    rc = lib.qtt_staggered_full_pass_mrhs(
+        out.data_ptr(), psi_b.data_ptr(), u_pl.data_ptr(),
+        u_bw_pl.data_ptr(), T, Z, Y, X, int(nhop), int(acc is not None),
+        nrhs, kernels.stream_of(psi_b))
+    kernels.check_launch(rc, "qtt_staggered_full_pass_mrhs")
+    _count(dslash_staggered_pass_mrhs, pass_form_name(nhop, f32, f32))
+    return out
+
+
+def dslash_staggered_pallas_fused(fat_pl, psi_pl, X: int,
+                                  long_pl=None) -> torch.Tensor:
+    """Full-lattice fused fat + Naik hop D psi (S1-full): the improved
+    operator in one launch.  fat_pl, long_pl (4,3,3,2,T,Z,Y*X), phases
+    folded, read unshifted (no backward copy); psi (3,2,T,Z,Y*X).  float32
+    in and out."""
+    if long_pl is None:
+        raise ValueError(
+            "the fused kernel IS the fat+Naik fusion; fat-only staggered "
+            "has a single hop set: use dslash_staggered_pallas")
+    kind = kernels.dispatch_device(fat_pl, long_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_staggered_fused_plain(fat_pl, long_pl, psi_pl, X)
+    f32 = torch.float32
+    T, Z, Y = _full_sites(psi_pl, X)
+    sites = (T, Z, Y * X)
+    kernels.require(psi_pl, "psi_pl", (3, 2) + sites, f32)
+    _require_links("fat_pl", fat_pl, sites, f32)
+    _require_links("long_pl", long_pl, sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_staggered_full_fused(
+        out.data_ptr(), psi_pl.data_ptr(), fat_pl.data_ptr(),
+        long_pl.data_ptr(), T, Z, Y, X, kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_staggered_full_fused")
+    _count(dslash_staggered_pallas_fused, form_name(f32, f32))
+    return out
+
+
+def dslash_staggered_pallas(fat_pl, fat_bw_pl, psi_pl, X: int,
+                            long_pl=None, long_bw_pl=None) -> torch.Tensor:
+    """Full-lattice staggered (fat only) or two-pass improved D psi on
+    S2-full: the fat pass, plus with long links the Naik pass, each in
+    float32, summed (the JAX function's XLA sum)."""
+    out = dslash_staggered_pass(fat_pl, fat_bw_pl, psi_pl, X, 1)
+    if long_pl is not None:
+        out = out + dslash_staggered_pass(long_pl, long_bw_pl, psi_pl, X, 3)
+    return out
+
+
+def dslash_staggered_pallas_mrhs(fat_pl, fat_bw_pl, psi_b, X: int,
+                                 long_pl=None,
+                                 long_bw_pl=None) -> torch.Tensor:
+    """Multi-RHS full-lattice D psi on S2-mrhs-full: the fat pass, then
+    with long links the Naik pass added into it in place, each one launch
+    with its links loaded once per chunk of right-hand sides."""
+    out = dslash_staggered_pass_mrhs(fat_pl, fat_bw_pl, psi_b, X, 1)
+    if long_pl is not None:
+        out = dslash_staggered_pass_mrhs(long_pl, long_bw_pl, psi_b, X, 3,
+                                         acc=out)
+    return out
+
+
 def reset_launches() -> None:
-    """Zero the launch counts of S1, S2 and S2-mrhs."""
+    """Zero the launch counts of S1, S2 and S2-mrhs and of their
+    full-lattice forms."""
     for fn in (dslash_staggered_eo_pallas_fused, dslash_staggered_eo_pass,
-               dslash_staggered_eo_pass_mrhs):
+               dslash_staggered_eo_pass_mrhs, dslash_staggered_pass,
+               dslash_staggered_pass_mrhs, dslash_staggered_pallas_fused):
         fn.launches = 0
         fn.launches_by_form = {}
 

@@ -33,7 +33,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu",
-           "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu")
+           "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu",
+           "staggered_full.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
@@ -83,6 +84,13 @@ SIGNATURES = {
     # out, psi, u, u_bw, T, Z, Y, X, rows, tb_sign, nrhs, nb, stream
     "qtt_wilson_full_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    # out, psi, u, u_bw, T, Z, Y, X, nhop, stream
+    "qtt_staggered_full_pass": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out, psi, fat, long, T, Z, Y, X, stream
+    "qtt_staggered_full_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # out, psi, u, u_bw, T, Z, Y, X, nhop, accum, nrhs, stream
+    "qtt_staggered_full_pass_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _P),
     # out, links, psi9, S, E, stream
     "qtt_coarse_apply": (_P, _P, _P, _I, _I, _P),
     # out, links, psi9, S, E, nrhs, stream

@@ -1166,3 +1166,203 @@ def test_mg_hierarchy_on_card_matches_cpu():
     finally:
         qt.end_quda()
     assert ip.converged and ip.true_res <= 5e-6
+
+
+# -- the full-lattice staggered forms (S2-full, S2-mrhs-full, S1-full) -------
+
+STAG_FULL_DIMS = (14, 12, 10, 8)          # (T, Z, Y, X): every extent >= 7
+
+
+def _stag_full_inputs(dev, seed, n=None):
+    """Fat and long links (the long ones at 1/24 the scale) on the full
+    lattice and psi (or an n-RHS batch), random normal on the card."""
+    T, Z, Y, X = STAG_FULL_DIMS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sites = (T, Z, Y * X)
+    fat = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
+    lng = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev) / 24
+    lead = () if n is None else (n,)
+    psi = torch.randn(lead + (3, 2) + sites, generator=gen, device=dev)
+    return fat, lng, psi
+
+
+@pytest.mark.parametrize("nhop", [1, 3], ids=["fat", "naik"])
+def test_stag_full_pass_kernel_matches_plain(nhop):
+    """S2-full against its plain version within TOLERANCE; one launch
+    counted in its form."""
+    dev = require_cuda()
+    X = STAG_FULL_DIMS[3]
+    fat, lng, psi = _stag_full_inputs(dev, 370 + nhop)
+    u = fat if nhop == 1 else lng
+    ubw = spl.backward_links(u, X, nhop).contiguous()
+    name = spl.pass_form_name(nhop, torch.float32, torch.float32)
+    n0 = spl.dslash_staggered_pass.launches_by_form.get(name, 0)
+    got = spl.dslash_staggered_pass(u, ubw, psi, X, nhop)
+    want = spl.dslash_staggered_pass_plain(u, ubw, psi, X, nhop)
+    torch.cuda.synchronize()
+    assert spl.dslash_staggered_pass.launches_by_form[name] == n0 + 1
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < spl.TOLERANCE
+
+
+def test_stag_full_fused_kernel_matches_plain_and_two_passes():
+    """S1-full against its plain version within TOLERANCE, and bit for
+    bit S2-full(fat) + S2-full(naik) (one hop body)."""
+    dev = require_cuda()
+    X = STAG_FULL_DIMS[3]
+    fat, lng, psi = _stag_full_inputs(dev, 375)
+    n0 = spl.dslash_staggered_pallas_fused.launches
+    got = spl.dslash_staggered_pallas_fused(fat, psi, X, lng)
+    want = spl.dslash_staggered_fused_plain(fat, lng, psi, X)
+    fbw = spl.backward_links(fat, X, 1).contiguous()
+    lbw = spl.backward_links(lng, X, 3).contiguous()
+    two = spl.dslash_staggered_pallas(fat, fbw, psi, X, lng, lbw)
+    torch.cuda.synchronize()
+    assert spl.dslash_staggered_pallas_fused.launches == n0 + 1
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < spl.TOLERANCE
+    assert torch.equal(got, two)
+
+
+@pytest.mark.parametrize("n", [1, 5, 24])
+def test_stag_full_mrhs_kernel_matches_plain_and_single_launches(n):
+    """S2-mrhs-full (fat, then Naik accumulating) against its plain
+    version within TOLERANCE; each lane bit for bit the S2-full launches
+    and the fat + Naik batch bit for bit S1-full."""
+    dev = require_cuda()
+    X = STAG_FULL_DIMS[3]
+    fat, lng, psi = _stag_full_inputs(dev, 376, n)
+    fbw = spl.backward_links(fat, X, 1).contiguous()
+    lbw = spl.backward_links(lng, X, 3).contiguous()
+    got_fat = spl.dslash_staggered_pass_mrhs(fat, fbw, psi, X, 1)
+    want = spl.dslash_staggered_pass_mrhs_plain(fat, fbw, psi, X, 1)
+    both = spl.dslash_staggered_pallas_mrhs(fat, fbw, psi, X, lng, lbw)
+    torch.cuda.synchronize()
+    assert rel_err(got_fat.cpu().numpy(), want.cpu().numpy()) < \
+        spl.TOLERANCE
+    for i in range(n):
+        q = psi[i].contiguous()
+        assert torch.equal(got_fat[i], spl.dslash_staggered_pass(
+            fat, fbw, q, X, 1))
+        assert torch.equal(both[i], spl.dslash_staggered_pallas_fused(
+            fat, q, X, lng))
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_stag_full_forms_restricted_to_a_parity_match_eo_kernels(parity):
+    """S1-full and S2-full read on the parity-p sites of a field living on
+    parity 1-p equal the eo kernels S1 and S2 on the split fields, within
+    TOLERANCE."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_join, even_odd_split
+    from quda_tpu_torch.ops import staggered_packed as spk
+    from quda_tpu_torch.ops import wilson_packed as wpk
+    from quda_tpu_torch.ops.wilson import split_gauge_eo
+    dev = require_cuda()
+    T, Z, Y, X = STAG_FULL_DIMS
+    geom = LatticeGeometry((X, Y, Z, T))
+    fat, lng, psi = _stag_full_inputs(dev, 377 + parity)
+
+    def canon(pl):
+        return wpk.unpack_gauge(wpk.from_packed_pairs(pl), STAG_FULL_DIMS)
+
+    def eo_links(pl):
+        return [wpk.to_packed_pairs(spk.pack_links(g),
+                                    torch.float32).contiguous()
+                for g in split_gauge_eo(canon(pl), geom)]
+
+    def pairs(x):
+        return wpk.to_packed_pairs(spk.pack_staggered(x),
+                                   torch.float32).contiguous()
+
+    fat_eo, lng_eo = eo_links(fat), eo_links(lng)
+    src = even_odd_split(spk.unpack_staggered(wpk.from_packed_pairs(psi),
+                                              STAG_FULL_DIMS), geom)
+    only = [torch.zeros_like(src[0]), torch.zeros_like(src[0])]
+    only[1 - parity] = src[1 - parity]
+    full_in = pairs(even_odd_join(only[0], only[1], geom))
+    fbw = spl.backward_links(fat, X, 1).contiguous()
+    ebw = spl.backward_links_eo(fat_eo[1 - parity], STAG_FULL_DIMS, parity,
+                                1).contiguous()
+    eo_in = pairs(only[1 - parity])
+    for full_out, eo_out in (
+            (spl.dslash_staggered_pallas_fused(fat, full_in, X, lng),
+             spl.dslash_staggered_eo_pallas_fused(
+                 fat_eo[parity], fat_eo[1 - parity], eo_in, STAG_FULL_DIMS,
+                 parity, lng_eo[parity], lng_eo[1 - parity])),
+            (spl.dslash_staggered_pass(fat, fbw, full_in, X, 1),
+             spl.dslash_staggered_eo_pass(fat_eo[parity], ebw, eo_in,
+                                          STAG_FULL_DIMS, parity, 1))):
+        got = even_odd_split(spk.unpack_staggered(
+            wpk.from_packed_pairs(full_out), STAG_FULL_DIMS), geom)[parity]
+        want = spk.unpack_staggered(wpk.from_packed_pairs(eo_out),
+                                    geom.half_lattice_shape)
+        torch.cuda.synchronize()
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < \
+            spl.TOLERANCE
+
+
+def test_staggered_mg_and_operator_api_on_card_match_cpu():
+    """A staggered hierarchy set up on the CPU (8^4 SU(3) fat links,
+    -1/24 SU(3) long links, m 0.3; blocks 4^4, n_vec 4) and carried to the
+    card: its V-cycle (S2-full, B8) within 1e-5 of the CPU's; the set-up on
+    the card runs S2-mrhs-full and passes verify; hisq gcr-mg on the card
+    runs S1-full in the outer GCR and converges to true_res <= 5e-6;
+    mat_quda for hisq within 1e-5 of the complex128 operator."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.mg.mg import MGLevelParam
+    from quda_tpu_torch.mg.pair import PairMG
+    from quda_tpu_torch.models.staggered import DiracStaggered
+    dev = require_cuda()
+    dims = (8, 8, 8, 8)
+    geom = LatticeGeometry(dims)
+    fat = su3_gauge(dims, seed=378)
+    lng = (-su3_gauge(dims, seed=379, dtype=np.complex128) / 24).astype(
+        np.complex64)
+    params = [MGLevelParam(block=(4, 4, 4, 4), n_vec=4, setup_iters=20)]
+
+    def dirac(where):
+        return DiracStaggered(torch.from_numpy(fat).to(where), geom, 0.3,
+                              improved=True,
+                              long_links=torch.from_numpy(lng).to(where))
+    cpu = PairMG(dirac("cpu"), geom, params,
+                 torch.Generator().manual_seed(380))
+    arrays = [{"v": lv["transfer"].v, "x_diag": lv["coarse"].x_diag,
+               "y": lv["coarse"].y} for lv in cpu.levels]
+    card = PairMG.from_arrays(dirac(dev), params, arrays)
+    b = torch.from_numpy(gaussian(lattice_shape(dims) + (1, 3, 2), seed=381,
+                                  dtype=np.float32))
+    want = cpu.precondition(b)
+    n2 = spl.dslash_staggered_pass.launches
+    got = card.precondition(b.to(dev))
+    torch.cuda.synchronize()
+    assert spl.dslash_staggered_pass.launches > n2
+    assert rel_err(got.cpu().numpy(), want.numpy()) < 1e-5
+    nm = spl.dslash_staggered_pass_mrhs.launches
+    fresh = PairMG(card.adapter.dirac, geom, params,
+                   torch.Generator(device=dev).manual_seed(382))
+    assert spl.dslash_staggered_pass_mrhs.launches > nm
+    assert fresh.verify(galerkin_tol=1e-5, pr_tol=1e-5)[0]["galerkin"] < 1e-5
+    qt.init_quda(device=dev)
+    try:
+        qt.load_gauge_quda(fat, qt.GaugeParam(X=dims, cuda_prec="single"))
+        qt.load_fat_long_quda(fat, lng)
+        ip = qt.InvertParam(dslash_type="hisq", inv_type="gcr-mg", mass=0.3,
+                            tol=1e-6, solve_type="direct",
+                            cuda_prec="single", gcrNkrylov=8)
+        qt.new_multigrid_quda(qt.MultigridParamAPI(
+            geo_block_size=((4, 4, 4, 4),), n_vec=(4,), setup_iters=(20,)),
+            ip)
+        src = gaussian(lattice_shape(dims) + (1, 3), seed=383)
+        n1 = spl.dslash_staggered_pallas_fused.launches
+        qt.invert_quda(src, ip)
+        assert spl.dslash_staggered_pallas_fused.launches > n1
+        assert ip.converged and ip.true_res <= 5e-6
+        m = qt.mat_quda(src, qt.InvertParam(dslash_type="hisq", mass=0.3,
+                                            cuda_prec="single"))
+    finally:
+        qt.end_quda()
+    d128 = DiracStaggered(torch.from_numpy(fat).to(torch.complex128), geom,
+                          0.3, improved=True,
+                          long_links=torch.from_numpy(lng).to(
+                              torch.complex128))
+    ref = d128.M(torch.from_numpy(src).to(torch.complex128))
+    assert rel_err(m.cpu().numpy(), ref.numpy()) < 1e-5

@@ -284,8 +284,9 @@ def test_operator_api_matches_jax(api_case, prec):
 
 def test_operator_api_routes_and_refusals(api_case):
     """Recon-12 single runs B4's R = 2 form; the families the operator API
-    does not serve raise, naming their ROADMAP item; recon-12 under double
-    raises (ROADMAP A7); shapes are checked."""
+    does not serve raise, naming their ROADMAP item, and the staggered
+    family on these recon-12 links names C; recon-12 under double raises
+    (ROADMAP A7); shapes are checked."""
     dims, g, psi, bo, want = api_case
     qt.init_quda(device="cpu")
     try:
@@ -298,7 +299,7 @@ def test_operator_api_routes_and_refusals(api_case):
                        want["single"]["mat"]) < 1e-6
         assert rel_err(qt.dslash_quda(bo, p, 0).numpy(),
                        want["single"]["dslash"]) < 1e-6
-        for dt, item in (("clover", "A17"), ("hisq", "A12"),
+        for dt, item in (("clover", "A17"), ("hisq", "C"),
                          ("twisted-mass", "A19")):
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
                 qt.mat_quda(psi, qt.InvertParam(dslash_type=dt, kappa=KAPPA,

@@ -90,6 +90,10 @@ def card_request(monkeypatch):
     monkeypatch.setattr(wpp, "dslash_packed_mrhs_plain", plain_reached)
     monkeypatch.setattr(cop, "coarse_apply_ref", plain_reached)
     monkeypatch.setattr(cop, "coarse_apply_mrhs_ref", plain_reached)
+    monkeypatch.setattr(spl, "dslash_staggered_pass_plain", plain_reached)
+    monkeypatch.setattr(spl, "dslash_staggered_pass_mrhs_plain",
+                        plain_reached)
+    monkeypatch.setattr(spl, "dslash_staggered_fused_plain", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -375,6 +379,103 @@ def test_full_hop_wrapper_raises_on_card_request(card_request):
     with pytest.raises(ValueError, match="multiple of X"):
         fn(u, psi, 3, gauge_bw=u)
     assert (fn.launches, dict(fn.launches_by_form)) == n0
+
+
+FULL_SITES = (4, 2, 2 * 4)                # (T, Z, Y*X) of a 4x2x2x4 lattice
+
+
+def _stag_full_counts():
+    return [(f.launches, dict(f.launches_by_form)) for f in
+            (spl.dslash_staggered_pass, spl.dslash_staggered_pass_mrhs,
+             spl.dslash_staggered_pallas_fused)]
+
+
+def test_staggered_full_wrappers_raise_on_card_request(card_request):
+    """S2-full, S2-mrhs-full and S1-full (and their fat + Naik
+    compositions): a card request without the library raises for both hop
+    counts, accumulating or not; bf16, recon-12 links, a wrong nhop, a
+    fused axis that is not a multiple of X, a missing RHS axis, an empty
+    batch, a mis-shaped accumulator and a missing long link set raise
+    before any launch; nothing is counted and no plain version runs."""
+    n0 = _stag_full_counts()
+    u = torch.zeros((4, 3, 3, 2) + FULL_SITES)
+    psi = torch.zeros((3, 2) + FULL_SITES)
+    psi_b = torch.zeros((3, 3, 2) + FULL_SITES)
+    for nhop in (1, 3):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            spl.dslash_staggered_pass(u, u, psi, 4, nhop)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            spl.dslash_staggered_pass_mrhs(u, u, psi_b, 4, nhop)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            spl.dslash_staggered_pass_mrhs(u, u, psi_b, 4, nhop,
+                                           acc=torch.zeros_like(psi_b))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        spl.dslash_staggered_pallas_fused(u, psi, 4, u)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        spl.dslash_staggered_pallas(u, u, psi, 4, u, u)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        spl.dslash_staggered_pallas_mrhs(u, u, psi_b, 4, u, u)
+    with pytest.raises(TypeError):
+        spl.dslash_staggered_pass(u.bfloat16(), u.bfloat16(),
+                                  psi.bfloat16(), 4, 1)
+    with pytest.raises(TypeError, match="float32"):
+        spl.dslash_staggered_pass_mrhs(u, u, psi_b.double(), 4, 1)
+    with pytest.raises(TypeError):
+        spl.dslash_staggered_pallas_fused(u.double(), psi.double(), 4,
+                                          u.double())
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        spl.dslash_staggered_pallas_fused(u, psi, 4, u[:, :2].contiguous())
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        spl.dslash_staggered_pass(u[:, :2].contiguous(), u, psi, 4, 3)
+    with pytest.raises(ValueError, match="nhop"):
+        spl.dslash_staggered_pass(u, u, psi, 4, 2)
+    with pytest.raises(ValueError, match="multiple of X"):
+        spl.dslash_staggered_pass(u, u, psi, 3, 1)
+    with pytest.raises(ValueError, match="N, 3, 2"):
+        spl.dslash_staggered_pass_mrhs(u, u, psi, 4, 1)
+    with pytest.raises(ValueError, match="right-hand sides"):
+        spl.dslash_staggered_pass_mrhs(u, u, psi_b[:0], 4, 1)
+    with pytest.raises(ValueError, match="acc"):
+        spl.dslash_staggered_pass_mrhs(u, u, psi_b, 4, 3,
+                                       acc=torch.zeros_like(psi_b[:2]))
+    with pytest.raises(ValueError, match="fat\\+Naik"):
+        spl.dslash_staggered_pallas_fused(u, psi, 4)
+    assert _stag_full_counts() == n0
+
+
+def test_staggered_operator_routes_never_fall_back(card_request):
+    """The staggered full-lattice pair operator (mat_quda's) and the fine
+    staggered MG level reach the kernels on a card request: their applies
+    raise for the missing library instead of running a plain stencil; the
+    operator refuses float64 storage (ROADMAP A7)."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.mg.pair import PairStaggeredLevelOp
+    from quda_tpu_torch.models.staggered import DiracStaggered
+    n0 = _stag_full_counts()
+    geom = LatticeGeometry((4, 2, 2, 4))
+    lat = geom.lattice_shape
+    links = torch.zeros((4,) + tuple(lat) + (3, 3), dtype=torch.complex64)
+    links[..., 0, 0] = links[..., 1, 1] = links[..., 2, 2] = 1.0
+    field = torch.zeros(tuple(lat) + (1, 3), dtype=torch.complex64)
+    for improved in (False, True):
+        d = DiracStaggered(links, geom, 0.1, improved=improved,
+                           long_links=links)
+        op = d.pairs()
+        with pytest.raises(RuntimeError, match="unavailable"):
+            op.M(field)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            op.MdagM(field)
+        lv = PairStaggeredLevelOp(d)
+        v = torch.view_as_real(field).contiguous()
+        with pytest.raises(RuntimeError, match="unavailable"):
+            lv.M_std(v)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            lv.M_std_full(v)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            lv.M_mrhs(torch.stack([lv.to_chiral(v)] * 2))
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            d.pairs(torch.float64)
+    assert _stag_full_counts() == n0
 
 
 def test_staggered_wrappers_reject_other_devices():

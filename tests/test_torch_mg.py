@@ -553,12 +553,13 @@ def test_gcr_mg_route_converges_reuses_and_rebuilds(kappa2):
 
 @pytest.mark.parametrize("change,item", [
     ({"dslash_type": "clover", "csw": 1.0}, "A12"),
-    ({"dslash_type": "staggered", "mass": 0.1}, "A12"),
+    ({"dslash_type": "staggered", "mass": 0.1, "cuda_prec": "double"},
+     "A12"),
     ({"cuda_prec": "double"}, "A12")],
     ids=["clover", "staggered", "double"])
 def test_refused_mg_routes(change, item):
-    """gcr-mg for clover, staggered and double raises, naming its ROADMAP
-    item, through invert_quda and new_multigrid_quda."""
+    """gcr-mg for clover, staggered at double and Wilson at double raises,
+    naming its ROADMAP item, through invert_quda and new_multigrid_quda."""
     g = su3_gauge(DIMS, 340)
     b = gaussian(lattice_shape(DIMS) + (4, 3), 340)
     qt.init_quda("cpu")
