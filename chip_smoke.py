@@ -73,6 +73,35 @@ Phases, one JSON line each (``"phase": ...``):
              per 12-source batched_cg_pairs iteration against 12 fused_cg
              iterations.
 
+6a. Wilson quarter precision and the copy-free link forms (ROADMAP A7,
+   B9, B10-eo) on the main path's gauge and sources (fields of the
+   checks from a generator of their own):
+   check   — the copy-free hop (v3 and r12f wrappers, one kernel: B1's
+             six f32/bf16 forms) against its plain version and bit for
+             bit B1 on the backward_gauge_eo copy; the int8 hop
+             (f32->f32, bf16->bf16, bf16->f32) against its plain version
+             and bit for bit B1 f32 on from_int8_links(q, s); the
+             multi-RHS r12f hop (R = 3, 2; N = 1, 3, 12 at 4x6x8x10, 12 at
+             32^3 x 64) against its plain version and lane by lane r12f;
+             at 4x6x8x10 and 32^3 x 64, both parities.
+   invert_quarter — invert_quda(cuda_prec_sloppy="quarter") at tol 1e-6
+             (cg_reliable, int8 bf16 sloppy links) and 1e-10 (df64).
+             Fails unless converged, true_res <= 1e-5 (<= 1e-10, also in
+             complex128 on x + x_df64_lo) and the int8 hop ran >= 4 times
+             an iteration; iterations and reliable updates beside
+             single/half's and df64 single's.
+   precision_solve — fused_cg on the f32 pair operators full, r12, v3
+             (full), r12f and int8; cg_reliable on full, r12, v3 and r12f
+             with their bf16 twins; 12 sources batched on r12 (B5-eo) and
+             r12f (multi-RHS r12f).  Fails unless v3 and r12f take their
+             twins' iterations to the same solution bits, every lane of
+             the r12f batch its r12 lane's, and each form runs its own
+             kernel only (>= 4 launches an iteration).
+   timing  ("family": "precision") — each form's ms, bound, share and
+             plain ms, launches and launches per iteration on its path,
+             the resident link bytes of each pair operator
+             (torch.cuda.memory_allocated around its construction).
+
 7. The full-lattice hop and native double (BASELINE configs 1 and 2;
    fields from a generator of their own):
    check   — B4 (full-lattice hop: full:f32->f32, r12:f32->f32,
@@ -2524,6 +2553,409 @@ def staggered_mg(torch, dev, smi, gauge) -> list:
          "library_ms": None}]
 
 
+def precision(torch, dev, smi, gauge, src, srcs, half_ref, df64_ref,
+              multi_r12_iters) -> list:
+    """Wilson quarter precision and the copy-free link forms (phases
+    check, invert_quarter, precision_solve, timing with "family":
+    "precision"); returns the kernels-line rows of v3, r12f, r12f-mrhs and
+    int8.  ``gauge`` and ``src`` are the main path's hot gauge and
+    source, ``srcs`` its 12 sources; ``half_ref`` the single/half route's
+    (iterations, reliable updates) by link form, ``df64_ref`` the df64
+    route's, ``multi_r12_iters`` the lanes' iterations of the 12-source
+    r12 solve."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_split
+    from quda_tpu_torch.models.wilson import DiracWilson, DiracWilsonPC
+    from quda_tpu_torch.ops import blockfloat as tbf
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    geom_p = LatticeGeometry(PROD_DIMS)
+    half = geom_p.half_volume
+    errs = {}
+    there = {"v3": wpp.dslash_eo_pallas_packed_v3,
+             "r12f": wpp.dslash_eo_pallas_packed_r12f}
+    there_forms = [(3, f32, f32), (3, bf16, bf16), (3, bf16, f32),
+                   (2, f32, f32), (2, bf16, bf16), (2, bf16, f32)]
+    int8_forms = [(f32, f32), (bf16, bf16), (bf16, f32)]
+
+    def inputs(dims_xyzt, rows, store, n=None):
+        T, Z, Y, X = LatticeGeometry(dims_xyzt).lattice_shape
+        sites = (T, Z, Y * X // 2)
+        lead = () if n is None else (n,)
+        u_here, u_there = (torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                                       device=dev).to(store)
+                           for _ in range(2))
+        psi = torch.randn(lead + (4, 3, 2) + sites, generator=gen,
+                          device=dev).to(store)
+        return (T, Z, Y, X), u_here, u_there, psi
+
+    def check(kernel, name, dims_xyzt, parity, got, want, twin, tol,
+              **info):
+        """``got`` within ``tol`` of the plain ``want``, and bit for bit
+        ``twin`` (the resident-copy kernel on the same links)."""
+        torch.cuda.synchronize()
+        abs_err = (got.float() - want.float()).abs().max().item()
+        rel = abs_err / want.float().abs().max().item()
+        same = bool(torch.equal(got, twin))
+        key = f"{kernel}:{name}"
+        errs[key] = max(errs.get(key, 0.0), abs_err)
+        emit({"phase": "check", "kernel": kernel, "form": name,
+              "dims_xyzt": list(dims_xyzt), "parity": parity,
+              "max_abs_err": abs_err, "max_rel_err": rel, "tolerance": tol,
+              "bit_for_bit_twin": same, **info})
+        if not (rel <= tol and same):
+            fail(f"{kernel} {name} disagrees with its plain version "
+                 f"({rel:.3e} > {tol:g}) or with its twin (equal: {same})")
+
+    # -- check: the copy-free hops against plain and B1, the int8 hop
+    # against plain and B1 on the decoded links, r12f-mrhs lanes ---------
+    for dims_xyzt in (SMALL_DIMS, PROD_DIMS):
+        for parity in (0, 1):
+            for rows, store, out in there_forms:
+                dims, u_here, u_there, psi = inputs(dims_xyzt, rows, store)
+                u_bw = wpp.backward_gauge_eo(u_there, dims,
+                                             parity).contiguous()
+                b1 = wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims,
+                                                 parity, out_dtype=out)
+                want = wpp.dslash_eo_there_plain(u_here, u_there, psi, dims,
+                                                 parity, out_dtype=out)
+                tol = wpp.TOLERANCE if out == f32 else wpp.TOLERANCE_BF16
+                for fname, fn in there.items():
+                    got = fn(u_here, u_there, psi, dims, parity,
+                             out_dtype=out)
+                    check(fn.__name__, wpp.form_name(rows, store, out),
+                          dims_xyzt, parity, got, want, b1, tol)
+                del u_here, u_there, psi, u_bw, b1, want, got
+            for store, out in int8_forms:
+                dims, u_here, u_there, psi = inputs(dims_xyzt, 3, f32)
+                (qh, sh), (qt_, st) = (tbf.to_int8_links(u)
+                                       for u in (u_here, u_there))
+                psi = psi.to(store)
+                got = wpp.dslash_eo_pallas_packed_int8(
+                    qh, sh, qt_, st, psi, dims, parity, out_dtype=out)
+                want = wpp.dslash_eo_int8_plain(qh, sh, qt_, st, psi, dims,
+                                                parity, out_dtype=out)
+                u_bw = wpp.backward_gauge_eo(tbf.from_int8_links(qt_, st),
+                                             dims, parity).contiguous()
+                b1 = wpp.dslash_eo_pallas_packed(
+                    tbf.from_int8_links(qh, sh), u_bw, psi.float(), dims,
+                    parity).to(out)
+                check("dslash_eo_pallas_packed_int8",
+                      wpp.int8_form_name(store, out), dims_xyzt, parity, got,
+                      want, b1,
+                      wpp.TOLERANCE if out == f32 else wpp.TOLERANCE_BF16)
+                del u_here, u_there, psi, qh, sh, qt_, st, u_bw, b1, want, got
+            cases = ([(1, 1), (3, 2), (12, 2)] if dims_xyzt == SMALL_DIMS
+                     else [(MULTI_SRC_N, wpp.MRHS_CHUNK)])
+            for rows in (3, 2):
+                for n, chunk in cases:
+                    dims, u_here, u_there, psi = inputs(dims_xyzt, rows, f32,
+                                                        n)
+                    got = wpp.dslash_eo_pallas_packed_r12f_mrhs(
+                        u_here, u_there, psi, dims, parity, chunk=chunk)
+                    want = wpp.dslash_eo_there_mrhs_plain(u_here, u_there,
+                                                          psi, dims, parity)
+                    lanes = torch.stack([wpp.dslash_eo_pallas_packed_r12f(
+                        u_here, u_there, psi[r], dims, parity)
+                        for r in range(n)])
+                    check("dslash_eo_pallas_packed_r12f_mrhs",
+                          wpp.form_name(rows, f32, f32), dims_xyzt, parity,
+                          got, want, lanes, wpp.TOLERANCE, nrhs=n,
+                          chunk=chunk)
+                    del u_here, u_there, psi, got, want, lanes
+
+    # -- the main paths: counts zeroed just before each, read just after --
+    def counts():
+        return {f"{fn.__name__}": dict(fn.launches_by_form) for fn in (
+            wpp.dslash_eo_pallas_packed, wpp.dslash_eo_pallas_packed_mrhs,
+            wpp.dslash_eo_pallas_packed_v3, wpp.dslash_eo_pallas_packed_r12f,
+            wpp.dslash_eo_pallas_packed_r12f_mrhs,
+            wpp.dslash_eo_pallas_packed_int8)}
+
+    launches, path_iters = {}, {}
+
+    def run(label, fn):
+        wpp.reset_launches()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = counts()
+        return out
+
+    def by(label, fn, form=None):
+        got = launches[label][fn.__name__]
+        return sum(got.values()) if form is None else got.get(form, 0)
+
+    # invert_quda at quarter: tol 1e-6 (cg_reliable) and 1e-10 (df64)
+    quarter = {}
+    for tol in (TOL, DF64_TOL):
+        qt.init_quda(dev)
+        try:
+            qt.load_gauge_quda(gauge, qt.GaugeParam(X=PROD_DIMS,
+                                                    cuda_prec="single"))
+            param = qt.InvertParam(
+                dslash_type="wilson", inv_type="cg", solve_type="normop-pc",
+                kappa=KAPPA, tol=tol, maxiter=2000, cuda_prec="single",
+                cuda_prec_sloppy="quarter")
+            torch.cuda.reset_peak_memory_stats(dev)
+            x = run(f"quarter:{tol:g}", lambda: qt.invert_quda(src, param))
+        finally:
+            qt.end_quda()
+        label = f"quarter:{tol:g}"
+        n_int8 = by(label, wpp.dslash_eo_pallas_packed_int8)
+        finite = bool(torch.isfinite(torch.view_as_real(x)).all())
+        shape_ok = tuple(x.shape) == geom_p.spinor_shape()
+        row = {"phase": "invert_quarter", "dims_xyzt": list(PROD_DIMS),
+               "kappa": KAPPA, "tol": tol, "cuda_prec_sloppy": "quarter",
+               "iters": param.iter_count,
+               "reliable_updates": param.reliable_updates,
+               "secs": param.secs, "true_res": param.true_res,
+               "converged": param.converged,
+               "launches": launches[label],
+               "int8_launches_per_iter": n_int8 / param.iter_count,
+               "half_iters_reliable_updates": (half_ref["full"] if tol == TOL
+                                               else None),
+               "df64_single_iters_reliable_updates": (
+                   df64_ref if tol != TOL else None),
+               "shape_ok": shape_ok, "finite": finite,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        ok = (param.converged and finite and shape_ok
+              and n_int8 >= 4 * param.iter_count)
+        if tol == TOL:
+            ok = ok and param.true_res <= TRUE_RES_MAX
+        else:
+            x128 = (x.to(torch.complex128)
+                    + param.x_df64_lo.to(torch.complex128))
+            d128 = DiracWilson(gauge.to(torch.complex128), geom_p, KAPPA)
+            b128 = src.to(torch.complex128)
+            oracle = float(torch.linalg.vector_norm(b128 - d128.M(x128))
+                           / torch.linalg.vector_norm(b128))
+            del x128, d128, b128
+            row["true_res_complex128"] = oracle
+            ok = ok and param.true_res <= DF64_TOL and oracle <= DF64_TOL
+        emit(row)
+        quarter[tol] = (param.iter_count, param.reliable_updates, param.secs)
+        path_iters[label] = param.iter_count
+        if not ok:
+            fail(f"quarter invert_quda at tol {tol:g} missed its gates: "
+                 f"{row}")
+        del x
+
+    # the pair operators' forms: fused_cg (f32) and cg_reliable (f32 /
+    # bf16) on the same right-hand side; the copy-free forms against the
+    # resident-copy forms they equal bit for bit
+    dpk = DiracWilsonPC(gauge, geom_p, KAPPA).packed()
+    be, bo = even_odd_split(src, geom_p)
+    resident = {}
+
+    def build(store, form, version=2):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        op = dpk.pairs(store, form, pallas_version=version)
+        torch.cuda.synchronize()
+        resident[(str(store), form, version)] = \
+            torch.cuda.memory_allocated(dev) - m0
+        return op
+
+    ops = {"full": build(f32, "full"), "r12": build(f32, "r12"),
+           "v3": build(f32, "full", 3), "r12f": build(f32, "r12f"),
+           "int8": build(f32, "int8")}
+    rhs = ops["full"].Mdag_pairs(ops["full"].prepare_pairs(be, bo))
+    solves = {}
+    for name, op in ops.items():
+        res = run(f"fused_cg:{name}", lambda: fused_cg(
+            op.MdagM_pairs, rhs, tol=TOL, maxiter=2000))
+        solves[name] = res
+        path_iters[f"fused_cg:{name}"] = res.iters
+        emit({"phase": "precision_solve", "solver": "fused_cg",
+              "operator": name, "dims_xyzt": list(PROD_DIMS), "tol": TOL,
+              "iters": res.iters, "converged": res.converged,
+              "launches": launches[f"fused_cg:{name}"]})
+    if not all(r.converged for r in solves.values()):
+        fail(f"fused_cg on a pair operator did not converge: "
+             f"{ {k: r.converged for k, r in solves.items()} }")
+    for name, twin in (("v3", "full"), ("r12f", "r12")):
+        if solves[name].iters != solves[twin].iters or not torch.equal(
+                solves[name].x, solves[twin].x):
+            fail(f"fused_cg on {name} took {solves[name].iters} iterations "
+                 f"or another solution than on {twin} "
+                 f"({solves[twin].iters})")
+    for name, fn in (("v3", wpp.dslash_eo_pallas_packed_v3),
+                     ("r12f", wpp.dslash_eo_pallas_packed_r12f),
+                     ("int8", wpp.dslash_eo_pallas_packed_int8)):
+        if by(f"fused_cg:{name}", fn) < 4 * solves[name].iters or by(
+                f"fused_cg:{name}", wpp.dslash_eo_pallas_packed):
+            fail(f"fused_cg on {name} did not run through its kernel only: "
+                 f"{launches[f'fused_cg:{name}']}")
+    del solves
+    ops.update({"bf16:full": build(bf16, "full"),
+                "bf16:r12": build(bf16, "r12"),
+                "bf16:v3": build(bf16, "full", 3),
+                "bf16:r12f": build(bf16, "r12f"),
+                "bf16:int8": build(bf16, "int8")})
+    codec = pair_inplace_codec(bf16)
+    mixed = {}
+    for name in ("full", "r12", "v3", "r12f"):
+        res = run(f"cg_reliable:{name}", lambda: cg_reliable(
+            ops[name].MdagM_pairs, ops[f"bf16:{name}"].MdagM_pairs, rhs,
+            codec, tol=TOL, maxiter=2000))
+        mixed[name] = res
+        path_iters[f"cg_reliable:{name}"] = res.iters
+        emit({"phase": "precision_solve", "solver": "cg_reliable",
+              "operator": f"{name} / bf16 {name}",
+              "dims_xyzt": list(PROD_DIMS), "tol": TOL, "iters": res.iters,
+              "reliable_updates": res.reliable_updates,
+              "converged": res.converged,
+              "launches": launches[f"cg_reliable:{name}"]})
+    for name, twin in (("v3", "full"), ("r12f", "r12")):
+        if not (mixed[name].converged and mixed[name].iters ==
+                mixed[twin].iters and torch.equal(mixed[name].x,
+                                                  mixed[twin].x)):
+            fail(f"cg_reliable on {name} differs from {twin}: "
+                 f"{mixed[name].iters} against {mixed[twin].iters}")
+    del mixed
+
+    # 12 sources batched on the r12f operator (the multi-RHS r12f hop)
+    # and on the r12 one (B5-eo), the same batch
+    be_b, bo_b = (torch.stack(h).contiguous() for h in zip(
+        *(even_odd_split(srcs[i], geom_p) for i in range(MULTI_SRC_N))))
+    batched = {}
+    for name in ("r12", "r12f"):
+        op = ops[name]
+        rhs_b = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be_b, bo_b))
+        res_b = run(f"batched:{name}", lambda: batched_cg_pairs(
+            op.MdagM_pairs_mrhs, rhs_b, tol=TOL, maxiter=2000))
+        batched[name] = ([int(i) for i in res_b.iters],
+                         all(bool(c) for c in res_b.converged))
+        path_iters[f"batched:{name}"] = max(batched[name][0])
+        emit({"phase": "precision_solve", "solver": "batched_cg_pairs",
+              "operator": name, "nrhs": MULTI_SRC_N, "tol": TOL,
+              "iters_per_lane": batched[name][0],
+              "invert_multi_src_r12_iters": list(multi_r12_iters),
+              "converged": batched[name][1],
+              "launches": launches[f"batched:{name}"]})
+        del rhs_b, res_b
+    del be_b, bo_b
+    lanes, converged = batched["r12f"]
+    n_mrhs = by("batched:r12f", wpp.dslash_eo_pallas_packed_r12f_mrhs)
+    if not (converged and lanes == batched["r12"][0]
+            and n_mrhs >= 4 * max(lanes)
+            and by("batched:r12f", wpp.dslash_eo_pallas_packed_r12f) == 0
+            and by("batched:r12f", wpp.dslash_eo_pallas_packed_mrhs) == 0):
+        fail(f"the 12-source r12f solve: lanes {lanes} against r12's "
+             f"{batched['r12'][0]}, {n_mrhs} multi-RHS r12f launches")
+
+    # -- timing: each new form against its bound and plain version ---------
+    def bound(nbytes, nflop, sites=half):
+        t_bytes = nbytes * sites / HBM_BYTES_PER_S
+        t_ops = nflop * sites / F32_FLOPS_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    timing = {}
+    for rows, store, out in there_forms:
+        dims, u_here, u_there, psi = inputs(PROD_DIMS, rows, store)
+        name = wpp.form_name(rows, store, out)
+        k_ms = {f: median_ms(lambda: fn(u_here, u_there, psi, dims, 0,
+                                        out_dtype=out), torch)
+                for f, fn in there.items()}
+        p_ms = median_ms(lambda: wpp.dslash_eo_there_plain(
+            u_here, u_there, psi, dims, 0, out_dtype=out), torch, 5, 2)
+        b_ms, b_by = bound(wpp.bytes_per_site(rows, store, out),
+                           wpp.flops_per_site(rows))
+        for f in there:
+            timing[f"{f}:{name}"] = (k_ms[f], p_ms, b_ms, b_by)
+        del u_here, u_there, psi
+    for store, out in int8_forms:
+        dims, u_here, u_there, psi = inputs(PROD_DIMS, 3, f32)
+        (qh, sh), (qt_, st) = (tbf.to_int8_links(u)
+                               for u in (u_here, u_there))
+        psi = psi.to(store)
+        del u_here, u_there
+        k_ms = median_ms(lambda: wpp.dslash_eo_pallas_packed_int8(
+            qh, sh, qt_, st, psi, dims, 0, out_dtype=out), torch)
+        p_ms = median_ms(lambda: wpp.dslash_eo_int8_plain(
+            qh, sh, qt_, st, psi, dims, 0, out_dtype=out), torch, 5, 2)
+        b_ms, b_by = bound(wpp.bytes_per_site_int8(store, out),
+                           wpp.INT8_FLOPS_PER_SITE)
+        timing[f"int8:{wpp.int8_form_name(store, out)}"] = (k_ms, p_ms, b_ms,
+                                                          b_by)
+        del qh, sh, qt_, st, psi
+    for rows in (3, 2):
+        dims, u_here, u_there, psi = inputs(PROD_DIMS, rows, f32,
+                                            MULTI_SRC_N)
+        k_ms = median_ms(lambda: wpp.dslash_eo_pallas_packed_r12f_mrhs(
+            u_here, u_there, psi, dims, 0), torch)
+        p_ms = median_ms(lambda: wpp.dslash_eo_there_mrhs_plain(
+            u_here, u_there, psi, dims, 0), torch, 3, 1)
+        b_ms, b_by = bound(wpp.bytes_per_site_mrhs(MULTI_SRC_N, rows),
+                           wpp.flops_per_site_mrhs(MULTI_SRC_N, rows))
+        timing[f"r12f_mrhs:{wpp.form_name(rows, f32, f32)}"] = (
+            k_ms, p_ms, b_ms, b_by)
+        del u_here, u_there, psi
+
+    # (kernel, form) -> the path its launches are read from
+    on_path = [("v3", "full:f32->f32", "fused_cg:v3"),
+               ("v3", "full:bf16->bf16", "cg_reliable:v3"),
+               ("v3", "full:bf16->f32", "cg_reliable:v3"),
+               ("r12f", "r12:f32->f32", "fused_cg:r12f"),
+               ("r12f", "r12:bf16->bf16", "cg_reliable:r12f"),
+               ("r12f", "r12:bf16->f32", "cg_reliable:r12f"),
+               ("r12f_mrhs", "r12:f32->f32", "batched:r12f"),
+               ("int8", "int8:f32->f32", "fused_cg:int8"),
+               ("int8", "int8:bf16->bf16", f"quarter:{TOL:g}"),
+               ("int8", "int8:bf16->f32", f"quarter:{TOL:g}")]
+    fns = {"v3": wpp.dslash_eo_pallas_packed_v3,
+           "r12f": wpp.dslash_eo_pallas_packed_r12f,
+           "r12f_mrhs": wpp.dslash_eo_pallas_packed_r12f_mrhs,
+           "int8": wpp.dslash_eo_pallas_packed_int8}
+    on_path_launches = {(k, f): by(p, fns[k], f) for k, f, p in on_path}
+    row = {"phase": "timing", "family": "precision",
+           "dims_xyzt": list(PROD_DIMS), "nvidia_smi": smi,
+           "repeats": REPEATS, "calls_per_timing": BATCH,
+           "resident_link_bytes": {f"{s}:{f}:v{v}": b for (s, f, v), b
+                                   in resident.items()},
+           "quarter": {f"{t:g}": {"iters": q[0], "reliable_updates": q[1],
+                                  "secs": q[2]}
+                       for t, q in quarter.items()}}
+    for name, (k_ms, p_ms, b_ms, _) in timing.items():
+        row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "share_of_bound": b_ms / k_ms}
+    for kernel, form, path in on_path:
+        n = on_path_launches[(kernel, form)]
+        row[f"{kernel}:{form}"].update(
+            path=path, launches=n, launches_per_iter=n / path_iters[path])
+    emit(row)
+    del ops, dpk, rhs
+
+    # the kernels-line rows: each form with a path, launches from it
+    rows_out = []
+    sources = {"v3": "quda_tpu_torch/csrc/wilson_eo_there.cu",
+               "r12f": "quda_tpu_torch/csrc/wilson_eo_there.cu",
+               "r12f_mrhs": "quda_tpu_torch/csrc/wilson_eo_there.cu",
+               "int8": "quda_tpu_torch/csrc/wilson_eo_int8.cu"}
+    replaces = {"v3": "quda_tpu/ops/wilson_pallas_packed.py:1097",
+                "r12f": "quda_tpu/ops/wilson_pallas_packed.py:1584",
+                "r12f_mrhs": "quda_tpu/ops/wilson_pallas_packed.py:1649",
+                "int8": "quda_tpu/ops/wilson_pallas_packed.py:1904"}
+    for kernel, form, path in on_path:
+        k_ms, p_ms, b_ms, b_by = timing[f"{kernel}:{form}"]
+        check_key = f"{fns[kernel].__name__}:{form}"
+        rows_out.append({
+            "name": f"{fns[kernel].__name__}[{form}]", "route": "cuda",
+            "source": sources[kernel], "replaces": replaces[kernel],
+            "launches": on_path_launches[(kernel, form)],
+            "max_abs_err": errs[check_key], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return rows_out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2889,7 +3321,7 @@ def main() -> int:
     iters_main = param.iter_count
     del x
 
-    mixed = {}
+    mixed, half_ref = {}, {}
     for form, rec in (("full", 18), ("r12", 12)):
         x, param, counts, finite, shape_ok = solve(rec,
                                                    cuda_prec_sloppy="half")
@@ -2899,6 +3331,7 @@ def main() -> int:
         r12_hops = sum(v for k, v in by.items() if k.startswith("r12:"))
         b3 = counts["b3_by_form"].get("bf16", 0)
         mixed[form] = (param.iter_count, param.secs)
+        half_ref[form] = (param.iter_count, param.reliable_updates)
         emit({"phase": "invert_mixed", "precision_form": form,
               "dims_xyzt": list(PROD_DIMS), "kappa": KAPPA, "tol": TOL,
               "cuda_prec_sloppy": "half", "iters": param.iter_count,
@@ -2920,6 +3353,7 @@ def main() -> int:
 
     x, param, counts, finite, shape_ok = solve(tol=DF64_TOL)
     launches["df64"] = counts
+    df64_ref = (param.iter_count, param.reliable_updates)
     x128 = x.to(torch.complex128) + param.x_df64_lo.to(torch.complex128)
     d128 = DiracWilson(gauge.to(torch.complex128), geom_p, KAPPA)
     b128 = src.to(torch.complex128)
@@ -3407,6 +3841,8 @@ def main() -> int:
             "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
+    rows_out.extend(precision(torch, dev, smi, gauge, src, srcs, half_ref,
+                              df64_ref, multi["wilson:r12"][0]))
     rows_out.extend(operator_and_double(torch, dev, smi))
     rows_out.extend(staggered(torch, dev, smi))
     rows_out.extend(zoo(torch, dev, smi))

@@ -1,10 +1,13 @@
 // Device code of the Wilson hop on the packed pair layout, shared by the
 // eo hop kernel (B1, wilson_eo.cu), the fused clover hop (B7,
-// clover_eo.cu) and the full-lattice hop (B4, wilson_full.cu): the spin
-// tables, the f32/bf16/f64 loads and stores, the link load (R = 3 rows,
-// or R = 2 with row 2 rebuilt), the clover block entry load, one hop
-// direction, and the whole 8-direction hop at one target site: eo_hop_sum
-// on the half lattice, full_hop_sum on the full one.  Both take a
+// clover_eo.cu), the full-lattice hop (B4, wilson_full.cu) and the
+// copy-free and int8 eo hops (wilson_eo_there.cu, wilson_eo_int8.cu): the
+// spin tables, the f32/bf16/f64 loads and stores, the link load (R = 3
+// rows, or R = 2 with row 2 rebuilt), the link sources (pre-shifted
+// backward links, backward links read from the opposite parity, int8
+// block-float links), the clover block entry load, one hop direction, and
+// the whole 8-direction hop at one target site: eo_hop_sum on the half
+// lattice, full_hop_sum on the full one.  Both take a
 // compile-time count NB of right-hand sides: each direction's link is
 // loaded (and its row 2 rebuilt) once and applied to NB spinors, which is
 // what the multi-RHS kernels (B5-eo, wilson_eo_mrhs.cu; B7-mrhs,
@@ -24,6 +27,9 @@
 //   u_here    (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x) at the target sites x
 //   u_bw      (4, R, 3, 2, T, Z, Y*Xh)  U_mu(x - mu), taken from the opposite
 //                                       parity and shifted once per gauge load
+//   u_there   (4, R, 3, 2, T, Z, Y*Xh)  the opposite parity's links, unshifted
+//                                       (the copy-free forms read U_mu(x - mu)
+//                                       there, at the neighbour x - mu)
 // The NB spinors of one call lie rstride elements apart (24 * S for a
 // (N, 4, 3, 2, T, Z, Y*Xh) batch); only the first nvalid of them are read
 // (a tail chunk).  Offsets are 64-bit.
@@ -172,20 +178,89 @@ __device__ __forceinline__ void ld_link(C (&u)[3][3],
   }
 }
 
-// One hop for NB right-hand sides: psi read at neighbour nb, links at the
-// target site.  SIGN > 0 is the forward hop (1 - gamma_mu) U psi(x+mu);
-// SIGN < 0 the backward hop (1 + gamma_mu) U^dag psi(x-mu), U^dag[a][b] =
-// conj(U[b][a]).  The link is loaded once for all NB spinors.
-template <int MU, int SIGN, int R, int NB, typename S, typename C>
+// Link sources of the hop, chosen at compile time: where the 3x3 link of
+// one hop direction is read.  ``load<MU, SIGN>`` gets the target
+// half-site ``site`` and the neighbour ``nb`` that psi is read at (x + mu
+// forward, x - mu backward).
+//   Shifted<R, S>  forward U_mu(x) from ``here`` at the target site,
+//                  backward U_mu(x - mu) from the pre-shifted ``bw``, also
+//                  at the target site (B1, B4, K1/K2 and their multi-RHS
+//                  forms);
+//   There<R, S>    forward as Shifted's; backward read unshifted from
+//                  ``there``, the opposite parity's links, at the
+//                  neighbour x - mu: the index psi is read at, so the x
+//                  hop's slot-parity select is the one psi's uses (the
+//                  copy-free forms v3 and r12f);
+//   Int8There      There's reads on int8 block-float links: 18 int8
+//                  mantissas a link and one f32 scale a (direction, site)
+//                  (4, T, Z, Y*Xh), each element decoded as float(q) * scale
+//                  in one rounding (__fmul_rn, which nvcc does not contract
+//                  into the colour product), so the decoded link is
+//                  from_int8_links' bit for bit.
+// The row-2 sign of an R = 2 link is the caller's, keyed to the target
+// plane (t = 0 for the backward t link) whichever source reads it.
+template <int R, typename S>
+struct Shifted {
+  const S* here;
+  const S* bw;
+  template <int MU, int SIGN, typename C>
+  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t site,
+                                       int64_t, float row2_sign) const {
+    ld_link<R>(u, SIGN > 0 ? here : bw, MU, n, site, row2_sign);
+  }
+};
+
+template <int R, typename S>
+struct There {
+  const S* here;
+  const S* there;
+  template <int MU, int SIGN, typename C>
+  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t site,
+                                       int64_t nb, float row2_sign) const {
+    ld_link<R>(u, SIGN > 0 ? here : there, MU, n, SIGN > 0 ? site : nb,
+               row2_sign);
+  }
+};
+
+struct Int8There {
+  const int8_t* q_here;
+  const float* s_here;
+  const int8_t* q_there;
+  const float* s_there;
+  template <int MU, int SIGN>
+  __device__ __forceinline__ void load(float2 (&u)[3][3], int64_t n,
+                                       int64_t site, int64_t nb,
+                                       float) const {
+    const int64_t i = SIGN > 0 ? site : nb;
+    const int8_t* q = SIGN > 0 ? q_here : q_there;
+    const float sc = __ldg((SIGN > 0 ? s_here : s_there) + MU * n + i);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int8_t* p =
+            q + static_cast<int64_t>(((MU * 3 + a) * 3 + b) * 2) * n + i;
+        u[a][b] = make_float2(__fmul_rn(static_cast<float>(__ldg(p)), sc),
+                              __fmul_rn(static_cast<float>(__ldg(p + n)), sc));
+      }
+  }
+};
+
+// One hop for NB right-hand sides: psi read at neighbour nb, the link from
+// the link source L.  SIGN > 0 is the forward hop (1 - gamma_mu) U
+// psi(x+mu); SIGN < 0 the backward hop (1 + gamma_mu) U^dag psi(x-mu),
+// U^dag[a][b] = conj(U[b][a]).  The link is loaded once for all NB
+// spinors.
+template <int MU, int SIGN, int NB, typename S, typename C, typename L>
 __device__ __forceinline__ void hop(C (&acc)[NB][4][3],
                                     const S* __restrict__ psi,
                                     int64_t rstride, int nvalid,
-                                    const S* __restrict__ g, int64_t n,
+                                    const L& links, int64_t n,
                                     int64_t nb, int64_t site,
                                     float row2_sign) {
   constexpr Tab t = tab(MU, SIGN);
   C u[3][3];
-  ld_link<R>(u, g, MU, n, site, row2_sign);
+  links.template load<MU, SIGN>(u, n, site, nb, row2_sign);
   C m[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
@@ -250,15 +325,13 @@ __device__ __forceinline__ void yzt_nbrs(Nbrs& nb, int64_t site, int y,
 }
 
 // The 8 hops at target site ``site`` into acc (zeroed first), in the TPU
-// kernel's order: x, y, z, t, forward before backward.
-template <int R, int NB, typename S, typename C>
+// kernel's order: x, y, z, t, forward before backward; links from L.
+template <int NB, typename S, typename C, typename L>
 __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
                                         const S* __restrict__ psi,
                                         int64_t rs, int nvalid,
-                                        const S* __restrict__ u_here,
-                                        const S* __restrict__ u_bw,
-                                        int64_t n, const Nbrs& nb,
-                                        int64_t site) {
+                                        const L& lk, int64_t n,
+                                        const Nbrs& nb, int64_t site) {
 #pragma unroll
   for (int r = 0; r < NB; ++r)
 #pragma unroll
@@ -266,16 +339,14 @@ __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
 #pragma unroll
       for (int c = 0; c < 3; ++c) acc[r][s][c] = czero<C>();
 
-  hop<0, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[0], site, 1.f);
-  hop<0, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[0], site, 1.f);
-  hop<1, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[1], site, 1.f);
-  hop<1, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[1], site, 1.f);
-  hop<2, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[2], site, 1.f);
-  hop<2, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[2], site, 1.f);
-  hop<3, +1, R>(acc, psi, rs, nvalid, u_here, n, nb.fwd[3], site,
-                nb.s_t_fwd);
-  hop<3, -1, R>(acc, psi, rs, nvalid, u_bw, n, nb.bwd[3], site,
-                nb.s_t_bwd);
+  hop<0, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[0], site, 1.f);
+  hop<0, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[0], site, 1.f);
+  hop<1, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[1], site, 1.f);
+  hop<1, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[1], site, 1.f);
+  hop<2, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[2], site, 1.f);
+  hop<2, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[2], site, 1.f);
+  hop<3, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[3], site, nb.s_t_fwd);
+  hop<3, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[3], site, nb.s_t_bwd);
 }
 
 // The hop sum D_{p <- 1-p} psi at target half-site ``site`` into acc.  A
@@ -285,17 +356,17 @@ __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
 // along a row.  The caller passes the plane strides it computed (YXh =
 // Y*Xh, ZYXh = Z*YXh, n = T*ZYXh), so the kernel and the hop share one set.
 // The NB right-hand sides are psi + r * rstride, r < nvalid; acc[r] is
-// zeroed and summed for each of them.
-template <int R, int NB, typename S, typename C>
-__device__ __forceinline__ void eo_hop_sum(C (&acc)[NB][4][3],
-                                           const S* __restrict__ psi,
-                                           int64_t rstride, int nvalid,
-                                           const S* __restrict__ u_here,
-                                           const S* __restrict__ u_bw,
-                                           int T, int Z, int Y, int Xh,
-                                           int64_t YXh, int64_t ZYXh,
-                                           int64_t n, int parity,
-                                           int tb_sign, int64_t site) {
+// zeroed and summed for each of them.  The links come from the link
+// source ``lk`` (Shifted, There, Int8There).
+template <int NB, typename S, typename C, typename L>
+__device__ __forceinline__ void eo_hop_sum_from(C (&acc)[NB][4][3],
+                                                const S* __restrict__ psi,
+                                                int64_t rstride, int nvalid,
+                                                const L& lk, int T, int Z,
+                                                int Y, int Xh, int64_t YXh,
+                                                int64_t ZYXh, int64_t n,
+                                                int parity, int tb_sign,
+                                                int64_t site) {
   const int xh = static_cast<int>(site % Xh);
   const int y = static_cast<int>((site / Xh) % Y);
   const int z = static_cast<int>((site / YXh) % Z);
@@ -308,7 +379,23 @@ __device__ __forceinline__ void eo_hop_sum(C (&acc)[NB][4][3],
   nb.fwd[0] = row + (r0 ? xh : (xh + 1 == Xh ? 0 : xh + 1));
   nb.bwd[0] = row + (r0 ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
   yzt_nbrs(nb, site, y, z, t, T, Z, Y, Xh, YXh, ZYXh, tb_sign);
-  hop_sum<R>(acc, psi, rstride, nvalid, u_here, u_bw, n, nb, site);
+  hop_sum(acc, psi, rstride, nvalid, lk, n, nb, site);
+}
+
+// eo_hop_sum_from with the pre-shifted backward links (B1, K1/K2 and their
+// multi-RHS forms).
+template <int R, int NB, typename S, typename C>
+__device__ __forceinline__ void eo_hop_sum(C (&acc)[NB][4][3],
+                                           const S* __restrict__ psi,
+                                           int64_t rstride, int nvalid,
+                                           const S* __restrict__ u_here,
+                                           const S* __restrict__ u_bw,
+                                           int T, int Z, int Y, int Xh,
+                                           int64_t YXh, int64_t ZYXh,
+                                           int64_t n, int parity,
+                                           int tb_sign, int64_t site) {
+  eo_hop_sum_from(acc, psi, rstride, nvalid, Shifted<R, S>{u_here, u_bw}, T,
+                  Z, Y, Xh, YXh, ZYXh, n, parity, tb_sign, site);
 }
 
 // The full-lattice hop sum D psi at site ``site`` (layouts over
@@ -334,7 +421,8 @@ __device__ __forceinline__ void full_hop_sum(C (&acc)[NB][4][3],
   nb.fwd[0] = site + (x + 1 == X ? -(X - 1) : 1);
   nb.bwd[0] = site + (x == 0 ? X - 1 : -1);
   yzt_nbrs(nb, site, y, z, t, T, Z, Y, X, YX, ZYX, tb_sign);
-  hop_sum<R>(acc, psi, rstride, nvalid, u_here, u_bw, n, nb, site);
+  hop_sum(acc, psi, rstride, nvalid, Shifted<R, S>{u_here, u_bw}, n, nb,
+          site);
 }
 
 }  // namespace qtt

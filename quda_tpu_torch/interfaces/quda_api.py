@@ -20,6 +20,18 @@ for every family):
 * sloppy = half: ``cg_reliable`` with a bfloat16 sloppy operator and
   reliable updates on the float32 one (not the domain-wall family: its
   hop has float32 forms only, ROADMAP A7/B5);
+* Wilson only, sloppy = quarter (QUDA's quarter precision): the sloppy
+  operator is ``pairs(bfloat16, precision_form="int8")``, int8
+  block-float links with bf16 spinors on the int8 eo hop, under
+  ``cg_reliable`` with the float32 operator at the gauge's
+  ``reconstruct`` (or, below tol 5e-8, under the df64 route).  This is
+  the operator the JAX package's df64 route builds for quarter: links
+  quantised from the bf16-rounded pairs and decoded in float32.  Its
+  tol >= 5e-8 route is the JAX package's canonical int8 codec instead
+  (links quantised from complex64, each decoded link rounded to bf16),
+  so the two are compared at the solve's tolerance, not bit for bit.
+  The other families' quarter (the JAX package runs them on bf16
+  links) waits for ROADMAP A7;
 * Wilson at cuda_prec="double" (native f64, as the JAX package's CPU
   route): sloppy double runs ``fused_cg`` on the float64 pair operator
   (B1 and B2 in f64), sloppy single ``cg_reliable`` with the float32 pair
@@ -390,11 +402,13 @@ def _check_route(param: InvertParam, sloppy: str):
         raise NotImplementedError(
             f"cuda_prec {param.cuda_prec!r}: single and (Wilson) double are "
             "ported (ROADMAP A7)")
-    if sloppy == "quarter":
+    if sloppy == "quarter" and param.dslash_type != "wilson":
         raise NotImplementedError(
-            "cuda_prec_sloppy 'quarter' (int8 block-float links) is not "
-            "ported yet (ROADMAP A7/B9)")
-    if sloppy not in ("single", "half"):
+            f"cuda_prec_sloppy 'quarter' for {param.dslash_type!r}: the int8 "
+            "block-float links serve the Wilson hop only; the other "
+            "families' quarter (bf16 links in the JAX package) waits for "
+            "ROADMAP A7")
+    if sloppy not in ("single", "half", "quarter"):
         raise NotImplementedError(
             f"cuda_prec_sloppy {sloppy!r} above cuda_prec 'single' is not "
             "a mixed-precision route (ROADMAP A7)")
@@ -414,12 +428,21 @@ def _df64_route(param: InvertParam) -> bool:
             and param.tol < 5e-8)
 
 
-_STORE = {"half": torch.bfloat16, "single": torch.float32,
-          "double": torch.float64}
+# the spinor storage of each precision; quarter keeps bf16 spinors on
+# int8 block-float links
+_STORE = {"quarter": torch.bfloat16, "half": torch.bfloat16,
+          "single": torch.float32, "double": torch.float64}
 
 
 def _store_dtype(sloppy: str):
     return _STORE[sloppy]
+
+
+def _sloppy_form(sloppy: str, form: str) -> str:
+    """The sloppy operator's link form: int8 for quarter (whatever the
+    resident ``reconstruct``, as the JAX package passes it), else the
+    gauge's."""
+    return "int8" if sloppy == "quarter" else form
 
 
 def _solve_supervision(param: InvertParam, api: str, converged=None,
@@ -466,7 +489,7 @@ def _invert_wilson_df64(b, param: InvertParam, dpk, sloppy: str,
     be, bo = even_odd_split(b, geom)
     rhs_df = op.prepare_df(be, bo)
     store = _store_dtype(sloppy)
-    sl = dpk.pairs(store, precision_form=form)
+    sl = dpk.pairs(store, precision_form=_sloppy_form(sloppy, form))
     res = solvers.cg_reliable_df(
         op, sl.MdagM_pairs, rhs_df, solvers.pair_inplace_codec(store),
         tol=param.tol, maxiter=param.maxiter, delta=param.reliable_delta)
@@ -533,7 +556,7 @@ def invert_quda(source, param: InvertParam):
                 maxiter=param.maxiter, tol_hq=param.tol_hq)
         else:
             store = _store_dtype(sloppy)
-            sl = dirac.pairs(store, precision_form=form)
+            sl = dirac.pairs(store, precision_form=_sloppy_form(sloppy, form))
             res = solvers.cg_reliable(
                 system(op), system(sl), sys_rhs,
                 solvers.pair_inplace_codec(store, op.store_dtype),
@@ -797,6 +820,7 @@ def invert_multishift_quda(source, param: InvertParam):
         raise NotImplementedError(
             f"cuda_prec {param.cuda_prec!r}: only single is ported "
             "(ROADMAP A7)")
+    _refuse_quarter(param, "invert_multishift_quda")
     if param.num_offset < 1:
         raise ValueError("invert_multishift_quda needs num_offset >= 1 "
                          "shifts in param.offset")
@@ -833,6 +857,15 @@ def invert_multishift_quda(source, param: InvertParam):
              param.iter_count, param.true_res, param.secs)
     return torch.stack([op._from_pairs(res.x[i], b.dtype)
                         for i in range(len(offsets))])
+
+
+def _refuse_quarter(param: InvertParam, api: str) -> None:
+    """Quarter sloppy is served by ``invert_quda`` (Wilson) only."""
+    if _resolve_sloppy(param) == "quarter":
+        raise NotImplementedError(
+            f"cuda_prec_sloppy 'quarter' in {api}: int8 block-float links "
+            "serve invert_quda's Wilson route; the batched and multi-shift "
+            "routes at quarter wait for ROADMAP A7")
 
 
 def _split_batch(B, geom):
@@ -887,6 +920,7 @@ def invert_multi_src_quda(sources, param: InvertParam):
     param.validate()
     if _ctx["gauge"] is None:
         raise RuntimeError("load_gauge_quda() first")
+    _refuse_quarter(param, "invert_multi_src_quda")
     dtype = complex_dtype(param.cuda_prec)
     want = _source_shape(param)
     if isinstance(sources, torch.Tensor):

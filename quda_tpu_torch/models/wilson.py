@@ -15,6 +15,12 @@ the kernel, on CPU tensors its plain version.  Its storage is float32
 (the precise operator), bfloat16 (the sloppy operator of mixed
 precision) or float64 (the precise operator of the native double
 routes, full links, sums in float64), with full or reconstruct-12 links.
+Its link forms (``precision_form``, and ``pallas_version``) follow the
+JAX package's: "full" and "r12" keep a resident pre-shifted backward
+copy and run B1 (``pallas_version`` 2) or read the opposite parity's
+links directly on the copy-free hop v3 (3); "r12f" is recon-12 on the
+copy-free hop; "int8" stores int8 block-float links (QUDA "quarter") and
+runs the int8 hop.
 ``DiracWilsonPCPacked.D_to/M/Mdag/MdagM`` act on complex packed fields
 through it.  The full-lattice operator's pair companion
 (``DiracWilsonPackedPairs``, ``DiracWilson.pairs``) runs the full-lattice
@@ -36,15 +42,23 @@ from ..fields.geometry import EVEN, LatticeGeometry
 from ..ops import wilson as wops
 from ..ops import wilson_packed as wpk
 from ..ops import wilson_pallas_packed as wpp
+from ..ops.blockfloat import to_int8_links
 from ..ops.boundary import apply_t_boundary
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
 
 STORE_DTYPES = (torch.float32, torch.bfloat16)
 # the Wilson pair operators also take float64 (B1 and B4's double form)
 WILSON_STORE_DTYPES = STORE_DTYPES + (torch.float64,)
-PRECISION_FORMS = ("full", "r12")
-# forms of the JAX package's packed operator that wait for ROADMAP A7/B9
-QUEUED_FORMS = ("auto", "bzfull", "fold", "r12f", "int8")
+PRECISION_FORMS = ("full", "r12", "r12f", "int8")
+# the link forms with a resident pre-shifted backward copy: all that the
+# fused clover and twist hops (K1/K2), the domain-wall hop and B4 serve
+RESIDENT_FORMS = ("full", "r12")
+# forms of the JAX package's packed operator that wait, and for what
+QUEUED_FORMS = {
+    "auto": "ROADMAP A17 (the tuner's race of the forms)",
+    "bzfull": "ROADMAP A17 (a TPU block admission the tuner races)",
+    "fold": "ROADMAP B9 (A7: the bf16 fold layout)"}
+PALLAS_VERSIONS = (2, 3)
 
 # gamma5 sign tensors, one per (device, ndim, spin axis): built once, so
 # an apply makes no host-to-device copy
@@ -63,12 +77,15 @@ def _g5_sign(device, ndim: int, spin_axis: int) -> torch.Tensor:
     return sign
 
 
-def _check_double_form(store_dtype, precision_form: str) -> None:
-    if store_dtype == torch.float64 and precision_form != "full":
+def _check_double_form(store_dtype, precision_form: str,
+                       pallas_version: int = 2) -> None:
+    if store_dtype == torch.float64 and (precision_form != "full"
+                                         or pallas_version != 2):
         raise NotImplementedError(
-            f"precision_form {precision_form!r} in float64: the double "
-            "forms of B1 and B4 take full links; recon-12 under double "
-            "waits for ROADMAP A7")
+            f"precision_form {precision_form!r} (pallas_version "
+            f"{pallas_version}) in float64: the double forms of B1 and B4 "
+            "take full pre-shifted links; recon-12, the copy-free and the "
+            "int8 forms under double wait for ROADMAP A7")
 
 
 class DiracWilson(Dirac):
@@ -235,43 +252,70 @@ class _PairSloppyBase:
 class _PackedHopMixin:
     """The packed eo Wilson hop on pair arrays: gauge setup, the stencil
     dispatch, and the canonical <-> packed spinor converters.  Single
-    device; float32 or bfloat16 storage; full or recon-12 links."""
+    device; float32 or bfloat16 storage (float64 for Wilson); the link
+    forms of ``PRECISION_FORMS``."""
 
     _spin_axis = 0
 
     def _setup_hop(self, geom: LatticeGeometry, gauge_eo_packed,
                    store_dtype, tb_sign: bool = True,
                    precision_form: str = "full",
-                   store_dtypes=STORE_DTYPES):
+                   store_dtypes=STORE_DTYPES, pallas_version: int = 2,
+                   forms=RESIDENT_FORMS):
         """gauge_eo_packed: (even, odd) complex packed (4,3,3,T,Z,Y*Xh)
         links (wilson_packed.pack_gauge_eo), boundary phase folded in.
-        ``precision_form``: "full" (18 reals per link) or "r12" (two rows,
-        row 2 rebuilt in the hop).  ``tb_sign``: the t boundary is
-        antiperiodic, so the recon-12 hop negates the rebuilt row of the
-        boundary t links."""
+        ``precision_form``: "full" (18 reals per link), "r12" (two rows,
+        row 2 rebuilt in the hop), "r12f" (r12 on the copy-free hop) or
+        "int8" (block-float links, ops/blockfloat.to_int8_links of the
+        storage-dtype links); ``forms`` names those the operator serves.
+        ``pallas_version`` 2 keeps a resident pre-shifted backward copy
+        (B1), 3 reads the opposite parity's links on the copy-free hop;
+        r12f and int8 build no backward copy whatever it says, as in the
+        JAX package.  ``tb_sign``: the t boundary is antiperiodic, so the
+        recon-12 hop negates the rebuilt row of the boundary t links."""
         if store_dtype not in store_dtypes:
             raise NotImplementedError(
                 f"pair storage {store_dtype}: {store_dtypes} are ported "
-                "here; int8 block-float links ('quarter') and the clover "
-                "and staggered double forms wait for ROADMAP A7/B9")
+                "here; the clover and staggered double forms wait for "
+                "ROADMAP A7")
         form = precision_form
         if form in QUEUED_FORMS:
             raise NotImplementedError(
-                f"precision_form {form!r} is not ported yet (ROADMAP "
-                f"A7/B9); the port serves {PRECISION_FORMS}")
+                f"precision_form {form!r} is not ported yet: "
+                f"{QUEUED_FORMS[form]}; the port serves {PRECISION_FORMS}")
         if form not in PRECISION_FORMS:
             raise ValueError(f"unknown precision_form {form!r}")
-        _check_double_form(store_dtype, form)
+        if pallas_version not in PALLAS_VERSIONS:
+            raise ValueError(f"pallas_version must be 2 or 3, got "
+                             f"{pallas_version}")
+        if form not in forms:
+            raise NotImplementedError(
+                f"precision_form {form!r} for {type(self).__name__}: its "
+                f"hop reads pre-shifted backward links, forms {forms}; the "
+                "copy-free and int8 forms of the other families wait for "
+                "ROADMAP A7")
+        _check_double_form(store_dtype, form, pallas_version)
         self.geom = geom
         self.dims = tuple(geom.lattice_shape)
         self.store_dtype = store_dtype
         self._precision_form = form
+        self._pallas_version = pallas_version
         self._tb_sign = bool(tb_sign)
         pp = tuple(wpk.to_packed_pairs(g, store_dtype) for g in
                    gauge_eo_packed)
-        if form == "r12":
+        if form in ("r12", "r12f"):
             pp = tuple(wpp.to_recon12(g) for g in pp)
+        if form == "int8":
+            # int8 mantissas + one f32 scale per (direction, site) of the
+            # storage-dtype links, decoded in the hop
+            qs = [to_int8_links(g.to(torch.float32)) for g in pp]
+            self._gauge_q = tuple(q.contiguous() for q, _ in qs)
+            self._gauge_s = tuple(sc.contiguous() for _, sc in qs)
+            self.gauge_eo_pp = None
+            return
         self.gauge_eo_pp = tuple(g.contiguous() for g in pp)
+        if form == "r12f" or pallas_version == 3:
+            return
         # resident pre-shifted backward links, one set per target parity
         self._u_bw = tuple(
             wpp.backward_gauge_eo(self.gauge_eo_pp[1 - p], self.dims,
@@ -279,21 +323,43 @@ class _PackedHopMixin:
             for p in (0, 1))
 
     def _d_to(self, psi_pp, target_parity, out_dtype):
+        """The hop D_{p <- 1-p} in the operator's link form, with the
+        JAX package's precedence: int8 and r12f whatever pallas_version
+        says, then pallas_version 3 (v3), then B1."""
+        p = target_parity
+        form = self._precision_form
+        if form == "int8":
+            return wpp.dslash_eo_pallas_packed_int8(
+                self._gauge_q[p], self._gauge_s[p], self._gauge_q[1 - p],
+                self._gauge_s[1 - p], psi_pp, self.dims, p,
+                out_dtype=out_dtype)
+        if form == "r12f" or self._pallas_version == 3:
+            fn = (wpp.dslash_eo_pallas_packed_r12f if form == "r12f"
+                  else wpp.dslash_eo_pallas_packed_v3)
+            return fn(self.gauge_eo_pp[p], self.gauge_eo_pp[1 - p], psi_pp,
+                      self.dims, p, out_dtype=out_dtype,
+                      tb_sign=self._tb_sign)
         return wpp.dslash_eo_pallas_packed(
-            self.gauge_eo_pp[target_parity], self._u_bw[target_parity],
-            psi_pp, self.dims, target_parity, out_dtype=out_dtype,
-            tb_sign=self._tb_sign)
+            self.gauge_eo_pp[p], self._u_bw[p], psi_pp, self.dims, p,
+            out_dtype=out_dtype, tb_sign=self._tb_sign)
 
     def _d_to_mrhs(self, psi_b, target_parity, out_dtype):
-        """The multi-RHS hop (B5-eo) on psi_b (N,4,3,2,T,Z,Y*Xh): one
-        launch for the batch, each link loaded once per chunk of
-        right-hand sides.  (The r12f, fold and int8 link forms, which have
-        their own multi-RHS kernels in the JAX package, are refused at
-        construction: ROADMAP B9.)"""
+        """The hop on psi_b (N,4,3,2,T,Z,Y*Xh): one launch of the
+        multi-RHS hop (B5-eo; the multi-RHS r12f for r12f), each link
+        loaded once per chunk of right-hand sides.  The int8 and v3 forms
+        have no multi-RHS kernel: the single-RHS hop runs on each
+        right-hand side in turn, as the JAX package vmaps it."""
+        p = target_parity
+        form = self._precision_form
+        if form == "r12f":
+            return wpp.dslash_eo_pallas_packed_r12f_mrhs(
+                self.gauge_eo_pp[p], self.gauge_eo_pp[1 - p], psi_b,
+                self.dims, p, out_dtype=out_dtype, tb_sign=self._tb_sign)
+        if form == "int8" or self._pallas_version == 3:
+            return torch.stack([self._d_to(x, p, out_dtype) for x in psi_b])
         return wpp.dslash_eo_pallas_packed_mrhs(
-            self.gauge_eo_pp[target_parity], self._u_bw[target_parity],
-            psi_b, self.dims, target_parity, out_dtype=out_dtype,
-            tb_sign=self._tb_sign)
+            self.gauge_eo_pp[p], self._u_bw[p], psi_b, self.dims, p,
+            out_dtype=out_dtype, tb_sign=self._tb_sign)
 
     def _to_pairs(self, x):
         """Canonical (..., T,Z,Y,Xh,4,3) complex -> packed pairs; leading
@@ -499,14 +565,17 @@ class DiracWilsonPCPacked:
     def flops_per_site_M(self) -> int:
         return self._dpc.flops_per_site_M()
 
-    def pairs(self, store_dtype=torch.float32,
-              precision_form: str = "full") -> "DiracWilsonPCPackedSloppy":
-        """Pair-storage companion, every hop on the eo kernel: with
+    def pairs(self, store_dtype=torch.float32, precision_form: str = "full",
+              pallas_version: int = 2) -> "DiracWilsonPCPackedSloppy":
+        """Pair-storage companion, every hop on an eo kernel: with
         float32 storage the precise operator in a complex-free
         representation, with bfloat16 the sloppy operator of the mixed
         solve, with float64 the precise operator of the double routes.
-        ``precision_form``: "full" or "r12" links (float64: full)."""
-        return DiracWilsonPCPackedSloppy(self, store_dtype, precision_form)
+        ``precision_form``: "full", "r12", "r12f" or "int8" links;
+        ``pallas_version`` 2 (B1, resident backward copy) or 3 (the
+        copy-free hop) for full and r12 (float64: full, 2)."""
+        return DiracWilsonPCPackedSloppy(self, store_dtype, precision_form,
+                                         pallas_version)
 
 
 class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
@@ -515,11 +584,13 @@ class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
     ``reconstruct_pairs`` take canonical complex parity sources."""
 
     def __init__(self, dpk: DiracWilsonPCPacked, store_dtype=torch.float32,
-                 precision_form: str = "full"):
+                 precision_form: str = "full", pallas_version: int = 2):
         self._setup_hop(dpk.geom, dpk.gauge_eo_p, store_dtype,
                         tb_sign=dpk._dpc.antiperiodic_t,
                         precision_form=precision_form,
-                        store_dtypes=WILSON_STORE_DTYPES)
+                        store_dtypes=WILSON_STORE_DTYPES,
+                        pallas_version=pallas_version,
+                        forms=PRECISION_FORMS)
         self.kappa = float(dpk.kappa)
         self.matpc = dpk.matpc
 
@@ -576,11 +647,11 @@ class DiracWilsonPackedPairs:
             raise NotImplementedError(
                 f"pair storage {store_dtype}: B4 takes float32 and float64 "
                 "(its bf16 forms wait for ROADMAP A7)")
-        if precision_form not in PRECISION_FORMS:
+        if precision_form not in RESIDENT_FORMS:
             raise NotImplementedError(
                 f"precision_form {precision_form!r} is not ported for the "
                 f"full-lattice hop (ROADMAP A7/B9); it serves "
-                f"{PRECISION_FORMS}")
+                f"{RESIDENT_FORMS}")
         _check_double_form(store_dtype, precision_form)
         self.geom = dw.geom
         self.kappa = float(dw.kappa)

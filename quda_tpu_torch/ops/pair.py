@@ -10,8 +10,9 @@ storage dtype: bfloat16 for QUDA "half".  All CG coefficients are real,
 so the axpy family is plain real arithmetic on pairs, and Re<x, y> and
 |x|^2 of a complex field are the real dot and sum of squares of its pair
 array, accumulated in float32.  The products accumulate in float32, or
-float64 for float64 inputs.  The int8 block-float link codec
-(``encode_gauge``/``decode_gauge`` "quarter") waits for ROADMAP A7.
+float64 for float64 inputs.  ``encode_gauge``/``decode_gauge`` are the
+link codecs: "half" bf16 pairs, "quarter" int8 block-float
+(ops/blockfloat.py, one float32 scale per link), decoded to bf16 pairs.
 """
 
 from __future__ import annotations
@@ -101,14 +102,31 @@ def spin_mul_pairs(m, p: torch.Tensor, out_dtype=F32) -> torch.Tensor:
     return torch.stack([re, im], dim=-1).to(out_dtype)
 
 
+def encode_gauge(gauge: torch.Tensor, prec: str):
+    """complex links -> stored links: "half" bf16 pairs, "quarter" int8
+    block-float (ops/blockfloat.to_int8, one scale per link over its
+    colour matrix)."""
+    if prec == "half":
+        return to_pairs(gauge, torch.bfloat16)
+    if prec == "quarter":
+        from .blockfloat import to_int8
+        return to_int8(gauge, n_internal=2)
+    raise ValueError(prec)
+
+
 def decode_gauge(stored) -> torch.Tensor:
-    """Stored pair links as the stencils read them.  Only plain pair
-    arrays (bf16, f32, f64) are ported; int8 block-float links
-    ('quarter') wait for ROADMAP A7."""
+    """Stored links as the pair stencils read them: pair arrays as they
+    are, int8 block-float links decoded (float(q) * scale in float32) and
+    rounded to bf16 pairs, as the JAX package's decode does.  Any other
+    storage (reconstruct-8's compressed links) raises."""
+    from .blockfloat import Int8Field
+    if isinstance(stored, Int8Field):
+        return (stored.data.to(F32) * stored.scale).to(torch.bfloat16)
     if not isinstance(stored, torch.Tensor):
         raise NotImplementedError(
-            "int8 block-float links ('quarter') are not ported yet "
-            "(ROADMAP A7)")
+            f"stored links of type {type(stored).__name__}: pair arrays and "
+            "int8 block-float links are ported; other link storage "
+            "(reconstruct 8) waits for ROADMAP A7")
     return stored
 
 

@@ -41,12 +41,32 @@ Y*X), links as for B4, each link loaded once per chunk; forms
 arithmetic in B4's order.  The multigrid set-up's null-vector block
 solve runs it (mg/pair.py).
 
+The copy-free eo hops ``dslash_eo_pallas_packed_v3`` (B10-eo) and
+``dslash_eo_pallas_packed_r12f`` (B9) replace the JAX module's
+functions of those names with ``csrc/wilson_eo_there.cu``: they take the
+opposite parity's links ``u_there`` unshifted in place of ``u_bw`` and
+read U_mu(x - mu) there, so no resident backward copy exists.  On the
+card the two are one function (one C entry, B1's six f32/bf16 forms, R
+= 3 or 2), each wrapper with its own launch count; each output is B1's
+on ``backward_gauge_eo(u_there)`` bit for bit.
+``dslash_eo_pallas_packed_r12f_mrhs`` is its multi-RHS form (float32,
+chunk as B5-eo's).
+
+The int8 hop ``dslash_eo_pallas_packed_int8`` (B9) replaces the JAX
+function of that name with ``csrc/wilson_eo_int8.cu``: links as int8
+mantissas (4,3,3,2,T,Z,Y*Xh) and one float32 scale per (direction,
+site) (4,T,Z,Y*Xh) (ops/blockfloat.to_int8_links), decoded at load
+exactly as ``from_int8_links``; forms ``int8:f32->f32``,
+``int8:bf16->bf16`` and ``int8:bf16->f32`` (psi -> out).
+
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_eo_packed_plain``, ``dslash_packed_plain``,
-``dslash_eo_packed_mrhs_plain``, ``dslash_packed_mrhs_plain``), CUDA
-tensors launch the kernel or raise.  Each wrapper counts its launches in
-``.launches`` and per form in ``.launches_by_form``
-(``"full:f32->f32"``, ``"r12:bf16->bf16"``, ...).
+``dslash_eo_packed_mrhs_plain``, ``dslash_packed_mrhs_plain``,
+``dslash_eo_there_plain``, ``dslash_eo_there_mrhs_plain``,
+``dslash_eo_int8_plain``), CUDA tensors launch the kernel or raise.
+Each wrapper counts its launches in ``.launches`` and per form in
+``.launches_by_form`` (``"full:f32->f32"``, ``"r12:bf16->bf16"``,
+``"int8:bf16->bf16"``, ...).
 """
 
 from __future__ import annotations
@@ -95,6 +115,19 @@ def bytes_per_site(rows: int = 3, store_dtype=torch.float32,
 
 
 BYTES_PER_SITE = bytes_per_site()          # 768, the f32 full form
+
+
+def bytes_per_site_int8(store_dtype=torch.bfloat16, out_dtype=None) -> int:
+    """Floor of the int8 hop's traffic per half-site: psi and out 24
+    numbers each, 8 links of 18 one-byte mantissas and a 4-byte scale
+    (272 B bf16 -> bf16, 320 bf16 -> f32, 368 f32 -> f32)."""
+    sb = _STORE_BYTES[store_dtype]
+    ob = _STORE_BYTES[out_dtype or store_dtype]
+    return 24 * sb + 8 * (18 + 4) + 24 * ob
+
+
+# the int8 hop's decode: one multiply per link element
+INT8_FLOPS_PER_SITE = FLOPS_PER_SITE + 8 * 18
 
 
 def bytes_per_site_mrhs(n: int, rows: int = 3) -> int:
@@ -173,6 +206,11 @@ def _checked_forms(store, out_dtype, rows: int):
     if store == torch.float32 and out_dtype == torch.bfloat16:
         raise TypeError("float32 storage with bfloat16 output has no kernel "
                         "instance")
+
+
+def int8_form_name(store_dtype, out_dtype) -> str:
+    """``"int8:bf16->bf16"``-style key of the int8 hop's launches."""
+    return f"int8:{_SHORT[store_dtype]}->{_SHORT[out_dtype]}"
 
 
 def _count(fn, form: str) -> None:
@@ -476,11 +514,199 @@ def dslash_pallas_packed_mrhs(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
     return out
 
 
+# -- the copy-free forms (v3, r12f) and the int8 block-float form ----------
+
+def dslash_eo_there_plain(u_here_pl, u_there_pl, psi_pl, dims,
+                          target_parity: int, out_dtype=None,
+                          tb_sign: bool = True):
+    """Plain version of the copy-free hops (v3, r12f): the backward links
+    shifted from ``u_there_pl`` (``backward_gauge_eo``), then B1's plain
+    version."""
+    u_bw = backward_gauge_eo(u_there_pl, dims, target_parity)
+    return dslash_eo_packed_plain(u_here_pl, u_bw, psi_pl, dims,
+                                  target_parity, out_dtype, tb_sign)
+
+
+def dslash_eo_there_mrhs_plain(u_here_pl, u_there_pl, psi_pl, dims,
+                               target_parity: int, out_dtype=None,
+                               tb_sign: bool = True):
+    """Plain version of the multi-RHS r12f hop: ``backward_gauge_eo``,
+    then B5-eo's plain version."""
+    u_bw = backward_gauge_eo(u_there_pl, dims, target_parity)
+    return dslash_eo_packed_mrhs_plain(u_here_pl, u_bw, psi_pl, dims,
+                                       target_parity, out_dtype, tb_sign)
+
+
+def dslash_eo_int8_plain(q_here, s_here, q_there, s_there, psi_pl, dims,
+                         target_parity: int, out_dtype=None):
+    """Plain version of the int8 hop: the links decoded by
+    ``from_int8_links`` (float32), then the copy-free hop's plain
+    version; psi's storage, f32 sums."""
+    from .blockfloat import from_int8_links
+    return dslash_eo_there_plain(from_int8_links(q_here, s_here),
+                                 from_int8_links(q_there, s_there), psi_pl,
+                                 dims, target_parity, out_dtype)
+
+
+def _check_parity(target_parity: int) -> None:
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+
+
+def _eo_there(fn, u_here_pl, u_there_pl, psi_pl, dims, target_parity,
+              out_dtype, tb_sign):
+    """v3 and r12f: the same function, the same C entry; ``fn`` is the
+    wrapper whose launches count."""
+    T, Z, Y, X = dims
+    rows = link_rows(u_here_pl)
+    _check_parity(target_parity)
+    kind = kernels.dispatch_device(u_here_pl, u_there_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_eo_there_plain(u_here_pl, u_there_pl, psi_pl, dims,
+                                     target_parity, out_dtype, tb_sign)
+    store = psi_pl.dtype
+    out_dtype = out_dtype or store
+    if store == torch.float64 or out_dtype == torch.float64:
+        raise TypeError(f"psi {store} -> out {out_dtype}: the copy-free hop "
+                        "has float32 and bfloat16 forms; float64 waits for "
+                        "ROADMAP A7")
+    _checked_forms(store, out_dtype, rows)
+    sites = (T, Z, Y * (X // 2))
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
+    kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, store)
+    kernels.require(u_there_pl, "u_there_pl", (4, rows, 3, 2) + sites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_wilson_eo_there(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_there_pl.data_ptr(), T, Z, Y, X // 2, int(target_parity),
+        _STORE_CODE[store], _STORE_CODE[out_dtype], rows,
+        int(bool(tb_sign)), kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_eo_there")
+    _count(fn, form_name(rows, store, out_dtype))
+    return out
+
+
+def dslash_eo_pallas_packed_v3(u_here_pl: torch.Tensor,
+                               u_there_pl: torch.Tensor,
+                               psi_pl: torch.Tensor, dims,
+                               target_parity: int, out_dtype=None,
+                               tb_sign: bool = True) -> torch.Tensor:
+    """Checkerboarded Wilson hop D_{p <- 1-p}, v3 (B10-eo): the backward
+    links read unshifted from the opposite parity.  u_here_pl
+    (4,R,3,2,T,Z,Y*Xh) at parity-p sites, u_there_pl the same at parity
+    1-p, psi_pl (4,3,2,T,Z,Y*Xh) of parity 1-p; R = 3 or 2 (``tb_sign``
+    as B1's); float32 or bfloat16 storage, out as B1's."""
+    return _eo_there(dslash_eo_pallas_packed_v3, u_here_pl, u_there_pl,
+                     psi_pl, dims, target_parity, out_dtype, tb_sign)
+
+
+def dslash_eo_pallas_packed_r12f(u_here_pl: torch.Tensor,
+                                 u_there_pl: torch.Tensor,
+                                 psi_pl: torch.Tensor, dims,
+                                 target_parity: int, out_dtype=None,
+                                 tb_sign: bool = True) -> torch.Tensor:
+    """Checkerboarded Wilson hop, r12f form (B9): recon-12 links with no
+    resident backward copy; arguments as ``dslash_eo_pallas_packed_v3``
+    (on the card the same kernel)."""
+    return _eo_there(dslash_eo_pallas_packed_r12f, u_here_pl, u_there_pl,
+                     psi_pl, dims, target_parity, out_dtype, tb_sign)
+
+
+def dslash_eo_pallas_packed_r12f_mrhs(u_here_pl: torch.Tensor,
+                                      u_there_pl: torch.Tensor,
+                                      psi_pl: torch.Tensor, dims,
+                                      target_parity: int, out_dtype=None,
+                                      tb_sign: bool = True,
+                                      chunk=None) -> torch.Tensor:
+    """Multi-RHS r12f hop: psi_pl (N,4,3,2,T,Z,Y*Xh) of parity 1-p, links
+    as for ``dslash_eo_pallas_packed_r12f``, each loaded once per chunk of
+    ``chunk`` (default ``MRHS_CHUNK``) right-hand sides.  float32 in and
+    out; the bf16 forms wait for ROADMAP A7."""
+    T, Z, Y, X = dims
+    rows = link_rows(u_here_pl)
+    _check_parity(target_parity)
+    check_batch(psi_pl)
+    kind = kernels.dispatch_device(u_here_pl, u_there_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_eo_there_mrhs_plain(u_here_pl, u_there_pl, psi_pl,
+                                          dims, target_parity, out_dtype,
+                                          tb_sign)
+    f32 = torch.float32
+    out_dtype = out_dtype or psi_pl.dtype
+    if psi_pl.dtype != f32 or out_dtype != f32:
+        raise TypeError(f"psi {psi_pl.dtype} -> out {out_dtype}: the "
+                        "multi-RHS r12f hop has float32 forms only; its "
+                        "bf16 forms wait for ROADMAP A7")
+    sites = (T, Z, Y * (X // 2))
+    nrhs = psi_pl.shape[0]
+    nb = mrhs_chunk(chunk, nrhs, T * Z * Y * (X // 2))
+    kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
+    kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, f32)
+    kernels.require(u_there_pl, "u_there_pl", (4, rows, 3, 2) + sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_wilson_eo_there_mrhs(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_there_pl.data_ptr(), T, Z, Y, X // 2, int(target_parity), rows,
+        int(bool(tb_sign)), nrhs, nb, kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_eo_there_mrhs")
+    _count(dslash_eo_pallas_packed_r12f_mrhs, form_name(rows, f32, f32))
+    return out
+
+
+def dslash_eo_pallas_packed_int8(q_here: torch.Tensor, s_here: torch.Tensor,
+                                 q_there: torch.Tensor,
+                                 s_there: torch.Tensor,
+                                 psi_pl: torch.Tensor, dims,
+                                 target_parity: int,
+                                 out_dtype=None) -> torch.Tensor:
+    """Checkerboarded Wilson hop on int8 block-float links (B9): q_here /
+    q_there (4,3,3,2,T,Z,Y*Xh) int8 mantissas at the target / opposite
+    parity, s_here / s_there (4,T,Z,Y*Xh) float32 scales
+    (``blockfloat.to_int8_links``); psi_pl (4,3,2,T,Z,Y*Xh) of parity
+    1-p, float32 or bfloat16; out float32, or bfloat16 from bf16 psi.
+    Equals the copy-free hop on ``from_int8_links(q, s)``."""
+    T, Z, Y, X = dims
+    _check_parity(target_parity)
+    kind = kernels.dispatch_device(q_here, s_here, q_there, s_there, psi_pl)
+    if kind == "cpu":
+        return dslash_eo_int8_plain(q_here, s_here, q_there, s_there, psi_pl,
+                                    dims, target_parity, out_dtype)
+    store = psi_pl.dtype
+    out_dtype = out_dtype or store
+    if store not in (torch.float32, torch.bfloat16) or out_dtype not in (
+            torch.float32, torch.bfloat16) or (
+            store == torch.float32 and out_dtype == torch.bfloat16):
+        raise TypeError(f"psi {store} -> out {out_dtype}: the int8 hop's "
+                        "forms are f32->f32, bf16->bf16 and bf16->f32")
+    sites = (T, Z, Y * (X // 2))
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, store)
+    for name, q in (("q_here", q_here), ("q_there", q_there)):
+        kernels.require(q, name, (4, 3, 3, 2) + sites, torch.int8)
+    for name, sc in (("s_here", s_here), ("s_there", s_there)):
+        kernels.require(sc, name, (4,) + sites, torch.float32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_wilson_eo_int8(
+        out.data_ptr(), psi_pl.data_ptr(), q_here.data_ptr(),
+        s_here.data_ptr(), q_there.data_ptr(), s_there.data_ptr(), T, Z, Y,
+        X // 2, int(target_parity), _STORE_CODE[store],
+        _STORE_CODE[out_dtype], kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_eo_int8")
+    _count(dslash_eo_pallas_packed_int8, int8_form_name(store, out_dtype))
+    return out
+
+
 def reset_launches() -> None:
     """Zero the launch counts of the eo hop (B1), its multi-RHS form
-    (B5-eo), the full-lattice hop (B4) and its multi-RHS form (B5)."""
+    (B5-eo), the full-lattice hop (B4) and its multi-RHS form (B5), and
+    of the copy-free (v3, r12f, r12f-mrhs) and int8 eo hops."""
     for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs,
-               dslash_pallas_packed, dslash_pallas_packed_mrhs):
+               dslash_pallas_packed, dslash_pallas_packed_mrhs,
+               dslash_eo_pallas_packed_v3, dslash_eo_pallas_packed_r12f,
+               dslash_eo_pallas_packed_r12f_mrhs,
+               dslash_eo_pallas_packed_int8):
         fn.launches = 0
         fn.launches_by_form = {}
 

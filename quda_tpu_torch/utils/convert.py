@@ -69,3 +69,21 @@ def fat_long_from_host(fat, long_links, device="cuda", dtype=None):
     (fat, long) pair of tensors on ``device``."""
     return (gauge_from_host(fat, device, dtype),
             gauge_from_host(long_links, device, dtype))
+
+
+def int8_links_from_numpy(q, scale, device="cuda"):
+    """The JAX package's int8 block-float links (ops/blockfloat.
+    to_int8_links: numpy ``q`` int8 (4,3,3,2,T,Z,Y*Xh) and ``scale``
+    float32 (4,T,Z,Y*Xh)) -> a (q, scale) pair of tensors on ``device``,
+    the operands of the int8 eo hop."""
+    qa, sa = np.asarray(q), np.asarray(scale)
+    if qa.dtype != np.int8 or qa.ndim != 7 or qa.shape[:4] != (4, 3, 3, 2):
+        raise ValueError(f"q of shape {qa.shape} and dtype {qa.dtype}: "
+                         "expected int8 (4,3,3,2,T,Z,Y*Xh)")
+    if sa.dtype != np.float32 or sa.shape != (4,) + qa.shape[4:]:
+        raise ValueError(f"scale of shape {sa.shape} and dtype {sa.dtype}: "
+                         f"expected float32 {(4,) + qa.shape[4:]}")
+    dev = resolve_device(device)
+    # copies: the JAX package's arrays are read-only views
+    return (torch.from_numpy(np.array(qa)).to(dev),
+            torch.from_numpy(np.array(sa)).to(dev))

@@ -34,7 +34,7 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu",
            "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu",
-           "staggered_full.cu")
+           "staggered_full.cu", "wilson_eo_there.cu", "wilson_eo_int8.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
@@ -98,6 +98,18 @@ SIGNATURES = {
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),
+    # out, psi, u_here, u_there, T, Z, Y, Xh, parity, store, out_store,
+    # rows, tb_sign, stream
+    "qtt_wilson_eo_there": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
+    # out, psi, u_here, u_there, T, Z, Y, Xh, parity, rows, tb_sign, nrhs,
+    # nb, stream
+    "qtt_wilson_eo_there_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P),
+    # out, psi, q_here, s_here, q_there, s_there, T, Z, Y, Xh, parity,
+    # store, out_store, stream
+    "qtt_wilson_eo_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
 }
 
 

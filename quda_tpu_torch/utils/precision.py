@@ -4,8 +4,8 @@
 |---------|--------------------|-----------------------------------|
 | double  | complex128         | reference checks                  |
 | single  | complex64 / f32    | the solve path                    |
-| half    | bf16 pair          | sloppy fields (not ported yet)    |
-| quarter | int8 block-float   | sloppy links (not ported yet)     |
+| half    | bf16 pair          | sloppy fields and links           |
+| quarter | int8 block-float   | sloppy Wilson links (bf16 fields) |
 """
 
 from __future__ import annotations

@@ -1366,3 +1366,174 @@ def test_staggered_mg_and_operator_api_on_card_match_cpu():
                               torch.complex128))
     ref = d128.M(torch.from_numpy(src).to(torch.complex128))
     assert rel_err(m.cpu().numpy(), ref.numpy()) < 1e-5
+
+
+# -- the copy-free hops (v3, r12f, r12f-mrhs) and the int8 hop ---------------
+
+# (rows, storage, out) of the copy-free hop's six instances
+THERE_FORMS = [(3, torch.float32, torch.float32)] + FORMS
+
+
+def _there_inputs(dev, rows, store, seed, n=None):
+    """u_here, u_there (4,R,3,2,...) and psi (or an n-RHS batch) on
+    4x6x8x10, random normal on the card, in ``store``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sites = pair_spinor_shape(ASYM)[3:]
+    lead = () if n is None else (n,)
+    u_here, u_there = (torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                                   device=dev).to(store) for _ in range(2))
+    psi = torch.randn(lead + (4, 3, 2) + sites, generator=gen,
+                      device=dev).to(store)
+    return u_here, u_there, psi
+
+
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", THERE_FORMS,
+                         ids=lambda f: wpp.form_name(*f))
+@pytest.mark.parametrize("fn", ["v3", "r12f"])
+def test_copy_free_kernel_matches_plain_and_b1(fn, form, parity, tb_sign):
+    """v3 and r12f (one kernel) on 4x6x8x10: within the module's
+    tolerance of the plain version, and bit for bit B1 of the same form
+    fed the backward_gauge_eo copy of u_there; one launch counted on the
+    wrapper called."""
+    dev = require_cuda()
+    rows, store, out = form
+    u_here, u_there, psi = _there_inputs(dev, rows, store, 61 + parity)
+    dims = lattice_shape(ASYM)
+    wrapper = getattr(wpp, f"dslash_eo_pallas_packed_{fn}")
+    name = wpp.form_name(rows, store, out)
+    n0 = wrapper.launches_by_form.get(name, 0)
+    got = wrapper(u_here, u_there, psi, dims, parity, out_dtype=out,
+                  tb_sign=tb_sign)
+    assert wrapper.launches_by_form[name] == n0 + 1
+    u_bw = wpp.backward_gauge_eo(u_there, dims, parity).contiguous()
+    b1 = wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims, parity,
+                                     out_dtype=out, tb_sign=tb_sign)
+    want = wpp.dslash_eo_there_plain(u_here, u_there, psi, dims, parity,
+                                     out_dtype=out, tb_sign=tb_sign)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert torch.equal(got, b1)
+    tol = wpp.TOLERANCE if out == torch.float32 else wpp.TOLERANCE_BF16
+    assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
+        <= tol
+
+
+INT8_FORMS = [(torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", INT8_FORMS,
+                         ids=lambda f: wpp.int8_form_name(*f))
+def test_int8_kernel_matches_plain_and_b1(form, parity):
+    """The int8 hop on 4x6x8x10 (links of SU(3)-like scale quantised by
+    to_int8_links): within tolerance of the plain version, and bit for
+    bit B1 full:f32->f32 fed from_int8_links(q, s) and psi widened to
+    f32 (a bf16 psi converts exactly, and every sum is f32), the bf16
+    output that result rounded to nearest even."""
+    from quda_tpu_torch.ops import blockfloat as tbf
+    dev = require_cuda()
+    store, out = form
+    dims = lattice_shape(ASYM)
+    u_here, u_there, psi = _there_inputs(dev, 3, torch.float32, 65 + parity)
+    (qh, sh), (qt_, st) = (tbf.to_int8_links(u) for u in (u_here, u_there))
+    psi = psi.to(store)
+    name = wpp.int8_form_name(store, out)
+    n0 = wpp.dslash_eo_pallas_packed_int8.launches_by_form.get(name, 0)
+    got = wpp.dslash_eo_pallas_packed_int8(qh, sh, qt_, st, psi, dims,
+                                           parity, out_dtype=out)
+    assert wpp.dslash_eo_pallas_packed_int8.launches_by_form[name] == n0 + 1
+    u_bw = wpp.backward_gauge_eo(tbf.from_int8_links(qt_, st), dims,
+                                 parity).contiguous()
+    b1 = wpp.dslash_eo_pallas_packed(tbf.from_int8_links(qh, sh), u_bw,
+                                     psi.float(), dims, parity)
+    want = wpp.dslash_eo_int8_plain(qh, sh, qt_, st, psi, dims, parity,
+                                    out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert torch.equal(got, b1.to(out))
+    tol = wpp.TOLERANCE if out == torch.float32 else wpp.TOLERANCE_BF16
+    assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
+        <= tol
+
+
+@pytest.mark.parametrize("n", [1, 3, 12])
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_r12f_mrhs_kernel_matches_plain_and_r12f(rows, parity, chunk, n):
+    """The multi-RHS r12f hop at every chunk width (a tail chunk where n
+    is odd): within TOLERANCE of its plain version, and each lane bit for
+    bit a launch of the single-RHS r12f kernel."""
+    dev = require_cuda()
+    u_here, u_there, psi = _there_inputs(dev, rows, torch.float32,
+                                         67 + parity, n)
+    dims = lattice_shape(ASYM)
+    fn = wpp.dslash_eo_pallas_packed_r12f_mrhs
+    n0 = fn.launches
+    got = fn(u_here, u_there, psi, dims, parity, chunk=chunk)
+    assert fn.launches == n0 + 1
+    want = wpp.dslash_eo_there_mrhs_plain(u_here, u_there, psi, dims, parity)
+    lanes = torch.stack([wpp.dslash_eo_pallas_packed_r12f(
+        u_here, u_there, psi[r], dims, parity) for r in range(n)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanes)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= wpp.TOLERANCE
+
+
+def test_precision_form_wrappers_refuse_mixes_and_shapes():
+    """The new wrappers raise on tensors split between the CPU and the
+    card, on a wrong shape and on a form without an instance; nothing
+    launches."""
+    from quda_tpu_torch.ops import blockfloat as tbf
+    dev = require_cuda()
+    dims = lattice_shape(ASYM)
+    u_here, u_there, psi = _there_inputs(dev, 2, torch.float32, 69)
+    fns = (wpp.dslash_eo_pallas_packed_v3, wpp.dslash_eo_pallas_packed_r12f,
+           wpp.dslash_eo_pallas_packed_r12f_mrhs,
+           wpp.dslash_eo_pallas_packed_int8)
+    before = [f.launches for f in fns]
+    for fn in fns[:2]:
+        with pytest.raises(ValueError, match="several devices"):
+            fn(u_here, u_there.cpu(), psi, dims, 0)
+        with pytest.raises(ValueError):
+            fn(u_here, u_there[..., :4], psi, dims, 0)
+        with pytest.raises(TypeError):
+            fn(u_here, u_there, psi, dims, 0, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="several devices"):
+        fns[2](u_here, u_there, psi[None].cpu(), dims, 0)
+    (qh, sh), (qt_, st) = (tbf.to_int8_links(
+        torch.randn((4, 3, 3, 2) + psi.shape[3:], device=dev))
+        for _ in range(2))
+    with pytest.raises(ValueError, match="several devices"):
+        fns[3](qh, sh.cpu(), qt_, st, psi, dims, 0)
+    with pytest.raises(ValueError):
+        fns[3](qh, sh, qt_[:, :, :, :, :2].contiguous(), st, psi, dims, 0)
+    assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("tol", [1e-6, 1e-10])
+def test_quarter_invert_on_card_matches_cpu(tol):
+    """single/quarter on 4^4 SU(3) links: the card (int8 bf16 hop, at
+    least 4 launches an iteration) against the CPU's plain path:
+    converged, true_res <= 1e-5 (1e-10 on the df64 route), iterations
+    within 10%, solutions within 1e-3."""
+    dev = require_cuda()
+    dims = (4, 4, 4, 4)
+    g = su3_gauge(dims, seed=71)
+    b = gaussian(lattice_shape(dims) + (4, 3), seed=72)
+    wpp.reset_launches()
+    xg, pg = _solve(g, b, dev, dims=dims, tol=tol, cuda_prec_sloppy="quarter")
+    by = wpp.dslash_eo_pallas_packed_int8.launches_by_form
+    assert by.get("int8:bf16->bf16", 0) + by.get("int8:bf16->f32", 0) >= \
+        4 * pg.iter_count
+    xc, pc = _solve(g, b, "cpu", dims=dims, tol=tol,
+                    cuda_prec_sloppy="quarter")
+    assert pg.converged and pg.reliable_updates >= 1
+    assert pg.true_res <= (1e-5 if tol > 5e-8 else 1e-10)
+    assert abs(pg.iter_count - pc.iter_count) <= max(2, 0.1 * pc.iter_count)
+    assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-3
