@@ -157,6 +157,31 @@ Phases, one JSON line each (``"phase": ...``):
              a 12-source batched_cg_pairs (hisq, fat-only) against 12
              fused_cg iterations.
 
+8a. The fold layout and the staggered copy-free v3 pass (ROADMAP A7, B9,
+   B6) on the Wilson main path's gauge and sources (kappa 0.12, 32^3 x 64)
+   and phase 8's 32^4 HISQ links (m 0.1); fields of the checks from a
+   generator of their own:
+   check   — the fold hop (B1's six forms, R = 3 and 2) bit for bit
+             to_fold of B1 on the unfolded operands, the multi-RHS fold
+             hop (N = 1, 3, 12; 12 at 32^3 x 64) lane by lane the fold
+             hop, at 4x6x8x10 and 32^3 x 64; S1-fold (three forms) bit for
+             bit to_fold of S1, the v3 pass (fat and Naik, six forms) bit
+             for bit S2 on the backward_links_eo copy, the improved v3 hop
+             bit for bit S1, at 8x10x12x14 and 32^4; both parities, each
+             within its tolerance of its plain version.
+   fold_solve — Wilson fused_cg on the f32 fold operator, cg_reliable with
+             a bf16 fold sloppy operator and 12 sources batched on the
+             multi-RHS fold hop; staggered fused_cg and cg_reliable (bf16
+             sloppy) on hisq fold and v3 and on fat-only v3.  Fails unless
+             each takes its twin's (full, fused or two_pass) iterations
+             and reliable updates to the same solution bits, runs its own
+             kernel (fold 4 an iteration, S1-fold 2, improved v3 4,
+             fat-only v3 2 on fused_cg) and no B1, B5-eo, S1 or S2.
+   timing  ("family": "fold_v3") — each form's ms, bound, share, plain ms
+             and its twin's ms in the same call, its launches on its
+             path; the to_fold / from_fold copies of one fold hop; ms per
+             fused_cg iteration of each form against its twin's.
+
 9. The twisted and domain-wall families at 32^3 x 64 (ROADMAP A10; a
    random SU(3) gauge and sources from a generator of their own; kappa
    0.12, mu 0.1, epsilon 0.05, csw 1.0; Ls 12, m5 -1.8, b5 1.5, c5 0.5,
@@ -372,10 +397,11 @@ def median_ms(fn, torch, repeats=REPEATS, batch=BATCH) -> float:
     return statistics.median(times)
 
 
-def staggered(torch, dev, smi) -> list:
+def staggered(torch, dev, smi):
     """The staggered slice at BASELINE config 4's 32^4 (phases check,
     hisq, invert_staggered, invert_multishift, reference, timing); returns
-    the kernels-line rows of S1 and S2."""
+    the kernels-line rows of S1 and S2, and the HISQ links, the fat-only
+    gauge and the source (for the fold and v3 block)."""
     import numpy as np
 
     import quda_tpu_torch as qt
@@ -941,7 +967,7 @@ def staggered(torch, dev, smi) -> list:
             "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
-    return rows
+    return rows, {"fat": fat, "long": lng, "gauge": gauge, "src": src}
 
 
 def operator_and_double(torch, dev, smi) -> list:
@@ -2956,6 +2982,485 @@ def precision(torch, dev, smi, gauge, src, srcs, half_ref, df64_ref,
     return rows_out
 
 
+def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
+    """The fold layout (Wilson and staggered) and the staggered copy-free
+    v3 pass (phases check, fold_solve, timing with "family": "fold_v3");
+    returns the kernels-line rows of the fold hop, the multi-RHS fold hop,
+    S1-fold and the v3 pass.  ``gauge``, ``src`` and ``srcs`` are the
+    Wilson main path's hot gauge and sources; ``stag`` phase 8's 32^4
+    HISQ links ("fat", "long"), its fat-only gauge ("gauge") and its
+    one-spin source ("src")."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_split
+    from quda_tpu_torch.models.staggered import DiracStaggeredPC
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.ops import staggered_pallas as spl
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    from quda_tpu_torch.solvers.mixed import cg_reliable, pair_inplace_codec
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    fold = wpp.to_fold
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    errs = {}
+    b1_forms = [(3, f32, f32), (3, bf16, bf16), (3, bf16, f32),
+                (2, f32, f32), (2, bf16, bf16), (2, bf16, f32)]
+    stag_forms = [(f32, f32), (bf16, bf16), (bf16, f32)]
+
+    def check(kernel, name, dims_xyzt, parity, got, want, twin, tol,
+              **info):
+        """``got`` within ``tol`` of the plain ``want``, and bit for bit
+        ``twin`` (the unfolded or resident-copy kernel on the same
+        operands, folded where ``got`` is)."""
+        torch.cuda.synchronize()
+        abs_err = (got.float() - want.float()).abs().max().item()
+        rel = abs_err / want.float().abs().max().item()
+        same = bool(torch.equal(got, twin))
+        key = f"{kernel}:{name}"
+        errs[key] = max(errs.get(key, 0.0), abs_err)
+        emit({"phase": "check", "kernel": kernel, "form": name,
+              "dims_xyzt": list(dims_xyzt), "parity": parity,
+              "max_abs_err": abs_err, "max_rel_err": rel, "tolerance": tol,
+              "bit_for_bit_twin": same, **info})
+        if not (rel <= tol and same):
+            fail(f"{kernel} {name} disagrees with its plain version "
+                 f"({rel:.3e} > {tol:g}) or with its twin (equal: {same})")
+
+    def w_inputs(dims_xyzt, rows, store, n=None):
+        T, Z, Y, X = LatticeGeometry(dims_xyzt).lattice_shape
+        sites = (T, Z, Y * X // 2)
+        lead = () if n is None else (n,)
+        u_here, u_there = (torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                                       device=dev).to(store)
+                           for _ in range(2))
+        psi = torch.randn(lead + (4, 3, 2) + sites, generator=gen,
+                          device=dev).to(store)
+        return (T, Z, Y, X), u_here, u_there, psi
+
+    def s_inputs(dims_xyzt, store):
+        """fat/long here/there (long at 1/24 the scale) and psi."""
+        T, Z, Y, X = LatticeGeometry(dims_xyzt).lattice_shape
+        sites = (T, Z, Y * X // 2)
+        links = [(torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
+                  * (1.0 if i < 2 else 1.0 / 24)).to(store)
+                 for i in range(4)]
+        psi = torch.randn((3, 2) + sites, generator=gen, device=dev).to(store)
+        return (T, Z, Y, X), links, psi
+
+    # -- check: each kernel against its plain version and its twin --------
+    fold_fn = wpp.dslash_eo_pallas_packed_fold
+    fold_mrhs_fn = wpp.dslash_eo_pallas_packed_fold_mrhs
+    sfold_fn = spl.dslash_staggered_eo_pallas_fused_fold
+    v3_fn = spl.dslash_staggered_eo_pass_v3
+    for dims_xyzt in (SMALL_DIMS, PROD_DIMS):
+        for parity in (0, 1):
+            for rows, store, out in b1_forms:
+                dims, u_here, u_there, psi = w_inputs(dims_xyzt, rows, store)
+                u_bw = wpp.backward_gauge_eo(u_there, dims,
+                                             parity).contiguous()
+                del u_there
+                fh, fb, fp = fold(u_here), fold(u_bw), fold(psi)
+                got = fold_fn(fh, fb, fp, dims, parity, out_dtype=out)
+                want = wpp.dslash_eo_fold_plain(fh, fb, fp, dims, parity,
+                                                out_dtype=out)
+                twin = fold(wpp.dslash_eo_pallas_packed(
+                    u_here, u_bw, psi, dims, parity, out_dtype=out))
+                check(fold_fn.__name__, wpp.form_name(rows, store, out),
+                      dims_xyzt, parity, got, want, twin,
+                      wpp.TOLERANCE if out == f32 else wpp.TOLERANCE_BF16)
+                del u_here, u_bw, psi, fh, fb, fp, got, want, twin
+            cases = ([(1, 1), (3, 2), (12, 2)] if dims_xyzt == SMALL_DIMS
+                     else [(MULTI_SRC_N, wpp.MRHS_CHUNK)])
+            for rows in (3, 2):
+                for n, chunk in cases:
+                    dims, u_here, u_bw, psi = w_inputs(dims_xyzt, rows, f32,
+                                                       n)
+                    fh, fb, fp = fold(u_here), fold(u_bw), fold(psi)
+                    del u_here, u_bw, psi
+                    got = fold_mrhs_fn(fh, fb, fp, dims, parity, chunk=chunk)
+                    want = wpp.dslash_eo_fold_mrhs_plain(fh, fb, fp, dims,
+                                                         parity)
+                    lanes = torch.stack([fold_fn(fh, fb, fp[r], dims, parity)
+                                         for r in range(n)])
+                    check(fold_mrhs_fn.__name__, wpp.form_name(rows, f32, f32),
+                          dims_xyzt, parity, got, want, lanes, wpp.TOLERANCE,
+                          nrhs=n, chunk=chunk)
+                    del fh, fb, fp, got, want, lanes
+    for dims_xyzt in (STAG_SMALL_DIMS, STAG_DIMS):
+        for parity in (0, 1):
+            for store, out in stag_forms:
+                tol = spl.TOLERANCE if out == f32 else spl.TOLERANCE_BF16
+                dims, lk, psi = s_inputs(dims_xyzt, store)
+                s1 = spl.dslash_staggered_eo_pallas_fused(
+                    lk[0], lk[1], psi, dims, parity, lk[2], lk[3],
+                    out_dtype=out)
+                fl = [fold(t) for t in lk]
+                got = sfold_fn(fl[0], fl[1], fold(psi), dims, parity, fl[2],
+                               fl[3], out_dtype=out)
+                want = spl.dslash_staggered_eo_fused_fold_plain(
+                    fl[0], fl[1], fold(psi), dims, parity, fl[2], fl[3],
+                    out_dtype=out)
+                check(sfold_fn.__name__, spl.form_name(store, out),
+                      dims_xyzt, parity, got, want, fold(s1), tol)
+                del fl, got, want
+                for nhop, (here, there) in ((1, lk[:2]), (3, lk[2:])):
+                    got = v3_fn(here, there, psi, dims, parity, nhop,
+                                out_dtype=out)
+                    want = spl.dslash_staggered_eo_pass_v3_plain(
+                        here, there, psi, dims, parity, nhop, out_dtype=out)
+                    bw = spl.backward_links_eo(there, dims, parity,
+                                               nhop).contiguous()
+                    twin = spl.dslash_staggered_eo_pass(here, bw, psi, dims,
+                                                        parity, nhop, out)
+                    check(v3_fn.__name__, spl.pass_form_name(nhop, store,
+                                                             out),
+                          dims_xyzt, parity, got, want, twin, tol)
+                    del got, want, bw, twin
+                # the improved v3 hop: the f32 fat pass, the Naik pass
+                # adding it, S1 bit for bit
+                got = spl.dslash_staggered_eo_pallas_v3(
+                    lk[0], lk[1], psi, dims, parity, lk[2], lk[3],
+                    out_dtype=out)
+                want = spl.dslash_staggered_eo_fused_plain(
+                    lk[0], lk[1], psi, dims, parity, lk[2], lk[3],
+                    out_dtype=out)
+                check("dslash_staggered_eo_pallas_v3",
+                      spl.form_name(store, out), dims_xyzt, parity, got,
+                      want, s1, tol)
+                del lk, psi, s1, got, want
+
+    # -- fold_solve: counts zeroed just before each path, read after ------
+    def counts():
+        fns = (wpp.dslash_eo_pallas_packed, wpp.dslash_eo_pallas_packed_mrhs,
+               fold_fn, fold_mrhs_fn, spl.dslash_staggered_eo_pallas_fused,
+               spl.dslash_staggered_eo_pass, sfold_fn, v3_fn)
+        return {fn.__name__: dict(fn.launches_by_form) for fn in fns}
+
+    launches, path_iters = {}, {}
+
+    def run(label, fn):
+        wpp.reset_launches()
+        spl.reset_launches()
+        torch.cuda.synchronize()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[label] = counts()
+        its = res.iters
+        path_iters[label] = (max(int(i) for i in its) if torch.is_tensor(its)
+                             else its)
+        return res
+
+    def by(label, fn, form=None):
+        got = launches[label][fn.__name__]
+        return sum(got.values()) if form is None else got.get(form, 0)
+
+    def solve_row(label, solver, operator, res, twin, **info):
+        same = bool(torch.equal(res.x, twin.x))
+        emit({"phase": "fold_solve", "label": label, "solver": solver,
+              "operator": operator, "tol": TOL,
+              "iters": (res.iters.tolist() if torch.is_tensor(res.iters)
+                        else res.iters),
+              "twin_iters": (twin.iters.tolist()
+                             if torch.is_tensor(twin.iters) else twin.iters),
+              "reliable_updates": getattr(res, "reliable_updates", None),
+              "twin_reliable_updates": getattr(twin, "reliable_updates",
+                                               None),
+              "solution_bits_equal_twin": same,
+              "launches": launches[label], **info})
+        return same
+
+    geom_p = LatticeGeometry(PROD_DIMS)
+    dpk = DiracWilsonPC(gauge, geom_p, KAPPA).packed()
+    be, bo = even_odd_split(src, geom_p)
+    wops = {(s, f): dpk.pairs(s, f) for s in (f32, bf16)
+            for f in ("full", "fold")}
+    rhs = wops[(f32, "full")].Mdag_pairs(
+        wops[(f32, "full")].prepare_pairs(be, bo))
+    wres = {}
+    for f in ("full", "fold"):
+        op = wops[(f32, f)]
+        wres[f] = run(f"fused_cg:{f}", lambda: fused_cg(
+            op.MdagM_pairs, rhs, tol=TOL, maxiter=2000))
+    same = solve_row("fused_cg:fold", "fused_cg", "wilson fold f32",
+                     wres["fold"], wres["full"], dims_xyzt=list(PROD_DIMS))
+    n_fold = by("fused_cg:fold", fold_fn)
+    if not (wres["fold"].converged and same
+            and wres["fold"].iters == wres["full"].iters
+            and n_fold == 4 * wres["fold"].iters
+            and by("fused_cg:fold", wpp.dslash_eo_pallas_packed) == 0):
+        fail(f"Wilson fold fused_cg: {wres['fold'].iters} iterations "
+             f"against full's {wres['full'].iters}, bits equal {same}, "
+             f"{launches['fused_cg:fold']}")
+    codec = pair_inplace_codec(bf16)
+    for f in ("full", "fold"):
+        hi, lo = wops[(f32, f)], wops[(bf16, f)]
+        wres[f"mixed:{f}"] = run(f"cg_reliable:{f}", lambda: cg_reliable(
+            hi.MdagM_pairs, lo.MdagM_pairs, rhs, codec, tol=TOL,
+            maxiter=2000))
+    a, b = wres["mixed:fold"], wres["mixed:full"]
+    same = solve_row("cg_reliable:fold", "cg_reliable",
+                     "wilson fold f32 / bf16 fold", a, b,
+                     dims_xyzt=list(PROD_DIMS))
+    if not (a.converged and same and a.iters == b.iters
+            and a.reliable_updates == b.reliable_updates
+            and by("cg_reliable:fold", fold_fn) >= 4 * a.iters
+            and by("cg_reliable:fold", wpp.dslash_eo_pallas_packed) == 0):
+        fail(f"Wilson fold cg_reliable: {a.iters}/{a.reliable_updates} "
+             f"against full's {b.iters}/{b.reliable_updates}, bits equal "
+             f"{same}, {launches['cg_reliable:fold']}")
+    del rhs
+    be_b, bo_b = (torch.stack(h).contiguous() for h in zip(
+        *(even_odd_split(srcs[i], geom_p) for i in range(MULTI_SRC_N))))
+    for f in ("full", "fold"):
+        op = wops[(f32, f)]
+        rhs_b = op.Mdag_pairs_mrhs(op.prepare_pairs_mrhs(be_b, bo_b))
+        wres[f"batched:{f}"] = run(f"batched:{f}", lambda: batched_cg_pairs(
+            op.MdagM_pairs_mrhs, rhs_b, tol=TOL, maxiter=2000))
+        del rhs_b
+    del be_b, bo_b
+    a, b = wres["batched:fold"], wres["batched:full"]
+    same = solve_row("batched:fold", "batched_cg_pairs",
+                     "wilson fold f32, 12 sources", a, b,
+                     nrhs=MULTI_SRC_N)
+    n_mrhs = by("batched:fold", fold_mrhs_fn)
+    if not (bool(a.converged.all()) and same and torch.equal(a.iters, b.iters)
+            and n_mrhs >= 4 * path_iters["batched:fold"]
+            and by("batched:fold", fold_fn) == 0
+            and by("batched:fold", wpp.dslash_eo_pallas_packed_mrhs) == 0):
+        fail(f"Wilson 12-source fold solve: lanes {a.iters.tolist()} "
+             f"against full's {b.iters.tolist()}, bits equal {same}, "
+             f"{launches['batched:fold']}")
+
+    # staggered, on phase 8's links: hisq fused, fold and v3; fat-only
+    # two_pass and v3; fused_cg (f32) and cg_reliable (bf16 sloppy)
+    geom_s = LatticeGeometry(STAG_DIMS)
+    hisq = DiracStaggeredPC(stag["fat"], geom_s, STAG_MASS, True,
+                            stag["long"])
+    fat_only = DiracStaggeredPC(stag["gauge"], geom_s, STAG_MASS)
+    sbe, sbo = even_odd_split(stag["src"], geom_s)
+    sops = {}
+    for name, d, kw in (("hisq:fused", hisq, {}),
+                        ("hisq:fold", hisq, {"precision_form": "fold"}),
+                        ("hisq:v3", hisq, {"form": "v3"}),
+                        ("fat:two_pass", fat_only, {}),
+                        ("fat:v3", fat_only, {"form": "v3"})):
+        sops[name] = (d.pairs(f32, **kw), d.pairs(bf16, **kw))
+    if not (sops["hisq:fold"][0]._precision_form == "fold"
+            and sops["hisq:v3"][0]._fat_bw is None
+            and sops["fat:v3"][0]._fat_bw is None):
+        fail("the staggered fold / v3 operators were not built as asked")
+    sres = {}
+    for fam, names in (("hisq", ("fused", "fold", "v3")),
+                       ("fat", ("two_pass", "v3"))):
+        rhs = sops[f"{fam}:{names[0]}"][0].prepare_pairs(sbe, sbo)
+        for name in names:
+            hi, lo = sops[f"{fam}:{name}"]
+            sres[f"fused_cg:{fam}:{name}"] = run(
+                f"fused_cg:{fam}:{name}", lambda: fused_cg(
+                    hi.M_pairs, rhs, tol=TOL, maxiter=5000))
+            sres[f"cg_reliable:{fam}:{name}"] = run(
+                f"cg_reliable:{fam}:{name}", lambda: cg_reliable(
+                    hi.M_pairs, lo.M_pairs, rhs, codec, tol=TOL,
+                    maxiter=5000))
+        del rhs
+    twin_of = {"hisq:fold": "hisq:fused", "hisq:v3": "hisq:fused",
+               "fat:v3": "fat:two_pass"}
+    # per iteration: the form's own kernel, and no S1/S2 launch
+    own = {"hisq:fold": (sfold_fn, 2), "hisq:v3": (v3_fn, 4),
+           "fat:v3": (v3_fn, 2)}
+    for name, twin in twin_of.items():
+        for solver in ("fused_cg", "cg_reliable"):
+            label = f"{solver}:{name}"
+            a, b = sres[label], sres[f"{solver}:{twin}"]
+            same = solve_row(label, solver, f"staggered {name}", a, b,
+                             dims_xyzt=list(STAG_DIMS), mass=STAG_MASS)
+            fn, per_iter = own[name]
+            n_own = by(label, fn)
+            twins_run = (by(label, spl.dslash_staggered_eo_pallas_fused)
+                         + by(label, spl.dslash_staggered_eo_pass))
+            ok = (a.converged and same and a.iters == b.iters
+                  and twins_run == 0)
+            if solver == "fused_cg":
+                ok = ok and n_own == per_iter * a.iters
+            else:
+                ok = (ok and a.reliable_updates == b.reliable_updates
+                      and n_own >= per_iter // 2 * a.iters)
+            if not ok:
+                fail(f"staggered {label}: {a.iters} iterations against "
+                     f"{twin}'s {b.iters}, bits equal {same}, "
+                     f"{launches[label]}")
+
+    # -- timing: each form against its bound, its plain version and its
+    # twin in the same call; the fold route's layout copies ---------------
+    def bound(nbytes, nflop, sites):
+        t_bytes = nbytes * sites / HBM_BYTES_PER_S
+        t_ops = nflop * sites / F32_FLOPS_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    half_w = geom_p.half_volume
+    half_s = geom_s.half_volume
+    timing, twin_ms, copies = {}, {}, {}
+    for rows, store, out in b1_forms:
+        dims, u_here, u_bw, psi = w_inputs(PROD_DIMS, rows, store)
+        fh, fb, fp = fold(u_here), fold(u_bw), fold(psi)
+        name = wpp.form_name(rows, store, out)
+        k_ms = median_ms(lambda: fold_fn(fh, fb, fp, dims, 0, out_dtype=out),
+                         torch)
+        twin_ms[f"fold:{name}"] = median_ms(
+            lambda: wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims, 0,
+                                                out_dtype=out), torch)
+        p_ms = median_ms(lambda: wpp.dslash_eo_fold_plain(
+            fh, fb, fp, dims, 0, out_dtype=out), torch, 5, 2)
+        timing[f"fold:{name}"] = (k_ms, p_ms) + bound(
+            wpp.bytes_per_site(rows, store, out), wpp.flops_per_site(rows),
+            half_w)
+        if rows == 3 and out == store:
+            o = fold_fn(fh, fb, fp, dims, 0, out_dtype=out)
+            copies["f32" if store == f32 else "bf16"] = {
+                "to_fold_psi_ms": median_ms(lambda: fold(psi), torch),
+                "from_fold_out_ms": median_ms(
+                    lambda: wpp.from_fold(o).contiguous(), torch)}
+            del o
+        del u_here, u_bw, psi, fh, fb, fp
+    for rows in (3, 2):
+        dims, u_here, u_bw, psi = w_inputs(PROD_DIMS, rows, f32, MULTI_SRC_N)
+        fh, fb, fp = fold(u_here), fold(u_bw), fold(psi)
+        name = wpp.form_name(rows, f32, f32)
+        k_ms = median_ms(lambda: fold_mrhs_fn(fh, fb, fp, dims, 0), torch)
+        twin_ms[f"fold_mrhs:{name}"] = median_ms(
+            lambda: wpp.dslash_eo_pallas_packed_mrhs(u_here, u_bw, psi, dims,
+                                                     0), torch)
+        p_ms = median_ms(lambda: wpp.dslash_eo_fold_mrhs_plain(
+            fh, fb, fp, dims, 0), torch, 3, 1)
+        timing[f"fold_mrhs:{name}"] = (k_ms, p_ms) + bound(
+            wpp.bytes_per_site_mrhs(MULTI_SRC_N, rows),
+            wpp.flops_per_site_mrhs(MULTI_SRC_N, rows), half_w)
+        del u_here, u_bw, psi, fh, fb, fp
+    for store, out in stag_forms:
+        dims, lk, psi = s_inputs(STAG_DIMS, store)
+        fl, fp = [fold(t) for t in lk], fold(psi)
+        name = spl.form_name(store, out)
+        k_ms = median_ms(lambda: sfold_fn(fl[0], fl[1], fp, dims, 0, fl[2],
+                                          fl[3], out_dtype=out), torch)
+        twin_ms[f"stag_fold:{name}"] = median_ms(
+            lambda: spl.dslash_staggered_eo_pallas_fused(
+                lk[0], lk[1], psi, dims, 0, lk[2], lk[3], out_dtype=out),
+            torch)
+        p_ms = median_ms(lambda: spl.dslash_staggered_eo_fused_fold_plain(
+            fl[0], fl[1], fp, dims, 0, fl[2], fl[3], out_dtype=out), torch,
+            5, 2)
+        timing[f"stag_fold:{name}"] = (k_ms, p_ms) + bound(
+            spl.fused_bytes_per_site(store, out), spl.FUSED_FLOPS_PER_SITE,
+            half_s)
+        del fl, fp
+        for nhop, (here, there) in ((1, lk[:2]), (3, lk[2:])):
+            name = spl.pass_form_name(nhop, store, out)
+            bw = spl.backward_links_eo(there, dims, 0, nhop).contiguous()
+            k_ms = median_ms(lambda: v3_fn(here, there, psi, dims, 0, nhop,
+                                           out_dtype=out), torch)
+            twin_ms[f"v3:{name}"] = median_ms(
+                lambda: spl.dslash_staggered_eo_pass(here, bw, psi, dims, 0,
+                                                     nhop, out), torch)
+            p_ms = median_ms(lambda: spl.dslash_staggered_eo_pass_v3_plain(
+                here, there, psi, dims, 0, nhop, out_dtype=out), torch, 5, 2)
+            timing[f"v3:{name}"] = (k_ms, p_ms) + bound(
+                spl.pass_bytes_per_site(store, out), spl.PASS_FLOPS_PER_SITE,
+                half_s)
+            del bw
+        # the improved v3 hop (two launches) against S1
+        name = spl.form_name(store, out)
+        k_ms = median_ms(lambda: spl.dslash_staggered_eo_pallas_v3(
+            lk[0], lk[1], psi, dims, 0, lk[2], lk[3], out_dtype=out), torch)
+        twin_ms[f"v3_improved:{name}"] = twin_ms[f"stag_fold:{name}"]
+        b_fat, _ = bound(spl.pass_bytes_per_site(store, f32),
+                         spl.PASS_FLOPS_PER_SITE, half_s)
+        b_naik, _ = bound(spl.pass_bytes_per_site(store, out, True),
+                          spl.PASS_FLOPS_PER_SITE, half_s)
+        timing[f"v3_improved:{name}"] = (k_ms, None, b_fat + b_naik,
+                                         "bytes")
+        del lk, psi
+
+    def per_iter_ms(matvec, rhs, n=STAG_ITER_TIMED):
+        fused_cg(matvec, rhs, tol=1e-30, maxiter=2)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fused_cg(matvec, rhs, tol=1e-30, maxiter=n)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / res.iters
+
+    iter_ms = {}
+    rhs = wops[(f32, "full")].Mdag_pairs(
+        wops[(f32, "full")].prepare_pairs(be, bo))
+    for f in ("full", "fold", "fold", "full"):
+        iter_ms.setdefault(f"wilson:{f}", []).append(per_iter_ms(
+            wops[(f32, f)].MdagM_pairs, rhs))
+    del rhs, wops, dpk
+    for fam, names in (("hisq", ("fused", "fold", "v3")),
+                       ("fat", ("two_pass", "v3"))):
+        rhs = sops[f"{fam}:{names[0]}"][0].prepare_pairs(sbe, sbo)
+        for name in names + names[::-1]:
+            iter_ms.setdefault(f"{fam}:{name}", []).append(per_iter_ms(
+                sops[f"{fam}:{name}"][0].M_pairs, rhs))
+        del rhs
+    del sops
+
+    # (kernel, form) -> the path its launches are read from
+    on_path = [("fold", "full:f32->f32", "fused_cg:fold"),
+               ("fold", "full:bf16->bf16", "cg_reliable:fold"),
+               ("fold", "full:bf16->f32", "cg_reliable:fold"),
+               ("fold_mrhs", "full:f32->f32", "batched:fold"),
+               ("stag_fold", "full:f32->f32", "fused_cg:hisq:fold"),
+               ("stag_fold", "full:bf16->bf16", "cg_reliable:hisq:fold"),
+               ("stag_fold", "full:bf16->f32", "cg_reliable:hisq:fold"),
+               ("v3", "fat:f32->f32", "fused_cg:fat:v3"),
+               ("v3", "naik:f32->f32", "fused_cg:hisq:v3"),
+               ("v3", "fat:bf16->bf16", "cg_reliable:fat:v3"),
+               ("v3", "fat:bf16->f32", "cg_reliable:hisq:v3"),
+               ("v3", "naik:bf16->bf16", "cg_reliable:hisq:v3"),
+               ("v3", "naik:bf16->f32", "cg_reliable:hisq:v3")]
+    fns = {"fold": fold_fn, "fold_mrhs": fold_mrhs_fn, "stag_fold": sfold_fn,
+           "v3": v3_fn}
+    on_path_launches = {(k, f): by(p, fns[k], f) for k, f, p in on_path}
+    row = {"phase": "timing", "family": "fold_v3", "nvidia_smi": smi,
+           "dims_xyzt": list(PROD_DIMS), "stag_dims_xyzt": list(STAG_DIMS),
+           "repeats": REPEATS, "calls_per_timing": BATCH,
+           "fold_layout_copies": copies,
+           "iteration_ms": {k: v for k, v in iter_ms.items()},
+           "path_iters": path_iters}
+    for name, (k_ms, p_ms, b_ms, _) in timing.items():
+        row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "share_of_bound": b_ms / k_ms,
+                     "twin_ms": twin_ms.get(name)}
+    for kernel, form, path in on_path:
+        n = on_path_launches[(kernel, form)]
+        row[f"{kernel}:{form}"].update(
+            path=path, launches=n, launches_per_iter=n / path_iters[path])
+    emit(row)
+
+    # the kernels-line rows: each form with a path, launches from it
+    sources = {"fold": "quda_tpu_torch/csrc/wilson_eo_fold.cu",
+               "fold_mrhs": "quda_tpu_torch/csrc/wilson_eo_fold.cu",
+               "stag_fold": "quda_tpu_torch/csrc/staggered_eo.cu",
+               "v3": "quda_tpu_torch/csrc/staggered_eo.cu"}
+    replaces = {"fold": "quda_tpu/ops/wilson_pallas_packed.py:1328",
+                "fold_mrhs": "quda_tpu/ops/wilson_pallas_packed.py:1383",
+                "stag_fold": "quda_tpu/ops/staggered_pallas.py:1364",
+                "v3": "quda_tpu/ops/staggered_pallas.py:539"}
+    rows_out = []
+    for kernel, form, path in on_path:
+        k_ms, p_ms, b_ms, b_by = timing[f"{kernel}:{form}"]
+        rows_out.append({
+            "name": f"{fns[kernel].__name__}[{form}]", "route": "cuda",
+            "source": sources[kernel], "replaces": replaces[kernel],
+            "launches": on_path_launches[(kernel, form)],
+            "max_abs_err": errs[f"{fns[kernel].__name__}:{form}"],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    return rows_out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3844,7 +4349,10 @@ def main() -> int:
     rows_out.extend(precision(torch, dev, smi, gauge, src, srcs, half_ref,
                               df64_ref, multi["wilson:r12"][0]))
     rows_out.extend(operator_and_double(torch, dev, smi))
-    rows_out.extend(staggered(torch, dev, smi))
+    stag_rows, stag = staggered(torch, dev, smi)
+    rows_out.extend(stag_rows)
+    rows_out.extend(fold_v3(torch, dev, smi, gauge, src, srcs, stag))
+    del stag
     rows_out.extend(zoo(torch, dev, smi))
     mg_rows, mg_gauge = multigrid(torch, dev, smi)
     rows_out.extend(mg_rows)

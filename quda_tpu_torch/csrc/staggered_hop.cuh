@@ -21,6 +21,13 @@
 // The staggered phases and the antiperiodic t boundary are folded into the
 // links (the long links' boundary on the last three t planes), so no hop
 // carries a sign of its own.  Offsets are 64-bit.
+//
+// The half-lattice hops also take the layout of a component plane
+// (wilson_hop.cuh's PairLayout, or FoldLayout for the fused fold hop:
+// psi (3, T, 2Z, Y*Xh), links (4, 3, 3, T, 2Z, Y*Xh), to_fold of the pair
+// layout): eo_site places the site at its address in the layout, and the
+// hop set scales the z and t strides and reads the imaginary part where
+// the layout puts it.  The arithmetic is the same either way.
 #pragma once
 
 #include "wilson_hop.cuh"
@@ -29,23 +36,26 @@ namespace qtt {
 
 // Site coordinates of half-site `site` of parity `parity`: the packed rule
 // mask_r0 = ((t+z+y+parity) % 2 == 0) puts the site of slot xh at
-// x = 2*xh + ((t+z+y+parity) & 1).
+// x = 2*xh + ((t+z+y+parity) & 1).  site and row are addresses of the
+// layout Lay.
 struct EoSite {
   int t, z, y, xh, x;
   int64_t site, row;  // row: the half-site of slot 0 on this (t, z, y) row
 };
 
+template <typename Lay = PairLayout>
 __device__ __forceinline__ EoSite eo_site(int64_t site, int Z, int Y,
                                           int Xh, int64_t YXh,
-                                          int64_t ZYXh, int parity) {
+                                          int64_t ZYXh, int parity,
+                                          const Lay& lay = Lay()) {
   EoSite s;
   s.xh = static_cast<int>(site % Xh);
   s.y = static_cast<int>((site / Xh) % Y);
   s.z = static_cast<int>((site / YXh) % Z);
   s.t = static_cast<int>(site / ZYXh);
   s.x = 2 * s.xh + ((s.t + s.z + s.y + parity) & 1);
-  s.site = site;
-  s.row = site - s.xh;
+  s.site = lay.at(site, static_cast<int64_t>(s.t) * Z + s.z);
+  s.row = s.site - s.xh;
   return s;
 }
 
@@ -113,38 +123,40 @@ __device__ __forceinline__ int64_t site_neighbour(const FullSite& s, int d,
   }
 }
 
-// colour vector (3 complex) at half-site i of a (3, 2, S) field
+// colour vector (3 complex) at address i of a (3, 2, S) field (the
+// imaginary parts im further on: n in the pair layout)
 template <typename S>
 __device__ __forceinline__ void ld_cvec(float2 (&v)[3],
                                         const S* __restrict__ psi,
-                                        int64_t n, int64_t i) {
+                                        int64_t n, int64_t i, int64_t im) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const S* q = psi + static_cast<int64_t>(2 * c) * n + i;
-    v[c] = make_float2(ld(q), ld(q + n));
+    v[c] = make_float2(ld(q), ld(q + im));
   }
 }
 
 // One hop into acc for NB right-hand sides: acc[r] += 0.5 U psi_r (FWD)
 // or acc[r] -= 0.5 U^dag psi_r, with U^dag[a][b] = conj(U[b][a]); the link
 // of direction MU at link half-site li (loaded once), psi_r at half-site pi
-// of psi + r * rstride.  As the TPU kernel: the colour sum first, then the
-// +-0.5 scale.
+// of psi + r * rstride; li and pi are addresses, the imaginary parts im
+// further on.  As the TPU kernel: the colour sum first, then the +-0.5
+// scale.
 template <int MU, bool FWD, int NB, typename S>
 __device__ __forceinline__ void stag_hop(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
                                          int64_t rstride, int nvalid,
                                          const S* __restrict__ g,
-                                         int64_t n, int64_t li,
+                                         int64_t n, int64_t im, int64_t li,
                                          int64_t pi) {
   float2 u[3][3];
-  ld_link<3>(u, g, MU, n, li, 1.f);
+  ld_link<3>(u, g, MU, n, li, 1.f, im);
   const float s = FWD ? 0.5f : -0.5f;
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
     if (NB > 1 && r >= nvalid) break;
     float2 v[3];
-    ld_cvec(v, psi + r * rstride, n, pi);
+    ld_cvec(v, psi + r * rstride, n, pi, im);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       float2 t = make_float2(0.f, 0.f);
@@ -162,8 +174,9 @@ __device__ __forceinline__ void stag_hop(float2 (&acc)[NB][3],
 // read at index `bw_at_nb ? neighbour : site` of `g_bw`: the fused kernels
 // read the unshifted links (the opposite parity's on the half lattice) at
 // the backward neighbour, the gather passes their pre-shifted copy at the
-// target site.  Site is EoSite (W = Xh) or FullSite (W = X).
-template <int MU, int N, int NB, typename S, typename Site>
+// target site.  Site is EoSite (W = Xh) or FullSite (W = X), placed in
+// the layout Lay, whose z and t strides are kRowScale times YW and ZYW.
+template <int MU, int N, int NB, typename S, typename Site, typename Lay>
 __device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
                                          int64_t rstride, int nvalid,
@@ -172,17 +185,22 @@ __device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
                                          bool bw_at_nb, const Site& s,
                                          int T, int Z, int Y, int W,
                                          int64_t YW, int64_t ZYW,
-                                         int64_t n) {
-  const int64_t fwd = site_neighbour<MU>(s, +N, T, Z, Y, W, YW, ZYW);
-  const int64_t bwd = site_neighbour<MU>(s, -N, T, Z, Y, W, YW, ZYW);
-  stag_hop<MU, true>(acc, psi, rstride, nvalid, g_fwd, n, s.site, fwd);
-  stag_hop<MU, false>(acc, psi, rstride, nvalid, g_bw, n,
+                                         int64_t n, const Lay& lay) {
+  constexpr int k = Lay::kRowScale;
+  const int64_t fwd = site_neighbour<MU>(s, +N, T, Z, Y, W, k * YW, k * ZYW);
+  const int64_t bwd = site_neighbour<MU>(s, -N, T, Z, Y, W, k * YW, k * ZYW);
+  const int64_t im = lay.im(n);
+  stag_hop<MU, true>(acc, psi, rstride, nvalid, g_fwd, n, im, s.site, fwd);
+  stag_hop<MU, false>(acc, psi, rstride, nvalid, g_bw, n, im,
                       bw_at_nb ? bwd : s.site, bwd);
 }
 
 // The whole hop set of hop count N (8 hops) into acc, directions in the
-// TPU kernel's order (x, y, z, t; forward before backward).
-template <int N, int NB, typename S, typename Site>
+// TPU kernel's order (x, y, z, t; forward before backward); psi and the
+// links in the layout ``lay`` (the pair layout unless given), YW and ZYW
+// the pair layout's strides.
+template <int N, int NB, typename S, typename Site,
+          typename Lay = PairLayout>
 __device__ __forceinline__ void stag_hopset(float2 (&acc)[NB][3],
                                             const S* __restrict__ psi,
                                             int64_t rstride, int nvalid,
@@ -191,28 +209,37 @@ __device__ __forceinline__ void stag_hopset(float2 (&acc)[NB][3],
                                             bool bw_at_nb, const Site& s,
                                             int T, int Z, int Y, int W,
                                             int64_t YW, int64_t ZYW,
-                                            int64_t n) {
+                                            int64_t n,
+                                            const Lay& lay = Lay()) {
   stag_dir<0, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n);
+                 Y, W, YW, ZYW, n, lay);
   stag_dir<1, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n);
+                 Y, W, YW, ZYW, n, lay);
   stag_dir<2, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n);
+                 Y, W, YW, ZYW, n, lay);
   stag_dir<3, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n);
+                 Y, W, YW, ZYW, n, lay);
 }
 
-// out = acc (3 complex) at half-site i of a (3, 2, S) field
+// out = acc (3 complex) at address i of a (3, 2, S) field, the imaginary
+// parts im further on (n in the pair layout)
 template <typename O>
 __device__ __forceinline__ void st_cvec(O* __restrict__ out,
                                         const float2 (&v)[3], int64_t n,
-                                        int64_t i) {
+                                        int64_t i, int64_t im) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     O* q = out + static_cast<int64_t>(2 * c) * n + i;
     st(q, v[c].x);
-    st(q + n, v[c].y);
+    st(q + im, v[c].y);
   }
+}
+
+template <typename O>
+__device__ __forceinline__ void st_cvec(O* __restrict__ out,
+                                        const float2 (&v)[3], int64_t n,
+                                        int64_t i) {
+  st_cvec(out, v, n, i, n);
 }
 
 }  // namespace qtt

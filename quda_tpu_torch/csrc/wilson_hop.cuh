@@ -7,12 +7,14 @@
 // backward links, backward links read from the opposite parity, int8
 // block-float links), the clover block entry load, one hop direction, and
 // the whole 8-direction hop at one target site: eo_hop_sum on the half
-// lattice, full_hop_sum on the full one.  Both take a
-// compile-time count NB of right-hand sides: each direction's link is
-// loaded (and its row 2 rebuilt) once and applied to NB spinors, which is
-// what the multi-RHS kernels (B5-eo, wilson_eo_mrhs.cu; B7-mrhs,
-// clover_eo_mrhs.cu) are for.  The single-RHS kernels run NB = 1; every
-// right-hand side sees the same arithmetic in the same order for any NB.
+// lattice, full_hop_sum on the full one; and the layouts of a component
+// plane (the pair layout, and the fold layout of wilson_eo_fold.cu).  Both
+// hop sums take a compile-time count NB of right-hand sides: each
+// direction's link is loaded (and its row 2 rebuilt) once and applied to
+// NB spinors, which is what the multi-RHS kernels (B5-eo,
+// wilson_eo_mrhs.cu; B7-mrhs, clover_eo_mrhs.cu) are for.  The single-RHS
+// kernels run NB = 1; every right-hand side sees the same arithmetic in
+// the same order for any NB.
 //
 // Real type: the hop works in the accumulator type of its storage,
 // cplx_t<S>: float2 for float32 and bfloat16 storage (every load converts
@@ -33,6 +35,12 @@
 // The NB spinors of one call lie rstride elements apart (24 * S for a
 // (N, 4, 3, 2, T, Z, Y*Xh) batch); only the first nvalid of them are read
 // (a tail chunk).  Offsets are 64-bit.
+//
+// The folded layout (to_fold: (..., 2, T, Z, Y*Xh) -> (..., T, 2Z, Y*Xh),
+// re and im rows interleaved along z) keeps each component in a plane of
+// 2S elements too, so only where a half-site's number lies in its plane
+// changes: FoldLayout below.  The eo hop takes the layout as a template
+// argument, so the fold hop is this hop, load for load.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,13 +138,59 @@ struct Cplx<double> {
 template <typename S>
 using cplx_t = typename Cplx<S>::type;
 
-// component (s, c) of psi at half-site i
+// Where the complex number of half-site i lies in one component plane
+// (component k's plane starts at k * 2n, n = T*Z*Y*Xh):
+//   PairLayout  (..., 2, T, Z, Y*Xh): re at i, im one plane (n) further on;
+//   FoldLayout  (..., T, 2Z, Y*Xh): the row r = t*Z + z of half-site
+//               i = r*YXh + yx holds re at 2r*YXh + yx = i + r*YXh and im
+//               YXh further on.
+// at(i, r) is the address of re, im(n) the offset of im, and kRowScale the
+// factor on the z and t neighbour strides (a z or t neighbour is a row
+// away: two rows in the fold); x and y neighbours keep the row.
+struct PairLayout {
+  static constexpr int kRowScale = 1;
+  __device__ __forceinline__ int64_t at(int64_t i, int64_t) const {
+    return i;
+  }
+  __device__ __forceinline__ int64_t im(int64_t n) const { return n; }
+};
+
+struct FoldLayout {
+  static constexpr int kRowScale = 2;
+  int64_t yxh;
+  __device__ __forceinline__ int64_t at(int64_t i, int64_t r) const {
+    return i + r * yxh;
+  }
+  __device__ __forceinline__ int64_t im(int64_t) const { return yxh; }
+};
+
+// the layout Lay of planes whose rows hold yxh = Y*Xh half-sites
+template <typename Lay>
+__device__ __forceinline__ Lay make_layout(int64_t yxh);
+template <>
+__device__ __forceinline__ PairLayout make_layout<PairLayout>(int64_t) {
+  return PairLayout{};
+}
+template <>
+__device__ __forceinline__ FoldLayout make_layout<FoldLayout>(int64_t yxh) {
+  return FoldLayout{yxh};
+}
+
+// component (s, c) of psi at address a (the imaginary part im further on)
+template <typename S>
+__device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
+                                            int s, int c, int64_t n,
+                                            int64_t a, int64_t im) {
+  const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + a;
+  return mkc(ld(q), ld(q + im));
+}
+
+// component (s, c) of psi at half-site i of the pair layout
 template <typename S>
 __device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
                                             int s, int c, int64_t n,
                                             int64_t i) {
-  const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + i;
-  return mkc(ld(q), ld(q + n));
+  return ld_psi(psi, s, c, n, i, n);
 }
 
 // Entry (ch, i, j) of the clover blocks (2, 6, 6, 2, T, Z, Y*Xh) at half-site
@@ -150,20 +204,21 @@ __device__ __forceinline__ cplx_t<S> ld_blk(const S* __restrict__ blk,
   return mkc(ld(q), ld(q + n));
 }
 
-// The 3x3 link of direction mu at half-site i.  With R = 2 only rows 0 and
-// 1 are stored: row 2 = conj(row0 x row1) * row2_sign (+-1, exact in any
-// real type).
+// The 3x3 link of direction mu at address i (the imaginary parts im
+// further on: n in the pair layout).  With R = 2 only rows 0 and 1 are
+// stored: row 2 = conj(row0 x row1) * row2_sign (+-1, exact in any real
+// type).
 template <int R, typename S, typename C>
 __device__ __forceinline__ void ld_link(C (&u)[3][3],
                                         const S* __restrict__ g, int mu,
                                         int64_t n, int64_t i,
-                                        float row2_sign) {
+                                        float row2_sign, int64_t im) {
 #pragma unroll
   for (int a = 0; a < R; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       const S* q = g + static_cast<int64_t>(((mu * R + a) * 3 + b) * 2) * n + i;
-      u[a][b] = mkc(ld(q), ld(q + n));
+      u[a][b] = mkc(ld(q), ld(q + im));
     }
   if constexpr (R == 2) {
     using Re = decltype(u[0][0].x);
@@ -181,7 +236,8 @@ __device__ __forceinline__ void ld_link(C (&u)[3][3],
 // Link sources of the hop, chosen at compile time: where the 3x3 link of
 // one hop direction is read.  ``load<MU, SIGN>`` gets the target
 // half-site ``site`` and the neighbour ``nb`` that psi is read at (x + mu
-// forward, x - mu backward).
+// forward, x - mu backward), both as addresses of the layout, whose
+// imaginary parts lie ``im`` further on.
 //   Shifted<R, S>  forward U_mu(x) from ``here`` at the target site,
 //                  backward U_mu(x - mu) from the pre-shifted ``bw``, also
 //                  at the target site (B1, B4, K1/K2 and their multi-RHS
@@ -204,9 +260,10 @@ struct Shifted {
   const S* here;
   const S* bw;
   template <int MU, int SIGN, typename C>
-  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t site,
-                                       int64_t, float row2_sign) const {
-    ld_link<R>(u, SIGN > 0 ? here : bw, MU, n, site, row2_sign);
+  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t im,
+                                       int64_t site, int64_t,
+                                       float row2_sign) const {
+    ld_link<R>(u, SIGN > 0 ? here : bw, MU, n, site, row2_sign, im);
   }
 };
 
@@ -215,10 +272,11 @@ struct There {
   const S* here;
   const S* there;
   template <int MU, int SIGN, typename C>
-  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t site,
-                                       int64_t nb, float row2_sign) const {
+  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t im,
+                                       int64_t site, int64_t nb,
+                                       float row2_sign) const {
     ld_link<R>(u, SIGN > 0 ? here : there, MU, n, SIGN > 0 ? site : nb,
-               row2_sign);
+               row2_sign, im);
   }
 };
 
@@ -228,7 +286,7 @@ struct Int8There {
   const int8_t* q_there;
   const float* s_there;
   template <int MU, int SIGN>
-  __device__ __forceinline__ void load(float2 (&u)[3][3], int64_t n,
+  __device__ __forceinline__ void load(float2 (&u)[3][3], int64_t n, int64_t,
                                        int64_t site, int64_t nb,
                                        float) const {
     const int64_t i = SIGN > 0 ? site : nb;
@@ -250,17 +308,18 @@ struct Int8There {
 // the link source L.  SIGN > 0 is the forward hop (1 - gamma_mu) U
 // psi(x+mu); SIGN < 0 the backward hop (1 + gamma_mu) U^dag psi(x-mu),
 // U^dag[a][b] = conj(U[b][a]).  The link is loaded once for all NB
-// spinors.
+// spinors.  nb and site are addresses of the layout, im its offset of the
+// imaginary part.
 template <int MU, int SIGN, int NB, typename S, typename C, typename L>
 __device__ __forceinline__ void hop(C (&acc)[NB][4][3],
                                     const S* __restrict__ psi,
                                     int64_t rstride, int nvalid,
-                                    const L& links, int64_t n,
+                                    const L& links, int64_t n, int64_t im,
                                     int64_t nb, int64_t site,
                                     float row2_sign) {
   constexpr Tab t = tab(MU, SIGN);
   C u[3][3];
-  links.template load<MU, SIGN>(u, n, site, nb, row2_sign);
+  links.template load<MU, SIGN>(u, n, im, site, nb, row2_sign);
   C m[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
@@ -275,10 +334,10 @@ __device__ __forceinline__ void hop(C (&acc)[NB][4][3],
     C h[2][3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      h[0][c] = cadd(ld_psi(p, 0, c, n, nb),
-                     cscale<t.c0r, t.c0i>(ld_psi(p, t.j0, c, n, nb)));
-      h[1][c] = cadd(ld_psi(p, 1, c, n, nb),
-                     cscale<t.c1r, t.c1i>(ld_psi(p, t.j1, c, n, nb)));
+      h[0][c] = cadd(ld_psi(p, 0, c, n, nb, im),
+                     cscale<t.c0r, t.c0i>(ld_psi(p, t.j0, c, n, nb, im)));
+      h[1][c] = cadd(ld_psi(p, 1, c, n, nb, im),
+                     cscale<t.c1r, t.c1i>(ld_psi(p, t.j1, c, n, nb, im)));
     }
     C uh[2][3];
 #pragma unroll
@@ -326,11 +385,12 @@ __device__ __forceinline__ void yzt_nbrs(Nbrs& nb, int64_t site, int y,
 
 // The 8 hops at target site ``site`` into acc (zeroed first), in the TPU
 // kernel's order: x, y, z, t, forward before backward; links from L.
+// Sites are addresses of the layout, im its offset of the imaginary part.
 template <int NB, typename S, typename C, typename L>
 __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
                                         const S* __restrict__ psi,
                                         int64_t rs, int nvalid,
-                                        const L& lk, int64_t n,
+                                        const L& lk, int64_t n, int64_t im,
                                         const Nbrs& nb, int64_t site) {
 #pragma unroll
   for (int r = 0; r < NB; ++r)
@@ -339,14 +399,14 @@ __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
 #pragma unroll
       for (int c = 0; c < 3; ++c) acc[r][s][c] = czero<C>();
 
-  hop<0, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[0], site, 1.f);
-  hop<0, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[0], site, 1.f);
-  hop<1, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[1], site, 1.f);
-  hop<1, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[1], site, 1.f);
-  hop<2, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[2], site, 1.f);
-  hop<2, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[2], site, 1.f);
-  hop<3, +1>(acc, psi, rs, nvalid, lk, n, nb.fwd[3], site, nb.s_t_fwd);
-  hop<3, -1>(acc, psi, rs, nvalid, lk, n, nb.bwd[3], site, nb.s_t_bwd);
+  hop<0, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[0], site, 1.f);
+  hop<0, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[0], site, 1.f);
+  hop<1, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[1], site, 1.f);
+  hop<1, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[1], site, 1.f);
+  hop<2, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[2], site, 1.f);
+  hop<2, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[2], site, 1.f);
+  hop<3, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[3], site, nb.s_t_fwd);
+  hop<3, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[3], site, nb.s_t_bwd);
 }
 
 // The hop sum D_{p <- 1-p} psi at target half-site ``site`` into acc.  A
@@ -357,29 +417,36 @@ __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
 // Y*Xh, ZYXh = Z*YXh, n = T*ZYXh), so the kernel and the hop share one set.
 // The NB right-hand sides are psi + r * rstride, r < nvalid; acc[r] is
 // zeroed and summed for each of them.  The links come from the link
-// source ``lk`` (Shifted, There, Int8There).
-template <int NB, typename S, typename C, typename L>
-__device__ __forceinline__ void eo_hop_sum_from(C (&acc)[NB][4][3],
-                                                const S* __restrict__ psi,
-                                                int64_t rstride, int nvalid,
-                                                const L& lk, int T, int Z,
-                                                int Y, int Xh, int64_t YXh,
-                                                int64_t ZYXh, int64_t n,
-                                                int parity, int tb_sign,
-                                                int64_t site) {
+// source ``lk`` (Shifted, There, Int8There); psi and the links lie in the
+// layout ``lay`` (PairLayout, or FoldLayout for the fold hop, whose
+// neighbours are placed from their own rows: a z neighbour is two folded
+// rows away).  Returns the target's address in that layout, where the
+// caller stores.
+template <int NB, typename S, typename C, typename L,
+          typename Lay = PairLayout>
+__device__ __forceinline__ int64_t eo_hop_sum_from(
+    C (&acc)[NB][4][3], const S* __restrict__ psi, int64_t rstride,
+    int nvalid, const L& lk, int T, int Z, int Y, int Xh, int64_t YXh,
+    int64_t ZYXh, int64_t n, int parity, int tb_sign, int64_t site,
+    const Lay& lay = Lay()) {
   const int xh = static_cast<int>(site % Xh);
   const int y = static_cast<int>((site / Xh) % Y);
   const int z = static_cast<int>((site / YXh) % Z);
   const int t = static_cast<int>(site / ZYXh);
 
-  // neighbour half-sites, with shift_eo_packed's semantics
+  // neighbour half-sites, with shift_eo_packed's semantics, as addresses
+  // of the layout: x and y neighbours share the target's row, z and t
+  // neighbours lie kRowScale times as far as in the pair layout
   Nbrs nb;
   const bool r0 = ((t + z + y + parity) & 1) == 0;
-  const int64_t row = site - xh;
+  const int64_t a = lay.at(site, static_cast<int64_t>(t) * Z + z);
+  const int64_t row = a - xh;
   nb.fwd[0] = row + (r0 ? xh : (xh + 1 == Xh ? 0 : xh + 1));
   nb.bwd[0] = row + (r0 ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
-  yzt_nbrs(nb, site, y, z, t, T, Z, Y, Xh, YXh, ZYXh, tb_sign);
-  hop_sum(acc, psi, rstride, nvalid, lk, n, nb, site);
+  yzt_nbrs(nb, a, y, z, t, T, Z, Y, Xh, Lay::kRowScale * YXh,
+           Lay::kRowScale * ZYXh, tb_sign);
+  hop_sum(acc, psi, rstride, nvalid, lk, n, lay.im(n), nb, a);
+  return a;
 }
 
 // eo_hop_sum_from with the pre-shifted backward links (B1, K1/K2 and their
@@ -421,7 +488,7 @@ __device__ __forceinline__ void full_hop_sum(C (&acc)[NB][4][3],
   nb.fwd[0] = site + (x + 1 == X ? -(X - 1) : 1);
   nb.bwd[0] = site + (x == 0 ? X - 1 : -1);
   yzt_nbrs(nb, site, y, z, t, T, Z, Y, X, YX, ZYX, tb_sign);
-  hop_sum(acc, psi, rstride, nvalid, Shifted<R, S>{u_here, u_bw}, n, nb,
+  hop_sum(acc, psi, rstride, nvalid, Shifted<R, S>{u_here, u_bw}, n, n, nb,
           site);
 }
 

@@ -332,7 +332,7 @@ def _link_form(staggered: bool = False) -> str:
             "(ROADMAP C); the port serves full (18) staggered links")
     if rec == 8:
         raise NotImplementedError(
-            "reconstruct 8 is not ported yet (ROADMAP A7/B9); the port "
+            "reconstruct 8 is not ported yet (ROADMAP A7); the port "
             "serves 18 and 12")
     return "r12" if rec == 12 else "full"
 

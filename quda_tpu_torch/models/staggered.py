@@ -21,14 +21,19 @@ The pair operator ``DiracStaggeredPCPairs`` (``DiracStaggeredPC.pairs``)
 runs every hop through a CUDA kernel's wrapper: improved staggered on the
 fused fat + Naik hop S1 (form ``fused``), fat-only staggered on the
 gather pass S2 (form ``two_pass``; the improved two-pass form runs the
-fat and Naik passes and sums them).  The ``_mrhs`` forms act on a leading axis
-of N right-hand sides, (N,3,2,T,Z,Y*Xh): every hop is one call of the
-multi-RHS gather pass S2-mrhs (the fat pass, then the Naik pass added
-into it), on the ``two_pass`` form only.  On CPU tensors the wrappers
-run their plain versions.  Storage float32 (the precise operator) or
-bfloat16 (the sloppy operator of mixed precision); full links only.  The
-JAX package's form race, its mesh route, its r12/fold precision forms
-and the v3 kernels are not ported (ROADMAP B6, B9, A15, A17, C).
+fat and Naik passes and sums them), or either on the copy-free v3 pass
+(form ``v3``: no backward copy; the improved hop is the fat pass and the
+Naik pass adding it, S1's output bit for bit).  ``precision_form="fold"``
+keeps the links folded (``to_fold``) and runs the fused form on S1-fold;
+on the two_pass and v3 forms and on a fat-only operator it becomes
+"full", as the JAX package's downgrade does.  The ``_mrhs`` forms act on
+a leading axis of N right-hand sides, (N,3,2,T,Z,Y*Xh): every hop is one
+call of the multi-RHS gather pass S2-mrhs (the fat pass, then the Naik
+pass added into it), on the ``two_pass`` form only.  On CPU tensors the
+wrappers run their plain versions.  Storage float32 (the precise
+operator) or bfloat16 (the sloppy operator of mixed precision); full
+links only.  The JAX package's form race, its mesh route and its r12
+precision form are not ported (ROADMAP A15, A17, C).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..ops import staggered as sops
 from ..ops import staggered_packed as spk
 from ..ops import staggered_pallas as spl
 from ..ops import wilson_packed as wpk
+from ..ops import wilson_pallas_packed as wpp
 from ..ops.boundary import apply_staggered_phases
 from ..ops.wilson import split_gauge_eo
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
@@ -49,13 +55,17 @@ from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
 log = logging.getLogger("quda_tpu_torch")
 
 STORE_DTYPES = (torch.float32, torch.bfloat16)
-STAGGERED_FORMS = ("fused", "two_pass")
+STAGGERED_FORMS = ("fused", "two_pass", "v3")
+STAGGERED_PRECISION_FORMS = ("full", "fold")
+# the Wilson-only precision forms, which the JAX package serves as "full"
+# on the staggered family
+WILSON_ONLY_FORMS = ("r12f", "bzfull", "int8")
 # forms of the JAX package's staggered pair operator that are not ported
-QUEUED_FORMS = {"v3": "ROADMAP B6", "auto": "ROADMAP A17 (the tuner)"}
+QUEUED_FORMS = {"auto": "ROADMAP A17 (the tuner)"}
 QUEUED_PRECISION_FORMS = {
     "r12": "ROADMAP C: HISQ long links are not +-SU(3), so a rebuilt "
            "row 2 is wrong",
-    "fold": "ROADMAP B9", "auto": "ROADMAP A17 (the tuner)"}
+    "auto": "ROADMAP A17 (the tuner)"}
 
 
 def _fold(fat, long_links, geom, antiperiodic_t):
@@ -238,8 +248,9 @@ class DiracStaggeredPC(DiracPC):
               ) -> "DiracStaggeredPCPairs":
         """Pair-storage companion: float32 storage is the precise
         operator, bfloat16 the sloppy one.  ``form``: "fused" (improved
-        only) or "two_pass"; default fused for improved and two_pass
-        for fat-only."""
+        only), "two_pass" or "v3"; default fused for improved and two_pass
+        for fat-only.  ``precision_form``: "full" (default) or "fold" (the
+        fused form only; elsewhere full, with a notice)."""
         return DiracStaggeredPCPairs(self, store_dtype, form=form,
                                      mesh=mesh,
                                      precision_form=precision_form)
@@ -265,13 +276,18 @@ class DiracStaggeredPCPairs:
         if pform in QUEUED_PRECISION_FORMS:
             raise NotImplementedError(
                 f"staggered precision_form {pform!r} is not ported: "
-                f"{QUEUED_PRECISION_FORMS[pform]}; the port serves 'full'")
-        if pform != "full":
+                f"{QUEUED_PRECISION_FORMS[pform]}; the port serves "
+                f"{STAGGERED_PRECISION_FORMS}")
+        if pform in WILSON_ONLY_FORMS:
+            log.info("staggered precision_form: %s is a Wilson-only form; "
+                     "the staggered operator runs full", pform)
+            pform = "full"
+        if pform not in STAGGERED_PRECISION_FORMS:
             raise ValueError(f"unknown precision_form {pform!r}")
         if store_dtype not in STORE_DTYPES:
             raise NotImplementedError(
                 f"pair storage {store_dtype}: float32 and bfloat16 are "
-                "ported (ROADMAP A7/B9 for int8)")
+                "ported (ROADMAP A7 for int8)")
         improved = dpc.long_eo is not None
         if form is None:
             form = "fused" if improved else "two_pass"
@@ -289,12 +305,18 @@ class DiracStaggeredPCPairs:
             log.info("staggered form: fused needs fat+Naik links; the "
                      "fat-only operator runs two_pass")
             form = "two_pass"
+        if pform == "fold" and form != "fused":
+            # the fold kernel is the fused fat + Naik hop's (S1-fold)
+            log.info("staggered precision_form: fold runs on the fused "
+                     "form only; the %s form serves full storage", form)
+            pform = "full"
         self.geom = dpc.geom
         self.mass = float(dpc.mass)
         self.matpc = dpc.matpc
         self.dims = tuple(dpc.geom.lattice_shape)
         self.store_dtype = store_dtype
         self.form = form
+        self._precision_form = pform
 
         def packed(links_eo):
             return tuple(wpk.to_packed_pairs(spk.pack_links(g),
@@ -314,17 +336,34 @@ class DiracStaggeredPCPairs:
             self._fat_bw = bw(self.fat_eo_pp, 1)
             if improved:
                 self._long_bw = bw(self.long_eo_pp, 3)
+        if pform == "fold":
+            # S1-fold's layout (re/im interleaved into z), folded once here
+            self.fat_eo_pp = tuple(wpp.to_fold(g) for g in self.fat_eo_pp)
+            self.long_eo_pp = tuple(wpp.to_fold(g) for g in self.long_eo_pp)
 
     def D_to_pairs(self, psi_pp, target_parity, out_dtype=None):
         """The hop D_{p <- 1-p} on pair arrays, out in ``out_dtype``
-        (default the storage dtype)."""
+        (default the storage dtype).  The fold form folds psi in and the
+        hop out, both as contiguous copies."""
         out_dtype = out_dtype or self.store_dtype
         p = target_parity
         lng = self.long_eo_pp
+        if self.form == "fused" and self._precision_form == "fold":
+            out = spl.dslash_staggered_eo_pallas_fused_fold(
+                self.fat_eo_pp[p], self.fat_eo_pp[1 - p],
+                wpp.to_fold(psi_pp), self.dims, p, long_here_f=lng[p],
+                long_there_f=lng[1 - p], out_dtype=out_dtype)
+            return wpp.from_fold(out).contiguous()
         if self.form == "fused":
             return spl.dslash_staggered_eo_pallas_fused(
                 self.fat_eo_pp[p], self.fat_eo_pp[1 - p], psi_pp, self.dims,
                 p, long_here_pl=lng[p], long_there_pl=lng[1 - p],
+                out_dtype=out_dtype)
+        if self.form == "v3":
+            return spl.dslash_staggered_eo_pallas_v3(
+                self.fat_eo_pp[p], self.fat_eo_pp[1 - p], psi_pp, self.dims,
+                p, long_here_pl=lng[p] if lng is not None else None,
+                long_there_pl=lng[1 - p] if lng is not None else None,
                 out_dtype=out_dtype)
         return spl.dslash_staggered_eo_pallas(
             self.fat_eo_pp[p], self._fat_bw[p], psi_pp, self.dims, p,

@@ -20,7 +20,9 @@ JAX package's: "full" and "r12" keep a resident pre-shifted backward
 copy and run B1 (``pallas_version`` 2) or read the opposite parity's
 links directly on the copy-free hop v3 (3); "r12f" is recon-12 on the
 copy-free hop; "int8" stores int8 block-float links (QUDA "quarter") and
-runs the int8 hop.
+runs the int8 hop; "fold" keeps full links and their backward copy in the
+folded layout (``to_fold``: re/im interleaved into z) and runs the fold
+hop, each call folding psi in and the hop out.
 ``DiracWilsonPCPacked.D_to/M/Mdag/MdagM`` act on complex packed fields
 through it.  The full-lattice operator's pair companion
 (``DiracWilsonPackedPairs``, ``DiracWilson.pairs``) runs the full-lattice
@@ -49,15 +51,14 @@ from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
 STORE_DTYPES = (torch.float32, torch.bfloat16)
 # the Wilson pair operators also take float64 (B1 and B4's double form)
 WILSON_STORE_DTYPES = STORE_DTYPES + (torch.float64,)
-PRECISION_FORMS = ("full", "r12", "r12f", "int8")
+PRECISION_FORMS = ("full", "r12", "r12f", "int8", "fold")
 # the link forms with a resident pre-shifted backward copy: all that the
 # fused clover and twist hops (K1/K2), the domain-wall hop and B4 serve
 RESIDENT_FORMS = ("full", "r12")
 # forms of the JAX package's packed operator that wait, and for what
 QUEUED_FORMS = {
     "auto": "ROADMAP A17 (the tuner's race of the forms)",
-    "bzfull": "ROADMAP A17 (a TPU block admission the tuner races)",
-    "fold": "ROADMAP B9 (A7: the bf16 fold layout)"}
+    "bzfull": "ROADMAP A17 (a TPU block admission the tuner races)"}
 PALLAS_VERSIONS = (2, 3)
 
 # gamma5 sign tensors, one per (device, ndim, spin axis): built once, so
@@ -84,8 +85,8 @@ def _check_double_form(store_dtype, precision_form: str,
         raise NotImplementedError(
             f"precision_form {precision_form!r} (pallas_version "
             f"{pallas_version}) in float64: the double forms of B1 and B4 "
-            "take full pre-shifted links; recon-12, the copy-free and the "
-            "int8 forms under double wait for ROADMAP A7")
+            "take full pre-shifted links; recon-12, the copy-free, the "
+            "int8 and the fold forms under double wait for ROADMAP A7")
 
 
 class DiracWilson(Dirac):
@@ -265,14 +266,16 @@ class _PackedHopMixin:
         """gauge_eo_packed: (even, odd) complex packed (4,3,3,T,Z,Y*Xh)
         links (wilson_packed.pack_gauge_eo), boundary phase folded in.
         ``precision_form``: "full" (18 reals per link), "r12" (two rows,
-        row 2 rebuilt in the hop), "r12f" (r12 on the copy-free hop) or
+        row 2 rebuilt in the hop), "r12f" (r12 on the copy-free hop),
         "int8" (block-float links, ops/blockfloat.to_int8_links of the
-        storage-dtype links); ``forms`` names those the operator serves.
-        ``pallas_version`` 2 keeps a resident pre-shifted backward copy
-        (B1), 3 reads the opposite parity's links on the copy-free hop;
-        r12f and int8 build no backward copy whatever it says, as in the
-        JAX package.  ``tb_sign``: the t boundary is antiperiodic, so the
-        recon-12 hop negates the rebuilt row of the boundary t links."""
+        storage-dtype links) or "fold" (full links and their backward copy
+        folded, wilson_pallas_packed.to_fold); ``forms`` names those the
+        operator serves.  ``pallas_version`` 2 keeps a resident pre-shifted
+        backward copy (B1), 3 reads the opposite parity's links on the
+        copy-free hop; r12f and int8 build no backward copy and fold keeps
+        one whatever it says, as in the JAX package.  ``tb_sign``: the t
+        boundary is antiperiodic, so the recon-12 hop negates the rebuilt
+        row of the boundary t links."""
         if store_dtype not in store_dtypes:
             raise NotImplementedError(
                 f"pair storage {store_dtype}: {store_dtypes} are ported "
@@ -292,8 +295,8 @@ class _PackedHopMixin:
             raise NotImplementedError(
                 f"precision_form {form!r} for {type(self).__name__}: its "
                 f"hop reads pre-shifted backward links, forms {forms}; the "
-                "copy-free and int8 forms of the other families wait for "
-                "ROADMAP A7")
+                "copy-free, int8 and fold forms of the other families wait "
+                "for ROADMAP A7")
         _check_double_form(store_dtype, form, pallas_version)
         self.geom = geom
         self.dims = tuple(geom.lattice_shape)
@@ -314,18 +317,25 @@ class _PackedHopMixin:
             self.gauge_eo_pp = None
             return
         self.gauge_eo_pp = tuple(g.contiguous() for g in pp)
-        if form == "r12f" or pallas_version == 3:
+        if form == "r12f" or (pallas_version == 3 and form != "fold"):
             return
         # resident pre-shifted backward links, one set per target parity
         self._u_bw = tuple(
             wpp.backward_gauge_eo(self.gauge_eo_pp[1 - p], self.dims,
                                   p).contiguous()
             for p in (0, 1))
+        if form == "fold":
+            # the fold hop's layout (re/im interleaved into z), links and
+            # backward copy folded once here; to_fold copies contiguously
+            self.gauge_eo_pp = tuple(wpp.to_fold(g) for g in self.gauge_eo_pp)
+            self._u_bw = tuple(wpp.to_fold(g) for g in self._u_bw)
 
     def _d_to(self, psi_pp, target_parity, out_dtype):
         """The hop D_{p <- 1-p} in the operator's link form, with the
-        JAX package's precedence: int8 and r12f whatever pallas_version
-        says, then pallas_version 3 (v3), then B1."""
+        JAX package's precedence: int8, r12f and fold whatever
+        pallas_version says, then pallas_version 3 (v3), then B1.  The fold
+        hop takes psi folded and gives its output back unfolded, both as
+        contiguous copies (the glue the JAX package's route has too)."""
         p = target_parity
         form = self._precision_form
         if form == "int8":
@@ -333,6 +343,11 @@ class _PackedHopMixin:
                 self._gauge_q[p], self._gauge_s[p], self._gauge_q[1 - p],
                 self._gauge_s[1 - p], psi_pp, self.dims, p,
                 out_dtype=out_dtype)
+        if form == "fold":
+            out = wpp.dslash_eo_pallas_packed_fold(
+                self.gauge_eo_pp[p], self._u_bw[p], wpp.to_fold(psi_pp),
+                self.dims, p, out_dtype=out_dtype, tb_sign=self._tb_sign)
+            return wpp.from_fold(out).contiguous()
         if form == "r12f" or self._pallas_version == 3:
             fn = (wpp.dslash_eo_pallas_packed_r12f if form == "r12f"
                   else wpp.dslash_eo_pallas_packed_v3)
@@ -345,12 +360,18 @@ class _PackedHopMixin:
 
     def _d_to_mrhs(self, psi_b, target_parity, out_dtype):
         """The hop on psi_b (N,4,3,2,T,Z,Y*Xh): one launch of the
-        multi-RHS hop (B5-eo; the multi-RHS r12f for r12f), each link
-        loaded once per chunk of right-hand sides.  The int8 and v3 forms
-        have no multi-RHS kernel: the single-RHS hop runs on each
-        right-hand side in turn, as the JAX package vmaps it."""
+        multi-RHS hop (B5-eo; the multi-RHS r12f for r12f, the multi-RHS
+        fold hop for fold), each link loaded once per chunk of right-hand
+        sides.  The int8 and v3 forms have no multi-RHS kernel: the
+        single-RHS hop runs on each right-hand side in turn, as the JAX
+        package vmaps it."""
         p = target_parity
         form = self._precision_form
+        if form == "fold":
+            out = wpp.dslash_eo_pallas_packed_fold_mrhs(
+                self.gauge_eo_pp[p], self._u_bw[p], wpp.to_fold(psi_b),
+                self.dims, p, out_dtype=out_dtype, tb_sign=self._tb_sign)
+            return wpp.from_fold(out).contiguous()
         if form == "r12f":
             return wpp.dslash_eo_pallas_packed_r12f_mrhs(
                 self.gauge_eo_pp[p], self.gauge_eo_pp[1 - p], psi_b,
@@ -571,8 +592,8 @@ class DiracWilsonPCPacked:
         float32 storage the precise operator in a complex-free
         representation, with bfloat16 the sloppy operator of the mixed
         solve, with float64 the precise operator of the double routes.
-        ``precision_form``: "full", "r12", "r12f" or "int8" links;
-        ``pallas_version`` 2 (B1, resident backward copy) or 3 (the
+        ``precision_form``: "full", "r12", "r12f", "int8" or "fold"
+        links; ``pallas_version`` 2 (B1, resident backward copy) or 3 (the
         copy-free hop) for full and r12 (float64: full, 2)."""
         return DiracWilsonPCPackedSloppy(self, store_dtype, precision_form,
                                          pallas_version)
@@ -650,7 +671,7 @@ class DiracWilsonPackedPairs:
         if precision_form not in RESIDENT_FORMS:
             raise NotImplementedError(
                 f"precision_form {precision_form!r} is not ported for the "
-                f"full-lattice hop (ROADMAP A7/B9); it serves "
+                f"full-lattice hop (ROADMAP A7); it serves "
                 f"{RESIDENT_FORMS}")
         _check_double_form(store_dtype, precision_form)
         self.geom = dw.geom

@@ -26,6 +26,20 @@ the hand-written CUDA kernels of ``csrc/staggered_eo.cu``:
   Forms ``fat:f32->f32`` and ``naik:f32->f32``: float32 and full links
   only, as the JAX batched staggered route builds them.
 
+Two more eo forms, both in ``csrc/staggered_eo.cu``:
+
+* S1-fold ``dslash_staggered_eo_pallas_fused_fold``
+  (``_stag_fused_fold_call``, eo form): S1 on the folded layout of
+  ``wilson_pallas_packed.to_fold`` (psi (3,T,2Z,Y*Xh), links
+  (4,3,3,T,2Z,Y*Xh)), full links and the Naik links required; S1's three
+  forms, each output S1's on the unfolded operands bit for bit.
+* The v3 pass ``dslash_staggered_eo_pass_v3`` (``_stag_pass_v3``, eo
+  form): S2 with the backward links read unshifted from the opposite
+  parity, so no ``backward_links_eo`` copy exists; S2's six forms.
+  ``dslash_staggered_eo_pallas_v3`` composes it as the JAX function does:
+  the fat pass alone, or the fat pass in float32 and the Naik pass adding
+  it (``acc``) before its one rounding, which is S1's sum bit for bit.
+
 Layouts are the JAX package's pallas layout:
 
     psi, out        (3, 2, T, Z, Y*Xh)
@@ -54,6 +68,8 @@ T, Z, Y*X):
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_staggered_eo_fused_plain``,
 ``dslash_staggered_eo_pass_plain``, ``dslash_staggered_eo_pass_mrhs_plain``,
+``dslash_staggered_eo_fused_fold_plain``,
+``dslash_staggered_eo_pass_v3_plain``,
 ``dslash_staggered_fused_plain``, ``dslash_staggered_pass_plain``,
 ``dslash_staggered_pass_mrhs_plain``), CUDA tensors launch the kernel or
 raise.  Each wrapper counts its launches in ``.launches`` and per form in
@@ -98,11 +114,14 @@ def fused_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
     return 4 * 72 * sb + 6 * sb + 6 * _STORE_BYTES[out_dtype or store_dtype]
 
 
-def pass_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
-    """The same for S2: the forward and the pre-shifted backward link
-    sets, psi and out: 624 B in f32."""
+def pass_bytes_per_site(store_dtype=torch.float32, out_dtype=None,
+                        accumulate: bool = False) -> int:
+    """The same for S2 and the v3 pass: two link sets (the forward and
+    the backward ones), psi and out: 624 B in f32; the accumulating v3
+    Naik pass also reads the float32 fat pass (24 B)."""
     sb = _STORE_BYTES[store_dtype]
-    return 2 * 72 * sb + 6 * sb + 6 * _STORE_BYTES[out_dtype or store_dtype]
+    return (2 * 72 * sb + 6 * sb + 6 * _STORE_BYTES[out_dtype or store_dtype]
+            + (24 if accumulate else 0))
 
 
 def pass_mrhs_bytes_per_site(n: int, accumulate: bool = False) -> int:
@@ -542,12 +561,150 @@ def dslash_staggered_pallas_mrhs(fat_pl, fat_bw_pl, psi_b, X: int,
     return out
 
 
+# -- S1 on the fold layout, and the copy-free v3 pass ------------------------
+
+def dslash_staggered_eo_fused_fold_plain(fat_here_f, fat_there_f, psi_f, dims,
+                                         target_parity: int, long_here_f,
+                                         long_there_f, out_dtype=None):
+    """Plain version of S1-fold: S1's plain version on the unfolded
+    operands (``from_fold``), the result folded again."""
+    return wpp.to_fold(dslash_staggered_eo_fused_plain(
+        *(wpp.from_fold(t) for t in (fat_here_f, fat_there_f, psi_f)), dims,
+        target_parity, wpp.from_fold(long_here_f),
+        wpp.from_fold(long_there_f), out_dtype))
+
+
+def dslash_staggered_eo_pass_v3_plain(u_here_pl, u_there_pl, psi_pl, dims,
+                                      target_parity: int, nhop: int,
+                                      out_dtype=None):
+    """Plain version of the v3 pass: S2's plain version on
+    ``backward_links_eo(u_there_pl)``, the same function."""
+    u_bw = backward_links_eo(u_there_pl, dims, target_parity, nhop)
+    return dslash_staggered_eo_pass_plain(u_here_pl, u_bw, psi_pl, dims,
+                                          target_parity, nhop, out_dtype)
+
+
+def dslash_staggered_eo_pallas_fused_fold(fat_here_f, fat_there_f, psi_f,
+                                          dims, target_parity: int,
+                                          long_here_f=None, long_there_f=None,
+                                          out_dtype=None) -> torch.Tensor:
+    """Checkerboarded fused fat + Naik hop on folded arrays (S1-fold): every
+    operand ``to_fold`` of S1's (links (4,3,3,T,2Z,Y*Xh), psi (3,T,2Z,Y*Xh)
+    of parity 1-p); returns the folded hop in ``out_dtype`` (default
+    psi's).  Full links (R = 3) and the Naik links are required, as in the
+    JAX package."""
+    if long_here_f is None or long_there_f is None:
+        raise ValueError("fused fold kernel needs the Naik links")
+    links = (fat_here_f, fat_there_f, long_here_f, long_there_f)
+    for t in links:
+        if t.ndim != 6 or t.shape[1] != 3:
+            raise ValueError(
+                f"dslash_staggered_eo_pallas_fused_fold: folded links must "
+                f"be full storage (4, 3, 3, T, 2Z, Y*Xh), got "
+                f"{tuple(t.shape)}: fold and recon-12 are alternative "
+                "precision forms, not composed")
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+    T, Z, Y, X = dims
+    Xh = X // 2
+    kind = kernels.dispatch_device(*links, psi_f)
+    if kind == "cpu":
+        return dslash_staggered_eo_fused_fold_plain(
+            fat_here_f, fat_there_f, psi_f, dims, target_parity, long_here_f,
+            long_there_f, out_dtype)
+    store, out_dtype = _checked_form(psi_f, out_dtype)
+    fsites = (T, 2 * Z, Y * Xh)
+    kernels.require(psi_f, "psi_f", (3,) + fsites, store)
+    for name, t in zip(("fat_here_f", "fat_there_f", "long_here_f",
+                        "long_there_f"), links):
+        kernels.require(t, name, (4, 3, 3) + fsites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_f.shape, dtype=out_dtype, device=psi_f.device)
+    rc = lib.qtt_staggered_eo_fused_fold(
+        out.data_ptr(), psi_f.data_ptr(), *(t.data_ptr() for t in links),
+        T, Z, Y, Xh, int(target_parity), int(store == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), kernels.stream_of(psi_f))
+    kernels.check_launch(rc, "qtt_staggered_eo_fused_fold")
+    _count(dslash_staggered_eo_pallas_fused_fold, form_name(store, out_dtype))
+    return out
+
+
+def dslash_staggered_eo_pass_v3(u_here_pl, u_there_pl, psi_pl, dims,
+                                target_parity: int, nhop: int,
+                                out_dtype=None, acc=None) -> torch.Tensor:
+    """One hop set of count ``nhop`` (1 fat, 3 Naik) on the half lattice,
+    copy-free (the v3 pass): u_here target-parity forward links, u_there
+    the opposite parity's links, unshifted; psi (3,2,T,Z,Y*Xh) of parity
+    1-p.  With ``acc`` (Naik only: a float32 field of psi's shape, the fat
+    pass) the result is acc + this pass, rounded once to ``out_dtype``."""
+    if nhop not in HOPSET:
+        raise ValueError(f"nhop must be 1 or 3, got {nhop}")
+    if acc is not None and nhop != 3:
+        raise ValueError("acc: only the Naik pass adds the fat pass")
+    if target_parity not in (0, 1):
+        raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
+    T, Z, Y, X = dims
+    Xh = X // 2
+    tensors = (u_here_pl, u_there_pl, psi_pl) + ((acc,) if acc is not None
+                                                 else ())
+    kind = kernels.dispatch_device(*tensors)
+    if kind == "cpu":
+        if acc is None:
+            return dslash_staggered_eo_pass_v3_plain(
+                u_here_pl, u_there_pl, psi_pl, dims, target_parity, nhop,
+                out_dtype)
+        naik = dslash_staggered_eo_pass_v3_plain(
+            u_here_pl, u_there_pl, psi_pl, dims, target_parity, nhop,
+            torch.float32)
+        return (acc + naik).to(out_dtype or psi_pl.dtype)
+    store, out_dtype = _checked_form(psi_pl, out_dtype)
+    sites = (T, Z, Y * Xh)
+    kernels.require(psi_pl, "psi_pl", (3, 2) + sites, store)
+    _require_links("u_here_pl", u_here_pl, sites, store)
+    _require_links("u_there_pl", u_there_pl, sites, store)
+    if acc is not None:
+        kernels.require(acc, "acc", (3, 2) + sites, torch.float32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=out_dtype, device=psi_pl.device)
+    rc = lib.qtt_staggered_eo_pass_v3(
+        out.data_ptr(), psi_pl.data_ptr(), u_here_pl.data_ptr(),
+        u_there_pl.data_ptr(), acc.data_ptr() if acc is not None else None,
+        T, Z, Y, Xh, int(target_parity), int(nhop),
+        int(store == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_staggered_eo_pass_v3")
+    _count(dslash_staggered_eo_pass_v3, pass_form_name(nhop, store,
+                                                       out_dtype))
+    return out
+
+
+def dslash_staggered_eo_pallas_v3(fat_here_pl, fat_there_pl, psi_pl, dims,
+                                  target_parity: int, long_here_pl=None,
+                                  long_there_pl=None,
+                                  out_dtype=None) -> torch.Tensor:
+    """Checkerboarded copy-free staggered hop (v3): fat only, one v3 pass
+    into ``out_dtype`` (default psi's); improved, the fat pass in float32,
+    then the Naik pass adding it and rounding once to ``out_dtype``: the
+    JAX function's f32 sum and single cast, and S1's output bit for bit.
+    Links here (target parity) and there (opposite parity), unshifted."""
+    if long_here_pl is None:
+        return dslash_staggered_eo_pass_v3(fat_here_pl, fat_there_pl, psi_pl,
+                                           dims, target_parity, 1, out_dtype)
+    fat = dslash_staggered_eo_pass_v3(fat_here_pl, fat_there_pl, psi_pl,
+                                      dims, target_parity, 1, torch.float32)
+    return dslash_staggered_eo_pass_v3(long_here_pl, long_there_pl, psi_pl,
+                                       dims, target_parity, 3, out_dtype,
+                                       acc=fat)
+
+
 def reset_launches() -> None:
-    """Zero the launch counts of S1, S2 and S2-mrhs and of their
-    full-lattice forms."""
+    """Zero the launch counts of S1, S2, S2-mrhs, S1-fold and the v3 pass,
+    and of the full-lattice forms."""
     for fn in (dslash_staggered_eo_pallas_fused, dslash_staggered_eo_pass,
                dslash_staggered_eo_pass_mrhs, dslash_staggered_pass,
-               dslash_staggered_pass_mrhs, dslash_staggered_pallas_fused):
+               dslash_staggered_pass_mrhs, dslash_staggered_pallas_fused,
+               dslash_staggered_eo_pallas_fused_fold,
+               dslash_staggered_eo_pass_v3):
         fn.launches = 0
         fn.launches_by_form = {}
 

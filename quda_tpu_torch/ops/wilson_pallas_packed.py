@@ -1,4 +1,5 @@
-"""The even/odd Wilson hop kernel (B1) and its plain version.
+"""The even/odd Wilson hop kernel (B1), its other forms, and their plain
+versions.
 
 Replaces quda_tpu/ops/wilson_pallas_packed.py::dslash_eo_pallas_packed
 (the Pallas TPU kernel, ``_make_kernel(eo=...)``) with the hand-written
@@ -59,11 +60,21 @@ site) (4,T,Z,Y*Xh) (ops/blockfloat.to_int8_links), decoded at load
 exactly as ``from_int8_links``; forms ``int8:f32->f32``,
 ``int8:bf16->bf16`` and ``int8:bf16->f32`` (psi -> out).
 
+The fold hops ``dslash_eo_pallas_packed_fold`` and
+``dslash_eo_pallas_packed_fold_mrhs`` (B9) replace the JAX module's
+functions of those names with ``csrc/wilson_eo_fold.cu``: B1 and B5-eo on
+the folded layout of ``to_fold`` (the re/im axis interleaved into z:
+psi (4,3,T,2Z,Y*Xh), links (4,R,3,T,2Z,Y*Xh), a batch (N,4,3,T,2Z,Y*Xh)),
+each output B1's on the unfolded operands bit for bit.  The fold hop
+takes B1's f32/bf16 forms (R = 3 or 2); the multi-RHS fold hop float32
+(R = 3 or 2, chunk as B5-eo's); its bf16 forms wait for ROADMAP A7.
+
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_eo_packed_plain``, ``dslash_packed_plain``,
 ``dslash_eo_packed_mrhs_plain``, ``dslash_packed_mrhs_plain``,
 ``dslash_eo_there_plain``, ``dslash_eo_there_mrhs_plain``,
-``dslash_eo_int8_plain``), CUDA tensors launch the kernel or raise.
+``dslash_eo_int8_plain``, ``dslash_eo_fold_plain``,
+``dslash_eo_fold_mrhs_plain``), CUDA tensors launch the kernel or raise.
 Each wrapper counts its launches in ``.launches`` and per form in
 ``.launches_by_form`` (``"full:f32->f32"``, ``"r12:bf16->bf16"``,
 ``"int8:bf16->bf16"``, ...).
@@ -228,6 +239,26 @@ def to_pallas_layout(arr: torch.Tensor) -> torch.Tensor:
 def from_pallas_layout(arr: torch.Tensor,
                        dtype=torch.complex64) -> torch.Tensor:
     return wpk.from_packed_pairs(arr, dtype)
+
+
+def to_fold(pp: torch.Tensor) -> torch.Tensor:
+    """Pair layout (..., 2, T, Z, YX) -> folded (..., T, 2Z, YX): the re/im
+    axis interleaved into z, row 2k = re of z = k, row 2k+1 = im.  Spinors
+    (4,3,2,T,Z,YX), links (4,R,3,2,T,Z,YX) and staggered fields alike
+    (axis -4 is the pair axis in each).  A contiguous copy."""
+    *lead, two, T, Z, YX = pp.shape
+    if two != 2:
+        raise ValueError(f"axis -4 must be the re/im pair axis, got {two}")
+    return pp.movedim(-4, -2).reshape(*lead, T, 2 * Z, YX)
+
+
+def from_fold(fp: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``to_fold``: (..., T, 2Z, YX) -> (..., 2, T, Z, YX), a
+    view (``.contiguous()`` before a kernel reads it)."""
+    *lead, T, Z2, YX = fp.shape
+    if Z2 % 2:
+        raise ValueError(f"folded z extent {Z2} is odd")
+    return fp.reshape(*lead, T, Z2 // 2, 2, YX).movedim(-2, -4)
 
 
 def backward_gauge(gauge_pl: torch.Tensor, X: int) -> torch.Tensor:
@@ -698,15 +729,129 @@ def dslash_eo_pallas_packed_int8(q_here: torch.Tensor, s_here: torch.Tensor,
     return out
 
 
+# -- the fold layout (B9 fold, fold-mrhs) -------------------------------------
+
+def dslash_eo_fold_plain(u_here_f, u_bw_f, psi_f, dims, target_parity: int,
+                         out_dtype=None, tb_sign: bool = True):
+    """Plain version of the fold hop: B1's plain version on the unfolded
+    operands (``from_fold``), the result folded again."""
+    return to_fold(dslash_eo_packed_plain(
+        from_fold(u_here_f), from_fold(u_bw_f), from_fold(psi_f), dims,
+        target_parity, out_dtype, tb_sign))
+
+
+def dslash_eo_fold_mrhs_plain(u_here_f, u_bw_f, psi_f, dims,
+                              target_parity: int, out_dtype=None,
+                              tb_sign: bool = True):
+    """Plain version of the multi-RHS fold hop: B5-eo's plain version on
+    the unfolded operands, the result folded again."""
+    return to_fold(dslash_eo_packed_mrhs_plain(
+        from_fold(u_here_f), from_fold(u_bw_f), from_fold(psi_f), dims,
+        target_parity, out_dtype, tb_sign))
+
+
+def _fold_rows(u_f) -> int:
+    """R of folded links (4, R, 3, T, 2Z, Y*Xh): 3 or 2."""
+    rows = u_f.shape[1] if u_f.ndim == 6 else 0
+    if rows not in (2, 3):
+        raise ValueError(f"folded links of shape {tuple(u_f.shape)}: "
+                         "expected (4, R, 3, T, 2Z, Y*Xh) with R = 3 or 2")
+    return rows
+
+
+def dslash_eo_pallas_packed_fold(u_here_f: torch.Tensor,
+                                 u_bw_f: torch.Tensor, psi_f: torch.Tensor,
+                                 dims, target_parity: int, out_dtype=None,
+                                 tb_sign: bool = True) -> torch.Tensor:
+    """Checkerboarded Wilson hop D_{p <- 1-p} on folded arrays (B9 fold):
+    u_here_f / u_bw_f (4,R,3,T,2Z,Y*Xh) forward and pre-shifted backward
+    links (``to_fold`` of B1's), psi_f (4,3,T,2Z,Y*Xh) of parity 1-p.
+    Returns the folded hop in ``out_dtype`` (default psi's): B1's forms,
+    and B1's output on the unfolded operands bit for bit."""
+    T, Z, Y, X = dims
+    rows = _fold_rows(u_here_f)
+    _check_parity(target_parity)
+    kind = kernels.dispatch_device(u_here_f, u_bw_f, psi_f)
+    if kind == "cpu":
+        return dslash_eo_fold_plain(u_here_f, u_bw_f, psi_f, dims,
+                                    target_parity, out_dtype, tb_sign)
+    store = psi_f.dtype
+    out_dtype = out_dtype or store
+    if store == torch.float64 or out_dtype == torch.float64:
+        raise TypeError(f"psi {store} -> out {out_dtype}: the fold hop has "
+                        "float32 and bfloat16 forms; float64 waits for "
+                        "ROADMAP A7")
+    _checked_forms(store, out_dtype, rows)
+    fsites = (T, 2 * Z, Y * (X // 2))
+    kernels.require(psi_f, "psi_f", (4, 3) + fsites, store)
+    kernels.require(u_here_f, "u_here_f", (4, rows, 3) + fsites, store)
+    kernels.require(u_bw_f, "u_bw_f", (4, rows, 3) + fsites, store)
+    lib = kernels.library()
+    out = torch.empty(psi_f.shape, dtype=out_dtype, device=psi_f.device)
+    rc = lib.qtt_wilson_eo_fold(
+        out.data_ptr(), psi_f.data_ptr(), u_here_f.data_ptr(),
+        u_bw_f.data_ptr(), T, Z, Y, X // 2, int(target_parity),
+        _STORE_CODE[store], _STORE_CODE[out_dtype], rows,
+        int(bool(tb_sign)), kernels.stream_of(psi_f))
+    kernels.check_launch(rc, "qtt_wilson_eo_fold")
+    _count(dslash_eo_pallas_packed_fold, form_name(rows, store, out_dtype))
+    return out
+
+
+def dslash_eo_pallas_packed_fold_mrhs(u_here_f: torch.Tensor,
+                                      u_bw_f: torch.Tensor,
+                                      psi_f: torch.Tensor, dims,
+                                      target_parity: int, out_dtype=None,
+                                      tb_sign: bool = True,
+                                      chunk=None) -> torch.Tensor:
+    """Multi-RHS fold hop (B9 fold-mrhs): psi_f (N,4,3,T,2Z,Y*Xh) of
+    parity 1-p, links as for ``dslash_eo_pallas_packed_fold``, each loaded
+    once per chunk of ``chunk`` (default ``MRHS_CHUNK``) right-hand sides.
+    float32 in and out; the bf16 forms wait for ROADMAP A7."""
+    T, Z, Y, X = dims
+    rows = _fold_rows(u_here_f)
+    _check_parity(target_parity)
+    if psi_f.ndim != 6:
+        raise ValueError(f"psi of shape {tuple(psi_f.shape)}: expected "
+                         "(N, 4, 3, T, 2Z, Y*Xh)")
+    kind = kernels.dispatch_device(u_here_f, u_bw_f, psi_f)
+    if kind == "cpu":
+        return dslash_eo_fold_mrhs_plain(u_here_f, u_bw_f, psi_f, dims,
+                                         target_parity, out_dtype, tb_sign)
+    f32 = torch.float32
+    out_dtype = out_dtype or psi_f.dtype
+    if psi_f.dtype != f32 or out_dtype != f32:
+        raise TypeError(f"psi {psi_f.dtype} -> out {out_dtype}: the "
+                        "multi-RHS fold hop has float32 forms only; its "
+                        "bf16 forms wait for ROADMAP A7")
+    fsites = (T, 2 * Z, Y * (X // 2))
+    nrhs = psi_f.shape[0]
+    nb = mrhs_chunk(chunk, nrhs, T * Z * Y * (X // 2))
+    kernels.require(psi_f, "psi_f", (nrhs, 4, 3) + fsites, f32)
+    kernels.require(u_here_f, "u_here_f", (4, rows, 3) + fsites, f32)
+    kernels.require(u_bw_f, "u_bw_f", (4, rows, 3) + fsites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_f.shape, dtype=f32, device=psi_f.device)
+    rc = lib.qtt_wilson_eo_fold_mrhs(
+        out.data_ptr(), psi_f.data_ptr(), u_here_f.data_ptr(),
+        u_bw_f.data_ptr(), T, Z, Y, X // 2, int(target_parity), rows,
+        int(bool(tb_sign)), nrhs, nb, kernels.stream_of(psi_f))
+    kernels.check_launch(rc, "qtt_wilson_eo_fold_mrhs")
+    _count(dslash_eo_pallas_packed_fold_mrhs, form_name(rows, f32, f32))
+    return out
+
+
 def reset_launches() -> None:
     """Zero the launch counts of the eo hop (B1), its multi-RHS form
     (B5-eo), the full-lattice hop (B4) and its multi-RHS form (B5), and
-    of the copy-free (v3, r12f, r12f-mrhs) and int8 eo hops."""
+    of the copy-free (v3, r12f, r12f-mrhs), int8 and fold (fold,
+    fold-mrhs) eo hops."""
     for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs,
                dslash_pallas_packed, dslash_pallas_packed_mrhs,
                dslash_eo_pallas_packed_v3, dslash_eo_pallas_packed_r12f,
                dslash_eo_pallas_packed_r12f_mrhs,
-               dslash_eo_pallas_packed_int8):
+               dslash_eo_pallas_packed_int8, dslash_eo_pallas_packed_fold,
+               dslash_eo_pallas_packed_fold_mrhs):
         fn.launches = 0
         fn.launches_by_form = {}
 

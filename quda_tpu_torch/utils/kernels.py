@@ -34,7 +34,8 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu",
            "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu",
-           "staggered_full.cu", "wilson_eo_there.cu", "wilson_eo_int8.cu")
+           "staggered_full.cu", "wilson_eo_there.cu", "wilson_eo_int8.cu",
+           "wilson_eo_fold.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
@@ -110,6 +111,22 @@ SIGNATURES = {
     # store, out_store, stream
     "qtt_wilson_eo_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P),
+    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, store, out_store, rows,
+    # tb_sign, stream (every array folded)
+    "qtt_wilson_eo_fold": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, rows, tb_sign, nrhs, nb,
+    # stream (every array folded)
+    "qtt_wilson_eo_fold_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P),
+    # out, psi, fat_here, fat_there, long_here, long_there, T, Z, Y, Xh,
+    # parity, store_bf16, out_bf16, stream (every array folded)
+    "qtt_staggered_eo_fused_fold": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _P),
+    # out, psi, u_here, u_there, acc (or null), T, Z, Y, Xh, parity, nhop,
+    # store_bf16, out_bf16, stream
+    "qtt_staggered_eo_pass_v3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P),
 }
 
 

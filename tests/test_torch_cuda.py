@@ -1537,3 +1537,235 @@ def test_quarter_invert_on_card_matches_cpu(tol):
     assert pg.true_res <= (1e-5 if tol > 5e-8 else 1e-10)
     assert abs(pg.iter_count - pc.iter_count) <= max(2, 0.1 * pc.iter_count)
     assert np.linalg.norm(xg - xc) / np.linalg.norm(xc) < 1e-3
+
+
+# -- the fold layout (B9 fold, fold-mrhs, S1-fold) and the v3 pass ------------
+
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", THERE_FORMS,
+                         ids=lambda f: wpp.form_name(*f))
+def test_fold_kernel_matches_plain_and_b1(form, parity, tb_sign):
+    """The fold hop on 4x6x8x10, every form (R = 3, 2): bit for bit
+    to_fold of B1's output on the unfolded operands, within the module's
+    tolerance of its plain version; one launch counted."""
+    dev = require_cuda()
+    rows, store, out = form
+    u_here, u_there, psi = _there_inputs(dev, rows, store, 381 + parity)
+    dims = lattice_shape(ASYM)
+    u_bw = wpp.backward_gauge_eo(u_there, dims, parity).contiguous()
+    fh, fb, fp = (wpp.to_fold(t) for t in (u_here, u_bw, psi))
+    name = wpp.form_name(rows, store, out)
+    fn = wpp.dslash_eo_pallas_packed_fold
+    n0 = fn.launches_by_form.get(name, 0)
+    got = fn(fh, fb, fp, dims, parity, out_dtype=out, tb_sign=tb_sign)
+    assert fn.launches_by_form[name] == n0 + 1
+    b1 = wpp.dslash_eo_pallas_packed(u_here, u_bw, psi, dims, parity,
+                                     out_dtype=out, tb_sign=tb_sign)
+    want = wpp.dslash_eo_fold_plain(fh, fb, fp, dims, parity, out_dtype=out,
+                                    tb_sign=tb_sign)
+    torch.cuda.synchronize()
+    assert got.dtype == out and got.shape == fp.shape
+    assert torch.equal(got, wpp.to_fold(b1))
+    tol = wpp.TOLERANCE if out == torch.float32 else wpp.TOLERANCE_BF16
+    assert rel_err(got.float().cpu().numpy(), want.float().cpu().numpy()) \
+        <= tol
+
+
+@pytest.mark.parametrize("n", [1, 3, 12])
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_fold_mrhs_kernel_matches_plain_and_fold(rows, parity, chunk, n):
+    """The multi-RHS fold hop at every chunk width: each lane bit for bit
+    a launch of the fold hop, the batch within TOLERANCE of its plain
+    version."""
+    dev = require_cuda()
+    u_here, u_bw, psi = _there_inputs(dev, rows, torch.float32,
+                                      383 + parity, n)
+    dims = lattice_shape(ASYM)
+    fh, fb, fp = (wpp.to_fold(t) for t in (u_here, u_bw, psi))
+    fn = wpp.dslash_eo_pallas_packed_fold_mrhs
+    n0 = fn.launches
+    got = fn(fh, fb, fp, dims, parity, chunk=chunk)
+    assert fn.launches == n0 + 1
+    want = wpp.dslash_eo_fold_mrhs_plain(fh, fb, fp, dims, parity)
+    lanes = torch.stack([wpp.dslash_eo_pallas_packed_fold(
+        fh, fb, fp[r], dims, parity) for r in range(n)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanes)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= wpp.TOLERANCE
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", STAG_FORMS,
+                         ids=lambda f: spl.form_name(*f))
+def test_stag_fused_fold_kernel_matches_plain_and_s1(form, parity):
+    """S1-fold at 8x10x12x14: bit for bit to_fold of S1 on the unfolded
+    operands, within tolerance of its plain version."""
+    dev = require_cuda()
+    store, out = form
+    links, psi = _stag_inputs(dev, store, 385 + parity)
+    folded = [wpp.to_fold(t) for t in links]
+    fp = wpp.to_fold(psi)
+    fn = spl.dslash_staggered_eo_pallas_fused_fold
+    name = spl.form_name(store, out)
+    n0 = fn.launches_by_form.get(name, 0)
+    got = fn(folded[0], folded[1], fp, STAG_DIMS, parity, folded[2],
+             folded[3], out_dtype=out)
+    assert fn.launches_by_form[name] == n0 + 1
+    s1 = spl.dslash_staggered_eo_pallas_fused(
+        links[0], links[1], psi, STAG_DIMS, parity, links[2], links[3],
+        out_dtype=out)
+    want = spl.dslash_staggered_eo_fused_fold_plain(
+        folded[0], folded[1], fp, STAG_DIMS, parity, folded[2], folded[3],
+        out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert torch.equal(got, wpp.to_fold(s1))
+    assert rel_err(got.float().cpu().numpy(),
+                   want.float().cpu().numpy()) < _stag_tol(out)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", STAG_FORMS,
+                         ids=lambda f: spl.form_name(*f).split(":")[1])
+@pytest.mark.parametrize("nhop", [1, 3], ids=["fat", "naik"])
+def test_stag_v3_pass_matches_plain_and_s2(nhop, form, parity):
+    """The v3 pass: bit for bit S2 on the backward_links_eo copy of
+    u_there, within tolerance of its plain version."""
+    dev = require_cuda()
+    store, out = form
+    links, psi = _stag_inputs(dev, store, 387 + parity)
+    here, there = links[:2] if nhop == 1 else links[2:]
+    fn = spl.dslash_staggered_eo_pass_v3
+    name = spl.pass_form_name(nhop, store, out)
+    n0 = fn.launches_by_form.get(name, 0)
+    got = fn(here, there, psi, STAG_DIMS, parity, nhop, out_dtype=out)
+    assert fn.launches_by_form[name] == n0 + 1
+    ubw = spl.backward_links_eo(there, STAG_DIMS, parity, nhop).contiguous()
+    s2 = spl.dslash_staggered_eo_pass(here, ubw, psi, STAG_DIMS, parity, nhop,
+                                      out_dtype=out)
+    want = spl.dslash_staggered_eo_pass_v3_plain(here, there, psi, STAG_DIMS,
+                                                 parity, nhop, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert torch.equal(got, s2)
+    assert rel_err(got.float().cpu().numpy(),
+                   want.float().cpu().numpy()) < _stag_tol(out)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("form", STAG_FORMS,
+                         ids=lambda f: spl.form_name(*f))
+def test_stag_v3_improved_hop_equals_s1(form, parity):
+    """The improved v3 hop (the f32 fat pass, then the Naik pass adding
+    it): bit for bit S1, two v3 launches."""
+    dev = require_cuda()
+    store, out = form
+    (fh, ft, lh, lt), psi = _stag_inputs(dev, store, 389 + parity)
+    fn = spl.dslash_staggered_eo_pass_v3
+    n0 = fn.launches
+    got = spl.dslash_staggered_eo_pallas_v3(fh, ft, psi, STAG_DIMS, parity,
+                                            lh, lt, out_dtype=out)
+    assert fn.launches == n0 + 2
+    s1 = spl.dslash_staggered_eo_pallas_fused(fh, ft, psi, STAG_DIMS, parity,
+                                              lh, lt, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    assert torch.equal(got, s1)
+
+
+def test_fold_v3_wrappers_refuse_mixes_and_shapes():
+    """The fold and v3 wrappers raise on tensors split between the CPU and
+    the card, on a wrong shape and on a form without an instance (fold
+    bf16 batches: A7); nothing launches."""
+    dev = require_cuda()
+    dims = lattice_shape(ASYM)
+    u_here, u_bw, psi = (wpp.to_fold(t) for t in _there_inputs(
+        dev, 3, torch.float32, 391))
+    fns = (wpp.dslash_eo_pallas_packed_fold,
+           wpp.dslash_eo_pallas_packed_fold_mrhs,
+           spl.dslash_staggered_eo_pallas_fused_fold,
+           spl.dslash_staggered_eo_pass_v3)
+    before = [f.launches for f in fns]
+    with pytest.raises(ValueError, match="several devices"):
+        fns[0](u_here, u_bw.cpu(), psi, dims, 0)
+    with pytest.raises(ValueError):
+        fns[0](u_here, u_bw[..., :4], psi, dims, 0)
+    with pytest.raises(TypeError):
+        fns[0](u_here, u_bw, psi, dims, 0, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="ROADMAP A7"):
+        fns[1](u_here.bfloat16(), u_bw.bfloat16(), psi[None].bfloat16(),
+               dims, 0)
+    links, spsi = _stag_inputs(dev, torch.float32, 392)
+    fl = [wpp.to_fold(t) for t in links]
+    with pytest.raises(ValueError, match="Naik"):
+        fns[2](fl[0], fl[1], wpp.to_fold(spsi), STAG_DIMS, 0)
+    with pytest.raises(ValueError, match="several devices"):
+        fns[2](fl[0], fl[1].cpu(), wpp.to_fold(spsi), STAG_DIMS, 0, fl[2],
+               fl[3])
+    with pytest.raises(ValueError, match="several devices"):
+        fns[3](links[0], links[1], spsi.cpu(), STAG_DIMS, 0, 1)
+    with pytest.raises(ValueError, match="acc"):
+        fns[3](links[0], links[1], spsi, STAG_DIMS, 0, 1, acc=spsi)
+    with pytest.raises(ValueError):
+        fns[3](links[2], links[3], spsi, STAG_DIMS, 0, 3,
+               acc=spsi[..., :4])
+    assert [f.launches for f in fns] == before
+
+
+def test_fold_and_v3_operators_on_card_equal_their_twins():
+    """fused_cg on the Wilson fold operator (4^4 SU(3) links) and on the
+    staggered fold and v3 operators (8x10x12x14 HISQ-scale links) on the
+    card: their twins' iterations and solution bits, each running its own
+    kernel only."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_split
+    from quda_tpu_torch.models.staggered import DiracStaggeredPC
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    dev = require_cuda()
+    dims = (4, 4, 4, 4)
+    geom = LatticeGeometry(dims)
+    g = torch.from_numpy(su3_gauge(dims, 393)).to(dev)
+    b = torch.from_numpy(gaussian(lattice_shape(dims) + (4, 3), 394)).to(dev)
+    dpk = DiracWilsonPC(g, geom, 0.12).packed()
+    be, bo = even_odd_split(b, geom)
+    res = {}
+    for form in ("full", "fold"):
+        op = dpk.pairs(torch.float32, form)
+        rhs = op.Mdag_pairs(op.prepare_pairs(be, bo))
+        wpp.reset_launches()
+        res[form] = fused_cg(op.MdagM_pairs, rhs, tol=1e-6, maxiter=500)
+        torch.cuda.synchronize()
+        if form == "fold":
+            assert wpp.dslash_eo_pallas_packed.launches == 0
+            assert wpp.dslash_eo_pallas_packed_fold.launches == \
+                4 * res[form].iters
+    assert res["fold"].iters == res["full"].iters
+    assert torch.equal(res["fold"].x, res["full"].x)
+    sd = (8, 10, 12, 14)
+    sgeom = LatticeGeometry(sd)
+    fat = torch.from_numpy(su3_gauge(sd, 395)).to(dev)
+    lng = torch.from_numpy(su3_gauge(sd, 396)).to(dev) / 24
+    sb = torch.from_numpy(gaussian(lattice_shape(sd) + (1, 3), 397)).to(dev)
+    dpc = DiracStaggeredPC(fat, sgeom, 0.1, True, lng)
+    sbe, sbo = even_odd_split(sb, sgeom)
+    sres = {}
+    for label, kw in (("fused", {}), ("fold", {"precision_form": "fold"}),
+                      ("v3", {"form": "v3"})):
+        op = dpc.pairs(torch.float32, **kw)
+        rhs = op.prepare_pairs(sbe, sbo)
+        spl.reset_launches()
+        sres[label] = fused_cg(op.M_pairs, rhs, tol=1e-6, maxiter=500)
+        torch.cuda.synchronize()
+        if label != "fused":
+            assert spl.dslash_staggered_eo_pallas_fused.launches == 0
+            assert spl.dslash_staggered_eo_pass.launches == 0
+    assert spl.dslash_staggered_eo_pass_v3.launches == \
+        4 * sres["v3"].iters
+    for label in ("fold", "v3"):
+        assert sres[label].iters == sres["fused"].iters
+        assert torch.equal(sres[label].x, sres["fused"].x)

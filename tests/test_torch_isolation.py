@@ -638,3 +638,83 @@ def test_full_hop_mrhs_and_coarse_wrappers_raise_on_card_request(
     assert wpp.dslash_pallas_packed_mrhs.launches == n_b5
     assert cop.coarse_apply_pallas.launches == n_b8
     assert cop.coarse_apply_pallas_mrhs.launches == n_b8m
+
+
+def test_fold_and_v3_wrappers_raise_on_card_request(card_request,
+                                                    monkeypatch):
+    """The fold hop, the multi-RHS fold hop, S1-fold and the v3 pass (and
+    the improved v3 composition): a card request without the library
+    raises for every form and never reaches a plain version; float64,
+    bf16 batches (A7), recon-12 or missing Naik links on S1-fold, an acc
+    on the fat pass and wrong shapes raise; nothing is counted."""
+    def plain_reached(*args, **kwargs):
+        raise AssertionError("plain version reached on a card request")
+
+    for mod, name in ((wpp, "dslash_eo_fold_plain"),
+                      (wpp, "dslash_eo_fold_mrhs_plain"),
+                      (spl, "dslash_staggered_eo_fused_fold_plain"),
+                      (spl, "dslash_staggered_eo_pass_v3_plain")):
+        monkeypatch.setattr(mod, name, plain_reached)
+    fns = (wpp.dslash_eo_pallas_packed_fold,
+           wpp.dslash_eo_pallas_packed_fold_mrhs,
+           spl.dslash_staggered_eo_pallas_fused_fold,
+           spl.dslash_staggered_eo_pass_v3)
+    n0 = [f.launches for f in fns]
+    f32, bf16 = torch.float32, torch.bfloat16
+    T, Z, YXh = SITES
+    fsites = (T, 2 * Z, YXh)
+    for rows in (3, 2):
+        for store, out in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            u = torch.zeros((4, rows, 3) + fsites, dtype=store)
+            psi = torch.zeros((4, 3) + fsites, dtype=store)
+            with pytest.raises(RuntimeError, match="unavailable"):
+                fns[0](u, u, psi, DIMS, 0, out_dtype=out)
+        u = torch.zeros((4, rows, 3) + fsites)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fns[1](u, u, torch.zeros((3, 4, 3) + fsites), DIMS, 1)
+    u = torch.zeros((4, 3, 3) + fsites)
+    psi = torch.zeros((4, 3) + fsites)
+    with pytest.raises(TypeError, match="ROADMAP A7"):
+        fns[0](u.double(), u.double(), psi.double(), DIMS, 0)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        fns[0](u, u, psi, DIMS, 0, out_dtype=bf16)
+    with pytest.raises(ValueError, match="psi_f"):
+        fns[0](u, u, psi[..., :2], DIMS, 0)
+    with pytest.raises(ValueError, match="R = 3 or 2"):
+        fns[0](u[:, :1], u[:, :1], psi, DIMS, 0)
+    with pytest.raises(TypeError, match="ROADMAP A7"):
+        fns[1](u.to(bf16), u.to(bf16), psi[None].to(bf16), DIMS, 0)
+    with pytest.raises(ValueError, match="N, 4, 3, T, 2Z"):
+        fns[1](u, u, psi, DIMS, 0)
+    for store, out in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        ul = torch.zeros((4, 3, 3) + fsites, dtype=store)
+        sp = torch.zeros((3,) + fsites, dtype=store)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fns[2](ul, ul, sp, DIMS, 1, ul, ul, out_dtype=out)
+        up = torch.zeros((4, 3, 3, 2) + SITES, dtype=store)
+        pp = torch.zeros((3, 2) + SITES, dtype=store)
+        for nhop in (1, 3):
+            with pytest.raises(RuntimeError, match="unavailable"):
+                fns[3](up, up, pp, DIMS, 0, nhop, out_dtype=out)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            spl.dslash_staggered_eo_pallas_v3(up, up, pp, DIMS, 0, up, up,
+                                              out_dtype=out)
+    ul = torch.zeros((4, 3, 3) + fsites)
+    sp = torch.zeros((3,) + fsites)
+    with pytest.raises(ValueError, match="Naik"):
+        fns[2](ul, ul, sp, DIMS, 0)
+    with pytest.raises(ValueError, match="full storage"):
+        fns[2](ul, ul, sp, DIMS, 0, ul[:, :2], ul)
+    with pytest.raises(ValueError, match="psi_f"):
+        fns[2](ul, ul, sp[..., :2], DIMS, 0, ul, ul)
+    up = torch.zeros((4, 3, 3, 2) + SITES)
+    pp = torch.zeros((3, 2) + SITES)
+    with pytest.raises(ValueError, match="acc"):
+        fns[3](up, up, pp, DIMS, 0, 1, acc=pp)
+    with pytest.raises(ValueError, match="acc"):
+        fns[3](up, up, pp, DIMS, 0, 3, acc=pp[..., :2])
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        fns[3](up[:, :2], up, pp, DIMS, 0, 3)
+    with pytest.raises(TypeError, match="no kernel instance"):
+        fns[3](up, up, pp, DIMS, 0, 1, out_dtype=bf16)
+    assert [f.launches for f in fns] == n0

@@ -321,8 +321,8 @@ def test_quarter_and_form_refusals():
     """What stays refused names its ROADMAP item: quarter for clover,
     twisted mass, hisq and Möbius, and through invert_multi_src_quda and
     invert_multishift_quda (A7); the copy-free and int8 forms on the
-    clover operator and in float64 (A7); auto and bzfull (A17), fold
-    (B9); an unknown pallas_version."""
+    clover operator and in float64 (A7); auto and bzfull (A17); an
+    unknown pallas_version.  (fold is served: tests/test_torch_fold_v3.py.)"""
     g = su3_gauge(HYPERCUBE, 318)
     b = gaussian(lattice_shape(HYPERCUBE) + (4, 3), 319)
     for kw in ({"dslash_type": "clover", "csw": 1.0},
@@ -353,7 +353,7 @@ def test_quarter_and_form_refusals():
     for form in ("r12f", "int8"):
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             dpc.pairs(F32, precision_form=form)
-    for form, item in (("auto", "A17"), ("bzfull", "A17"), ("fold", "B9")):
+    for form, item in (("auto", "A17"), ("bzfull", "A17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tpk.pairs(F32, form)
     with pytest.raises(ValueError, match="pallas_version"):

@@ -289,7 +289,8 @@ def test_pair_operator_matches_complex(stag_ops):
 
 def test_pair_operator_forms_and_refusals(stag_ops):
     """The form follows the family (fused for improved, two_pass for
-    fat-only) unless the caller names one."""
+    fat-only) unless the caller names one; v3 is served (the copy-free
+    pass: tests/test_torch_fold_v3.py)."""
     dpc, _ = stag_ops
     fat_only = mstag.DiracStaggeredPC(dpc.fat_eo[0].new_zeros(()).expand(
         (4,) + dpc.geom.lattice_shape + (3, 3)).clone(), dpc.geom, MASS)
@@ -301,8 +302,7 @@ def test_pair_operator_forms_and_refusals(stag_ops):
         dpc.pairs(torch.float32, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP C"):
         dpc.pairs(torch.float32, precision_form="r12")
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        dpc.pairs(torch.float32, form="v3")
+    assert dpc.pairs(torch.float32, form="v3").form == "v3"
     with pytest.raises(ValueError, match="fat\\+Naik"):
         spl.dslash_staggered_eo_pallas_fused(*([torch.zeros(1)] * 3),
                                              (2, 2, 2, 2), 0)
