@@ -122,6 +122,34 @@ Phases, one JSON line each (``"phase": ...``):
    timing  — B4, B1 f64 and B2 f64 against their bounds (f64 flops at
              34 TFLOP/s).
 
+7a. The operator API of the clover, twisted and domain-wall families, the
+   full-lattice kernels and the tuned dslash (ROADMAP A19, A17's tuner;
+   a hot gauge and a source of their own at 32^3 x 64, kappa 0.12, csw
+   1.0, mu 0.1):
+   check   — B10 (the copy-free full-lattice hop, full and r12) against
+             its plain version and bit for bit B4 on the backward_gauge
+             copy, at 14x12x10x8 (both t boundary signs) and 32^3 x 64;
+             B7 full (the full-lattice clover operator, full and r12, with
+             and without the twist) within 1e-5 of its plain version; B11
+             (the canonical-layout hop, f32 and f64) against its plain
+             version, f32 bit for bit B10 on the packed fields.
+   dslash  ("family": "zoo") — mat_quda and mat_dag_mat_quda for clover,
+             twisted clover and twisted mass (full and recon-12 links;
+             twisted mass also at double) within 1e-5 (1e-12) of the
+             complex128 operators, each call one and two launches of B7
+             full (or B4) and no other hop; the doublets and the
+             domain-wall family (Ls 12) on their complex operators, single
+             against double, with their seconds (the 4d-PC Möbius
+             dslash_quda refused: no PC hop, as in the JAX package).
+   dslash_canonical — dslash_pallas (B11) on complex64 and complex128
+             fields through its public entry: one launch each, within
+             1e-5 (1e-12) of the complex128 stencil.
+   tune    — tuned_dslash with tuning on and a fresh resource path: the
+             four candidates' times, the winner, the cache file written,
+             B4 and B10 launched in the race, the output within 1e-5.
+   timing  ("family": "operator_zoo") — every new form's ms, plain ms,
+             bound and share; B10 beside B4 in the same call.
+
 8. The staggered family at 32^4 (BASELINE config 4; a random SU(3) gauge
    and a one-spin Gaussian source from a generator of their own, m 0.1):
    check   — every S1 (fused fat + Naik hop) and S2 (gather pass, fat and
@@ -3461,6 +3489,397 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
     return rows_out
 
 
+def operator_zoo_tune(torch, dev, smi) -> list:
+    """The full-lattice clover operator (B7 full), the copy-free
+    full-lattice hop (B10), the canonical-layout hop (B11), the operator
+    API of the clover, twisted and domain-wall families, and the tuned
+    dslash (phases check, dslash with "family": "zoo", dslash_canonical,
+    tune, timing with "family": "operator_zoo"); returns the kernels-line
+    rows of B7 full, B10 and B11."""
+    import tempfile
+
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import ColorSpinorField
+    from quda_tpu_torch.models.clover import DiracClover
+    from quda_tpu_torch.models.twisted import (DiracTwistedClover,
+                                               DiracTwistedMass)
+    from quda_tpu_torch.ops import clover_pallas as clp
+    from quda_tpu_torch.ops import wilson as wops
+    from quda_tpu_torch.ops import wilson_packed as wpk
+    from quda_tpu_torch.ops import wilson_pallas as wpl
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.ops.boundary import apply_t_boundary
+    from quda_tpu_torch.utils import tune
+
+    f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    geom = LatticeGeometry(PROD_DIMS)
+    T, Z, Y, X = geom.lattice_shape
+    sites = geom.volume
+    a = 2.0 * KAPPA * ZOO_MU
+    errs, timing, bound_by, launches = {}, {}, {}, {}
+    b10 = wpp.dslash_pallas_packed_v3
+    b7 = clp.clover_pallas_packed
+    b11 = wpl.dslash_pallas
+
+    def bound(nbytes, nflop, dtype=f32):
+        t_bytes = nbytes * sites / HBM_BYTES_PER_S
+        peak = F64_FLOPS_PER_S if dtype == f64 else F32_FLOPS_PER_S
+        t_ops = nflop * sites / peak
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def compare(got, want):
+        abs_err = (got - want).abs().max().item()
+        return abs_err, abs_err / want.abs().max().item()
+
+    def check(kernel, name, got, want, tol, twin=None, **info):
+        torch.cuda.synchronize()
+        abs_err, rel = compare(got, want)
+        same = None if twin is None else bool(torch.equal(got, twin))
+        key = f"{kernel}:{name}"
+        errs[key] = max(errs.get(key, 0.0), abs_err)
+        emit({"phase": "check", "kernel": kernel, "form": name,
+              "max_abs_err": abs_err, "max_rel_err": rel, "tolerance": tol,
+              "bit_for_bit_twin": same, **info})
+        if not (rel <= tol and same is not False):
+            fail(f"{kernel} {name} disagrees with its plain version "
+                 f"({rel:.3e} > {tol:g}) or with its twin (equal: {same})")
+
+    # the hot gauge (boundary phase folded in) and a Gaussian source
+    gauge = GaugeField.random(geom, gen, dtype=c128, device=dev).data
+    psi = ColorSpinorField.gaussian(geom, gen, dtype=c128, device=dev).data
+    folded = apply_t_boundary(gauge, geom, -1)
+    g_pl = wpk.to_packed_pairs(wpk.pack_gauge(folded), f32).contiguous()
+    p_pl = wpk.to_packed_pairs(wpk.pack_spinor(psi), f32).contiguous()
+    g_bw = wpp.backward_gauge(g_pl, X).contiguous()
+    links = {3: (g_pl, g_bw),
+             2: (wpp.to_recon12(g_pl), wpp.to_recon12(g_bw))}
+    blk = DiracClover(gauge.to(c64), geom, KAPPA, CSW).pairs().blk_pl
+
+    # -- check: B10 (both t boundaries at 14x12x10x8, and 32^3 x 64), B11,
+    # -- B7 full, each against its plain version and its twin
+    for rows in (3, 2):
+        name = wpp.form_name(rows, f32, f32)
+        small = LatticeGeometry(FULL_SMALL_DIMS)
+        st = small.lattice_shape
+        for tb in (True, False):
+            u = torch.randn((4, rows, 3, 2, st[0], st[1], st[2] * st[3]),
+                            generator=gen, device=dev)
+            ps = torch.randn((4, 3, 2, st[0], st[1], st[2] * st[3]),
+                             generator=gen, device=dev)
+            got = b10(u, ps, st[3], tb_sign=tb)
+            twin = wpp.dslash_pallas_packed(u, ps, st[3], tb_sign=tb)
+            check(b10.__name__, name, got,
+                  wpp.dslash_packed_v3_plain(u, ps, st[3], tb), wpp.TOLERANCE,
+                  twin, dims_xyzt=list(FULL_SMALL_DIMS), tb_sign=tb)
+        u, u_bw = links[rows]
+        got = b10(u, p_pl, X)
+        check(b10.__name__, name, got, wpp.dslash_packed_v3_plain(u, p_pl, X),
+              wpp.TOLERANCE, wpp.dslash_pallas_packed(u, p_pl, X,
+                                                      gauge_bw=u_bw),
+              dims_xyzt=list(PROD_DIMS))
+        for tw in (None, a):
+            cname = name + clp.epilogue_name(True, tw is not None)
+            got = b7(u, blk, p_pl, X, KAPPA, diag_twist=tw, gauge_bw=u_bw)
+            check(b7.__name__, cname, got,
+                  clp.clover_packed_plain(u, u_bw, blk, p_pl, X, KAPPA, tw),
+                  clp.FULL_TOLERANCE, dims_xyzt=list(PROD_DIMS))
+        del got
+    canon = {c64: (folded.to(c64), psi.to(c64)), c128: (folded, psi)}
+    for cdt, (gc, pc) in canon.items():
+        got = b11(gc, pc)
+        twin = None
+        if cdt == c64:
+            twin = wpk.unpack_spinor(wpk.from_packed_pairs(
+                b10(g_pl, p_pl, X), c64), geom.lattice_shape)
+        check(b11.__name__, f"canonical:{'f64' if cdt == c128 else 'f32'}",
+              got, wpl.dslash_canonical_plain(gc, pc),
+              wpl.TOLERANCE_F64 if cdt == c128 else wpl.TOLERANCE, twin,
+              dims_xyzt=list(PROD_DIMS))
+        del got, twin
+
+    # -- dslash: the operator API of the clover and twisted families ------
+    def zero():
+        wpp.reset_launches()
+        clp.reset_launches()
+        wpl.reset_launches()
+
+    def counts():
+        return {"b7": dict(b7.launches_by_form),
+                "b4": dict(wpp.dslash_pallas_packed.launches_by_form),
+                "b1": dict(wpp.dslash_eo_pallas_packed.launches_by_form),
+                "b10": dict(b10.launches_by_form)}
+
+    ops128 = {"clover": DiracClover(gauge, geom, KAPPA, CSW),
+              "twisted-clover": DiracTwistedClover(gauge, geom, KAPPA,
+                                                   ZOO_MU, CSW),
+              "twisted-mass": DiracTwistedMass(gauge, geom, KAPPA, ZOO_MU)}
+    want = {fam: {"mat_quda": d.M(psi), "mat_dag_mat_quda": d.MdagM(psi)}
+            for fam, d in ops128.items()}
+    for fam in ops128:
+        for prec, rec in (("single", 18), ("single", 12), ("double", 18)):
+            if prec == "double" and fam != "twisted-mass":
+                continue
+            cdt = c128 if prec == "double" else c64
+            qt.init_quda(dev)
+            try:
+                qt.load_gauge_quda(gauge.to(cdt), qt.GaugeParam(
+                    X=PROD_DIMS, cuda_prec=prec, reconstruct=rec))
+                p = qt.InvertParam(dslash_type=fam, kappa=KAPPA, mu=ZOO_MU,
+                                   csw=CSW, cuda_prec=prec)
+                out, c, secs = {}, {}, {}
+                for api in ("mat_quda", "mat_dag_mat_quda"):
+                    zero()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out[api] = getattr(qt, api)(psi.to(cdt), p)
+                    torch.cuda.synchronize()
+                    secs[api] = time.perf_counter() - t0
+                    c[api] = counts()
+            finally:
+                qt.end_quda()
+            rel = {k: compare(v.to(c128), want[fam][k])[1]
+                   for k, v in out.items()}
+            tol = F64_TOLERANCE if prec == "double" else wpp.TOLERANCE
+            rows = 2 if rec == 12 else 3
+            dt = f64 if prec == "double" else f32
+            kern = "b4" if fam == "twisted-mass" else "b7"
+            form = wpp.form_name(rows, dt, dt) + (
+                "" if kern == "b4" else clp.epilogue_name(
+                    True, fam == "twisted-clover"))
+            label = f"{fam}:{prec}:{'r12' if rows == 2 else 'full'}"
+            launches[label] = {k: v[kern].get(form, 0) for k, v in c.items()}
+            emit({"phase": "dslash", "family": "zoo", "dslash_type": fam,
+                  "cuda_prec": prec, "reconstruct": rec,
+                  "dims_xyzt": list(PROD_DIMS), "kappa": KAPPA,
+                  "mu": ZOO_MU, "csw": CSW, "rel_err_vs_complex128": rel,
+                  "tolerance": tol, "secs": secs, "kernel_form": form,
+                  "launches": c})
+            expect = {"mat_quda": 1, "mat_dag_mat_quda": 2}
+            for api, n in expect.items():
+                others = sum(sum(v.values()) for k, v in c[api].items()
+                             if k != kern)
+                if not (c[api][kern] == {form: n} and others == 0):
+                    fail(f"{label} {api} did not run {kern} {form} "
+                         f"{n} time(s) and nothing else: {c[api]}")
+            if not all(r <= tol for r in rel.values()):
+                fail(f"operator API ({label}) disagrees with the complex128 "
+                     f"operator: {rel}")
+            del out
+    del want, ops128
+
+    # the other families' operator calls: their complex operators, single
+    # against double
+    ls = DWF_LS
+    zoo_kw = dict(kappa=KAPPA, mu=ZOO_MU, csw=CSW, epsilon=ZOO_EPS, Ls=ls,
+                  m5=DWF_M5, b5=DWF_B5, c5=DWF_C5, mass=DWF_MASS,
+                  eofa_mq1=EOFA_MQ[0], eofa_mq2=EOFA_MQ[1],
+                  eofa_mq3=EOFA_MQ[2], eofa_shift=EOFA_SHIFT)
+    half = geom.half_lattice_shape
+    for fam in ("ndeg-twisted-mass", "ndeg-twisted-clover", "mobius",
+                "domain-wall-4d", "domain-wall", "mobius-eofa"):
+        ndeg = fam.startswith("ndeg")
+        full_shape = ((ls,) if not ndeg else ()) + geom.lattice_shape + (
+            (2, 4, 3) if ndeg else (4, 3))
+        half_shape = ((ls,) if not ndeg else ()) + half + (
+            (2, 4, 3) if ndeg else (4, 3))
+        x = torch.randn(full_shape, generator=gen, device=dev, dtype=c128)
+        xh = torch.randn(half_shape, generator=gen, device=dev, dtype=c128)
+        res, secs = {}, {}
+        for prec, cdt in (("single", c64), ("double", c128)):
+            qt.init_quda(dev)
+            try:
+                qt.load_gauge_quda(gauge.to(cdt), qt.GaugeParam(
+                    X=PROD_DIMS, cuda_prec=prec))
+                p = qt.InvertParam(dslash_type=fam, cuda_prec=prec,
+                                   **zoo_kw)
+                zero()
+                calls = {"mat_quda": lambda: qt.mat_quda(x.to(cdt), p),
+                         "mat_dag_mat_quda":
+                             lambda: qt.mat_dag_mat_quda(x.to(cdt), p),
+                         "dslash_quda": lambda: qt.dslash_quda(xh.to(cdt), p,
+                                                               0)}
+                for api, fn in calls.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        res[prec, api] = fn()
+                    except NotImplementedError as e:
+                        if fam in ("mobius", "domain-wall-4d",
+                                   "mobius-eofa") and api == "dslash_quda":
+                            res[prec, api] = str(e)[:80]
+                        else:
+                            raise
+                    torch.cuda.synchronize()
+                    secs[f"{prec}:{api}"] = time.perf_counter() - t0
+                c = counts()
+            finally:
+                qt.end_quda()
+            if any(c[k] for k in c):
+                fail(f"{fam} ({prec}) launched a hop kernel: {c}")
+        rel = {api: compare(res["single", api].to(c128),
+                            res["double", api])[1]
+               for api in ("mat_quda", "mat_dag_mat_quda", "dslash_quda")
+               if isinstance(res["single", api], torch.Tensor)}
+        refused = {api: res["single", api]
+                   for api in ("dslash_quda",)
+                   if isinstance(res["single", api], str)}
+        emit({"phase": "dslash", "family": "zoo", "dslash_type": fam,
+              "dims_xyzt": list(PROD_DIMS), "Ls": None if ndeg else ls,
+              "route": "complex operators", "secs": secs,
+              "rel_err_single_vs_double": rel, "refused": refused})
+        if not all(r <= wpp.TOLERANCE for r in rel.values()):
+            fail(f"{fam}: single and double operators disagree: {rel}")
+        del x, xh, res
+        torch.cuda.empty_cache()
+
+    # -- dslash_canonical: B11 through its public entry ---------------------
+    for cdt, (gc, pc) in canon.items():
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wpl.dslash_pallas(gc, pc)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        form = f"canonical:{'f64' if cdt == c128 else 'f32'}"
+        launches[form] = dict(b11.launches_by_form)
+        rel = compare(out.to(c128), wops.dslash_full(folded, psi))[1]
+        tol = F64_TOLERANCE if cdt == c128 else wpp.TOLERANCE
+        emit({"phase": "dslash_canonical", "form": form,
+              "dims_xyzt": list(PROD_DIMS), "secs": secs,
+              "rel_err_vs_complex128": rel, "tolerance": tol,
+              "launches": launches[form]})
+        if not (rel <= tol and launches[form] == {form: 1}):
+            fail(f"dslash_pallas ({form}): {rel:.3e}, launches "
+                 f"{launches[form]}")
+        del out
+
+    # -- tune: tuned_dslash races its candidates on the card ---------------
+    saved = {k: os.environ.get(k) for k in ("QUDA_TORCH_RESOURCE_PATH",
+                                            "QUDA_TORCH_ENABLE_TUNING")}
+    gc, pc = canon[c64]
+    with tempfile.TemporaryDirectory() as rpath:
+        os.environ["QUDA_TORCH_RESOURCE_PATH"] = rpath
+        os.environ["QUDA_TORCH_ENABLE_TUNING"] = "1"
+        try:
+            tune._cache.clear()
+            tune._profile.clear()
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = wpl.tuned_dslash(gc, pc)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            c = counts()
+            lat = tuple(geom.lattice_shape)
+            aux = f"{pc.dtype}/{pc.device.type}"
+            winner = tune.cached_param("wilson_dslash", lat, aux)
+            prof = tune.profile_snapshot()
+            cands = list(wpl._tuned_candidates(lat, str(pc.dtype),
+                                               pc.device.type))
+            times = {cand: 1e3 * prof[tune.tune_key(
+                "wilson_dslash", lat, f"{aux}|{cand}")]["seconds"]
+                for cand in cands}
+            cached = os.path.exists(os.path.join(rpath, tune.CACHE_FILE))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    rel = compare(out.to(c128), wops.dslash_full(folded, psi))[1]
+    launches["tune"] = c
+    emit({"phase": "tune", "kernel": "wilson_dslash",
+          "dims_xyzt": list(PROD_DIMS), "dtype": str(pc.dtype),
+          "candidates": cands, "candidate_ms": times, "winner": winner,
+          "race_and_apply_secs": secs, "cache_written": cached,
+          "launches": c, "rel_err_vs_complex128": rel,
+          "platform": tune.platform_key(), "nvidia_smi": smi})
+    if not (cands == ["xla", "xla_packed", "pallas_packed", "pallas_v3"]
+            and winner in cands and cached and rel <= wpp.TOLERANCE
+            and c["b4"].get("full:f32->f32", 0) > 0
+            and c["b10"].get("full:f32->f32", 0) > 0):
+        fail(f"tuned_dslash: candidates {cands}, winner {winner}, cache "
+             f"{cached}, {rel:.3e}, launches {c}")
+    del out
+
+    # -- timing: every new form, B4 in the same call -----------------------
+    for rows in (3, 2):
+        u, u_bw = links[rows]
+        name = wpp.form_name(rows, f32, f32)
+        k_ms = median_ms(lambda: b10(u, p_pl, X), torch)
+        b4_ms = median_ms(lambda: wpp.dslash_pallas_packed(
+            u, p_pl, X, gauge_bw=u_bw), torch)
+        p_ms = median_ms(lambda: wpp.dslash_packed_v3_plain(u, p_pl, X),
+                         torch, repeats=5, batch=2)
+        b_ms, bound_by[f"b10:{name}"] = bound(
+            wpp.bytes_per_site_v3(rows), wpp.flops_per_site(rows))
+        timing[f"b10:{name}"] = (k_ms, p_ms, b_ms, {"b4_ms": b4_ms})
+        for tw in (None, a):
+            cname = name + clp.epilogue_name(True, tw is not None)
+            k_ms = median_ms(lambda: b7(u, blk, p_pl, X, KAPPA,
+                                        diag_twist=tw, gauge_bw=u_bw), torch)
+            p_ms = median_ms(lambda: clp.clover_packed_plain(
+                u, u_bw, blk, p_pl, X, KAPPA, tw), torch, repeats=5, batch=2)
+            b_ms, bound_by[f"b7:{cname}"] = bound(
+                clp.bytes_per_site_full(rows),
+                clp.flops_per_site_full(rows, tw is not None))
+            timing[f"b7:{cname}"] = (k_ms, p_ms, b_ms, {})
+    for cdt, (gc, pc) in canon.items():
+        real = f64 if cdt == c128 else f32
+        form = f"canonical:{'f64' if cdt == c128 else 'f32'}"
+        k_ms = median_ms(lambda: b11(gc, pc), torch)
+        p_ms = median_ms(lambda: wpl.dslash_canonical_plain(gc, pc), torch,
+                         repeats=5, batch=2)
+        b_ms, bound_by[f"b11:{form}"] = bound(
+            wpp.bytes_per_site_v3(3, real), wpp.FLOPS_PER_SITE, real)
+        timing[f"b11:{form}"] = (k_ms, p_ms, b_ms, {})
+    emit({"phase": "timing", "family": "operator_zoo",
+          "dims_xyzt": list(PROD_DIMS), "nvidia_smi": smi,
+          "repeats": REPEATS, "calls_per_timing": BATCH,
+          **{name: {"ms": k, "plain_ms": pm, "bound_ms": b,
+                    "share_of_bound": b / k, **extra}
+             for name, (k, pm, b, extra) in timing.items()}})
+
+    rows_out = []
+
+    def row(key, kernel, form, source, replaces, n):
+        k_ms, p_ms, b_ms, _ = timing[key]
+        rows_out.append({
+            "name": f"{kernel}[{form}]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": errs[f"{kernel}:{form}"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by[key],
+            "library_ms": None})
+
+    # B10's R = 3 form runs in the tuner's race (pallas_v3); its R = 2 form
+    # runs on no path, checked and timed only, with no row
+    name = wpp.form_name(3, f32, f32)
+    row(f"b10:{name}", b10.__name__, name,
+        "quda_tpu_torch/csrc/wilson_full.cu",
+        "quda_tpu/ops/wilson_pallas_packed.py:938",
+        launches["tune"]["b10"].get(name, 0))
+    for cdt in (c64, c128):
+        form = f"canonical:{'f64' if cdt == c128 else 'f32'}"
+        row(f"b11:{form}", b11.__name__, form,
+            "quda_tpu_torch/csrc/wilson_canonical.cu",
+            "quda_tpu/ops/wilson_pallas.py:198", launches[form].get(form, 0))
+    for rows in (3, 2):
+        for fam in ("clover", "twisted-clover"):
+            cname = wpp.form_name(rows, f32, f32) + clp.epilogue_name(
+                True, fam == "twisted-clover")
+            path = f"{fam}:single:{'r12' if rows == 2 else 'full'}"
+            row(f"b7:{cname}", b7.__name__, cname,
+                "quda_tpu_torch/csrc/clover_full.cu",
+                "quda_tpu/ops/clover_pallas.py:394",
+                sum(launches[path].values()))
+    return rows_out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4349,6 +4768,7 @@ def main() -> int:
     rows_out.extend(precision(torch, dev, smi, gauge, src, srcs, half_ref,
                               df64_ref, multi["wilson:r12"][0]))
     rows_out.extend(operator_and_double(torch, dev, smi))
+    rows_out.extend(operator_zoo_tune(torch, dev, smi))
     stag_rows, stag = staggered(torch, dev, smi)
     rows_out.extend(stag_rows)
     rows_out.extend(fold_v3(torch, dev, smi, gauge, src, srcs, stag))

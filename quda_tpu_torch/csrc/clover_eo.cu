@@ -52,32 +52,22 @@
 //
 // Design: one thread per target half-site; the hop is wilson_hop.cuh's
 // eo_hop_sum (the B1 code), 24 f32 accumulators in registers.  The
-// epilogue streams the block entries plane by plane (coalesced across the
-// warp, as the links are) into the 6x6 complex mat-vec, one output row at a
-// time, twisted and stored as soon as it is summed: the 144 block numbers
-// of a site are never held in registers at once.  K2 reads the six spinor
+// epilogue (clover_epilogue.cuh, shared with the full-lattice clover
+// operator of clover_full.cu) streams the block entries plane by plane
+// (coalesced across the warp, as the links are) into the 6x6 complex
+// mat-vec, one output row at a time, twisted and stored as soon as it is
+// summed: the 144 block numbers of a site are never held in registers at
+// once.  K2 reads the six spinor
 // components of x of one chirality at a time.  Hermitian compression of
 // the clover blocks (72 reals), shared-memory reuse and wgmma/TMA are left
 // for later.
-#include <type_traits>
-
-#include "wilson_hop.cuh"
+#include "clover_epilogue.cuh"
 
 namespace {
 
 using namespace qtt;
 
 constexpr int kThreads = 128;
-
-// v rounded to the storage type O and back to f32
-template <typename O>
-__device__ __forceinline__ float round_to(float v) {
-  if constexpr (std::is_same_v<O, __nv_bfloat16>) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
 
 template <typename S, typename O, int R, bool DIAG_HOP, bool BLK, bool TWIST>
 __global__ void __launch_bounds__(kThreads)
@@ -87,7 +77,6 @@ __global__ void __launch_bounds__(kThreads)
                      const S* __restrict__ xc, int T, int Z, int Y, int Xh,
                      int parity, int tb_sign, float coeff, float tw_c,
                      float tw_scale) {
-  static_assert(BLK || TWIST, "an epilogue needs blocks or a twist");
   const int64_t YXh = static_cast<int64_t>(Y) * Xh;
   const int64_t ZYXh = static_cast<int64_t>(Z) * YXh;
   const int64_t n = static_cast<int64_t>(T) * ZYXh;
@@ -97,52 +86,8 @@ __global__ void __launch_bounds__(kThreads)
   float2 acc[1][4][3];
   eo_hop_sum<R, 1>(acc, psi, 0, 1, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n,
                    parity, tb_sign, site);
-
-#pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    // the six components of this chirality the epilogue acts on
-    float2 v[6];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      if constexpr (DIAG_HOP) {
-        v[j] = ld_psi(xc, 2 * ch + j / 3, j % 3, n, site);
-      } else {
-        const float2 a = acc[0][2 * ch + j / 3][j % 3];
-        v[j] = make_float2(round_to<O>(a.x), round_to<O>(a.y));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float2 o;
-      if constexpr (BLK) {
-        o = cmul(ld_blk(blk, ch, i, 0, n, site), v[0]);
-#pragma unroll
-        for (int j = 1; j < 6; ++j) {
-          o = cadd(o, cmul(ld_blk(blk, ch, i, j, n, site), v[j]));
-        }
-      } else {
-        o = v[i];
-      }
-      if constexpr (TWIST) {
-        // i c g5 w = (-c g5 w.im, c g5 w.re), g5 = +1 (ch 0), -1 (ch 1)
-        const float g5c = ch == 0 ? tw_c : -tw_c;
-        if constexpr (DIAG_HOP) {
-          o = make_float2(o.x + (-g5c * v[i].y), o.y + g5c * v[i].x);
-        } else {
-          o = make_float2(tw_scale * (o.x + (-g5c * o.y)),
-                          tw_scale * (o.y + g5c * o.x));
-        }
-      }
-      if constexpr (DIAG_HOP) {
-        const float2 h = acc[0][2 * ch + i / 3][i % 3];
-        o = make_float2(o.x + coeff * h.x, o.y + coeff * h.y);
-      }
-      O* q = out + static_cast<int64_t>(((2 * ch + i / 3) * 3 + i % 3) * 2) *
-                       n + site;
-      st(q, o.x);
-      st(q + n, o.y);
-    }
-  }
+  clover_epilogue<S, O, DIAG_HOP, BLK, TWIST>(out, acc, blk, xc, n, site,
+                                              coeff, tw_c, tw_scale);
 }
 
 struct Args {

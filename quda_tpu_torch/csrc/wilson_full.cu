@@ -1,5 +1,6 @@
-// Full-lattice Wilson hop D psi on the packed pair layout (kernel B4), and
-// its multi-RHS form (kernel B5, at the end of this file).
+// Full-lattice Wilson hop D psi on the packed pair layout (kernel B4), its
+// multi-RHS form (kernel B5) and its copy-free form (kernel B10, at the end
+// of this file).
 //
 // Replaces: quda_tpu/ops/wilson_pallas_packed.py::dslash_pallas_packed, the
 // Pallas TPU kernel (pallas_call at :441, body _make_kernel with no eo at
@@ -45,6 +46,21 @@ using namespace qtt;
 
 constexpr int kThreads = 128;
 
+// the 24 sums of acc[0] into the component planes of out at site
+template <typename S>
+__device__ __forceinline__ void st_planes(S* __restrict__ out,
+                                          const cplx_t<S> (&acc)[1][4][3],
+                                          int64_t n, int64_t site) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      S* q = out + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
+      st(q, acc[0][s][c].x);
+      st(q + n, acc[0][s][c].y);
+    }
+}
+
 template <typename S, int R>
 __global__ void __launch_bounds__(kThreads)
     wilson_full_kernel(S* __restrict__ out, const S* __restrict__ psi,
@@ -59,15 +75,7 @@ __global__ void __launch_bounds__(kThreads)
   cplx_t<S> acc[1][4][3];
   full_hop_sum<R, 1>(acc, psi, 0, 1, u, u_bw, T, Z, Y, X, YX, ZYX, n,
                      tb_sign, site);
-
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      S* q = out + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
-      st(q, acc[0][s][c].x);
-      st(q + n, acc[0][s][c].y);
-    }
+  st_planes(out, acc, n, site);
 }
 
 template <typename S, int R>
@@ -223,4 +231,80 @@ extern "C" int qtt_wilson_full_mrhs(void* out, const void* psi, const void* u,
                 : launch_mrhs_nb<2>(nb, out, psi, u, u_bw, T, Z, Y, X,
                                     tb_sign, nrhs, nc, nblk, s);
   return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Copy-free full-lattice hop (kernel B10): B4 with no backward copy.
+//
+// Replaces: quda_tpu/ops/wilson_pallas_packed.py::dslash_pallas_packed_v3,
+// the Pallas TPU kernel (pallas_call at :938, body _make_kernel_v3).  Plain
+// version: quda_tpu_torch/ops/wilson_pallas_packed.py::
+// dslash_packed_v3_plain.  The tuner's candidate ``pallas_v3``
+// (ops/wilson_pallas.py::tuned_dslash) runs it.
+//
+// Layout: psi, out (4, 3, 2, T, Z, Y*X); u (4, R, 3, 2, T, Z, Y*X), boundary
+// phase folded in, read twice: U_mu(x) at the target for the forward hop
+// and U_mu(x - mu) unshifted at the neighbour x - mu for the backward hop
+// (full_hop_sum_from with the There source, the links as both ``here`` and
+// ``there``).  Forms: full:f32->f32 and r12:f32->f32 (R = 2 with tb_sign:
+// the rebuilt row 2 of a t link negated on its antiperiodic plane, keyed to
+// the target plane as B4 keys its backward copy, so the output is B4's on
+// backward_gauge(u) bit for bit).  Sums f32.
+//
+// What bounds it on an H100: device memory.  Its floor is 480 B a site in
+// f32 with R = 3 (psi 96, links 288, out 96: each input read once) and
+// 384 B with R = 2, at 1320 flop (+336 with R = 2), 2.75 flop/B at most;
+// at 32^3 x 64 the floor is 0.300 ms (R = 3) and 0.240 ms (R = 2).  B4
+// reads the 288 B backward copy as well (768 B).
+//
+// Design: B4's thread per site.  The backward hop of direction mu reads
+// the link at the neighbour index psi is read at, so a warp's backward link
+// loads are the psi loads' pattern: coalesced along x and y, a plane away
+// along z and t, and the rows L2 already holds from the forward hops of
+// the neighbouring blocks.
+namespace {
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    wilson_full_there_kernel(float* __restrict__ out,
+                             const float* __restrict__ psi,
+                             const float* __restrict__ u, int T, int Z, int Y,
+                             int X, int tb_sign) {
+  const int64_t YX = static_cast<int64_t>(Y) * X;
+  const int64_t ZYX = static_cast<int64_t>(Z) * YX;
+  const int64_t n = static_cast<int64_t>(T) * ZYX;
+  const int64_t site = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (site >= n) return;
+
+  float2 acc[1][4][3];
+  full_hop_sum_from(acc, psi, 0, 1, There<R, float>{u, u}, T, Z, Y, X, YX,
+                    ZYX, n, tb_sign, site);
+  st_planes(out, acc, n, site);
+}
+
+}  // namespace
+
+// All float32; rows: 3 or 2.  Lattice (T, Z, Y, X) in full sites.
+extern "C" int qtt_wilson_full_there(void* out, const void* psi,
+                                     const void* u, int T, int Z, int Y,
+                                     int X, int rows, int tb_sign,
+                                     void* stream) {
+  const int64_t n = static_cast<int64_t>(T) * Z * Y * X;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (n <= 0 || blocks > 0x7fffffff || (rows != 2 && rows != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  const float* p = static_cast<const float*>(psi);
+  const float* g = static_cast<const float*>(u);
+  if (rows == 3) {
+    wilson_full_there_kernel<3><<<nb, kThreads, 0, s>>>(o, p, g, T, Z, Y, X,
+                                                        tb_sign);
+  } else {
+    wilson_full_there_kernel<2><<<nb, kThreads, 0, s>>>(o, p, g, T, Z, Y, X,
+                                                        tb_sign);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

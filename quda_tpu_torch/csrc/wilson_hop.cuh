@@ -1,14 +1,17 @@
 // Device code of the Wilson hop on the packed pair layout, shared by the
 // eo hop kernel (B1, wilson_eo.cu), the fused clover hop (B7,
-// clover_eo.cu), the full-lattice hop (B4, wilson_full.cu) and the
-// copy-free and int8 eo hops (wilson_eo_there.cu, wilson_eo_int8.cu): the
-// spin tables, the f32/bf16/f64 loads and stores, the link load (R = 3
-// rows, or R = 2 with row 2 rebuilt), the link sources (pre-shifted
-// backward links, backward links read from the opposite parity, int8
-// block-float links), the clover block entry load, one hop direction, and
+// clover_eo.cu, and its full-lattice form, clover_full.cu), the
+// full-lattice hops (B4 and the copy-free B10, wilson_full.cu; B11 on the
+// canonical layout, wilson_canonical.cu) and the copy-free and int8 eo
+// hops (wilson_eo_there.cu, wilson_eo_int8.cu): the spin tables, the
+// f32/bf16/f64 loads and stores, the link load (R = 3 rows, or R = 2 with
+// row 2 rebuilt), the link sources (pre-shifted backward links, backward
+// links read unshifted at the neighbour, int8 block-float links, the
+// canonical gauge), the clover block entry load, one hop direction, and
 // the whole 8-direction hop at one target site: eo_hop_sum on the half
-// lattice, full_hop_sum on the full one; and the layouts of a component
-// plane (the pair layout, and the fold layout of wilson_eo_fold.cu).  Both
+// lattice, full_hop_sum on the full one; and the layouts (the pair
+// layout of component planes, the fold layout of wilson_eo_fold.cu, the
+// site-major layout of the canonical arrays).  Both
 // hop sums take a compile-time count NB of right-hand sides: each
 // direction's link is loaded (and its row 2 rebuilt) once and applied to
 // NB spinors, which is what the multi-RHS kernels (B5-eo,
@@ -138,6 +141,23 @@ struct Cplx<double> {
 template <typename S>
 using cplx_t = typename Cplx<S>::type;
 
+// component (s, c) of psi at address a (the imaginary part im further on)
+template <typename S>
+__device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
+                                            int s, int c, int64_t n,
+                                            int64_t a, int64_t im) {
+  const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + a;
+  return mkc(ld(q), ld(q + im));
+}
+
+// component (s, c) of psi at half-site i of the pair layout
+template <typename S>
+__device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
+                                            int s, int c, int64_t n,
+                                            int64_t i) {
+  return ld_psi(psi, s, c, n, i, n);
+}
+
 // Where the complex number of half-site i lies in one component plane
 // (component k's plane starts at k * 2n, n = T*Z*Y*Xh):
 //   PairLayout  (..., 2, T, Z, Y*Xh): re at i, im one plane (n) further on;
@@ -164,6 +184,46 @@ struct FoldLayout {
   __device__ __forceinline__ int64_t im(int64_t) const { return yxh; }
 };
 
+// The site-major layout of the canonical pair arrays (kernel B11,
+// wilson_canonical.cu): psi (T, Z, Y, X, 4, 3, 2), component k = 3s + c of
+// site i at i*24 + 2k with re and im adjacent, so one 8-byte (f32) or
+// 16-byte (f64) load reads the complex number.  Sites are numbered as in
+// the plane layouts (t, z, y, x), so the neighbour placement is theirs;
+// only the loads differ (ld_psi_in below, SiteThere's links).
+struct SiteLayout {
+  static constexpr int kRowScale = 1;
+  __device__ __forceinline__ int64_t at(int64_t i, int64_t) const {
+    return i;
+  }
+  __device__ __forceinline__ int64_t im(int64_t) const { return 1; }
+};
+
+// one complex number whose re and im are adjacent
+__device__ __forceinline__ float2 ld_cplx(const float* q) {
+  return __ldg(reinterpret_cast<const float2*>(q));
+}
+__device__ __forceinline__ double2 ld_cplx(const double* q) {
+  return __ldg(reinterpret_cast<const double2*>(q));
+}
+
+// component (s, c) of psi at address a of layout Lay: the plane layouts
+// read re and im from two places im apart; the site-major layout reads
+// both at once at site a
+template <typename S, typename Lay>
+__device__ __forceinline__ cplx_t<S> ld_psi_in(const Lay&,
+                                               const S* __restrict__ psi,
+                                               int s, int c, int64_t n,
+                                               int64_t a, int64_t im) {
+  return ld_psi(psi, s, c, n, a, im);
+}
+template <typename S>
+__device__ __forceinline__ cplx_t<S> ld_psi_in(const SiteLayout&,
+                                               const S* __restrict__ psi,
+                                               int s, int c, int64_t,
+                                               int64_t a, int64_t) {
+  return ld_cplx(psi + a * 24 + (s * 3 + c) * 2);
+}
+
 // the layout Lay of planes whose rows hold yxh = Y*Xh half-sites
 template <typename Lay>
 __device__ __forceinline__ Lay make_layout(int64_t yxh);
@@ -174,23 +234,6 @@ __device__ __forceinline__ PairLayout make_layout<PairLayout>(int64_t) {
 template <>
 __device__ __forceinline__ FoldLayout make_layout<FoldLayout>(int64_t yxh) {
   return FoldLayout{yxh};
-}
-
-// component (s, c) of psi at address a (the imaginary part im further on)
-template <typename S>
-__device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
-                                            int s, int c, int64_t n,
-                                            int64_t a, int64_t im) {
-  const S* q = psi + static_cast<int64_t>((s * 3 + c) * 2) * n + a;
-  return mkc(ld(q), ld(q + im));
-}
-
-// component (s, c) of psi at half-site i of the pair layout
-template <typename S>
-__device__ __forceinline__ cplx_t<S> ld_psi(const S* __restrict__ psi,
-                                            int s, int c, int64_t n,
-                                            int64_t i) {
-  return ld_psi(psi, s, c, n, i, n);
 }
 
 // Entry (ch, i, j) of the clover blocks (2, 6, 6, 2, T, Z, Y*Xh) at half-site
@@ -280,6 +323,27 @@ struct There {
   }
 };
 
+//   SiteThere<S>   the canonical gauge (4, T, Z, Y, X, 3, 3, 2) of the
+//                  site-major layout, link mu of site i at (mu*n + i)*18:
+//                  forward at the target, backward unshifted at the
+//                  neighbour, as There reads; R = 3, each element one
+//                  complex load (kernel B11).
+template <typename S>
+struct SiteThere {
+  const S* g;
+  template <int MU, int SIGN, typename C>
+  __device__ __forceinline__ void load(C (&u)[3][3], int64_t n, int64_t,
+                                       int64_t site, int64_t nb,
+                                       float) const {
+    const S* q = g + (static_cast<int64_t>(MU) * n + (SIGN > 0 ? site : nb)) *
+                         18;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) u[a][b] = ld_cplx(q + (a * 3 + b) * 2);
+  }
+};
+
 struct Int8There {
   const int8_t* q_here;
   const float* s_here;
@@ -308,15 +372,16 @@ struct Int8There {
 // the link source L.  SIGN > 0 is the forward hop (1 - gamma_mu) U
 // psi(x+mu); SIGN < 0 the backward hop (1 + gamma_mu) U^dag psi(x-mu),
 // U^dag[a][b] = conj(U[b][a]).  The link is loaded once for all NB
-// spinors.  nb and site are addresses of the layout, im its offset of the
-// imaginary part.
-template <int MU, int SIGN, int NB, typename S, typename C, typename L>
+// spinors.  nb and site are addresses of the layout ``lay``, im its
+// offset of the imaginary part.
+template <int MU, int SIGN, int NB, typename S, typename C, typename L,
+          typename Lay>
 __device__ __forceinline__ void hop(C (&acc)[NB][4][3],
                                     const S* __restrict__ psi,
                                     int64_t rstride, int nvalid,
-                                    const L& links, int64_t n, int64_t im,
-                                    int64_t nb, int64_t site,
-                                    float row2_sign) {
+                                    const L& links, const Lay& lay,
+                                    int64_t n, int64_t im, int64_t nb,
+                                    int64_t site, float row2_sign) {
   constexpr Tab t = tab(MU, SIGN);
   C u[3][3];
   links.template load<MU, SIGN>(u, n, im, site, nb, row2_sign);
@@ -334,10 +399,12 @@ __device__ __forceinline__ void hop(C (&acc)[NB][4][3],
     C h[2][3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      h[0][c] = cadd(ld_psi(p, 0, c, n, nb, im),
-                     cscale<t.c0r, t.c0i>(ld_psi(p, t.j0, c, n, nb, im)));
-      h[1][c] = cadd(ld_psi(p, 1, c, n, nb, im),
-                     cscale<t.c1r, t.c1i>(ld_psi(p, t.j1, c, n, nb, im)));
+      h[0][c] = cadd(ld_psi_in(lay, p, 0, c, n, nb, im),
+                     cscale<t.c0r, t.c0i>(
+                         ld_psi_in(lay, p, t.j0, c, n, nb, im)));
+      h[1][c] = cadd(ld_psi_in(lay, p, 1, c, n, nb, im),
+                     cscale<t.c1r, t.c1i>(
+                         ld_psi_in(lay, p, t.j1, c, n, nb, im)));
     }
     C uh[2][3];
 #pragma unroll
@@ -385,12 +452,14 @@ __device__ __forceinline__ void yzt_nbrs(Nbrs& nb, int64_t site, int y,
 
 // The 8 hops at target site ``site`` into acc (zeroed first), in the TPU
 // kernel's order: x, y, z, t, forward before backward; links from L.
-// Sites are addresses of the layout, im its offset of the imaginary part.
-template <int NB, typename S, typename C, typename L>
+// Sites are addresses of the layout ``lay``, im its offset of the
+// imaginary part.
+template <int NB, typename S, typename C, typename L, typename Lay>
 __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
                                         const S* __restrict__ psi,
                                         int64_t rs, int nvalid,
-                                        const L& lk, int64_t n, int64_t im,
+                                        const L& lk, const Lay& lay,
+                                        int64_t n, int64_t im,
                                         const Nbrs& nb, int64_t site) {
 #pragma unroll
   for (int r = 0; r < NB; ++r)
@@ -399,14 +468,22 @@ __device__ __forceinline__ void hop_sum(C (&acc)[NB][4][3],
 #pragma unroll
       for (int c = 0; c < 3; ++c) acc[r][s][c] = czero<C>();
 
-  hop<0, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[0], site, 1.f);
-  hop<0, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[0], site, 1.f);
-  hop<1, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[1], site, 1.f);
-  hop<1, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[1], site, 1.f);
-  hop<2, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[2], site, 1.f);
-  hop<2, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[2], site, 1.f);
-  hop<3, +1>(acc, psi, rs, nvalid, lk, n, im, nb.fwd[3], site, nb.s_t_fwd);
-  hop<3, -1>(acc, psi, rs, nvalid, lk, n, im, nb.bwd[3], site, nb.s_t_bwd);
+  hop<0, +1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.fwd[0], site,
+             1.f);
+  hop<0, -1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.bwd[0], site,
+             1.f);
+  hop<1, +1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.fwd[1], site,
+             1.f);
+  hop<1, -1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.bwd[1], site,
+             1.f);
+  hop<2, +1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.fwd[2], site,
+             1.f);
+  hop<2, -1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.bwd[2], site,
+             1.f);
+  hop<3, +1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.fwd[3], site,
+             nb.s_t_fwd);
+  hop<3, -1>(acc, psi, rs, nvalid, lk, lay, n, im, nb.bwd[3], site,
+             nb.s_t_bwd);
 }
 
 // The hop sum D_{p <- 1-p} psi at target half-site ``site`` into acc.  A
@@ -445,7 +522,7 @@ __device__ __forceinline__ int64_t eo_hop_sum_from(
   nb.bwd[0] = row + (r0 ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
   yzt_nbrs(nb, a, y, z, t, T, Z, Y, Xh, Lay::kRowScale * YXh,
            Lay::kRowScale * ZYXh, tb_sign);
-  hop_sum(acc, psi, rstride, nvalid, lk, n, lay.im(n), nb, a);
+  hop_sum(acc, psi, rstride, nvalid, lk, lay, n, lay.im(n), nb, a);
   return a;
 }
 
@@ -468,7 +545,32 @@ __device__ __forceinline__ void eo_hop_sum(C (&acc)[NB][4][3],
 // The full-lattice hop sum D psi at site ``site`` (layouts over
 // S = T*Z*Y*X sites, YX = Y*X, ZYX = Z*YX): the x hop wraps inside its own
 // row of X slots of the fused Y*X axis and never carries into y
-// (wilson_packed._x_wrap_masks), y, z and t as on the half lattice.
+// (wilson_packed._x_wrap_masks), y, z and t as on the half lattice.  The
+// links come from the link source ``lk``: Shifted (B4, B5 and the
+// full-lattice clover hop), There with the links as both ``here`` and
+// ``there`` (the copy-free B10: U_mu(x - mu) read at the neighbour), or
+// SiteThere on the site-major layout ``lay`` (B11).
+template <int NB, typename S, typename C, typename L,
+          typename Lay = PairLayout>
+__device__ __forceinline__ void full_hop_sum_from(
+    C (&acc)[NB][4][3], const S* __restrict__ psi, int64_t rstride,
+    int nvalid, const L& lk, int T, int Z, int Y, int X, int64_t YX,
+    int64_t ZYX, int64_t n, int tb_sign, int64_t site,
+    const Lay& lay = Lay()) {
+  const int x = static_cast<int>(site % X);
+  const int y = static_cast<int>((site / X) % Y);
+  const int z = static_cast<int>((site / YX) % Z);
+  const int t = static_cast<int>(site / ZYX);
+
+  Nbrs nb;
+  nb.fwd[0] = site + (x + 1 == X ? -(X - 1) : 1);
+  nb.bwd[0] = site + (x == 0 ? X - 1 : -1);
+  yzt_nbrs(nb, site, y, z, t, T, Z, Y, X, YX, ZYX, tb_sign);
+  hop_sum(acc, psi, rstride, nvalid, lk, lay, n, lay.im(n), nb, site);
+}
+
+// full_hop_sum_from with the pre-shifted backward links (B4, B5 and the
+// full-lattice clover hop).
 template <int R, int NB, typename S, typename C>
 __device__ __forceinline__ void full_hop_sum(C (&acc)[NB][4][3],
                                              const S* __restrict__ psi,
@@ -479,17 +581,8 @@ __device__ __forceinline__ void full_hop_sum(C (&acc)[NB][4][3],
                                              int64_t YX, int64_t ZYX,
                                              int64_t n, int tb_sign,
                                              int64_t site) {
-  const int x = static_cast<int>(site % X);
-  const int y = static_cast<int>((site / X) % Y);
-  const int z = static_cast<int>((site / YX) % Z);
-  const int t = static_cast<int>(site / ZYX);
-
-  Nbrs nb;
-  nb.fwd[0] = site + (x + 1 == X ? -(X - 1) : 1);
-  nb.bwd[0] = site + (x == 0 ? X - 1 : -1);
-  yzt_nbrs(nb, site, y, z, t, T, Z, Y, X, YX, ZYX, tb_sign);
-  hop_sum(acc, psi, rstride, nvalid, Shifted<R, S>{u_here, u_bw}, n, n, nb,
-          site);
+  full_hop_sum_from(acc, psi, rstride, nvalid, Shifted<R, S>{u_here, u_bw},
+                    T, Z, Y, X, YX, ZYX, n, tb_sign, site);
 }
 
 }  // namespace qtt

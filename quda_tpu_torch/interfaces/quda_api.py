@@ -63,13 +63,22 @@ touches; the df64 route reports its df64 full-lattice residual.
 Every other route raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.
 
-``dslash_quda``, ``mat_quda`` and ``mat_dag_mat_quda`` apply the Wilson
-operator to canonical complex fields, as the JAX package's do: the eo hop
-on B1, M = 1 - kappa D and its normal operator on the full-lattice hop
-B4, in float32 (cuda_prec "single") or float64 ("double").  For the
-staggered family (single only; double waits for ROADMAP A7) the eo hop
-runs on S1 (asqtad, hisq) or S2 (fat-only), M = 2m + D and M^dag M on
-S1-full or S2-full.
+``dslash_quda``, ``mat_quda`` and ``mat_dag_mat_quda`` apply the
+operator of ``dslash_type`` to canonical complex fields, as the JAX
+package's do.  The PC hop of ``dslash_quda`` is the Wilson eo hop on B1
+for Wilson, clover, twisted mass and twisted clover (their PC D_to is
+the bare hop).  M and M^dag M: Wilson on the full-lattice hop B4 (one
+launch an M), in float32 (cuda_prec "single") or float64 ("double");
+clover and twisted clover on the full-lattice clover operator (B7 full,
+one launch an M; single only, double waits for ROADMAP A7 as their
+``invert_quda`` does); twisted mass on B4 plus the twist (single and
+double).  The flavour doublets and the domain-wall family run their
+complex operators (complex64 or complex128) as the JAX package does; a
+PC operator without a PC hop (the 4d-PC Möbius and EOFA operators) has
+no ``dslash_quda`` there either, and raises here.  For the staggered
+family (single only; double waits for ROADMAP A7) the eo hop runs on S1
+(asqtad, hisq) or S2 (fat-only), M = 2m + D and M^dag M on S1-full or
+S2-full.  ``laplace`` waits for ROADMAP A14.
 
 ``invert_quda(inv_type="gcr-mg")`` solves the full Wilson or staggered
 (staggered, asqtad, hisq) system at cuda_prec "single" with flexible GCR
@@ -142,16 +151,20 @@ SCHUR_TYPES = ("wilson", "clover") + TWISTED_TYPES + NDEG_TYPES + DWF_TYPES
 
 
 def init_quda(device="cuda"):
-    """initQuda analog: pick the device every later call runs on.  The
-    default is the card; with none present this raises unless the caller
-    passes ``device='cpu'``."""
+    """initQuda analog: pick the device every later call runs on and load
+    the tuner's persistent cache (utils/tune.warm_start).  The default is
+    the card; with none present this raises unless the caller passes
+    ``device='cpu'``."""
+    from ..utils import tune
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     _ctx.update(initialized=True, device=dev, geom=None, gauge=None,
                 gauge_param=None, fat=None, long=None, warned=set(),
                 mg=None, mg_epoch=None, mg_param=None)
-    log.debug("initialized on %s", dev)
+    usable = tune.warm_start()
+    log.debug("initialized on %s (tuner cache: %d entries usable here)",
+              dev, usable)
 
 
 def end_quda():
@@ -1036,78 +1049,113 @@ def _invert_multi_src_body(B, param: InvertParam):
 
 
 def _operator_route(param: InvertParam, api: str):
-    """The operator of the operator API: Wilson in the precision
-    ``cuda_prec`` names (float32 or float64 pairs), links full or recon-12
-    as the resident gauge says; the staggered family in float32 pairs on
-    full links.  Raises for the families and precisions it does not
-    serve yet."""
+    """The operator of the operator API: (storage dtype, link form) of the
+    pair operator that serves ``param.dslash_type`` at ``cuda_prec``, or
+    (None, None) for the families that run their complex operators (the
+    flavour doublets, the domain-wall family).  Wilson and twisted mass
+    in float32 or float64 pairs, clover and twisted clover in float32,
+    links full or recon-12 as the resident gauge says; the staggered
+    family in float32 pairs on full links.  Raises for the families and
+    precisions it does not serve yet."""
     _require_init()
     param.validate()
     if _ctx["gauge"] is None:
         raise RuntimeError("load_gauge_quda() first")
-    queued = {"clover": "ROADMAP A17 (the full-lattice clover kernel "
-                        "clover_pallas_packed)",
-              "laplace": "ROADMAP A14 (the Laplace operator)"}
-    zoo = ("ROADMAP A19 (the operator API of the twisted and domain-wall "
-           "families)")
-    if param.dslash_type in STAGGERED_TYPES:
+    t = param.dslash_type
+    if t == "laplace":
+        raise NotImplementedError(
+            f"{api} for dslash_type 'laplace' is not ported yet: ROADMAP "
+            "A14 (the Laplace operator)")
+    if t in STAGGERED_TYPES:
         form = _link_form(True)
         if param.cuda_prec != "single":
             raise NotImplementedError(
-                f"{api} for dslash_type {param.dslash_type!r} at cuda_prec "
+                f"{api} for dslash_type {t!r} at cuda_prec "
                 f"{param.cuda_prec!r}: the staggered kernels S1/S2 and "
                 "S1-full/S2-full have float32 forms only; their float64 "
                 "forms wait for ROADMAP A7")
         return torch.float32, form
-    if param.dslash_type != "wilson":
-        raise NotImplementedError(
-            f"{api} for dslash_type {param.dslash_type!r} is not ported "
-            f"yet: {queued.get(param.dslash_type, zoo)}; the port serves "
-            "Wilson and the staggered family")
     if param.cuda_prec not in ("single", "double"):
         raise NotImplementedError(
             f"{api} at cuda_prec {param.cuda_prec!r}: single and double "
             "are ported (ROADMAP A7)")
+    if t in NDEG_TYPES + DWF_TYPES:
+        return None, None
+    if t in ("clover", "twisted-clover") and param.cuda_prec == "double":
+        raise NotImplementedError(
+            f"{api} for dslash_type {t!r} at cuda_prec 'double': the "
+            "full-lattice clover operator has float32 forms only; the "
+            "clover-type double routes wait for ROADMAP A7")
     return _store_dtype(param.cuda_prec), _link_form()
 
 
 def dslash_quda(psi, param: InvertParam, parity: int):
     """dslashQuda: the PC hop D_{parity, 1-parity} on a canonical complex
-    half-lattice field (T,Z,Y,Xh,4,3), or (T,Z,Y,Xh,1,3) staggered, of
-    parity 1-parity, on B1 (staggered: S1 for asqtad/hisq, S2)."""
+    half-lattice field (T,Z,Y,Xh,4,3) of parity 1-parity: B1 for Wilson,
+    clover, twisted mass and twisted clover; staggered (T,Z,Y,Xh,1,3) on
+    S1 (asqtad, hisq) or S2; the doublets' (T,Z,Y,Xh,2,4,3) and the 5d-PC
+    domain wall's (Ls,T,Z,Y,Xh,4,3) on their complex operators."""
+    from ..models import wilson as mwil
     from ..ops import wilson_packed as wpk
     store, form = _operator_route(param, "dslash_quda")
     dtype = complex_dtype(param.cuda_prec)
-    half = _ctx["geom"].half_lattice_shape
-    if param.dslash_type in STAGGERED_TYPES:
+    geom = _ctx["geom"]
+    half = geom.half_lattice_shape
+    t = param.dslash_type
+    if t in STAGGERED_TYPES:
         op = _build_dirac(param, True, dtype).pairs(store)
         x = _source_on_device(psi, param, dtype, half + (1, 3))
         d = op.D_to_pairs(op._to_pairs(x), int(parity), out_dtype=store)
         return op._from_pairs(d, dtype)
-    dpk = _build_dirac(param, True, dtype).packed(precision_form=form)
+    if store is None:
+        d = _build_dirac(param, True, dtype)
+        if not hasattr(d, "D_to"):
+            raise NotImplementedError(
+                f"dslash_quda for dslash_type {t!r}: its PC operator "
+                f"{type(d).__name__} has no PC hop D_to, in the JAX package "
+                "either (its 4d-PC Möbius operators expose M and Mdag only)")
+        shape = ((int(param.Ls),) + half + (4, 3) if t in DWF_TYPES
+                 else half + (2, 4, 3))
+        return d.D_to(_source_on_device(psi, param, dtype, shape),
+                      int(parity))
+    # the Wilson-hop families: their PC hop is the bare Wilson eo hop
+    dpc = mwil.DiracWilsonPC(_ctx["gauge"].to(dtype), geom, param.kappa,
+                             _antiperiodic(),
+                             EVEN if param.matpc_type == "even-even"
+                             else ODD)
+    dpk = dpc.packed(precision_form=form)
     x = _source_on_device(psi, param, dtype, half + (4, 3))
     return wpk.unpack_spinor(dpk.D_to(wpk.pack_spinor(x), int(parity)), half)
 
 
-def _full_pair_op(param: InvertParam, api: str):
+def _full_op(param: InvertParam, api: str):
+    """The full-lattice operator of ``param``: the pair companion of the
+    kernel families, else the complex operator."""
     store, form = _operator_route(param, api)
     dtype = complex_dtype(param.cuda_prec)
     d = _build_dirac(param, False, dtype)
+    if store is None:
+        return d, dtype
     op = (d.pairs(store) if param.dslash_type in STAGGERED_TYPES
           else d.pairs(store, precision_form=form))
     return op, dtype
 
 
 def mat_quda(psi, param: InvertParam):
-    """MatQuda: M = 1 - kappa D on a canonical complex (T,Z,Y,X,4,3) field,
-    the hop on B4; staggered M = 2m + D on (T,Z,Y,X,1,3), D on S1-full
-    (asqtad, hisq) or S2-full."""
-    op, dtype = _full_pair_op(param, "mat_quda")
+    """MatQuda: M on a canonical complex (T,Z,Y,X,4,3) field: Wilson
+    1 - kappa D on B4; clover and twisted clover one B7-full launch;
+    twisted mass B4 plus the twist; the doublets ((T,Z,Y,X,2,4,3)) and the
+    domain-wall family ((Ls,T,Z,Y,X,4,3)) their complex operators;
+    staggered M = 2m + D on (T,Z,Y,X,1,3), D on S1-full (asqtad, hisq) or
+    S2-full."""
+    op, dtype = _full_op(param, "mat_quda")
     return op.M(_source_on_device(psi, param, dtype))
 
 
 def mat_dag_mat_quda(psi, param: InvertParam):
-    """MatDagMatQuda: M^dag M = g5 M g5 M, two B4 launches; staggered
+    """MatDagMatQuda: M^dag M, two launches of the kernel that serves M
+    (g5 M(-a) g5 M for the twisted families), the complex operators'
+    M^dag M for the doublets and the domain-wall family; staggered
     (2m - D)(2m + D), two S1-full or S2-full launches."""
-    op, dtype = _full_pair_op(param, "mat_dag_mat_quda")
+    op, dtype = _full_op(param, "mat_dag_mat_quda")
     return op.MdagM(_source_on_device(psi, param, dtype))

@@ -14,7 +14,10 @@ so csw=0 reduces exactly to Wilson.  PC operator on parity p:
 As in the JAX package, F_munu uses the PHYSICAL links: the clover term is
 built before the t boundary phase is applied.  The pair companion
 (``DiracCloverPCPairs``) runs each apply of M as two launches of the
-fused clover hop (ops/clover_pallas, K1 and K2).
+fused clover hop (ops/clover_pallas, K1 and K2).  The full-lattice pair
+companion (``DiracCloverPackedPairs``, ``DiracClover.pairs``: the
+operator API's ``mat_quda`` and ``mat_dag_mat_quda``) runs each M as one
+launch of the full-lattice clover operator (``clover_pallas_packed``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..ops import wilson_packed as wpk
 from ..ops.boundary import apply_t_boundary
 from ..ops.clover import apply_clover, clover_blocks, invert_clover
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
-from .wilson import _SchurPairOpBase
+from .wilson import DiracWilsonPackedPairs, _PairSloppyBase, _SchurPairOpBase
 
 
 class DiracClover(Dirac):
@@ -54,6 +57,13 @@ class DiracClover(Dirac):
 
     def flops_per_site_M(self) -> int:
         return 1320 + 504 + 48  # dslash + clover (2x 6x6 matvec) + axpy
+
+    def pairs(self, store_dtype=torch.float32,
+              precision_form: str = "full") -> "DiracCloverPackedPairs":
+        """Pair companion on the full packed lattice, every M one launch
+        of the full-lattice clover operator: float32, full or recon-12
+        links."""
+        return DiracCloverPackedPairs(self, store_dtype, precision_form)
 
 
 class DiracCloverPC(DiracPC):
@@ -178,3 +188,40 @@ class DiracCloverPCPairs(_SchurPairOpBase):
 
     def _fused_k2_params(self, sign):
         return self.clover_p_pp, None
+
+
+class DiracCloverPackedPairs(DiracWilsonPackedPairs):
+    """Pair companion of the full-lattice clover operator M = A - kappa D
+    (and, with ``diag_twist=a``, the twisted clover M = A + i a g5 -
+    kappa D) on the packed layout: the full-lattice twin of
+    ``DiracWilsonPackedPairs``, whose links, backward copy, layout
+    conversions and hop ``D`` (B4) it shares, with the blocks of A
+    (``pack_clover_pairs`` on the full lattice) beside them.  Every M is
+    one launch of ``clover_pallas_packed``; Mdag = g5 M(-a) g5 another
+    (a = 0 without the twist: the clover operator is g5-hermitian).
+    float32 only."""
+
+    def __init__(self, dc, store_dtype=torch.float32,
+                 precision_form: str = "full", diag_twist=None):
+        if store_dtype != torch.float32:
+            raise NotImplementedError(
+                f"pair storage {store_dtype}: the full-lattice clover "
+                "operator has float32 forms only (ROADMAP A7)")
+        super().__init__(dc, store_dtype, precision_form)
+        self.blk_pl = pack_clover_pairs(dc.clover, store_dtype)
+        self.diag_twist = None if diag_twist is None else float(diag_twist)
+
+    def _M_twist(self, x, c):
+        from ..ops.clover_pallas import clover_pallas_packed
+        return clover_pallas_packed(self.gauge_pl, self.blk_pl, x,
+                                    self.dims[3], self.kappa, diag_twist=c,
+                                    gauge_bw=self.gauge_bw,
+                                    tb_sign=self._tb_sign)
+
+    def M_pairs(self, x):
+        return self._M_twist(x, self.diag_twist)
+
+    def Mdag_pairs(self, x):
+        g5 = _PairSloppyBase._g5_on
+        c = None if self.diag_twist is None else -self.diag_twist
+        return g5(self._M_twist(g5(x, 0), c), 0)

@@ -19,6 +19,11 @@ Pair companions: the degenerate operators (``DiracTwistedMassPCPairs``,
 the fused hop (ops/clover_pallas K1/K2, or K1/K2-mrhs for a batch) with
 the twist epilogues: twisted mass block-free, twisted clover on the dense
 twisted inverse blocks (K1) and the clover blocks plus the twist (K2).
+The full-lattice companions (the operator API's ``mat_quda`` and
+``mat_dag_mat_quda``): twisted clover on the full-lattice clover operator
+with the twist (models/clover.DiracCloverPackedPairs, ``diag_twist`` = a),
+one launch an M; twisted mass (``DiracTwistedMassPackedPairs``) on B4 with
+the twist added in the storage's precision, float32 or float64.
 The flavour doublets (``DiracNdeg*PCPairs``) keep the staged composition,
 as the JAX package does (its formsel.resolve_ndeg never fuses them): the
 -b tau1 term couples the flavour planes, which no per-plane epilogue
@@ -37,9 +42,11 @@ from ..ops import wilson as wops
 from ..ops import wilson_packed as wpk
 from ..ops.boundary import apply_t_boundary
 from ..ops.clover import apply_clover, clover_blocks
-from .clover import apply_clover_pairs, pack_clover_pairs
+from .clover import (DiracCloverPackedPairs, apply_clover_pairs,
+                     pack_clover_pairs)
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC, apply_gamma5
-from .wilson import _g5_sign, _SchurPairOpBase
+from .wilson import (DiracWilsonPackedPairs, _g5_sign, _PairSloppyBase,
+                     _SchurPairOpBase)
 
 
 def _twist_apply(psi, a: float, sign: int = +1):
@@ -79,6 +86,13 @@ class DiracTwistedMass(Dirac):
 
     def flops_per_site_M(self) -> int:
         return 1320 + 96  # dslash + twist scale + axpy
+
+    def pairs(self, store_dtype=torch.float32,
+              precision_form: str = "full") -> "DiracTwistedMassPackedPairs":
+        """Pair companion on the full packed lattice, every M one launch
+        of B4 plus the twist: float32 (full or recon-12 links) or float64
+        (full)."""
+        return DiracTwistedMassPackedPairs(self, store_dtype, precision_form)
 
 
 class DiracTwistedMassPC(DiracPC):
@@ -138,12 +152,14 @@ class DiracTwistedMassPC(DiracPC):
         return DiracTwistedMassPCPairs(self, store_dtype, precision_form)
 
 
-def _ig5_rot_pairs(x_pp: torch.Tensor, c: float) -> torch.Tensor:
-    """i c gamma5 on packed pair arrays (..., 4, 3, 2, T, Z, YXh) in f32:
-    i*gamma5 rotates (re,im) -> (-g5*im, g5*re) with g5 = (+,+,-,-).
-    Leading (flavour or right-hand-side) axes broadcast."""
-    f = x_pp.to(torch.float32)
-    g5c = _g5_sign(f.device, 5, 0) * c          # (4,1,1,1,1): +-c per spin
+def _ig5_rot_pairs(x_pp: torch.Tensor, c: float,
+                   dtype=torch.float32) -> torch.Tensor:
+    """i c gamma5 on packed pair arrays (..., 4, 3, 2, T, Z, YXh) in
+    ``dtype`` (f32 unless asked): i*gamma5 rotates (re,im) -> (-g5*im,
+    g5*re) with g5 = (+,+,-,-).  Leading (flavour or right-hand-side)
+    axes broadcast."""
+    f = x_pp.to(dtype)
+    g5c = _g5_sign(f.device, 5, 0).to(dtype) * c  # (4,1,1,1,1): +-c/spin
     xr, xi = f.unbind(-4)
     return torch.stack([-g5c * xi, g5c * xr], dim=-4)
 
@@ -162,6 +178,31 @@ def _twist_inv_pairs(x_pp: torch.Tensor, a: float, sign: int,
     reciprocal)."""
     inv = _twist_pairs(x_pp, a, -sign, out_dtype=torch.float32)
     return (inv / (1.0 + a * a)).to(out_dtype or x_pp.dtype)
+
+
+class DiracTwistedMassPackedPairs(DiracWilsonPackedPairs):
+    """Pair companion of the full-lattice twisted-mass operator
+    M = (1 + i a g5) - kappa D on the packed layout: B4 for the hop
+    (``DiracWilsonPackedPairs``' links and backward copy), the twist in the
+    storage's precision.  Mdag = g5 M(-a) g5, so M, Mdag and each half of
+    MdagM are one B4 launch each."""
+
+    def __init__(self, dtm: DiracTwistedMass, store_dtype=torch.float32,
+                 precision_form: str = "full"):
+        super().__init__(dtm, store_dtype, precision_form)
+        self.a = float(dtm.a)
+
+    def _M_sign(self, x, sign):
+        cdt = wpk.compute_dtype(x.dtype)
+        tw = x.to(cdt) + _ig5_rot_pairs(x, sign * self.a, cdt)
+        return (tw - self.kappa * self.D_pairs(x)).to(self.store_dtype)
+
+    def M_pairs(self, x):
+        return self._M_sign(x, +1)
+
+    def Mdag_pairs(self, x):
+        g5 = _PairSloppyBase._g5_on
+        return g5(self._M_sign(g5(x, 0), -1), 0)
 
 
 class DiracTwistedMassPCPairs(_SchurPairOpBase):
@@ -405,6 +446,14 @@ class DiracTwistedClover(Dirac):
 
     def flops_per_site_M(self) -> int:
         return 1320 + 504 + 96
+
+    def pairs(self, store_dtype=torch.float32,
+              precision_form: str = "full") -> DiracCloverPackedPairs:
+        """Pair companion on the full packed lattice, every M one launch
+        of the full-lattice clover operator with the twist a: float32,
+        full or recon-12 links."""
+        return DiracCloverPackedPairs(self, store_dtype, precision_form,
+                                      diag_twist=self.a)
 
 
 def twisted_clover_blocks(clover, a: float, sign: int = +1):

@@ -34,9 +34,18 @@ is loaded once for a chunk of ``wilson_pallas_packed.MRHS_CHUNK`` of
 them.  Their forms are float32 with full or recon-12 links and the same
 three epilogues; bf16 storage waits for ROADMAP B5.
 
+The full-lattice operator ``clover_pallas_packed`` (B7 full) replaces the
+JAX module's function of that name with ``csrc/clover_full.cu``:
+M psi = A psi - kappa D psi (+ i c g5 psi with ``diag_twist=c``) in one
+pass, the diagonal read at the centre site of psi itself.  Links and the
+pre-shifted ``backward_gauge`` as B4 takes them, blocks (2,6,6,2,T,Z,Y*X)
+on the full lattice (A = 1 + the clover term); forms ``full:f32->f32``
+and ``r12:f32->f32``, with ``:blk+twist`` after a twisted one.
+
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
-versions (``dslash_eo_post_plain``, ``dslash_eo_diag_hop_plain`` and
-their ``_mrhs`` twins), CUDA tensors launch the kernel or raise.  Each
+versions (``dslash_eo_post_plain``, ``dslash_eo_diag_hop_plain``, their
+``_mrhs`` twins and ``clover_packed_plain``), CUDA tensors launch the
+kernel or raise.  Each
 wrapper counts its launches in ``.launches`` and per form in
 ``.launches_by_form`` (``"full:f32->f32"``, ``"r12:bf16->bf16"``, with
 ``":twist"`` or ``":blk+twist"`` after a twisted epilogue).
@@ -60,11 +69,16 @@ TOLERANCE = 1e-6
 # The same for bfloat16 output (K1 from bf16 storage): one bf16 ulp, at
 # most 2^-7 of max |plain|, as for the eo hop.
 TOLERANCE_BF16 = 2.0 ** -7
+# The full-lattice operator: its hop is B4's, held to B4's tolerance.
+FULL_TOLERANCE = wpp.TOLERANCE
 # flops per target site: the hop, the two 6x6 complex block mat-vecs, and
 # (K2) the axpy that adds the scaled hop
 FLOPS_PER_SITE = {"post": wpp.FLOPS_PER_SITE + 504,
                   "diag_hop": wpp.FLOPS_PER_SITE + 504 + 48}
 BLOCK_FLOPS_PER_SITE = 504
+# the full-lattice operator per site: the hop and the block mat-vecs (R = 2
+# adds the row rebuild, the twist TWIST_FLOPS_PER_SITE)
+FULL_FLOPS_PER_SITE = wpp.FLOPS_PER_SITE + BLOCK_FLOPS_PER_SITE
 # the twist epilogue: i c g5 v and the scale (K1) or the add (K2)
 TWIST_FLOPS_PER_SITE = 72
 _STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -90,6 +104,18 @@ def bytes_per_site(kind: str, rows: int = 3,
     if kind == "post":
         return hop_in + 24 * sb
     return hop_in + 24 * 4 + 24 * sb
+
+
+def bytes_per_site_full(rows: int = 3) -> int:
+    """Floor of the full-lattice operator's traffic per site in float32:
+    psi 24 numbers, links and their backward copy 8 x rows x 3 complex,
+    blocks 2 x 6 x 6 complex, out 24: 1344 B (R = 2: 1152)."""
+    return 48 * 4 + 8 * rows * 3 * 2 * 4 + 144 * 4
+
+
+def flops_per_site_full(rows: int = 3, twist: bool = False) -> int:
+    return (FULL_FLOPS_PER_SITE + (TWIST_FLOPS_PER_SITE if twist else 0)
+            + (wpp.RECON_FLOPS_PER_SITE if rows == 2 else 0))
 
 
 def bytes_per_site_mrhs(kind: str, n: int, rows: int = 3,
@@ -386,10 +412,68 @@ def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
                         rows, chunk, diag_twist)
 
 
+def clover_packed_plain(gauge_pl, gauge_bw, blk_pl, psi_pl, X: int,
+                        kappa: float, diag_twist=None,
+                        tb_sign: bool = True) -> torch.Tensor:
+    """Plain version of the full-lattice operator: B4's plain hop, then
+    K2's epilogue with x = psi and coeff = -kappa (A psi + i c g5 psi -
+    kappa hop, float32)."""
+    hop = wpp.dslash_packed_plain(gauge_pl, gauge_bw, psi_pl, X, tb_sign)
+    return _diag_epilogue(hop, psi_pl, blk_pl, diag_twist, -float(kappa),
+                          psi_pl.dtype)
+
+
+def clover_pallas_packed(gauge_pl, blk_pl, psi_pl, X: int, kappa: float,
+                         diag_twist=None, interpret: bool = False,
+                         block_z=None, gauge_bw=None,
+                         tb_sign: bool = True) -> torch.Tensor:
+    """Full-lattice fused M psi = A psi - kappa D psi (+ i c g5 psi with
+    ``diag_twist=c``) in one pass (B7 full).  gauge_pl (4,R,3,2,T,Z,YX),
+    boundary phase folded in, R = 3 or 2 (``tb_sign`` as B4's); blk_pl
+    (2,6,6,2,T,Z,YX) the blocks of A; psi_pl (4,3,2,T,Z,YX); float32.
+    ``gauge_bw`` is ``backward_gauge(gauge_pl, X)`` (built here when not
+    given).  ``interpret`` and ``block_z`` (the TPU kernel's) are accepted
+    and ignored."""
+    rows = wpp.link_rows(gauge_pl)
+    if gauge_bw is None:
+        gauge_bw = wpp.backward_gauge(gauge_pl, X)
+    kind = kernels.dispatch_device(gauge_pl, gauge_bw, blk_pl, psi_pl)
+    if kind == "cpu":
+        return clover_packed_plain(gauge_pl, gauge_bw, blk_pl, psi_pl, X,
+                                   kappa, diag_twist, tb_sign)
+    f32 = torch.float32
+    if psi_pl.dtype != f32:
+        raise TypeError(f"psi {psi_pl.dtype}: the full-lattice clover "
+                        "operator has float32 forms only; its bf16 and "
+                        "float64 forms wait for ROADMAP A7")
+    T, Z, YX = psi_pl.shape[-3:]
+    if YX % X:
+        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
+    sites = (T, Z, YX)
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, f32)
+    kernels.require(gauge_pl, "gauge_pl", (4, rows, 3, 2) + sites, f32)
+    kernels.require(gauge_bw, "gauge_bw", (4, rows, 3, 2) + sites, f32)
+    kernels.require(blk_pl, "blk_pl", (2, 6, 6, 2) + sites, f32)
+    twist = diag_twist is not None
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = kernels.library().qtt_clover_full(
+        out.data_ptr(), psi_pl.data_ptr(), gauge_pl.data_ptr(),
+        gauge_bw.data_ptr(), blk_pl.data_ptr(), T, Z, YX // X, X, rows,
+        int(bool(tb_sign)), ctypes.c_float(-float(kappa)), int(twist),
+        ctypes.c_float(float(diag_twist) if twist else 0.0),
+        kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_clover_full")
+    wpp._count(clover_pallas_packed,
+               wpp.form_name(rows, f32, f32) + epilogue_name(True, twist))
+    return out
+
+
 def reset_launches() -> None:
-    """Zero the launch counts of K1 and K2, single- and multi-RHS."""
+    """Zero the launch counts of K1 and K2, single- and multi-RHS, and of
+    the full-lattice operator."""
     for fn in (dslash_eo_pallas_post, dslash_eo_pallas_diag_hop,
-               dslash_eo_pallas_post_mrhs, dslash_eo_pallas_diag_hop_mrhs):
+               dslash_eo_pallas_post_mrhs, dslash_eo_pallas_diag_hop_mrhs,
+               clover_pallas_packed):
         fn.launches = 0
         fn.launches_by_form = {}
 

@@ -42,6 +42,13 @@ Y*X), links as for B4, each link loaded once per chunk; forms
 arithmetic in B4's order.  The multigrid set-up's null-vector block
 solve runs it (mg/pair.py).
 
+The copy-free full-lattice hop (B10) ``dslash_pallas_packed_v3`` replaces
+dslash_pallas_packed_v3 of the same JAX module with the third entry of
+``csrc/wilson_full.cu``: B4's layouts with no ``backward_gauge`` copy (the
+backward hop reads U_mu(x - mu) unshifted at the neighbour); forms
+``full:f32->f32`` and ``r12:f32->f32``, each output B4's on
+``backward_gauge(gauge_pl)`` bit for bit.
+
 The copy-free eo hops ``dslash_eo_pallas_packed_v3`` (B10-eo) and
 ``dslash_eo_pallas_packed_r12f`` (B9) replace the JAX module's
 functions of those names with ``csrc/wilson_eo_there.cu``: they take the
@@ -71,8 +78,8 @@ takes B1's f32/bf16 forms (R = 3 or 2); the multi-RHS fold hop float32
 
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_eo_packed_plain``, ``dslash_packed_plain``,
-``dslash_eo_packed_mrhs_plain``, ``dslash_packed_mrhs_plain``,
-``dslash_eo_there_plain``, ``dslash_eo_there_mrhs_plain``,
+``dslash_packed_v3_plain``, ``dslash_eo_packed_mrhs_plain``,
+``dslash_packed_mrhs_plain``, ``dslash_eo_there_plain``, ``dslash_eo_there_mrhs_plain``,
 ``dslash_eo_int8_plain``, ``dslash_eo_fold_plain``,
 ``dslash_eo_fold_mrhs_plain``), CUDA tensors launch the kernel or raise.
 Each wrapper counts its launches in ``.launches`` and per form in
@@ -126,6 +133,15 @@ def bytes_per_site(rows: int = 3, store_dtype=torch.float32,
 
 
 BYTES_PER_SITE = bytes_per_site()          # 768, the f32 full form
+
+
+def bytes_per_site_v3(rows: int = 3, store_dtype=torch.float32) -> int:
+    """Floor of a copy-free full-lattice hop's traffic per site (B10, and
+    B11 with R = 3): psi and out 24 numbers each and the links once
+    (4 x rows x 3 complex), no backward copy: 480 B f32 (R = 2: 384), 960
+    B f64."""
+    sb = _STORE_BYTES[store_dtype]
+    return 48 * sb + 4 * rows * 3 * 2 * sb
 
 
 def bytes_per_site_int8(store_dtype=torch.bfloat16, out_dtype=None) -> int:
@@ -547,6 +563,46 @@ def dslash_pallas_packed_mrhs(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
 
 # -- the copy-free forms (v3, r12f) and the int8 block-float form ----------
 
+def dslash_packed_v3_plain(gauge_pl, psi_pl, X: int, tb_sign: bool = True):
+    """Plain version of the copy-free full-lattice hop (B10): the backward
+    links shifted once (``backward_gauge``), then B4's plain version."""
+    return dslash_packed_plain(gauge_pl, backward_gauge(gauge_pl, X), psi_pl,
+                               X, tb_sign)
+
+
+def dslash_pallas_packed_v3(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
+                            X: int, interpret: bool = False,
+                            block_z: int | None = None,
+                            tb_sign: bool = True) -> torch.Tensor:
+    """Full-lattice Wilson hop sum D psi, v3 (B10): no backward-gauge
+    copy, the backward hop reads U_mu(x - mu) unshifted.  gauge_pl
+    (4,R,3,2,T,Z,YX), boundary phase folded in, R = 3 or 2 (``tb_sign`` as
+    B4's); psi_pl (4,3,2,T,Z,YX); float32.  ``interpret`` and ``block_z``
+    (the TPU kernel's) are accepted and ignored."""
+    rows = link_rows(gauge_pl)
+    kind = kernels.dispatch_device(gauge_pl, psi_pl)
+    if kind == "cpu":
+        return dslash_packed_v3_plain(gauge_pl, psi_pl, X, tb_sign)
+    f32 = torch.float32
+    if psi_pl.dtype != f32:
+        raise TypeError(f"psi {psi_pl.dtype}: the copy-free full-lattice "
+                        "hop has float32 forms only (float64 is B4's)")
+    T, Z, YX = psi_pl.shape[-3:]
+    if YX % X:
+        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
+    sites = (T, Z, YX)
+    kernels.require(psi_pl, "psi_pl", (4, 3, 2) + sites, f32)
+    kernels.require(gauge_pl, "gauge_pl", (4, rows, 3, 2) + sites, f32)
+    lib = kernels.library()
+    out = torch.empty(psi_pl.shape, dtype=f32, device=psi_pl.device)
+    rc = lib.qtt_wilson_full_there(
+        out.data_ptr(), psi_pl.data_ptr(), gauge_pl.data_ptr(), T, Z,
+        YX // X, X, rows, int(bool(tb_sign)), kernels.stream_of(psi_pl))
+    kernels.check_launch(rc, "qtt_wilson_full_there")
+    _count(dslash_pallas_packed_v3, form_name(rows, f32, f32))
+    return out
+
+
 def dslash_eo_there_plain(u_here_pl, u_there_pl, psi_pl, dims,
                           target_parity: int, out_dtype=None,
                           tb_sign: bool = True):
@@ -843,11 +899,12 @@ def dslash_eo_pallas_packed_fold_mrhs(u_here_f: torch.Tensor,
 
 def reset_launches() -> None:
     """Zero the launch counts of the eo hop (B1), its multi-RHS form
-    (B5-eo), the full-lattice hop (B4) and its multi-RHS form (B5), and
-    of the copy-free (v3, r12f, r12f-mrhs), int8 and fold (fold,
-    fold-mrhs) eo hops."""
+    (B5-eo), the full-lattice hop (B4), its multi-RHS form (B5) and its
+    copy-free form (B10), and of the copy-free (v3, r12f, r12f-mrhs), int8
+    and fold (fold, fold-mrhs) eo hops."""
     for fn in (dslash_eo_pallas_packed, dslash_eo_pallas_packed_mrhs,
                dslash_pallas_packed, dslash_pallas_packed_mrhs,
+               dslash_pallas_packed_v3,
                dslash_eo_pallas_packed_v3, dslash_eo_pallas_packed_r12f,
                dslash_eo_pallas_packed_r12f_mrhs,
                dslash_eo_pallas_packed_int8, dslash_eo_pallas_packed_fold,

@@ -4,7 +4,8 @@
 Every knob the port reads is registered here with its type, default and
 doc string, and read through ``get``, which validates the value.  Only
 the knobs a ported route reads are registered: the three of
-``invert_multi_src_quda`` (quda_tpu/utils/config.py:308-325).  Values are
+``invert_multi_src_quda`` (quda_tpu/utils/config.py:308-325) and the two
+of the tuner (utils/tune.py; quda_tpu/utils/config.py:74-79).  Values are
 read from the environment at each call, so a change takes effect at the
 next solve.
 """
@@ -20,7 +21,7 @@ _PREFIX = "QUDA_TORCH_"
 @dataclasses.dataclass(frozen=True)
 class Knob:
     name: str                 # full environment variable name
-    kind: str                 # "int" | "choice"
+    kind: str                 # "bool" | "int" | "str" | "choice"
     default: object
     doc: str
     choices: tuple = ()
@@ -57,7 +58,25 @@ _register("QUDA_TORCH_MULTI_SRC_BLOCK", "choice", "",
                     "variants)")
 
 
+_register("QUDA_TORCH_ENABLE_TUNING", "bool", True,
+          "enable the implementation-choice autotuner (utils/tune.py); "
+          "off, tune() returns the first candidate without timing",
+          reference="QUDA_ENABLE_TUNING")
+_register("QUDA_TORCH_RESOURCE_PATH", "str", "",
+          "directory of the tuner's tunecache.json and profile output; "
+          "empty = nothing is written or read",
+          reference="QUDA_RESOURCE_PATH")
+
+
 def _parse(knob: Knob, raw: str):
+    if knob.kind == "bool":
+        if raw.lower() in ("1", "true", "yes", "on"):
+            return True
+        if raw.lower() in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"{knob.name}={raw!r}: expected a boolean (0/1)")
+    if knob.kind == "str":
+        return raw
     if knob.kind == "int":
         try:
             return int(raw)

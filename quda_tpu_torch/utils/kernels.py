@@ -35,9 +35,9 @@ SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu",
            "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu",
            "staggered_full.cu", "wilson_eo_there.cu", "wilson_eo_int8.cu",
-           "wilson_eo_fold.cu")
+           "wilson_eo_fold.cu", "wilson_canonical.cu", "clover_full.cu")
 # headers the sources include: part of the build's hash, never compiled alone
-HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh")
+HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh", "clover_epilogue.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -127,6 +127,14 @@ SIGNATURES = {
     # store_bf16, out_bf16, stream
     "qtt_staggered_eo_pass_v3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P),
+    # out, psi, u, T, Z, Y, X, rows, tb_sign, stream
+    "qtt_wilson_full_there": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # out, psi, gauge, T, Z, Y, X, f64, stream (canonical layout)
+    "qtt_wilson_canonical": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out, psi, u, u_bw, blk, T, Z, Y, X, rows, tb_sign, coeff, twist, tw_c,
+    # stream
+    "qtt_clover_full": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                        _F, _P),
 }
 
 

@@ -1769,3 +1769,160 @@ def test_fold_and_v3_operators_on_card_equal_their_twins():
     for label in ("fold", "v3"):
         assert sres[label].iters == sres["fused"].iters
         assert torch.equal(sres[label].x, sres["fused"].x)
+
+
+# -- the full-lattice clover operator (B7 full), the copy-free full-lattice
+# -- hop (B10), the canonical-layout hop (B11), the operator API of the
+# -- clover and twisted families and the tuned dslash
+
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_v3_full_kernel_matches_plain_and_b4(rows, tb_sign):
+    """B10 on 14x12x10x8: within TOLERANCE of its plain version and bit
+    for bit B4 fed the backward_gauge copy; one launch counted."""
+    dev = require_cuda()
+    u, ubw, psi = _full_inputs(dev, rows, torch.float32, 90 + rows)
+    X = FULL_DIMS[3]
+    name = wpp.form_name(rows, torch.float32, torch.float32)
+    n0 = wpp.dslash_pallas_packed_v3.launches_by_form.get(name, 0)
+    got = wpp.dslash_pallas_packed_v3(u, psi, X, tb_sign=tb_sign)
+    assert wpp.dslash_pallas_packed_v3.launches_by_form[name] == n0 + 1
+    b4 = wpp.dslash_pallas_packed(u, psi, X, gauge_bw=ubw, tb_sign=tb_sign)
+    want = wpp.dslash_packed_v3_plain(u, psi, X, tb_sign)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b4)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < wpp.TOLERANCE
+
+
+@pytest.mark.parametrize("cdt", [torch.complex64, torch.complex128])
+def test_canonical_kernel_matches_plain_and_v3(cdt):
+    """B11 on complex fields at 14x12x10x8: within its module's tolerance
+    of the plain version (1e-5 complex64, 1e-12 complex128); in complex64
+    bit for bit B10 on the same fields in the packed layout."""
+    from quda_tpu_torch.ops import wilson_packed as wpk
+    from quda_tpu_torch.ops import wilson_pallas as wpl
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(95)
+    T, Z, Y, X = FULL_DIMS
+    g = torch.randn((4, T, Z, Y, X, 3, 3), generator=gen, device=dev,
+                    dtype=cdt)
+    psi = torch.randn((T, Z, Y, X, 4, 3), generator=gen, device=dev,
+                      dtype=cdt)
+    n0 = wpl.dslash_pallas.launches
+    got = wpl.dslash_pallas(g, psi)
+    assert wpl.dslash_pallas.launches == n0 + 1
+    want = wpl.dslash_canonical_plain(g, psi)
+    torch.cuda.synchronize()
+    assert got.dtype == cdt and got.shape == psi.shape
+    tol = wpl.TOLERANCE_F64 if cdt == torch.complex128 else wpl.TOLERANCE
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < tol
+    if cdt == torch.complex64:
+        gp = wpk.to_packed_pairs(wpk.pack_gauge(g), torch.float32)
+        pp = wpk.to_packed_pairs(wpk.pack_spinor(psi), torch.float32)
+        v3 = wpp.dslash_pallas_packed_v3(gp.contiguous(), pp.contiguous(),
+                                         X, tb_sign=False)
+        canon = wpk.to_packed_pairs(wpk.pack_spinor(got), torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(canon, v3)
+
+
+@pytest.mark.parametrize("twist", [None, 0.17], ids=["clover", "twisted"])
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_clover_full_kernel_matches_plain(rows, tb_sign, twist):
+    """B7 full on 14x12x10x8 with random blocks: within FULL_TOLERANCE of
+    its plain version; one launch counted in its form."""
+    dev = require_cuda()
+    u, ubw, psi = _full_inputs(dev, rows, torch.float32, 97 + rows)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    blk = torch.randn((2, 6, 6, 2) + tuple(psi.shape[-3:]), generator=gen,
+                      device=dev)
+    X = FULL_DIMS[3]
+    name = (wpp.form_name(rows, torch.float32, torch.float32)
+            + clp.epilogue_name(True, twist is not None))
+    n0 = clp.clover_pallas_packed.launches_by_form.get(name, 0)
+    got = clp.clover_pallas_packed(u, blk, psi, X, 0.12, diag_twist=twist,
+                                   gauge_bw=ubw, tb_sign=tb_sign)
+    assert clp.clover_pallas_packed.launches_by_form[name] == n0 + 1
+    want = clp.clover_packed_plain(u, ubw, blk, psi, X, 0.12, twist, tb_sign)
+    torch.cuda.synchronize()
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < \
+        clp.FULL_TOLERANCE
+
+
+@pytest.mark.parametrize("rec", [18, 12])
+@pytest.mark.parametrize("family", ["clover", "twisted-clover",
+                                    "twisted-mass"])
+def test_zoo_operator_api_on_card_matches_cpu(family, rec):
+    """mat_quda and mat_dag_mat_quda of the clover and twisted families on
+    the card within 1e-5 of the CPU route (the plain versions), with one
+    and two launches of B7 full (clover, twisted clover; no B1 or B4) or
+    of B4 (twisted mass); dslash_quda one B1 launch."""
+    import quda_tpu_torch as qt
+    dev = require_cuda()
+    dims = (4, 4, 4, 8)
+    g = su3_gauge(dims, 401)
+    psi = gaussian(lattice_shape(dims) + (4, 3), 402)
+    half = gaussian(lattice_shape(dims)[:3] + (2, 4, 3), 403)
+    out = {}
+    for device in ("cpu", dev):
+        qt.init_quda(device=device)
+        try:
+            qt.load_gauge_quda(g, qt.GaugeParam(X=dims, cuda_prec="single",
+                                                reconstruct=rec))
+            p = qt.InvertParam(dslash_type=family, kappa=0.12, mu=0.1,
+                               csw=1.0, cuda_prec="single")
+            wpp.reset_launches()
+            clp.reset_launches()
+            res = {"mat": qt.mat_quda(psi, p)}
+            n_mat = (clp.clover_pallas_packed.launches,
+                     wpp.dslash_pallas_packed.launches,
+                     wpp.dslash_eo_pallas_packed.launches)
+            res["mdm"] = qt.mat_dag_mat_quda(psi, p)
+            res["dslash"] = qt.dslash_quda(half, p, 0)
+            n_all = (clp.clover_pallas_packed.launches,
+                     wpp.dslash_pallas_packed.launches,
+                     wpp.dslash_eo_pallas_packed.launches)
+            out[str(device)] = {k: v.cpu().numpy() for k, v in res.items()}
+        finally:
+            qt.end_quda()
+    for k, v in out[str(dev)].items():
+        assert rel_err(v, out["cpu"][k]) < 1e-5, k
+    if family == "twisted-mass":
+        assert n_mat == (0, 1, 0) and n_all == (0, 3, 1)
+    else:
+        assert n_mat == (1, 0, 0) and n_all == (3, 0, 1)
+
+
+def test_tuned_dslash_on_card_races_the_kernels(monkeypatch, tmp_path):
+    """tuned_dslash on the card races xla, xla_packed, pallas_packed (B4)
+    and pallas_v3 (B10); the B4 and B10 counters advance in the race; the
+    winner is cached under tmp_path and its output is within 1e-5 of the
+    complex stencil's."""
+    from quda_tpu_torch.ops import wilson as wops
+    from quda_tpu_torch.ops import wilson_pallas as wpl
+    from quda_tpu_torch.utils import tune
+    dev = require_cuda()
+    monkeypatch.setenv("QUDA_TORCH_RESOURCE_PATH", str(tmp_path))
+    monkeypatch.delenv("QUDA_TORCH_ENABLE_TUNING", raising=False)
+    monkeypatch.setattr(tune, "_cache", {})
+    monkeypatch.setattr(tune, "_loaded_path", None)
+    dims = (4, 4, 4, 8)
+    g = torch.from_numpy(su3_gauge(dims, 404)).to(dev)
+    psi = torch.from_numpy(gaussian(lattice_shape(dims) + (4, 3),
+                                    405)).to(dev)
+    wpp.reset_launches()
+    got = wpl.tuned_dslash(g, psi)
+    lat = tuple(lattice_shape(dims))
+    assert list(wpl._tuned_candidates(lat, str(psi.dtype), "cuda")) == [
+        "xla", "xla_packed", "pallas_packed", "pallas_v3"]
+    assert wpp.dslash_pallas_packed.launches > 0
+    assert wpp.dslash_pallas_packed_v3.launches > 0
+    winner = tune.cached_param("wilson_dslash", lat, f"{psi.dtype}/cuda")
+    assert winner is not None
+    assert (tmp_path / tune.CACHE_FILE).exists()
+    want = wops.dslash_full(g, psi)
+    torch.cuda.synchronize()
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 1e-5

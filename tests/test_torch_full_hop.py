@@ -283,11 +283,23 @@ def test_operator_api_matches_jax(api_case, prec):
 
 
 def test_operator_api_routes_and_refusals(api_case):
-    """Recon-12 single runs B4's R = 2 form; the families the operator API
-    does not serve raise, naming their ROADMAP item, and the staggered
-    family on these recon-12 links names C; recon-12 under double raises
+    """Recon-12 single runs B4's R = 2 form; clover and twisted mass are
+    served on these recon-12 links (the full-lattice clover operator, B4
+    with the twist) within 1e-6 of JAX's mat_quda; the staggered family on
+    these links names ROADMAP C, laplace A14; recon-12 under double raises
     (ROADMAP A7); shapes are checked."""
     dims, g, psi, bo, want = api_case
+    c64 = np.complex64
+    served = {"clover": dict(csw=1.0), "twisted-mass": dict(mu=0.1)}
+    japi.init_quda()
+    try:
+        japi.load_gauge_quda(g.astype(c64),
+                             JGaugeParam(X=dims, cuda_prec="single"))
+        jax_mat = {dt: np.asarray(japi.mat_quda(psi.astype(c64), JInvertParam(
+            dslash_type=dt, kappa=KAPPA, cuda_prec="single", **kw)))
+            for dt, kw in served.items()}
+    finally:
+        japi.end_quda()
     qt.init_quda(device="cpu")
     try:
         qt.load_gauge_quda(g.astype(np.complex64),
@@ -299,8 +311,11 @@ def test_operator_api_routes_and_refusals(api_case):
                        want["single"]["mat"]) < 1e-6
         assert rel_err(qt.dslash_quda(bo, p, 0).numpy(),
                        want["single"]["dslash"]) < 1e-6
-        for dt, item in (("clover", "A17"), ("hisq", "C"),
-                         ("twisted-mass", "A19")):
+        for dt, kw in served.items():
+            got = qt.mat_quda(psi.astype(c64), qt.InvertParam(
+                dslash_type=dt, kappa=KAPPA, cuda_prec="single", **kw))
+            assert rel_err(got.numpy(), jax_mat[dt]) < 1e-6, dt
+        for dt, item in (("hisq", "C"), ("laplace", "A14")):
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
                 qt.mat_quda(psi, qt.InvertParam(dslash_type=dt, kappa=KAPPA,
                                                 cuda_prec="single"))

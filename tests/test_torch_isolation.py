@@ -54,7 +54,8 @@ def test_port_imports_no_jax():
         "models/formsel", "ops/dwf", "ops/dwf_pallas", "gauge/heatbath",
         "gauge/smear", "gauge/observables", "solvers/gcr", "mg/mg",
         "mg/pair", "mg/gemm", "mg/coarse", "mg/transfer",
-        "ops/coarse_pallas")} <= scanned
+        "ops/coarse_pallas", "utils/tune", "utils/config",
+        "ops/wilson_pallas", "ops/clover_pallas")} <= scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -718,3 +719,120 @@ def test_fold_and_v3_wrappers_raise_on_card_request(card_request,
     with pytest.raises(TypeError, match="no kernel instance"):
         fns[3](up, up, pp, DIMS, 0, 1, out_dtype=bf16)
     assert [f.launches for f in fns] == n0
+
+
+def test_import_builds_nothing_and_pulls_in_no_jax(tmp_path):
+    """Importing the package and the tuner, the canonical hop's and the
+    full-lattice clover operator's modules (and running the tuner's
+    warm start) pulls in no jax and no quda_tpu, loads no kernel library
+    and builds nothing."""
+    code = (
+        "import sys\n"
+        "import quda_tpu_torch\n"
+        "from quda_tpu_torch.utils import kernels, tune\n"
+        "from quda_tpu_torch.ops import clover_pallas, wilson_pallas\n"
+        "from quda_tpu_torch.models import clover, twisted, domain_wall\n"
+        "from quda_tpu_torch.interfaces import quda_api\n"
+        "tune.warm_start()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'quda_tpu'))\n"
+        "assert bad == [], bad\n"
+        "assert kernels._loaded == {}\n"
+        "print('clean')\n")
+    root = REPO / "quda_tpu_torch" / "_build"
+    before = sorted(root.iterdir()) if root.exists() else []
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               QUDA_TORCH_RESOURCE_PATH=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+    assert (sorted(root.iterdir()) if root.exists() else []) == before
+
+
+def test_full_lattice_kernels_raise_on_card_request(card_request,
+                                                    monkeypatch):
+    """B10 (the copy-free full-lattice hop), B11 (the canonical-layout
+    hop) and B7 full (the full-lattice clover operator): a card request
+    without the library raises for every form and never reaches a plain
+    version; float64 (B10, B7), mixed complex dtypes (B11), wrong shapes
+    and a fused axis that is not a multiple of X raise; nothing is
+    counted."""
+    from quda_tpu_torch.ops import wilson_pallas as wpl
+
+    def plain_reached(*args, **kwargs):
+        raise AssertionError("plain version reached on a card request")
+
+    for mod, name in ((wpp, "dslash_packed_v3_plain"),
+                      (clp, "clover_packed_plain"),
+                      (wpl, "dslash_canonical_plain")):
+        monkeypatch.setattr(mod, name, plain_reached)
+    fns = (wpp.dslash_pallas_packed_v3, clp.clover_pallas_packed,
+           wpl.dslash_pallas)
+    n0 = [(f.launches, dict(f.launches_by_form)) for f in fns]
+    full = FULL_SITES
+    blk = torch.zeros((2, 6, 6, 2) + full)
+    for rows in (3, 2):
+        u = torch.zeros((4, rows, 3, 2) + full)
+        psi = torch.zeros((4, 3, 2) + full)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fns[0](u, psi, 4)
+        for twist in (None, 0.1):
+            with pytest.raises(RuntimeError, match="unavailable"):
+                fns[1](u, blk, psi, 4, 0.12, diag_twist=twist, gauge_bw=u)
+    u = torch.zeros((4, 3, 3, 2) + full)
+    psi = torch.zeros((4, 3, 2) + full)
+    with pytest.raises(TypeError, match="float32"):
+        fns[0](u.double(), psi.double(), 4)
+    with pytest.raises(ValueError, match="multiple of X"):
+        fns[0](u, psi, 3)
+    with pytest.raises(ValueError, match="psi_pl"):
+        fns[0](u, psi[..., :4], 4)
+    with pytest.raises(TypeError, match="ROADMAP A7"):
+        fns[1](u.double(), blk.double(), psi.double(), 4, 0.12,
+               gauge_bw=u.double())
+    with pytest.raises(ValueError, match="blk_pl"):
+        fns[1](u, blk[:1], psi, 4, 0.12, gauge_bw=u)
+    lat = (4, 2, 2, 4)
+    for cdt in (torch.complex64, torch.complex128):
+        g = torch.zeros((4,) + lat + (3, 3), dtype=cdt)
+        field = torch.zeros(lat + (4, 3), dtype=cdt)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fns[2](g, field)
+    with pytest.raises(TypeError, match="one dtype"):
+        fns[2](g, field.to(torch.complex64))
+    with pytest.raises(TypeError, match="complex64 or complex128"):
+        fns[2](g.real.contiguous(), field.real.contiguous())
+    with pytest.raises(ValueError, match="psi"):
+        fns[2](g, field[..., :2, :])
+    assert [(f.launches, dict(f.launches_by_form)) for f in fns] == n0
+
+
+def test_operator_api_new_families_never_fall_back(card_request):
+    """The full-lattice pair companions of clover, twisted clover and
+    twisted mass reach their kernels on a card request (the full-lattice
+    clover operator, B4): their applies raise for the missing library;
+    the clover companion refuses float64 (ROADMAP A7)."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.models.clover import DiracClover
+    from quda_tpu_torch.models.twisted import (DiracTwistedClover,
+                                               DiracTwistedMass)
+    geom = LatticeGeometry((4, 2, 2, 4))
+    lat = geom.lattice_shape
+    links = torch.zeros((4,) + tuple(lat) + (3, 3), dtype=torch.complex64)
+    links[..., 0, 0] = links[..., 1, 1] = links[..., 2, 2] = 1.0
+    field = torch.zeros(tuple(lat) + (4, 3), dtype=torch.complex64)
+    n0 = (clp.clover_pallas_packed.launches,
+          wpp.dslash_pallas_packed.launches)
+    for d in (DiracClover(links, geom, 0.12, 1.0),
+              DiracTwistedClover(links, geom, 0.12, 0.1, 1.0),
+              DiracTwistedMass(links, geom, 0.12, 0.1)):
+        op = d.pairs()
+        for apply in (op.M, op.Mdag, op.MdagM):
+            with pytest.raises(RuntimeError, match="unavailable"):
+                apply(field)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        DiracClover(links, geom, 0.12, 1.0).pairs(torch.float64)
+    assert (clp.clover_pallas_packed.launches,
+            wpp.dslash_pallas_packed.launches) == n0

@@ -488,7 +488,9 @@ def test_invert_multi_src_twisted_matches_invert_quda(family):
 
 def test_twisted_routes_refused():
     """Double and quarter precision on the twisted families name
-    ROADMAP A7; the operator API names A19."""
+    ROADMAP A7; the operator API serves twisted clover: mat_quda on the
+    full-lattice clover operator with the twist within 1e-6 of JAX's M
+    (JAX's operator built on the port's clover term, ``_jax_twin``)."""
     g = su3_gauge(HYPERCUBE, seed=276)
     b = gaussian(lattice_shape(HYPERCUBE) + (4, 3), seed=277)
     for kw in ({"cuda_prec": "double"}, {"cuda_prec_sloppy": "quarter"}):
@@ -497,11 +499,14 @@ def test_twisted_routes_refused():
     qt.init_quda(device="cpu")
     try:
         qt.load_gauge_quda(g, qt.GaugeParam(X=HYPERCUBE, cuda_prec="single"))
-        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-            qt.mat_quda(b, qt.InvertParam(dslash_type="twisted-clover",
-                                          cuda_prec="single"))
+        got = qt.mat_quda(b, qt.InvertParam(
+            dslash_type="twisted-clover", kappa=KAPPA, mu=MU, csw=CSW,
+            cuda_prec="single")).numpy()
     finally:
         qt.end_quda()
+    geom = LatticeGeometry(HYPERCUBE)
+    jd = _jax_twin(_port_full("twisted-clover", _t(g), geom), pc=False)
+    assert rel_err(got, np.asarray(jd.M(jnp.asarray(b)))) < 1e-6
 
 
 # -- slow: the JAX Pallas kernels in interpret mode, whole JAX solves ------
