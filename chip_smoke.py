@@ -210,6 +210,35 @@ Phases, one JSON line each (``"phase": ...``):
              path; the to_fold / from_fold copies of one fold hop; ms per
              fused_cg iteration of each form against its twin's.
 
+8b. The multi-device Wilson path (ROADMAP A15, B12) on virtual meshes of
+   MESH_N = 8 sub-domains, all on the card, with the main path's gauge
+   and source (kappa 0.12, 32^3 x 64); fields of the checks from a
+   generator of their own:
+   check   — the exchange kernel (slab_exchange_bidir) on the t, z and y
+             faces of the (2,2,2,1) mesh, f32 and bf16, bit for bit its
+             plain transport, one launch a call; the fused-halo hops
+             (wilson_axis_fused_halo z and t, wilson_zbwd_fused_halo) on
+             8 sub-domains at the half-lattice volume within 1e-6 of their
+             plain versions and of the composed references on the
+             gathered fields; the sharded eo hop, both parities, v2
+             (full, r12) on (2,2,2,1) with t,z,y on fused_halo, v2 on
+             (2,2,1,2) (the x column fix), v3 on (2,4,1,1): fused_halo bit
+             for bit xla_facefix, within 1e-6 (norm ratio) of the
+             unsharded B1 / B10-eo.
+   invert_mesh — fused_cg on the (2,2,2,1) operator with the default
+             sharded_policy ("auto": t,z,y on the exchange kernel), beside the unsharded fused_cg on the same
+             system.  Fails unless converged in the unsharded iterations
+             +-1, true_res (the full operator, complex64) <= tol, and an
+             iteration launched exactly 12 exchanges, 32 B1 and 8 B2; and
+             unless sharded_policy "auto" is the exchange kernel on t/z/y.
+   timing  ("family": "mesh") — each halo kernel's device time (the
+             profiler's, the L2 flushed before each call; the exchange on
+             the faces as the hop hands them, strided views of its
+             blocks), its call time, its plain version's and (the
+             exchange) the same transfers by Tensor.copy_, beside the
+             bound; one sharded eo hop under each policy beside B1: wall
+             time (interleaved), device time, device launches, busy share.
+
 9. The twisted and domain-wall families at 32^3 x 64 (ROADMAP A10; a
    random SU(3) gauge and sources from a generator of their own; kappa
    0.12, mu 0.1, epsilon 0.05, csw 1.0; Ls 12, m5 -1.8, b5 1.5, c5 0.5,
@@ -384,6 +413,15 @@ MG_VERIFY_TOL = 1e-4
 STAG_MG_MASS = 0.005
 STAG_MG_CG_MIN_ITERS = 500
 STAG_FULL_TOL = 1e-6             # a full-lattice staggered form, f32
+# the multi-device path (block 8b): virtual meshes of MESH_N sub-domains on
+# one card, the CG mesh with every contiguous axis on the exchange kernel
+MESH_N = 8
+MESH_GRID = (2, 2, 2, 1)         # (t, z, y, x) sub-domains
+MESH_GRID_X = (2, 2, 1, 2)       # the x column fix
+MESH_GRID_TZ = (2, 4, 1, 1)      # v3: t/z meshes only
+MESH_POLICY = "t=fused_halo,z=fused_halo,y=fused_halo"
+MESH_POLICY_TZ = "t=fused_halo,z=fused_halo"
+MESH_HOP_TOL = 1e-6              # sharded against unsharded, norm ratio
 
 
 def emit(obj) -> None:
@@ -423,6 +461,83 @@ def median_ms(fn, torch, repeats=REPEATS, batch=BATCH) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def device_ms(fn, torch, calls=20, flush=None):
+    """Device milliseconds per call: the CUDA time of every kernel and copy
+    that ``fn`` runs, summed by torch.profiler (CUPTI) over ``calls`` calls
+    after two warm-up calls (device events only: an aten op's own device
+    time is its kernels', counted once).  Unlike ``median_ms`` it leaves
+    out the host's time between launches, which rules a call of a few
+    microseconds of device work.  ``flush`` runs before each call and its
+    kernels are left out of the sum: a write larger than the L2 makes
+    every call read its inputs from device memory.  Fails when the
+    profiler sees no device time of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(f):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush is not None:
+                    flush()
+                if f is not None:
+                    f()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    skip = set(profiled(None)) if flush is not None else set()
+    total = sum(t for k, t in profiled(fn).items() if k not in skip)
+    if total <= 0:
+        fail("torch.profiler saw no device time: no kernel time can be "
+             "reported")
+    return total / 1e3 / calls
+
+
+def l2_flush(torch, dev):
+    """A callable that writes 256 MB on ``dev`` (five times the H100's
+    50 MB L2), so the next call reads its inputs from device memory."""
+    buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    return buf.zero_
+
+
+def hop_profile(calls: dict, torch, rounds=10):
+    """Each named call's wall milliseconds (synchronized before and after,
+    so host time counts; the calls interleaved round by round, so drift
+    of the host falls on all alike: the median), and per call the
+    profiler's device milliseconds and device kernels and copies, and the
+    device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    walls = {k: [] for k in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append(1e3 * (time.perf_counter() - t0))
+    out = {}
+    for k, fn in calls.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 3
+        wall = statistics.median(walls[k])
+        out[k] = {"wall_ms": wall, "wall_ms_min": min(walls[k]),
+                  "wall_ms_max": max(walls[k]), "device_ms": dev_ms,
+                  "device_launches": sum(e.count for e in evs) / 3,
+                  "device_busy_share": dev_ms / wall}
+    return out
 
 
 def staggered(torch, dev, smi):
@@ -3880,6 +3995,335 @@ def operator_zoo_tune(torch, dev, smi) -> list:
     return rows_out
 
 
+def mesh_path(torch, dev, smi, gauge, src, iters_main) -> list:
+    """The multi-device Wilson path (ROADMAP A15, B12) on virtual meshes
+    of MESH_N sub-domains, all on ``dev``: phases check, invert_mesh and
+    timing ("family": "mesh"); returns the three B12 rows of the kernels
+    line.  ``gauge`` and ``src`` are the main path's (phase 4) fields at
+    32^3 x 64, ``iters_main`` its invert_quda iterations."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_join, even_odd_split
+    from quda_tpu_torch.models.wilson import DiracWilson, DiracWilsonPC
+    from quda_tpu_torch.ops import blas
+    from quda_tpu_torch.ops import blas_pallas as bpl
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.parallel import mesh as qm
+    from quda_tpu_torch.parallel import pallas_dslash as pds
+    from quda_tpu_torch.parallel import pallas_halo as ph
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    geom = LatticeGeometry(PROD_DIMS)
+    T, Z, Y, X = geom.lattice_shape
+    half = (4, 3, 2, T, Z, Y * X // 2)
+
+    def vmesh(grid):
+        return qm.make_lattice_mesh(grid, devices=[dev] * MESH_N)
+
+    mesh8 = vmesh(MESH_GRID)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    errs = {}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    def nrel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def faces(field, grid):
+        """{axis: (send_down, send_up)}: each sub-domain's low and high
+        face of every partitioned axis, the views of its block that the
+        sharded hop hands the exchange (strided, read in place)."""
+        out = {}
+        for fio, name, n, _ in pds._axis_plan(grid, X // 2 // grid[3]):
+            if n > 1:
+                out[name] = ([fio.face(b, lo=True) for b in field.blocks],
+                             [fio.face(b, lo=False) for b in field.blocks])
+        return out
+
+    # -- check: the exchange, bit for bit its plain transport ---------------
+    psi_g = torch.randn(half, generator=gen, device=dev)
+    for store in (f32, bf16):
+        sf = qm.shard(psi_g.to(store), mesh8, qm.pair_pspec(6))
+        for name, (down, up) in faces(sf, MESH_GRID).items():
+            n0 = ph.slab_exchange_bidir.launches
+            got = ph.slab_exchange_bidir(down, up, mesh8, name)
+            want = ph.slab_exchange_plain(down, up, mesh8, name)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for g, w in zip(got, want)
+                       for a, b in zip(g, w))
+            launched = ph.slab_exchange_bidir.launches - n0
+            emit({"phase": "check", "family": "mesh",
+                  "kernel": "slab_exchange_bidir", "axis": name,
+                  "dtype": str(store).replace("torch.", ""),
+                  "grid": list(MESH_GRID), "slab_shape": list(down[0].shape),
+                  "bit_equal": same, "launches": launched})
+            if not (same and launched == 1):
+                fail(f"slab_exchange_bidir ({name}, {store}) is not bit for "
+                     f"bit its plain transport, or launched {launched}x")
+        del sf, down, up, got, want
+    errs["exchange"] = 0.0
+    del psi_g
+
+    # -- check: the fused-halo hops against plain and composed --------------
+    # both forms at the production half-lattice volume (2^20 sites), cut
+    # MESH_N ways along their partitioned axis (array axis 3)
+    fused_cases = {"z": ((1, MESH_N, 1, 1), (2 * Z, T * Y * X // 4), 2),
+                   "t": ((MESH_N, 1, 1, 1), (T, Z, Y * X // 2), 3)}
+    fused = {}
+    errs["axis"] = errs["zbwd"] = 0.0
+    for ax, (grid, sites, mu) in fused_cases.items():
+        m = vmesh(grid)
+        spec = (None, None, None, ax) + (None,) * (len(sites) - 1)
+        psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev)
+        u = torch.randn((3, 3, 2) + sites, generator=gen, device=dev)
+        ps, us = qm.shard(psi, m, spec), qm.shard(u, m, spec)
+        fused[ax] = (ps, us, mu)
+        kinds = [("axis", True)] + ([("zbwd", False)] if ax == "z" else [])
+        for kind, bidir in kinds:
+            fn = ph.wilson_axis_fused_halo if bidir \
+                else ph.wilson_zbwd_fused_halo
+            got = qm.gather(ph.wilson_axis_fused_halo(ps, us, mu, ax)
+                            if bidir else fn(ps, us, ax))
+            plain = qm.gather(ph.wilson_axis_halo_plain(ps, us, mu, ax,
+                                                        bidir))
+            ref = (ph.wilson_axis_composed(psi, u, mu) if bidir
+                   else ph.wilson_zbwd_composed(psi, u))
+            torch.cuda.synchronize()
+            e_plain, e_ref = rel(got, plain), rel(got, ref)
+            abs_err = (got - plain).abs().max().item()
+            errs[kind] = max(errs[kind], abs_err)
+            emit({"phase": "check", "family": "mesh", "kernel": fn.__name__,
+                  "axis": ax, "mu": mu, "block_shape": list(ps.local_shape),
+                  "sub_domains": MESH_N, "max_abs_err": abs_err,
+                  "max_rel_err_plain": e_plain,
+                  "max_rel_err_composed": e_ref, "tolerance": ph.TOLERANCE})
+            if not (e_plain <= ph.TOLERANCE and e_ref <= ph.TOLERANCE):
+                fail(f"{fn.__name__} ({ax}) disagrees with its plain version "
+                     f"({e_plain:.3e}) or the composed reference "
+                     f"({e_ref:.3e}) beyond {ph.TOLERANCE:g}")
+            del got, plain, ref
+        del psi, u
+    # their path is their own entry (as in the JAX package, no solve calls
+    # them): counts zeroed, each entry driven once
+    launches_fused = {}
+    for key, entry, (ps, us, _), fn in (
+            ("axis:z", ph.wilson_z_fused_halo, fused["z"],
+             ph.wilson_axis_fused_halo),
+            ("axis:t", ph.wilson_t_fused_halo, fused["t"],
+             ph.wilson_axis_fused_halo),
+            ("zbwd:z", ph.wilson_zbwd_fused_halo, fused["z"],
+             ph.wilson_zbwd_fused_halo)):
+        ph.reset_launches()
+        entry(ps, us)
+        torch.cuda.synchronize()
+        launches_fused[key] = fn.launches
+
+    # -- check: the sharded eo hop: fused_halo = xla_facefix bit for bit,
+    # within 1e-6 of the unsharded hop (B1, B10-eo) -------------------------
+    dpk = DiracWilsonPC(gauge, geom, KAPPA).packed()
+    hop_cases = [("full", 2, MESH_GRID, MESH_POLICY),
+                 ("r12", 2, MESH_GRID, MESH_POLICY),
+                 ("full", 2, MESH_GRID_X, MESH_POLICY_TZ),
+                 ("full", 3, MESH_GRID_TZ, MESH_POLICY_TZ)]
+    for form, ver, grid, pol in hop_cases:
+        ref_op = dpk.pairs(f32, form, ver)
+        op = dpk.pairs(f32, form, ver, mesh=vmesh(grid), sharded_policy=pol)
+        for parity in (0, 1):
+            x = torch.randn(half, generator=gen, device=dev)
+            xs = op.shard(x)
+            other = (op._u_bw[parity] if ver == 2
+                     else op.gauge_eo_pp[1 - parity])
+            by_kernel = op._hop_on_mesh(op.gauge_eo_pp[parity], other, xs,
+                                        parity, None, pol)
+            by_copy = op._hop_on_mesh(op.gauge_eo_pp[parity], other, xs,
+                                      parity, None, "xla_facefix")
+            want = ref_op._d_to(x, parity, None)
+            got = op.gather(by_kernel)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in
+                       zip(by_kernel.blocks, by_copy.blocks))
+            err = nrel(got, want)
+            emit({"phase": "check", "family": "mesh",
+                  "kernel": "dslash_eo_pallas_sharded"
+                            + ("_v3" if ver == 3 else ""),
+                  "precision_form": form, "grid": list(grid), "policy": pol,
+                  "parity": parity, "fused_halo_equals_xla_facefix": same,
+                  "rel_err_unsharded": err, "tolerance": MESH_HOP_TOL})
+            if not (same and err <= MESH_HOP_TOL):
+                fail(f"sharded eo hop v{ver}/{form} on {grid}: fused_halo "
+                     f"== xla_facefix {same}, {err:.3e} from the unsharded "
+                     "hop")
+            del x, xs, by_kernel, by_copy, want, got
+        del ref_op, op
+
+    # -- invert_mesh: fused_cg on the MESH_GRID operator at 32^3 x 64 -------
+    be, bo = even_odd_split(src, geom)
+    dw = DiracWilson(gauge, geom, KAPPA)
+    op0 = dpk.pairs(f32)
+
+    def true_res(x_pairs):
+        xe, xo = op0.reconstruct_pairs(x_pairs, be, bo)
+        r = src - dw.M(even_odd_join(xe, xo, geom))
+        return float(torch.sqrt(blas.norm2(r) / blas.norm2(src)))
+
+    rhs = op0.prepare_pairs(be, bo)
+    sys0 = op0.Mdag_pairs(rhs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res0 = fused_cg(op0.MdagM_pairs, sys0, tol=TOL, maxiter=2000)
+    torch.cuda.synchronize()
+    secs0 = time.perf_counter() - t0
+    iters0 = int(res0.iters)
+    true0 = true_res(res0.x)
+
+    # the default sharded_policy ("auto": the exchange kernel on t/z/y)
+    op = dpk.pairs(f32, mesh=mesh8)
+    auto = dict(op._sharded_policy)
+    sys_s = op.Mdag_pairs(op.shard(rhs))
+    torch.cuda.synchronize()
+    wpp.reset_launches()
+    ph.reset_launches()
+    bpl.cg_update_norm2_pallas.launches = 0
+    t0 = time.perf_counter()
+    res = fused_cg(op.MdagM_pairs, sys_s, tol=TOL, maxiter=2000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"slab_exchange_bidir": ph.slab_exchange_bidir.launches,
+              "dslash_eo_pallas_packed": wpp.dslash_eo_pallas_packed.launches,
+              "cg_update_norm2_pallas": bpl.cg_update_norm2_pallas.launches}
+    iters, converged = int(res.iters), bool(res.converged)
+    x = op.gather(res.x)
+    x_true = true_res(x)
+    normal_res = nrel(op0.MdagM_pairs(x), sys0)
+    del x, res, res0, sys_s
+    emit({"phase": "invert_mesh", "dims_xyzt": list(PROD_DIMS),
+          "grid": list(MESH_GRID), "sub_domains": MESH_N,
+          "devices": sorted({str(d) for d in mesh8.devices}),
+          "policy": "auto", "kappa": KAPPA, "tol": TOL,
+          "iters": iters, "iters_unsharded": iters0,
+          "iters_invert_quda": iters_main, "converged": converged,
+          "true_res": x_true, "true_res_unsharded": true0,
+          "normal_eq_res_by_unsharded_op": normal_res,
+          "secs": secs, "secs_unsharded": secs0,
+          "ms_per_iter": 1e3 * secs / max(iters, 1),
+          "ms_per_iter_unsharded": 1e3 * secs0 / max(iters0, 1),
+          "auto_policy": auto,
+          "launches": counts,
+          "b12_launches_per_iter": counts["slab_exchange_bidir"]
+          / max(iters, 1)})
+    if not (converged and abs(iters - iters0) <= 1 and x_true <= TOL):
+        fail(f"mesh CG: {iters} iterations against the unsharded {iters0}, "
+             f"true_res {x_true:.3e} (tol {TOL:g})")
+    live = sum(1 for n in MESH_GRID if n > 1)
+    want = {"slab_exchange_bidir": 4 * live * iters,
+            "dslash_eo_pallas_packed": 4 * MESH_N * iters,
+            "cg_update_norm2_pallas": MESH_N * iters}
+    if counts != want:
+        fail(f"mesh CG launches {counts}, expected {want} (an iteration: "
+             f"2 MdagM hops of 2 eo hops, each one exchange launch per "
+             "partitioned axis and one B1 per sub-domain; one B2 per "
+             "sub-domain)")
+    if any(auto[a] != "fused_halo" for a in ("t", "z", "y")):
+        fail(f"sharded_policy 'auto' resolved to {auto}, not the exchange "
+             "kernel on t/z/y")
+
+    # -- timing ---------------------------------------------------------------
+    flush = l2_flush(torch, dev)
+
+    def kernel_times(call, plain, library=None, **extra):
+        """A B12 kernel's times: ``ms`` its device time per call (the
+        profiler's, the L2 flushed before each call), ``call_ms`` the
+        CUDA-event time of back-to-back calls (the wrapper's host work
+        included, which rules a call of microseconds), ``plain_ms`` its
+        plain version's, and ``library_ms`` the device time (L2 flushed)
+        of the same transfers done with Tensor.copy_."""
+        out = {"ms": device_ms(call, torch, flush=flush),
+               "ms_source": "profiler, L2 flushed",
+               "call_ms": median_ms(call, torch),
+               "plain_ms": median_ms(plain, torch, repeats=5, batch=2)}
+        if library is not None:
+            out["library_ms"] = device_ms(library, torch, flush=flush)
+            out["library_call_ms"] = median_ms(library, torch)
+        out.update(extra)
+        return out
+
+    timing = {}
+    sf = op.shard(torch.randn(half, generator=gen, device=dev))
+    for name, (down, up) in faces(sf, MESH_GRID).items():
+        srcs = ([down[mesh8.neighbor(i, name, 1)] for i in range(MESH_N)]
+                + [up[mesh8.neighbor(i, name, -1)] for i in range(MESH_N)])
+        dst = [torch.empty_like(s) for s in srcs]
+
+        def by_copy():
+            for d, s in zip(dst, srcs):
+                d.copy_(s)
+
+        nbytes = 2 * sum(s.numel() * s.element_size() for s in srcs)
+        timing[f"slab_exchange_bidir:{name}"] = kernel_times(
+            lambda: ph.slab_exchange_bidir(down, up, mesh8, name),
+            lambda: ph.slab_exchange_plain(down, up, mesh8, name),
+            library=by_copy, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+            bytes=nbytes, slab_shape=list(down[0].shape), slabs=len(srcs))
+    del sf
+    for ax, (ps, us, mu) in fused.items():
+        nsites = MESH_N * ps.blocks[0][0, 0, 0].numel()
+        bound = 1e3 * ph.BYTES_PER_SITE * nsites / HBM_BYTES_PER_S
+        kinds = [("wilson_axis_fused_halo", True)]
+        if ax == "z":
+            kinds.append(("wilson_zbwd_fused_halo", False))
+        for kname, bidir in kinds:
+            fn = getattr(ph, kname)
+            call = ((lambda: fn(ps, us, mu, ax)) if bidir
+                    else (lambda: fn(ps, us, ax)))
+            timing[f"{kname}:{ax}"] = kernel_times(
+                call, lambda: ph.wilson_axis_halo_plain(ps, us, mu, ax,
+                                                        bidir),
+                bound_ms=bound, sites=nsites,
+                block_shape=list(ps.local_shape))
+    # one sharded eo hop under each policy, beside the unsharded B1: wall
+    # time (policies interleaved), device time, launches, busy share
+    x = torch.randn(half, generator=gen, device=dev)
+    xs = op.shard(x)
+
+    def sharded_hop(pol):
+        return lambda: op._hop_on_mesh(op.gauge_eo_pp[0], op._u_bw[0], xs,
+                                       0, None, pol)
+    hops = hop_profile({"unsharded_b1": lambda: op0._d_to(x, 0, None),
+                        MESH_POLICY: sharded_hop(MESH_POLICY),
+                        "xla_facefix": sharded_hop("xla_facefix")}, torch)
+    emit({"phase": "timing", "family": "mesh", "nvidia_smi": smi,
+          "dims_xyzt": list(PROD_DIMS), "grid": list(MESH_GRID),
+          "sub_domains": MESH_N, "repeats": REPEATS,
+          "calls_per_timing": BATCH, "kernels": timing,
+          "sharded_eo_hop": hops})
+    del x, xs, op, op0, fused, flush
+
+    ex = timing["slab_exchange_bidir:t"]
+    rows = [{"name": "slab_exchange_bidir[t]", "route": "cuda",
+             "source": "quda_tpu_torch/csrc/halo.cu",
+             "replaces": "quda_tpu/parallel/pallas_halo.py:394",
+             "launches": counts["slab_exchange_bidir"],
+             "max_abs_err": errs["exchange"], "ms": ex["ms"],
+             "plain_ms": ex["plain_ms"], "bound_ms": ex["bound_ms"],
+             "bound_by": "bytes", "library_ms": ex["library_ms"]}]
+    for kname, key, err, replaces in (
+            ("wilson_axis_fused_halo", "z", "axis", ":289"),
+            ("wilson_axis_fused_halo", "t", "axis", ":289"),
+            ("wilson_zbwd_fused_halo", "z", "zbwd", ":512")):
+        tm = timing[f"{kname}:{key}"]
+        rows.append({
+            "name": f"{kname}[{key}]", "route": "cuda",
+            "source": "quda_tpu_torch/csrc/halo.cu",
+            "replaces": "quda_tpu/parallel/pallas_halo.py" + replaces,
+            "launches": launches_fused[f"{err}:{key}"],
+            "max_abs_err": errs[err], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4773,6 +5217,7 @@ def main() -> int:
     rows_out.extend(stag_rows)
     rows_out.extend(fold_v3(torch, dev, smi, gauge, src, srcs, stag))
     del stag
+    rows_out.extend(mesh_path(torch, dev, smi, gauge, src, iters_main))
     rows_out.extend(zoo(torch, dev, smi))
     mg_rows, mg_gauge = multigrid(torch, dev, smi)
     rows_out.extend(mg_rows)

@@ -34,9 +34,17 @@ hops per apply run the fused clover kernel.  Every pair operator also has ``_mrh
 N right-hand sides, (N,4,3,2,T,Z,Y*Xh): the same composition, each hop one
 launch of a multi-RHS kernel (B5-eo, or the fused clover B7-mrhs), the
 glue broadcast over that axis.
+
+On a mesh (``DiracWilsonPCPacked.pairs(..., mesh=, sharded_policy=)``,
+parallel/mesh.py) the pair operator shards its links once and every hop
+is the sharded eo hop of parallel/pallas_dslash.py in the same kernel
+form, on ShardedFields (``shard``, ``gather``); the Schur glue runs block
+by block, so ``fused_cg`` solves on the mesh unchanged.
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 
@@ -47,6 +55,8 @@ from ..ops import wilson_pallas_packed as wpp
 from ..ops.blockfloat import to_int8_links
 from ..ops.boundary import apply_t_boundary
 from .dirac import MATPC_EVEN_EVEN, Dirac, DiracPC
+
+log = logging.getLogger("quda_tpu_torch")
 
 STORE_DTYPES = (torch.float32, torch.bfloat16)
 # the Wilson pair operators also take float64 (B1 and B4's double form)
@@ -60,6 +70,8 @@ QUEUED_FORMS = {
     "auto": "ROADMAP A17 (the tuner's race of the forms)",
     "bzfull": "ROADMAP A17 (a TPU block admission the tuner races)"}
 PALLAS_VERSIONS = (2, 3)
+# the link forms the sharded eo hops serve on a mesh (parallel/pallas_dslash)
+MESH_FORMS = ("full", "r12")
 
 # gamma5 sign tensors, one per (device, ndim, spin axis): built once, so
 # an apply makes no host-to-device copy
@@ -87,6 +99,29 @@ def _check_double_form(store_dtype, precision_form: str,
             f"{pallas_version}) in float64: the double forms of B1 and B4 "
             "take full pre-shifted links; recon-12, the copy-free, the "
             "int8 and the fold forms under double wait for ROADMAP A7")
+
+
+def _mesh_version(mesh, precision_form: str, store_dtype,
+                  pallas_version: int) -> int:
+    """What the sharded eo hops serve: full and r12 links, float32 and
+    bfloat16 storage; the pallas_version, clamped to 2 (with a notice, as
+    the JAX package does) on a y- or x-partitioned mesh, where the v3
+    scatter exterior has no face fix."""
+    if precision_form not in MESH_FORMS:
+        raise NotImplementedError(
+            f"precision_form {precision_form!r} on a mesh: the sharded eo "
+            f"hops serve {MESH_FORMS}; the copy-free, int8 and fold forms "
+            "on a mesh wait for ROADMAP A15")
+    if store_dtype not in STORE_DTYPES:
+        raise NotImplementedError(
+            f"pair storage {store_dtype} on a mesh: the sharded eo hops "
+            f"take {STORE_DTYPES}; float64 waits for ROADMAP A7")
+    if pallas_version == 3 and (mesh.shape["y"] > 1 or mesh.shape["x"] > 1):
+        log.info("mesh dslash: the pallas v3 exterior shards t/z only; the "
+                 "y/x-partitioned mesh %s clamps to the v2 gather form",
+                 mesh.grid)
+        return 2
+    return pallas_version
 
 
 class DiracWilson(Dirac):
@@ -262,7 +297,8 @@ class _PackedHopMixin:
                    store_dtype, tb_sign: bool = True,
                    precision_form: str = "full",
                    store_dtypes=STORE_DTYPES, pallas_version: int = 2,
-                   forms=RESIDENT_FORMS):
+                   forms=RESIDENT_FORMS, mesh=None,
+                   sharded_policy="auto"):
         """gauge_eo_packed: (even, odd) complex packed (4,3,3,T,Z,Y*Xh)
         links (wilson_packed.pack_gauge_eo), boundary phase folded in.
         ``precision_form``: "full" (18 reals per link), "r12" (two rows,
@@ -275,7 +311,9 @@ class _PackedHopMixin:
         copy-free hop; r12f and int8 build no backward copy and fold keeps
         one whatever it says, as in the JAX package.  ``tb_sign``: the t
         boundary is antiperiodic, so the recon-12 hop negates the rebuilt
-        row of the boundary t links."""
+        row of the boundary t links.  ``mesh`` (parallel/mesh.LatticeMesh
+        of more than one sub-domain) shards the links once here and runs
+        every hop as the sharded eo hop (``_setup_mesh``)."""
         if store_dtype not in store_dtypes:
             raise NotImplementedError(
                 f"pair storage {store_dtype}: {store_dtypes} are ported "
@@ -298,6 +336,21 @@ class _PackedHopMixin:
                 "copy-free, int8 and fold forms of the other families wait "
                 "for ROADMAP A7")
         _check_double_form(store_dtype, form, pallas_version)
+        if mesh is not None and mesh.size == 1:
+            mesh = None          # one sub-domain shards nothing
+        if mesh is not None:
+            pallas_version = _mesh_version(mesh, form, store_dtype,
+                                           pallas_version)
+        self._mesh = None
+        self._setup_links(geom, gauge_eo_packed, store_dtype, tb_sign, form,
+                          pallas_version)
+        if mesh is not None:
+            self._setup_mesh(mesh, sharded_policy)
+
+    def _setup_links(self, geom, gauge_eo_packed, store_dtype, tb_sign,
+                     form, pallas_version):
+        """The resident links of ``form`` (and the backward copy where the
+        form keeps one), on the global lattice."""
         self.geom = geom
         self.dims = tuple(geom.lattice_shape)
         self.store_dtype = store_dtype
@@ -335,7 +388,10 @@ class _PackedHopMixin:
         JAX package's precedence: int8, r12f and fold whatever
         pallas_version says, then pallas_version 3 (v3), then B1.  The fold
         hop takes psi folded and gives its output back unfolded, both as
-        contiguous copies (the glue the JAX package's route has too)."""
+        contiguous copies (the glue the JAX package's route has too).  On a
+        mesh, the sharded eo hop (``_sharded_d_to``)."""
+        if getattr(self, "_mesh", None) is not None:
+            return self._sharded_d_to(psi_pp, target_parity, out_dtype)
         p = target_parity
         form = self._precision_form
         if form == "int8":
@@ -365,6 +421,10 @@ class _PackedHopMixin:
         sides.  The int8 and v3 forms have no multi-RHS kernel: the
         single-RHS hop runs on each right-hand side in turn, as the JAX
         package vmaps it."""
+        if getattr(self, "_mesh", None) is not None:
+            raise NotImplementedError(
+                "multi-RHS hops on a mesh are not ported yet (ROADMAP A15): "
+                "solve each right-hand side on the sharded operator")
         p = target_parity
         form = self._precision_form
         if form == "fold":
@@ -381,6 +441,93 @@ class _PackedHopMixin:
         return wpp.dslash_eo_pallas_packed_mrhs(
             self.gauge_eo_pp[p], self._u_bw[p], psi_b, self.dims, p,
             out_dtype=out_dtype, tb_sign=self._tb_sign)
+
+    # -- the mesh (parallel/mesh.py, parallel/pallas_dslash.py) -----------
+    def _setup_mesh(self, mesh, sharded_policy) -> None:
+        """Validate the mesh against the lattice, shard the resident links
+        once (an x-partitioned mesh re-lays the fused Y*Xh axis out
+        block-contiguously first, as the JAX package's _setup_hop does)
+        and resolve the halo policy (``_resolve_sharded_policy``)."""
+        from ..parallel import mesh as qmesh
+        from ..parallel import pallas_dslash as pds
+        if mesh.n_src != 1:
+            raise NotImplementedError(
+                "a mesh with a src axis (the split grid) waits for ROADMAP "
+                "A15: it needs distinct cards")
+        T, Z, Y, X = self.dims
+        _, _, n_y, n_x = pds._mesh_counts(mesh)
+        t_l, z_l, y_l, xh_l = qmesh.local_extents(mesh, (T, Z, Y, X // 2))
+        pds._check_eo_mesh(type(self).__name__, mesh,
+                           (4, 3, 2, t_l, z_l, y_l * xh_l), self.dims,
+                           False, tz_only=self._pallas_version == 3)
+        self._mesh = mesh
+        self._mesh_yx = (n_y, n_x)
+        self.gauge_eo_pp = tuple(self.shard(g) for g in self.gauge_eo_pp)
+        if self._pallas_version == 2:
+            self._u_bw = tuple(self.shard(g) for g in self._u_bw)
+        self._sharded_policy = self._resolve_sharded_policy(sharded_policy)
+
+    def shard(self, x: torch.Tensor):
+        """A global packed pair array (..., T, Z, Y*Xh) -> a ShardedField
+        on the operator's mesh (block-contiguous on an x-partitioned
+        mesh)."""
+        from ..parallel import mesh as qmesh
+        n_y, n_x = self._mesh_yx
+        _, _, Y, X = self.dims
+        x = qmesh.fuse_block_layout(x, n_y, n_x, Y, X // 2)
+        return qmesh.shard(x, self._mesh, qmesh.pair_pspec(x.dim()))
+
+    def gather(self, field) -> torch.Tensor:
+        """Inverse of ``shard``: the global array, on the first
+        sub-domain's device.  Outside a solve only."""
+        from ..parallel import mesh as qmesh
+        n_y, n_x = self._mesh_yx
+        _, _, Y, X = self.dims
+        return qmesh.unfuse_block_layout(qmesh.gather(field), n_y, n_x, Y,
+                                         X // 2)
+
+    def _hop_on_mesh(self, u_here, u_other, psi, target_parity, out_dtype,
+                     policy):
+        from ..parallel import pallas_dslash as pds
+        fn = (pds.dslash_eo_pallas_sharded if self._pallas_version == 2
+              else pds.dslash_eo_pallas_sharded_v3)
+        return fn(u_here, u_other, psi, self.dims, target_parity,
+                  self._mesh, out_dtype=out_dtype, tb_sign=self._tb_sign,
+                  policy=policy)
+
+    def _sharded_d_to(self, psi, target_parity, out_dtype):
+        """The sharded eo hop (v2: B1 with the sharded pre-shifted
+        backward links; v3: the copy-free B10-eo) under the resolved halo
+        policy.  A ShardedField in, a ShardedField out; a global array in
+        (prepare, reconstruct) is sharded and the result gathered."""
+        from ..parallel.mesh import ShardedField
+        p = target_parity
+        glob = not isinstance(psi, ShardedField)
+        x = self.shard(psi) if glob else psi
+        other = (self._u_bw[p] if self._pallas_version == 2
+                 else self.gauge_eo_pp[1 - p])
+        out = self._hop_on_mesh(self.gauge_eo_pp[p], other, x, p, out_dtype,
+                                self._sharded_policy)
+        return self.gather(out) if glob else out
+
+    def _resolve_sharded_policy(self, policy) -> dict:
+        """The per-axis halo policy: a bare name, per-axis spec or dict
+        (parallel/pallas_dslash.resolve_axis_policies).  ``"auto"`` is
+        ``fused_halo``: the exchange kernel on every contiguous t/z/y face
+        (its plain version on CPU blocks) and xla_facefix on x, the only
+        transport of its strided column faces.  The JAX package races the
+        two per axis; they move the same bytes to the same places (the hop
+        is bit for bit the same under either), so the port runs the
+        kernel and races nothing."""
+        from ..parallel import pallas_dslash as pds
+        counts = pds._mesh_counts(self._mesh)
+        live = [a for a, n in zip(pds.AXIS_NAMES, counts) if n > 1]
+        pols = pds.resolve_axis_policies(
+            "fused_halo" if policy == "auto" else policy)
+        log.info("mesh dslash: grid %s, eo interior v%d, halo policy %s",
+                 self._mesh.grid, self._pallas_version,
+                 pds._policy_label(pols, live))
+        return pols
 
     def _to_pairs(self, x):
         """Canonical (..., T,Z,Y,Xh,4,3) complex -> packed pairs; leading
@@ -587,16 +734,29 @@ class DiracWilsonPCPacked:
         return self._dpc.flops_per_site_M()
 
     def pairs(self, store_dtype=torch.float32, precision_form: str = "full",
-              pallas_version: int = 2) -> "DiracWilsonPCPackedSloppy":
+              pallas_version: int = 2, mesh=None,
+              sharded_policy="auto") -> "DiracWilsonPCPackedSloppy":
         """Pair-storage companion, every hop on an eo kernel: with
         float32 storage the precise operator in a complex-free
         representation, with bfloat16 the sloppy operator of the mixed
         solve, with float64 the precise operator of the double routes.
         ``precision_form``: "full", "r12", "r12f", "int8" or "fold"
         links; ``pallas_version`` 2 (B1, resident backward copy) or 3 (the
-        copy-free hop) for full and r12 (float64: full, 2)."""
+        copy-free hop) for full and r12 (float64: full, 2).
+
+        ``mesh`` (parallel/mesh.make_lattice_mesh): the links are sharded
+        over its sub-domains once and every hop is the sharded eo hop
+        (parallel/pallas_dslash) in the same kernel form, on ShardedFields
+        (``shard``/``gather``); ``sharded_policy`` selects the halo
+        transport per axis: ``"xla_facefix"``, ``"fused_halo"`` (the
+        exchange kernel B12), a per-axis spec such as
+        ``"t=fused_halo,z=fused_halo,y=fused_halo"``, or ``"auto"``
+        (``fused_halo``: the kernel on t/z/y, x on xla_facefix).  A mesh serves
+        float32 and bfloat16, full and r12, v2 and v3 (v3 on t/z meshes;
+        a y/x-partitioned mesh clamps to v2)."""
         return DiracWilsonPCPackedSloppy(self, store_dtype, precision_form,
-                                         pallas_version)
+                                         pallas_version, mesh=mesh,
+                                         sharded_policy=sharded_policy)
 
 
 class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
@@ -605,13 +765,15 @@ class DiracWilsonPCPackedSloppy(_PackedHopMixin, _PairSloppyBase):
     ``reconstruct_pairs`` take canonical complex parity sources."""
 
     def __init__(self, dpk: DiracWilsonPCPacked, store_dtype=torch.float32,
-                 precision_form: str = "full", pallas_version: int = 2):
+                 precision_form: str = "full", pallas_version: int = 2,
+                 mesh=None, sharded_policy="auto"):
         self._setup_hop(dpk.geom, dpk.gauge_eo_p, store_dtype,
                         tb_sign=dpk._dpc.antiperiodic_t,
                         precision_form=precision_form,
                         store_dtypes=WILSON_STORE_DTYPES,
                         pallas_version=pallas_version,
-                        forms=PRECISION_FORMS)
+                        forms=PRECISION_FORMS, mesh=mesh,
+                        sharded_policy=sharded_policy)
         self.kappa = float(dpk.kappa)
         self.matpc = dpk.matpc
 

@@ -6,11 +6,19 @@ tail and the reliable-update residual update run as kernels
 ``blas_pallas.axpy_norm2_plain``.  Works on real (pair-form) and complex
 tensors.  The compensated sums (``norm2_comp``, ``cdot_comp``) accumulate
 in float64.
+
+``norm2``, ``redot`` and ``zeros_like`` also take a ShardedField
+(parallel/mesh.py): the reduction runs per block and
+``parallel/halo.psum_scalar`` adds the partials in sub-domain order, so
+a solver loop on a mesh moves only scalars (and the hop's faces).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.halo import psum_scalar
+from ..parallel.mesh import ShardedField
 
 
 def _r(x: torch.Tensor) -> torch.Tensor:
@@ -21,6 +29,8 @@ def _r(x: torch.Tensor) -> torch.Tensor:
 
 
 def norm2(x: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, ShardedField):
+        return psum_scalar([norm2(b) for b in x.blocks])
     return torch.sum(_r(x))
 
 
@@ -33,9 +43,18 @@ def cdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re<x, y>."""
+    if isinstance(x, ShardedField):
+        return psum_scalar([redot(a, b) for a, b in zip(x.blocks, y.blocks)])
     if x.is_complex():
         return torch.sum(x.real * y.real + x.imag * y.imag)
     return torch.sum(x * y)
+
+
+def zeros_like(x):
+    """A zero field of x's shape, dtype and placement (blocks too)."""
+    if isinstance(x, ShardedField):
+        return x.zeros_like()
+    return torch.zeros_like(x)
 
 
 # -- compensated reductions -------------------------------------------------

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.halo import psum_scalar
+from ..parallel.mesh import ShardedField
 from ..utils import kernels
 from . import blas
 
@@ -55,7 +57,16 @@ def _grid(t: torch.Tensor) -> int:
 
 def cg_update_norm2_pallas(alpha, p, Ap, x, r):
     """x' = x + alpha p; r' = r - alpha Ap; returns (x', r', |r'|^2), all
-    float32 or all float64 (alpha a one-element tensor of that dtype)."""
+    float32 or all float64 (alpha a one-element tensor of that dtype).
+    On ShardedFields: one call per block (alpha moved to the block's
+    device), the block norms summed by ``psum_scalar``."""
+    if isinstance(x, ShardedField):
+        parts = [cg_update_norm2_pallas(alpha.to(xb.device), *blks)
+                 for xb, blks in zip(x.blocks, zip(p.blocks, Ap.blocks,
+                                                   x.blocks, r.blocks))]
+        return (ShardedField([q[0] for q in parts], x.mesh, x.spec),
+                ShardedField([q[1] for q in parts], x.mesh, x.spec),
+                psum_scalar([q[2] for q in parts]))
     kind = kernels.dispatch_device(alpha, p, Ap, x, r)
     if kind == "cpu":
         return blas.triple_cg_update(alpha, p, Ap, x, r)

@@ -169,16 +169,17 @@ def _pp_cscale(c: complex, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cr * xr - ci * xi, cr * xi + ci * xr], dim=1)
 
 
-def _hop_packed_pairs(psi_s: torch.Tensor, u: torch.Tensor, table: dict,
-                      adjoint: bool) -> torch.Tensor:
-    """One direction on f32 pair planes: project to the half spinor,
-    multiply by U (or U^dag) in colour, reconstruct.
-
-    psi_s: (4,3,2,*site) neighbour spinor; u: (3,3,2,*site) links.
-    Returns the (4,3,2,*site) contribution."""
+def half_pairs(psi_s: torch.Tensor, table: dict) -> torch.Tensor:
+    """The projected half spinor h_a = psi_a + c_a psi_{j_a}: (4,3,2,*site)
+    -> (2,3,2,*site)."""
     t = table
-    h = torch.stack([psi_s[a] + _pp_cscale(t[f"c{a}"], psi_s[t[f"j{a}"]])
-                     for a in (0, 1)])                     # (2,3,2,*site)
+    return torch.stack([psi_s[a] + _pp_cscale(t[f"c{a}"], psi_s[t[f"j{a}"]])
+                        for a in (0, 1)])
+
+
+def color_mul_pairs(u: torch.Tensor, h: torch.Tensor,
+                    adjoint: bool) -> torch.Tensor:
+    """U h (or U^dag h) in colour: u (3,3,2,*site), h (2,3,2,*site)."""
     hr, hi = h[:, None, :, 0], h[:, None, :, 1]            # (2,1,3(b),*site)
     if adjoint:
         # (U^dag)[a][b] = conj(U[b][a])
@@ -188,9 +189,26 @@ def _hop_packed_pairs(psi_s: torch.Tensor, u: torch.Tensor, table: dict,
         ur, ui = u[:, :, 0], u[:, :, 1]                    # (3(a),3(b),*site)
     re = (ur * hr - ui * hi).sum(dim=2)                    # (2,3(a),*site)
     im = (ur * hi + ui * hr).sum(dim=2)
-    uh = torch.stack([re, im], dim=2)                      # (2,3,2,*site)
+    return torch.stack([re, im], dim=2)                    # (2,3,2,*site)
+
+
+def recon_pairs(uh: torch.Tensor, table: dict) -> torch.Tensor:
+    """The four spin rows from the half spinor: (2,3,2,*site) ->
+    (4,3,2,*site)."""
+    t = table
     return torch.stack([uh[0], uh[1], _pp_cscale(t["d2"], uh[t["k2"]]),
                         _pp_cscale(t["d3"], uh[t["k3"]])])
+
+
+def _hop_packed_pairs(psi_s: torch.Tensor, u: torch.Tensor, table: dict,
+                      adjoint: bool) -> torch.Tensor:
+    """One direction on f32 pair planes: project to the half spinor,
+    multiply by U (or U^dag) in colour, reconstruct.
+
+    psi_s: (4,3,2,*site) neighbour spinor; u: (3,3,2,*site) links.
+    Returns the (4,3,2,*site) contribution."""
+    return recon_pairs(color_mul_pairs(u, half_pairs(psi_s, table), adjoint),
+                       table)
 
 
 def dslash_eo_packed_pairs_bw(u_here: torch.Tensor, u_bw, psi_pp: torch.Tensor,

@@ -9,7 +9,10 @@ loop waits on the card only at a convergence check: once every
 JAX's ``lax.while_loop`` becomes this Python loop.  As in the JAX
 package, checks (and maxiter) fall on multiples of ``check_every``, so a
 solve may run up to ``check_every - 1`` iterations past convergence;
-``iters`` reports those executed.
+``iters`` reports those executed.  On a mesh (b a ShardedField,
+parallel/mesh.py) the same loop runs block by block: the hop exchanges
+faces, the reductions add per-block partials, and no global field is
+gathered.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def fused_cg(matvec: Callable, b: torch.Tensor,
     stop = (tol ** 2) * float(b2)
     tiny = torch.finfo(b2.dtype).tiny
 
-    x = torch.zeros_like(b) if x0 is None else x0
+    x = blas.zeros_like(b) if x0 is None else x0
     r = b - matvec(x) if x0 is not None else b
     p = r
     rz = blas.norm2(r)

@@ -116,7 +116,14 @@ def cg_reliable(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor,
     sloppy storage.  Convergence is judged on the true residual kept
     through the reliable updates, and the returned r2 is the float64-
     accumulated |b - A x|^2 of the final x, so it is trustworthy at the precise
-    level.  ``reliable_updates`` on the result counts the updates."""
+    level.  ``reliable_updates`` on the result counts the updates.
+    A ShardedField (a mesh) is refused: the compensated reductions and
+    the storage codec are not sharded yet (ROADMAP A15)."""
+    from ..parallel.mesh import ShardedField
+    if isinstance(b, ShardedField):
+        raise NotImplementedError(
+            "cg_reliable on a mesh is not ported yet (ROADMAP A15): solve "
+            "the sharded operator with fused_cg")
     b2 = blas.norm2(b)
     stop = (tol ** 2) * float(b2)
 

@@ -35,7 +35,8 @@ SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "clover_eo_mrhs.cu", "blas_fused.cu", "staggered_eo.cu",
            "staggered_eo_mrhs.cu", "wilson_full.cu", "coarse.cu",
            "staggered_full.cu", "wilson_eo_there.cu", "wilson_eo_int8.cu",
-           "wilson_eo_fold.cu", "wilson_canonical.cu", "clover_full.cu")
+           "wilson_eo_fold.cu", "wilson_canonical.cu", "clover_full.cu",
+           "halo.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh", "clover_epilogue.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
@@ -135,6 +136,15 @@ SIGNATURES = {
     # stream
     "qtt_clover_full": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                         _F, _P),
+    # src[], dst[], run[], runs[], stride[], n, stream (host arrays; the
+    # halo exchange)
+    "qtt_slab_exchange": (_P, _P, _P, _P, _P, _I, _P),
+    # psi[], u[], out[], dn[], up[], n_ring, sel[], n_sel, L, S, mu, bidir,
+    # stream (host arrays; the fused-halo hops)
+    "qtt_wilson_axis_halo": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _L, _I, _I,
+                             _P),
+    # dev, peer
+    "qtt_enable_peer_access": (_I, _I),
 }
 
 

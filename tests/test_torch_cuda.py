@@ -1926,3 +1926,175 @@ def test_tuned_dslash_on_card_races_the_kernels(monkeypatch, tmp_path):
     want = wops.dslash_full(g, psi)
     torch.cuda.synchronize()
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 1e-5
+
+
+# -- the multi-device Wilson path on a virtual mesh of one card ------------
+
+def _vmesh(dev, grid):
+    from quda_tpu_torch.parallel import mesh as qm
+    n = int(np.prod(grid))
+    return qm.make_lattice_mesh(grid, devices=[dev] * n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slab_exchange_kernel_is_the_plain_transport(dtype):
+    """slab_exchange_bidir on 8 sub-domains of one card: one launch per
+    call, bit for bit two _permute_slice transports, for slabs of a
+    16-byte multiple and for odd byte counts (the kernel's byte copies),
+    and for the strided faces the sharded hop hands it (t and z planes,
+    y row strips of 16- and 8-byte runs, x columns), read in place."""
+    from quda_tpu_torch.parallel import pallas_dslash as pds
+    from quda_tpu_torch.parallel import pallas_halo as ph
+    dev = require_cuda()
+    mesh = _vmesh(dev, (2, 2, 2, 1))
+    gen = torch.Generator(device=dev).manual_seed(501)
+
+    def slabs(shape):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for _ in range(8)]
+
+    cases = [(name, slabs(shape), slabs(shape))
+             for shape in ((4, 3, 2, 1, 4, 16), (3, 5, 7))
+             for name in ("t", "z", "y")]
+    for xcols in (8, 2):
+        blocks = slabs((4, 3, 2, 4, 6, 4 * xcols))
+        for fio, name, _, _ in pds._axis_plan((2, 2, 2, 2), xcols):
+            cases.append((name if name != "x" else "y",
+                          [fio.face(b, lo=True) for b in blocks],
+                          [fio.face(b, lo=False) for b in blocks]))
+    for name, down, up in cases:
+        n0 = ph.slab_exchange_bidir.launches
+        got = ph.slab_exchange_bidir(down, up, mesh, name)
+        want = ph.slab_exchange_plain(down, up, mesh, name)
+        torch.cuda.synchronize()
+        assert ph.slab_exchange_bidir.launches == n0 + 1
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_fused_halo_kernels_match_plain_and_composed(n):
+    """wilson_axis_fused_halo (z and t) and wilson_zbwd_fused_halo on n
+    sub-domains of one card: within 1e-6 of the plain version and of the
+    composed reference on the gathered field; one launch each."""
+    from quda_tpu_torch.parallel import mesh as qm
+    from quda_tpu_torch.parallel import pallas_halo as ph
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(510 + n)
+    for ax, grid, sites, mu in (("z", (1, n, 1, 1), (16, 24), 2),
+                                ("t", (n, 1, 1, 1), (16, 4, 12), 3)):
+        mesh = _vmesh(dev, grid)
+        spec = (None, None, None, ax) + (None,) * (len(sites) - 1)
+        psi = torch.randn((4, 3, 2) + sites, generator=gen, device=dev)
+        u = torch.randn((3, 3, 2) + sites, generator=gen, device=dev)
+        ps, us = qm.shard(psi, mesh, spec), qm.shard(u, mesh, spec)
+        cases = [(ph.wilson_axis_fused_halo, True)]
+        if ax == "z":
+            cases.append((ph.wilson_zbwd_fused_halo, False))
+        for fn, bidir in cases:
+            n0 = fn.launches
+            out = (fn(ps, us, mu, ax) if bidir else fn(ps, us, ax))
+            got = qm.gather(out)
+            plain = qm.gather(ph.wilson_axis_halo_plain(ps, us, mu, ax,
+                                                        bidir))
+            ref = (ph.wilson_axis_composed(psi, u, mu) if bidir
+                   else ph.wilson_zbwd_composed(psi, u))
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1
+            assert rel_err(got.cpu().numpy(),
+                           plain.cpu().numpy()) < ph.TOLERANCE
+            assert rel_err(got.cpu().numpy(),
+                           ref.cpu().numpy()) < ph.TOLERANCE
+
+
+def test_fused_halo_kernel_takes_float32_only():
+    from quda_tpu_torch.parallel import mesh as qm
+    from quda_tpu_torch.parallel import pallas_halo as ph
+    dev = require_cuda()
+    mesh = _vmesh(dev, (1, 2, 1, 1))
+    spec = (None, None, None, "z", None)
+    psi = torch.zeros((4, 3, 2, 4, 8), device=dev, dtype=torch.bfloat16)
+    u = torch.zeros((3, 3, 2, 4, 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        ph.wilson_axis_fused_halo(qm.shard(psi, mesh, spec),
+                                  qm.shard(u, mesh, spec))
+
+
+@pytest.mark.parametrize("grid,version", [((2, 2, 2, 1), 2),
+                                          ((2, 2, 1, 2), 2),
+                                          ((2, 4, 1, 1), 3)])
+@pytest.mark.parametrize("form", ["full", "r12"])
+def test_sharded_eo_hop_on_card(grid, version, form):
+    """The sharded eo hop on a virtual mesh: fused_halo (the exchange
+    kernel on every contiguous axis) bit for bit xla_facefix, both within
+    1e-6 (norm ratio) of the unsharded B1 / B10-eo, both parities."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.parallel import pallas_halo as ph
+    dev = require_cuda()
+    dims = (8, 4, 8, 8)
+    geom = LatticeGeometry(dims)
+    g = torch.from_numpy(su3_gauge(dims, 520)).to(dev)
+    dpk = DiracWilsonPC(g, geom, 0.12).packed()
+    ref_op = dpk.pairs(torch.float32, form, version)
+    pol = "t=fused_halo,z=fused_halo" + (",y=fused_halo" if grid[2] > 1
+                                         else "")
+    op = dpk.pairs(torch.float32, form, version, mesh=_vmesh(dev, grid),
+                   sharded_policy=pol)
+    for parity in (0, 1):
+        x = torch.from_numpy(gaussian(pair_spinor_shape(dims), 521 + parity,
+                                      np.float32)).to(dev)
+        xs = op.shard(x)
+        other = (op._u_bw[parity] if version == 2
+                 else op.gauge_eo_pp[1 - parity])
+        n0 = ph.slab_exchange_bidir.launches
+        a = op._hop_on_mesh(op.gauge_eo_pp[parity], other, xs, parity, None,
+                            pol)
+        assert ph.slab_exchange_bidir.launches > n0
+        b = op._hop_on_mesh(op.gauge_eo_pp[parity], other, xs, parity, None,
+                            "xla_facefix")
+        want = ref_op._d_to(x, parity, None)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a.blocks, b.blocks))
+        got = op.gather(a)
+        assert float((got - want).norm() / want.norm()) < 1e-6
+
+
+def test_mesh_fused_cg_on_card():
+    """fused_cg on the (2,2,2,1) virtual-mesh operator with the default
+    sharded_policy ("auto": the exchange kernel on t/z/y): the unsharded
+    solve's iterations +-1, the exchange kernel 3 launches a hop (12 an
+    iteration), B1 8 a hop, B2 8 an iteration."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import even_odd_split
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.parallel import pallas_halo as ph
+    from quda_tpu_torch.solvers.fused_iter import fused_cg
+    dev = require_cuda()
+    dims = (8, 4, 8, 8)
+    geom = LatticeGeometry(dims)
+    g = torch.from_numpy(su3_gauge(dims, 530)).to(dev)
+    psi = torch.from_numpy(gaussian(lattice_shape(dims) + (4, 3),
+                                    531)).to(dev)
+    dpk = DiracWilsonPC(g, geom, 0.12).packed()
+    op0 = dpk.pairs(torch.float32)
+    op = dpk.pairs(torch.float32, mesh=_vmesh(dev, (2, 2, 2, 1)))
+    assert [op._sharded_policy[a] for a in "tzyx"] == [
+        "fused_halo"] * 3 + ["xla_facefix"]
+    be, bo = even_odd_split(psi, geom)
+    rhs = op0.prepare_pairs(be, bo)
+    ref = fused_cg(op0.MdagM_pairs, op0.Mdag_pairs(rhs), tol=1e-6,
+                   maxiter=500)
+    b = op.Mdag_pairs(op.shard(rhs))
+    ph.reset_launches()
+    wpp.reset_launches()
+    bpl.cg_update_norm2_pallas.launches = 0
+    res = fused_cg(op.MdagM_pairs, b, tol=1e-6, maxiter=500)
+    torch.cuda.synchronize()
+    assert res.converged and abs(res.iters - ref.iters) <= 1
+    assert ph.slab_exchange_bidir.launches == 12 * res.iters
+    assert wpp.dslash_eo_pallas_packed.launches == 32 * res.iters
+    assert bpl.cg_update_norm2_pallas.launches == 8 * res.iters
+    x = op.gather(res.x)
+    assert float((x - ref.x).norm() / ref.x.norm()) < 1e-5

@@ -27,6 +27,9 @@ from quda_tpu_torch.ops import clover_pallas as clp
 from quda_tpu_torch.ops import coarse_pallas as cop
 from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+from quda_tpu_torch.parallel import halo as qhalo
+from quda_tpu_torch.parallel import mesh as qmesh
+from quda_tpu_torch.parallel import pallas_halo as qph
 from quda_tpu_torch.utils import kernels
 
 REPO = Path(__file__).resolve().parent.parent
@@ -55,7 +58,9 @@ def test_port_imports_no_jax():
         "gauge/smear", "gauge/observables", "solvers/gcr", "mg/mg",
         "mg/pair", "mg/gemm", "mg/coarse", "mg/transfer",
         "ops/coarse_pallas", "utils/tune", "utils/config",
-        "ops/wilson_pallas", "ops/clover_pallas")} <= scanned
+        "ops/wilson_pallas", "ops/clover_pallas", "parallel/mesh",
+        "parallel/halo", "parallel/pallas_halo",
+        "parallel/pallas_dslash")} <= scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -95,6 +100,10 @@ def card_request(monkeypatch):
     monkeypatch.setattr(spl, "dslash_staggered_pass_mrhs_plain",
                         plain_reached)
     monkeypatch.setattr(spl, "dslash_staggered_fused_plain", plain_reached)
+    monkeypatch.setattr(qph, "slab_exchange_plain", plain_reached)
+    monkeypatch.setattr(qph, "wilson_axis_halo_plain", plain_reached)
+    monkeypatch.setattr(qph, "_permute_slice", plain_reached)
+    monkeypatch.setattr(qhalo, "_permute_slice", plain_reached)
 
 
 def _hop_args(dtype=torch.float32, rows=3):
@@ -836,3 +845,104 @@ def test_operator_api_new_families_never_fall_back(card_request):
         DiracClover(links, geom, 0.12, 1.0).pairs(torch.float64)
     assert (clp.clover_pallas_packed.launches,
             wpp.dslash_pallas_packed.launches) == n0
+
+
+def _cpu_mesh(grid):
+    return qmesh.make_lattice_mesh(grid, devices=["cpu"] * 8)
+
+
+def test_halo_wrappers_raise_on_card_request(card_request):
+    """The three B12 wrappers, asked for the card without the kernel
+    library, raise; none reaches its plain version or the plain
+    transport, and no launch is counted."""
+    mesh = _cpu_mesh((2, 2, 2, 1))
+    faces = [torch.zeros((4, 3, 2, 1, 2, 4)) for _ in range(8)]
+    n0 = (qph.slab_exchange_bidir.launches,
+          qph.wilson_axis_fused_halo.launches,
+          qph.wilson_zbwd_fused_halo.launches)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        qph.slab_exchange_bidir(faces, faces, mesh, "t")
+    zmesh = _cpu_mesh((1, 8, 1, 1))
+    spec = (None, None, None, "z", None)
+    psi = qmesh.shard(torch.zeros((4, 3, 2, 16, 4)), zmesh, spec)
+    u = qmesh.shard(torch.zeros((3, 3, 2, 16, 4)), zmesh, spec)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        qph.wilson_axis_fused_halo(psi, u)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        qph.wilson_zbwd_fused_halo(psi, u)
+    tmesh = _cpu_mesh((8, 1, 1, 1))
+    spec_t = (None, None, None, "t", None, None)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        qph.wilson_t_fused_halo(
+            qmesh.shard(torch.zeros((4, 3, 2, 16, 2, 4)), tmesh, spec_t),
+            qmesh.shard(torch.zeros((3, 3, 2, 16, 2, 4)), tmesh, spec_t))
+    assert (qph.slab_exchange_bidir.launches,
+            qph.wilson_axis_fused_halo.launches,
+            qph.wilson_zbwd_fused_halo.launches) == n0
+
+
+def test_fused_halo_policy_never_runs_the_plain_transport(card_request,
+                                                          monkeypatch):
+    """Under fused_halo a card request of the sharded hop reaches the
+    exchange kernel on every contiguous axis (and raises without the
+    library); only the x column faces take the plain transport, and only
+    on the xla_facefix policy."""
+    from quda_tpu_torch.parallel import pallas_dslash as pds
+    reached = []
+    monkeypatch.setattr(wpp, "dslash_eo_pallas_packed",
+                        lambda u, b, p, *a, **k: torch.zeros_like(p))
+    real = qph.slab_exchange_bidir
+
+    def exchange(down, up, mesh, name):
+        reached.append(name)
+        return real(down, up, mesh, name)
+
+    monkeypatch.setattr(qph, "slab_exchange_bidir", exchange)
+    mesh = _cpu_mesh((2, 2, 2, 1))
+    dims = (4, 4, 4, 8)
+    sites = (4, 4, 16)
+    spec = qmesh.pair_pspec(7)
+    links = qmesh.shard(torch.zeros((4, 3, 3, 2) + sites), mesh, spec)
+    psi = qmesh.shard(torch.zeros((4, 3, 2) + sites), mesh,
+                      qmesh.pair_pspec(6))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        pds.dslash_eo_pallas_sharded(links, links, psi, dims, 0,
+                                     policy="fused_halo")
+    assert reached == ["t"]
+
+
+def test_auto_policy_on_a_card_request_never_runs_the_plain_transport(
+        card_request, monkeypatch):
+    """An operator built with the default sharded_policy="auto", asked for
+    the card, sends every t/z/y face of every hop through the exchange
+    kernel's wrapper; the plain transport (_permute_slice) is never
+    reached."""
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from tests.torch_inputs import su3_gauge
+    reached = []
+    monkeypatch.setattr(wpp, "dslash_eo_pallas_packed",
+                        lambda u, b, p, *a, **k: torch.zeros_like(p))
+
+    def exchange(down, up, mesh, name):
+        reached.append(name)
+        return ([down[mesh.neighbor(i, name, +1)].clone() for i in
+                 range(mesh.size)],
+                [up[mesh.neighbor(i, name, -1)].clone() for i in
+                 range(mesh.size)])
+
+    monkeypatch.setattr(qph, "slab_exchange_bidir", exchange)
+    dims = (8, 4, 4, 4)
+    op = DiracWilsonPC(torch.from_numpy(su3_gauge(dims, 597)),
+                       LatticeGeometry(dims), 0.12).packed().pairs(
+        torch.float32, mesh=_cpu_mesh((2, 2, 2, 1)))
+    x = op.shard(torch.zeros((4, 3, 2, 4, 4, 16)))
+    op.MdagM_pairs(x)
+    assert reached == ["t", "z", "y"] * 4
+
+
+def test_mixed_cpu_cuda_mesh_is_refused():
+    with pytest.raises(ValueError, match="mix"):
+        qmesh.make_lattice_mesh((2, 1, 1, 1), devices=["cpu", "cuda:0"])
+    with pytest.raises(ValueError, match="mix"):
+        qmesh.make_lattice_mesh((1, 2, 1, 1), devices=["cuda:0", "cpu"])
