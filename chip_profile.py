@@ -3,6 +3,8 @@
 
     python3 chip_profile.py [all|wilson|double|staggered|zoo|mg]  # default all
     python3 chip_profile.py stag_mg [MASS ...]   # default chip_smoke's mass
+    python3 chip_profile.py mrhs     # B5 and B8-mrhs alone (not in all)
+    python3 chip_profile.py mg_seeds # MG iterations per null-vector seed
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -474,6 +476,158 @@ def mg(torch, dev) -> None:
     qt.end_quda()
 
 
+def _median_ms(fn, torch, repeats=15, batch=5) -> float:
+    """Milliseconds a call: the median over ``repeats`` CUDA-event timings
+    of ``batch`` back-to-back calls, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return sorted(times)[len(times) // 2]
+
+
+def mrhs(torch, dev) -> None:
+    """Time the two multi-RHS kernels of the Wilson multigrid set-up at
+    its shapes: B5 (the full-lattice hop on N = 24 and 12 right-hand
+    sides at 32^3 x 64, full and r12 links, chunk 1 and 2) against its
+    bound and N B4 launches, each lane checked bit for bit against B4;
+    and B8-mrhs (S 8192, E 96, N 24: level 1 of the smoke's hierarchy)
+    against its bound, ``torch.einsum`` and N single launches, within
+    TOLERANCE of both.  Random fields from a seeded torch.Generator; the
+    resources of each launch where the kernel module reports them."""
+    import subprocess
+
+    from quda_tpu_torch.ops import coarse_pallas as cop
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    X, Y, Z, T = DIMS
+    sites = (T, Z, Y * X)
+    vol = T * Z * Y * X
+    hbm, f32_peak = 3.35e12, 67e12
+    for rows in (3, 2):
+        u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
+        ubw = wpp.backward_gauge(u, X).contiguous()
+        for n in (24, 12):
+            psi = torch.randn((n, 4, 3, 2) + sites, generator=gen,
+                              device=dev)
+            singles = [psi[i].contiguous() for i in range(n)]
+            lanes = torch.stack([wpp.dslash_pallas_packed(
+                u, q, X, gauge_bw=ubw) for q in singles])
+            nbytes = wpp.bytes_per_site_mrhs(n, rows) * vol
+            nflop = wpp.flops_per_site_mrhs(n, rows) * vol
+            bound = 1e3 * max(nbytes / hbm, nflop / f32_peak)
+            rec = {"kernel": "b5", "rows": rows, "nrhs": n,
+                   "dims_xyzt": list(DIMS), "bound_ms": bound,
+                   "b4_launches_ms": _median_ms(lambda: [
+                       wpp.dslash_pallas_packed(u, q, X, gauge_bw=ubw)
+                       for q in singles], torch, repeats=5, batch=2)}
+            for chunk in wpp.MRHS_CHUNKS:
+                got = wpp.dslash_pallas_packed_mrhs(u, psi, X, gauge_bw=ubw,
+                                                    chunk=chunk)
+                ms = _median_ms(lambda: wpp.dslash_pallas_packed_mrhs(
+                    u, psi, X, gauge_bw=ubw, chunk=chunk), torch)
+                rec[f"chunk{chunk}"] = {
+                    "ms": ms, "share_of_bound": bound / ms,
+                    "lanes_bitwise_b4": bool(torch.equal(got, lanes))}
+                if hasattr(wpp, "full_mrhs_info"):
+                    rec[f"chunk{chunk}"].update(wpp.full_mrhs_info(
+                        rows, chunk, T, Z, Y, X))
+            rec["nvidia_smi"] = smi
+            print(json.dumps(rec), flush=True)
+            del psi, singles, lanes, got
+        del u, ubw
+    S, E, n = 8192, 96, 24
+    links = torch.randn((9, S, E, E), generator=gen, device=dev)
+    psi9 = torch.randn((n, 9, S, E), generator=gen, device=dev)
+    got = cop.coarse_apply_pallas_mrhs(links, psi9)
+    want = torch.einsum("ksab,nksb->nsa", links, psi9)
+    singles = [psi9[i] for i in range(n)]
+    lanes = torch.stack([cop.coarse_apply_pallas(links, q) for q in singles])
+    scale = want.abs().max().item()
+    nbytes = (36 * E * E + 40 * E * n) * S
+    nflop = 18 * E * E * n * S
+    bound = 1e3 * max(nbytes / hbm, nflop / f32_peak)
+    ms = _median_ms(lambda: cop.coarse_apply_pallas_mrhs(links, psi9), torch)
+    rec = {"kernel": "b8_mrhs", "sites": S, "E": E, "nrhs": n,
+           "bound_ms": bound, "ms": ms, "share_of_bound": bound / ms,
+           "einsum_ms": _median_ms(lambda: torch.einsum(
+               "ksab,nksb->nsa", links, psi9), torch),
+           "single_launches_ms": _median_ms(lambda: [
+               cop.coarse_apply_pallas(links, q) for q in singles], torch,
+               repeats=5, batch=2),
+           "max_rel_err": (got - want).abs().max().item() / scale,
+           "max_rel_err_vs_single": (got - lanes).abs().max().item() / scale,
+           "tolerance": cop.TOLERANCE, "nvidia_smi": smi}
+    if hasattr(cop, "mrhs_info"):
+        rec.update(cop.mrhs_info(E, n))
+    print(json.dumps(rec), flush=True)
+
+
+def mg_seeds(torch, dev, seeds=(2024, 1, 2, 3, 4)) -> None:
+    """How the Wilson multigrid's outer iterations vary with its
+    hierarchy: on one heatbath gauge (32^3 x 64, beta 6.0, kappa
+    MG_KAPPA, chip_smoke.py's 3-level parameters) the hierarchy is set
+    up once per seed of the generator that draws its null vectors' random
+    starts (2024 is the default), and a gcr-mg solve of one Gaussian
+    source at tol 1e-6 runs on each: set-up seconds, the level-1
+    null-vector B8-mrhs launches, outer iterations, solve seconds and the
+    true residual."""
+    import quda_tpu_torch as qt
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.interfaces import quda_api as api
+    from quda_tpu_torch.mg.pair import PairMG
+    from quda_tpu_torch.ops import coarse_pallas as cop
+
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    g, hb_s = _heatbath_gauge(torch, dev, geom, gen)
+    src = torch.randn(geom.lattice_shape + (4, 3), generator=gen,
+                      device=dev, dtype=torch.complex64)
+    qt.init_quda(dev)
+    qt.load_gauge_quda(g, qt.GaugeParam(X=DIMS, cuda_prec="single"))
+    del g
+    ip = qt.InvertParam(dslash_type="wilson", inv_type="gcr-mg",
+                        solve_type="direct", kappa=MG_KAPPA, tol=1e-6,
+                        cuda_prec="single")
+    mp = qt.MultigridParamAPI(n_level=3,
+                              geo_block_size=((4, 4, 4, 4), (2, 2, 2, 2)),
+                              n_vec=(24, 24))
+    d = api._build_dirac(ip, False, api.complex_dtype("single"))
+    params = api._mg_level_params(mp, "wilson")
+    for seed in seeds:
+        cop.reset_launches()
+        mg = PairMG(d, geom, params,
+                    torch.Generator(device=dev).manual_seed(seed))
+        n8 = cop.coarse_apply_pallas_mrhs.launches
+        api._ctx.update(mg=mg, mg_epoch=api._mg_key(ip), mg_param=mp)
+        qt.invert_quda(src, ip)
+        print(json.dumps({
+            "seed": seed, "setup_s": mg.setup_seconds,
+            "null_vectors_s": [b["seconds"] for b in mg.setup_breakdown
+                               if b["phase"] == "null_vectors"],
+            "b8_mrhs_launches": n8, "outer_iters": ip.iter_count,
+            "secs": ip.secs, "true_res": ip.true_res,
+            "converged": ip.converged, "heatbath_s": hb_s,
+            "device": torch.cuda.get_device_name(0)}), flush=True)
+        del mg
+        qt.destroy_multigrid_quda()
+        torch.cuda.empty_cache()
+    qt.end_quda()
+
+
 def _heatbath_gauge(torch, dev, geom, gen):
     """A quenched gauge at beta MG_BETA from a cold start, MG_SWEEPS
     heatbath sweeps each followed by 4 overrelaxation sweeps, complex64;
@@ -585,7 +739,7 @@ def main() -> int:
         return 1
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     families = {"staggered": staggered, "double": double, "zoo": zoo,
-                "mg": mg}
+                "mg": mg, "mrhs": mrhs, "mg_seeds": mg_seeds}
     if which == "stag_mg":
         masses = tuple(float(m) for m in sys.argv[2:]) or (STAG_MG_MASS,)
         stag_mg(torch, torch.device("cuda", 0), masses)

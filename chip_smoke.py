@@ -2141,6 +2141,7 @@ def multigrid(torch, dev, smi):
     T, Z, Y, X = geom.lattice_shape
     u, ubw = b4_gauge
     errs, timing, bound_by = {}, {}, {}
+    b5_rows = wpp.link_rows(u)
     for n in (MG_NVEC, MG_NVEC // 2):
         psi = torch.randn((n, 4, 3, 2, T, Z, Y * X), generator=gen,
                           device=dev)
@@ -2240,12 +2241,31 @@ def multigrid(torch, dev, smi):
             b_ms, bound_by["b8_mrhs"] = bound(
                 (36 * E * E + 40 * E * n) / n, 18 * E * E, S * n)
             timing["b8_mrhs"] = (k_ms, p_ms, b_ms, lib_ms, single_ms)
+            timing["b8_mrhs_E"] = E
             del vb, psi9_b, singles, lanes
         del links, psi9, got, want
+    # the two multi-RHS kernels' resources at the shapes timed above, from
+    # their query entries (cudaFuncGetAttributes, the occupancy API), held
+    # to the plans their wrappers mirror
+    b5_res = wpp.full_mrhs_info(b5_rows, wpp.FULL_MRHS_CHUNK, T, Z, Y, X)
+    b5_plan = wpp.full_mrhs_plan(b5_rows, T, Z, Y, X)
+    b8_res = cop.mrhs_info(timing["b8_mrhs_E"], MG_NVEC)
+    b8_plan = cop.mrhs_plan(timing["b8_mrhs_E"], MG_NVEC)
+    if (b5_res["smem_bytes"], b5_res["threads"], b5_res["blocks"]) != (
+            b5_plan["smem"], b5_plan["threads"], b5_plan["blocks"]) or (
+            b8_res["smem_bytes"], b8_res["threads"], b8_res["nc"],
+            b8_res["chunks"]) != (b8_plan["smem"], b8_plan["threads"],
+                                  b8_plan["nc"], b8_plan["chunks"]):
+        fail(f"a multi-RHS kernel launched another plan than its wrapper "
+             f"mirrors: B5 {b5_res} against {b5_plan}, B8-mrhs {b8_res} "
+             f"against {b8_plan}")
     emit({"phase": "timing", "family": "multigrid",
           "dims_xyzt": list(PROD_DIMS), "nvidia_smi": smi,
           "repeats": REPEATS, "calls_per_timing": BATCH,
-          "b5": {"nrhs": MG_NVEC, "chunk": wpp.MRHS_CHUNK,
+          "b5": {"nrhs": MG_NVEC, "chunk": wpp.FULL_MRHS_CHUNK,
+                 "registers": b5_res["registers"],
+                 "smem_bytes_per_block": b5_res["smem_bytes"],
+                 "blocks_per_sm": b5_res["blocks_per_sm"],
                  "ms": timing["b5"][0], "plain_ms": timing["b5"][1],
                  "bound_ms": timing["b5"][2],
                  "share_of_bound": timing["b5"][2] / timing["b5"][0],
@@ -2264,7 +2284,12 @@ def multigrid(torch, dev, smi):
               "einsum_ms": timing[f"b8:{li + 1}"][3]}
              for li in range(len(coarse))},
           "b8_mrhs_level1": {
-              "nrhs": MG_NVEC, "ms": timing["b8_mrhs"][0],
+              "nrhs": MG_NVEC, "registers": b8_res["registers"],
+              "smem_bytes_per_block": b8_res["smem_bytes"],
+              "blocks_per_sm": b8_res["blocks_per_sm"],
+              "threads_per_block": b8_res["threads"],
+              "nrhs_per_chunk": b8_res["nc"], "chunks": b8_res["chunks"],
+              "ms": timing["b8_mrhs"][0],
               "plain_ms": timing["b8_mrhs"][1],
               "bound_ms": timing["b8_mrhs"][2],
               "share_of_bound": timing["b8_mrhs"][2] / timing["b8_mrhs"][0],

@@ -38,6 +38,7 @@
 // y, z and t wrap on their own planes.  The TPU kernel's z-block tiles,
 // neighbour tiles and lane rolls are gone: a CUDA thread reads its
 // neighbour.  Offsets are 64-bit.
+#include "async_copy.cuh"
 #include "wilson_hop.cuh"
 
 namespace {
@@ -117,7 +118,7 @@ extern "C" int qtt_wilson_full(void* out, const void* psi, const void* u,
 
 // ---------------------------------------------------------------------------
 // Multi-RHS full-lattice hop (kernel B5): B4's hop over N right-hand sides,
-// each link loaded once for a chunk of them.
+// each link read from device memory once for all of them.
 //
 // Replaces: quda_tpu/ops/wilson_pallas_packed.py::dslash_pallas_packed_mrhs,
 // the Pallas TPU kernel (pallas_call at :557; B4's body under _mrhs_wrap on a
@@ -135,75 +136,189 @@ extern "C" int qtt_wilson_full(void* out, const void* psi, const void* u,
 // once (576 B): at 32^3 x 64 and N = 24 a floor of 10.87 GB, 3.245 ms at
 // 3.35 TB/s.  1320 N flop against (192 N + 576) B is at most 6.9 flop/B.
 //
-// Design: B5-eo's (wilson_eo_mrhs.cu) on the full lattice.  One thread per
-// site and chunk of NB right-hand sides (NB a compile-time 1 or 2; a tail
-// chunk reads and writes only the sides that exist); full_hop_sum<R, NB> of
-// wilson_hop.cuh loads each direction's link once and applies it to the NB
-// spinors, so each right-hand side sees B4's arithmetic in B4's order and
-// matches a B4 launch bit for bit.  The chunk index varies fastest across
-// the grid, so the blocks that serve one site block run side by side and
-// find its links in L2.
+// Design: a block owns a tile of kTile sites of one (t, z) plane (the
+// plane's last tile may be partial) and loops over all N right-hand sides
+// itself.  It copies the tile's links, forward and pre-shifted backward
+// (576 B a site at R = 3, 384 at R = 2), into shared memory once with
+// cp.async, so each link byte leaves device memory once for all N.  Its
+// kLanes x kTile threads are kLanes lanes of a thread a site: lane l takes
+// right-hand sides l NB, l NB + kLanes NB, ... in chunks of NB (1 or 2; a
+// tail chunk reads and writes only the sides that exist).  The hop is
+// full_hop_sum_from of wilson_hop.cuh with the links from the tile's copy
+// (TileShifted) and psi gathered through L1 and L2, so each right-hand side
+// sees B4's arithmetic in B4's order and matches a B4 launch bit for bit.
+// Blocks walk the planes in boxes of kBoxZ z-planes across all t, so the
+// blocks resident at one time cover a 4-d box of the lattice and find most
+// z and t neighbours' psi in L2 (in t-major order the t neighbours of a
+// wave are read again from device memory by the next).  On the H100 a psi
+// window staged in shared memory as well (x and y neighbours, double-
+// buffered) ran slower, its copies and barriers costing more than the L1
+// misses they save, and NB = 2 slower than NB = 1 (PERF.md).  Offsets are
+// 64-bit.
 namespace {
 
-template <int R, int NB>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kTile = 128;       // sites a block
+constexpr int kLanes = 2;        // threads a site
+constexpr int kBoxZ = 4;         // z-planes of a box of the block order
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// Mirrored by quda_tpu_torch/ops/wilson_pallas_packed.py::full_mrhs_plan.
+struct FullMrhsPlan {
+  int tiles;      // tiles a (t, z) plane: ceil(Y*X / kTile)
+  int64_t blocks;
+  size_t smem;    // the tile's links: 2 * 24 R kTile floats
+};
+
+FullMrhsPlan full_mrhs_plan(int T, int Z, int Y, int X, int rows) {
+  FullMrhsPlan p;
+  const int64_t yx = static_cast<int64_t>(Y) * X;
+  p.tiles = static_cast<int>((yx + kTile - 1) / kTile);
+  p.blocks = static_cast<int64_t>(T) * Z * p.tiles;
+  p.smem = sizeof(float) * 2 * 24 * static_cast<size_t>(rows) * kTile;
+  return p;
+}
+
+// the (t, z) plane and tile j of block b: z-boxes of kBoxZ planes, t within
+// a box, z within t (the last box may be thinner), tiles fastest
+__device__ __forceinline__ void block_tile(int64_t b, int tiles, int T,
+                                           int Z, int& t, int& z, int& j) {
+  j = static_cast<int>(b % tiles);
+  const int64_t p = b / tiles;
+  const int zf = Z / kBoxZ * kBoxZ;
+  const int64_t full = static_cast<int64_t>(zf) * T;
+  if (p < full) {
+    const int64_t q = p % (kBoxZ * T);
+    z = static_cast<int>(p / (kBoxZ * T)) * kBoxZ + static_cast<int>(q % kBoxZ);
+    t = static_cast<int>(q / kBoxZ);
+  } else {
+    const int zr = Z - zf;
+    const int64_t q = p - full;
+    t = static_cast<int>(q / zr);
+    z = zf + static_cast<int>(q % zr);
+  }
+}
+
+// two blocks an SM at NB = 1 (at most 128 registers a thread)
+template <int R, int NB, int VEC>
+__global__ void __launch_bounds__(kLanes * kTile, NB == 1 ? 2 : 1)
     wilson_full_mrhs_kernel(float* __restrict__ out,
                             const float* __restrict__ psi,
                             const float* __restrict__ u,
                             const float* __restrict__ u_bw, int T, int Z,
-                            int Y, int X, int tb_sign, int nrhs,
-                            int nchunks) {
+                            int Y, int X, int tb_sign, int nrhs, int tiles) {
+  extern __shared__ __align__(16) float sh[];
+  constexpr int kP = 4 * R * 3 * 2;             // link planes of a set
   const int64_t YX = static_cast<int64_t>(Y) * X;
   const int64_t ZYX = static_cast<int64_t>(Z) * YX;
   const int64_t n = static_cast<int64_t>(T) * ZYX;
-  const int64_t b = blockIdx.x;
-  const int chunk = static_cast<int>(b % nchunks);
-  const int64_t site = (b / nchunks) * kThreads + threadIdx.x;
-  if (site >= n) return;
-  const int r0 = chunk * NB;
-  const int nvalid = min(NB, nrhs - r0);
   const int64_t rstride = 24 * n;
 
-  float2 acc[NB][4][3];
-  full_hop_sum<R, NB>(acc, psi + r0 * rstride, rstride, nvalid, u, u_bw, T,
-                      Z, Y, X, YX, ZYX, n, tb_sign, site);
+  int t, z, j;
+  block_tile(blockIdx.x, tiles, T, Z, t, z, j);
+  const int64_t start = (static_cast<int64_t>(t) * Z + z) * YX +
+                        static_cast<int64_t>(j) * kTile;
+  const int len = static_cast<int>(min64(kTile, YX - j * kTile));
 
+  // the tile's links, [2][kP][kTile]: 2 kP planes of len sites
+  const int per = len / VEC;
+  for (int i = threadIdx.x; i < 2 * kP * per; i += kLanes * kTile) {
+    const int q = i / per;
+    const int k = (i - q * per) * VEC;
+    const float* src = (q < kP ? u + q * n : u_bw + (q - kP) * n) + start + k;
+    cp_async_vec<VEC>(sh + q * kTile + k, src);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int i = threadIdx.x % kTile;
+  const int lane = threadIdx.x / kTile;
+  const int64_t site = start + i;
+  const TileShifted<R> links{sh, sh + kP * kTile, kTile, i};
+  // (in this loop shape the NB = 1 instances fit 128 registers with no
+  // spill; with an early return for i >= len they spilled)
+  for (int base = 0; base < nrhs; base += kLanes * NB) {
+    const int r0 = base + lane * NB;
+    if (i >= len || r0 >= nrhs) continue;
+    const int nvalid = min(NB, nrhs - r0);
+    float2 acc[NB][4][3];
+    full_hop_sum_from(acc, psi + r0 * rstride, rstride, nvalid, links, T, Z,
+                      Y, X, YX, ZYX, n, tb_sign, site);
 #pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (NB > 1 && r >= nvalid) break;
-    float* o = out + (r0 + r) * rstride;
+    for (int r = 0; r < NB; ++r) {
+      if (NB > 1 && r >= nvalid) break;
+      float* o = out + (r0 + r) * rstride;
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
+      for (int s = 0; s < 4; ++s)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float* q = o + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
-        q[0] = acc[r][s][c].x;
-        q[n] = acc[r][s][c].y;
-      }
+        for (int c = 0; c < 3; ++c) {
+          float* q = o + static_cast<int64_t>((s * 3 + c) * 2) * n + site;
+          q[0] = acc[r][s][c].x;
+          q[n] = acc[r][s][c].y;
+        }
+    }
   }
 }
 
-template <int R, int NB>
+template <int R, int NB, int VEC>
 cudaError_t launch_mrhs(void* out, const void* psi, const void* u,
                         const void* u_bw, int T, int Z, int Y, int X,
-                        int tb_sign, int nrhs, int nchunks, unsigned blocks,
+                        int tb_sign, int nrhs, const FullMrhsPlan& p,
                         cudaStream_t stream) {
-  wilson_full_mrhs_kernel<R, NB><<<blocks, kThreads, 0, stream>>>(
+  auto kern = wilson_full_mrhs_kernel<R, NB, VEC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(p.blocks), kLanes * kTile, p.smem, stream>>>(
       static_cast<float*>(out), static_cast<const float*>(psi),
       static_cast<const float*>(u), static_cast<const float*>(u_bw), T, Z, Y,
-      X, tb_sign, nrhs, nchunks);
+      X, tb_sign, nrhs, p.tiles);
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_mrhs_nb(int nb, void* out, const void* psi, const void* u,
-                           const void* u_bw, int T, int Z, int Y, int X,
-                           int tb_sign, int nrhs, int nchunks,
-                           unsigned blocks, cudaStream_t stream) {
-  return nb == 1 ? launch_mrhs<R, 1>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
-                                     nrhs, nchunks, blocks, stream)
-                 : launch_mrhs<R, 2>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
-                                     nrhs, nchunks, blocks, stream);
+// 16-byte copies where every tile's link runs start 16-byte aligned:
+// planes and tiles start at multiples of 4 sites when Y*X is one
+bool full_mrhs_vec4(const void* u, const void* u_bw, int Y, int X) {
+  return (static_cast<int64_t>(Y) * X) % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(u) |
+           reinterpret_cast<uintptr_t>(u_bw)) & 15) == 0;
+}
+
+template <int R, int NB>
+cudaError_t launch_mrhs_vec(bool vec4, void* out, const void* psi,
+                            const void* u, const void* u_bw, int T, int Z,
+                            int Y, int X, int tb_sign, int nrhs,
+                            const FullMrhsPlan& p, cudaStream_t stream) {
+  return vec4 ? launch_mrhs<R, NB, 4>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
+                                      nrhs, p, stream)
+              : launch_mrhs<R, NB, 1>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
+                                      nrhs, p, stream);
+}
+
+template <int R, int NB>
+cudaError_t info_mrhs(const FullMrhsPlan& p, int* info) {
+  auto kern = wilson_full_mrhs_kernel<R, NB, 4>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kern, kLanes * kTile, p.smem);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(p.smem);
+  info[2] = blocks;
+  info[3] = kLanes * kTile;
+  info[4] = p.tiles;
+  info[5] = static_cast<int>(min64(p.blocks, 0x7fffffff));
+  return err;
 }
 
 }  // namespace
@@ -219,17 +334,42 @@ extern "C" int qtt_wilson_full_mrhs(void* out, const void* psi, const void* u,
       (rows != 2 && rows != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t nchunks = (nrhs + nb - 1) / nb;
-  const int64_t blocks = (n + kThreads - 1) / kThreads * nchunks;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned nblk = static_cast<unsigned>(blocks);
+  const FullMrhsPlan p = full_mrhs_plan(T, Z, Y, X, rows);
+  if (p.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const bool v4 = full_mrhs_vec4(u, u_bw, Y, X);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nc = static_cast<int>(nchunks);
-  const cudaError_t err =
-      rows == 3 ? launch_mrhs_nb<3>(nb, out, psi, u, u_bw, T, Z, Y, X,
-                                    tb_sign, nrhs, nc, nblk, s)
-                : launch_mrhs_nb<2>(nb, out, psi, u, u_bw, T, Z, Y, X,
-                                    tb_sign, nrhs, nc, nblk, s);
+  cudaError_t err;
+  if (rows == 3) {
+    err = nb == 1 ? launch_mrhs_vec<3, 1>(v4, out, psi, u, u_bw, T, Z, Y, X,
+                                          tb_sign, nrhs, p, s)
+                  : launch_mrhs_vec<3, 2>(v4, out, psi, u, u_bw, T, Z, Y, X,
+                                          tb_sign, nrhs, p, s);
+  } else {
+    err = nb == 1 ? launch_mrhs_vec<2, 1>(v4, out, psi, u, u_bw, T, Z, Y, X,
+                                          tb_sign, nrhs, p, s)
+                  : launch_mrhs_vec<2, 2>(v4, out, psi, u, u_bw, T, Z, Y, X,
+                                          tb_sign, nrhs, p, s);
+  }
+  return static_cast<int>(err);
+}
+
+// B5's resources at (T, Z, Y, X, rows, nb), for a report (the 16-byte-copy
+// instance): info[0] ptxas registers a thread, [1] dynamic shared memory a
+// block (bytes), [2] resident blocks an SM, [3] threads a block, [4] tiles
+// a (t, z) plane, [5] blocks.
+extern "C" int qtt_wilson_full_mrhs_info(int T, int Z, int Y, int X,
+                                         int rows, int nb, int* info) {
+  if (T <= 0 || Z <= 0 || Y <= 0 || X <= 0 || (nb != 1 && nb != 2) ||
+      (rows != 2 && rows != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FullMrhsPlan p = full_mrhs_plan(T, Z, Y, X, rows);
+  cudaError_t err;
+  if (rows == 3) {
+    err = nb == 1 ? info_mrhs<3, 1>(p, info) : info_mrhs<3, 2>(p, info);
+  } else {
+    err = nb == 1 ? info_mrhs<2, 1>(p, info) : info_mrhs<2, 2>(p, info);
+  }
   return static_cast<int>(err);
 }
 

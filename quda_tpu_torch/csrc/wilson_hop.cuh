@@ -5,9 +5,9 @@
 // canonical layout, wilson_canonical.cu) and the copy-free and int8 eo
 // hops (wilson_eo_there.cu, wilson_eo_int8.cu): the spin tables, the
 // f32/bf16/f64 loads and stores, the link load (R = 3 rows, or R = 2 with
-// row 2 rebuilt), the link sources (pre-shifted backward links, backward
-// links read unshifted at the neighbour, int8 block-float links, the
-// canonical gauge), the clover block entry load, one hop direction, and
+// row 2 rebuilt), the link sources (pre-shifted backward links, their
+// copy in a block's shared memory, backward links read unshifted at the
+// neighbour, int8 block-float links, the canonical gauge), the clover block entry load, one hop direction, and
 // the whole 8-direction hop at one target site: eo_hop_sum on the half
 // lattice, full_hop_sum on the full one; and the layouts (the pair
 // layout of component planes, the fold layout of wilson_eo_fold.cu, the
@@ -247,6 +247,21 @@ __device__ __forceinline__ cplx_t<S> ld_blk(const S* __restrict__ blk,
   return mkc(ld(q), ld(q + n));
 }
 
+// Row 2 of a recon-12 link from rows 0 and 1: conj(row0 x row1) *
+// row2_sign (+-1, exact in any real type).
+template <typename C>
+__device__ __forceinline__ void rebuild_row2(C (&u)[3][3], float row2_sign) {
+  using Re = decltype(u[0][0].x);
+  const Re sg = static_cast<Re>(row2_sign);
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    const int b1 = (b + 1) % 3, b2 = (b + 2) % 3;
+    const C p = cmul(u[0][b1], u[1][b2]);
+    const C q = cmul(u[0][b2], u[1][b1]);
+    u[2][b] = mkc((p.x - q.x) * sg, -(p.y - q.y) * sg);
+  }
+}
+
 // The 3x3 link of direction mu at address i (the imaginary parts im
 // further on: n in the pair layout).  With R = 2 only rows 0 and 1 are
 // stored: row 2 = conj(row0 x row1) * row2_sign (+-1, exact in any real
@@ -263,17 +278,7 @@ __device__ __forceinline__ void ld_link(C (&u)[3][3],
       const S* q = g + static_cast<int64_t>(((mu * R + a) * 3 + b) * 2) * n + i;
       u[a][b] = mkc(ld(q), ld(q + im));
     }
-  if constexpr (R == 2) {
-    using Re = decltype(u[0][0].x);
-    const Re sg = static_cast<Re>(row2_sign);
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int b1 = (b + 1) % 3, b2 = (b + 2) % 3;
-      const C p = cmul(u[0][b1], u[1][b2]);
-      const C q = cmul(u[0][b2], u[1][b1]);
-      u[2][b] = mkc((p.x - q.x) * sg, -(p.y - q.y) * sg);
-    }
-  }
+  if constexpr (R == 2) rebuild_row2(u, row2_sign);
 }
 
 // Link sources of the hop, chosen at compile time: where the 3x3 link of
@@ -290,6 +295,11 @@ __device__ __forceinline__ void ld_link(C (&u)[3][3],
 //                  neighbour x - mu: the index psi is read at, so the x
 //                  hop's slot-parity select is the one psi's uses (the
 //                  copy-free forms v3 and r12f);
+//   TileShifted<R> Shifted's links from a block's copy in shared memory
+//                  (B5, wilson_full.cu): (4, R, 3, 2) planes of ``ts``
+//                  sites, forward ``here`` and pre-shifted backward ``bw``,
+//                  the target at slot ``local``; the same numbers as the
+//                  global arrays hold, so the hop's arithmetic is Shifted's;
 //   Int8There      There's reads on int8 block-float links: 18 int8
 //                  mantissas a link and one f32 scale a (direction, site)
 //                  (4, T, Z, Y*Xh), each element decoded as float(q) * scale
@@ -320,6 +330,28 @@ struct There {
                                        float row2_sign) const {
     ld_link<R>(u, SIGN > 0 ? here : there, MU, n, SIGN > 0 ? site : nb,
                row2_sign, im);
+  }
+};
+
+template <int R>
+struct TileShifted {
+  const float* here;
+  const float* bw;
+  int ts;
+  int local;
+  template <int MU, int SIGN>
+  __device__ __forceinline__ void load(float2 (&u)[3][3], int64_t, int64_t,
+                                       int64_t, int64_t,
+                                       float row2_sign) const {
+    const float* g = (SIGN > 0 ? here : bw) + local;
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const float* q = g + ((MU * R + a) * 3 + b) * 2 * ts;
+        u[a][b] = make_float2(q[0], q[ts]);
+      }
+    if constexpr (R == 2) rebuild_row2(u, row2_sign);
   }
 };
 

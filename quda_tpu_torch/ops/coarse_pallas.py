@@ -16,12 +16,16 @@ version ``coarse_apply_ref`` (the einsum "ksab,ksb->sa", the JAX
 package's reference), CUDA tensors launch the kernel or raise.  Its
 launches are counted in ``coarse_apply_pallas.launches``.
 
-``coarse_apply_pallas_mrhs`` applies the same links to N right-hand
-sides, psi9 (N, 9, S, E) -> (N, S, E), each link read once per chunk of
-``MRHS_CHUNK``: the coarse levels' null-vector block solves, where the
-JAX package vmaps its kernel (every lane re-reading the links).  Each
-right-hand side gets the single form's sums in its order.  Plain
-version: ``coarse_apply_mrhs_ref``.
+``coarse_apply_pallas_mrhs`` (B8-mrhs) applies the same links to N
+right-hand sides, psi9 (N, 9, S, E) -> (N, S, E): the coarse levels'
+null-vector block solves, where the JAX package vmaps its kernel (every
+lane re-reading the links).  Per site it is a GEMM, Out_s = P_s . L_s^T,
+register-tiled on the CUDA cores with the links streamed through shared
+memory, so each link is read once for up to ``mrhs_plan(E, N)["nc"]``
+right-hand sides (all of them at the multigrid's widths).  Its sums run in
+another order than the single form's, so its lanes agree with single
+launches within ``TOLERANCE``, not bit for bit.  Plain version:
+``coarse_apply_mrhs_ref``.
 """
 
 from __future__ import annotations
@@ -32,12 +36,24 @@ from ..utils import kernels
 
 # Kernel vs plain version, max |kernel - plain| / max |plain|: the same
 # 9 E products per output, summed in another order (strided lane partial
-# sums and a shuffle tree against the einsum's order).
+# sums and a shuffle tree, or the multi-RHS form's FMA chains of 32
+# products added tile by tile, against the einsum's order).
 TOLERANCE = 1e-5
 MAX_E = 1024                # the psi9 copy of a site fits 48 KB of shared memory
 
-MRHS_CHUNK = 8              # right-hand sides per block (kMrhsChunk)
-MAX_E_MRHS = 160            # their psi9 copies fit 48 KB of shared memory
+MAX_E_MRHS = 160            # the multi-RHS kernel's widest link block
+
+# The multi-RHS kernel's plan, as csrc/coarse.cu's mrhs_plan makes it: a
+# thread holds MRHS_TA output rows x MRHS_TN right-hand sides; a block at
+# most MRHS_MAX_THREADS threads and MRHS_STAGES stages of MRHS_BK columns
+# (rows padded to MRHS_BK + 4 floats) within MRHS_SMEM_BUDGET bytes, two
+# blocks an SM.
+MRHS_TA, MRHS_TN = 4, 6
+MRHS_BK = 32
+MRHS_STAGES = 4
+MRHS_MAX_THREADS = 256
+MRHS_SMEM_BUDGET = 115712
+_MAX_BLOCKS = 2 ** 31 - 1
 
 _SPEC = "ksab,ksb->sa"
 
@@ -51,6 +67,50 @@ def coarse_apply_mrhs_ref(links: torch.Tensor,
                           psi9: torch.Tensor) -> torch.Tensor:
     """The plain multi-RHS version: einsum "ksab,nksb->nsa", float32."""
     return torch.einsum("ksab,nksb->nsa", links, psi9)
+
+
+def mrhs_plan(E: int, N: int) -> dict:
+    """The multi-RHS kernel's launch at width E and N right-hand sides
+    (csrc/coarse.cu::mrhs_plan): row groups ``ag`` (ceil(E / MRHS_TA)),
+    right-hand sides a chunk ``nc`` (N_max(E) when N exceeds it),
+    ``chunks`` (how often each link is read), ``threads`` a block and
+    dynamic shared memory ``smem`` a block in bytes."""
+    ldk = MRHS_BK + 4
+    ag = -(-E // MRHS_TA)
+    rows_l = ag * MRHS_TA
+    max_rows = MRHS_SMEM_BUDGET // (MRHS_STAGES * ldk * 4)
+    ng = min(-(-N // MRHS_TN), MRHS_MAX_THREADS // ag,
+             (max_rows - rows_l) // MRHS_TN)
+    nc = ng * MRHS_TN
+    return {"ag": ag, "nc": nc, "chunks": -(-N // nc),
+            "threads": -(-(ag * ng) // 32) * 32,
+            "smem": 4 * MRHS_STAGES * (rows_l + nc) * ldk}
+
+
+def check_mrhs(E: int, N: int, S: int) -> dict:
+    """Raise ValueError naming the limit unless the multi-RHS kernel takes
+    width E, N right-hand sides and S sites; its plan otherwise."""
+    if not 1 <= E <= MAX_E_MRHS:
+        raise ValueError(f"E = {E}: the multi-RHS kernel takes 1 <= E <= "
+                         f"MAX_E_MRHS = {MAX_E_MRHS}")
+    if N < 1:
+        raise ValueError(f"N = {N}: the multi-RHS kernel takes N >= 1 "
+                         "right-hand sides")
+    plan = mrhs_plan(E, N)
+    if S * plan["chunks"] > _MAX_BLOCKS:
+        raise ValueError(f"S = {S}, {plan['chunks']} chunks: the grid "
+                         f"exceeds 2^31 - 1 blocks")
+    return plan
+
+
+def mrhs_info(E: int, N: int, vec4: bool = True) -> dict:
+    """The multi-RHS kernel's resources on the card at (E, N): ptxas
+    ``registers``, ``smem_bytes`` a block, resident ``blocks_per_sm``,
+    and ``threads``, ``nc``, ``chunks`` of the plan it launched."""
+    info = kernels.kernel_info("qtt_coarse_apply_mrhs_info", E, N,
+                               int(vec4))
+    threads, nc, chunks = info.pop("extra")
+    return {**info, "threads": threads, "nc": nc, "chunks": chunks}
 
 
 def coarse_model(nc: int) -> dict:
@@ -102,17 +162,13 @@ def coarse_apply_pallas_mrhs(links: torch.Tensor,
     if tuple(links.shape) != (9, S, E, E):
         raise ValueError(f"links of shape {tuple(links.shape)}: expected "
                          f"{(9, S, E, E)} for psi9 {tuple(psi9.shape)}")
+    check_mrhs(E, N, S)
     kind = kernels.dispatch_device(links, psi9)
     if kind == "cpu":
         return coarse_apply_mrhs_ref(links, psi9)
     f32 = torch.float32
     kernels.require(links, "links", (9, S, E, E), f32)
     kernels.require(psi9, "psi9", (N, 9, S, E), f32)
-    if not 1 <= E <= MAX_E_MRHS or N < 1 or \
-            S * -(-N // MRHS_CHUNK) > 2 ** 31 - 1:
-        raise ValueError(f"E = {E}, N = {N}, S = {S}: the multi-RHS kernel "
-                         f"takes 1 <= E <= {MAX_E_MRHS} and N >= 1 within "
-                         "2^31 - 1 blocks")
     lib = kernels.library()
     out = torch.empty((N, S, E), dtype=f32, device=psi9.device)
     rc = lib.qtt_coarse_apply_mrhs(out.data_ptr(), links.data_ptr(),

@@ -37,10 +37,12 @@ and ``r12:f32->f32``; the bf16 forms wait for ROADMAP B5.
 The multi-RHS full-lattice hop (B5) ``dslash_pallas_packed_mrhs``
 replaces dslash_pallas_packed_mrhs of the same JAX module with the
 second entry of ``csrc/wilson_full.cu``: psi and out (N, 4, 3, 2, T, Z,
-Y*X), links as for B4, each link loaded once per chunk; forms
-``full:f32->f32`` and ``r12:f32->f32``.  Each right-hand side gets B4's
-arithmetic in B4's order.  The multigrid set-up's null-vector block
-solve runs it (mg/pair.py).
+Y*X), links as for B4; forms ``full:f32->f32`` and ``r12:f32->f32``.  A
+block copies its tile's links into shared memory once and loops over all
+N right-hand sides, ``chunk`` a thread at a time (``full_mrhs_plan``), so
+each link leaves device memory once.  Each right-hand side gets B4's
+arithmetic in B4's order.  The multigrid
+set-up's null-vector block solve runs it (mg/pair.py).
 
 The copy-free full-lattice hop (B10) ``dslash_pallas_packed_v3`` replaces
 dslash_pallas_packed_v3 of the same JAX module with the third entry of
@@ -212,6 +214,56 @@ def check_mrhs_grid(nrhs: int, sites: int, nb: int) -> None:
         raise ValueError(f"{nrhs} right-hand sides at {sites} half-sites: "
                          f"{blocks} blocks, outside the kernel's grid "
                          f"(1 .. {_MAX_BLOCKS})")
+
+
+# B5's plan, as csrc/wilson_full.cu's full_mrhs_plan makes it: a block owns
+# FULL_MRHS_TILE sites of one (t, z) plane, FULL_MRHS_LANES threads a site,
+# and the tile's links (forward and backward) in shared memory.  Its
+# default chunk is 1 right-hand side a thread, the faster width of the
+# redesigned kernel on the card (PERF.md); 2 stays available.
+FULL_MRHS_TILE = 128
+FULL_MRHS_LANES = 2
+FULL_MRHS_CHUNK = 1
+
+
+def full_mrhs_plan(rows: int, T: int, Z: int, Y: int, X: int) -> dict:
+    """B5's launch on a T x Z x Y x X lattice with R = ``rows``: ``tiles``
+    a (t, z) plane, ``blocks``, ``threads`` a block and dynamic shared
+    memory ``smem`` a block in bytes."""
+    tiles = -(-(Y * X) // FULL_MRHS_TILE)
+    return {"tiles": tiles, "blocks": T * Z * tiles,
+            "threads": FULL_MRHS_LANES * FULL_MRHS_TILE,
+            "smem": 4 * 2 * 24 * rows * FULL_MRHS_TILE}
+
+
+def full_mrhs_chunk(chunk, nrhs: int, rows: int, T: int, Z: int, Y: int,
+                    X: int) -> int:
+    """B5's chunk width (``FULL_MRHS_CHUNK`` unless given); raises
+    ValueError for a width without a kernel instance (``MRHS_CHUNKS``),
+    no right-hand side or a grid (T Z tiles of a plane) beyond 2^31 - 1
+    blocks."""
+    nb = FULL_MRHS_CHUNK if chunk is None else int(chunk)
+    if nb not in MRHS_CHUNKS:
+        raise ValueError(f"chunk {nb}: the multi-RHS kernels have "
+                         f"instances for {MRHS_CHUNKS}")
+    if nrhs < 1:
+        raise ValueError(f"{nrhs} right-hand sides: B5 takes N >= 1")
+    blocks = full_mrhs_plan(rows, T, Z, Y, X)["blocks"]
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"{blocks} blocks of {FULL_MRHS_TILE} sites: "
+                         f"beyond the grid's 2^31 - 1")
+    return nb
+
+
+def full_mrhs_info(rows: int, nb: int, T: int, Z: int, Y: int,
+                   X: int) -> dict:
+    """B5's resources on the card: ptxas ``registers``, ``smem_bytes`` a
+    block, resident ``blocks_per_sm``, and ``threads``, ``tiles``,
+    ``blocks`` of the plan it launches."""
+    info = kernels.kernel_info("qtt_wilson_full_mrhs_info", T, Z, Y, X,
+                               rows, nb)
+    threads, tiles, blocks = info.pop("extra")
+    return {**info, "threads": threads, "tiles": tiles, "blocks": blocks}
 
 
 def form_name(rows: int, store_dtype, out_dtype) -> str:
@@ -525,11 +577,17 @@ def dslash_pallas_packed_mrhs(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
                               tb_sign: bool = True,
                               chunk=None) -> torch.Tensor:
     """Multi-RHS full-lattice Wilson hop sum (B5): psi_pl
-    (N,4,3,2,T,Z,Y*X), links as for ``dslash_pallas_packed``, each loaded
-    once per chunk of ``chunk`` (default ``MRHS_CHUNK``) right-hand sides.
+    (N,4,3,2,T,Z,Y*X), links as for ``dslash_pallas_packed``, each read
+    from device memory once for all N; a thread works through its
+    right-hand sides ``chunk`` at a time (default ``FULL_MRHS_CHUNK``).
     float32 in and out."""
     rows = link_rows(gauge_pl)
     check_batch(psi_pl)
+    T, Z, YX = psi_pl.shape[-3:]
+    if YX % X:
+        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
+    nrhs = psi_pl.shape[0]
+    nb = full_mrhs_chunk(chunk, nrhs, rows, T, Z, YX // X, X)
     if gauge_bw is None:
         gauge_bw = backward_gauge(gauge_pl, X)
     kind = kernels.dispatch_device(gauge_pl, gauge_bw, psi_pl)
@@ -541,12 +599,7 @@ def dslash_pallas_packed_mrhs(gauge_pl: torch.Tensor, psi_pl: torch.Tensor,
         raise TypeError(f"psi {psi_pl.dtype}: the multi-RHS full-lattice "
                         "hop has float32 forms only; its bf16 forms wait "
                         "for ROADMAP A7")
-    T, Z, YX = psi_pl.shape[-3:]
-    if YX % X:
-        raise ValueError(f"fused axis {YX} is not a multiple of X = {X}")
     sites = (T, Z, YX)
-    nrhs = psi_pl.shape[0]
-    nb = mrhs_chunk(chunk, nrhs, T * Z * YX)
     kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
     kernels.require(gauge_pl, "gauge_pl", (4, rows, 3, 2) + sites, f32)
     kernels.require(gauge_bw, "gauge_bw", (4, rows, 3, 2) + sites, f32)

@@ -38,7 +38,8 @@ SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "wilson_eo_fold.cu", "wilson_canonical.cu", "clover_full.cu",
            "halo.cu")
 # headers the sources include: part of the build's hash, never compiled alone
-HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh", "clover_epilogue.cuh")
+HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh", "clover_epilogue.cuh",
+           "async_copy.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -86,6 +87,9 @@ SIGNATURES = {
     # out, psi, u, u_bw, T, Z, Y, X, rows, tb_sign, nrhs, nb, stream
     "qtt_wilson_full_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    # T, Z, Y, X, rows, nb, info[6] (registers, shared bytes, blocks an SM,
+    # threads, halo, blocks)
+    "qtt_wilson_full_mrhs_info": (_I, _I, _I, _I, _I, _I, _P),
     # out, psi, u, u_bw, T, Z, Y, X, nhop, stream
     "qtt_staggered_full_pass": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # out, psi, fat, long, T, Z, Y, X, stream
@@ -97,6 +101,9 @@ SIGNATURES = {
     "qtt_coarse_apply": (_P, _P, _P, _I, _I, _P),
     # out, links, psi9, S, E, nrhs, stream
     "qtt_coarse_apply_mrhs": (_P, _P, _P, _I, _I, _I, _P),
+    # E, nrhs, vec4, info[6] (registers, shared bytes, blocks an SM,
+    # threads, right-hand sides a chunk, chunks)
+    "qtt_coarse_apply_mrhs_info": (_I, _I, _I, _P),
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),
@@ -261,6 +268,19 @@ def stream_of(t: torch.Tensor) -> int:
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def kernel_info(entry: str, *args: int) -> dict:
+    """A kernel's resources from its C query entry (``entry`` takes
+    ``args`` and an int[6]): ptxas registers a thread, dynamic shared
+    memory a block in bytes and resident blocks an SM (from
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    and three entries of the kernel's own (``extra``)."""
+    info = (ctypes.c_int * 6)()
+    rc = getattr(library(), entry)(*args, ctypes.cast(info, ctypes.c_void_p))
+    check_launch(rc, entry)
+    return {"registers": info[0], "smem_bytes": info[1],
+            "blocks_per_sm": info[2], "extra": list(info[3:])}
 
 
 def require(t: torch.Tensor, name: str, shape=None,

@@ -1081,6 +1081,117 @@ def test_coarse_mrhs_kernel_matches_plain_and_single(n, e):
     assert rel_err(g, single.cpu().numpy()) <= cop.TOLERANCE
 
 
+# (T, Z, Y, X) of the redesigned B5's tile edges: Y*X = 168 leaves a
+# partial tile of 40 sites on each plane and Z = 5 a partial z-box; Y*X =
+# 35 takes the 4-byte copies (Y*X not a multiple of 4); Y*X = 272 ends
+# each plane in a tile of 16 sites, with T = 2 (a t neighbour both ways)
+B5_TILE_EXTENTS = [(6, 5, 12, 14), (4, 3, 5, 7), (2, 3, 4, 68)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 13, 24])
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("extents", B5_TILE_EXTENTS,
+                         ids=lambda e: "x".join(map(str, e)))
+def test_full_hop_mrhs_tiles_match_b4(extents, rows, chunk, n):
+    """B5 on lattices whose planes end in partial tiles (and a lattice
+    that takes the 4-byte copies): each lane bit for bit a B4 launch,
+    within TOLERANCE of the plain version; one launch counted."""
+    dev = require_cuda()
+    T, Z, Y, X = extents
+    gen = torch.Generator(device=dev).manual_seed(141 + rows + n + X)
+    sites = (T, Z, Y * X)
+    u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
+    ubw = wpp.backward_gauge(u, X).contiguous()
+    psi = torch.randn((n, 4, 3, 2) + sites, generator=gen, device=dev)
+    n0 = wpp.dslash_pallas_packed_mrhs.launches
+    got = wpp.dslash_pallas_packed_mrhs(u, psi, X, gauge_bw=ubw, chunk=chunk)
+    assert wpp.dslash_pallas_packed_mrhs.launches == n0 + 1
+    lanes = torch.stack([wpp.dslash_pallas_packed(
+        u, psi[i].contiguous(), X, gauge_bw=ubw) for i in range(n)])
+    want = wpp.dslash_packed_mrhs_plain(u, ubw, psi, X)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanes)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= wpp.TOLERANCE
+
+
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_full_hop_mrhs_resources_match_plan(rows, chunk):
+    """B5's query entry at 32^3 x 64: the shared memory, threads, tiles
+    and blocks of full_mrhs_plan; two blocks an SM at chunk 1, at least
+    one at chunk 2."""
+    require_cuda()
+    T, Z, Y, X = 64, 32, 32, 32
+    info = wpp.full_mrhs_info(rows, chunk, T, Z, Y, X)
+    plan = wpp.full_mrhs_plan(rows, T, Z, Y, X)
+    assert info["smem_bytes"] == plan["smem"]
+    assert (info["threads"], info["tiles"], info["blocks"]) == (
+        plan["threads"], plan["tiles"], plan["blocks"])
+    assert 0 < info["registers"] <= 255
+    assert info["blocks_per_sm"] >= (2 if chunk == 1 else 1)
+
+
+@pytest.mark.parametrize("sites", [1, 33, 2048])
+@pytest.mark.parametrize("e", [8, 16, 20, 96, 160])
+@pytest.mark.parametrize("n", [1, 3, 8, 24, 25, 40])
+def test_coarse_mrhs_gemm_matches_plain_and_single(n, e, sites):
+    """The redesigned B8-mrhs at N = 1 .. 40, E = 8 .. 160 and 1 .. 2048
+    sites: within TOLERANCE of its plain version and of N single
+    launches, one launch counted.  (E, N) = (160, 40) exceeds N_max(160)
+    = 36, so the links are read in two chunks."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(151 + n + e + sites)
+    links = torch.randn((9, sites, e, e), generator=gen, device=dev)
+    psi9 = torch.randn((n, 9, sites, e), generator=gen, device=dev)
+    n0 = cop.coarse_apply_pallas_mrhs.launches
+    got = cop.coarse_apply_pallas_mrhs(links, psi9)
+    assert cop.coarse_apply_pallas_mrhs.launches == n0 + 1
+    want = cop.coarse_apply_mrhs_ref(links, psi9)
+    single = torch.stack([cop.coarse_apply_pallas(links, psi9[i])
+                          for i in range(n)])
+    torch.cuda.synchronize()
+    assert got.shape == (n, sites, e)
+    g = got.cpu().numpy()
+    assert rel_err(g, want.cpu().numpy()) <= cop.TOLERANCE
+    assert rel_err(g, single.cpu().numpy()) <= cop.TOLERANCE
+    if (e, n) == (160, 40):
+        assert cop.mrhs_plan(e, n)["chunks"] == 2
+
+
+@pytest.mark.parametrize("e", [1, 5, 7, 33, 96])
+def test_coarse_mrhs_unaligned_inputs_match_plain(e):
+    """B8-mrhs where the 16-byte copies do not apply: E not a multiple of
+    4, or links and psi9 starting 4 bytes past a 16-byte boundary (views
+    one float into larger buffers): within TOLERANCE of the plain
+    version."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(171 + e)
+    n, sites = 10, 65
+    lbuf = torch.randn(9 * sites * e * e + 1, generator=gen, device=dev)
+    pbuf = torch.randn(n * 9 * sites * e + 1, generator=gen, device=dev)
+    links = lbuf[1:].view(9, sites, e, e)
+    psi9 = pbuf[1:].view(n, 9, sites, e)
+    got = cop.coarse_apply_pallas_mrhs(links, psi9)
+    want = cop.coarse_apply_mrhs_ref(links, psi9)
+    torch.cuda.synchronize()
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= cop.TOLERANCE
+
+
+@pytest.mark.parametrize("e,n", [(96, 24), (160, 40), (20, 3), (7, 5)])
+def test_coarse_mrhs_resources_match_plan(e, n):
+    """B8-mrhs's query entry: threads, right-hand sides a chunk, chunks
+    and shared memory as mrhs_plan makes them; at least one block an
+    SM."""
+    require_cuda()
+    plan = cop.mrhs_plan(e, n)
+    info = cop.mrhs_info(e, n, vec4=e % 4 == 0)
+    assert info["smem_bytes"] == plan["smem"]
+    assert (info["threads"], info["nc"], info["chunks"]) == (
+        plan["threads"], plan["nc"], plan["chunks"])
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1
+
+
 def test_mg_kernels_refuse_what_they_lack():
     """B5 without a float32 batch or a valid chunk, and B8 with float64
     links, an E above MAX_E or mismatched shapes, raise; nothing

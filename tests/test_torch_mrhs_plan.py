@@ -1,0 +1,112 @@
+"""The launch plans of the two multi-RHS kernels of the Wilson multigrid
+set-up, B8-mrhs (ops/coarse_pallas.py::mrhs_plan) and B5
+(ops/wilson_pallas_packed.py::full_mrhs_plan), which mirror the C
+planners in csrc/coarse.cu and csrc/wilson_full.cu (the card tests hold
+the two to each other through the kernels' query entries); and the wrappers'
+refusals, which run before any launch, on the CPU path too.  Pure
+Python: no card, no JAX.
+"""
+
+import pytest
+import torch
+
+from quda_tpu_torch.ops import coarse_pallas as cop
+from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+SMEM_PER_BLOCK = 232448     # the H100's opt-in shared memory of a block
+
+
+def test_coarse_mrhs_plan_fits_every_accepted_width():
+    """Every (E, N) the wrapper accepts (E 1 .. MAX_E_MRHS, N >= 1) plans
+    a block within 227 KB of shared memory, within the two-blocks-an-SM
+    budget, of at most 256 threads holding at least one right-hand side,
+    and chunks that cover N."""
+    for e in range(1, cop.MAX_E_MRHS + 1):
+        for n in (1, 2, 5, 6, 7, 24, 25, 36, 37, 40, 64, 100, 1000, 10 ** 5):
+            p = cop.mrhs_plan(e, n)
+            assert p["smem"] <= cop.MRHS_SMEM_BUDGET <= SMEM_PER_BLOCK
+            assert 32 <= p["threads"] <= cop.MRHS_MAX_THREADS
+            assert p["threads"] % 32 == 0
+            assert p["ag"] * cop.MRHS_TA >= e
+            assert p["nc"] >= 1 and p["nc"] % cop.MRHS_TN == 0
+            assert p["chunks"] * p["nc"] >= n > (p["chunks"] - 1) * p["nc"]
+
+
+def test_coarse_mrhs_plan_reads_links_once_at_the_multigrid_width():
+    """At the smoke's level-1 shape (E 96, N 24) one chunk holds every
+    right-hand side, so each link is read once; N_max(E) (nc when N is
+    large) is 60 at E 96 and 36 at E 160, where N = 40 takes two
+    chunks."""
+    p = cop.mrhs_plan(96, 24)
+    assert (p["nc"], p["chunks"], p["threads"]) == (24, 1, 96)
+    assert p["smem"] == 4 * 4 * (96 + 24) * 36
+    assert cop.mrhs_plan(96, 10 ** 4)["nc"] == 60
+    assert cop.mrhs_plan(160, 10 ** 4)["nc"] == 36
+    assert cop.mrhs_plan(160, 40)["chunks"] == 2
+
+
+@pytest.mark.parametrize("rows", [3, 2])
+def test_full_mrhs_plan_fits_every_accepted_lattice(rows):
+    """B5's block (the tile's forward and backward links) fits 227 KB of
+    shared memory, two blocks to an SM, for every lattice; its tiles
+    cover each (t, z) plane."""
+    for X in range(1, 80):
+        for Y in (1, 2, 5, 8, 32):
+            p = wpp.full_mrhs_plan(rows, 3, 5, Y, X)
+            assert 2 * (p["smem"] + 1024) <= 233472
+            assert p["smem"] <= SMEM_PER_BLOCK
+            assert (p["tiles"] - 1) * wpp.FULL_MRHS_TILE < Y * X \
+                <= p["tiles"] * wpp.FULL_MRHS_TILE
+            assert p["blocks"] == 3 * 5 * p["tiles"]
+            assert p["threads"] == wpp.FULL_MRHS_LANES * wpp.FULL_MRHS_TILE
+
+
+def test_full_mrhs_plan_at_the_smoke_lattice():
+    """32^3 x 64: 8 tiles a plane, 16384 blocks of 256 threads; the tile's
+    links take 73,728 bytes (R = 3) and 49,152 (R = 2); B5's default
+    chunk is 1."""
+    p3 = wpp.full_mrhs_plan(3, 64, 32, 32, 32)
+    p2 = wpp.full_mrhs_plan(2, 64, 32, 32, 32)
+    assert (p3["tiles"], p3["blocks"], p3["threads"]) == (8, 16384, 256)
+    assert (p3["smem"], p2["smem"]) == (73728, 49152)
+    assert wpp.full_mrhs_chunk(None, 24, 3, 64, 32, 32, 32) == 1
+
+
+def test_coarse_mrhs_refusals_name_the_limit_before_any_launch():
+    """B8-mrhs refuses E outside 1 .. MAX_E_MRHS and N = 0 with a
+    ValueError naming the limit, on the CPU path too; nothing is
+    counted."""
+    n0 = cop.coarse_apply_pallas_mrhs.launches
+    e = cop.MAX_E_MRHS + 1
+    with pytest.raises(ValueError, match="MAX_E_MRHS = 160"):
+        cop.coarse_apply_pallas_mrhs(torch.zeros((9, 2, e, e)),
+                                     torch.zeros((3, 9, 2, e)))
+    with pytest.raises(ValueError, match="N >= 1"):
+        cop.coarse_apply_pallas_mrhs(torch.zeros((9, 2, 8, 8)),
+                                     torch.zeros((0, 9, 2, 8)))
+    with pytest.raises(ValueError, match="MAX_E_MRHS"):
+        cop.check_mrhs(0, 3, 2)
+    assert cop.check_mrhs(cop.MAX_E_MRHS, 3, 2)["chunks"] == 1
+    assert cop.coarse_apply_pallas_mrhs.launches == n0
+
+
+def test_full_mrhs_refusals_name_the_limit_before_any_launch():
+    """B5 refuses a chunk without an instance, N = 0 and a fused axis that
+    is not a multiple of X with a ValueError naming the limit, on the CPU
+    path too; nothing is counted."""
+    n0 = wpp.dslash_pallas_packed_mrhs.launches
+    sites = (2, 2, 3 * 4)
+    u = torch.zeros((4, 3, 3, 2) + sites)
+    psi = torch.zeros((2, 4, 3, 2) + sites)
+    with pytest.raises(ValueError, match=r"chunk 3.*\(1, 2\)"):
+        wpp.dslash_pallas_packed_mrhs(u, psi, 4, gauge_bw=u, chunk=3)
+    with pytest.raises(ValueError, match="N >= 1"):
+        wpp.dslash_pallas_packed_mrhs(u, psi[:0], 4, gauge_bw=u)
+    with pytest.raises(ValueError, match="multiple of X = 5"):
+        wpp.dslash_pallas_packed_mrhs(u, psi, 5, gauge_bw=u)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        wpp.full_mrhs_chunk(None, 1, 3, 2 ** 16, 2 ** 16, 1, 2 ** 10)
+    assert wpp.full_mrhs_chunk(None, 5, 3, 2, 2, 3, 4) == \
+        wpp.FULL_MRHS_CHUNK
+    assert wpp.full_mrhs_chunk(2, 5, 3, 2, 2, 3, 4) == 2
+    assert wpp.dslash_pallas_packed_mrhs.launches == n0
