@@ -3,7 +3,9 @@
 
     python3 chip_profile.py [all|wilson|double|staggered|zoo|mg]  # default all
     python3 chip_profile.py stag_mg [MASS ...]   # default chip_smoke's mass
-    python3 chip_profile.py mrhs     # B5 and B8-mrhs alone (not in all)
+    python3 chip_profile.py mrhs     # B5, B8-mrhs, B5-eo, S2-mrhs-full alone
+    python3 chip_profile.py mrhs_variants [PARENT_CSRC|-] [eo] [stag]
+                                     # their variants, against the parent
     python3 chip_profile.py mg_seeds # MG iterations per null-vector seed
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
@@ -494,29 +496,44 @@ def _median_ms(fn, torch, repeats=15, batch=5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def mrhs(torch, dev) -> None:
-    """Time the two multi-RHS kernels of the Wilson multigrid set-up at
-    its shapes: B5 (the full-lattice hop on N = 24 and 12 right-hand
-    sides at 32^3 x 64, full and r12 links, chunk 1 and 2) against its
-    bound and N B4 launches, each lane checked bit for bit against B4;
-    and B8-mrhs (S 8192, E 96, N 24: level 1 of the smoke's hierarchy)
-    against its bound, ``torch.einsum`` and N single launches, within
-    TOLERANCE of both.  Random fields from a seeded torch.Generator; the
-    resources of each launch where the kernel module reports them."""
+def _smi() -> str:
     import subprocess
 
-    from quda_tpu_torch.ops import coarse_pallas as cop
-    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
-
-    smi = subprocess.run(
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
+
+
+HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+
+
+def _bound_ms(nbytes, nflop) -> float:
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, nflop / F32_FLOPS_PER_S)
+
+
+def mrhs(torch, dev) -> None:
+    """Time the multi-RHS kernels that stage their links in shared memory,
+    each at its paths' shapes at 32^3 x 64 and against its bound: B5 (the
+    full-lattice hop, N = 24 and 12, the Wilson multigrid set-up) against
+    N B4 launches, lanes bit for bit B4; B8-mrhs (S 8192, E 96, N 24:
+    level 1 of the smoke's hierarchy) against ``torch.einsum`` and N single
+    launches; B5-eo (the eo hop, N = 12: the 12-source Wilson and Möbius
+    batches, N = 6: the 5d-PC domain wall's) against N B1 launches, lanes
+    bit for bit B1; S2-mrhs-full (N = 24, fat, and the Naik pass
+    accumulating into it: the staggered multigrid's null vectors) against
+    N S2-full launches, lanes bit for bit S2-full and fat + Naik bit for
+    bit S1-full.  Full and r12 links, each chunk width; random fields
+    from a seeded torch.Generator; each launch's registers, shared memory
+    and resident blocks an SM where the kernel module reports them."""
+    from quda_tpu_torch.ops import coarse_pallas as cop
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+    smi = _smi()
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
     X, Y, Z, T = DIMS
     sites = (T, Z, Y * X)
     vol = T * Z * Y * X
-    hbm, f32_peak = 3.35e12, 67e12
     for rows in (3, 2):
         u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
         ubw = wpp.backward_gauge(u, X).contiguous()
@@ -526,9 +543,8 @@ def mrhs(torch, dev) -> None:
             singles = [psi[i].contiguous() for i in range(n)]
             lanes = torch.stack([wpp.dslash_pallas_packed(
                 u, q, X, gauge_bw=ubw) for q in singles])
-            nbytes = wpp.bytes_per_site_mrhs(n, rows) * vol
-            nflop = wpp.flops_per_site_mrhs(n, rows) * vol
-            bound = 1e3 * max(nbytes / hbm, nflop / f32_peak)
+            bound = _bound_ms(wpp.bytes_per_site_mrhs(n, rows) * vol,
+                              wpp.flops_per_site_mrhs(n, rows) * vol)
             rec = {"kernel": "b5", "rows": rows, "nrhs": n,
                    "dims_xyzt": list(DIMS), "bound_ms": bound,
                    "b4_launches_ms": _median_ms(lambda: [
@@ -557,9 +573,7 @@ def mrhs(torch, dev) -> None:
     singles = [psi9[i] for i in range(n)]
     lanes = torch.stack([cop.coarse_apply_pallas(links, q) for q in singles])
     scale = want.abs().max().item()
-    nbytes = (36 * E * E + 40 * E * n) * S
-    nflop = 18 * E * E * n * S
-    bound = 1e3 * max(nbytes / hbm, nflop / f32_peak)
+    bound = _bound_ms((36 * E * E + 40 * E * n) * S, 18 * E * E * n * S)
     ms = _median_ms(lambda: cop.coarse_apply_pallas_mrhs(links, psi9), torch)
     rec = {"kernel": "b8_mrhs", "sites": S, "E": E, "nrhs": n,
            "bound_ms": bound, "ms": ms, "share_of_bound": bound / ms,
@@ -574,6 +588,336 @@ def mrhs(torch, dev) -> None:
     if hasattr(cop, "mrhs_info"):
         rec.update(cop.mrhs_info(E, n))
     print(json.dumps(rec), flush=True)
+    del links, psi9, got, want, singles, lanes
+    _mrhs_eo(torch, dev, smi, gen)
+    _mrhs_stag_full(torch, dev, smi, gen)
+
+
+def _mrhs_eo(torch, dev, smi, gen) -> None:
+    """B5-eo at 32^3 x 64, N = 12 and 6, R = 3 and 2, each chunk width."""
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+    X, Y, Z, T = DIMS
+    Xh = X // 2
+    dims = (T, Z, Y, X)
+    sites = (T, Z, Y * Xh)
+    half = T * Z * Y * Xh
+    for rows in (3, 2):
+        u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
+        ubw = torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                          device=dev)
+        for n in (12, 6):
+            psi = torch.randn((n, 4, 3, 2) + sites, generator=gen,
+                              device=dev)
+            singles = [psi[i].contiguous() for i in range(n)]
+            lanes = torch.stack([wpp.dslash_eo_pallas_packed(
+                u, ubw, q, dims, 0) for q in singles])
+            bound = _bound_ms(wpp.bytes_per_site_mrhs(n, rows) * half,
+                              wpp.flops_per_site_mrhs(n, rows) * half)
+            rec = {"kernel": "b5eo", "rows": rows, "nrhs": n,
+                   "dims_xyzt": list(DIMS), "bound_ms": bound,
+                   "b1_launches_ms": _median_ms(lambda: [
+                       wpp.dslash_eo_pallas_packed(u, ubw, q, dims, 0)
+                       for q in singles], torch, repeats=5, batch=2)}
+            for chunk in wpp.MRHS_CHUNKS:
+                got = wpp.dslash_eo_pallas_packed_mrhs(u, ubw, psi, dims, 0,
+                                                       chunk=chunk)
+                ms = _median_ms(lambda: wpp.dslash_eo_pallas_packed_mrhs(
+                    u, ubw, psi, dims, 0, chunk=chunk), torch)
+                rec[f"chunk{chunk}"] = {
+                    "ms": ms, "share_of_bound": bound / ms,
+                    "lanes_bitwise_b1": bool(torch.equal(got, lanes))}
+                if hasattr(wpp, "eo_mrhs_info"):
+                    rec[f"chunk{chunk}"].update(wpp.eo_mrhs_info(
+                        rows, chunk, T, Z, Y, Xh))
+            rec["nvidia_smi"] = smi
+            print(json.dumps(rec), flush=True)
+            del psi, singles, lanes, got
+        del u, ubw
+
+
+def _mrhs_stag_full(torch, dev, smi, gen) -> None:
+    """S2-mrhs-full at 32^3 x 64, N = 24: the fat pass, and the Naik pass
+    accumulating into it."""
+    from quda_tpu_torch.ops import staggered_pallas as spl
+
+    X, Y, Z, T = DIMS
+    sites = (T, Z, Y * X)
+    vol = T * Z * Y * X
+    n = 24
+    fat = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
+    lng = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev) / 24
+    fbw = spl.backward_links(fat, X, 1).contiguous()
+    lbw = spl.backward_links(lng, X, 3).contiguous()
+    psi = torch.randn((n, 3, 2) + sites, generator=gen, device=dev)
+    singles = [psi[i].contiguous() for i in range(n)]
+    got = spl.dslash_staggered_pass_mrhs(fat, fbw, psi, X, 1)
+    lanes = torch.stack([spl.dslash_staggered_pass(fat, fbw, q, X, 1)
+                         for q in singles])
+    both = got.clone()
+    spl.dslash_staggered_pass_mrhs(lng, lbw, psi, X, 3, acc=both)
+    s1 = torch.stack([spl.dslash_staggered_pallas_fused(fat, q, X, lng)
+                      for q in singles])
+    acc = got.clone()
+    for nhop, accum in ((1, False), (3, True)):
+        u, ubw = (fat, fbw) if nhop == 1 else (lng, lbw)
+        bound = _bound_ms(spl.pass_mrhs_bytes_per_site(n, accum) * vol,
+                          spl.PASS_FLOPS_PER_SITE * n * vol)
+        ms = _median_ms(lambda: spl.dslash_staggered_pass_mrhs(
+            u, ubw, psi, X, nhop, acc=acc if accum else None), torch)
+        rec = {"kernel": "s2_mrhs_full", "hopset": spl.HOPSET[nhop],
+               "accumulate": accum, "nrhs": n, "dims_xyzt": list(DIMS),
+               "bound_ms": bound, "ms": ms, "share_of_bound": bound / ms,
+               "s2_full_launches_ms": _median_ms(lambda: [
+                   spl.dslash_staggered_pass(u, ubw, q, X, nhop)
+                   for q in singles], torch, repeats=5, batch=2),
+               "lanes_bitwise_s2_full": bool(torch.equal(got, lanes)),
+               "fat_plus_naik_bitwise_s1_full": bool(torch.equal(both, s1)),
+               "nvidia_smi": smi}
+        if hasattr(spl, "full_mrhs_info"):
+            rec.update(spl.full_mrhs_info(nhop, accum, T, Z, Y, X))
+        print(json.dumps(rec), flush=True)
+
+
+# Variants of the tiled multi-RHS hops, each a set of the kernel source's
+# constexpr parameters (an empty set: the shipped source), built into
+# their own libraries and timed against each other, and against the
+# parent tree's kernel when its source directory is given.
+EO_VARIANTS = {
+    "shipped": {},
+    "tile64": {"kTile": 64},
+    "tile256": {"kTile": 256, "kLanes": 1},
+    "lanes1": {"kLanes": 1},
+    "lanes4_tile64": {"kTile": 64, "kLanes": 4},
+    "box2": {"kBoxZ": 2},
+    "box8": {"kBoxZ": 8},
+    "tmajor": {"kBoxZ": 32},
+    "minblocks1": {"kMinBlocks": 1},
+    "minblocks3": {"kMinBlocks": 3},
+}
+
+
+def _stag_variant(tile, lanes, nb, box=4, min_blocks=2):
+    return {"kMrhsTile": tile, "kMrhsLanes": lanes, "kMrhsNB": nb,
+            "kMrhsBoxZ": box, "kMrhsMinBlocks": min_blocks}
+
+
+# S2-mrhs-full's variants name every parameter (tile, lanes, chunk, box
+# depth, blocks an SM), so they do not depend on the shipped values
+STAG_VARIANTS = {
+    "shipped": {},
+    "t128_l2_nb4": _stag_variant(128, 2, 4),
+    "t128_l2_nb2": _stag_variant(128, 2, 2),
+    "t128_l2_nb8": _stag_variant(128, 2, 8),
+    "t64_l4_nb1": _stag_variant(64, 4, 1),
+    "t64_l4_nb2": _stag_variant(64, 4, 2),
+    "t256_l1_nb4": _stag_variant(256, 1, 4),
+    "t64_l2_nb4": _stag_variant(64, 2, 4),
+    "t128_l2_nb4_box2": _stag_variant(128, 2, 4, box=2),
+    "t128_l2_nb4_box8": _stag_variant(128, 2, 4, box=8),
+    "t128_l2_nb4_tmajor": _stag_variant(128, 2, 4, box=32),
+    "t128_l2_nb4_mb1": _stag_variant(128, 2, 4, min_blocks=1),
+    "t128_l2_nb4_mb3": _stag_variant(128, 2, 4, min_blocks=3),
+    "t32_l8_nb1": _stag_variant(32, 8, 1),
+    "t32_l4_nb1": _stag_variant(32, 4, 1),
+    "t16_l8_nb1": _stag_variant(16, 8, 1),
+    "t64_l8_nb1": _stag_variant(64, 8, 1),
+    "t64_l4_nb1_mb3": _stag_variant(64, 4, 1, min_blocks=3),
+    "t32_l8_nb1_mb3": _stag_variant(32, 8, 1, min_blocks=3),
+    "t64_l4_nb1_box2": _stag_variant(64, 4, 1, box=2),
+    "t64_l4_nb1_box8": _stag_variant(64, 4, 1, box=8),
+    "t64_l4_nb1_tmajor": _stag_variant(64, 4, 1, box=32),
+    "t32_l8_nb1_box8": _stag_variant(32, 8, 1, box=8),
+}
+
+
+def _build_variants(source: str, variants: dict, parent_csrc=None) -> dict:
+    """One shared library for each variant of ``csrc/<source>`` (and the
+    parent's source as "parent"), all nvcc processes started together,
+    under the git-ignored build directory; returns name -> (ctypes
+    library, ptxas log)."""
+    import ctypes
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from quda_tpu_torch.utils import kernels
+
+    root = kernels.BUILD_ROOT / "variants" / Path(source).stem
+    text = (kernels.CSRC / source).read_text()
+    jobs = {}
+    for name, params in variants.items():
+        src = text
+        for key, val in params.items():
+            src, hits = re.subn(rf"(constexpr int {key} = )\d+;",
+                                rf"\g<1>{val};", src)
+            if hits != 1:
+                raise ValueError(f"{source}: {key} found {hits} times")
+        jobs[name] = (src, kernels.CSRC)
+    if parent_csrc is not None:
+        jobs["parent"] = ((Path(parent_csrc) / source).read_text(),
+                          Path(parent_csrc))
+    procs = {}
+    for name, (src, inc) in jobs.items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / source).write_text(src)
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
+               "-I", str(inc), "-o", str(d / "lib.so"), str(d / source)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name} of {source}:\n{log}")
+        libs[name] = (ctypes.CDLL(str(root / name / "lib.so")), log)
+    return libs
+
+
+def _variant_info(lib, entry, *args) -> dict:
+    import ctypes
+
+    fn = getattr(lib, entry, None)
+    if fn is None:
+        return {}
+    info = (ctypes.c_int * 6)()
+    fn.restype = ctypes.c_int
+    rc = fn(*[ctypes.c_int(a) for a in args],
+            ctypes.cast(info, ctypes.c_void_p))
+    return {} if rc else {"registers": info[0], "smem_bytes": info[1],
+                          "blocks_per_sm": info[2], "threads": info[3]}
+
+
+def mrhs_variants(torch, dev, parent_csrc=None, which=("eo", "stag")) -> None:
+    """Time variants of B5-eo (csrc/wilson_eo_mrhs.cu: tile, lanes, box
+    depth, blocks an SM) at N = 12 and 6, R = 3 and 2, each chunk, and of
+    S2-mrhs-full (csrc/staggered_full.cu: chunk, lanes, tile, box depth,
+    blocks an SM) at N = 24, fat and Naik accumulating, at 32^3 x 64,
+    through their C entries in libraries of their own; and the parent
+    tree's kernels where ``parent_csrc`` (its csrc directory) is given.
+    Each shape's variants run in turns, forward then backward, and each
+    output is checked bit for bit against single-RHS launches (B1,
+    S2-full) of this tree."""
+    import ctypes
+
+    from quda_tpu_torch.ops import staggered_pallas as spl
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.utils import kernels
+
+    smi = _smi()
+    t0 = time.perf_counter()
+    eo_libs = (_build_variants("wilson_eo_mrhs.cu", EO_VARIANTS, parent_csrc)
+               if "eo" in which else {})
+    st_libs = (_build_variants("staggered_full.cu", STAG_VARIANTS,
+                               parent_csrc) if "stag" in which else {})
+    print(json.dumps({"variants_built_s": time.perf_counter() - t0}),
+          flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    X, Y, Z, T = DIMS
+    Xh = X // 2
+    dims = (T, Z, Y, X)
+
+    def turns(names, run):
+        """{name: (ms forward, ms backward)}: the variants in turns."""
+        order = list(names)
+        fwd = {k: _median_ms(lambda: run(k), torch, repeats=9) for k in order}
+        bwd = {k: _median_ms(lambda: run(k), torch, repeats=9)
+               for k in reversed(order)}
+        return {k: (fwd[k], bwd[k]) for k in order}
+
+    sites = (T, Z, Y * Xh)
+    half = T * Z * Y * Xh
+    for name, (lib, _) in eo_libs.items():
+        getattr(lib, "qtt_wilson_eo_mrhs").argtypes = list(
+            kernels.SIGNATURES["qtt_wilson_eo_mrhs"])
+    for rows in (3, 2) if eo_libs else ():
+        u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
+        ubw = torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                          device=dev)
+        for n in (12, 6):
+            psi = torch.randn((n, 4, 3, 2) + sites, generator=gen,
+                              device=dev)
+            out = torch.empty_like(psi)
+            lanes = torch.stack([wpp.dslash_eo_pallas_packed(
+                u, ubw, psi[i].contiguous(), dims, 0) for i in range(n)])
+            bound = _bound_ms(wpp.bytes_per_site_mrhs(n, rows) * half,
+                              wpp.flops_per_site_mrhs(n, rows) * half)
+            for chunk in wpp.MRHS_CHUNKS:
+                def run(k):
+                    rc = eo_libs[k][0].qtt_wilson_eo_mrhs(
+                        out.data_ptr(), psi.data_ptr(), u.data_ptr(),
+                        ubw.data_ptr(), T, Z, Y, Xh, 0, rows, 1, n, chunk,
+                        stream)
+                    kernels.check_launch(rc, f"B5-eo variant {k}")
+                bits = {}
+                for k in eo_libs:
+                    out.zero_()
+                    run(k)
+                    bits[k] = bool(torch.equal(out, lanes))
+                ms = turns(eo_libs, run)
+                print(json.dumps({
+                    "kernel": "b5eo_variants", "rows": rows, "nrhs": n,
+                    "chunk": chunk, "bound_ms": bound,
+                    "variants": {k: {"ms": v, "share_of_bound": [
+                        bound / t for t in v], "lanes_bitwise_b1": bits[k],
+                        **EO_VARIANTS.get(k, {}),
+                        **_variant_info(eo_libs[k][0],
+                                        "qtt_wilson_eo_mrhs_info", T, Z, Y,
+                                        Xh, rows, chunk)}
+                        for k, v in ms.items()},
+                    "nvidia_smi": smi}), flush=True)
+            del psi, out, lanes
+        del u, ubw
+
+    sites = (T, Z, Y * X)
+    vol = T * Z * Y * X
+    n = 24
+    for name, (lib, _) in st_libs.items():
+        getattr(lib, "qtt_staggered_full_pass_mrhs").argtypes = list(
+            kernels.SIGNATURES["qtt_staggered_full_pass_mrhs"])
+    fat = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
+    lng = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev) / 24
+    fbw = spl.backward_links(fat, X, 1).contiguous()
+    lbw = spl.backward_links(lng, X, 3).contiguous()
+    psi = torch.randn((n, 3, 2) + sites, generator=gen, device=dev)
+    fat_lanes = torch.stack([spl.dslash_staggered_pass(
+        fat, fbw, psi[i].contiguous(), X, 1) for i in range(n)])
+    s1 = torch.stack([spl.dslash_staggered_pallas_fused(
+        fat, psi[i].contiguous(), X, lng) for i in range(n)])
+    out = torch.empty_like(psi)
+    for nhop, accum in ((1, False), (3, True)) if st_libs else ():
+        u, ubw = (fat, fbw) if nhop == 1 else (lng, lbw)
+
+        def run(k):
+            rc = st_libs[k][0].qtt_staggered_full_pass_mrhs(
+                out.data_ptr(), psi.data_ptr(), u.data_ptr(), ubw.data_ptr(),
+                T, Z, Y, X, nhop, int(accum), n, stream)
+            kernels.check_launch(rc, f"S2-mrhs-full variant {k}")
+        bits = {}
+        for k in st_libs:
+            out.copy_(fat_lanes) if accum else out.zero_()
+            run(k)
+            bits[k] = bool(torch.equal(out, s1 if accum else fat_lanes))
+        out.copy_(fat_lanes)
+        bound = _bound_ms(spl.pass_mrhs_bytes_per_site(n, accum) * vol,
+                          spl.PASS_FLOPS_PER_SITE * n * vol)
+        ms = turns(st_libs, run)
+        print(json.dumps({
+            "kernel": "s2_mrhs_full_variants", "hopset": spl.HOPSET[nhop],
+            "accumulate": accum, "nrhs": n, "bound_ms": bound,
+            "variants": {k: {"ms": v, "share_of_bound": [
+                bound / t for t in v],
+                "bitwise_" + ("s1_full" if accum else "s2_full"): bits[k],
+                **STAG_VARIANTS.get(k, {}),
+                **_variant_info(st_libs[k][0],
+                                "qtt_staggered_full_pass_mrhs_info", T, Z,
+                                Y, X, nhop, int(accum))}
+                for k, v in ms.items()},
+            "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"mrhs_variants_s": time.perf_counter() - t0,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 def mg_seeds(torch, dev, seeds=(2024, 1, 2, 3, 4)) -> None:
@@ -740,6 +1084,12 @@ def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     families = {"staggered": staggered, "double": double, "zoo": zoo,
                 "mg": mg, "mrhs": mrhs, "mg_seeds": mg_seeds}
+    if which == "mrhs_variants":
+        parent = sys.argv[2] if len(sys.argv) > 2 and sys.argv[2] != "-" \
+            else None
+        mrhs_variants(torch, torch.device("cuda", 0), parent,
+                      tuple(sys.argv[3:]) or ("eo", "stag"))
+        return 0
     if which == "stag_mg":
         masses = tuple(float(m) for m in sys.argv[2:]) or (STAG_MG_MASS,)
         stag_mg(torch, torch.device("cuda", 0), masses)

@@ -1472,7 +1472,8 @@ def zoo(torch, dev, smi) -> list:
     """The twisted and domain-wall families (ROADMAP A10) at 32^3 x 64 on
     a gauge of their own (phases check, invert_twisted, invert_multi_src,
     invert_doublet, invert_dwf, timing); returns the kernels-line rows of
-    the twist forms of K1/K2 and K1/K2-mrhs and of B5-eo at N = Ls."""
+    the twist forms of K1/K2 and K1/K2-mrhs and of B5-eo at N = Ls and
+    Ls / 2."""
     import quda_tpu_torch as qt
     from quda_tpu_torch.fields.gauge import GaugeField
     from quda_tpu_torch.fields.geometry import LatticeGeometry
@@ -1585,6 +1586,10 @@ def zoo(torch, dev, smi) -> list:
 
     def mrhs_name(kind, epi, rows):
         return f"mrhs:{kind}:{wpp.form_name(rows, f32, f32)}:{epi}"
+
+    def b5eo_ls_name(rows, n_ls):
+        name = f"b5eo_ls:{wpp.form_name(rows, f32, f32)}"
+        return name if n_ls == DWF_LS else f"{name}:n{n_ls}"
 
     for kind, epi, rows in mrhs_forms:
         name = mrhs_name(kind, epi, rows)
@@ -1858,22 +1863,27 @@ def zoo(torch, dev, smi) -> list:
                                     twist=True))
         timing[name] = (k_ms, p_ms, b_ms)
         del args
-    for rows in (3, 2):
-        name = f"b5eo_ls:{wpp.form_name(rows, f32, f32)}"
-        u_here, u_bw, psi, _, _ = inputs(0, rows, f32, DWF_LS)
+    # B5-eo at N = Ls (Möbius, domain-wall-4d) and N = Ls / 2 (the 5d PC's
+    # s-parity groups), with its query entry's resources held to its plan
+    b5eo_res = {}
+    for rows, n_ls in ((3, DWF_LS), (2, DWF_LS), (3, DWF_LS // 2),
+                       (2, DWF_LS // 2)):
+        name = b5eo_ls_name(rows, n_ls)
+        u_here, u_bw, psi, _, _ = inputs(0, rows, f32, n_ls)
         k_ms = median_ms(lambda: dwp.dslash_eo_pallas_packed_ls(
             u_here, u_bw, psi, geom.lattice_shape, 0), torch)
         p_ms = median_ms(lambda: wpp.dslash_eo_packed_mrhs_plain(
             u_here, u_bw, psi, geom.lattice_shape, 0), torch, repeats=3,
             batch=1)
-        b_ms, bound_by[name] = bound(wpp.bytes_per_site_mrhs(DWF_LS, rows),
-                                     wpp.flops_per_site_mrhs(DWF_LS, rows))
+        b_ms, bound_by[name] = bound(wpp.bytes_per_site_mrhs(n_ls, rows),
+                                     wpp.flops_per_site_mrhs(n_ls, rows))
         timing[name] = (k_ms, p_ms, b_ms)
         err = (dwp.dslash_eo_pallas_packed_ls(
             u_here, u_bw, psi, geom.lattice_shape, 0)
             - wpp.dslash_eo_packed_mrhs_plain(
                 u_here, u_bw, psi, geom.lattice_shape, 0)).abs().max().item()
         errs[name] = err
+        b5eo_res[name] = b5eo_resources(rows, geom.lattice_shape)
         del u_here, u_bw, psi
     torch.cuda.empty_cache()
 
@@ -1940,7 +1950,7 @@ def zoo(torch, dev, smi) -> list:
            "multi_src_secs": {k: v[1] for k, v in multi.items()}}
     for name, (k_ms, p_ms, b_ms) in timing.items():
         row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "share_of_bound": b_ms / k_ms}
+                     "share_of_bound": b_ms / k_ms, **b5eo_res.get(name, {})}
     emit(row)
 
     # -- kernels-line rows: launches from the main path of each form -----
@@ -1978,13 +1988,17 @@ def zoo(torch, dev, smi) -> list:
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": bound_by[name],
             "library_ms": None})
-    for rows in (3, 2):
+    # launches at N = Ls from the Möbius solves, at N = Ls / 2 from the 5d
+    # PC domain-wall solve (full links)
+    for rows, n_ls, path, n_tag in (
+            (3, DWF_LS, "dwf:mobius", f"N=Ls={DWF_LS}"),
+            (2, DWF_LS, "dwf:mobius:r12", f"N=Ls={DWF_LS}"),
+            (3, DWF_LS // 2, "dwf:domain-wall", f"N=Ls/2={DWF_LS // 2}")):
         form = wpp.form_name(rows, f32, f32)
-        name = f"b5eo_ls:{form}"
+        name = b5eo_ls_name(rows, n_ls)
         k_ms, p_ms, b_ms = timing[name]
-        path = "dwf:mobius" + (":r12" if rows == 2 else "")
         rows_out.append({
-            "name": f"dslash_eo_pallas_packed_mrhs[{form}, N=Ls={DWF_LS}]",
+            "name": f"dslash_eo_pallas_packed_mrhs[{form}, {n_tag}]",
             "route": "cuda", "source": "quda_tpu_torch/csrc/wilson_eo_mrhs.cu",
             "replaces": "quda_tpu/ops/wilson_pallas_packed.py:613",
             "launches": launches[path]["b5eo_by_form"].get(form, 0),
@@ -1992,6 +2006,26 @@ def zoo(torch, dev, smi) -> list:
             "bound_ms": b_ms, "bound_by": bound_by[name],
             "library_ms": None})
     return rows_out
+
+
+def b5eo_resources(rows, dims):
+    """B5-eo's resources at its default chunk on the (T, Z, Y, X) lattice
+    ``dims`` from its query entry (registers, shared memory, blocks an
+    SM), failing unless the launch is the plan its wrapper mirrors."""
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+
+    T, Z, Y, X = dims
+    res = wpp.eo_mrhs_info(rows, wpp.EO_MRHS_CHUNK, T, Z, Y, X // 2)
+    plan = wpp.eo_mrhs_plan(rows, T, Z, Y, X // 2)
+    if (res["smem_bytes"], res["threads"], res["tiles"], res["blocks"]) != (
+            plan["smem"], plan["threads"], plan["tiles"], plan["blocks"]):
+        fail(f"B5-eo launched another plan than its wrapper mirrors: {res} "
+             f"against {plan}")
+    return {"chunk": wpp.EO_MRHS_CHUNK, "registers": res["registers"],
+            "smem_bytes_per_block": res["smem_bytes"],
+            "blocks_per_sm": res["blocks_per_sm"],
+            "threads_per_block": res["threads"],
+            "tiles_per_plane": res["tiles"], "blocks": res["blocks"]}
 
 
 def multigrid(torch, dev, smi):
@@ -2691,6 +2725,25 @@ def staggered_mg(torch, dev, smi, gauge) -> list:
         fat_pl, fat_bw, pb, X, 1), torch)
     naik_mrhs_ms = median_ms(lambda: spl.dslash_staggered_pass_mrhs(
         long_pl, long_bw, pb, X, 3), torch)
+    acc_b = spl.dslash_staggered_pass_mrhs(fat_pl, fat_bw, pb, X, 1)
+    naik_acc_ms = median_ms(lambda: spl.dslash_staggered_pass_mrhs(
+        long_pl, long_bw, pb, X, 3, acc=acc_b), torch)
+    naik_acc_b_ms = bound(spl.pass_mrhs_bytes_per_site(n, True),
+                          spl.PASS_FLOPS_PER_SITE * n, vol)[0]
+    del acc_b
+    # its resources from the query entry, held to the plan its wrapper
+    # mirrors (the fat instance, and the accumulating Naik one)
+    s2m_res = {}
+    plan = spl.full_mrhs_plan(T, Z, Y, X)
+    for key, nhop, accum in (("fat", 1, False), ("naik_accum", 3, True)):
+        res = spl.full_mrhs_info(nhop, accum, T, Z, Y, X)
+        if (res["smem_bytes"], res["threads"], res["tiles"],
+                res["blocks"]) != (plan["smem"], plan["threads"],
+                                   plan["tiles"], plan["blocks"]):
+            fail(f"S2-mrhs-full launched another plan than its wrapper "
+                 f"mirrors: {res} against {plan}")
+        s2m_res[key] = {"registers": res["registers"],
+                        "blocks_per_sm": res["blocks_per_sm"]}
     single_ms = median_ms(lambda: [spl.dslash_staggered_pass(
         fat_pl, fat_bw, q, X, 1) for q in singles], torch, batch=2)
     p_ms = median_ms(lambda: spl.dslash_staggered_pass_mrhs_plain(
@@ -2714,12 +2767,22 @@ def staggered_mg(torch, dev, smi, gauge) -> list:
           "s1_full": {"ms": prod["s1_full_ms"], "plain_ms": s1_p_ms,
                       "bound_ms": prod["s1_full_bound_ms"],
                       "share_of_bound": prod["s1_full_share_of_bound"]},
-          "s2_mrhs_full": {"nrhs": n, "chunk": spl.MRHS_CHUNK,
+          "s2_mrhs_full": {"nrhs": n, "chunk": spl.FULL_MRHS_CHUNK,
+                           "lanes": spl.FULL_MRHS_LANES,
                            "fat_ms": k_ms, "naik_ms": naik_mrhs_ms,
                            "plain_ms": p_ms, "bound_ms": b_ms,
                            "share_of_bound": b_ms / k_ms,
+                           "naik_accum_ms": naik_acc_ms,
+                           "naik_accum_bound_ms": naik_acc_b_ms,
+                           "naik_accum_share_of_bound":
+                               naik_acc_b_ms / naik_acc_ms,
                            "s2_full_launches_ms": single_ms,
-                           "amortisation": single_ms / k_ms},
+                           "amortisation": single_ms / k_ms,
+                           "smem_bytes_per_block": plan["smem"],
+                           "threads_per_block": plan["threads"],
+                           "tiles_per_plane": plan["tiles"],
+                           "blocks": plan["blocks"],
+                           "resources": s2m_res},
           "cg": {"iters": p_cg.iter_count, "secs": p_cg.secs},
           "mg": {"setup_seconds": setup_s, "solves": solves}})
     del pb, singles, psi
@@ -4508,6 +4571,9 @@ def main() -> int:
     mrhs_wrapper = {"hop": wpp.dslash_eo_pallas_packed_mrhs,
                     "post": clp.dslash_eo_pallas_post_mrhs,
                     "diag_hop": clp.dslash_eo_pallas_diag_hop_mrhs}
+    # the default chunk of each (B5-eo has its own)
+    mrhs_default = {"hop": wpp.EO_MRHS_CHUNK, "post": wpp.MRHS_CHUNK,
+                    "diag_hop": wpp.MRHS_CHUNK}
     gen_mrhs = torch.Generator(device=dev).manual_seed(SEED + 5)
 
     def mrhs_inputs(dims_xyzt, parity, rows, n):
@@ -4576,17 +4642,21 @@ def main() -> int:
             rel_single = (out_k - out_s).abs().max().item() / scale
             errs[f"mrhs:{name}"] = max(errs[f"mrhs:{name}"], abs_err)
             mrhs_vs_single[name] = max(mrhs_vs_single[name], rel_single)
+            # B5-eo's lanes are B1's bit for bit (the K-mrhs forms: within
+            # tol of K1/K2)
+            bitwise = bool(torch.equal(out_k, out_s))
             emit({"phase": "check", "kernel": mrhs_wrapper[kind].__name__,
                   "form": name, "dims_xyzt": list(dims_xyzt),
-                  "parity": parity, "nrhs": n, "chunk": wpp.MRHS_CHUNK,
+                  "parity": parity, "nrhs": n, "chunk": mrhs_default[kind],
                   "max_abs_err": abs_err, "max_rel_err": rel,
                   "max_rel_diff_single_launches": rel_single,
-                  "tolerance": tol})
+                  "lanes_bitwise_single": bitwise, "tolerance": tol})
             if not (rel <= tol and rel_single <= tol and
-                    out_k.shape == args[3].shape):
+                    out_k.shape == args[3].shape and
+                    (bitwise or kind != "hop")):
                 fail(f"multi-RHS kernel {name} disagrees with its plain "
                      f"version or with {n} single-RHS launches: {rel:.3e}, "
-                     f"{rel_single:.3e} > {tol:g}")
+                     f"{rel_single:.3e} > {tol:g} (bit for bit: {bitwise})")
             del args, out_k, out_p, out_s
 
     geom_p = LatticeGeometry(PROD_DIMS)
@@ -4866,7 +4936,8 @@ def main() -> int:
               "dims_xyzt": list(PROD_DIMS), "nrhs": MULTI_SRC_N,
               "dslash_type": family, "kappa": KAPPA, "tol": TOL,
               "reconstruct": rec, "block_cg": block,
-              "chunk": wpp.MRHS_CHUNK, "iters_per_lane": iters,
+              "chunk": mrhs_default["hop" if family == "wilson" else "post"],
+              "iters_per_lane": iters,
               "iter_count": param.iter_count,
               "invert_quda_iters_source0": lane0[family],
               "true_res_worst": param.true_res,
@@ -5055,7 +5126,7 @@ def main() -> int:
         t_ops = nflop * half / F32_FLOPS_PER_S
         bound_by[f"mrhs:{name}"] = "bytes" if t_bytes >= t_ops else \
             "operations"
-        k_ms = by_chunk[wpp.MRHS_CHUNK]
+        k_ms = by_chunk[mrhs_default[kind]]
         mrhs_timing[name] = (k_ms, p_ms, 1e3 * max(t_bytes, t_ops),
                              single_ms)
         mrhs_chunks[name] = by_chunk
@@ -5126,13 +5197,16 @@ def main() -> int:
            "nvidia_smi": smi, "repeats": REPEATS, "calls_per_timing": BATCH}
     for name, (k_ms, p_ms, bound) in timing.items():
         row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound}
-    for name, (k_ms, p_ms, bound, single_ms) in mrhs_timing.items():
+    for (kind, rows), name in zip(mrhs_forms, mrhs_names):
+        k_ms, p_ms, bound, single_ms = mrhs_timing[name]
         row[f"mrhs:{name}"] = {
-            "nrhs": MULTI_SRC_N, "chunk": wpp.MRHS_CHUNK, "ms": k_ms,
+            "nrhs": MULTI_SRC_N, "chunk": mrhs_default[kind], "ms": k_ms,
             "ms_by_chunk": mrhs_chunks[name], "plain_ms": p_ms,
             "bound_ms": bound, "share_of_bound": bound / k_ms,
             "single_rhs_launches_ms": single_ms,
-            "amortisation": single_ms / k_ms}
+            "amortisation": single_ms / k_ms,
+            **(b5eo_resources(rows, geom_p.lattice_shape) if kind == "hop"
+               else {})}
     row.update({
         "batched_cg_iter_ms": b_iter_ms, "batched_cg_iters_timed": b_n_timed,
         "batched_vs_single_cg_iters": b_iter_ms / (MULTI_SRC_N * iter_ms),

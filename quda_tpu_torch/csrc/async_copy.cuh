@@ -1,7 +1,7 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later), shared
 // by the multi-RHS kernels that stage operands in shared memory: the coarse
-// stencil's multi-RHS form (B8-mrhs, coarse.cu) and the full-lattice Wilson
-// hop on N right-hand sides (B5, wilson_full.cu).
+// stencil's multi-RHS form (B8-mrhs, coarse.cu) and the hops that stage a
+// tile's links (mrhs_tile.cuh: B5, B5-eo and S2-mrhs-full).
 //
 // A thread issues copies, closes them into a group (commit), and waits
 // until at most N of its groups are still in flight (wait<N>); the block's

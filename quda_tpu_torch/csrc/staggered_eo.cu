@@ -101,10 +101,10 @@ __global__ void __launch_bounds__(kThreads)
     acc_fat[0][c] = make_float2(0.f, 0.f);
     acc_lng[0][c] = make_float2(0.f, 0.f);
   }
-  stag_hopset<1>(acc_fat, psi, 0, 1, fat_here, fat_there, true, s, T, Z, Y,
-                 Xh, YXh, ZYXh, n, lay);
-  stag_hopset<3>(acc_lng, psi, 0, 1, long_here, long_there, true, s, T, Z,
-                 Y, Xh, YXh, ZYXh, n, lay);
+  stag_hopset<1>(acc_fat, psi, 0, 1, There<3, S>{fat_here, fat_there}, s,
+                 T, Z, Y, Xh, YXh, ZYXh, n, lay);
+  stag_hopset<3>(acc_lng, psi, 0, 1, There<3, S>{long_here, long_there}, s,
+                 T, Z, Y, Xh, YXh, ZYXh, n, lay);
   float2 sum[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) sum[c] = cadd(acc_fat[0][c], acc_lng[0][c]);
@@ -133,8 +133,13 @@ __global__ void __launch_bounds__(kThreads)
   float2 acc[1][3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) acc[0][c] = make_float2(0.f, 0.f);
-  stag_hopset<NHOP>(acc, psi, 0, 1, u_here, u_bw, THERE, s, T, Z, Y, Xh,
-                    YXh, ZYXh, n);
+  if constexpr (THERE) {
+    stag_hopset<NHOP>(acc, psi, 0, 1, There<3, S>{u_here, u_bw}, s, T, Z, Y,
+                      Xh, YXh, ZYXh, n);
+  } else {
+    stag_hopset<NHOP>(acc, psi, 0, 1, Shifted<3, S>{u_here, u_bw}, s, T, Z,
+                      Y, Xh, YXh, ZYXh, n);
+  }
   if constexpr (ACC) {
     // one rounded add each, never contracted (as S2-mrhs accumulates)
     float2 prev[3];

@@ -74,8 +74,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < kNB; ++r)
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc[r][c] = make_float2(0.f, 0.f);
-  stag_hopset<NHOP>(acc, psi + r0 * rstride, rstride, nvalid, u_here, u_bw,
-                    false, s, T, Z, Y, Xh, YXh, ZYXh, n);
+  stag_hopset<NHOP>(acc, psi + r0 * rstride, rstride, nvalid,
+                    Shifted<3, float>{u_here, u_bw}, s, T, Z, Y, Xh, YXh,
+                    ZYXh, n);
 
 #pragma unroll
   for (int r = 0; r < kNB; ++r) {

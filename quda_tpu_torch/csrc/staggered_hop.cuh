@@ -6,8 +6,10 @@
 // in {1, 3} (half lattice: eo_site/EoSite; full lattice:
 // full_site/FullSite), the colour-vector load, and the 3x3 colour
 // multiply of one hop.  Both lattices go through the one hop body, so
-// every form keeps the same arithmetic in the same order.  The link load and the f32/bf16 loads and stores
-// are wilson_hop.cuh's (links have the Wilson R = 3 layout).  Like the
+// every form keeps the same arithmetic in the same order.  The link
+// sources (where a hop's link is read: the target, the neighbour, a tile
+// in shared memory), the link load and the f32/bf16 loads and stores are
+// wilson_hop.cuh's (links have the Wilson R = 3 layout).  Like the
 // Wilson hop, each hop takes a compile-time count NB of right-hand sides
 // (rstride elements apart, the first nvalid of them read): the link is
 // loaded once and applied to each in turn, so every right-hand side sees
@@ -138,19 +140,31 @@ __device__ __forceinline__ void ld_cvec(float2 (&v)[3],
 
 // One hop into acc for NB right-hand sides: acc[r] += 0.5 U psi_r (FWD)
 // or acc[r] -= 0.5 U^dag psi_r, with U^dag[a][b] = conj(U[b][a]); the link
-// of direction MU at link half-site li (loaded once), psi_r at half-site pi
-// of psi + r * rstride; li and pi are addresses, the imaginary parts im
-// further on.  As the TPU kernel: the colour sum first, then the +-0.5
-// scale.
-template <int MU, bool FWD, int NB, typename S>
+// of direction MU from the link source L (loaded once), psi_r at address
+// pi of psi + r * rstride, the imaginary parts im further on.  As the TPU
+// kernel: the colour sum first, then the +-0.5 scale.
+//
+// The link sources are wilson_hop.cuh's, at R = 3 (the staggered links
+// have the Wilson R = 3 layout), given the target ``site`` and the
+// neighbour ``pi`` that psi is read at:
+//   Shifted<3, S>  forward links at the target, the pre-shifted backward
+//                  copy at the target too (the gather passes S2, S2-full
+//                  and S2-mrhs);
+//   There<3, S>    forward at the target, the unshifted links (the
+//                  opposite parity's on the half lattice) at the backward
+//                  neighbour (the fused hops S1, S1-full, S1-fold and the
+//                  v3 pass);
+//   TileShifted<3> Shifted's links from a block's copy in shared memory
+//                  (S2-mrhs-full), the same numbers, so the same bits.
+template <int MU, bool FWD, int NB, typename S, typename L>
 __device__ __forceinline__ void stag_hop(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
                                          int64_t rstride, int nvalid,
-                                         const S* __restrict__ g,
-                                         int64_t n, int64_t im, int64_t li,
+                                         const L& links, int64_t n,
+                                         int64_t im, int64_t site,
                                          int64_t pi) {
   float2 u[3][3];
-  ld_link<3>(u, g, MU, n, li, 1.f, im);
+  links.template load<MU, FWD ? 1 : -1>(u, n, im, site, pi, 1.f);
   const float s = FWD ? 0.5f : -0.5f;
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
@@ -170,19 +184,15 @@ __device__ __forceinline__ void stag_hop(float2 (&acc)[NB][3],
   }
 }
 
-// Both hops of direction MU, hop count N, into acc.  The backward link is
-// read at index `bw_at_nb ? neighbour : site` of `g_bw`: the fused kernels
-// read the unshifted links (the opposite parity's on the half lattice) at
-// the backward neighbour, the gather passes their pre-shifted copy at the
-// target site.  Site is EoSite (W = Xh) or FullSite (W = X), placed in
+// Both hops of direction MU, hop count N, into acc, the links from the
+// link source L.  Site is EoSite (W = Xh) or FullSite (W = X), placed in
 // the layout Lay, whose z and t strides are kRowScale times YW and ZYW.
-template <int MU, int N, int NB, typename S, typename Site, typename Lay>
+template <int MU, int N, int NB, typename S, typename L, typename Site,
+          typename Lay>
 __device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
                                          const S* __restrict__ psi,
                                          int64_t rstride, int nvalid,
-                                         const S* __restrict__ g_fwd,
-                                         const S* __restrict__ g_bw,
-                                         bool bw_at_nb, const Site& s,
+                                         const L& links, const Site& s,
                                          int T, int Z, int Y, int W,
                                          int64_t YW, int64_t ZYW,
                                          int64_t n, const Lay& lay) {
@@ -190,35 +200,32 @@ __device__ __forceinline__ void stag_dir(float2 (&acc)[NB][3],
   const int64_t fwd = site_neighbour<MU>(s, +N, T, Z, Y, W, k * YW, k * ZYW);
   const int64_t bwd = site_neighbour<MU>(s, -N, T, Z, Y, W, k * YW, k * ZYW);
   const int64_t im = lay.im(n);
-  stag_hop<MU, true>(acc, psi, rstride, nvalid, g_fwd, n, im, s.site, fwd);
-  stag_hop<MU, false>(acc, psi, rstride, nvalid, g_bw, n, im,
-                      bw_at_nb ? bwd : s.site, bwd);
+  stag_hop<MU, true>(acc, psi, rstride, nvalid, links, n, im, s.site, fwd);
+  stag_hop<MU, false>(acc, psi, rstride, nvalid, links, n, im, s.site, bwd);
 }
 
 // The whole hop set of hop count N (8 hops) into acc, directions in the
 // TPU kernel's order (x, y, z, t; forward before backward); psi and the
 // links in the layout ``lay`` (the pair layout unless given), YW and ZYW
-// the pair layout's strides.
-template <int N, int NB, typename S, typename Site,
+// the pair layout's strides; the links from the link source L.
+template <int N, int NB, typename S, typename L, typename Site,
           typename Lay = PairLayout>
 __device__ __forceinline__ void stag_hopset(float2 (&acc)[NB][3],
                                             const S* __restrict__ psi,
                                             int64_t rstride, int nvalid,
-                                            const S* __restrict__ g_fwd,
-                                            const S* __restrict__ g_bw,
-                                            bool bw_at_nb, const Site& s,
+                                            const L& links, const Site& s,
                                             int T, int Z, int Y, int W,
                                             int64_t YW, int64_t ZYW,
                                             int64_t n,
                                             const Lay& lay = Lay()) {
-  stag_dir<0, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n, lay);
-  stag_dir<1, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n, lay);
-  stag_dir<2, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n, lay);
-  stag_dir<3, N>(acc, psi, rstride, nvalid, g_fwd, g_bw, bw_at_nb, s, T, Z,
-                 Y, W, YW, ZYW, n, lay);
+  stag_dir<0, N>(acc, psi, rstride, nvalid, links, s, T, Z, Y, W, YW, ZYW, n,
+                 lay);
+  stag_dir<1, N>(acc, psi, rstride, nvalid, links, s, T, Z, Y, W, YW, ZYW, n,
+                 lay);
+  stag_dir<2, N>(acc, psi, rstride, nvalid, links, s, T, Z, Y, W, YW, ZYW, n,
+                 lay);
+  stag_dir<3, N>(acc, psi, rstride, nvalid, links, s, T, Z, Y, W, YW, ZYW, n,
+                 lay);
 }
 
 // out = acc (3 complex) at address i of a (3, 2, S) field, the imaginary

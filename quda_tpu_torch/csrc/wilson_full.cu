@@ -38,7 +38,7 @@
 // y, z and t wrap on their own planes.  The TPU kernel's z-block tiles,
 // neighbour tiles and lane rolls are gone: a CUDA thread reads its
 // neighbour.  Offsets are 64-bit.
-#include "async_copy.cuh"
+#include "mrhs_tile.cuh"
 #include "wilson_hop.cuh"
 
 namespace {
@@ -147,10 +147,8 @@ extern "C" int qtt_wilson_full(void* out, const void* psi, const void* u,
 // full_hop_sum_from of wilson_hop.cuh with the links from the tile's copy
 // (TileShifted) and psi gathered through L1 and L2, so each right-hand side
 // sees B4's arithmetic in B4's order and matches a B4 launch bit for bit.
-// Blocks walk the planes in boxes of kBoxZ z-planes across all t, so the
-// blocks resident at one time cover a 4-d box of the lattice and find most
-// z and t neighbours' psi in L2 (in t-major order the t neighbours of a
-// wave are read again from device memory by the next).  On the H100 a psi
+// Blocks walk the planes in boxes of kBoxZ z-planes across all t
+// (mrhs_tile.cuh, shared with B5-eo and S2-mrhs-full).  On the H100 a psi
 // window staged in shared memory as well (x and y neighbours, double-
 // buffered) ran slower, its copies and barriers costing more than the L1
 // misses they save, and NB = 2 slower than NB = 1 (PERF.md).  Offsets are
@@ -161,44 +159,10 @@ constexpr int kTile = 128;       // sites a block
 constexpr int kLanes = 2;        // threads a site
 constexpr int kBoxZ = 4;         // z-planes of a box of the block order
 
-__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-// Mirrored by quda_tpu_torch/ops/wilson_pallas_packed.py::full_mrhs_plan.
-struct FullMrhsPlan {
-  int tiles;      // tiles a (t, z) plane: ceil(Y*X / kTile)
-  int64_t blocks;
-  size_t smem;    // the tile's links: 2 * 24 R kTile floats
-};
-
-FullMrhsPlan full_mrhs_plan(int T, int Z, int Y, int X, int rows) {
-  FullMrhsPlan p;
-  const int64_t yx = static_cast<int64_t>(Y) * X;
-  p.tiles = static_cast<int>((yx + kTile - 1) / kTile);
-  p.blocks = static_cast<int64_t>(T) * Z * p.tiles;
-  p.smem = sizeof(float) * 2 * 24 * static_cast<size_t>(rows) * kTile;
-  return p;
-}
-
-// the (t, z) plane and tile j of block b: z-boxes of kBoxZ planes, t within
-// a box, z within t (the last box may be thinner), tiles fastest
-__device__ __forceinline__ void block_tile(int64_t b, int tiles, int T,
-                                           int Z, int& t, int& z, int& j) {
-  j = static_cast<int>(b % tiles);
-  const int64_t p = b / tiles;
-  const int zf = Z / kBoxZ * kBoxZ;
-  const int64_t full = static_cast<int64_t>(zf) * T;
-  if (p < full) {
-    const int64_t q = p % (kBoxZ * T);
-    z = static_cast<int>(p / (kBoxZ * T)) * kBoxZ + static_cast<int>(q % kBoxZ);
-    t = static_cast<int>(q / kBoxZ);
-  } else {
-    const int zr = Z - zf;
-    const int64_t q = p - full;
-    t = static_cast<int>(q / zr);
-    z = zf + static_cast<int>(q % zr);
-  }
+// Mirrored by quda_tpu_torch/ops/wilson_pallas_packed.py::full_mrhs_plan:
+// the tile's links are 2 * 24 R floats a site.
+TilePlan full_mrhs_plan(int T, int Z, int Y, int X, int rows) {
+  return tile_plan(T, Z, static_cast<int64_t>(Y) * X, kTile, 24 * rows);
 }
 
 // two blocks an SM at NB = 1 (at most 128 registers a thread)
@@ -217,22 +181,11 @@ __global__ void __launch_bounds__(kLanes * kTile, NB == 1 ? 2 : 1)
   const int64_t rstride = 24 * n;
 
   int t, z, j;
-  block_tile(blockIdx.x, tiles, T, Z, t, z, j);
+  block_tile<kBoxZ>(blockIdx.x, tiles, T, Z, t, z, j);
   const int64_t start = (static_cast<int64_t>(t) * Z + z) * YX +
                         static_cast<int64_t>(j) * kTile;
   const int len = static_cast<int>(min64(kTile, YX - j * kTile));
-
-  // the tile's links, [2][kP][kTile]: 2 kP planes of len sites
-  const int per = len / VEC;
-  for (int i = threadIdx.x; i < 2 * kP * per; i += kLanes * kTile) {
-    const int q = i / per;
-    const int k = (i - q * per) * VEC;
-    const float* src = (q < kP ? u + q * n : u_bw + (q - kP) * n) + start + k;
-    cp_async_vec<VEC>(sh + q * kTile + k, src);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  stage_links<kP, VEC, kLanes * kTile>(sh, u, u_bw, n, start, len, kTile);
 
   const int i = threadIdx.x % kTile;
   const int lane = threadIdx.x / kTile;
@@ -266,59 +219,27 @@ __global__ void __launch_bounds__(kLanes * kTile, NB == 1 ? 2 : 1)
 template <int R, int NB, int VEC>
 cudaError_t launch_mrhs(void* out, const void* psi, const void* u,
                         const void* u_bw, int T, int Z, int Y, int X,
-                        int tb_sign, int nrhs, const FullMrhsPlan& p,
+                        int tb_sign, int nrhs, const TilePlan& p,
                         cudaStream_t stream) {
   auto kern = wilson_full_mrhs_kernel<R, NB, VEC>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
+  const cudaError_t err = tile_smem(kern, p);
   if (err != cudaSuccess) return err;
   kern<<<static_cast<unsigned>(p.blocks), kLanes * kTile, p.smem, stream>>>(
       static_cast<float*>(out), static_cast<const float*>(psi),
       static_cast<const float*>(u), static_cast<const float*>(u_bw), T, Z, Y,
-      X, tb_sign, nrhs, p.tiles);
+      X, tb_sign, nrhs, static_cast<int>(p.tiles));
   return cudaGetLastError();
-}
-
-// 16-byte copies where every tile's link runs start 16-byte aligned:
-// planes and tiles start at multiples of 4 sites when Y*X is one
-bool full_mrhs_vec4(const void* u, const void* u_bw, int Y, int X) {
-  return (static_cast<int64_t>(Y) * X) % 4 == 0 &&
-         ((reinterpret_cast<uintptr_t>(u) |
-           reinterpret_cast<uintptr_t>(u_bw)) & 15) == 0;
 }
 
 template <int R, int NB>
 cudaError_t launch_mrhs_vec(bool vec4, void* out, const void* psi,
                             const void* u, const void* u_bw, int T, int Z,
                             int Y, int X, int tb_sign, int nrhs,
-                            const FullMrhsPlan& p, cudaStream_t stream) {
+                            const TilePlan& p, cudaStream_t stream) {
   return vec4 ? launch_mrhs<R, NB, 4>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
                                       nrhs, p, stream)
               : launch_mrhs<R, NB, 1>(out, psi, u, u_bw, T, Z, Y, X, tb_sign,
                                       nrhs, p, stream);
-}
-
-template <int R, int NB>
-cudaError_t info_mrhs(const FullMrhsPlan& p, int* info) {
-  auto kern = wilson_full_mrhs_kernel<R, NB, 4>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kern);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kern, kLanes * kTile, p.smem);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(p.smem);
-  info[2] = blocks;
-  info[3] = kLanes * kTile;
-  info[4] = p.tiles;
-  info[5] = static_cast<int>(min64(p.blocks, 0x7fffffff));
-  return err;
 }
 
 }  // namespace
@@ -334,9 +255,9 @@ extern "C" int qtt_wilson_full_mrhs(void* out, const void* psi, const void* u,
       (rows != 2 && rows != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const FullMrhsPlan p = full_mrhs_plan(T, Z, Y, X, rows);
+  const TilePlan p = full_mrhs_plan(T, Z, Y, X, rows);
   if (p.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const bool v4 = full_mrhs_vec4(u, u_bw, Y, X);
+  const bool v4 = tile_vec4(u, u_bw, static_cast<int64_t>(Y) * X);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rows == 3) {
@@ -363,12 +284,15 @@ extern "C" int qtt_wilson_full_mrhs_info(int T, int Z, int Y, int X,
       (rows != 2 && rows != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const FullMrhsPlan p = full_mrhs_plan(T, Z, Y, X, rows);
+  const TilePlan p = full_mrhs_plan(T, Z, Y, X, rows);
+  constexpr int th = kLanes * kTile;
   cudaError_t err;
   if (rows == 3) {
-    err = nb == 1 ? info_mrhs<3, 1>(p, info) : info_mrhs<3, 2>(p, info);
+    err = nb == 1 ? tile_info(wilson_full_mrhs_kernel<3, 1, 4>, th, p, info)
+                  : tile_info(wilson_full_mrhs_kernel<3, 2, 4>, th, p, info);
   } else {
-    err = nb == 1 ? info_mrhs<2, 1>(p, info) : info_mrhs<2, 2>(p, info);
+    err = nb == 1 ? tile_info(wilson_full_mrhs_kernel<2, 1, 4>, th, p, info)
+                  : tile_info(wilson_full_mrhs_kernel<2, 2, 4>, th, p, info);
   }
   return static_cast<int>(err);
 }

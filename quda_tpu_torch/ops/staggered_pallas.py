@@ -58,8 +58,10 @@ T, Z, Y*X):
   the JAX function does.  Forms ``fat:f32->f32`` and ``naik:f32->f32``.
 * S2-mrhs-full ``dslash_staggered_pass_mrhs`` (``_stag_pass_mrhs``, :1106,
   through ``dslash_staggered_pallas_mrhs`` at :1121): S2-full over a
-  leading axis of N right-hand sides, links loaded once per chunk of
-  ``MRHS_CHUNK``; ``acc`` adds the pass into a batch in place.
+  leading axis of N right-hand sides; a block copies its tile's links
+  into shared memory once and loops over all N (``full_mrhs_plan``), so
+  each link leaves device memory once, and each lane is S2-full's bit for
+  bit; ``acc`` adds the pass into a batch in place.
 * S1-full ``dslash_staggered_pallas_fused`` (``_stag_fused_call``, :966,
   through :980): the fat and Naik hop sets in one launch, backward hops
   read from the unshifted links at the neighbour.  Form
@@ -104,6 +106,16 @@ HOPSET = {1: "fat", 3: "naik"}
 # Right-hand sides per thread of S2-mrhs (kNB of csrc/staggered_eo_mrhs.cu,
 # the fastest of 1, 2, 4 and 8 on the card at N = 12: PERF.md)
 MRHS_CHUNK = 4
+# S2-mrhs-full's plan, as csrc/staggered_full.cu's full_mrhs_plan makes it
+# (kMrhs* there): a block owns FULL_MRHS_TILE sites of one (t, z) plane,
+# FULL_MRHS_LANES threads a site, each FULL_MRHS_CHUNK right-hand sides at
+# a time, the tile's two link sets in shared memory (2 x 72 floats a
+# site), FULL_MRHS_MIN_BLOCKS blocks an SM (the kernel's launch bound);
+# chosen by timing variants on the card (PERF.md).
+FULL_MRHS_TILE = 64
+FULL_MRHS_LANES = 4
+FULL_MRHS_CHUNK = 1
+FULL_MRHS_MIN_BLOCKS = 2
 
 
 def fused_bytes_per_site(store_dtype=torch.float32, out_dtype=None) -> int:
@@ -440,6 +452,30 @@ def _check_nhop(nhop: int) -> None:
         raise ValueError(f"nhop must be 1 or 3, got {nhop}")
 
 
+def full_mrhs_plan(T: int, Z: int, Y: int, X: int) -> dict:
+    """S2-mrhs-full's launch on a T x Z x Y x X lattice
+    (``wilson_pallas_packed.tile_plan``: two link sets of 72 floats a
+    site)."""
+    return wpp.tile_plan(T, Z, Y * X, FULL_MRHS_TILE, FULL_MRHS_LANES,
+                         2 * 72)
+
+
+def check_full_mrhs(nrhs: int, T: int, Z: int, Y: int, X: int) -> dict:
+    """S2-mrhs-full's plan; raises ValueError for no right-hand side or a
+    grid (T Z tiles of a plane) beyond 2^31 - 1 blocks."""
+    return wpp.check_tile_grid("S2-mrhs-full", nrhs,
+                               full_mrhs_plan(T, Z, Y, X))
+
+
+def full_mrhs_info(nhop: int, accum: bool, T: int, Z: int, Y: int,
+                   X: int) -> dict:
+    """S2-mrhs-full's resources on the card, the instance of hop count
+    ``nhop``, accumulating or not (``wilson_pallas_packed.tile_info``)."""
+    _check_nhop(nhop)
+    return wpp.tile_info("qtt_staggered_full_pass_mrhs_info", T, Z, Y, X,
+                         nhop, int(bool(accum)))
+
+
 def dslash_staggered_pass(u_pl, u_bw_pl, psi_pl, X: int,
                           nhop: int) -> torch.Tensor:
     """One hop set of count ``nhop`` (1 fat, 3 Naik) on the full lattice
@@ -477,16 +513,16 @@ def dslash_staggered_pass_mrhs(u_pl, u_bw_pl, psi_b, X: int, nhop: int,
     if psi_b.ndim != 6:
         raise ValueError(f"psi of shape {tuple(psi_b.shape)}: expected "
                          "(N, 3, 2, T, Z, Y*X)")
+    T, Z, Y = _full_sites(psi_b, X)
+    nrhs = psi_b.shape[0]
+    check_full_mrhs(nrhs, T, Z, Y, X)
     f32 = torch.float32
     tensors = (u_pl, u_bw_pl, psi_b) + ((acc,) if acc is not None else ())
     kind = kernels.dispatch_device(*tensors)
     if kind == "cpu":
         out = dslash_staggered_pass_mrhs_plain(u_pl, u_bw_pl, psi_b, X, nhop)
         return out if acc is None else acc.add_(out)
-    T, Z, Y = _full_sites(psi_b, X)
     sites = (T, Z, Y * X)
-    nrhs = psi_b.shape[0]
-    wpp.check_mrhs_grid(nrhs, T * Z * Y * X, MRHS_CHUNK)
     if psi_b.dtype != f32:
         raise TypeError(f"psi {psi_b.dtype}: S2-mrhs-full has a float32 "
                         "form only")

@@ -30,9 +30,12 @@ the pre-shifted ``backward_gauge`` (4, R, 3, 2, T, Z, Y*X); forms
 The multi-RHS hop (B5-eo) ``dslash_eo_pallas_packed_mrhs`` replaces
 dslash_eo_pallas_packed_mrhs of the same JAX module with
 ``csrc/wilson_eo_mrhs.cu``: psi and out carry a leading axis of N
-right-hand sides, (N, 4, 3, 2, T, Z, Y*Xh), and each link is loaded once
-for a chunk of ``MRHS_CHUNK`` of them.  Its forms are ``full:f32->f32``
-and ``r12:f32->f32``; the bf16 forms wait for ROADMAP B5.
+right-hand sides, (N, 4, 3, 2, T, Z, Y*Xh).  A block copies its tile's
+links into shared memory once and loops over all N right-hand sides,
+``chunk`` a thread at a time (``eo_mrhs_plan``), so each link leaves
+device memory once; each right-hand side gets B1's arithmetic in B1's
+order.  Its forms are ``full:f32->f32`` and ``r12:f32->f32``; the bf16
+forms wait for ROADMAP B5.
 
 The multi-RHS full-lattice hop (B5) ``dslash_pallas_packed_mrhs``
 replaces dslash_pallas_packed_mrhs of the same JAX module with the
@@ -116,8 +119,10 @@ _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 
 
 # Right-hand sides per thread of the multi-RHS kernels (the template
-# argument NB of csrc/wilson_eo_mrhs.cu and clover_eo_mrhs.cu), and the
-# default, chosen from ptxas' registers and the card's times (PERF.md):
+# argument NB of csrc/wilson_eo_mrhs.cu, wilson_full.cu, clover_eo_mrhs.cu,
+# wilson_eo_there.cu and wilson_eo_fold.cu), and the default of the last
+# three (B5 and B5-eo have their own), chosen from ptxas' registers and the
+# card's times (PERF.md):
 # 2 is the fastest multi-RHS width (4 needs 206-240 registers and ran
 # 1.3-2.4x slower); 1 gives each right-hand side its own thread, the
 # single-RHS kernels' arithmetic, which the card tests hold them to.
@@ -216,6 +221,49 @@ def check_mrhs_grid(nrhs: int, sites: int, nb: int) -> None:
                          f"(1 .. {_MAX_BLOCKS})")
 
 
+def tile_plan(T: int, Z: int, plane: int, tile: int, lanes: int,
+              link_floats: int) -> dict:
+    """The launch of a multi-RHS hop that stages its links in shared
+    memory (csrc/mrhs_tile.cuh's tile_plan: B5, B5-eo, S2-mrhs-full) on T
+    x Z planes of ``plane`` sites, ``tile`` sites and ``lanes`` threads a
+    site a block, ``link_floats`` floats of the two link sets a site:
+    ``tiles`` a (t, z) plane, ``blocks``, ``threads`` a block and dynamic
+    shared memory ``smem`` a block in bytes."""
+    tiles = -(-plane // tile)
+    return {"tiles": tiles, "blocks": T * Z * tiles, "threads": lanes * tile,
+            "smem": 4 * link_floats * tile}
+
+
+def check_tile_grid(kernel: str, nrhs: int, plan: dict) -> dict:
+    """Raise ValueError, naming the limit, for no right-hand side or a
+    tiled grid beyond 2^31 - 1 blocks; else return ``plan``."""
+    if nrhs < 1:
+        raise ValueError(f"{nrhs} right-hand sides: {kernel} takes N >= 1")
+    if plan["blocks"] > _MAX_BLOCKS:
+        raise ValueError(f"{kernel}: {plan['blocks']} blocks "
+                         f"({plan['tiles']} tiles a plane), beyond the "
+                         "grid's 2^31 - 1")
+    return plan
+
+
+def tile_info(entry: str, *args: int) -> dict:
+    """A tiled multi-RHS hop's resources on the card from its C query
+    entry: ptxas ``registers``, ``smem_bytes`` a block, resident
+    ``blocks_per_sm``, and ``threads``, ``tiles``, ``blocks`` of the plan
+    it launches."""
+    info = kernels.kernel_info(entry, *args)
+    threads, tiles, blocks = info.pop("extra")
+    return {**info, "threads": threads, "tiles": tiles, "blocks": blocks}
+
+
+def _staged_chunk(chunk, default: int) -> int:
+    nb = default if chunk is None else int(chunk)
+    if nb not in MRHS_CHUNKS:
+        raise ValueError(f"chunk {nb}: the multi-RHS kernels have "
+                         f"instances for {MRHS_CHUNKS}")
+    return nb
+
+
 # B5's plan, as csrc/wilson_full.cu's full_mrhs_plan makes it: a block owns
 # FULL_MRHS_TILE sites of one (t, z) plane, FULL_MRHS_LANES threads a site,
 # and the tile's links (forward and backward) in shared memory.  Its
@@ -227,13 +275,10 @@ FULL_MRHS_CHUNK = 1
 
 
 def full_mrhs_plan(rows: int, T: int, Z: int, Y: int, X: int) -> dict:
-    """B5's launch on a T x Z x Y x X lattice with R = ``rows``: ``tiles``
-    a (t, z) plane, ``blocks``, ``threads`` a block and dynamic shared
-    memory ``smem`` a block in bytes."""
-    tiles = -(-(Y * X) // FULL_MRHS_TILE)
-    return {"tiles": tiles, "blocks": T * Z * tiles,
-            "threads": FULL_MRHS_LANES * FULL_MRHS_TILE,
-            "smem": 4 * 2 * 24 * rows * FULL_MRHS_TILE}
+    """B5's launch on a T x Z x Y x X lattice with R = ``rows``
+    (``tile_plan``)."""
+    return tile_plan(T, Z, Y * X, FULL_MRHS_TILE, FULL_MRHS_LANES,
+                     2 * 24 * rows)
 
 
 def full_mrhs_chunk(chunk, nrhs: int, rows: int, T: int, Z: int, Y: int,
@@ -242,28 +287,51 @@ def full_mrhs_chunk(chunk, nrhs: int, rows: int, T: int, Z: int, Y: int,
     ValueError for a width without a kernel instance (``MRHS_CHUNKS``),
     no right-hand side or a grid (T Z tiles of a plane) beyond 2^31 - 1
     blocks."""
-    nb = FULL_MRHS_CHUNK if chunk is None else int(chunk)
-    if nb not in MRHS_CHUNKS:
-        raise ValueError(f"chunk {nb}: the multi-RHS kernels have "
-                         f"instances for {MRHS_CHUNKS}")
-    if nrhs < 1:
-        raise ValueError(f"{nrhs} right-hand sides: B5 takes N >= 1")
-    blocks = full_mrhs_plan(rows, T, Z, Y, X)["blocks"]
-    if blocks > _MAX_BLOCKS:
-        raise ValueError(f"{blocks} blocks of {FULL_MRHS_TILE} sites: "
-                         f"beyond the grid's 2^31 - 1")
+    nb = _staged_chunk(chunk, FULL_MRHS_CHUNK)
+    check_tile_grid("B5", nrhs, full_mrhs_plan(rows, T, Z, Y, X))
     return nb
 
 
 def full_mrhs_info(rows: int, nb: int, T: int, Z: int, Y: int,
                    X: int) -> dict:
-    """B5's resources on the card: ptxas ``registers``, ``smem_bytes`` a
-    block, resident ``blocks_per_sm``, and ``threads``, ``tiles``,
-    ``blocks`` of the plan it launches."""
-    info = kernels.kernel_info("qtt_wilson_full_mrhs_info", T, Z, Y, X,
-                               rows, nb)
-    threads, tiles, blocks = info.pop("extra")
-    return {**info, "threads": threads, "tiles": tiles, "blocks": blocks}
+    """B5's resources on the card (``tile_info``)."""
+    return tile_info("qtt_wilson_full_mrhs_info", T, Z, Y, X, rows, nb)
+
+
+# B5-eo's plan, as csrc/wilson_eo_mrhs.cu's eo_mrhs_plan makes it: B5's on
+# the half lattice, a block owns EO_MRHS_TILE half-sites of one (t, z)
+# plane, EO_MRHS_LANES threads a half-site, the tile's links (forward and
+# backward) in shared memory, EO_MRHS_MIN_BLOCKS blocks an SM at chunk 1
+# (the kernel's launch bound).  Its default chunk is the faster width on
+# the card (PERF.md).
+EO_MRHS_TILE = 128
+EO_MRHS_LANES = 2
+EO_MRHS_MIN_BLOCKS = 2
+EO_MRHS_CHUNK = 1
+
+
+def eo_mrhs_plan(rows: int, T: int, Z: int, Y: int, Xh: int) -> dict:
+    """B5-eo's launch on T x Z x Y x Xh half-sites with R = ``rows``
+    (``tile_plan``)."""
+    return tile_plan(T, Z, Y * Xh, EO_MRHS_TILE, EO_MRHS_LANES,
+                     2 * 24 * rows)
+
+
+def eo_mrhs_chunk(chunk, nrhs: int, rows: int, T: int, Z: int, Y: int,
+                  Xh: int) -> int:
+    """B5-eo's chunk width (``EO_MRHS_CHUNK`` unless given); raises
+    ValueError for a width without a kernel instance (``MRHS_CHUNKS``),
+    no right-hand side or a grid (T Z tiles of a plane) beyond 2^31 - 1
+    blocks."""
+    nb = _staged_chunk(chunk, EO_MRHS_CHUNK)
+    check_tile_grid("B5-eo", nrhs, eo_mrhs_plan(rows, T, Z, Y, Xh))
+    return nb
+
+
+def eo_mrhs_info(rows: int, nb: int, T: int, Z: int, Y: int,
+                 Xh: int) -> dict:
+    """B5-eo's resources on the card (``tile_info``)."""
+    return tile_info("qtt_wilson_eo_mrhs_info", T, Z, Y, Xh, rows, nb)
 
 
 def form_name(rows: int, store_dtype, out_dtype) -> str:
@@ -535,16 +603,19 @@ def dslash_eo_pallas_packed_mrhs(u_here_pl: torch.Tensor,
                                  dims, target_parity: int, out_dtype=None,
                                  tb_sign: bool = True,
                                  chunk=None) -> torch.Tensor:
-    """Multi-RHS checkerboarded Wilson hop D_{p <- 1-p}: the batched
-    solvers' stencil.  psi_pl (N,4,3,2,T,Z,Y*Xh) of parity 1-p; links as
-    for ``dslash_eo_pallas_packed``, loaded once per chunk of ``chunk``
-    (default ``MRHS_CHUNK``) right-hand sides.  float32 in and out."""
+    """Multi-RHS checkerboarded Wilson hop D_{p <- 1-p} (B5-eo): the
+    batched solvers' stencil.  psi_pl (N,4,3,2,T,Z,Y*Xh) of parity 1-p;
+    links as for ``dslash_eo_pallas_packed``, each read from device memory
+    once for all N; a thread works through its right-hand sides ``chunk``
+    at a time (default ``EO_MRHS_CHUNK``).  float32 in and out."""
     T, Z, Y, X = dims
     Xh = X // 2
     rows = link_rows(u_here_pl)
     if target_parity not in (0, 1):
         raise ValueError(f"target_parity must be 0 or 1, got {target_parity}")
     check_batch(psi_pl)
+    nrhs = psi_pl.shape[0]
+    nb = eo_mrhs_chunk(chunk, nrhs, rows, T, Z, Y, Xh)
     kind = kernels.dispatch_device(u_here_pl, u_bw_pl, psi_pl)
     if kind == "cpu":
         return dslash_eo_packed_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, dims,
@@ -556,8 +627,6 @@ def dslash_eo_pallas_packed_mrhs(u_here_pl: torch.Tensor,
                         "multi-RHS hop has float32 forms only; its bf16 "
                         "forms wait for ROADMAP B5")
     sites = (T, Z, Y * Xh)
-    nrhs = psi_pl.shape[0]
-    nb = mrhs_chunk(chunk, nrhs, T * Z * Y * Xh)
     kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
     kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, f32)
     kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, f32)

@@ -39,7 +39,7 @@ SOURCES = ("wilson_eo.cu", "clover_eo.cu", "wilson_eo_mrhs.cu",
            "halo.cu")
 # headers the sources include: part of the build's hash, never compiled alone
 HEADERS = ("wilson_hop.cuh", "staggered_hop.cuh", "clover_epilogue.cuh",
-           "async_copy.cuh")
+           "async_copy.cuh", "mrhs_tile.cuh")
 LIB_NAME = "libquda_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +61,9 @@ SIGNATURES = {
     # stream
     "qtt_wilson_eo_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
+    # T, Z, Y, Xh, rows, nb, info[6] (registers, shared bytes, blocks an SM,
+    # threads, tiles a plane, blocks)
+    "qtt_wilson_eo_mrhs_info": (_I, _I, _I, _I, _I, _I, _P),
     # out, psi, u_here, u_bw, blk, xc, T, Z, Y, Xh, parity, rows, tb_sign,
     # diag_hop, coeff, with_blk, twist, tw_c, tw_scale, nrhs, nb, stream
     "qtt_clover_eo_mrhs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -88,7 +91,7 @@ SIGNATURES = {
     "qtt_wilson_full_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P),
     # T, Z, Y, X, rows, nb, info[6] (registers, shared bytes, blocks an SM,
-    # threads, halo, blocks)
+    # threads, tiles a plane, blocks)
     "qtt_wilson_full_mrhs_info": (_I, _I, _I, _I, _I, _I, _P),
     # out, psi, u, u_bw, T, Z, Y, X, nhop, stream
     "qtt_staggered_full_pass": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -97,6 +100,9 @@ SIGNATURES = {
     # out, psi, u, u_bw, T, Z, Y, X, nhop, accum, nrhs, stream
     "qtt_staggered_full_pass_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _P),
+    # T, Z, Y, X, nhop, accum, info[6] (registers, shared bytes, blocks an
+    # SM, threads, tiles a plane, blocks)
+    "qtt_staggered_full_pass_mrhs_info": (_I, _I, _I, _I, _I, _I, _P),
     # out, links, psi9, S, E, stream
     "qtt_coarse_apply": (_P, _P, _P, _I, _I, _P),
     # out, links, psi9, S, E, nrhs, stream

@@ -1132,6 +1132,67 @@ def test_full_hop_mrhs_resources_match_plan(rows, chunk):
     assert info["blocks_per_sm"] >= (2 if chunk == 1 else 1)
 
 
+# (T, Z, Y, X) of the redesigned B5-eo's tile edges: Y*Xh = 168 leaves a
+# partial tile of 40 half-sites on each plane and Z = 6 a partial z-box;
+# Y*Xh = 30 takes the 4-byte copies (Y*Xh not a multiple of 4); Y*Xh = 272
+# ends each plane in a tile of 16 half-sites, with T = 2 (a t neighbour
+# both ways)
+B5EO_TILE_EXTENTS = [(6, 6, 12, 28), (4, 2, 6, 10), (2, 4, 4, 136)]
+
+
+@pytest.mark.parametrize("n", [1, 5, 6, 12, 13])
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("extents", B5EO_TILE_EXTENTS,
+                         ids=lambda e: "x".join(map(str, e)))
+def test_eo_mrhs_tiles_match_b1(extents, rows, parity, tb_sign, chunk, n):
+    """B5-eo on half lattices whose planes end in partial tiles (and one
+    that takes the 4-byte copies): each lane bit for bit a B1 launch,
+    within TOLERANCE of the plain version; one launch counted."""
+    dev = require_cuda()
+    T, Z, Y, X = extents
+    gen = torch.Generator(device=dev).manual_seed(611 + rows + n + X)
+    sites = (T, Z, Y * X // 2)
+    u = torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev)
+    ubw = wpp.backward_gauge_eo(
+        torch.randn((4, rows, 3, 2) + sites, generator=gen, device=dev),
+        extents, parity).contiguous()
+    psi = torch.randn((n, 4, 3, 2) + sites, generator=gen, device=dev)
+    n0 = wpp.dslash_eo_pallas_packed_mrhs.launches
+    got = wpp.dslash_eo_pallas_packed_mrhs(u, ubw, psi, extents, parity,
+                                           tb_sign=tb_sign, chunk=chunk)
+    assert wpp.dslash_eo_pallas_packed_mrhs.launches == n0 + 1
+    lanes = torch.stack([wpp.dslash_eo_pallas_packed(
+        u, ubw, psi[i].contiguous(), extents, parity, tb_sign=tb_sign)
+        for i in range(n)])
+    want = wpp.dslash_eo_packed_mrhs_plain(u, ubw, psi, extents, parity,
+                                           tb_sign=tb_sign)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanes)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= wpp.TOLERANCE
+
+
+@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_eo_mrhs_resources_match_plan(rows, chunk):
+    """B5-eo's query entry at 32^3 x 64: the shared memory, threads, tiles
+    and blocks of eo_mrhs_plan; EO_MRHS_MIN_BLOCKS blocks an SM at chunk
+    1, at least one at chunk 2; at most 255 registers."""
+    require_cuda()
+    T, Z, Y, Xh = 64, 32, 32, 16
+    info = wpp.eo_mrhs_info(rows, chunk, T, Z, Y, Xh)
+    plan = wpp.eo_mrhs_plan(rows, T, Z, Y, Xh)
+    assert info["smem_bytes"] == plan["smem"]
+    assert (info["threads"], info["tiles"], info["blocks"]) == (
+        plan["threads"], plan["tiles"], plan["blocks"])
+    assert 0 < info["registers"] <= 255
+    assert info["blocks_per_sm"] >= (wpp.EO_MRHS_MIN_BLOCKS if chunk == 1
+                                     else 1)
+
+
 @pytest.mark.parametrize("sites", [1, 33, 2048])
 @pytest.mark.parametrize("e", [8, 16, 20, 96, 160])
 @pytest.mark.parametrize("n", [1, 3, 8, 24, 25, 40])
@@ -1355,6 +1416,69 @@ def test_stag_full_mrhs_kernel_matches_plain_and_single_launches(n):
             fat, fbw, q, X, 1))
         assert torch.equal(both[i], spl.dslash_staggered_pallas_fused(
             fat, q, X, lng))
+
+
+# (T, Z, Y, X) of the redesigned S2-mrhs-full's tile edges, every extent
+# >= 7: Y*X = 168 leaves a partial tile of 40 sites on each plane and Z = 9
+# a partial z-box; Y*X = 63 takes the 4-byte copies; Y*X = 272 ends each
+# plane in a tile of 16 sites
+S2MRHS_TILE_EXTENTS = [(8, 9, 12, 14), (7, 8, 7, 9), (7, 7, 8, 34)]
+
+
+@pytest.mark.parametrize("nhop", [1, 3], ids=["fat", "naik"])
+@pytest.mark.parametrize("n", [1, 5, 24, 25])
+@pytest.mark.parametrize("extents", S2MRHS_TILE_EXTENTS,
+                         ids=lambda e: "x".join(map(str, e)))
+def test_stag_full_mrhs_tiles_match_s2_full(extents, n, nhop):
+    """S2-mrhs-full on lattices whose planes end in partial tiles (and one
+    that takes the 4-byte copies): each lane bit for bit an S2-full launch
+    of its hop count, within TOLERANCE of the plain version, one launch
+    counted in its form; the Naik pass accumulating into the fat pass
+    bit for bit S1-full on each lane."""
+    dev = require_cuda()
+    T, Z, Y, X = extents
+    gen = torch.Generator(device=dev).manual_seed(641 + n + X + nhop)
+    sites = (T, Z, Y * X)
+    fat = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev)
+    lng = torch.randn((4, 3, 3, 2) + sites, generator=gen, device=dev) / 24
+    psi = torch.randn((n, 3, 2) + sites, generator=gen, device=dev)
+    fbw = spl.backward_links(fat, X, 1).contiguous()
+    lbw = spl.backward_links(lng, X, 3).contiguous()
+    u, ubw = (fat, fbw) if nhop == 1 else (lng, lbw)
+    name = spl.pass_form_name(nhop, torch.float32, torch.float32)
+    n0 = spl.dslash_staggered_pass_mrhs.launches_by_form.get(name, 0)
+    got = spl.dslash_staggered_pass_mrhs(u, ubw, psi, X, nhop)
+    assert spl.dslash_staggered_pass_mrhs.launches_by_form[name] == n0 + 1
+    want = spl.dslash_staggered_pass_mrhs_plain(u, ubw, psi, X, nhop)
+    lanes = torch.stack([spl.dslash_staggered_pass(
+        u, ubw, psi[i].contiguous(), X, nhop) for i in range(n)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanes)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < spl.TOLERANCE
+    if nhop == 3:
+        both = spl.dslash_staggered_pass_mrhs(fat, fbw, psi, X, 1)
+        spl.dslash_staggered_pass_mrhs(lng, lbw, psi, X, 3, acc=both)
+        s1 = torch.stack([spl.dslash_staggered_pallas_fused(
+            fat, psi[i].contiguous(), X, lng) for i in range(n)])
+        torch.cuda.synchronize()
+        assert torch.equal(both, s1)
+
+
+@pytest.mark.parametrize("accum", [False, True], ids=["store", "accum"])
+@pytest.mark.parametrize("nhop", [1, 3], ids=["fat", "naik"])
+def test_stag_full_mrhs_resources_match_plan(nhop, accum):
+    """S2-mrhs-full's query entry at 32^3 x 64: the shared memory, threads,
+    tiles and blocks of full_mrhs_plan, FULL_MRHS_MIN_BLOCKS blocks an SM,
+    at most 255 registers."""
+    require_cuda()
+    T, Z, Y, X = 64, 32, 32, 32
+    info = spl.full_mrhs_info(nhop, accum, T, Z, Y, X)
+    plan = spl.full_mrhs_plan(T, Z, Y, X)
+    assert info["smem_bytes"] == plan["smem"]
+    assert (info["threads"], info["tiles"], info["blocks"]) == (
+        plan["threads"], plan["tiles"], plan["blocks"])
+    assert 0 < info["registers"] <= 255
+    assert info["blocks_per_sm"] >= spl.FULL_MRHS_MIN_BLOCKS
 
 
 @pytest.mark.parametrize("parity", [0, 1])

@@ -1,19 +1,23 @@
-"""The launch plans of the two multi-RHS kernels of the Wilson multigrid
-set-up, B8-mrhs (ops/coarse_pallas.py::mrhs_plan) and B5
-(ops/wilson_pallas_packed.py::full_mrhs_plan), which mirror the C
-planners in csrc/coarse.cu and csrc/wilson_full.cu (the card tests hold
-the two to each other through the kernels' query entries); and the wrappers'
-refusals, which run before any launch, on the CPU path too.  Pure
-Python: no card, no JAX.
+"""The launch plans of the multi-RHS kernels that stage operands in
+shared memory: B8-mrhs (ops/coarse_pallas.py::mrhs_plan), B5 and B5-eo
+(ops/wilson_pallas_packed.py::full_mrhs_plan, eo_mrhs_plan) and
+S2-mrhs-full (ops/staggered_pallas.py::full_mrhs_plan), which mirror the
+C planners in csrc/coarse.cu, csrc/wilson_full.cu, csrc/wilson_eo_mrhs.cu
+and csrc/staggered_full.cu (the card tests hold each pair to each other
+through the kernels' query entries); and the wrappers' refusals, which
+run before any launch, on the CPU path too.  Pure Python: no card, no JAX.
 """
 
 import pytest
 import torch
 
 from quda_tpu_torch.ops import coarse_pallas as cop
+from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
 SMEM_PER_BLOCK = 232448     # the H100's opt-in shared memory of a block
+SMEM_PER_SM = 233472        # an SM's shared memory, 1 KB of it per block
+MAX_BLOCKS = 2 ** 31 - 1    # the grid's x extent
 
 
 def test_coarse_mrhs_plan_fits_every_accepted_width():
@@ -110,3 +114,117 @@ def test_full_mrhs_refusals_name_the_limit_before_any_launch():
         wpp.FULL_MRHS_CHUNK
     assert wpp.full_mrhs_chunk(2, 5, 3, 2, 2, 3, 4) == 2
     assert wpp.dslash_pallas_packed_mrhs.launches == n0
+
+
+def _assert_tiles_cover(plan, T, Z, plane, tile):
+    assert (plan["tiles"] - 1) * tile < plane <= plan["tiles"] * tile
+    assert plan["blocks"] == T * Z * plan["tiles"]
+
+
+@pytest.mark.parametrize("rows", [3, 2])
+def test_eo_mrhs_plan_fits_every_accepted_lattice(rows):
+    """B5-eo's block (the tile's forward and backward links) fits 227 KB of
+    shared memory, EO_MRHS_MIN_BLOCKS blocks to an SM (its launch bound),
+    for every half lattice; its tiles cover each (t, z) plane of Y*Xh
+    half-sites."""
+    for xh in range(1, 80):
+        for y in (1, 2, 5, 8, 32):
+            p = wpp.eo_mrhs_plan(rows, 3, 5, y, xh)
+            assert p["smem"] <= SMEM_PER_BLOCK
+            assert wpp.EO_MRHS_MIN_BLOCKS * (p["smem"] + 1024) <= \
+                SMEM_PER_SM
+            _assert_tiles_cover(p, 3, 5, y * xh, wpp.EO_MRHS_TILE)
+            assert p["threads"] == wpp.EO_MRHS_LANES * wpp.EO_MRHS_TILE
+            assert p["threads"] <= 1024 and p["threads"] % 32 == 0
+
+
+def test_stag_full_mrhs_plan_fits_every_accepted_lattice():
+    """S2-mrhs-full's block (the tile's two link sets) fits 227 KB of
+    shared memory, FULL_MRHS_MIN_BLOCKS blocks to an SM (its launch
+    bound), for every lattice; its tiles cover each (t, z) plane."""
+    for x in range(1, 80):
+        for y in (1, 2, 5, 8, 32):
+            p = spl.full_mrhs_plan(3, 5, y, x)
+            assert p["smem"] <= SMEM_PER_BLOCK
+            assert spl.FULL_MRHS_MIN_BLOCKS * (p["smem"] + 1024) <= \
+                SMEM_PER_SM
+            _assert_tiles_cover(p, 3, 5, y * x, spl.FULL_MRHS_TILE)
+            assert p["threads"] == spl.FULL_MRHS_LANES * spl.FULL_MRHS_TILE
+            assert p["threads"] <= 1024 and p["threads"] % 32 == 0
+
+
+def test_eo_mrhs_plan_at_the_smoke_lattice():
+    """32^3 x 64 (planes of 512 half-sites): 4 tiles a plane, 8192 blocks
+    of 256 threads; the tile's links take 73,728 bytes (R = 3) and 49,152
+    (R = 2); the default chunk takes N = 12 (the 12-source and Möbius
+    batches) and the 5d PC's N = 6 (Ls / 2), each lane 6 and 3 right-hand
+    sides."""
+    p3 = wpp.eo_mrhs_plan(3, 64, 32, 32, 16)
+    p2 = wpp.eo_mrhs_plan(2, 64, 32, 32, 16)
+    assert (p3["tiles"], p3["blocks"], p3["threads"]) == (4, 8192, 256)
+    assert (p2["tiles"], p2["blocks"], p2["threads"]) == (4, 8192, 256)
+    assert (p3["smem"], p2["smem"]) == (73728, 49152)
+    for n, per_lane in ((12, 6), (6, 3)):
+        nb = wpp.eo_mrhs_chunk(None, n, 3, 64, 32, 32, 16)
+        assert nb == wpp.EO_MRHS_CHUNK == 1
+        assert -(-n // wpp.EO_MRHS_LANES) == per_lane
+
+
+def test_stag_full_mrhs_plan_at_the_smoke_lattice():
+    """32^3 x 64 (planes of 1024 sites): 16 tiles a plane, 32768 blocks of
+    256 threads, 36,864 bytes of links a block; at the multigrid's N = 24
+    each of a site's 4 lanes takes 6 right-hand sides, one at a time."""
+    p = spl.check_full_mrhs(24, 64, 32, 32, 32)
+    assert p == spl.full_mrhs_plan(64, 32, 32, 32)
+    assert (p["tiles"], p["blocks"], p["threads"], p["smem"]) == (
+        16, 32768, 256, 36864)
+    assert spl.FULL_MRHS_CHUNK == 1
+    assert -(-24 // (spl.FULL_MRHS_LANES * spl.FULL_MRHS_CHUNK)) == 6
+
+
+def test_eo_mrhs_refusals_name_the_limit_before_any_launch():
+    """B5-eo refuses a chunk without an instance, N = 0 and a grid beyond
+    2^31 - 1 blocks with a ValueError naming the limit, on the CPU path
+    too; every MRHS_CHUNKS width is taken; nothing is counted."""
+    n0 = wpp.dslash_eo_pallas_packed_mrhs.launches
+    dims = (2, 2, 3, 4)
+    sites = (2, 2, 3 * 2)
+    u = torch.zeros((4, 3, 3, 2) + sites)
+    psi = torch.zeros((2, 4, 3, 2) + sites)
+    with pytest.raises(ValueError, match=r"chunk 3.*\(1, 2\)"):
+        wpp.dslash_eo_pallas_packed_mrhs(u, u, psi, dims, 0, chunk=3)
+    with pytest.raises(ValueError, match="N >= 1"):
+        wpp.dslash_eo_pallas_packed_mrhs(u, u, psi[:0], dims, 1)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        wpp.eo_mrhs_chunk(None, 1, 3, 2 ** 16, 2 ** 16, 1, 2 ** 10)
+    one_tile = wpp.EO_MRHS_TILE            # a plane of one tile
+    assert wpp.eo_mrhs_plan(3, 2 ** 16, 2 ** 15 - 1, 1,
+                            one_tile)["blocks"] <= MAX_BLOCKS
+    assert wpp.eo_mrhs_chunk(None, 1, 3, 2 ** 16, 2 ** 15 - 1, 1,
+                             one_tile) == wpp.EO_MRHS_CHUNK
+    for nb in wpp.MRHS_CHUNKS:
+        assert wpp.eo_mrhs_chunk(nb, 5, 2, 2, 2, 3, 2) == nb
+        out = wpp.dslash_eo_pallas_packed_mrhs(u, u, psi, dims, 0, chunk=nb)
+        assert out.shape == psi.shape
+    assert wpp.dslash_eo_pallas_packed_mrhs.launches == n0
+
+
+def test_stag_full_mrhs_refusals_name_the_limit_before_any_launch():
+    """S2-mrhs-full refuses N = 0, a grid beyond 2^31 - 1 blocks and a
+    fused axis that is not a multiple of X with a ValueError naming the
+    limit, on the CPU path too; nothing is counted."""
+    n0 = spl.dslash_staggered_pass_mrhs.launches
+    sites = (2, 2, 3 * 4)
+    u = torch.zeros((4, 3, 3, 2) + sites)
+    psi = torch.zeros((2, 3, 2) + sites)
+    with pytest.raises(ValueError, match="N >= 1"):
+        spl.dslash_staggered_pass_mrhs(u, u, psi[:0], 4, 1)
+    with pytest.raises(ValueError, match="multiple of X = 5"):
+        spl.dslash_staggered_pass_mrhs(u, u, psi, 5, 3)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        spl.check_full_mrhs(1, 2 ** 16, 2 ** 16, 1, 2 ** 10)
+    one_tile = spl.FULL_MRHS_TILE          # a plane of one tile
+    assert spl.check_full_mrhs(1, 2 ** 16, 2 ** 15 - 1, 1,
+                               one_tile)["blocks"] <= MAX_BLOCKS
+    assert spl.dslash_staggered_pass_mrhs(u, u, psi, 4, 1).shape == psi.shape
+    assert spl.dslash_staggered_pass_mrhs.launches == n0
