@@ -3,9 +3,12 @@
 
     python3 chip_profile.py [all|wilson|double|staggered|zoo|mg]  # default all
     python3 chip_profile.py stag_mg [MASS ...]   # default chip_smoke's mass
-    python3 chip_profile.py mrhs     # B5, B8-mrhs, B5-eo, S2-mrhs-full alone
-    python3 chip_profile.py mrhs_variants [PARENT_CSRC|-] [eo] [stag]
+    python3 chip_profile.py mrhs     # B5, B8-mrhs, B5-eo, K1/K2-mrhs,
+                                     # S2-mrhs-full alone
+    python3 chip_profile.py mrhs_variants [PARENT_CSRC|-] [eo] [stag] [clover]
                                      # their variants, against the parent
+    python3 chip_profile.py mrhs_ab OTHER_CSRC [NB]
+                                     # K1/K2-mrhs against another tree's
     python3 chip_profile.py mg_seeds # MG iterations per null-vector seed
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
@@ -520,12 +523,15 @@ def mrhs(torch, dev) -> None:
     level 1 of the smoke's hierarchy) against ``torch.einsum`` and N single
     launches; B5-eo (the eo hop, N = 12: the 12-source Wilson and Möbius
     batches, N = 6: the 5d-PC domain wall's) against N B1 launches, lanes
-    bit for bit B1; S2-mrhs-full (N = 24, fat, and the Naik pass
-    accumulating into it: the staggered multigrid's null vectors) against
-    N S2-full launches, lanes bit for bit S2-full and fat + Naik bit for
-    bit S1-full.  Full and r12 links, each chunk width; random fields
-    from a seeded torch.Generator; each launch's registers, shared memory
-    and resident blocks an SM where the kernel module reports them."""
+    bit for bit B1; K1/K2-mrhs (N = 12: the 12-source clover, twisted-mass
+    and twisted-clover batches, each form on a path) against N K1/K2
+    launches, lanes bit for bit K1/K2; S2-mrhs-full (N = 24, fat, and the
+    Naik pass accumulating into it: the staggered multigrid's null
+    vectors) against N S2-full launches, lanes bit for bit S2-full and
+    fat + Naik bit for bit S1-full.  Full and r12 links, each chunk width;
+    random fields from a seeded torch.Generator; each launch's registers,
+    shared memory and resident blocks an SM where the kernel module
+    reports them."""
     from quda_tpu_torch.ops import coarse_pallas as cop
     from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
@@ -590,6 +596,7 @@ def mrhs(torch, dev) -> None:
     print(json.dumps(rec), flush=True)
     del links, psi9, got, want, singles, lanes
     _mrhs_eo(torch, dev, smi, gen)
+    _mrhs_clover(torch, dev, smi, gen)
     _mrhs_stag_full(torch, dev, smi, gen)
 
 
@@ -634,6 +641,107 @@ def _mrhs_eo(torch, dev, smi, gen) -> None:
             print(json.dumps(rec), flush=True)
             del psi, singles, lanes, got
         del u, ubw
+
+
+# K1/K2-mrhs's forms on a path: (kind, epilogue), each at R = 3 and 2
+CLOVER_FORMS = [("post", "clover"), ("diag_hop", "clover"),
+                ("post", "twist"), ("diag_hop", "twist"),
+                ("diag_hop", "blk+twist")]
+TW_A = 0.024                # a = 2 kappa mu at kappa 0.12, mu 0.1
+K2_COEFF = -0.12 ** 2
+
+
+def _clover_inputs(torch, dev, gen, rows, n):
+    """Links (forward, backward), an n-RHS psi and x batch and blocks
+    1 + 0.1 Gaussian at 32^3 x 64, float32."""
+    X, Y, Z, T = DIMS
+    sites = (T, Z, Y * X // 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    blk = 0.1 * randn(2, 6, 6, 2, *sites)
+    blk[:, :, :, 0] += torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+    return (randn(4, rows, 3, 2, *sites), randn(4, rows, 3, 2, *sites),
+            randn(n, 4, 3, 2, *sites), randn(n, 4, 3, 2, *sites), blk)
+
+
+def _clover_epilogue_args(kind, epi):
+    """(with_blk, twist flag, c, scale) of a form, an Mdag apply's
+    signs."""
+    if epi == "clover":
+        return True, 0, 0.0, 1.0
+    if kind == "post":
+        return False, 1, TW_A, 1.0 / (1.0 + TW_A ** 2)
+    return epi == "blk+twist", 1, -TW_A, 1.0
+
+
+def _clover_wrapper_call(kind, epi, args, dims):
+    """One call of a form through its wrapper: K1/K2-mrhs on an N-RHS
+    batch (psi of 7 axes), else K1/K2."""
+    from quda_tpu_torch.ops import clover_pallas as clp
+
+    u, ubw, psi, xc, blk = args
+    with_blk, tw, c, scale = _clover_epilogue_args(kind, epi)
+    b = blk if with_blk else None
+    mrhs = psi.ndim == 7
+    if kind == "post":
+        fn = (clp.dslash_eo_pallas_post_mrhs if mrhs
+              else clp.dslash_eo_pallas_post)
+        return fn(u, ubw, psi, dims, 0, blk_pl=b,
+                  twist=(c, scale) if tw else None)
+    fn = (clp.dslash_eo_pallas_diag_hop_mrhs if mrhs
+          else clp.dslash_eo_pallas_diag_hop)
+    return fn(u, ubw, psi, xc, dims, 0, hop_coeff=K2_COEFF, blk_pl=b,
+              diag_twist=c if tw else None, out_dtype=psi.dtype)
+
+
+def _clover_singles(args):
+    """The batch's right-hand sides as single-RHS arguments."""
+    u, ubw, psi, xc, blk = args
+    return [(u, ubw, psi[r], xc[r], blk) for r in range(psi.shape[0])]
+
+
+def _mrhs_clover(torch, dev, smi, gen) -> None:
+    """K1/K2-mrhs at 32^3 x 64, N = 12, every form on a path (clover,
+    twisted mass, twisted clover's K2; R = 3 and 2), at the tree's default
+    chunk."""
+    from quda_tpu_torch.ops import clover_pallas as clp
+
+    X, Y, Z, T = DIMS
+    Xh = X // 2
+    dims = (T, Z, Y, X)
+    half = T * Z * Y * Xh
+    n = NRHS
+    for rows in (3, 2):
+        args = _clover_inputs(torch, dev, gen, rows, n)
+        for kind, epi in CLOVER_FORMS:
+            with_blk, tw, _, _ = _clover_epilogue_args(kind, epi)
+            singles = _clover_singles(args)
+            lanes = torch.stack([_clover_wrapper_call(kind, epi, a, dims)
+                                 for a in singles])
+            bound = _bound_ms(
+                clp.bytes_per_site_mrhs(kind, n, rows, with_blk) * half,
+                clp.flops_per_site_mrhs(kind, n, rows, with_blk, bool(tw))
+                * half)
+            rec = {"kernel": "k_mrhs", "form": f"{kind}:{epi}", "rows": rows,
+                   "nrhs": n, "dims_xyzt": list(DIMS), "bound_ms": bound,
+                   "single_launches_ms": _median_ms(lambda: [
+                       _clover_wrapper_call(kind, epi, a, dims)
+                       for a in singles], torch, repeats=5, batch=2)}
+            got = _clover_wrapper_call(kind, epi, args, dims)
+            ms = _median_ms(lambda: _clover_wrapper_call(
+                kind, epi, args, dims), torch)
+            rec.update({"ms": ms, "share_of_bound": bound / ms,
+                        "lanes_bitwise_single": bool(torch.equal(got,
+                                                                 lanes))})
+            if hasattr(clp, "k_mrhs_info"):
+                rec.update(clp.k_mrhs_info(kind, rows, T, Z, Y, Xh,
+                                           with_blk, bool(tw)))
+            rec["nvidia_smi"] = smi
+            print(json.dumps(rec), flush=True)
+            del lanes, singles, got
+        del args
 
 
 def _mrhs_stag_full(torch, dev, smi, gen) -> None:
@@ -731,6 +839,22 @@ STAG_VARIANTS = {
 }
 
 
+# K1/K2-mrhs's variants: the forms with blocks (tile, lanes, blocks an SM,
+# blocks staged or read through L1) and the block-free ones (B5-eo's plan
+# and two others), box depth for both
+CLOVER_VARIANTS = {
+    "shipped": {},
+    "blk_t128_l2_mb1": {"kTileBlk": 128, "kLanesBlk": 2, "kMinBlocks": 1},
+    "blk_t64_l2": {"kLanesBlk": 2},
+    "blk_t32_l8": {"kTileBlk": 32, "kLanesBlk": 8},
+    "mb1": {"kMinBlocks": 1},
+    "mb3": {"kMinBlocks": 3},
+    "free_t64_l4": {"kTileFree": 64, "kLanesFree": 4},
+    "box2": {"kBoxZ": 2},
+    "box8": {"kBoxZ": 8},
+}
+
+
 def _build_variants(source: str, variants: dict, parent_csrc=None) -> dict:
     """One shared library for each variant of ``csrc/<source>`` (and the
     parent's source as "parent"), all nvcc processes started together,
@@ -789,16 +913,19 @@ def _variant_info(lib, entry, *args) -> dict:
                           "blocks_per_sm": info[2], "threads": info[3]}
 
 
-def mrhs_variants(torch, dev, parent_csrc=None, which=("eo", "stag")) -> None:
+def mrhs_variants(torch, dev, parent_csrc=None,
+                  which=("eo", "stag", "clover")) -> None:
     """Time variants of B5-eo (csrc/wilson_eo_mrhs.cu: tile, lanes, box
-    depth, blocks an SM) at N = 12 and 6, R = 3 and 2, each chunk, and of
+    depth, blocks an SM) at N = 12 and 6, R = 3 and 2, each chunk, of
     S2-mrhs-full (csrc/staggered_full.cu: chunk, lanes, tile, box depth,
-    blocks an SM) at N = 24, fat and Naik accumulating, at 32^3 x 64,
-    through their C entries in libraries of their own; and the parent
-    tree's kernels where ``parent_csrc`` (its csrc directory) is given.
+    blocks an SM) at N = 24, fat and Naik accumulating, and of K1/K2-mrhs
+    (csrc/clover_eo_mrhs.cu, CLOVER_VARIANTS) at N = 12, each form on a
+    path, R = 3 and 2, at 32^3 x 64, through their C entries in libraries
+    of their own; and the parent tree's kernels where ``parent_csrc`` (its
+    csrc directory, whose entries take this tree's arguments) is given.
     Each shape's variants run in turns, forward then backward, and each
     output is checked bit for bit against single-RHS launches (B1,
-    S2-full) of this tree."""
+    S2-full, K1/K2) of this tree."""
     import ctypes
 
     from quda_tpu_torch.ops import staggered_pallas as spl
@@ -811,6 +938,8 @@ def mrhs_variants(torch, dev, parent_csrc=None, which=("eo", "stag")) -> None:
                if "eo" in which else {})
     st_libs = (_build_variants("staggered_full.cu", STAG_VARIANTS,
                                parent_csrc) if "stag" in which else {})
+    cl_libs = (_build_variants("clover_eo_mrhs.cu", CLOVER_VARIANTS,
+                               parent_csrc) if "clover" in which else {})
     print(json.dumps({"variants_built_s": time.perf_counter() - t0}),
           flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -916,8 +1045,98 @@ def mrhs_variants(torch, dev, parent_csrc=None, which=("eo", "stag")) -> None:
                                 Y, X, nhop, int(accum))}
                 for k, v in ms.items()},
             "nvidia_smi": smi}), flush=True)
+    _clover_variants(torch, dev, cl_libs, turns, smi, gen)
     print(json.dumps({"mrhs_variants_s": time.perf_counter() - t0,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def _clover_variants(torch, dev, libs, turns, smi, gen,
+                     parent_nb=None) -> None:
+    """K1/K2-mrhs's variant libraries ``libs`` in turns at 32^3 x 64,
+    N = 12, each form on a path, R = 3 and 2, each output held bit for
+    bit to K1/K2 launches of this tree; ``parent_nb``: the chunk width to
+    pass to the "parent" library where its entry takes one."""
+    import ctypes
+
+    from quda_tpu_torch.ops import clover_pallas as clp
+    from quda_tpu_torch.utils import kernels
+
+    X, Y, Z, T = DIMS
+    Xh = X // 2
+    dims = (T, Z, Y, X)
+    half = T * Z * Y * Xh
+    n = NRHS
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sig = list(kernels.SIGNATURES["qtt_clover_eo_mrhs"])
+    extra = {k: () for k in libs}
+    if parent_nb is not None:
+        extra["parent"] = (parent_nb,)
+    for k, (lib, _) in libs.items():
+        lib.qtt_clover_eo_mrhs.argtypes = (
+            sig[:-1] + [ctypes.c_int] * len(extra[k]) + sig[-1:])
+    for rows in (3, 2) if libs else ():
+        args = _clover_inputs(torch, dev, gen, rows, n)
+        u, ubw, psi, xc, blk = args
+        out = torch.empty_like(psi)
+        for kind, epi in CLOVER_FORMS:
+            with_blk, tw, c, scale = _clover_epilogue_args(kind, epi)
+            lanes = torch.stack([_clover_wrapper_call(kind, epi, a, dims)
+                                 for a in _clover_singles(args)])
+            bound = _bound_ms(
+                clp.bytes_per_site_mrhs(kind, n, rows, with_blk) * half,
+                clp.flops_per_site_mrhs(kind, n, rows, with_blk, bool(tw))
+                * half)
+
+            def run(k):
+                rc = libs[k][0].qtt_clover_eo_mrhs(
+                    out.data_ptr(), psi.data_ptr(), u.data_ptr(),
+                    ubw.data_ptr(), blk.data_ptr() if with_blk else None,
+                    xc.data_ptr(), T, Z, Y, Xh, 0, rows, 1,
+                    int(kind == "diag_hop"), K2_COEFF, int(with_blk),
+                    tw, c, scale, n, *extra[k], stream)
+                kernels.check_launch(rc, f"K1/K2-mrhs variant {k}")
+            bits = {}
+            for k in libs:
+                out.zero_()
+                run(k)
+                bits[k] = bool(torch.equal(out, lanes))
+            ms = turns(libs, run)
+            print(json.dumps({
+                "kernel": "k_mrhs_variants", "form": f"{kind}:{epi}",
+                "rows": rows, "nrhs": n, "bound_ms": bound,
+                "variants": {k: {"ms": v, "share_of_bound": [
+                    bound / t for t in v], "lanes_bitwise_single": bits[k],
+                    **CLOVER_VARIANTS.get(k, {}),
+                    **({} if extra[k] else _variant_info(
+                        libs[k][0], "qtt_clover_eo_mrhs_info", T, Z, Y, Xh,
+                        rows, int(kind == "diag_hop"), int(with_blk), tw))}
+                    for k, v in ms.items()},
+                "nvidia_smi": smi}), flush=True)
+            del lanes
+        del args, u, ubw, psi, xc, blk, out
+
+
+def mrhs_ab(torch, dev, other_csrc, other_nb=None, rounds=8) -> None:
+    """K1/K2-mrhs of this tree ("this") against another tree's kernel
+    ("parent": its csrc directory; ``other_nb``: the chunk width to pass
+    where its C entry takes one) on the same buffers in one process, as
+    ``_clover_variants`` times variants, in ``rounds`` rounds whose order
+    alternates: separate processes place the buffers apart and can
+    differ by more than the kernels do."""
+    libs = _build_variants("clover_eo_mrhs.cu", {"this": {}}, other_csrc)
+
+    def alternating(names, run):
+        """{name: ms of each round}."""
+        names = list(names)
+        ms = {k: [] for k in names}
+        for r in range(rounds):
+            for k in names if r % 2 == 0 else names[::-1]:
+                ms[k].append(_median_ms(lambda: run(k), torch, repeats=11))
+        return ms
+
+    _clover_variants(torch, dev, libs, alternating, _smi(),
+                     torch.Generator(device=dev).manual_seed(SEED + 47),
+                     other_nb)
 
 
 def mg_seeds(torch, dev, seeds=(2024, 1, 2, 3, 4)) -> None:
@@ -1088,7 +1307,11 @@ def main() -> int:
         parent = sys.argv[2] if len(sys.argv) > 2 and sys.argv[2] != "-" \
             else None
         mrhs_variants(torch, torch.device("cuda", 0), parent,
-                      tuple(sys.argv[3:]) or ("eo", "stag"))
+                      tuple(sys.argv[3:]) or ("eo", "stag", "clover"))
+        return 0
+    if which == "mrhs_ab":
+        mrhs_ab(torch, torch.device("cuda", 0), sys.argv[2],
+                int(sys.argv[3]) if len(sys.argv) > 3 else None)
         return 0
     if which == "stag_mg":
         masses = tuple(float(m) for m in sys.argv[2:]) or (STAG_MG_MASS,)

@@ -21,7 +21,9 @@ Phases, one JSON line each (``"phase": ...``):
              at N = 1, 3 and 12 on 4x6x8x10 (both parities) and at N = 12
              on the production size, against their plain versions and
              against N launches of the single-RHS kernel.  Fails above the
-             tolerance the kernel's module states.
+             tolerance the kernel's module states, or unless every lane of
+             a multi-RHS kernel is its single-RHS launch (B1, K1, K2) bit
+             for bit.
 4. invert  — the main path at the production size: a random SU(3) gauge and
              a Gaussian source made on the card from a seeded
              torch.Generator, init_quda -> load_gauge_quda ->
@@ -246,7 +248,8 @@ Phases, one JSON line each (``"phase": ...``):
    check   — every twist form of K1/K2 (K1 block-free twist, K2 twist
              and blocks + twist; full/r12 links, f32/bf16 storage) and
              of K1/K2-mrhs (f32, N = 12) against its plain version at
-             both target parities (1e-6 f32, one bf16 ulp bf16).
+             both target parities (1e-6 f32, one bf16 ulp bf16), each
+             K1/K2-mrhs lane bit for bit its K1/K2 launch.
    invert_twisted — invert_quda, twisted-mass and twisted-clover,
              single and single/half, full and recon-12 links: converged,
              true_res <= 1e-5, K1 and K2 twice an iteration in their
@@ -262,9 +265,11 @@ Phases, one JSON line each (``"phase": ...``):
              the 4d hop on B5-eo with N = Ls (4 an iteration; 8 for the
              5d PC, one per parity group), no B1.
    timing  — each twist form and B5-eo at N = Ls against its bound and
-             plain version; ms per iteration of fused_cg and cg_reliable
-             (twisted), 12-source batched_cg_pairs against 12 fused_cg
-             iterations, and Möbius and 5d-PC fused_cg at Ls 12.
+             plain version (K1/K2-mrhs and B5-eo with their query entries'
+             resources, held to their wrappers' plans); ms per iteration
+             of fused_cg and cg_reliable (twisted), 12-source
+             batched_cg_pairs against 12 fused_cg iterations, and Möbius
+             and 5d-PC fused_cg at Ls 12.
 
 10. The Wilson multigrid at 32^3 x 64 (ROADMAP A12, A14; a generator of
    its own):
@@ -1597,11 +1602,20 @@ def zoo(torch, dev, smi) -> list:
             args = inputs(parity, rows, f32, MULTI_SRC_N)
             got = call(kind, epi, args, parity, mrhs=True)
             want = call(kind, epi, args, parity, plain=True, mrhs=True)
+            u_here, u_bw, psi, xc, blk = args
+            lanes = torch.stack([call(kind, epi, (u_here, u_bw, psi[r],
+                                                  xc[r], blk), parity)
+                                 for r in range(MULTI_SRC_N)])
             torch.cuda.synchronize()
+            bitwise = bool(torch.equal(got, lanes))
             check(name, got, want, clp.TOLERANCE,
                   kernel=mrhs_wrapper[kind].__name__, parity=parity,
-                  nrhs=MULTI_SRC_N, chunk=wpp.MRHS_CHUNK)
-            del args, got, want
+                  nrhs=MULTI_SRC_N, chunk=clp.K_MRHS_CHUNK,
+                  lanes_bitwise_single=bitwise)
+            if not bitwise:
+                fail(f"twist form {name}: a lane is not its single-RHS "
+                     "launch bit for bit")
+            del args, got, want, lanes, u_here, u_bw, psi, xc, blk
     torch.cuda.empty_cache()
 
     # -- the solves ------------------------------------------------------
@@ -1865,7 +1879,7 @@ def zoo(torch, dev, smi) -> list:
         del args
     # B5-eo at N = Ls (Möbius, domain-wall-4d) and N = Ls / 2 (the 5d PC's
     # s-parity groups), with its query entry's resources held to its plan
-    b5eo_res = {}
+    resources = {}
     for rows, n_ls in ((3, DWF_LS), (2, DWF_LS), (3, DWF_LS // 2),
                        (2, DWF_LS // 2)):
         name = b5eo_ls_name(rows, n_ls)
@@ -1883,7 +1897,7 @@ def zoo(torch, dev, smi) -> list:
             - wpp.dslash_eo_packed_mrhs_plain(
                 u_here, u_bw, psi, geom.lattice_shape, 0)).abs().max().item()
         errs[name] = err
-        b5eo_res[name] = b5eo_resources(rows, geom.lattice_shape)
+        resources[name] = b5eo_resources(rows, geom.lattice_shape)
         del u_here, u_bw, psi
     torch.cuda.empty_cache()
 
@@ -1948,9 +1962,12 @@ def zoo(torch, dev, smi) -> list:
            "solve_secs": {k: v[1] for k, v in {**twisted, **dwf}.items()},
            "solve_iters": {k: v[0] for k, v in {**twisted, **dwf}.items()},
            "multi_src_secs": {k: v[1] for k, v in multi.items()}}
+    for kind, epi, rows in mrhs_forms:
+        resources[mrhs_name(kind, epi, rows)] = k_mrhs_resources(
+            kind, epi, rows, geom.lattice_shape)
     for name, (k_ms, p_ms, b_ms) in timing.items():
         row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "share_of_bound": b_ms / k_ms, **b5eo_res.get(name, {})}
+                     "share_of_bound": b_ms / k_ms, **resources.get(name, {})}
     emit(row)
 
     # -- kernels-line rows: launches from the main path of each form -----
@@ -1987,7 +2004,7 @@ def zoo(torch, dev, smi) -> list:
             "launches": launches[path]["mrhs_by_form"].get(name, 0),
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": bound_by[name],
-            "library_ms": None})
+            "library_ms": None, "resources": resources[name]})
     # launches at N = Ls from the Möbius solves, at N = Ls / 2 from the 5d
     # PC domain-wall solve (full links)
     for rows, n_ls, path, n_tag in (
@@ -2008,24 +2025,43 @@ def zoo(torch, dev, smi) -> list:
     return rows_out
 
 
+def tile_resources(kernel, info, plan, chunk):
+    """A tiled multi-RHS kernel's resources at its default ``chunk`` from
+    its query entry's ``info``, failing unless the launch is the ``plan``
+    its wrapper mirrors."""
+    if (info["smem_bytes"], info["threads"], info["tiles"],
+            info["blocks"]) != (plan["smem"], plan["threads"], plan["tiles"],
+                                plan["blocks"]):
+        fail(f"{kernel} launched another plan than its wrapper mirrors: "
+             f"{info} against {plan}")
+    return {"chunk": chunk, "registers": info["registers"],
+            "smem_bytes_per_block": info["smem_bytes"],
+            "blocks_per_sm": info["blocks_per_sm"],
+            "threads_per_block": info["threads"],
+            "tiles_per_plane": info["tiles"], "blocks": info["blocks"]}
+
+
 def b5eo_resources(rows, dims):
-    """B5-eo's resources at its default chunk on the (T, Z, Y, X) lattice
-    ``dims`` from its query entry (registers, shared memory, blocks an
-    SM), failing unless the launch is the plan its wrapper mirrors."""
+    """B5-eo's resources on the (T, Z, Y, X) lattice ``dims``."""
     from quda_tpu_torch.ops import wilson_pallas_packed as wpp
 
     T, Z, Y, X = dims
-    res = wpp.eo_mrhs_info(rows, wpp.EO_MRHS_CHUNK, T, Z, Y, X // 2)
-    plan = wpp.eo_mrhs_plan(rows, T, Z, Y, X // 2)
-    if (res["smem_bytes"], res["threads"], res["tiles"], res["blocks"]) != (
-            plan["smem"], plan["threads"], plan["tiles"], plan["blocks"]):
-        fail(f"B5-eo launched another plan than its wrapper mirrors: {res} "
-             f"against {plan}")
-    return {"chunk": wpp.EO_MRHS_CHUNK, "registers": res["registers"],
-            "smem_bytes_per_block": res["smem_bytes"],
-            "blocks_per_sm": res["blocks_per_sm"],
-            "threads_per_block": res["threads"],
-            "tiles_per_plane": res["tiles"], "blocks": res["blocks"]}
+    return tile_resources(
+        "B5-eo", wpp.eo_mrhs_info(rows, wpp.EO_MRHS_CHUNK, T, Z, Y, X // 2),
+        wpp.eo_mrhs_plan(rows, T, Z, Y, X // 2), wpp.EO_MRHS_CHUNK)
+
+
+def k_mrhs_resources(kind, epi, rows, dims):
+    """K1/K2-mrhs's resources for one form (epilogue "clover", "twist" or
+    "blk+twist") on the (T, Z, Y, X) lattice ``dims``."""
+    from quda_tpu_torch.ops import clover_pallas as clp
+
+    T, Z, Y, X = dims
+    with_blk = epi != "twist"
+    return tile_resources(
+        "K1/K2-mrhs", clp.k_mrhs_info(kind, rows, T, Z, Y, X // 2, with_blk,
+                                      epi != "clover"),
+        clp.k_mrhs_plan(rows, with_blk, T, Z, Y, X // 2), clp.K_MRHS_CHUNK)
 
 
 def multigrid(torch, dev, smi):
@@ -4565,15 +4601,18 @@ def main() -> int:
 
     # the multi-RHS kernels (B5-eo, K1/K2-mrhs), float32, full and r12:
     # against their plain versions (tolerance of the single-RHS kernels)
-    # and against N launches of the single-RHS kernel (reported)
+    # and against N launches of the single-RHS kernel (each lane bit for
+    # bit B1, K1 or K2)
     mrhs_forms = [(k, r) for k in ("hop", "post", "diag_hop") for r in (3, 2)]
     mrhs_names = [f"{k}:{wpp.form_name(r, f32, f32)}" for k, r in mrhs_forms]
     mrhs_wrapper = {"hop": wpp.dslash_eo_pallas_packed_mrhs,
                     "post": clp.dslash_eo_pallas_post_mrhs,
                     "diag_hop": clp.dslash_eo_pallas_diag_hop_mrhs}
-    # the default chunk of each (B5-eo has its own)
-    mrhs_default = {"hop": wpp.EO_MRHS_CHUNK, "post": wpp.MRHS_CHUNK,
-                    "diag_hop": wpp.MRHS_CHUNK}
+    # the chunk widths of each (K1/K2-mrhs has one), and its default
+    mrhs_widths = {"hop": wpp.MRHS_CHUNKS, "post": (clp.K_MRHS_CHUNK,),
+                   "diag_hop": (clp.K_MRHS_CHUNK,)}
+    mrhs_default = {"hop": wpp.EO_MRHS_CHUNK, "post": clp.K_MRHS_CHUNK,
+                    "diag_hop": clp.K_MRHS_CHUNK}
     gen_mrhs = torch.Generator(device=dev).manual_seed(SEED + 5)
 
     def mrhs_inputs(dims_xyzt, parity, rows, n):
@@ -4642,8 +4681,7 @@ def main() -> int:
             rel_single = (out_k - out_s).abs().max().item() / scale
             errs[f"mrhs:{name}"] = max(errs[f"mrhs:{name}"], abs_err)
             mrhs_vs_single[name] = max(mrhs_vs_single[name], rel_single)
-            # B5-eo's lanes are B1's bit for bit (the K-mrhs forms: within
-            # tol of K1/K2)
+            # every lane is its single-RHS kernel's bit for bit
             bitwise = bool(torch.equal(out_k, out_s))
             emit({"phase": "check", "kernel": mrhs_wrapper[kind].__name__,
                   "form": name, "dims_xyzt": list(dims_xyzt),
@@ -4652,8 +4690,7 @@ def main() -> int:
                   "max_rel_diff_single_launches": rel_single,
                   "lanes_bitwise_single": bitwise, "tolerance": tol})
             if not (rel <= tol and rel_single <= tol and
-                    out_k.shape == args[3].shape and
-                    (bitwise or kind != "hop")):
+                    out_k.shape == args[3].shape and bitwise):
                 fail(f"multi-RHS kernel {name} disagrees with its plain "
                      f"version or with {n} single-RHS launches: {rel:.3e}, "
                      f"{rel_single:.3e} > {tol:g} (bit for bit: {bitwise})")
@@ -5111,7 +5148,7 @@ def main() -> int:
         args = mrhs_inputs(PROD_DIMS, 0, rows, MULTI_SRC_N)
         by_chunk = {nb: median_ms(lambda: mrhs_call(kind, args, 0,
                                                     chunk=nb), torch)
-                    for nb in wpp.MRHS_CHUNKS}
+                    for nb in mrhs_widths[kind]}
         single_ms = median_ms(lambda: mrhs_call(kind, args, 0, "single"),
                               torch, repeats=10, batch=2)
         p_ms = median_ms(lambda: mrhs_call(kind, args, 0, "plain"), torch,
@@ -5206,7 +5243,8 @@ def main() -> int:
             "single_rhs_launches_ms": single_ms,
             "amortisation": single_ms / k_ms,
             **(b5eo_resources(rows, geom_p.lattice_shape) if kind == "hop"
-               else {})}
+               else k_mrhs_resources(kind, "clover", rows,
+                                     geom_p.lattice_shape))}
     row.update({
         "batched_cg_iter_ms": b_iter_ms, "batched_cg_iters_timed": b_n_timed,
         "batched_vs_single_cg_iters": b_iter_ms / (MULTI_SRC_N * iter_ms),
@@ -5307,7 +5345,9 @@ def main() -> int:
             "launches": launches[path]["mrhs_by_form"].get(name, 0),
             "max_abs_err": errs[f"mrhs:{name}"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None})
+            "bound_by": bound_by[f"mrhs:{name}"], "library_ms": None,
+            **({} if kind == "hop" else {"resources": k_mrhs_resources(
+                kind, "clover", rows, geom_p.lattice_shape)})})
     rows_out.extend(precision(torch, dev, smi, gauge, src, srcs, half_ref,
                               df64_ref, multi["wilson:r12"][0]))
     rows_out.extend(operator_and_double(torch, dev, smi))

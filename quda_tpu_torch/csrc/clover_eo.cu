@@ -86,8 +86,9 @@ __global__ void __launch_bounds__(kThreads)
   float2 acc[1][4][3];
   eo_hop_sum<R, 1>(acc, psi, 0, 1, u_here, u_bw, T, Z, Y, Xh, YXh, ZYXh, n,
                    parity, tb_sign, site);
-  clover_epilogue<S, O, DIAG_HOP, BLK, TWIST>(out, acc, blk, xc, n, site,
-                                              coeff, tw_c, tw_scale);
+  clover_epilogue<S, O, DIAG_HOP, BLK, TWIST>(
+      out, acc[0], GlobalBlocks<S>{blk, n, site}, xc, n, site, coeff, tw_c,
+      tw_scale);
 }
 
 struct Args {

@@ -11,9 +11,12 @@
 //
 // Blocks B (2, 6, 6, 2, <sites>): the chiral 6x6 blocks, chirality
 // ch = s / 2, block row i = 3 * (s % 2) + c, read as a general complex
-// matrix, streamed plane by plane into the mat-vec one output row at a
-// time, twisted and stored as soon as it is summed.  g5 = +1 on chirality
-// 0 and -1 on chirality 1.  The twist rotates the ORIGINAL x (not B x).
+// matrix from a block source (device memory, or a block's copy of its
+// tile in shared memory: the multi-RHS kernel, clover_eo_mrhs.cu),
+// streamed entry by entry into the mat-vec one output row at a time,
+// twisted and stored as soon as it is summed.  g5 = +1 on chirality 0 and
+// -1 on chirality 1.  The twist rotates the ORIGINAL x (not B x).  The
+// block source changes where an entry is read, never the arithmetic.
 // Rounding: K1 rounds each hop sum to the output type O and back before
 // the epilogue (a no-op for f32), as the TPU kernel's out tile does.
 // BLK, TWIST and DIAG_HOP are compile-time, so each instance compiles to
@@ -36,13 +39,40 @@ __device__ __forceinline__ float round_to(float v) {
   }
 }
 
+// Block sources: entry (ch, a, b) of the target site's chiral blocks.
+//   GlobalBlocks<S>  the blocks (2, 6, 6, 2, <sites>) in device memory, at
+//                    site i of planes of n sites (K1/K2, B7 full);
+//   TileBlocks       a block's copy of its tile's blocks in shared memory,
+//                    (2, 6, 6, 2) planes of ts sites, the target at slot
+//                    ``local``: the same numbers the global array holds.
+template <typename S>
+struct GlobalBlocks {
+  const S* blk;
+  int64_t n;
+  int64_t i;
+  __device__ __forceinline__ cplx_t<S> at(int ch, int a, int b) const {
+    return ld_blk(blk, ch, a, b, n, i);
+  }
+};
+
+struct TileBlocks {
+  const float* sh;
+  int ts;
+  int local;
+  __device__ __forceinline__ float2 at(int ch, int a, int b) const {
+    const float* q = sh + ((ch * 6 + a) * 6 + b) * 2 * ts + local;
+    return make_float2(q[0], q[ts]);
+  }
+};
+
 // The epilogue at ``site`` of planes of n sites: acc the hop sum, xc the
-// diagonal's operand (DIAG_HOP), blk the blocks (BLK); out in O.
-template <typename S, typename O, bool DIAG_HOP, bool BLK, bool TWIST>
+// diagonal's operand (DIAG_HOP), blks the block source (BLK); out in O.
+template <typename S, typename O, bool DIAG_HOP, bool BLK, bool TWIST,
+          typename BS>
 __device__ __forceinline__ void clover_epilogue(
-    O* __restrict__ out, const float2 (&acc)[1][4][3],
-    const S* __restrict__ blk, const S* __restrict__ xc, int64_t n,
-    int64_t site, float coeff, float tw_c, float tw_scale) {
+    O* __restrict__ out, const float2 (&acc)[4][3], const BS& blks,
+    const S* __restrict__ xc, int64_t n, int64_t site, float coeff,
+    float tw_c, float tw_scale) {
   static_assert(BLK || TWIST, "an epilogue needs blocks or a twist");
 #pragma unroll
   for (int ch = 0; ch < 2; ++ch) {
@@ -53,7 +83,7 @@ __device__ __forceinline__ void clover_epilogue(
       if constexpr (DIAG_HOP) {
         v[j] = ld_psi(xc, 2 * ch + j / 3, j % 3, n, site);
       } else {
-        const float2 a = acc[0][2 * ch + j / 3][j % 3];
+        const float2 a = acc[2 * ch + j / 3][j % 3];
         v[j] = make_float2(round_to<O>(a.x), round_to<O>(a.y));
       }
     }
@@ -61,10 +91,10 @@ __device__ __forceinline__ void clover_epilogue(
     for (int i = 0; i < 6; ++i) {
       float2 o;
       if constexpr (BLK) {
-        o = cmul(ld_blk(blk, ch, i, 0, n, site), v[0]);
+        o = cmul(blks.at(ch, i, 0), v[0]);
 #pragma unroll
         for (int j = 1; j < 6; ++j) {
-          o = cadd(o, cmul(ld_blk(blk, ch, i, j, n, site), v[j]));
+          o = cadd(o, cmul(blks.at(ch, i, j), v[j]));
         }
       } else {
         o = v[i];
@@ -80,7 +110,7 @@ __device__ __forceinline__ void clover_epilogue(
         }
       }
       if constexpr (DIAG_HOP) {
-        const float2 h = acc[0][2 * ch + i / 3][i % 3];
+        const float2 h = acc[2 * ch + i / 3][i % 3];
         o = make_float2(o.x + coeff * h.x, o.y + coeff * h.y);
       }
       O* q = out + static_cast<int64_t>(((2 * ch + i / 3) * 3 + i % 3) * 2) *

@@ -54,8 +54,9 @@ __global__ void __launch_bounds__(kThreads)
   float2 acc[1][4][3];
   full_hop_sum<R, 1>(acc, psi, 0, 1, u, u_bw, T, Z, Y, X, YX, ZYX, n,
                      tb_sign, site);
-  clover_epilogue<float, float, true, true, TWIST>(out, acc, blk, psi, n,
-                                                   site, coeff, tw_c, 1.f);
+  clover_epilogue<float, float, true, true, TWIST>(
+      out, acc[0], GlobalBlocks<float>{blk, n, site}, psi, n, site, coeff,
+      tw_c, 1.f);
 }
 
 template <int R, bool TWIST>

@@ -1,7 +1,8 @@
 // The tile plumbing of the multi-RHS hops that stage their links in shared
 // memory: the full-lattice Wilson hop B5 (wilson_full.cu), its even/odd
-// form B5-eo (wilson_eo_mrhs.cu) and the full-lattice staggered pass
-// S2-mrhs-full (staggered_full.cu).
+// form B5-eo (wilson_eo_mrhs.cu), the fused clover / twisted hops
+// K1/K2-mrhs (clover_eo_mrhs.cu, which stage their clover blocks too) and
+// the full-lattice staggered pass S2-mrhs-full (staggered_full.cu).
 //
 // A block owns a tile of `tile` sites of one (t, z) plane of `plane` sites
 // (the plane's last tile may be partial), copies the tile's forward and
@@ -66,24 +67,37 @@ __device__ __forceinline__ void block_tile(int64_t b, int tiles, int T,
   }
 }
 
+// The copies of two sets of PLANES planes into sh[2][PLANES][tile]:
+// PLANES planes of `a`, then PLANES of `b`, each the `len` sites from
+// `start` of a plane of n sites, VEC floats a copy, by all NTHREADS
+// threads of the block: issued, not waited for.
+template <int PLANES, int VEC, int NTHREADS>
+__device__ __forceinline__ void copy_sets(float* __restrict__ sh,
+                                          const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          int64_t n, int64_t start, int len,
+                                          int tile) {
+  const int per = len / VEC;
+  for (int i = threadIdx.x; i < 2 * PLANES * per; i += NTHREADS) {
+    const int q = i / per;
+    const int k = (i - q * per) * VEC;
+    const float* src =
+        (q < PLANES ? a + q * n : b + (q - PLANES) * n) + start + k;
+    cp_async_vec<VEC>(sh + q * tile + k, src);
+  }
+}
+
 // The tile's links into shared memory, [2][PLANES][tile] floats: PLANES
-// planes of `fwd`, then PLANES of `bw`, each the `len` sites from `start`
-// of a plane of n sites; VEC floats a copy.  All NTHREADS threads of the
-// block copy; on return every copy has landed and is visible to all.
+// planes of `fwd`, then PLANES of `bw` (copy_sets).  On return every copy
+// the block has issued, these and any before them, has landed and is
+// visible to all its threads.
 template <int PLANES, int VEC, int NTHREADS>
 __device__ __forceinline__ void stage_links(float* __restrict__ sh,
                                             const float* __restrict__ fwd,
                                             const float* __restrict__ bw,
                                             int64_t n, int64_t start,
                                             int len, int tile) {
-  const int per = len / VEC;
-  for (int i = threadIdx.x; i < 2 * PLANES * per; i += NTHREADS) {
-    const int q = i / per;
-    const int k = (i - q * per) * VEC;
-    const float* src =
-        (q < PLANES ? fwd + q * n : bw + (q - PLANES) * n) + start + k;
-    cp_async_vec<VEC>(sh + q * tile + k, src);
-  }
+  copy_sets<PLANES, VEC, NTHREADS>(sh, fwd, bw, n, start, len, tile);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();

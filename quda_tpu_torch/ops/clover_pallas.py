@@ -29,10 +29,11 @@ blocks, twist or both (K2).
 The multi-RHS forms (B7-mrhs) ``dslash_eo_pallas_post_mrhs`` and
 ``dslash_eo_pallas_diag_hop_mrhs`` replace the JAX module's
 ``_fused_eo_call_mrhs`` with ``csrc/clover_eo_mrhs.cu``: psi, x and out
-carry a leading axis of N right-hand sides, and each link and block entry
-is loaded once for a chunk of ``wilson_pallas_packed.MRHS_CHUNK`` of
-them.  Their forms are float32 with full or recon-12 links and the same
-three epilogues; bf16 storage waits for ROADMAP B5.
+carry a leading axis of N right-hand sides; a block stages its tile's
+links and blocks in shared memory once for all N (``k_mrhs_plan``) and
+each right-hand side sees K1's or K2's arithmetic.  Their forms are
+float32 with full or recon-12 links and the same three epilogues; bf16
+storage waits for ROADMAP B5.
 
 The full-lattice operator ``clover_pallas_packed`` (B7 full) replaces the
 JAX module's function of that name with ``csrc/clover_full.cu``:
@@ -82,6 +83,22 @@ FULL_FLOPS_PER_SITE = wpp.FLOPS_PER_SITE + BLOCK_FLOPS_PER_SITE
 # the twist epilogue: i c g5 v and the scale (K1) or the add (K2)
 TWIST_FLOPS_PER_SITE = 72
 _STORE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+# K1/K2-mrhs's plan, as csrc/clover_eo_mrhs.cu's k_mrhs_plan makes it:
+# B5-eo's tile plan (wpp.tile_plan), a block owning K_MRHS_TILE half-sites
+# of one (t, z) plane, K_MRHS_LANES threads a half-site, the tile's links
+# and, in the forms with blocks, its clover blocks in shared memory;
+# tile and lanes keyed by whether the form has blocks (the block-free
+# forms are the twisted-mass ones); K_MRHS_MIN_BLOCKS blocks an SM (the
+# kernel's launch bound).  A thread takes its right-hand sides one at a
+# time: K_MRHS_CHUNK, the only chunk width the kernel has.  All chosen by
+# timing variants on the card (PERF.md); fold-mrhs and r12f-mrhs keep
+# wpp.MRHS_CHUNK.
+K_MRHS_TILE = {True: 64, False: 128}
+K_MRHS_LANES = {True: 4, False: 2}
+K_MRHS_MIN_BLOCKS = 2
+K_MRHS_CHUNK = 1
+SMEM_PER_BLOCK = 232448        # an H100 block's opt-in shared memory
 
 
 def epilogue_name(with_blk: bool = True, twist: bool = False) -> str:
@@ -219,6 +236,41 @@ def dslash_eo_diag_hop_mrhs_plain(u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
                           out_dtype or psi_pl.dtype)
 
 
+def k_mrhs_plan(rows: int, with_blk: bool, T: int, Z: int, Y: int,
+                Xh: int) -> dict:
+    """K1/K2-mrhs's launch on T x Z x Y x Xh half-sites with R = ``rows``,
+    for a form with or without blocks (``wpp.tile_plan``)."""
+    return wpp.tile_plan(T, Z, Y * Xh, K_MRHS_TILE[with_blk],
+                         K_MRHS_LANES[with_blk],
+                         2 * 24 * rows + (144 if with_blk else 0))
+
+
+def k_mrhs_chunk(chunk, nrhs: int, rows: int, with_blk: bool, T: int,
+                 Z: int, Y: int, Xh: int) -> int:
+    """K1/K2-mrhs's chunk width, ``K_MRHS_CHUNK`` (``chunk`` may be None
+    or that); raises ValueError, naming the limit, for another width, no
+    right-hand side, a grid beyond 2^31 - 1 blocks or a plan above a
+    block's 227 KB of shared memory."""
+    if chunk is not None and int(chunk) != K_MRHS_CHUNK:
+        raise ValueError(f"chunk {chunk}: K1/K2-mrhs take one right-hand "
+                         f"side a thread at a time (chunk {K_MRHS_CHUNK})")
+    plan = wpp.check_tile_grid("K1/K2-mrhs", nrhs,
+                               k_mrhs_plan(rows, with_blk, T, Z, Y, Xh))
+    if plan["smem"] > SMEM_PER_BLOCK:
+        raise ValueError(f"K1/K2-mrhs: {plan['smem']} bytes of shared "
+                         "memory a block, beyond the card's 227 KB "
+                         f"({SMEM_PER_BLOCK})")
+    return K_MRHS_CHUNK
+
+
+def k_mrhs_info(kind: str, rows: int, T: int, Z: int, Y: int, Xh: int,
+                with_blk: bool = True, twist: bool = False) -> dict:
+    """K1/K2-mrhs's resources on the card for one form
+    (``wpp.tile_info``)."""
+    return wpp.tile_info("qtt_clover_eo_mrhs_info", T, Z, Y, Xh, rows,
+                         int(kind == "diag_hop"), int(with_blk), int(twist))
+
+
 def _check_args(target_parity, blk_pl, twist, kind="diag_hop"):
     if blk_pl is None and twist is None:
         raise ValueError(
@@ -326,9 +378,16 @@ def dslash_eo_pallas_diag_hop(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
                    float(hop_coeff), tb_sign, rows, diag_twist)
 
 
+def _check_mrhs_plan(chunk, psi_pl, u_here_pl, blk_pl, dims) -> None:
+    """The launch's chunk width and plan, checked before any launch."""
+    T, Z, Y, X = dims
+    k_mrhs_chunk(chunk, psi_pl.shape[0], wpp.link_rows(u_here_pl),
+                 blk_pl is not None, T, Z, Y, X // 2)
+
+
 def _launch_mrhs(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
                  dims, target_parity, out_dtype, hop_coeff, tb_sign, rows,
-                 chunk, twist):
+                 twist):
     """Check the operands and launch one multi-RHS kernel instance."""
     T, Z, Y, X = dims
     Xh = X // 2
@@ -339,7 +398,6 @@ def _launch_mrhs(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
                         "forms only; bf16 storage waits for ROADMAP B5")
     sites = (T, Z, Y * Xh)
     nrhs = psi_pl.shape[0]
-    nb = wpp.mrhs_chunk(chunk, nrhs, T * Z * Y * Xh)
     kernels.require(psi_pl, "psi_pl", (nrhs, 4, 3, 2) + sites, f32)
     kernels.require(u_here_pl, "u_here_pl", (4, rows, 3, 2) + sites, f32)
     kernels.require(u_bw_pl, "u_bw_pl", (4, rows, 3, 2) + sites, f32)
@@ -357,7 +415,7 @@ def _launch_mrhs(wrapper, kind, u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl,
         int(target_parity), rows, int(bool(tb_sign)),
         int(kind == "diag_hop"), ctypes.c_float(hop_coeff),
         int(blk_pl is not None), tw, ctypes.c_float(tw_c),
-        ctypes.c_float(tw_scale), nrhs, nb, kernels.stream_of(psi_pl))
+        ctypes.c_float(tw_scale), nrhs, kernels.stream_of(psi_pl))
     kernels.check_launch(rc, "qtt_clover_eo_mrhs")
     wpp._count(wrapper, wpp.form_name(rows, f32, f32)
                + epilogue_name(blk_pl is not None, bool(tw)))
@@ -369,11 +427,13 @@ def dslash_eo_pallas_post_mrhs(u_here_pl, u_bw_pl, psi_pl, dims,
                                twist=None, out_dtype=None,
                                tb_sign: bool = True, chunk=None):
     """K1 over a batch: E(D_{p<-q} psi_r) for psi (N,4,3,2,T,Z,Y*Xh), E
-    as for ``dslash_eo_pallas_post``, the links and blocks loaded once per
-    chunk of right-hand sides."""
+    as for ``dslash_eo_pallas_post``, the links and blocks read from
+    device memory once for all N; a thread works through its right-hand
+    sides one at a time (``chunk``: None or ``K_MRHS_CHUNK``)."""
     _check_args(target_parity, blk_pl, twist, "post")
     rows = wpp.link_rows(u_here_pl)
     wpp.check_batch(psi_pl)
+    _check_mrhs_plan(chunk, psi_pl, u_here_pl, blk_pl, dims)
     kind = kernels.dispatch_device(
         *[t for t in (u_here_pl, u_bw_pl, psi_pl, blk_pl) if t is not None])
     out_dtype = out_dtype or psi_pl.dtype
@@ -383,7 +443,7 @@ def dslash_eo_pallas_post_mrhs(u_here_pl, u_bw_pl, psi_pl, dims,
                                          tb_sign, twist)
     return _launch_mrhs(dslash_eo_pallas_post_mrhs, "post", u_here_pl,
                         u_bw_pl, psi_pl, None, blk_pl, dims, target_parity,
-                        out_dtype, 0.0, tb_sign, rows, chunk, twist)
+                        out_dtype, 0.0, tb_sign, rows, twist)
 
 
 def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
@@ -392,11 +452,12 @@ def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
                                    out_dtype=None, tb_sign: bool = True,
                                    chunk=None):
     """K2 over a batch: B x_r (+ i c g5 x_r) + hop_coeff * D_{p<-q} psi_r,
-    x batched like psi.  Pass ``out_dtype=torch.float32``, the kernel's
-    output."""
+    x batched like psi, ``chunk`` as for ``dslash_eo_pallas_post_mrhs``.
+    Pass ``out_dtype=torch.float32``, the kernel's output."""
     _check_args(target_parity, blk_pl, diag_twist)
     rows = wpp.link_rows(u_here_pl)
     wpp.check_batch(psi_pl)
+    _check_mrhs_plan(chunk, psi_pl, u_here_pl, blk_pl, dims)
     kind = kernels.dispatch_device(
         *[t for t in (u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl)
           if t is not None])
@@ -409,7 +470,7 @@ def dslash_eo_pallas_diag_hop_mrhs(u_here_pl, u_bw_pl, psi_pl, xc_pl, dims,
     return _launch_mrhs(dslash_eo_pallas_diag_hop_mrhs, "diag_hop",
                         u_here_pl, u_bw_pl, psi_pl, xc_pl, blk_pl, dims,
                         target_parity, out_dtype, float(hop_coeff), tb_sign,
-                        rows, chunk, diag_twist)
+                        rows, diag_twist)
 
 
 def clover_packed_plain(gauge_pl, gauge_bw, blk_pl, psi_pl, X: int,

@@ -119,10 +119,10 @@ _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 
 
 # Right-hand sides per thread of the multi-RHS kernels (the template
-# argument NB of csrc/wilson_eo_mrhs.cu, wilson_full.cu, clover_eo_mrhs.cu,
-# wilson_eo_there.cu and wilson_eo_fold.cu), and the default of the last
-# three (B5 and B5-eo have their own), chosen from ptxas' registers and the
-# card's times (PERF.md):
+# argument NB of csrc/wilson_eo_mrhs.cu, wilson_full.cu, wilson_eo_there.cu
+# and wilson_eo_fold.cu), and the default of the last two (B5 and B5-eo
+# have their own; K1/K2-mrhs takes one at a time), chosen from ptxas'
+# registers and the card's times (PERF.md):
 # 2 is the fastest multi-RHS width (4 needs 206-240 registers and ran
 # 1.3-2.4x slower); 1 gives each right-hand side its own thread, the
 # single-RHS kernels' arithmetic, which the card tests hold them to.

@@ -65,9 +65,11 @@ SIGNATURES = {
     # threads, tiles a plane, blocks)
     "qtt_wilson_eo_mrhs_info": (_I, _I, _I, _I, _I, _I, _P),
     # out, psi, u_here, u_bw, blk, xc, T, Z, Y, Xh, parity, rows, tb_sign,
-    # diag_hop, coeff, with_blk, twist, tw_c, tw_scale, nrhs, nb, stream
+    # diag_hop, coeff, with_blk, twist, tw_c, tw_scale, nrhs, stream
     "qtt_clover_eo_mrhs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _I, _F, _F, _I, _I, _P),
+                           _I, _I, _F, _I, _I, _F, _F, _I, _P),
+    # T, Z, Y, Xh, rows, diag_hop, with_blk, twist, info
+    "qtt_clover_eo_mrhs_info": (_I, _I, _I, _I, _I, _I, _I, _I, _P),
     # alpha, p, ap, x, r, x_out, r_out, partial, r2, n, nblocks, stream
     "qtt_cg_update_norm2_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
                                 _P),

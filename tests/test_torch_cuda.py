@@ -337,18 +337,23 @@ _MRHS_WRAPPER = {"hop": wpp.dslash_eo_pallas_packed_mrhs,
                  "diag_hop": clp.dslash_eo_pallas_diag_hop_mrhs}
 
 
+# B5-eo's chunk widths, and K1/K2-mrhs's one
+MRHS_KIND_CHUNKS = ([("hop", c) for c in wpp.MRHS_CHUNKS]
+                    + [(k, clp.K_MRHS_CHUNK) for k in ("post", "diag_hop")])
+
+
 @pytest.mark.parametrize("n", [1, 3, 12])
-@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
 @pytest.mark.parametrize("parity", [0, 1])
 @pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
-@pytest.mark.parametrize("kind", ["hop", "post", "diag_hop"])
+@pytest.mark.parametrize("kind,chunk", MRHS_KIND_CHUNKS,
+                         ids=[f"{k}-{c}" for k, c in MRHS_KIND_CHUNKS])
 def test_mrhs_kernels_match_plain_and_single_launches(kind, rows, parity,
                                                       chunk, n):
-    """B5-eo and K1/K2-mrhs on 4x6x8x10 at every chunk width, with a tail
-    chunk where n is not a multiple of it: within TOLERANCE of the plain
-    version, and within TOLERANCE of n launches of the single-RHS kernel
-    (each right-hand side sees the single kernel's arithmetic in its
-    order); one launch counted."""
+    """B5-eo on 4x6x8x10 at every chunk width, with a tail chunk where n
+    is not a multiple of it, and K1/K2-mrhs at its one: within TOLERANCE
+    of the plain version, and within TOLERANCE of n launches of the
+    single-RHS kernel (each right-hand side sees the single kernel's
+    arithmetic in its order); one launch counted."""
     dev = require_cuda()
     args = _mrhs_inputs(dev, rows, parity, n, seed=51 + parity)
     wrapper = _MRHS_WRAPPER[kind]
@@ -858,8 +863,7 @@ def _twist_inputs(dev, rows, store, parity, seed, n=None):
     return dims, u_here, u_bw, psi, xc, blk.to(store)
 
 
-def _twist_call(kind, epi, args, parity, how="kernel", mrhs=False,
-                chunk=None):
+def _twist_call(kind, epi, args, parity, how="kernel", mrhs=False):
     """One call of a twist form: the kernel, its plain version, or (mrhs)
     the batch through single-RHS kernel launches; sign s = -1's
     parameters, as an Mdag apply passes them."""
@@ -877,8 +881,7 @@ def _twist_call(kind, epi, args, parity, how="kernel", mrhs=False,
             return fn(u_here, u_bw, psi, None, dims, parity, twist=tw)
         fn = (clp.dslash_eo_pallas_post_mrhs if mrhs
               else clp.dslash_eo_pallas_post)
-        kw = {"chunk": chunk} if mrhs else {}
-        return fn(u_here, u_bw, psi, dims, parity, twist=tw, **kw)
+        return fn(u_here, u_bw, psi, dims, parity, twist=tw)
     if how == "plain":
         fn = (clp.dslash_eo_diag_hop_mrhs_plain if mrhs
               else clp.dslash_eo_diag_hop_plain)
@@ -886,9 +889,8 @@ def _twist_call(kind, epi, args, parity, how="kernel", mrhs=False,
                   torch.float32, diag_twist=-TW_A)
     fn = (clp.dslash_eo_pallas_diag_hop_mrhs if mrhs
           else clp.dslash_eo_pallas_diag_hop)
-    kw = {"chunk": chunk} if mrhs else {}
     return fn(u_here, u_bw, psi, xc, dims, parity, hop_coeff=-0.0144,
-              blk_pl=b, diag_twist=-TW_A, out_dtype=torch.float32, **kw)
+              blk_pl=b, diag_twist=-TW_A, out_dtype=torch.float32)
 
 
 @pytest.mark.parametrize("parity", [0, 1])
@@ -918,28 +920,24 @@ def test_twist_kernel_forms_match_plain(kind, epi, rows, store, parity):
         <= tol
 
 
-@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
 @pytest.mark.parametrize("parity", [0, 1])
 @pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
 @pytest.mark.parametrize("kind,epi", TWIST_EPILOGUES,
                          ids=[f"{k}:{e}" for k, e in TWIST_EPILOGUES])
 def test_twist_mrhs_kernels_match_plain_and_single_launches(kind, epi, rows,
-                                                            parity, chunk):
-    """K1/K2-mrhs twist forms over 3 right-hand sides (a tail chunk at
-    chunk 2): within TOLERANCE of the plain version and of 3 single-RHS
-    launches; at chunk 1 the same bits as those launches."""
+                                                            parity):
+    """K1/K2-mrhs twist forms over 3 right-hand sides: within TOLERANCE of
+    the plain version, and the same bits as 3 single-RHS launches."""
     dev = require_cuda()
     args = _twist_inputs(dev, rows, torch.float32, parity, seed=67 + parity,
                          n=3)
-    got = _twist_call(kind, epi, args, parity, mrhs=True, chunk=chunk)
+    got = _twist_call(kind, epi, args, parity, mrhs=True)
     want = _twist_call(kind, epi, args, parity, "plain", mrhs=True)
     single = _twist_call(kind, epi, args, parity, "single")
     torch.cuda.synchronize()
     assert got.shape == args[3].shape
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= clp.TOLERANCE
-    if chunk == 1:
-        assert torch.equal(got, single)
-    assert rel_err(got.cpu().numpy(), single.cpu().numpy()) <= clp.TOLERANCE
+    assert torch.equal(got, single)
 
 
 @pytest.mark.parametrize("matpc", [0, 1])
@@ -1191,6 +1189,109 @@ def test_eo_mrhs_resources_match_plan(rows, chunk):
     assert 0 < info["registers"] <= 255
     assert info["blocks_per_sm"] >= (wpp.EO_MRHS_MIN_BLOCKS if chunk == 1
                                      else 1)
+
+
+# The redesigned K1/K2-mrhs: its ten instances as (kernel, epilogue) x R.
+# (T, Z, Y, X): 4x6x8x10 (a plane of 12 half-sites, one partial tile);
+# Y*Xh = 168 ends each plane in a partial tile of 40 half-sites, with a
+# partial z-box; Y*Xh = 15 is odd and takes the 4-byte copies
+K_MRHS_EPILOGUES = [("post", "clover"), ("diag_hop", "clover"),
+                    ("post", "twist"), ("diag_hop", "twist"),
+                    ("diag_hop", "blk+twist")]
+K_MRHS_TILE_EXTENTS = [(10, 8, 6, 4), (6, 6, 12, 28), (4, 6, 5, 6)]
+
+
+def _k_mrhs_call(kind, epi, args, parity, plain=False):
+    """One K1/K2-mrhs call (kernel or plain) of a form, or K1/K2 when psi
+    holds one right-hand side; an Mdag apply's twist signs."""
+    dims, u_here, u_bw, psi, xc, blk = args
+    b = blk if epi != "twist" else None
+    mrhs = psi.ndim == 7
+    if kind == "post":
+        tw = (TW_A, 1.0 / (1.0 + TW_A ** 2)) if epi == "twist" else None
+        if plain:
+            return clp.dslash_eo_post_mrhs_plain(u_here, u_bw, psi, b, dims,
+                                                 parity, twist=tw)
+        fn = (clp.dslash_eo_pallas_post_mrhs if mrhs
+              else clp.dslash_eo_pallas_post)
+        return fn(u_here, u_bw, psi, dims, parity, blk_pl=b, twist=tw)
+    tw = -TW_A if epi != "clover" else None
+    if plain:
+        return clp.dslash_eo_diag_hop_mrhs_plain(
+            u_here, u_bw, psi, xc, b, dims, parity, -0.0144, torch.float32,
+            diag_twist=tw)
+    fn = (clp.dslash_eo_pallas_diag_hop_mrhs if mrhs
+          else clp.dslash_eo_pallas_diag_hop)
+    return fn(u_here, u_bw, psi, xc, dims, parity, hop_coeff=-0.0144,
+              blk_pl=b, diag_twist=tw, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 12])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("kind,epi", K_MRHS_EPILOGUES,
+                         ids=[f"{k}:{e}" for k, e in K_MRHS_EPILOGUES])
+@pytest.mark.parametrize("extents", K_MRHS_TILE_EXTENTS,
+                         ids=lambda e: "x".join(map(str, e)))
+def test_k_mrhs_tiles_match_k1_k2(extents, kind, epi, rows, n):
+    """Every K1/K2-mrhs instance at both target parities, with tail and
+    empty lanes (N = 1, 3, 5, 12), on half
+    lattices whose planes end in partial tiles (one of them odd: the
+    4-byte copies): each lane bit for bit a K1 or K2 launch, within
+    TOLERANCE of the plain version; one launch counted a call under its
+    form."""
+    dev = require_cuda()
+    T, Z, Y, X = extents
+    sites = (T, Z, Y * X // 2)
+    wrapper = (clp.dslash_eo_pallas_post_mrhs if kind == "post"
+               else clp.dslash_eo_pallas_diag_hop_mrhs)
+    name = (wpp.form_name(rows, torch.float32, torch.float32)
+            + clp.epilogue_name(epi != "twist", epi != "clover"))
+    for parity in (0, 1):
+        gen = torch.Generator(device=dev).manual_seed(
+            701 + 10 * rows + n + X + parity)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        u_here = randn(4, rows, 3, 2, *sites)
+        u_bw = wpp.backward_gauge_eo(randn(4, rows, 3, 2, *sites), extents,
+                                     parity).contiguous()
+        psi, xc = randn(n, 4, 3, 2, *sites), randn(n, 4, 3, 2, *sites)
+        blk = 0.1 * randn(2, 6, 6, 2, *sites)
+        blk[:, :, :, 0] += torch.eye(6, device=dev).reshape(1, 6, 6, 1, 1, 1)
+        args = (extents, u_here, u_bw, psi, xc, blk)
+        n0 = wrapper.launches_by_form.get(name, 0)
+        got = _k_mrhs_call(kind, epi, args, parity)
+        assert wrapper.launches_by_form[name] == n0 + 1
+        lanes = torch.stack([_k_mrhs_call(
+            kind, epi, (extents, u_here, u_bw, psi[r], xc[r], blk), parity)
+            for r in range(n)])
+        want = _k_mrhs_call(kind, epi, args, parity, plain=True)
+        torch.cuda.synchronize()
+        assert got.shape == psi.shape and got.dtype == torch.float32
+        assert torch.equal(got, lanes)
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= \
+            clp.TOLERANCE
+
+
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("kind,epi", K_MRHS_EPILOGUES,
+                         ids=[f"{k}:{e}" for k, e in K_MRHS_EPILOGUES])
+def test_k_mrhs_resources_match_plan(kind, epi, rows):
+    """K1/K2-mrhs's query entry at 32^3 x 64 for each instance: the
+    shared memory, threads, tiles and blocks of k_mrhs_plan, at most 227
+    KB a block; K_MRHS_MIN_BLOCKS blocks an SM; at most 255 registers."""
+    require_cuda()
+    T, Z, Y, Xh = 64, 32, 32, 16
+    with_blk = epi != "twist"
+    info = clp.k_mrhs_info(kind, rows, T, Z, Y, Xh, with_blk,
+                           epi != "clover")
+    plan = clp.k_mrhs_plan(rows, with_blk, T, Z, Y, Xh)
+    assert info["smem_bytes"] == plan["smem"] <= clp.SMEM_PER_BLOCK
+    assert (info["threads"], info["tiles"], info["blocks"]) == (
+        plan["threads"], plan["tiles"], plan["blocks"])
+    assert 0 < info["registers"] <= 255
+    assert info["blocks_per_sm"] >= clp.K_MRHS_MIN_BLOCKS
 
 
 @pytest.mark.parametrize("sites", [1, 33, 2048])

@@ -1,16 +1,19 @@
 """The launch plans of the multi-RHS kernels that stage operands in
 shared memory: B8-mrhs (ops/coarse_pallas.py::mrhs_plan), B5 and B5-eo
-(ops/wilson_pallas_packed.py::full_mrhs_plan, eo_mrhs_plan) and
-S2-mrhs-full (ops/staggered_pallas.py::full_mrhs_plan), which mirror the
-C planners in csrc/coarse.cu, csrc/wilson_full.cu, csrc/wilson_eo_mrhs.cu
-and csrc/staggered_full.cu (the card tests hold each pair to each other
-through the kernels' query entries); and the wrappers' refusals, which
-run before any launch, on the CPU path too.  Pure Python: no card, no JAX.
+(ops/wilson_pallas_packed.py::full_mrhs_plan, eo_mrhs_plan), K1/K2-mrhs
+(ops/clover_pallas.py::k_mrhs_plan) and S2-mrhs-full
+(ops/staggered_pallas.py::full_mrhs_plan), which mirror the C planners in
+csrc/coarse.cu, csrc/wilson_full.cu, csrc/wilson_eo_mrhs.cu,
+csrc/clover_eo_mrhs.cu and csrc/staggered_full.cu (the card tests hold
+each pair to each other through the kernels' query entries); and the
+wrappers' refusals, which run before any launch, on the CPU path too.
+Pure Python: no card, no JAX.
 """
 
 import pytest
 import torch
 
+from quda_tpu_torch.ops import clover_pallas as clp
 from quda_tpu_torch.ops import coarse_pallas as cop
 from quda_tpu_torch.ops import staggered_pallas as spl
 from quda_tpu_torch.ops import wilson_pallas_packed as wpp
@@ -228,3 +231,108 @@ def test_stag_full_mrhs_refusals_name_the_limit_before_any_launch():
                                one_tile)["blocks"] <= MAX_BLOCKS
     assert spl.dslash_staggered_pass_mrhs(u, u, psi, 4, 1).shape == psi.shape
     assert spl.dslash_staggered_pass_mrhs.launches == n0
+
+
+@pytest.mark.parametrize("with_blk", [True, False],
+                         ids=["blocks", "block-free"])
+@pytest.mark.parametrize("rows", [3, 2])
+def test_k_mrhs_plan_fits_every_accepted_lattice(rows, with_blk):
+    """K1/K2-mrhs's block (the tile's links and, with blocks, its clover
+    blocks) fits 227 KB of shared memory, K_MRHS_MIN_BLOCKS blocks to an
+    SM (its launch bound), for every half lattice; its tiles cover each
+    (t, z) plane of Y*Xh half-sites."""
+    tile = clp.K_MRHS_TILE[with_blk]
+    for xh in range(1, 80):
+        for y in (1, 2, 5, 8, 32):
+            p = clp.k_mrhs_plan(rows, with_blk, 3, 5, y, xh)
+            assert p["smem"] <= clp.SMEM_PER_BLOCK == SMEM_PER_BLOCK
+            assert clp.K_MRHS_MIN_BLOCKS * (p["smem"] + 1024) <= SMEM_PER_SM
+            _assert_tiles_cover(p, 3, 5, y * xh, tile)
+            assert p["threads"] == clp.K_MRHS_LANES[with_blk] * tile
+            assert p["threads"] <= 1024 and p["threads"] % 32 == 0
+
+
+def test_k_mrhs_plan_at_the_smoke_lattice():
+    """32^3 x 64 (planes of 512 half-sites), the smoke's N = 12: the forms
+    with blocks stage 64-half-site tiles' links and blocks, 73,728 bytes
+    a block (R = 3) and 61,440 (R = 2), 8 tiles a plane, 16384 blocks of
+    256 threads, 3 right-hand sides a lane; the block-free forms take
+    B5-eo's plan; the default chunk is 1."""
+    dims = (64, 32, 32, 16)
+    b3, b2 = (clp.k_mrhs_plan(r, True, *dims) for r in (3, 2))
+    f3, f2 = (clp.k_mrhs_plan(r, False, *dims) for r in (3, 2))
+    assert (b3["tiles"], b3["blocks"], b3["threads"]) == (8, 16384, 256)
+    assert (b3["smem"], b2["smem"]) == (73728, 61440)
+    assert (f3, f2) == (wpp.eo_mrhs_plan(3, *dims),
+                        wpp.eo_mrhs_plan(2, *dims))
+    for with_blk, per_lane in ((True, 3), (False, 6)):
+        nb = clp.k_mrhs_chunk(None, 12, 3, with_blk, *dims)
+        assert nb == clp.K_MRHS_CHUNK == 1
+        assert -(-12 // (clp.K_MRHS_LANES[with_blk] * nb)) == per_lane
+
+
+def _k_mrhs_args(n=2):
+    dims = (2, 2, 3, 4)
+    sites = (2, 2, 3 * 2)
+    u = torch.zeros((4, 3, 3, 2) + sites)
+    psi = torch.zeros((n, 4, 3, 2) + sites)
+    blk = torch.zeros((2, 6, 6, 2) + sites)
+    return dims, u, psi, blk
+
+
+def test_k_mrhs_refusals_name_the_limit_before_any_launch(monkeypatch):
+    """K1/K2-mrhs refuse a chunk other than K_MRHS_CHUNK, N = 0, a grid
+    beyond 2^31 - 1 blocks and a plan above 227 KB of shared memory a
+    block with a ValueError naming the limit, on the CPU path too; None
+    and K_MRHS_CHUNK are taken; nothing is counted."""
+    counts = [(f.launches, dict(f.launches_by_form)) for f in
+              (clp.dslash_eo_pallas_post_mrhs,
+               clp.dslash_eo_pallas_diag_hop_mrhs)]
+    dims, u, psi, blk = _k_mrhs_args()
+    for nb in (2, 3):
+        with pytest.raises(ValueError, match=rf"chunk {nb}.*\(chunk 1\)"):
+            clp.dslash_eo_pallas_post_mrhs(u, u, psi, dims, 0, blk_pl=blk,
+                                           chunk=nb)
+    with pytest.raises(ValueError, match="N >= 1"):
+        clp.dslash_eo_pallas_diag_hop_mrhs(u, u, psi[:0], psi[:0], dims, 1,
+                                           hop_coeff=-0.01, diag_twist=0.1)
+    for with_blk in (True, False):
+        with pytest.raises(ValueError, match="2\\^31 - 1"):
+            clp.k_mrhs_chunk(None, 1, 3, with_blk, 2 ** 16, 2 ** 16, 1,
+                             2 ** 10)
+        one_tile = clp.K_MRHS_TILE[with_blk]        # a plane of one tile
+        assert clp.k_mrhs_plan(3, with_blk, 2 ** 16, 2 ** 15 - 1, 1,
+                               one_tile)["blocks"] <= MAX_BLOCKS
+    for nb in (None, clp.K_MRHS_CHUNK):
+        assert clp.k_mrhs_chunk(nb, 5, 2, True, 2, 2, 3, 2) == \
+            clp.K_MRHS_CHUNK
+        out = clp.dslash_eo_pallas_diag_hop_mrhs(
+            u, u, psi, psi, dims, 0, hop_coeff=-0.01, blk_pl=blk,
+            diag_twist=0.1, chunk=nb)
+        assert out.shape == psi.shape
+    monkeypatch.setitem(clp.K_MRHS_TILE, True, 1024)
+    with pytest.raises(ValueError, match="227 KB"):
+        clp.dslash_eo_pallas_post_mrhs(u, u, psi, dims, 0, blk_pl=blk)
+    with pytest.raises(ValueError, match="227 KB"):
+        clp.k_mrhs_chunk(None, 12, 2, True, 64, 32, 32, 16)
+    assert clp.k_mrhs_chunk(None, 12, 3, False, 64, 32, 32, 16) == \
+        clp.K_MRHS_CHUNK
+    assert [(f.launches, dict(f.launches_by_form)) for f in
+            (clp.dslash_eo_pallas_post_mrhs,
+             clp.dslash_eo_pallas_diag_hop_mrhs)] == counts
+
+
+def test_k_mrhs_chunk_is_the_clover_default(monkeypatch):
+    """K1/K2-mrhs take K_MRHS_CHUNK (1), whatever wpp.MRHS_CHUNK says, and
+    wpp.MRHS_CHUNK (2) stays the default of fold-mrhs and r12f-mrhs
+    (wpp.mrhs_chunk)."""
+    dims = (64, 32, 32, 16)
+    assert clp.K_MRHS_CHUNK == 1
+    assert wpp.mrhs_chunk(None, 12, 64 * 32 * 32 * 16) == \
+        wpp.MRHS_CHUNK == 2
+    for other in wpp.MRHS_CHUNKS:
+        monkeypatch.setattr(wpp, "MRHS_CHUNK", other)
+        for with_blk in (True, False):
+            assert clp.k_mrhs_chunk(None, 12, 3, with_blk, *dims) == \
+                clp.K_MRHS_CHUNK
+        assert wpp.mrhs_chunk(None, 12, 64 * 32 * 32 * 16) == other
