@@ -6,10 +6,20 @@
     python3 chip_profile.py mrhs     # B5, B8-mrhs, B5-eo, K1/K2-mrhs,
                                      # S2-mrhs-full alone
     python3 chip_profile.py mrhs_variants [PARENT_CSRC|-] [eo] [stag] [clover]
+                                     [fold] [NB]
                                      # their variants, against the parent
+                                     # (NB: the parent's chunk width where
+                                     # its K1/K2- or fold-mrhs entry takes
+                                     # one)
     python3 chip_profile.py mrhs_ab OTHER_CSRC [NB]
                                      # K1/K2-mrhs against another tree's
+    python3 chip_profile.py coarse_variants [PARENT_CSRC|-]
+                                     # B8's variants, against the parent
+    python3 chip_profile.py sass OTHER_CSRC [SOURCE ...]
+                                     # each kernel's SASS against another
+                                     # tree's
     python3 chip_profile.py mg_seeds # MG iterations per null-vector seed
+    python3 chip_profile.py fold     # a 12-source fold batched iteration
 
 Builds the solves of chip_smoke.py's main paths at 32^3 x 64 (random
 SU(3) gauge and Gaussian source from a seeded torch.Generator, kappa
@@ -59,6 +69,11 @@ and bottom solve) against the plain PyTorch glue and the idle share.
 Before them the seconds of a heatbath and an overrelaxation sweep and of
 ``staple_sum`` with its 3x3 products as ``su3.mat_mul_fma`` against
 ``torch.matmul``; after them whole solves: CG and ``gcr-mg``.
+
+``fold`` (not part of ``all``) profiles one 12-source
+``batched_cg_pairs`` iteration on the float32 Wilson pair operator's fold
+form (the fold-mrhs hop, B9) and, for comparison, on its full form
+(B5-eo), 20 iterations each.
 
 ``stag_mg`` (not part of ``all``) profiles the staggered/HISQ multigrid
 at 32^3 x 64 on the same kind of heatbath gauge: compute_ks_link_quda,
@@ -121,6 +136,7 @@ def _profile(label, run, torch, dims=DIMS):
               "staggered_fused_kernel": 0.0, "staggered_pass_kernel": 0.0,
               "staggered_pass_mrhs_kernel": 0.0,
               "full_hop_kernel": 0.0, "full_hop_mrhs_kernel": 0.0,
+              "fold_hop_kernel": 0.0, "fold_hop_mrhs_kernel": 0.0,
               "staggered_full_fused_kernel": 0.0,
               "staggered_full_pass_kernel": 0.0,
               "staggered_full_pass_mrhs_kernel": 0.0,
@@ -145,6 +161,10 @@ def _profile(label, run, torch, dims=DIMS):
             groups["staggered_fused_kernel"] += us
         elif "stag_pass_kernel" in name:
             groups["staggered_pass_kernel"] += us
+        elif "wilson_eo_fold_mrhs_kernel" in name:
+            groups["fold_hop_mrhs_kernel"] += us
+        elif "wilson_eo_fold_kernel" in name:
+            groups["fold_hop_kernel"] += us
         elif "wilson_full_mrhs_kernel" in name:
             groups["full_hop_mrhs_kernel"] += us
         elif "wilson_full_kernel" in name:
@@ -914,18 +934,22 @@ def _variant_info(lib, entry, *args) -> dict:
 
 
 def mrhs_variants(torch, dev, parent_csrc=None,
-                  which=("eo", "stag", "clover")) -> None:
+                  which=("eo", "stag", "clover", "fold"),
+                  parent_nb=None) -> None:
     """Time variants of B5-eo (csrc/wilson_eo_mrhs.cu: tile, lanes, box
     depth, blocks an SM) at N = 12 and 6, R = 3 and 2, each chunk, of
     S2-mrhs-full (csrc/staggered_full.cu: chunk, lanes, tile, box depth,
     blocks an SM) at N = 24, fat and Naik accumulating, and of K1/K2-mrhs
     (csrc/clover_eo_mrhs.cu, CLOVER_VARIANTS) at N = 12, each form on a
-    path, R = 3 and 2, at 32^3 x 64, through their C entries in libraries
-    of their own; and the parent tree's kernels where ``parent_csrc`` (its
-    csrc directory, whose entries take this tree's arguments) is given.
-    Each shape's variants run in turns, forward then backward, and each
-    output is checked bit for bit against single-RHS launches (B1,
-    S2-full, K1/K2) of this tree."""
+    path, R = 3 and 2, and of fold-mrhs (csrc/wilson_eo_fold.cu, B5-eo's
+    EO_VARIANTS on the fold layout) at N = 12, R = 3 and 2, at 32^3 x 64, through their C entries in libraries of their own; and the
+    parent tree's kernels where ``parent_csrc`` (its csrc directory, whose
+    entries take this tree's arguments, and ``parent_nb``, a chunk width,
+    where the parent's K1/K2-mrhs or fold-mrhs entry takes one) is
+    given.  Each shape's variants run in turns, forward then backward, and
+    each output is checked bit
+    for bit against single-RHS launches (B1, S2-full, K1/K2, the fold hop)
+    of this tree."""
     import ctypes
 
     from quda_tpu_torch.ops import staggered_pallas as spl
@@ -940,6 +964,8 @@ def mrhs_variants(torch, dev, parent_csrc=None,
                                parent_csrc) if "stag" in which else {})
     cl_libs = (_build_variants("clover_eo_mrhs.cu", CLOVER_VARIANTS,
                                parent_csrc) if "clover" in which else {})
+    fold_libs = (_build_variants("wilson_eo_fold.cu", EO_VARIANTS,
+                                 parent_csrc) if "fold" in which else {})
     print(json.dumps({"variants_built_s": time.perf_counter() - t0}),
           flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1045,7 +1071,8 @@ def mrhs_variants(torch, dev, parent_csrc=None,
                                 Y, X, nhop, int(accum))}
                 for k, v in ms.items()},
             "nvidia_smi": smi}), flush=True)
-    _clover_variants(torch, dev, cl_libs, turns, smi, gen)
+    _clover_variants(torch, dev, cl_libs, turns, smi, gen, parent_nb)
+    _fold_variants(torch, dev, fold_libs, turns, smi, gen, parent_nb)
     print(json.dumps({"mrhs_variants_s": time.perf_counter() - t0,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
 
@@ -1114,6 +1141,246 @@ def _clover_variants(torch, dev, libs, turns, smi, gen,
                 "nvidia_smi": smi}), flush=True)
             del lanes
         del args, u, ubw, psi, xc, blk, out
+
+
+def _fold_variants(torch, dev, libs, turns, smi, gen,
+                   parent_nb=None) -> None:
+    """fold-mrhs's variant libraries ``libs`` in turns at 32^3 x 64,
+    N = 12, R = 3 and 2, each output held bit for bit to fold hop
+    launches of this tree; ``parent_nb``: the chunk width to pass to the
+    "parent" library where its entry takes one."""
+    import ctypes
+
+    from quda_tpu_torch.ops import wilson_pallas_packed as wpp
+    from quda_tpu_torch.utils import kernels
+
+    X, Y, Z, T = DIMS
+    Xh = X // 2
+    dims = (T, Z, Y, X)
+    half = T * Z * Y * Xh
+    n = NRHS
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sig = list(kernels.SIGNATURES["qtt_wilson_eo_fold_mrhs"])
+    extra = {k: () for k in libs}
+    if parent_nb is not None and "parent" in libs:
+        extra["parent"] = (parent_nb,)
+    for k, (lib, _) in libs.items():
+        lib.qtt_wilson_eo_fold_mrhs.argtypes = (
+            sig[:-1] + [ctypes.c_int] * len(extra[k]) + sig[-1:])
+    fsites = (T, 2 * Z, Y * Xh)
+    for rows in (3, 2) if libs else ():
+        u, ubw = (torch.randn((4, rows, 3) + fsites, generator=gen,
+                              device=dev) for _ in range(2))
+        psi = torch.randn((n, 4, 3) + fsites, generator=gen, device=dev)
+        out = torch.empty_like(psi)
+        lanes = torch.stack([wpp.dslash_eo_pallas_packed_fold(
+            u, ubw, psi[i], dims, 0) for i in range(n)])
+        bound = _bound_ms(wpp.bytes_per_site_mrhs(n, rows) * half,
+                          wpp.flops_per_site_mrhs(n, rows) * half)
+        def run(k):
+            rc = libs[k][0].qtt_wilson_eo_fold_mrhs(
+                out.data_ptr(), psi.data_ptr(), u.data_ptr(), ubw.data_ptr(),
+                T, Z, Y, Xh, 0, rows, 1, n, *extra[k], stream)
+            kernels.check_launch(rc, f"fold-mrhs variant {k}")
+        bits = {}
+        for k in libs:
+            out.zero_()
+            run(k)
+            bits[k] = bool(torch.equal(out, lanes))
+        ms = turns(libs, run)
+        print(json.dumps({
+            "kernel": "fold_mrhs_variants", "rows": rows, "nrhs": n,
+            "bound_ms": bound, "parent_chunk": parent_nb,
+            "variants": {k: {"ms": v, "share_of_bound": [
+                bound / t for t in v], "lanes_bitwise_fold": bits[k],
+                **EO_VARIANTS.get(k, {}),
+                **({} if extra[k] else _variant_info(
+                    libs[k][0], "qtt_wilson_eo_fold_mrhs_info", T, Z, Y, Xh,
+                    rows))}
+                for k, v in ms.items()},
+            "nvidia_smi": smi}), flush=True)
+        del u, ubw, psi, out, lanes
+
+
+# B8's variants: ring depth, rows a tile (lanes a row, rows a lane group,
+# threads a block) and blocks an SM of the launch bound
+COARSE_VARIANTS = {
+    "shipped": {},
+    "stages2": {"kCoarseStages": 2},
+    "stages4": {"kCoarseStages": 4},
+    "stages6": {"kCoarseStages": 6},
+    "rows64": {"kCoarseRowsPerGroup": 2, "kCoarseMinBlocks": 2},
+    "lanes16_rows16": {"kCoarseLanesMid": 16},
+    "threads128": {"kCoarseThreads": 128, "kCoarseMinBlocks": 8},
+}
+COARSE_SHAPES = ((512, 96), (8192, 96))     # the 4^3 x 8 and 8^3 x 16 levels
+
+
+def coarse_variants(torch, dev, parent_csrc=None, rounds=6) -> None:
+    """Time variants of B8 (csrc/coarse.cu's constexpr ring, tile, lanes,
+    launch bound and grid, COARSE_VARIANTS) and the parent tree's kernel
+    (``parent_csrc``, its csrc directory) at the multigrid's two coarse
+    levels (S 512 and 8192, E 96), on the same buffers in one process,
+    in ``rounds`` rounds of alternating order (the median of each round's
+    CUDA-event timings), beside ``torch.einsum("ksab,ksb->sa")``; each
+    output within TOLERANCE of the einsum, and each variant's resources
+    where its library has the query entry."""
+    from quda_tpu_torch.ops import coarse_pallas as cop
+    from quda_tpu_torch.utils import kernels
+
+    smi = _smi()
+    t0 = time.perf_counter()
+    libs = _build_variants("coarse.cu", COARSE_VARIANTS, parent_csrc)
+    print(json.dumps({"variants_built_s": time.perf_counter() - t0}),
+          flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for lib, _ in libs.values():
+        lib.qtt_coarse_apply.argtypes = list(
+            kernels.SIGNATURES["qtt_coarse_apply"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    for S, E in COARSE_SHAPES:
+        links = torch.randn((9, S, E, E), generator=gen, device=dev)
+        psi9 = torch.randn((9, S, E), generator=gen, device=dev)
+        out = torch.empty((S, E), device=dev)
+        want = torch.einsum("ksab,ksb->sa", links, psi9)
+        scale = want.abs().max().item()
+
+        def run(k):
+            rc = libs[k][0].qtt_coarse_apply(out.data_ptr(), links.data_ptr(),
+                                             psi9.data_ptr(), S, E, stream)
+            kernels.check_launch(rc, f"B8 variant {k}")
+        errs = {}
+        for k in libs:
+            out.zero_()
+            run(k)
+            errs[k] = (out - want).abs().max().item() / scale
+        names = list(libs)
+        ms = {k: [] for k in names}
+        for r in range(rounds):
+            for k in names if r % 2 == 0 else names[::-1]:
+                ms[k].append(_median_ms(lambda: run(k), torch, repeats=9))
+        einsum_ms = _median_ms(lambda: torch.einsum("ksab,ksb->sa", links,
+                                                    psi9), torch)
+        model = cop.coarse_model(E // 2)
+        bound = _bound_ms(model["bytes_per_site"] * S,
+                          model["flops_per_site"] * S)
+        print(json.dumps({
+            "kernel": "b8_variants", "sites": S, "E": E, "bound_ms": bound,
+            "einsum_ms": einsum_ms, "tolerance": cop.TOLERANCE,
+            "variants": {k: {"ms_rounds": v,
+                             "ms_median": sorted(v)[len(v) // 2],
+                             "share_of_bound":
+                                 bound / sorted(v)[len(v) // 2],
+                             "max_rel_err": errs[k],
+                             **COARSE_VARIANTS.get(k, {}),
+                             **_variant_info(libs[k][0],
+                                             "qtt_coarse_apply_info", S, E,
+                                             1)}
+                         for k, v in ms.items()},
+            "nvidia_smi": smi}), flush=True)
+        del links, psi9, out, want
+    print(json.dumps({"coarse_variants_s": time.perf_counter() - t0,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+# the sources whose kernels another tree's must match instruction for
+# instruction when this tree did not mean to change them
+SASS_SOURCES = ("wilson_full.cu", "wilson_eo_mrhs.cu", "clover_eo_mrhs.cu",
+                "staggered_full.cu", "coarse.cu")
+
+
+def sass(other_csrc, sources=SASS_SOURCES) -> None:
+    """Compile each source of this tree and of another (its csrc
+    directory) to a cubin with the library's flags and compare each
+    kernel's SASS (``cuobjdump -sass``), instruction by instruction, the
+    kernels matched by name with the file-specific hash of their
+    anonymous namespace masked; prints one line a source."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from quda_tpu_torch.utils import kernels
+
+    nvcc = kernels.nvcc_path()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    root = kernels.BUILD_ROOT / "sass"
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+
+    def functions(path) -> dict:
+        text = subprocess.run([cuobjdump, "-sass", str(path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {}
+        for block in text.split("Function : ")[1:]:
+            name, _, body = block.partition("\n")
+            key = re.sub(r"[0-9a-f]{8,}", "H", name.strip())
+            funcs[key] = [re.sub(r"/\*[0-9a-f]{4}\*/", "", ln).split(";")[0]
+                          .strip() for ln in body.splitlines()
+                          if re.match(r"\s*/\*[0-9a-f]{4}\*/", ln)]
+        return funcs
+
+    for source in sources:
+        cubins = {}
+        procs = {}
+        for tree, csrc in (("this", kernels.CSRC), ("other",
+                                                     Path(other_csrc))):
+            d = root / tree
+            d.mkdir(parents=True, exist_ok=True)
+            cubins[tree] = d / (Path(source).stem + ".cubin")
+            procs[tree] = subprocess.Popen(
+                [nvcc, *flags, "-cubin", "-I", str(csrc), "-o",
+                 str(cubins[tree]), str(csrc / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tree, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"{source} ({tree}):\n{log}")
+        mine, theirs = functions(cubins["this"]), functions(cubins["other"])
+        same = sorted(k for k in mine if mine[k] == theirs.get(k))
+        print(json.dumps({
+            "sass": source, "kernels": len(mine),
+            "identical": len(same), "differ": sorted(
+                k for k in mine if k in theirs and k not in same),
+            "only_here": sorted(set(mine) - set(theirs)),
+            "only_there": sorted(set(theirs) - set(mine))}), flush=True)
+
+
+def fold(torch, dev) -> None:
+    """Profile one 12-source ``batched_cg_pairs`` iteration on the float32
+    Wilson pair operator's fold form (fold-mrhs) and its full form (B5-eo)
+    at 32^3 x 64, kappa 0.12, 20 iterations each, in the order fold, full,
+    full, fold."""
+    from quda_tpu_torch.fields.gauge import GaugeField
+    from quda_tpu_torch.fields.geometry import LatticeGeometry
+    from quda_tpu_torch.fields.spinor import ColorSpinorField, even_odd_split
+    from quda_tpu_torch.models.wilson import DiracWilsonPC
+    from quda_tpu_torch.solvers.block import batched_cg_pairs
+
+    geom = LatticeGeometry(DIMS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gauge = GaugeField.random(geom, gen, dtype=torch.complex64,
+                              device=dev).data
+    halves = [even_odd_split(ColorSpinorField.gaussian(
+        geom, gen, dtype=torch.complex64, device=dev).data, geom)
+        for _ in range(NRHS)]
+    be_b = torch.stack([h[0] for h in halves])
+    bo_b = torch.stack([h[1] for h in halves])
+    del halves
+    dpk = DiracWilsonPC(gauge, geom, 0.12).packed()
+    ops = {f: dpk.pairs(torch.float32, f) for f in ("fold", "full")}
+    rhs = ops["full"].Mdag_pairs_mrhs(ops["full"].prepare_pairs_mrhs(be_b,
+                                                                     bo_b))
+    for form in ("fold", "full", "full", "fold"):
+        op = ops[form]
+
+        def run(n):
+            return batched_cg_pairs(op.MdagM_pairs_mrhs, rhs, tol=1e-30,
+                                    maxiter=n)
+
+        run(3)                                               # warm-up
+        torch.cuda.synchronize()
+        _profile(f"{form}:batched_cg_pairs[{NRHS}]", lambda: run(ITERS),
+                 torch)
 
 
 def mrhs_ab(torch, dev, other_csrc, other_nb=None, rounds=8) -> None:
@@ -1302,12 +1569,24 @@ def main() -> int:
         return 1
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     families = {"staggered": staggered, "double": double, "zoo": zoo,
-                "mg": mg, "mrhs": mrhs, "mg_seeds": mg_seeds}
+                "mg": mg, "mrhs": mrhs, "mg_seeds": mg_seeds, "fold": fold}
     if which == "mrhs_variants":
         parent = sys.argv[2] if len(sys.argv) > 2 and sys.argv[2] != "-" \
             else None
+        rest = sys.argv[3:]
+        nbs = [int(a) for a in rest if a.isdigit()]
         mrhs_variants(torch, torch.device("cuda", 0), parent,
-                      tuple(sys.argv[3:]) or ("eo", "stag", "clover"))
+                      tuple(a for a in rest if not a.isdigit())
+                      or ("eo", "stag", "clover", "fold"),
+                      nbs[0] if nbs else None)
+        return 0
+    if which == "coarse_variants":
+        parent = sys.argv[2] if len(sys.argv) > 2 and sys.argv[2] != "-" \
+            else None
+        coarse_variants(torch, torch.device("cuda", 0), parent)
+        return 0
+    if which == "sass":
+        sass(sys.argv[2], tuple(sys.argv[3:]) or SASS_SOURCES)
         return 0
     if which == "mrhs_ab":
         mrhs_ab(torch, torch.device("cuda", 0), sys.argv[2],

@@ -207,10 +207,15 @@ Phases, one JSON line each (``"phase": ...``):
              and reliable updates to the same solution bits, runs its own
              kernel (fold 4 an iteration, S1-fold 2, improved v3 4,
              fat-only v3 2 on fused_cg) and no B1, B5-eo, S1 or S2.
+             Each row has the solve's seconds; the 12-source fold row
+             also its full twin's, and both ms an iteration.
    timing  ("family": "fold_v3") — each form's ms, bound, share, plain ms
              and its twin's ms in the same call, its launches on its
-             path; the to_fold / from_fold copies of one fold hop; ms per
-             fused_cg iteration of each form against its twin's.
+             path; the multi-RHS fold hop's resources (R = 3 and 2), held
+             to fold_mrhs_plan; the to_fold / from_fold copies of one fold
+             hop; ms per fused_cg iteration of each form against its
+             twin's.  The kernels line's fold-mrhs row carries the R = 2
+             form's times beside its own.
 
 8b. The multi-device Wilson path (ROADMAP A15, B12) on virtual meshes of
    MESH_N = 8 sub-domains, all on the card, with the main path's gauge
@@ -296,7 +301,11 @@ Phases, one JSON line each (``"phase": ...``):
              bit for bit against B4; B8 at both coarse levels and its
              multi-RHS form at N = 24 against their plain versions.
    timing  — B5 against 24 B4 launches, B8 and B8-mrhs against the einsum
-             (their library call) and their bounds.
+             (their library call) and their bounds; B8 at each coarse
+             level with its launches on the main path (counted by (S, E)),
+             share of bound and resources (registers, shared memory,
+             blocks an SM, rows a tile, lanes a row, grid), held to
+             coarse_plan.  The kernels line has one B8 row a level.
 
 11. The staggered/HISQ multigrid at 32^3 x 64 on family 10's gauge
    (ROADMAP A12, B6; a generator of its own):
@@ -339,6 +348,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2131,6 +2141,9 @@ def multigrid(torch, dev, smi):
                 "b8": cop.coarse_apply_pallas.launches,
                 "b8_mrhs": cop.coarse_apply_pallas_mrhs.launches}
 
+    def b8_by_shape():
+        return dict(cop.coarse_apply_pallas.launches_by_shape)
+
     def zero():
         wpp.reset_launches()
         cop.reset_launches()
@@ -2160,6 +2173,7 @@ def multigrid(torch, dev, smi):
     zero()
     hier = qt.new_multigrid_quda(mp, ip)
     c_setup = counts()
+    b8_setup = b8_by_shape()
     report = hier.verify(galerkin_tol=MG_VERIFY_TOL, pr_tol=MG_VERIFY_TOL)
     emit({"phase": "mg_setup", "dims_xyzt": list(PROD_DIMS),
           "kappa": MG_KAPPA, "params": {k: v for k, v in MG_PARAMS.items()},
@@ -2175,6 +2189,8 @@ def multigrid(torch, dev, smi):
         zero()
         x = qt.invert_quda(src, ip)
         c = counts()
+        if rep == 0:
+            b8_solve = b8_by_shape()
         solves.append({"iters": ip.iter_count, "secs": ip.secs,
                        "true_res": ip.true_res, "converged": ip.converged,
                        "launches": c})
@@ -2199,6 +2215,14 @@ def multigrid(torch, dev, smi):
         fail(f"the multigrid path did not run B4, B5 and B8 (both forms): "
              f"{path}")
     coarse = [lv["coarse"] for lv in hier.levels]
+    # B8's launches on the main path at each coarse level, by (S, E)
+    b8_path = {k: b8_setup.get(k, 0) + b8_solve.get(k, 0)
+               for k in set(b8_setup) | set(b8_solve)}
+    b8_level_keys = [f"{math.prod(co.x_diag.shape[:4])}x{2 * co.nc}"
+                     for co in coarse]
+    if min(b8_path.get(k, 0) for k in b8_level_keys) < 1:
+        fail(f"the multigrid path did not run B8 at every coarse level: "
+             f"{b8_path} against the levels {b8_level_keys}")
     b4_gauge = (hier.adapter.gauge_pl, hier.adapter.gauge_bw)
     setup_s = hier.setup_seconds
     del x, hier
@@ -2245,6 +2269,7 @@ def multigrid(torch, dev, smi):
             del singles
         del psi, got, want
     del u, ubw, b4_gauge
+    b8_single = {}
     for li, co in enumerate(coarse):
         links = co.links9()
         v = torch.randn(co.x_diag.shape[:4] + (2, co.n_vec, 2),
@@ -2274,6 +2299,15 @@ def multigrid(torch, dev, smi):
         b_ms, bound_by[f"b8:{li + 1}"] = bound(model["bytes_per_site"],
                                                model["flops_per_site"], S)
         timing[f"b8:{li + 1}"] = (k_ms, p_ms, b_ms, lib_ms)
+        # the launch B8 made: its resources from its query entry, held to
+        # the plan its wrapper mirrors
+        res = cop.coarse_info(S, E)
+        plan = cop.coarse_plan(S, E)
+        if (res["smem_bytes"], res["rows"], res["lanes"], res["grid"]) != (
+                plan["smem"], plan["rows"], plan["lanes"], plan["items"]):
+            fail(f"B8 at level {li + 1} launched another plan than its "
+                 f"wrapper mirrors: {res} against {plan}")
+        b8_single[li] = res
         if li == 0:
             # the multi-RHS form at the level-1 null-vector solves' width
             vb = torch.randn((MG_NVEC,) + tuple(v.shape), generator=gen,
@@ -2346,12 +2380,20 @@ def multigrid(torch, dev, smi):
                      wpp.bytes_per_site_mrhs(MG_NVEC // 2),
                      wpp.flops_per_site_mrhs(MG_NVEC // 2), vol)[0]},
           **{f"b8_level{li + 1}": {
+              "sites_E": b8_level_keys[li],
+              "launches": b8_path[b8_level_keys[li]],
               "ms": timing[f"b8:{li + 1}"][0],
               "plain_ms": timing[f"b8:{li + 1}"][1],
               "bound_ms": timing[f"b8:{li + 1}"][2],
               "share_of_bound": timing[f"b8:{li + 1}"][2]
               / timing[f"b8:{li + 1}"][0],
-              "einsum_ms": timing[f"b8:{li + 1}"][3]}
+              "einsum_ms": timing[f"b8:{li + 1}"][3],
+              "registers": b8_single[li]["registers"],
+              "smem_bytes_per_block": b8_single[li]["smem_bytes"],
+              "blocks_per_sm": b8_single[li]["blocks_per_sm"],
+              "rows_per_tile": b8_single[li]["rows"],
+              "lanes_per_row": b8_single[li]["lanes"],
+              "grid": b8_single[li]["grid"]}
              for li in range(len(coarse))},
           "b8_mrhs_level1": {
               "nrhs": MG_NVEC, "registers": b8_res["registers"],
@@ -2375,15 +2417,20 @@ def multigrid(torch, dev, smi):
              "launches": path["b5"], "max_abs_err": errs[f"b5:{MG_NVEC}"],
              "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
              "bound_by": bound_by["b5"], "library_ms": None}]
-    k_ms, p_ms, b_ms, lib_ms = timing["b8:1"]
-    rows.append({"name": "coarse_apply_pallas", "route": "cuda",
-                 "source": "quda_tpu_torch/csrc/coarse.cu",
-                 "replaces": "quda_tpu/ops/coarse_pallas.py:99",
-                 "launches": path["b8"],
-                 "max_abs_err": max(v for k, v in errs.items()
-                                    if k.startswith("b8")),
-                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                 "bound_by": bound_by["b8:1"], "library_ms": lib_ms})
+    # B8 once a coarse level: its launches on the main path at that
+    # level's (S, E), its times at that level's shapes
+    for li in range(len(coarse)):
+        k_ms, p_ms, b_ms, lib_ms = timing[f"b8:{li + 1}"]
+        rows.append({"name": f"coarse_apply_pallas[level{li + 1}]",
+                     "route": "cuda",
+                     "source": "quda_tpu_torch/csrc/coarse.cu",
+                     "replaces": "quda_tpu/ops/coarse_pallas.py:99",
+                     "launches": b8_path[b8_level_keys[li]],
+                     "max_abs_err": errs[f"b8:{li + 1}"],
+                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": bound_by[f"b8:{li + 1}"],
+                     "library_ms": lib_ms, "sites_E": b8_level_keys[li],
+                     "share_of_bound": b_ms / k_ms})
     k_ms, p_ms, b_ms, lib_ms, _ = timing["b8_mrhs"]
     rows.append({"name": "coarse_apply_pallas_mrhs", "route": "cuda",
                  "source": "quda_tpu_torch/csrc/coarse.cu",
@@ -3337,22 +3384,22 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
                       dims_xyzt, parity, got, want, twin,
                       wpp.TOLERANCE if out == f32 else wpp.TOLERANCE_BF16)
                 del u_here, u_bw, psi, fh, fb, fp, got, want, twin
-            cases = ([(1, 1), (3, 2), (12, 2)] if dims_xyzt == SMALL_DIMS
-                     else [(MULTI_SRC_N, wpp.MRHS_CHUNK)])
+            cases = ((1, 3, 12) if dims_xyzt == SMALL_DIMS
+                     else (MULTI_SRC_N,))
             for rows in (3, 2):
-                for n, chunk in cases:
+                for n in cases:
                     dims, u_here, u_bw, psi = w_inputs(dims_xyzt, rows, f32,
                                                        n)
                     fh, fb, fp = fold(u_here), fold(u_bw), fold(psi)
                     del u_here, u_bw, psi
-                    got = fold_mrhs_fn(fh, fb, fp, dims, parity, chunk=chunk)
+                    got = fold_mrhs_fn(fh, fb, fp, dims, parity)
                     want = wpp.dslash_eo_fold_mrhs_plain(fh, fb, fp, dims,
                                                          parity)
                     lanes = torch.stack([fold_fn(fh, fb, fp[r], dims, parity)
                                          for r in range(n)])
                     check(fold_mrhs_fn.__name__, wpp.form_name(rows, f32, f32),
                           dims_xyzt, parity, got, want, lanes, wpp.TOLERANCE,
-                          nrhs=n, chunk=chunk)
+                          nrhs=n)
                     del fh, fb, fp, got, want, lanes
     for dims_xyzt in (STAG_SMALL_DIMS, STAG_DIMS):
         for parity in (0, 1):
@@ -3404,14 +3451,16 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
                spl.dslash_staggered_eo_pass, sfold_fn, v3_fn)
         return {fn.__name__: dict(fn.launches_by_form) for fn in fns}
 
-    launches, path_iters = {}, {}
+    launches, path_iters, path_secs = {}, {}, {}
 
     def run(label, fn):
         wpp.reset_launches()
         spl.reset_launches()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
+        path_secs[label] = time.perf_counter() - t0
         launches[label] = counts()
         its = res.iters
         path_iters[label] = (max(int(i) for i in its) if torch.is_tensor(its)
@@ -3433,7 +3482,7 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
               "reliable_updates": getattr(res, "reliable_updates", None),
               "twin_reliable_updates": getattr(twin, "reliable_updates",
                                                None),
-              "solution_bits_equal_twin": same,
+              "solution_bits_equal_twin": same, "secs": path_secs[label],
               "launches": launches[label], **info})
         return same
 
@@ -3489,7 +3538,11 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
     a, b = wres["batched:fold"], wres["batched:full"]
     same = solve_row("batched:fold", "batched_cg_pairs",
                      "wilson fold f32, 12 sources", a, b,
-                     nrhs=MULTI_SRC_N)
+                     nrhs=MULTI_SRC_N, twin_secs=path_secs["batched:full"],
+                     ms_per_iteration=1e3 * path_secs["batched:fold"]
+                     / path_iters["batched:fold"],
+                     twin_ms_per_iteration=1e3 * path_secs["batched:full"]
+                     / path_iters["batched:full"])
     n_mrhs = by("batched:fold", fold_mrhs_fn)
     if not (bool(a.converged.all()) and same and torch.equal(a.iters, b.iters)
             and n_mrhs >= 4 * path_iters["batched:fold"]
@@ -3568,7 +3621,7 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
 
     half_w = geom_p.half_volume
     half_s = geom_s.half_volume
-    timing, twin_ms, copies = {}, {}, {}
+    timing, twin_ms, copies, fold_res = {}, {}, {}, {}
     for rows, store, out in b1_forms:
         dims, u_here, u_bw, psi = w_inputs(PROD_DIMS, rows, store)
         fh, fb, fp = fold(u_here), fold(u_bw), fold(psi)
@@ -3604,6 +3657,14 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
         timing[f"fold_mrhs:{name}"] = (k_ms, p_ms) + bound(
             wpp.bytes_per_site_mrhs(MULTI_SRC_N, rows),
             wpp.flops_per_site_mrhs(MULTI_SRC_N, rows), half_w)
+        half_dims = dims[:3] + (dims[3] // 2,)
+        res = wpp.fold_mrhs_info(rows, *half_dims)
+        plan = wpp.fold_mrhs_plan(rows, *half_dims)
+        if (res["smem_bytes"], res["threads"], res["blocks"]) != (
+                plan["smem"], plan["threads"], plan["blocks"]):
+            fail(f"fold-mrhs launched another plan than its wrapper "
+                 f"mirrors: {res} against {plan}")
+        fold_res[name] = res
         del u_here, u_bw, psi, fh, fb, fp
     for store, out in stag_forms:
         dims, lk, psi = s_inputs(STAG_DIMS, store)
@@ -3700,6 +3761,11 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
         row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "share_of_bound": b_ms / k_ms,
                      "twin_ms": twin_ms.get(name)}
+    for name, res in fold_res.items():
+        row[f"fold_mrhs:{name}"].update(
+            nrhs=MULTI_SRC_N, chunk=wpp.FOLD_MRHS_CHUNK,
+            registers=res["registers"], smem_bytes_per_block=res["smem_bytes"],
+            blocks_per_sm=res["blocks_per_sm"])
     for kernel, form, path in on_path:
         n = on_path_launches[(kernel, form)]
         row[f"{kernel}:{form}"].update(
@@ -3725,6 +3791,14 @@ def fold_v3(torch, dev, smi, gauge, src, srcs, stag) -> list:
             "max_abs_err": errs[f"{fns[kernel].__name__}:{form}"],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
+        if kernel == "fold_mrhs":
+            # the recon-12 form, on no path: its times beside the row's
+            r12 = wpp.form_name(2, f32, f32)
+            k2, p2, b2, _ = timing[f"fold_mrhs:{r12}"]
+            rows_out[-1].update({"share_of_bound": b_ms / k_ms,
+                                 f"ms[{r12}]": k2, f"plain_ms[{r12}]": p2,
+                                 f"bound_ms[{r12}]": b2,
+                                 f"share_of_bound[{r12}]": b2 / k2})
     return rows_out
 
 

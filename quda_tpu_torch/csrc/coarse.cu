@@ -22,23 +22,39 @@
 // What bounds it on an H100: device memory.  Per coarse site the links are
 // 36 E^2 bytes, the psi9 reads 36 E and the output 4 E, against 18 E^2 flop:
 // 0.5 flop/B.  At the 8^3 x 16 level of a 32^3 x 64 lattice (S = 8192,
-// E = 96) that is 2.749 GB, 0.821 ms at 3.35 TB/s.
+// E = 96) that is 2.749 GB, 0.821 ms at 3.35 TB/s; at the 4^3 x 8 level
+// (S = 512) 0.051 ms.  A site's links are 9 contiguous E x E blocks
+// (36,864 B each at E = 96): the kernel's job is to keep enough of them in
+// flight (Little's law at 3.35 TB/s asks for some tens of KB an SM).
 //
-// Design: one block per coarse site, of 256 threads below 2048 sites
-// (where 128-thread blocks, one per site, leave the card short of warps)
-// and 128 above, the faster of the two on each side on the H100.  The block
-// copies the site's 9 E psi9 numbers into shared memory once; then each row
-// a of the output belongs to a group of G lanes of one warp (G = 32, or 16
-// or 8 for small E, so a warp serves 32/G rows at once).  The lanes of a group walk the row's E link
-// numbers b = lane, lane + G, ... for each of the 9 blocks: consecutive
-// lanes read consecutive addresses, so every link row is read coalesced and
-// once.  Each lane keeps one partial sum; a shuffle tree inside the group
-// adds the G partials, and the group's first lane writes out[s, a].  The
-// sums run in another order than the einsum's, so the kernel agrees with
-// the plain version to f32 rounding (TOLERANCE in coarse_pallas.py).
+// Design: the work is cut into items, one a (site, tile of `rows` link
+// rows) and one a block, and each item into 9 stages, one a link block k:
+// the tile's rows of L[k, s] (one contiguous run of rows x E floats) and
+// psi9[k, s] (E floats).  A block streams its stages through a ring of
+// kCoarseStages stages in shared memory with 16-byte cp.async (4-byte
+// where E is not a multiple of 4 or a pointer is not 16-byte aligned), so
+// kCoarseStages - 1 stages are in flight while one is summed; at 12.7 KB a
+// stage (E = 96, 32 rows) and 4 blocks an SM that is ~100 KB in flight an
+// SM, and the blocks resident at once overlap one another's loads and
+// sums.  In a stage, each row belongs to a group of G
+// lanes of one warp (coarse_plan: G = 8 at the multigrid's widths, 4
+// below, 32 for rows of 64 or more copies); lane l reads the row's
+// numbers l, l + G, ... as float4 from shared memory (bank-conflict free:
+// a quarter-warp reads 8 consecutive float4 of one row), sums that k's
+// products in one FMA chain and adds the chain to its running sum; after
+// the item's 9 stages a shuffle tree adds the group's G sums and the
+// group's first lane writes out[s, a].  That is a blocked order (per-k
+// chains of E / G products, 9 of them added in order, a tree of G), never
+// one chain over all 9 E products (the multi-RHS form's lesson below),
+// and another order than the einsum's: the kernel agrees with the plain
+// version to f32 rounding (TOLERANCE in coarse_pallas.py).  The stages,
+// rows a tile, lanes and grid were chosen by timing variants on the card
+// (chip_profile.py coarse_variants; PERF.md: a persistent grid walking
+// the items ran 3-4% slower).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "async_copy.cuh"
 
@@ -46,63 +62,173 @@ namespace {
 
 using namespace qtt;
 
-template <int G, int kThreads>
-__global__ void __launch_bounds__(kThreads)
-    coarse_apply_kernel(float* __restrict__ out,
-                        const float* __restrict__ links,
-                        const float* __restrict__ psi9, int S, int E) {
-  extern __shared__ float sh[];   // psi9[:, s, :], 9 E floats
-  const int64_t s = blockIdx.x;
-  const int64_t sE = s * E;
-  const int64_t SE = static_cast<int64_t>(S) * E;
-  for (int i = threadIdx.x; i < 9 * E; i += kThreads) {
-    const int k = i / E;
-    sh[i] = psi9[k * SE + sE + (i - k * E)];
-  }
-  __syncthreads();
+constexpr int kCoarseThreads = 256;     // threads a block
+constexpr int kCoarseStages = 3;       // ring depth (at most 9)
+constexpr int kCoarseRowsPerGroup = 1; // rows a lane group holds a tile
+constexpr int kCoarseLanesMid = 8;     // lanes a row at 8 .. 63 copies a row
+constexpr int kCoarseMinBlocks = 4;    // the launch bound's blocks an SM
 
-  constexpr int kGroups = kThreads / G;
-  const int group = threadIdx.x / G;
-  const int lane = threadIdx.x % G;
-  const int64_t EE = static_cast<int64_t>(E) * E;
-  const int64_t SEE = static_cast<int64_t>(S) * EE;
-  // every lane of a warp runs the same number of row steps, so the
-  // shuffles below see the whole warp
-  for (int a0 = 0; a0 < E; a0 += kGroups) {
-    const int a = a0 + group;
-    float acc = 0.f;
-    if (a < E) {
-      const float* row = links + s * EE + static_cast<int64_t>(a) * E;
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const float* lk = row + k * SEE;
-        const float* pk = sh + k * E;
-        for (int b = lane; b < E; b += G) acc += __ldg(lk + b) * pk[b];
-      }
-    }
-#pragma unroll
-    for (int off = G / 2; off > 0; off /= 2) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off, G);
-    }
-    if (a < E && lane == 0) out[sE + a] = acc;
+struct CoarsePlan {
+  int lanes;       // G: lanes a row group
+  int rows;        // link rows a tile (an item)
+  int tiles;       // tiles a site: ceil(E / rows)
+  int stage;       // floats a stage: rows E links, then E psi9 (padded)
+  size_t smem;     // dynamic shared memory a block, bytes
+  int64_t items;   // S * tiles: the grid, one block an item
+};
+
+// Mirrored by quda_tpu_torch/ops/coarse_pallas.py::coarse_plan.
+CoarsePlan coarse_plan(int S, int E, bool vec4) {
+  CoarsePlan p;
+  const int per_row = vec4 ? E / 4 : E;           // copies a link row
+  p.lanes = per_row >= 64 ? 32 : per_row >= 8 ? kCoarseLanesMid : 4;
+  p.rows = min(E, kCoarseThreads / p.lanes * kCoarseRowsPerGroup);
+  p.tiles = (E + p.rows - 1) / p.rows;
+  p.stage = (p.rows * E + E + 3) / 4 * 4;
+  p.smem = sizeof(float) * kCoarseStages * static_cast<size_t>(p.stage);
+  p.items = static_cast<int64_t>(S) * p.tiles;
+  return p;
+}
+
+// part += the products of VEC numbers of a link row and psi9
+template <int VEC>
+__device__ __forceinline__ float dot_vec(const float* __restrict__ l,
+                                         const float* __restrict__ p,
+                                         float part) {
+  if constexpr (VEC == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(l);
+    const float4 b = *reinterpret_cast<const float4*>(p);
+    part = fmaf(a.x, b.x, part);
+    part = fmaf(a.y, b.y, part);
+    part = fmaf(a.z, b.z, part);
+    return fmaf(a.w, b.w, part);
+  } else {
+    return fmaf(*l, *p, part);
   }
 }
 
-template <int G, int kThreads>
+template <int G, int VEC>
+__global__ void __launch_bounds__(kCoarseThreads, kCoarseMinBlocks)
+    coarse_apply_kernel(float* __restrict__ out,
+                        const float* __restrict__ links,
+                        const float* __restrict__ psi9, int S, int E,
+                        int rows, int tiles, int stage) {
+  static_assert(kCoarseStages >= 2 && kCoarseStages <= 9, "ring depth");
+  extern __shared__ __align__(16) float sh[];
+  constexpr int kGroups = kCoarseThreads / G;
+  constexpr int kR = kCoarseRowsPerGroup;
+  const int group = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  const int per_row = E / VEC;
+  const int64_t SE = static_cast<int64_t>(S) * E;
+  const int64_t SEE = SE * E;
+  // the block's item: the link rows a0 .. a0 + nr of site s
+  const int64_t s = blockIdx.x / tiles;
+  const int a0 = static_cast<int>(blockIdx.x - s * tiles) * rows;
+  const int nr = min(rows, E - a0);
+  const int nl = nr * per_row;
+  const float* lk0 = links + (s * E + a0) * E;
+  const float* pk0 = psi9 + s * E;
+
+  // copy stage k (link block k) into dst: the nr link rows, then psi9[k, s]
+  // at float rows * E
+  auto load = [&](int k, float* dst) {
+    const float* lk = lk0 + k * SEE;
+    const float* pk = pk0 + k * SE;
+    for (int i = threadIdx.x; i < nl + per_row; i += kCoarseThreads) {
+      if (i < nl) {
+        cp_async_vec<VEC>(dst + i * VEC, lk + i * VEC);
+      } else {
+        cp_async_vec<VEC>(dst + rows * E + (i - nl) * VEC,
+                          pk + (i - nl) * VEC);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < kCoarseStages - 1; ++k) {
+    load(k, sh + k * stage);
+    cp_async_commit();
+  }
+  float acc[kR];
+#pragma unroll
+  for (int j = 0; j < kR; ++j) acc[j] = 0.f;
+
+#pragma unroll 1
+  for (int k = 0; k < 9; ++k) {
+    cp_async_wait<kCoarseStages - 2>();
+    __syncthreads();                 // stage k landed; stage k - 1 is done
+    const int next = k + kCoarseStages - 1;
+    if (next < 9) load(next, sh + (next % kCoarseStages) * stage);
+    cp_async_commit();
+    const float* st = sh + (k % kCoarseStages) * stage;
+    const float* p = st + rows * E;
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int r = group + j * kGroups;
+      if (r < nr) {
+        const float* l = st + r * E;
+        float part = 0.f;
+        for (int c = lane; c < per_row; c += G) {
+          part = dot_vec<VEC>(l + c * VEC, p + c * VEC, part);
+        }
+        acc[j] += part;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    float v = acc[j];
+#pragma unroll
+    for (int off = G / 2; off > 0; off /= 2) {
+      v += __shfl_xor_sync(0xffffffffu, v, off, G);
+    }
+    const int r = group + j * kGroups;
+    if (lane == 0 && r < nr) out[s * E + a0 + r] = v;
+  }
+}
+
+template <int G, int VEC>
 cudaError_t launch(float* out, const float* links, const float* psi9, int S,
-                   int E, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 9 * static_cast<size_t>(E);
-  coarse_apply_kernel<G, kThreads><<<S, kThreads, smem, stream>>>(
-      out, links, psi9, S, E);
+                   int E, const CoarsePlan& p, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      coarse_apply_kernel<G, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return err;
+  coarse_apply_kernel<G, VEC>
+      <<<static_cast<unsigned>(p.items), kCoarseThreads, p.smem, stream>>>(
+          out, links, psi9, S, E, p.rows, p.tiles, p.stage);
   return cudaGetLastError();
 }
 
-template <int kThreads>
-cudaError_t launch_g(float* out, const float* links, const float* psi9,
-                     int S, int E, cudaStream_t stream) {
-  if (E > 16) return launch<32, kThreads>(out, links, psi9, S, E, stream);
-  if (E > 8) return launch<16, kThreads>(out, links, psi9, S, E, stream);
-  return launch<8, kThreads>(out, links, psi9, S, E, stream);
+template <int G, int VEC>
+cudaError_t info_single(const CoarsePlan& p, int* info) {
+  auto* kern = coarse_apply_kernel<G, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      kCoarseThreads, p.smem);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(p.smem);
+  info[2] = blocks;
+  info[3] = p.rows;
+  info[4] = p.lanes;
+  info[5] = static_cast<int>(p.items);
+  return err;
+}
+
+// f(G) for plan p's lane count G, a compile-time constant
+template <typename F>
+cudaError_t by_lanes(const CoarsePlan& p, F&& f) {
+  if (p.lanes == 32) return f(std::integral_constant<int, 32>{});
+  if (p.lanes == 4) return f(std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, kCoarseLanesMid>{});
 }
 
 // ---------------------------------------------------------------------------
@@ -307,7 +433,8 @@ __global__ void __launch_bounds__(kMrhsMaxThreads)
   }
 }
 
-// 16-byte copies where every staged row starts 16-byte aligned
+// 16-byte copies where every staged row starts 16-byte aligned (both
+// forms)
 bool mrhs_vec4(const void* links, const void* psi9, int E) {
   return E % 4 == 0 &&
          ((reinterpret_cast<uintptr_t>(links) |
@@ -350,8 +477,9 @@ cudaError_t info_mrhs(const MrhsPlan& p, int* info) {
 }
 }  // namespace
 
-// All float32.  S coarse sites (one block each), E in 1 .. 1024 (the psi9
-// copy of a site fits the default 48 KB of shared memory).
+// All float32.  S >= 1 coarse sites, E in 1 .. 1024 (coarse_plan's
+// stages fit 227 KB of shared memory up to E = 1024); a grid (S times the
+// row tiles of a site) beyond 2^31 - 1 blocks is refused.
 extern "C" int qtt_coarse_apply(void* out, const void* links,
                                 const void* psi9, int S, int E,
                                 void* stream) {
@@ -360,10 +488,39 @@ extern "C" int qtt_coarse_apply(void* out, const void* links,
   }
   auto* o = static_cast<float*>(out);
   const auto* l = static_cast<const float*>(links);
-  const auto* p = static_cast<const float*>(psi9);
+  const auto* ps = static_cast<const float*>(psi9);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = S < 2048 ? launch_g<256>(o, l, p, S, E, st)
-                                   : launch_g<128>(o, l, p, S, E, st);
+  const bool v4 = mrhs_vec4(links, psi9, E);
+  const CoarsePlan p = coarse_plan(S, E, v4);
+  if (p.items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      v4 ? by_lanes(p, [&](auto g) {
+             return launch<decltype(g)::value, 4>(o, l, ps, S, E, p, st);
+           })
+         : by_lanes(p, [&](auto g) {
+             return launch<decltype(g)::value, 1>(o, l, ps, S, E, p, st);
+           });
+  return static_cast<int>(err);
+}
+
+// B8's resources at (S, E), for a report: info[0] ptxas registers a thread,
+// [1] dynamic shared memory a block (bytes), [2] resident blocks an SM,
+// [3] link rows a tile, [4] lanes a row, [5] blocks of the grid (items).
+// vec4:
+// the 16-byte-copy instances (aligned E % 4 == 0 inputs).
+extern "C" int qtt_coarse_apply_info(int S, int E, int vec4, int* info) {
+  if (S <= 0 || E <= 0 || E > 1024 || (vec4 && E % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const CoarsePlan p = coarse_plan(S, E, vec4 != 0);
+  if (p.items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      vec4 ? by_lanes(p, [&](auto g) {
+               return info_single<decltype(g)::value, 4>(p, info);
+             })
+           : by_lanes(p, [&](auto g) {
+               return info_single<decltype(g)::value, 1>(p, info);
+             });
   return static_cast<int>(err);
 }
 

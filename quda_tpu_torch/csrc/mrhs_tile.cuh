@@ -1,8 +1,10 @@
 // The tile plumbing of the multi-RHS hops that stage their links in shared
 // memory: the full-lattice Wilson hop B5 (wilson_full.cu), its even/odd
 // form B5-eo (wilson_eo_mrhs.cu), the fused clover / twisted hops
-// K1/K2-mrhs (clover_eo_mrhs.cu, which stage their clover blocks too) and
-// the full-lattice staggered pass S2-mrhs-full (staggered_full.cu).
+// K1/K2-mrhs (clover_eo_mrhs.cu, which stage their clover blocks too), the
+// full-lattice staggered pass S2-mrhs-full (staggered_full.cu) and the
+// even/odd hop on the fold layout B9 fold-mrhs (wilson_eo_fold.cu, whose
+// copies place the planes with FoldPlanes).
 //
 // A block owns a tile of `tile` sites of one (t, z) plane of `plane` sites
 // (the plane's last tile may be partial), copies the tile's forward and
@@ -67,37 +69,60 @@ __device__ __forceinline__ void block_tile(int64_t b, int tiles, int T,
   }
 }
 
+// Where plane q of a link set starts, from the set's base: an address hook
+// of copy_sets and stage_links.  The pair layout's planes lie n apart (an
+// int64_t n is that hook); in the fold layout (wilson_hop.cuh's
+// FoldLayout) the two planes of component c = q / 2 are one plane of 2n
+// numbers whose rows hold the real parts of a (t, z) row, then its
+// imaginary parts YXh further on, so plane q starts at c 2n (re) or
+// c 2n + YXh (im), and the tile's `start` is the fold address of its first
+// real part.
+__device__ __forceinline__ int64_t plane_offset(int64_t n, int q) {
+  return q * n;
+}
+
+struct FoldPlanes {
+  int64_t n;
+  int64_t yxh;
+};
+
+__device__ __forceinline__ int64_t plane_offset(const FoldPlanes& f, int q) {
+  return (q >> 1) * 2 * f.n + (q & 1) * f.yxh;
+}
+
 // The copies of two sets of PLANES planes into sh[2][PLANES][tile]:
 // PLANES planes of `a`, then PLANES of `b`, each the `len` sites from
-// `start` of a plane of n sites, VEC floats a copy, by all NTHREADS
-// threads of the block: issued, not waited for.
-template <int PLANES, int VEC, int NTHREADS>
+// `start` of a plane placed by `planes` (plane_offset), VEC floats a
+// copy, by all NTHREADS threads of the block: issued, not waited for.
+template <int PLANES, int VEC, int NTHREADS, typename Planes>
 __device__ __forceinline__ void copy_sets(float* __restrict__ sh,
                                           const float* __restrict__ a,
                                           const float* __restrict__ b,
-                                          int64_t n, int64_t start, int len,
-                                          int tile) {
+                                          const Planes& planes,
+                                          int64_t start, int len, int tile) {
   const int per = len / VEC;
   for (int i = threadIdx.x; i < 2 * PLANES * per; i += NTHREADS) {
     const int q = i / per;
     const int k = (i - q * per) * VEC;
-    const float* src =
-        (q < PLANES ? a + q * n : b + (q - PLANES) * n) + start + k;
+    const float* src = (q < PLANES ? a + plane_offset(planes, q)
+                                   : b + plane_offset(planes, q - PLANES)) +
+                       start + k;
     cp_async_vec<VEC>(sh + q * tile + k, src);
   }
 }
 
 // The tile's links into shared memory, [2][PLANES][tile] floats: PLANES
-// planes of `fwd`, then PLANES of `bw` (copy_sets).  On return every copy
-// the block has issued, these and any before them, has landed and is
-// visible to all its threads.
-template <int PLANES, int VEC, int NTHREADS>
+// planes of `fwd`, then PLANES of `bw` (copy_sets, planes placed by
+// `planes`).  On return every copy the block has issued, these and any
+// before them, has landed and is visible to all its threads.
+template <int PLANES, int VEC, int NTHREADS, typename Planes>
 __device__ __forceinline__ void stage_links(float* __restrict__ sh,
                                             const float* __restrict__ fwd,
                                             const float* __restrict__ bw,
-                                            int64_t n, int64_t start,
-                                            int len, int tile) {
-  copy_sets<PLANES, VEC, NTHREADS>(sh, fwd, bw, n, start, len, tile);
+                                            const Planes& planes,
+                                            int64_t start, int len,
+                                            int tile) {
+  copy_sets<PLANES, VEC, NTHREADS>(sh, fwd, bw, planes, start, len, tile);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();

@@ -14,7 +14,12 @@ matvec is one real E x E matvec with E = 2 Nc):
 The wrapper dispatches on the tensors' device: CPU tensors run the plain
 version ``coarse_apply_ref`` (the einsum "ksab,ksb->sa", the JAX
 package's reference), CUDA tensors launch the kernel or raise.  Its
-launches are counted in ``coarse_apply_pallas.launches``.
+launches are counted in ``coarse_apply_pallas.launches``, and by (S, E)
+in ``coarse_apply_pallas.launches_by_shape`` ("8192x96": one count a
+coarse level).  A block of the kernel streams its (site, tile of link
+rows) item's 9 link blocks through a ring of shared-memory stages
+(``coarse_plan``); its sums run in a blocked order (per-block chains, a
+lane tree), within ``TOLERANCE`` of the einsum.
 
 ``coarse_apply_pallas_mrhs`` (B8-mrhs) applies the same links to N
 right-hand sides, psi9 (N, 9, S, E) -> (N, S, E): the coarse levels'
@@ -39,7 +44,19 @@ from ..utils import kernels
 # sums and a shuffle tree, or the multi-RHS form's FMA chains of 32
 # products added tile by tile, against the einsum's order).
 TOLERANCE = 1e-5
-MAX_E = 1024                # the psi9 copy of a site fits 48 KB of shared memory
+MAX_E = 1024                # coarse_plan's ring fits 227 KB up to E = 1024
+
+# The single form's plan, as csrc/coarse.cu's coarse_plan makes it: a block
+# of COARSE_THREADS threads an item (a site's tile of ``rows`` link rows), a
+# ring of COARSE_STAGES stages, each one link block's tile rows and the
+# site's psi9 numbers; a row belongs to ``lanes`` lanes (COARSE_LANES_MID at
+# 8 .. 63 copies a row, 4 below, 32 above), each lane group holding
+# COARSE_ROWS_PER_GROUP rows of a tile.
+COARSE_THREADS = 256
+COARSE_STAGES = 3
+COARSE_ROWS_PER_GROUP = 1
+COARSE_LANES_MID = 8
+COARSE_MIN_BLOCKS = 4       # the kernel's launch bound
 
 MAX_E_MRHS = 160            # the multi-RHS kernel's widest link block
 
@@ -67,6 +84,47 @@ def coarse_apply_mrhs_ref(links: torch.Tensor,
                           psi9: torch.Tensor) -> torch.Tensor:
     """The plain multi-RHS version: einsum "ksab,nksb->nsa", float32."""
     return torch.einsum("ksab,nksb->nsa", links, psi9)
+
+
+def coarse_plan(S: int, E: int, vec4: bool = True) -> dict:
+    """The single form's launch at S sites and width E (csrc/coarse.cu::
+    coarse_plan): ``lanes`` a link row, link ``rows`` a tile, ``tiles`` a
+    site, floats a ``stage`` (rows x E links, then E psi9 numbers, padded
+    to 4), dynamic shared memory ``smem`` a block in bytes, ``threads`` a
+    block and ``items`` (S x tiles, 9 stages each: the grid, one block an
+    item).  ``vec4``: the 16-byte copies (E % 4 == 0, aligned inputs)."""
+    per_row = E // 4 if vec4 else E
+    lanes = 32 if per_row >= 64 else COARSE_LANES_MID if per_row >= 8 else 4
+    rows = min(E, COARSE_THREADS // lanes * COARSE_ROWS_PER_GROUP)
+    tiles = -(-E // rows)
+    stage = -(-(rows * E + E) // 4) * 4
+    return {"lanes": lanes, "rows": rows, "tiles": tiles, "stage": stage,
+            "smem": 4 * COARSE_STAGES * stage, "items": S * tiles,
+            "threads": COARSE_THREADS}
+
+
+def coarse_info(S: int, E: int, vec4: bool = True) -> dict:
+    """The single form's resources on the card at (S, E): ptxas
+    ``registers``, ``smem_bytes`` a block, resident ``blocks_per_sm``, and
+    ``rows``, ``lanes``, ``grid`` (blocks) of the plan it launches."""
+    info = kernels.kernel_info("qtt_coarse_apply_info", S, E, int(vec4))
+    rows, lanes, grid = info.pop("extra")
+    return {**info, "rows": rows, "lanes": lanes, "grid": grid}
+
+
+def check_single(E: int, S: int) -> dict:
+    """Raise ValueError naming the limit unless the single kernel takes
+    width E and S sites (a grid of at most 2^31 - 1 blocks on either copy
+    width: the 4-byte copies' plan has the most); its plan (16-byte
+    copies) otherwise."""
+    if not 1 <= E <= MAX_E or S < 1:
+        raise ValueError(f"E = {E}, S = {S}: the kernel takes 1 <= E <= "
+                         f"{MAX_E} and S >= 1")
+    items = coarse_plan(S, E, vec4=False)["items"]
+    if items > _MAX_BLOCKS:
+        raise ValueError(f"S = {S}, E = {E}: {items} blocks, beyond the "
+                         "grid's 2^31 - 1")
+    return coarse_plan(S, E)
 
 
 def mrhs_plan(E: int, N: int) -> dict:
@@ -132,15 +190,13 @@ def coarse_apply_pallas(links: torch.Tensor,
     if tuple(links.shape) != (9, S, E, E):
         raise ValueError(f"links of shape {tuple(links.shape)}: expected "
                          f"{(9, S, E, E)} for psi9 {tuple(psi9.shape)}")
+    check_single(E, S)
     kind = kernels.dispatch_device(links, psi9)
     if kind == "cpu":
         return coarse_apply_ref(links, psi9)
     f32 = torch.float32
     kernels.require(links, "links", (9, S, E, E), f32)
     kernels.require(psi9, "psi9", (9, S, E), f32)
-    if not 1 <= E <= MAX_E or S > 2 ** 31 - 1:
-        raise ValueError(f"E = {E}, S = {S}: the kernel takes 1 <= E <= "
-                         f"{MAX_E} and S < 2^31")
     lib = kernels.library()
     out = torch.empty((S, E), dtype=f32, device=psi9.device)
     rc = lib.qtt_coarse_apply(out.data_ptr(), links.data_ptr(),
@@ -148,6 +204,9 @@ def coarse_apply_pallas(links: torch.Tensor,
                               kernels.stream_of(psi9))
     kernels.check_launch(rc, "qtt_coarse_apply")
     coarse_apply_pallas.launches += 1
+    shape = f"{S}x{E}"
+    by_shape = coarse_apply_pallas.launches_by_shape
+    by_shape[shape] = by_shape.get(shape, 0) + 1
     return out
 
 
@@ -181,6 +240,7 @@ def coarse_apply_pallas_mrhs(links: torch.Tensor,
 
 def reset_launches() -> None:
     coarse_apply_pallas.launches = 0
+    coarse_apply_pallas.launches_by_shape = {}
     coarse_apply_pallas_mrhs.launches = 0
 
 

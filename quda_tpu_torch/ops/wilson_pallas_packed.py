@@ -79,7 +79,9 @@ the folded layout of ``to_fold`` (the re/im axis interleaved into z:
 psi (4,3,T,2Z,Y*Xh), links (4,R,3,T,2Z,Y*Xh), a batch (N,4,3,T,2Z,Y*Xh)),
 each output B1's on the unfolded operands bit for bit.  The fold hop
 takes B1's f32/bf16 forms (R = 3 or 2); the multi-RHS fold hop float32
-(R = 3 or 2, chunk as B5-eo's); its bf16 forms wait for ROADMAP A7.
+(R = 3 or 2) on B5-eo's design, its tile's links copied in the order
+``TileShifted`` reads (``fold_mrhs_plan``, ``fold_tile_sources``); its
+bf16 forms wait for ROADMAP A7.
 
 The wrappers dispatch on the tensors' device: CPU tensors run the plain
 versions (``dslash_eo_packed_plain``, ``dslash_packed_plain``,
@@ -120,9 +122,9 @@ _SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 
 # Right-hand sides per thread of the multi-RHS kernels (the template
 # argument NB of csrc/wilson_eo_mrhs.cu, wilson_full.cu, wilson_eo_there.cu
-# and wilson_eo_fold.cu), and the default of the last two (B5 and B5-eo
-# have their own; K1/K2-mrhs takes one at a time), chosen from ptxas'
-# registers and the card's times (PERF.md):
+# and wilson_eo_fold.cu), and the default of r12f-mrhs (B5, B5-eo and
+# fold-mrhs have their own; K1/K2-mrhs takes one at a time), chosen from
+# ptxas' registers and the card's times (PERF.md):
 # 2 is the fastest multi-RHS width (4 needs 206-240 registers and ran
 # 1.3-2.4x slower); 1 gives each right-hand side its own thread, the
 # single-RHS kernels' arithmetic, which the card tests hold them to.
@@ -332,6 +334,63 @@ def eo_mrhs_info(rows: int, nb: int, T: int, Z: int, Y: int,
                  Xh: int) -> dict:
     """B5-eo's resources on the card (``tile_info``)."""
     return tile_info("qtt_wilson_eo_mrhs_info", T, Z, Y, Xh, rows, nb)
+
+
+# fold-mrhs's plan, as csrc/wilson_eo_fold.cu's fold_mrhs_plan makes it:
+# B5-eo's on the fold layout, a block owns FOLD_MRHS_TILE half-sites of one
+# (t, z) row, FOLD_MRHS_LANES threads a half-site, the tile's links
+# (forward and backward) in shared memory, FOLD_MRHS_MIN_BLOCKS blocks an
+# SM (the kernel's launch bound).  A thread takes one right-hand side at a
+# time, FOLD_MRHS_CHUNK, the faster width on the card (PERF.md), and the
+# kernel's only one.
+FOLD_MRHS_TILE = 128
+FOLD_MRHS_LANES = 2
+FOLD_MRHS_MIN_BLOCKS = 2
+FOLD_MRHS_CHUNK = 1
+
+
+def fold_mrhs_plan(rows: int, T: int, Z: int, Y: int, Xh: int) -> dict:
+    """fold-mrhs's launch on T x Z x Y x Xh half-sites with R = ``rows``
+    (``tile_plan``)."""
+    return tile_plan(T, Z, Y * Xh, FOLD_MRHS_TILE, FOLD_MRHS_LANES,
+                     2 * 24 * rows)
+
+
+def fold_mrhs_chunk(chunk, nrhs: int, rows: int, T: int, Z: int, Y: int,
+                    Xh: int) -> int:
+    """fold-mrhs's chunk width, ``FOLD_MRHS_CHUNK`` (``chunk`` may be None
+    or that); raises ValueError, naming the limit, for another width, no
+    right-hand side or a grid (T Z tiles of a row) beyond 2^31 - 1
+    blocks."""
+    if chunk is not None and int(chunk) != FOLD_MRHS_CHUNK:
+        raise ValueError(f"chunk {chunk}: fold-mrhs takes one right-hand "
+                         f"side a thread at a time (chunk {FOLD_MRHS_CHUNK})")
+    check_tile_grid("fold-mrhs", nrhs, fold_mrhs_plan(rows, T, Z, Y, Xh))
+    return FOLD_MRHS_CHUNK
+
+
+def fold_mrhs_info(rows: int, T: int, Z: int, Y: int, Xh: int) -> dict:
+    """fold-mrhs's resources on the card (``tile_info``)."""
+    return tile_info("qtt_wilson_eo_fold_mrhs_info", T, Z, Y, Xh, rows)
+
+
+def fold_tile_sources(rows: int, T: int, Z: int, Y: int, Xh: int, t: int,
+                      z: int, j: int, tile: int = FOLD_MRHS_TILE):
+    """Where fold-mrhs's copy (csrc/mrhs_tile.cuh's copy_sets with the
+    FoldPlanes hook) reads tile j of row (t, z) of a folded link set
+    (4, R, 3, T, 2Z, Y*Xh): a (2 * 12 R, len) array of flat offsets whose
+    plane q = 2c + p lands at tile plane q, component c's real (p = 0) and
+    imaginary (p = 1) run.  ``len`` is the tile's half-sites (the row's
+    last tile may be partial)."""
+    yxh = Y * Xh
+    n = T * Z * yxh
+    row = t * Z + z
+    start = row * yxh + j * tile
+    length = min(tile, yxh - j * tile)
+    fold_start = start + row * yxh          # FoldLayout.at(start, row)
+    q = torch.arange(2 * 12 * rows)
+    plane = (q // 2) * 2 * n + (q % 2) * yxh
+    return plane[:, None] + fold_start + torch.arange(length)[None, :]
 
 
 def form_name(rows: int, store_dtype, out_dtype) -> str:
@@ -983,15 +1042,19 @@ def dslash_eo_pallas_packed_fold_mrhs(u_here_f: torch.Tensor,
                                       tb_sign: bool = True,
                                       chunk=None) -> torch.Tensor:
     """Multi-RHS fold hop (B9 fold-mrhs): psi_f (N,4,3,T,2Z,Y*Xh) of
-    parity 1-p, links as for ``dslash_eo_pallas_packed_fold``, each loaded
-    once per chunk of ``chunk`` (default ``MRHS_CHUNK``) right-hand sides.
+    parity 1-p, links as for ``dslash_eo_pallas_packed_fold``, each read
+    from device memory once for all N; a thread works through its
+    right-hand sides one at a time (``chunk``: None or FOLD_MRHS_CHUNK).
     float32 in and out; the bf16 forms wait for ROADMAP A7."""
     T, Z, Y, X = dims
+    Xh = X // 2
     rows = _fold_rows(u_here_f)
     _check_parity(target_parity)
     if psi_f.ndim != 6:
         raise ValueError(f"psi of shape {tuple(psi_f.shape)}: expected "
                          "(N, 4, 3, T, 2Z, Y*Xh)")
+    nrhs = psi_f.shape[0]
+    fold_mrhs_chunk(chunk, nrhs, rows, T, Z, Y, Xh)
     kind = kernels.dispatch_device(u_here_f, u_bw_f, psi_f)
     if kind == "cpu":
         return dslash_eo_fold_mrhs_plain(u_here_f, u_bw_f, psi_f, dims,
@@ -1002,9 +1065,7 @@ def dslash_eo_pallas_packed_fold_mrhs(u_here_f: torch.Tensor,
         raise TypeError(f"psi {psi_f.dtype} -> out {out_dtype}: the "
                         "multi-RHS fold hop has float32 forms only; its "
                         "bf16 forms wait for ROADMAP A7")
-    fsites = (T, 2 * Z, Y * (X // 2))
-    nrhs = psi_f.shape[0]
-    nb = mrhs_chunk(chunk, nrhs, T * Z * Y * (X // 2))
+    fsites = (T, 2 * Z, Y * Xh)
     kernels.require(psi_f, "psi_f", (nrhs, 4, 3) + fsites, f32)
     kernels.require(u_here_f, "u_here_f", (4, rows, 3) + fsites, f32)
     kernels.require(u_bw_f, "u_bw_f", (4, rows, 3) + fsites, f32)
@@ -1012,8 +1073,8 @@ def dslash_eo_pallas_packed_fold_mrhs(u_here_f: torch.Tensor,
     out = torch.empty(psi_f.shape, dtype=f32, device=psi_f.device)
     rc = lib.qtt_wilson_eo_fold_mrhs(
         out.data_ptr(), psi_f.data_ptr(), u_here_f.data_ptr(),
-        u_bw_f.data_ptr(), T, Z, Y, X // 2, int(target_parity), rows,
-        int(bool(tb_sign)), nrhs, nb, kernels.stream_of(psi_f))
+        u_bw_f.data_ptr(), T, Z, Y, Xh, int(target_parity), rows,
+        int(bool(tb_sign)), nrhs, kernels.stream_of(psi_f))
     kernels.check_launch(rc, "qtt_wilson_eo_fold_mrhs")
     _count(dslash_eo_pallas_packed_fold_mrhs, form_name(rows, f32, f32))
     return out

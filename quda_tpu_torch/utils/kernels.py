@@ -107,6 +107,9 @@ SIGNATURES = {
     "qtt_staggered_full_pass_mrhs_info": (_I, _I, _I, _I, _I, _I, _P),
     # out, links, psi9, S, E, stream
     "qtt_coarse_apply": (_P, _P, _P, _I, _I, _P),
+    # S, E, vec4, info[6] (registers, shared bytes, blocks an SM, link rows
+    # a tile, lanes a row, blocks of the grid)
+    "qtt_coarse_apply_info": (_I, _I, _I, _P),
     # out, links, psi9, S, E, nrhs, stream
     "qtt_coarse_apply_mrhs": (_P, _P, _P, _I, _I, _I, _P),
     # E, nrhs, vec4, info[6] (registers, shared bytes, blocks an SM,
@@ -131,10 +134,13 @@ SIGNATURES = {
     # tb_sign, stream (every array folded)
     "qtt_wilson_eo_fold": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
-    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, rows, tb_sign, nrhs, nb,
+    # out, psi, u_here, u_bw, T, Z, Y, Xh, parity, rows, tb_sign, nrhs,
     # stream (every array folded)
     "qtt_wilson_eo_fold_mrhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _P),
+                                _I, _P),
+    # T, Z, Y, Xh, rows, info[6] (registers, shared bytes, blocks an SM,
+    # threads, tiles a (t, z) row, blocks)
+    "qtt_wilson_eo_fold_mrhs_info": (_I, _I, _I, _I, _I, _P),
     # out, psi, fat_here, fat_there, long_here, long_there, T, Z, Y, Xh,
     # parity, store_bf16, out_bf16, stream (every array folded)
     "qtt_staggered_eo_fused_fold": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -1037,12 +1037,14 @@ def test_full_hop_mrhs_kernel_matches_plain_and_b4(rows, chunk, n, tb_sign):
     assert torch.equal(got, lanes)
 
 
-@pytest.mark.parametrize("e", [8, 16, 20, 48, 96])
-@pytest.mark.parametrize("sites", [7, 64, 2048])
+@pytest.mark.parametrize("e", [8, 16, 20, 48, 96, 160])
+@pytest.mark.parametrize("sites", [7, 64, 512, 2048, 8192])
 def test_coarse_kernel_matches_plain(e, sites):
-    """B8 at E = 8 .. 96 (20 is not a multiple of 32 or 16), on both block
-    sizes (256 threads below 2048 sites, 128 from there), within TOLERANCE
-    (1e-5 relative) of the einsum; one launch counted."""
+    """B8 at E = 8 .. 160 (20 is not a multiple of 8 or 32) and 7 .. 8192
+    sites: a block an item (a site's tile of link rows; at E 160 a site's
+    last tile is partial) streaming its 9 link blocks through a ring of
+    shared-memory stages; within TOLERANCE (1e-5 relative) of the einsum;
+    one launch counted."""
     dev = require_cuda()
     gen = torch.Generator(device=dev).manual_seed(91 + e + sites)
     links = torch.randn((9, sites, e, e), generator=gen, device=dev)
@@ -1054,6 +1056,46 @@ def test_coarse_kernel_matches_plain(e, sites):
     torch.cuda.synchronize()
     assert got.shape == (sites, e) and got.dtype == torch.float32
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= cop.TOLERANCE
+
+
+@pytest.mark.parametrize("e", [1, 5, 8, 16, 20, 48, 96, 160])
+@pytest.mark.parametrize("sites", [7, 512])
+def test_coarse_kernel_unaligned_views_match_plain(e, sites):
+    """B8 on its 4-byte copies: links and psi9 as views starting one float
+    past a 16-byte boundary, and E not a multiple of 4 (1, 5): within
+    TOLERANCE of the einsum; the launch counted under its (S, E)."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(181 + e + sites)
+    lbuf = torch.randn(9 * sites * e * e + 1, generator=gen, device=dev)
+    pbuf = torch.randn(9 * sites * e + 1, generator=gen, device=dev)
+    links = lbuf[1:].view(9, sites, e, e)
+    psi9 = pbuf[1:].view(9, sites, e)
+    key = f"{sites}x{e}"
+    n0 = cop.coarse_apply_pallas.launches_by_shape.get(key, 0)
+    got = cop.coarse_apply_pallas(links, psi9)
+    assert cop.coarse_apply_pallas.launches_by_shape[key] == n0 + 1
+    want = cop.coarse_apply_ref(links, psi9)
+    torch.cuda.synchronize()
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= cop.TOLERANCE
+
+
+@pytest.mark.parametrize("sites,e,vec4", [(512, 96, True), (8192, 96, True),
+                                          (7, 16, True), (33, 160, True),
+                                          (512, 96, False), (5, 1024, True),
+                                          (3, 7, False)])
+def test_coarse_kernel_resources_match_plan(sites, e, vec4):
+    """B8's query entry: the shared memory, link rows a tile, lanes a row
+    and grid (one block an item) of coarse_plan; at the multigrid's E 96
+    COARSE_MIN_BLOCKS blocks an SM; at most 255 registers."""
+    require_cuda()
+    info = cop.coarse_info(sites, e, vec4)
+    plan = cop.coarse_plan(sites, e, vec4)
+    assert info["smem_bytes"] == plan["smem"] <= clp.SMEM_PER_BLOCK
+    assert (info["rows"], info["lanes"], info["grid"]) == (
+        plan["rows"], plan["lanes"], plan["items"])
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1
+    if e == 96 and vec4:
+        assert info["blocks_per_sm"] >= cop.COARSE_MIN_BLOCKS
 
 
 @pytest.mark.parametrize("e", [16, 20, 96])
@@ -1909,14 +1951,16 @@ def test_fold_kernel_matches_plain_and_b1(form, parity, tb_sign):
         <= tol
 
 
-@pytest.mark.parametrize("n", [1, 3, 12])
-@pytest.mark.parametrize("chunk", list(wpp.MRHS_CHUNKS))
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("n", [1, 3, 5, 12])
 @pytest.mark.parametrize("parity", [0, 1])
 @pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
-def test_fold_mrhs_kernel_matches_plain_and_fold(rows, parity, chunk, n):
-    """The multi-RHS fold hop at every chunk width: each lane bit for bit
-    a launch of the fold hop, the batch within TOLERANCE of its plain
-    version."""
+def test_fold_mrhs_kernel_matches_plain_and_fold(rows, parity, n, tb_sign):
+    """The multi-RHS fold hop (B5-eo's staged design on the fold layout,
+    one right-hand side a thread at a time) on 4x6x8x10: each lane bit
+    for bit a launch of the fold hop, the batch within TOLERANCE of its
+    plain version; one launch counted."""
     dev = require_cuda()
     u_here, u_bw, psi = _there_inputs(dev, rows, torch.float32,
                                       383 + parity, n)
@@ -1924,14 +1968,58 @@ def test_fold_mrhs_kernel_matches_plain_and_fold(rows, parity, chunk, n):
     fh, fb, fp = (wpp.to_fold(t) for t in (u_here, u_bw, psi))
     fn = wpp.dslash_eo_pallas_packed_fold_mrhs
     n0 = fn.launches
-    got = fn(fh, fb, fp, dims, parity, chunk=chunk)
+    got = fn(fh, fb, fp, dims, parity, tb_sign=tb_sign)
     assert fn.launches == n0 + 1
-    want = wpp.dslash_eo_fold_mrhs_plain(fh, fb, fp, dims, parity)
+    want = wpp.dslash_eo_fold_mrhs_plain(fh, fb, fp, dims, parity,
+                                         tb_sign=tb_sign)
     lanes = torch.stack([wpp.dslash_eo_pallas_packed_fold(
-        fh, fb, fp[r], dims, parity) for r in range(n)])
+        fh, fb, fp[r], dims, parity, tb_sign=tb_sign) for r in range(n)])
     torch.cuda.synchronize()
     assert torch.equal(got, lanes)
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= wpp.TOLERANCE
+
+
+@pytest.mark.parametrize("n", [1, 5, 12])
+@pytest.mark.parametrize("tb_sign", [True, False],
+                         ids=["antiperiodic", "periodic"])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+@pytest.mark.parametrize("extents", B5EO_TILE_EXTENTS,
+                         ids=lambda e: "x".join(map(str, e)))
+def test_fold_mrhs_tiles_match_fold(extents, rows, parity, tb_sign, n):
+    """fold-mrhs on B5-eo's tile-edge lattices (rows
+    ending in partial tiles, a partial z-box, and Y*Xh = 30, whose fold
+    runs take the 4-byte copies): each lane bit for bit the fold hop."""
+    dev = require_cuda()
+    T, Z, Y, X = extents
+    gen = torch.Generator(device=dev).manual_seed(641 + rows + n + X)
+    sites = (T, Z, Y * X // 2)
+    u, ubw = (torch.randn((4, rows, 3, 2) + sites, generator=gen,
+                          device=dev) for _ in range(2))
+    psi = torch.randn((n, 4, 3, 2) + sites, generator=gen, device=dev)
+    fh, fb, fp = (wpp.to_fold(t) for t in (u, ubw, psi))
+    got = wpp.dslash_eo_pallas_packed_fold_mrhs(fh, fb, fp, extents, parity,
+                                                tb_sign=tb_sign)
+    lanes = torch.stack([wpp.dslash_eo_pallas_packed_fold(
+        fh, fb, fp[r], extents, parity, tb_sign=tb_sign) for r in range(n)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, lanes)
+
+
+@pytest.mark.parametrize("rows", [3, 2], ids=["full", "r12"])
+def test_fold_mrhs_resources_match_plan(rows):
+    """fold-mrhs's query entry at 32^3 x 64: the shared memory, threads,
+    tiles and blocks of fold_mrhs_plan; FOLD_MRHS_MIN_BLOCKS blocks an SM;
+    at most 255 registers."""
+    require_cuda()
+    T, Z, Y, Xh = 64, 32, 32, 16
+    info = wpp.fold_mrhs_info(rows, T, Z, Y, Xh)
+    plan = wpp.fold_mrhs_plan(rows, T, Z, Y, Xh)
+    assert info["smem_bytes"] == plan["smem"]
+    assert (info["threads"], info["tiles"], info["blocks"]) == (
+        plan["threads"], plan["tiles"], plan["blocks"])
+    assert 0 < info["registers"] <= 255
+    assert info["blocks_per_sm"] >= wpp.FOLD_MRHS_MIN_BLOCKS
 
 
 @pytest.mark.parametrize("parity", [0, 1])

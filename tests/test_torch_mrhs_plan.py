@@ -1,15 +1,18 @@
-"""The launch plans of the multi-RHS kernels that stage operands in
-shared memory: B8-mrhs (ops/coarse_pallas.py::mrhs_plan), B5 and B5-eo
-(ops/wilson_pallas_packed.py::full_mrhs_plan, eo_mrhs_plan), K1/K2-mrhs
-(ops/clover_pallas.py::k_mrhs_plan) and S2-mrhs-full
-(ops/staggered_pallas.py::full_mrhs_plan), which mirror the C planners in
-csrc/coarse.cu, csrc/wilson_full.cu, csrc/wilson_eo_mrhs.cu,
-csrc/clover_eo_mrhs.cu and csrc/staggered_full.cu (the card tests hold
-each pair to each other through the kernels' query entries); and the
-wrappers' refusals, which run before any launch, on the CPU path too.
-Pure Python: no card, no JAX.
+"""The launch plans of the kernels that stage operands in shared memory:
+B8 and B8-mrhs (ops/coarse_pallas.py::coarse_plan, mrhs_plan), B5 and
+B5-eo (ops/wilson_pallas_packed.py::full_mrhs_plan, eo_mrhs_plan),
+fold-mrhs (wilson_pallas_packed.fold_mrhs_plan, and its tile copy's index
+map fold_tile_sources), K1/K2-mrhs (ops/clover_pallas.py::k_mrhs_plan)
+and S2-mrhs-full (ops/staggered_pallas.py::full_mrhs_plan), which mirror
+the C planners in csrc/coarse.cu, csrc/wilson_full.cu,
+csrc/wilson_eo_mrhs.cu, csrc/wilson_eo_fold.cu, csrc/clover_eo_mrhs.cu
+and csrc/staggered_full.cu (the card tests hold each pair to each other
+through the kernels' query entries); and the wrappers' refusals, which
+run before any launch, on the CPU path too.  Pure Python: no card, no
+JAX.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -324,8 +327,8 @@ def test_k_mrhs_refusals_name_the_limit_before_any_launch(monkeypatch):
 
 def test_k_mrhs_chunk_is_the_clover_default(monkeypatch):
     """K1/K2-mrhs take K_MRHS_CHUNK (1), whatever wpp.MRHS_CHUNK says, and
-    wpp.MRHS_CHUNK (2) stays the default of fold-mrhs and r12f-mrhs
-    (wpp.mrhs_chunk)."""
+    wpp.MRHS_CHUNK (2) stays the default of r12f-mrhs (wpp.mrhs_chunk;
+    fold-mrhs has FOLD_MRHS_CHUNK)."""
     dims = (64, 32, 32, 16)
     assert clp.K_MRHS_CHUNK == 1
     assert wpp.mrhs_chunk(None, 12, 64 * 32 * 32 * 16) == \
@@ -336,3 +339,161 @@ def test_k_mrhs_chunk_is_the_clover_default(monkeypatch):
             assert clp.k_mrhs_chunk(None, 12, 3, with_blk, *dims) == \
                 clp.K_MRHS_CHUNK
         assert wpp.mrhs_chunk(None, 12, 64 * 32 * 32 * 16) == other
+
+
+# -- B8 (the single-RHS coarse stencil) ---------------------------------------
+
+def test_coarse_plan_fits_every_accepted_width():
+    """Every width the kernel takes (E 1 .. MAX_E, the 16-byte copies where
+    E % 4 == 0, the 4-byte ones always) plans a ring within 227 KB of
+    shared memory a block, lane groups that divide a warp and fill the
+    block, tiles of link rows that cover E, stages that hold a tile's rows
+    and the site's psi9 numbers 16-byte aligned, and, at S = 1 and up, a
+    grid of one block an item, S x tiles."""
+    for e in range(1, cop.MAX_E + 1):
+        for vec4 in ((True, False) if e % 4 == 0 else (False,)):
+            p = cop.coarse_plan(1, e, vec4)
+            assert p["smem"] == 4 * cop.COARSE_STAGES * p["stage"]
+            assert p["smem"] <= SMEM_PER_BLOCK
+            assert p["lanes"] in (4, 8, 16, 32) and 32 % p["lanes"] == 0
+            groups = cop.COARSE_THREADS // p["lanes"]
+            assert p["rows"] == min(e, groups * cop.COARSE_ROWS_PER_GROUP)
+            assert (p["tiles"] - 1) * p["rows"] < e <= p["tiles"] * p["rows"]
+            assert p["stage"] >= p["rows"] * e + e and p["stage"] % 4 == 0
+            for S in (1, 2, 7, 512, 8192, 10 ** 6):
+                assert cop.coarse_plan(S, e, vec4)["items"] == \
+                    S * p["tiles"]
+
+
+def test_coarse_plan_at_the_multigrid_widths():
+    """E 96 (n_vec 24): groups of 8 lanes, 32 rows a tile, 3 tiles a site,
+    stages of 3168 floats, 38,016 bytes of ring a block (within the
+    launch bound's COARSE_MIN_BLOCKS blocks an SM); the 4^3 x 8 level (S
+    512) has 1536 blocks, the 8^3 x 16 level (S 8192) 24,576.  E 16 (n_vec
+    4) takes groups of 4 lanes and one tile; E 96 on the 4-byte copies (an
+    unaligned view) warp-wide rows."""
+    p = cop.coarse_plan(512, 96)
+    assert (p["lanes"], p["rows"], p["tiles"], p["stage"]) == (8, 32, 3,
+                                                               3168)
+    assert (p["smem"], p["threads"], p["items"]) == (38016, 256, 1536)
+    assert cop.COARSE_MIN_BLOCKS * (p["smem"] + 1024) <= SMEM_PER_SM
+    assert cop.coarse_plan(8192, 96)["items"] == 24576
+    q = cop.coarse_plan(7, 16)
+    assert (q["lanes"], q["rows"], q["tiles"]) == (4, 16, 1)
+    assert cop.coarse_plan(7, 96, vec4=False)["lanes"] == 32
+
+
+def test_coarse_refusals_name_the_limit_before_any_launch():
+    """B8 refuses E outside 1 .. MAX_E with a ValueError naming the limit,
+    on the CPU path too, and counts nothing; at MAX_E the plain version
+    runs."""
+    n0 = cop.coarse_apply_pallas.launches
+    shapes = dict(cop.coarse_apply_pallas.launches_by_shape)
+    e = cop.MAX_E + 1
+    with pytest.raises(ValueError, match=f"E <= {cop.MAX_E}"):
+        cop.coarse_apply_pallas(torch.zeros((9, 1, e, e)),
+                                torch.zeros((9, 1, e)))
+    with pytest.raises(ValueError, match="1 <= E"):
+        cop.check_single(0, 3)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        cop.check_single(96, 2 ** 31 // 12 + 1)
+    assert cop.check_single(96, 2 ** 31 // 12)["items"] == 3 * (2 ** 31 // 12)
+    assert cop.check_single(cop.MAX_E, 1)["tiles"] >= 1
+    out = cop.coarse_apply_pallas(torch.zeros((9, 1, 4, 4)),
+                                  torch.zeros((9, 1, 4)))
+    assert out.shape == (1, 4)
+    assert cop.coarse_apply_pallas.launches == n0
+    assert cop.coarse_apply_pallas.launches_by_shape == shapes
+
+
+# -- fold-mrhs (the multi-RHS fold hop) ---------------------------------------
+
+@pytest.mark.parametrize("rows", [3, 2])
+def test_fold_mrhs_plan_fits_every_accepted_lattice(rows):
+    """fold-mrhs's block (the tile's forward and backward links) fits
+    227 KB of shared memory, FOLD_MRHS_MIN_BLOCKS (2) blocks to an SM (its
+    launch bound), for every half lattice at R = 3 and 2; its tiles cover
+    each (t, z) row of Y*Xh half-sites; it is B5-eo's plan."""
+    assert wpp.FOLD_MRHS_MIN_BLOCKS == 2
+    for xh in range(1, 80):
+        for y in (1, 2, 5, 8, 32):
+            p = wpp.fold_mrhs_plan(rows, 3, 5, y, xh)
+            assert p == wpp.tile_plan(3, 5, y * xh, wpp.FOLD_MRHS_TILE,
+                                      wpp.FOLD_MRHS_LANES, 2 * 24 * rows)
+            assert p["smem"] <= SMEM_PER_BLOCK
+            assert wpp.FOLD_MRHS_MIN_BLOCKS * (p["smem"] + 1024) <= \
+                SMEM_PER_SM
+            _assert_tiles_cover(p, 3, 5, y * xh, wpp.FOLD_MRHS_TILE)
+            assert p["threads"] == wpp.FOLD_MRHS_LANES * wpp.FOLD_MRHS_TILE
+            assert p["threads"] <= 1024 and p["threads"] % 32 == 0
+
+
+def test_fold_mrhs_plan_at_the_smoke_lattice():
+    """32^3 x 64 (rows of 512 half-sites): B5-eo's plan, 4 tiles a row,
+    8192 blocks of 256 threads, 73,728 bytes of links a block (R = 3) and
+    49,152 (R = 2); the default chunk is 1, FOLD_MRHS_CHUNK, whatever
+    wpp.MRHS_CHUNK (r12f-mrhs's) says."""
+    dims = (64, 32, 32, 16)
+    p3, p2 = (wpp.fold_mrhs_plan(r, *dims) for r in (3, 2))
+    assert (p3, p2) == (wpp.eo_mrhs_plan(3, *dims),
+                        wpp.eo_mrhs_plan(2, *dims))
+    assert (p3["tiles"], p3["blocks"], p3["threads"]) == (4, 8192, 256)
+    assert (p3["smem"], p2["smem"]) == (73728, 49152)
+    assert wpp.FOLD_MRHS_CHUNK == 1 != wpp.MRHS_CHUNK
+    assert wpp.fold_mrhs_chunk(None, 12, 3, *dims) == wpp.FOLD_MRHS_CHUNK
+
+
+def test_fold_mrhs_refusals_name_the_limit_before_any_launch():
+    """fold-mrhs refuses a chunk other than FOLD_MRHS_CHUNK, N = 0 and a
+    grid beyond 2^31 - 1 blocks with a ValueError naming the limit, on the
+    CPU path too; None and FOLD_MRHS_CHUNK are taken; nothing is
+    counted."""
+    fn = wpp.dslash_eo_pallas_packed_fold_mrhs
+    n0 = (fn.launches, dict(fn.launches_by_form))
+    dims = (2, 2, 3, 4)
+    fsites = (2, 2 * 2, 3 * 2)
+    u = torch.zeros((4, 3, 3) + fsites)
+    psi = torch.zeros((2, 4, 3) + fsites)
+    for nb in (2, 3):
+        with pytest.raises(ValueError, match=rf"chunk {nb}.*\(chunk 1\)"):
+            fn(u, u, psi, dims, 0, chunk=nb)
+    with pytest.raises(ValueError, match="N >= 1"):
+        fn(u, u, psi[:0], dims, 1)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        wpp.fold_mrhs_chunk(None, 1, 3, 2 ** 16, 2 ** 16, 1, 2 ** 10)
+    for nb in (None, wpp.FOLD_MRHS_CHUNK):
+        assert wpp.fold_mrhs_chunk(nb, 5, 2, 2, 2, 3, 2) == \
+            wpp.FOLD_MRHS_CHUNK
+        assert fn(u, u, psi, dims, 0, chunk=nb).shape == psi.shape
+    assert (fn.launches, dict(fn.launches_by_form)) == n0
+
+
+@pytest.mark.parametrize("tile", [wpp.FOLD_MRHS_TILE, 6])
+@pytest.mark.parametrize("rows", [3, 2])
+def test_fold_tile_copy_places_components(rows, tile):
+    """The fold tile copy's index map (fold_tile_sources, the FoldPlanes
+    hook of csrc/mrhs_tile.cuh's copy_sets) on a 4x6x4x8 (T, Z, Y, X)
+    folded link set made from a numpy-seeded pair field: tile plane 2c is
+    component c's real run and plane 2c + 1 its imaginary run, the same
+    numbers the pair layout's tile copy reads, for every tile of every
+    (t, z) row (tile 6 leaves a partial tile of 4 on each row of 16)."""
+    T, Z, Y, X = 4, 6, 4, 8
+    Xh = X // 2
+    yxh = Y * Xh
+    rng = np.random.default_rng(401 + rows)
+    pair = torch.from_numpy(rng.standard_normal(
+        (4, rows, 3, 2, T, Z, yxh)).astype(np.float32))
+    flat = wpp.to_fold(pair).reshape(-1)
+    comps = pair.reshape(4 * rows * 3, 2, T, Z, yxh)
+    tiles = -(-yxh // tile)
+    for t in range(T):
+        for z in range(Z):
+            for j in range(tiles):
+                src = wpp.fold_tile_sources(rows, T, Z, Y, Xh, t, z, j, tile)
+                run = slice(j * tile, min((j + 1) * tile, yxh))
+                assert src.shape == (2 * 12 * rows, run.stop - run.start)
+                staged = flat[src]
+                for c in range(12 * rows):
+                    assert torch.equal(staged[2 * c], comps[c, 0, t, z, run])
+                    assert torch.equal(staged[2 * c + 1],
+                                       comps[c, 1, t, z, run])
